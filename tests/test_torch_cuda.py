@@ -1,0 +1,128 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``cuda`` and skips without a CUDA device.  This
+file imports no JAX, so it also runs where JAX is not installed:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+
+Weights are full-width, seeded, with flax's initialisation and non-trivial
+generator BatchNorm stats, so the folding is exercised.
+"""
+
+import copy
+
+import pytest
+import torch
+
+from pigan_thz_torch import default_config
+from pigan_thz_torch.data import (
+    build_dataset,
+    denormalize_params,
+    sample_params,
+    synthesize_spectra,
+)
+from pigan_thz_torch.models import build_forward_model, build_generator
+from pigan_thz_torch.ops import fused_kernels as fk
+from pigan_thz_torch.serve import make_inverse_design_fn
+
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.cuda
+
+BATCHES = [1, 77, 257, 8192]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture(scope="module")
+def models():
+    cfg = default_config()
+    gen = torch.Generator().manual_seed(0)
+    g = build_generator(cfg.generator, generator=gen)
+    with torch.no_grad():
+        for m in g.modules():
+            if isinstance(m, torch.nn.BatchNorm1d):
+                m.running_mean += 0.1 * torch.randn(m.num_features, generator=gen) ** 2
+                m.running_var += 0.1 * torch.randn(m.num_features, generator=gen) ** 2
+    f = build_forward_model(cfg.forward_model, generator=gen)
+    return g.eval(), f.eval()
+
+
+@pytest.mark.parametrize("batch", BATCHES)
+def test_forward_kernel_matches_plain(batch, dev, models):
+    packed = fk.pack_forward_model(models[1], dev)
+    x = torch.rand((batch, 4), device=dev) * 2 - 1
+    before = fk.LAUNCHES["fused_mlp_forward"]
+    got = fk.fused_mlp_forward(x, packed)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["fused_mlp_forward"] == before + 1
+    want = fk.fused_mlp_forward_plain(x, packed)
+    assert got.shape == (batch, 258)
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("batch", BATCHES)
+def test_generator_kernel_matches_plain(batch, dev, models):
+    packed = fk.pack_generator(models[0], dev)
+    x = torch.randn((batch, 250), device=dev)
+    before = fk.LAUNCHES["fused_dense_chain"]
+    got = fk.fused_dense_chain(x, packed)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["fused_dense_chain"] == before + 1
+    want = fk.fused_dense_chain_plain(x, packed)
+    assert got.shape == (batch, 4)
+    assert float((got - want).abs().max()) <= 2e-5
+
+
+def test_small_odd_chain_matches_plain(dev):
+    """Widths that are no multiple of the tile or the block: 7 -> 33 -> 5."""
+    gen = torch.Generator().manual_seed(1)
+    layer = (torch.randn(7, 33, generator=gen), *torch.randn(3, 33, generator=gen))
+    head = (torch.randn(33, 5, generator=gen), torch.randn(5, generator=gen))
+    packed = fk.pack_chain([layer], head, dev)
+    x = torch.randn(19, 7, device=dev)
+    got = fk.fused_mlp_forward(x, packed)
+    torch.cuda.synchronize()
+    assert float((got - fk.fused_mlp_forward_plain(x, packed)).abs().max()) <= 1e-4
+
+
+def test_empty_batch_launches_nothing(dev, models):
+    packed = fk.pack_generator(models[0], dev)
+    before = dict(fk.LAUNCHES)
+    out = fk.fused_dense_chain(torch.empty((0, 250), device=dev), packed)
+    assert out.shape == (0, 4) and fk.LAUNCHES == before
+
+
+def test_weights_on_another_device_raise(dev, models):
+    packed = fk.pack_forward_model(models[1])          # CPU weights
+    with pytest.raises(ValueError):
+        fk.fused_mlp_forward(torch.zeros((2, 4), device=dev), packed)
+
+
+def test_cycle_matches_unfused_modules(dev, models):
+    cfg = default_config()
+    g, f = (copy.deepcopy(m).to(dev) for m in models)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    p = sample_params(gen, 64, cfg.data, device=dev)
+    spectra = synthesize_spectra(cfg.data.frequencies, p, gen, cfg.data.noise_level)
+    ds = build_dataset(spectra, p, torch.full((64, 8), float("nan")), cfg.data,
+                       device=dev)
+    fn = make_inverse_design_fn(g, f, ds)
+    before = dict(fk.LAUNCHES)
+    got = fn(spectra)
+    torch.cuda.synchronize()
+    assert {k: fk.LAUNCHES[k] - before[k] for k in before} == {
+        "fused_mlp_forward": 1, "fused_dense_chain": 1}
+    with torch.no_grad():
+        pn = g(spectra)
+        want = (denormalize_params(pn, ds.param_lo, ds.param_hi), *f(pn))
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 1e-4
+    assert bool(((got[0] >= 2.2) & (got[0] <= 2.8)).all())

@@ -1,0 +1,77 @@
+"""Guards on the port's boundaries: no JAX inside it, no result from the chip
+smoke test without a card, no kernel launch for a CPU tensor."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from pigan_thz_torch import default_config
+from pigan_thz_torch.models import build_forward_model, build_generator
+from pigan_thz_torch.ops import fused_kernels as fk
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import pigan_thz_torch
+names = [m.name for m in pkgutil.walk_packages(pigan_thz_torch.__path__, "pigan_thz_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert len(names) >= 12, names
+jax = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "flax")))
+assert not jax, jax
+assert not any(m.startswith("pigan_thz_tpu") for m in sys.modules)
+print("imported", len(names))
+"""
+
+
+def _env_without_card():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env.pop("PYTHONPATH", None)
+    return env
+
+
+def test_port_imports_no_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
+        text=True, timeout=300, env=_env_without_card(),
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("imported")
+
+
+@pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "alone"])
+def test_chip_smoke_without_cuda_fails_without_result(alone, tmp_path):
+    script = os.path.join(REPO, "chip_smoke.py")
+    cwd = REPO
+    if alone:
+        cwd = str(tmp_path)
+        script = shutil.copy(script, tmp_path / "chip_smoke.py")
+    proc = subprocess.run(
+        [sys.executable, str(script)], cwd=cwd, capture_output=True, text=True,
+        timeout=300, env=_env_without_card(),
+    )
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+    assert "FAIL" in proc.stderr
+
+
+def test_cpu_tensors_take_the_plain_path():
+    cfg = default_config()
+    gen = torch.Generator().manual_seed(0)
+    g = fk.pack_generator(build_generator(cfg.generator, generator=gen).eval())
+    f = fk.pack_forward_model(build_forward_model(cfg.forward_model, generator=gen).eval())
+    x = torch.randn(5, 250, generator=gen)
+    before = dict(fk.LAUNCHES)
+    pn = fk.generator_fused(g, x)
+    spec, met = fk.forward_surrogate_fused(f, pn)
+    assert fk.LAUNCHES == before
+    assert torch.equal(pn, fk.fused_dense_chain_plain(x, g))
+    out = fk.fused_mlp_forward_plain(pn, f)
+    assert torch.equal(spec, out[:, :250]) and torch.equal(met, out[:, 250:])
