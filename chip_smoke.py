@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py          # from the root of a checkout
 
-Drives the port's serving slice, the inverse-design cycle on the baseline
-MLP trio at full published width, through the hand-written CUDA kernels:
+Drives the port's slices at full published width through the
+hand-written CUDA kernels: the inverse-design serving cycle on the baseline
+MLP trio, dataset generation, and the 1e6-candidate screen:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
    TF32 off for every fp32 product of the plain references;
@@ -19,7 +20,21 @@ MLP trio at full published width, through the hand-written CUDA kernels:
    modules' unfused eval-mode forward on the card and, at B = 64, with the
    cycle's plain CPU path;
 5. times: CUDA-event medians of each kernel and of the cycle beside their
-   plain versions at B = 64 and B = 8192.
+   plain versions at B = 64 and B = 8192;
+6. the dip-qualification kernel (K4) against both plain versions (the
+   lattice and the sparse-table form) at B = 1, 7, 1000, 8192 on four
+   spectra classes: masks equal, prominence and width within tolerance at
+   the peaks;
+7. dataset generation: ``synthetic_dataset`` at 1000 samples and
+   ``generate_dataset`` at 65536 on the card, one K4 launch each, metrics
+   against the CPU plain path, a CSV round trip, and the ``generate-data``
+   command in a subprocess;
+8. screening: 1e6 candidates, chunk 8192, top-k 100 on seeded full-width F,
+   with the fused surrogate kernel and with the module forward: 123 K4
+   launches per screen (and 123 K5 launches with the kernel), a sorted,
+   finite top-k in the design box, winners re-scored on the CPU;
+9. times: K4 beside both plain versions at B = 8192, ``generate_dataset``
+   at 1000 and 65536, and each screen's wall time.
 
 Any failed check raises, and the script exits non-zero.  Without a CUDA
 device, or away from the package, it exits non-zero and prints no result.
@@ -35,6 +50,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 K5_TOL = 1e-4   # (B, 258) surrogate output; tests/test_pallas.py:43
@@ -43,6 +59,17 @@ K6_TOL = 2e-5   # (B, 4) generator output; tests/test_pallas.py:101
 # summation order (cuBLAS vs the kernels' sequential FMAs) and BatchNorm
 # folded on one side only.
 CYCLE_TOL = 1e-4
+# K4 against its plain versions: masks exact; the measures at peaks are the
+# same fp32 operations on the same samples (tests/test_peaks.py:292-299).
+K4_PROM_RTOL = 1e-6
+K4_WIDTH_RTOL = 1e-5
+K4_BATCHES = (1, 7, 1000, 8192)
+METRICS_RTOL = 1e-5     # card vs CPU metrics on the same spectra
+DATASET_SIZES = (1000, 65536)
+# Re-scored screening winners: the fused surrogate kernel differs from its
+# plain version by up to ~3e-6 in the spectra (phase 3), which moves the
+# interpolated FWHM edges and so Q and FoM by up to ~1e-5 relative.
+SCREEN_RTOL = 1e-4
 REQUEST_BATCHES = (1, 64, 8192, 65536)
 CHECK_BATCHES = (1, 77, 257, 8192)
 TIME_BATCHES = (64, 8192)
@@ -75,6 +102,11 @@ def perturb_batch_stats_(module, gen) -> None:
                     stat += noise.to(stat.device)
 
 
+def reset_launches(launches: dict) -> None:
+    for name in launches:
+        launches[name] = 0
+
+
 def cuda_median_ms(fn, *args, warmup: int = 10, reps: int = 50) -> float:
     import torch
 
@@ -93,6 +125,256 @@ def cuda_median_ms(fn, *args, warmup: int = 10, reps: int = 50) -> float:
     return statistics.median(times)
 
 
+def nan_equal(a, b) -> bool:
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def rel_check(got, want, rtol: float):
+    """(entries whose NaN-ness differs, entries outside ``rtol`` of want,
+    max |got - want|) over two tensors of one shape."""
+    import torch
+
+    nan_diff = int((got.isnan() != want.isnan()).sum())
+    both = ~(got.isnan() | want.isnan())
+    g, w = got[both], want[both]
+    err = torch.where(g == w, 0.0, (g - w).abs())
+    bad = int((err > rtol * w.abs()).sum())
+    return nan_diff, bad, float(err.max()) if err.numel() else 0.0
+
+
+def spectra_classes(gen, b: int, cfg, dev) -> dict:
+    """The spectra classes of tests/test_peaks.py (noisy synthetic spectra,
+    cumulative random walks, white noise, spectra quantized to 0.5 dB),
+    (b, S) each, drawn on the card from ``gen``."""
+    import torch
+    from pigan_thz_torch.data import sample_params, synthesize_spectra
+
+    def noise():
+        return torch.randn((b, cfg.data.spectrum_dim), generator=gen, device=dev)
+
+    p = sample_params(gen, b, cfg.data, device=dev)
+    return {
+        "synthetic": synthesize_spectra(cfg.data.frequencies, p, gen,
+                                        cfg.data.noise_level),
+        "random_walk": torch.cumsum(0.8 * noise(), dim=1).clamp(max=0.0),
+        "white_noise": (-1.0 + 0.6 * noise()).clamp(max=0.0),
+        "quantized": torch.round((-2.0 + 1.5 * noise()).clamp(max=0.0) * 2.0) / 2.0,
+    }
+
+
+def compare_k4(got, want):
+    """(mask mismatches, measures outside tolerance at want's peaks, max
+    |err| of the measures there) of two DipQualifications."""
+    mism = int((got.qualified != want.qualified).sum()
+               + (got.is_peak != want.is_peak).sum())
+    pk = want.is_peak
+    _, bad_p, err_p = rel_check(got.prominence[pk], want.prominence[pk], K4_PROM_RTOL)
+    _, bad_w, err_w = rel_check(got.width[pk], want.width[pk], K4_WIDTH_RTOL)
+    return mism, bad_p + bad_w, max(err_p, err_w)
+
+
+def phase6_k4(gen, cfg, dev) -> dict:
+    """K4 against both plain versions; returns its max |err| and mismatches."""
+    import torch
+    from pigan_thz_torch.ops import peaks as pk
+
+    stats = {"max_abs_err": 0.0, "mask_mismatches": 0}
+    plains = (("lattice", pk.dip_qualification),
+              ("lifted", pk._dip_qualification_lifted))
+    for b in K4_BATCHES:
+        for cls, t in spectra_classes(gen, b, cfg, dev).items():
+            got = pk.batched_dip_qualification(t)
+            torch.cuda.synchronize()
+            line = []
+            for plain_name, plain in plains:
+                mism, bad, err = compare_k4(got, plain(t))
+                stats["mask_mismatches"] += mism
+                stats["max_abs_err"] = max(stats["max_abs_err"], err)
+                line.append(f"vs {plain_name}: {mism} mask mismatches, {bad} measures "
+                            f"outside tol, max|err| {err:.3e}")
+                if mism or bad:
+                    fail(f"dip_qualification disagrees with its {plain_name} plain "
+                         f"version at B={b} on {cls} spectra")
+            print(f"K4 check B={b} {cls} ({int(got.is_peak.sum())} peaks, "
+                  f"{int(got.qualified.sum())} qualified): " + "; ".join(line))
+    print(f"K4 checks: {stats['mask_mismatches']} mask mismatches in all, max|err| "
+          f"{stats['max_abs_err']:.3e} (prominence rtol {K4_PROM_RTOL}, width rtol "
+          f"{K4_WIDTH_RTOL})")
+    return stats
+
+
+def phase7_dataset(cfg, dev, repo: str) -> int:
+    """Dataset generation on the card; returns its K4 launches."""
+    import torch
+    from pigan_thz_torch.data import (
+        dip_centers, generate_dataset, load_csv, save_csv, synthetic_dataset)
+    from pigan_thz_torch.ops import peaks as pk
+    from pigan_thz_torch.ops._cuda_build import LAUNCHES
+
+    reset_launches(LAUNCHES)
+    ds = synthetic_dataset(cfg.data, device=dev)
+    torch.cuda.synchronize()
+    if LAUNCHES["dip_qualification"] != 1:
+        fail(f"synthetic_dataset launched K4 {LAUNCHES['dip_qualification']} times, not 1")
+    gen = torch.Generator(device=dev).manual_seed(cfg.data.seed + 1)
+    raw = generate_dataset(gen, DATASET_SIZES[1], cfg.data, device=dev)
+    torch.cuda.synchronize()
+    launches = LAUNCHES["dip_qualification"]
+    if launches != 2:
+        fail(f"generate_dataset launched K4 {launches - 1} times, not 1")
+    print(f"dataset: launches {dict(LAUNCHES)}")
+
+    for n, (spectra, params, metrics) in zip(
+            DATASET_SIZES, ((ds.spectra, ds.params, ds.metrics), raw)):
+        if (tuple(spectra.shape), tuple(metrics.shape)) != (
+                (n, cfg.data.spectrum_dim), (n, cfg.data.metrics_dim)):
+            fail(f"dataset n={n}: shapes {tuple(spectra.shape)}, {tuple(metrics.shape)}")
+        if not bool(torch.isfinite(spectra).all() & torch.isfinite(params).all()):
+            fail(f"dataset n={n}: non-finite spectra or params")
+        cpu = pk.batched_peak_metrics(cfg.data.frequencies, spectra.cpu(),
+                                      *dip_centers(params.cpu()))
+        nan_diff, bad, err = rel_check(metrics.cpu(), cpu, METRICS_RTOL)
+        print(f"dataset n={n}: metrics vs the CPU plain path: {nan_diff} NaN-pattern "
+              f"differences, {bad} outside rtol {METRICS_RTOL}, max|err| {err:.3e}; "
+              f"NaN share {float(metrics.isnan().float().mean()):.4f}")
+        if nan_diff or bad:
+            fail(f"dataset n={n}: the card's metrics disagree with the CPU plain path")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "synthetic.csv")
+        save_csv(ds, path)
+        back = load_csv(path, cfg.data, device=dev)
+        for name in ("spectra", "params", "metrics", "params_norm", "metrics_norm"):
+            if not nan_equal(getattr(back, name), getattr(ds, name)):
+                fail(f"CSV round trip changed {name}")
+        out = os.path.join(tmp, "cli.csv")
+        cmd = [sys.executable, "-m", "pigan_thz_torch", "generate-data",
+               "--set", f"data.num_samples={DATASET_SIZES[0]}", "--out", out]
+        proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"{' '.join(cmd[1:])} exited {proc.returncode}: {proc.stderr[-2000:]}")
+        cli = load_csv(out, cfg.data, device=dev)
+        same = all(nan_equal(getattr(cli, f), getattr(ds, f))
+                   for f in ("spectra", "params", "metrics"))
+        print(f"dataset: CSV round trip exact; `{' '.join(cmd[1:4])}` wrote "
+              f"{cli.num_samples} samples, equal to synthetic_dataset's: {same}")
+        if cli.num_samples != DATASET_SIZES[0] or not same:
+            fail("generate-data wrote another dataset than synthetic_dataset")
+    return launches
+
+
+def check_screen(res, sc, cfg, label: str) -> None:
+    import torch
+    from pigan_thz_torch.design import METRIC_INDEX
+
+    k, s = sc.top_k, cfg.data.spectrum_dim
+    shapes = tuple(tuple(t.shape) for t in res)
+    if shapes != ((k, 4), (k,), (k, 8), (k, s), (k,)):
+        fail(f"screen {label}: result shapes {shapes}")
+    v = res.valid
+    finite = all(bool(torch.isfinite(t[v]).all())
+                 for t in (res.scores, res.params, res.spectra))
+    if not finite:
+        fail(f"screen {label}: a valid row is not finite")
+    if not bool((res.scores[:-1] >= res.scores[1:]).all()):
+        fail(f"screen {label}: scores are not in descending order")
+    if not bool((res.metrics[v, METRIC_INDEX[sc.objective]] == res.scores[v]).all()):
+        fail(f"screen {label}: scores are not the {sc.objective} column")
+    lo, hi = cfg.data.param_min, cfg.data.param_max
+    if not bool(((res.params >= lo) & (res.params <= hi)).all()):
+        fail(f"screen {label}: params outside [{lo}, {hi}]")
+    print(f"screen {label}: {int(v.sum())} valid of {k}, {sc.objective} from "
+          f"{res.scores[v].min().item():.6g} to {res.scores[v].max().item():.6g}, "
+          f"params in [{res.params.min().item():.4f}, {res.params.max().item():.4f}]")
+
+
+def run_screen(F, cfg, dev, lo, hi, use_pallas: bool):
+    """One 1e6-candidate screen, candidates seeded from cfg.train.seed;
+    (result, wall seconds)."""
+    import torch
+    from pigan_thz_torch.design import ScreeningConfig, screen_designs
+
+    sc = ScreeningConfig(use_pallas=use_pallas)
+    gen = torch.Generator(device=dev).manual_seed(cfg.train.seed)
+    freq = cfg.data.frequencies.to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = screen_designs(F, freq, lo, hi, gen, sc)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def phase8_screen(F, cfg, dev, lo, hi) -> dict:
+    """Both screens; returns their K5 / K4 launches and wall seconds."""
+    import torch
+    from pigan_thz_torch.data import normalize_params
+    from pigan_thz_torch.design import ScreeningConfig, screen_chunk
+    from pigan_thz_torch.design.screening import make_surrogate
+    from pigan_thz_torch.ops._cuda_build import LAUNCHES
+
+    sc = ScreeningConfig()
+    n_chunks = -(-sc.num_candidates // sc.chunk_size)
+    out = {}
+    for use_pallas in (True, False):
+        label = "fused surrogate" if use_pallas else "module surrogate"
+        reset_launches(LAUNCHES)
+        res, wall = run_screen(F, cfg, dev, lo, hi, use_pallas)
+        got = dict(LAUNCHES)
+        want = {"fused_mlp_forward": n_chunks if use_pallas else 0,
+                "fused_dense_chain": 0, "dip_qualification": n_chunks}
+        print(f"screen {label}: {sc.num_candidates} candidates in {n_chunks} chunks "
+              f"of {sc.chunk_size}, launches {got}")
+        if got != want:
+            fail(f"screen {label}: launches {got}, expected {want}")
+        check_screen(res, sc, cfg, label)
+        out[use_pallas] = (res, wall, got)
+
+    # The fused screen's winners re-scored through the CPU plain path.
+    res = out[True][0]
+    v = res.valid
+    cpu = torch.device("cpu")
+    f_cpu = copy.deepcopy(F).to(cpu).eval()
+    pn = normalize_params(res.params[v].cpu(), lo.cpu(), hi.cpu())
+    with torch.inference_mode():
+        surrogate = make_surrogate(f_cpu, True, cpu, cfg.data.spectrum_dim)
+        _, _, scores = screen_chunk(surrogate, pn, cfg.data.frequencies, sc)
+    nan_diff, bad, err = rel_check(scores, res.scores[v].cpu(), SCREEN_RTOL)
+    rel = float(((scores - res.scores[v].cpu()).abs() / res.scores[v].cpu().abs()).max())
+    print(f"screen: {int(v.sum())} winners re-scored on the CPU plain path: "
+          f"max|err| {err:.3e}, max rel err {rel:.3e} (rtol {SCREEN_RTOL}), "
+          f"{nan_diff + bad} disagree")
+    if nan_diff or bad:
+        fail("the screen's winners disagree with the CPU plain path")
+    return out
+
+
+def phase9_k4_times(gen, cfg, dev, f_packed) -> dict:
+    """K4 beside both plain versions at B = 8192 on synthetic spectra and on
+    the surrogate's predictions (a screening chunk): name -> (kernel,
+    lattice, lifted) ms."""
+    import torch
+    from pigan_thz_torch.ops import fused_kernels as fk
+    from pigan_thz_torch.ops import peaks as pk
+
+    b = K4_BATCHES[-1]
+    pn = torch.rand((b, 4), generator=gen, device=dev) * 2 - 1
+    inputs = {
+        "synthetic": spectra_classes(gen, b, cfg, dev)["synthetic"],
+        "screen": fk.forward_surrogate_fused(f_packed, pn)[0].contiguous(),
+    }
+    times = {}
+    for name, t in inputs.items():
+        # plain, kernel, kernel, plain: the best of each side's two runs
+        p1 = cuda_median_ms(pk.dip_qualification, t, warmup=3, reps=10)
+        l1 = cuda_median_ms(pk._dip_qualification_lifted, t, warmup=3, reps=20)
+        k1 = cuda_median_ms(pk.batched_dip_qualification, t)
+        k2 = cuda_median_ms(pk.batched_dip_qualification, t)
+        l2 = cuda_median_ms(pk._dip_qualification_lifted, t, warmup=3, reps=20)
+        p2 = cuda_median_ms(pk.dip_qualification, t, warmup=3, reps=10)
+        times[name] = (min(k1, k2), min(p1, p2), min(l1, l2))
+    return times
+
+
 def main() -> None:
     import torch
 
@@ -101,7 +383,8 @@ def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from pigan_thz_torch import default_config
-        from pigan_thz_torch.data import build_dataset, sample_params, synthesize_spectra
+        from pigan_thz_torch.data import (
+            build_dataset, generate_dataset, sample_params, synthesize_spectra)
         from pigan_thz_torch.data.dataset import denormalize_params
         from pigan_thz_torch.models import build_forward_model, build_generator
         from pigan_thz_torch.ops import _cuda_build
@@ -174,31 +457,28 @@ def main() -> None:
     for b in REQUEST_BATCHES:
         p = sample_params(dgen, b, cfg.data, device=dev)
         requests[b] = synthesize_spectra(cfg.data.frequencies, p, dgen, cfg.data.noise_level)
-    ds_n = 64
-    p = sample_params(dgen, ds_n, cfg.data, device=dev)
-    ds = build_dataset(
-        synthesize_spectra(cfg.data.frequencies, p, dgen, cfg.data.noise_level), p,
-        torch.full((ds_n, cfg.data.metrics_dim), float("nan")), cfg.data, device=dev,
-    )
-    print("dataset: metrics NaN-filled (serving reads only param_lo, param_hi and "
-          "spectrum_dim; synthetic metrics need the peaks kernel, not ported yet)")
+    # serving reads only param_lo, param_hi and spectrum_dim of the dataset
+    raw = generate_dataset(dgen, 64, cfg.data, device=dev)
+    ds = build_dataset(raw.spectra, raw.params, raw.metrics, cfg.data, device=dev)
     fn = make_inverse_design_fn(G, F, ds)
 
-    for name in fk.LAUNCHES:
-        fk.LAUNCHES[name] = 0
+    serving = {"fused_mlp_forward": 1, "fused_dense_chain": 1, "dip_qualification": 0}
+    reset_launches(fk.LAUNCHES)
     answers = {}
     for b in REQUEST_BATCHES:
         before = dict(fk.LAUNCHES)
         answers[b] = fn(requests[b])
         torch.cuda.synchronize()
-        for name, n in fk.LAUNCHES.items():
-            if n - before[name] != 1:
-                fail(f"request B={b} advanced {name} by {n - before[name]}, not 1")
+        for name, want in serving.items():
+            if fk.LAUNCHES[name] - before[name] != want:
+                fail(f"request B={b} advanced {name} by "
+                     f"{fk.LAUNCHES[name] - before[name]}, not {want}")
     launches = dict(fk.LAUNCHES)
     print(f"slice: launches over {len(REQUEST_BATCHES)} requests: {launches}")
-    for name, n in launches.items():
-        if n != len(REQUEST_BATCHES):
-            fail(f"{name} launched {n} times for {len(REQUEST_BATCHES)} requests")
+    for name, want in serving.items():
+        if launches[name] != want * len(REQUEST_BATCHES):
+            fail(f"{name} launched {launches[name]} times for "
+                 f"{len(REQUEST_BATCHES)} requests")
 
     lo, hi = ds.param_lo, ds.param_hi
     with torch.inference_mode():
@@ -267,12 +547,49 @@ def main() -> None:
         print(f"time {tag} {name} B={b}: kernel {k:.4f} ms, plain {p:.4f} ms "
               f"(CUDA-event median of 50 after 10 warm-up, best of two runs each)")
 
+    # -- 6. K4 against both plain versions ------------------------------------
+    k4_stats = phase6_k4(dgen, cfg, dev)
+
+    # -- 7. dataset generation -----------------------------------------------
+    repo = os.path.dirname(os.path.abspath(__file__))
+    dataset_k4 = phase7_dataset(cfg, dev, repo)
+
+    # -- 8. screening --------------------------------------------------------
+    screens = phase8_screen(F, cfg, dev, lo, hi)
+
+    # -- 9. times ------------------------------------------------------------
+    from pigan_thz_torch.design import ScreeningConfig
+
+    k4_times = phase9_k4_times(dgen, cfg, dev, f_packed)
+    for name, (k, p, l) in k4_times.items():
+        print(f"time {tag} dip_qualification B={K4_BATCHES[-1]} {name} spectra: "
+              f"kernel {k:.4f} ms, plain lattice {p:.4f} ms, plain lifted {l:.4f} ms "
+              f"(CUDA-event medians, best of two runs each)")
+    for n in DATASET_SIZES:
+        g = torch.Generator(device=dev).manual_seed(n)
+        ms = cuda_median_ms(lambda: generate_dataset(g, n, cfg.data, device=dev),
+                            warmup=3, reps=20)
+        print(f"time {tag} generate_dataset n={n}: {ms:.4f} ms "
+              f"(CUDA-event median of 20 after 3 warm-up)")
+    for use_pallas, (_, wall, _) in screens.items():
+        _, again = run_screen(F, cfg, dev, lo, hi, use_pallas)
+        label = "fused surrogate" if use_pallas else "module surrogate"
+        n = ScreeningConfig().num_candidates
+        print(f"time {tag} screen {label} 1e6 candidates: {wall:.4f} s and {again:.4f} s "
+              f"wall (first and second run), {n / wall:.0f} and {n / again:.0f} "
+              f"candidates/s")
+
     big = max(TIME_BATCHES)   # the times in the record are at B = 8192
+    k5_screen = screens[True][2]["fused_mlp_forward"]
+    k4_screen = sum(s[2]["dip_qualification"] for s in screens.values())
+    print(f"main-path launches: serving {launches}, dataset dip_qualification "
+          f"{dataset_k4}, screens fused_mlp_forward {k5_screen} dip_qualification "
+          f"{k4_screen}")
     record = {"kernels": [
         {"name": "fused_mlp_forward", "route": "cuda",
          "source": "pigan_thz_torch/csrc/fused_mlp_chain.cu",
          "replaces": "pigan_thz_tpu/ops/pallas_kernels.py:73",
-         "launches": launches["fused_mlp_forward"],
+         "launches": launches["fused_mlp_forward"] + k5_screen,
          "max_abs_err": max_err["fused_mlp_forward"],
          "ms": times[("fused_mlp_forward", big)][0],
          "plain_ms": times[("fused_mlp_forward", big)][1]},
@@ -283,6 +600,15 @@ def main() -> None:
          "max_abs_err": max_err["fused_dense_chain"],
          "ms": times[("fused_dense_chain", big)][0],
          "plain_ms": times[("fused_dense_chain", big)][1]},
+        {"name": "dip_qualification", "route": "cuda",
+         "source": "pigan_thz_torch/csrc/dip_qualification.cu",
+         "replaces": "pigan_thz_tpu/ops/peaks.py:306",
+         "launches": dataset_k4 + k4_screen,
+         "max_abs_err": k4_stats["max_abs_err"],
+         "mask_mismatches": k4_stats["mask_mismatches"],
+         "ms": k4_times["screen"][0],
+         "plain_ms": k4_times["screen"][1],
+         "plain_lifted_ms": k4_times["screen"][2]},
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -9,20 +9,32 @@ on torch tensors.  Reference behaviour (file:line under the reference repo):
 - denormalize_params maps [-1,1] -> physical (data_loader.py:238-252);
 - denormalize_metrics maps [0,1] -> physical with NaN -> 0.0
   (data_loader.py:255-293);
-- normalize_spectrum min-max -> [0,1], clamped (data_loader.py:298-329).
+- normalize_spectrum min-max -> [0,1], clamped (data_loader.py:298-329);
+- CSV schema: `Freq_x.xx` spectrum columns auto-discovered and sorted by
+  frequency, param columns r1,r2,w,g, metric columns f1..S2
+  (data_loader.py:135-176).
 
 The whole dataset (1000 x 250 floats, about 1 MB) lives as tensors on one
 device, named explicitly by the caller.
+
+The CSV reader and writer use the ``csv`` module and numpy, not pandas, and
+read and write what the JAX package's pandas path does: float32 values in
+their shortest round-trip form, NaN as an empty field, pandas' default NA
+spellings read as NaN, blank lines skipped.  The native C++ loader
+(``pigan_thz_tpu/data/native_io.py``) is not ported yet.
 """
 
 from __future__ import annotations
 
+import csv
+import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..config import DataConfig
+from ..config import DataConfig, METRIC_NAMES, PARAM_NAMES
+from .synthetic import SyntheticBatch, generate_dataset
 
 # ---------------------------------------------------------------------------
 # Pure normalization functions
@@ -165,3 +177,180 @@ def build_dataset(
         metric_hi=mhi,
         frequencies=freq,
     )
+
+
+def synthetic_dataset(
+    cfg: DataConfig,
+    generator: torch.Generator | None = None,
+    *,
+    device: torch.device | str,
+) -> ThzDataset:
+    """Generate ``cfg.num_samples`` samples on ``device`` (from a generator
+    seeded with ``cfg.seed`` unless one is given), then normalise."""
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    raw: SyntheticBatch = generate_dataset(generator, cfg.num_samples, cfg, device=device)
+    return build_dataset(raw.spectra, raw.params, raw.metrics, cfg, device=device)
+
+
+# ---------------------------------------------------------------------------
+# CSV interop (host-side; the reference schema)
+# ---------------------------------------------------------------------------
+
+# pandas.read_csv's default NA spellings: these fields read as NaN.
+_NA_FIELDS = frozenset({
+    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
+    "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a",
+    "nan", "null",
+})
+
+
+def discover_spectrum_schema(header) -> tuple:
+    """Freq_* column discovery + required-column validation, shared by the
+    loader and the metadata-only loader.  Returns (sorted spec_cols,
+    frequencies float32 array)."""
+    cols = list(header)
+    spec_cols = [
+        c for c in cols
+        if c.startswith("Freq_")
+        and c.split("_", 1)[1].replace(".", "", 1).isdigit()
+    ]
+    if not spec_cols:
+        raise ValueError("no 'Freq_*' spectrum columns found in CSV")
+    spec_cols = sorted(spec_cols, key=lambda c: float(c.split("_", 1)[1]))
+    present = set(cols)
+    missing = [c for c in (*PARAM_NAMES, *METRIC_NAMES) if c not in present]
+    if missing:
+        raise ValueError(f"CSV missing required columns: {missing}")
+    freqs = np.array([float(c.split("_", 1)[1]) for c in spec_cols], np.float32)
+    return spec_cols, freqs
+
+
+def _spectrum_columns(freqs: np.ndarray) -> list[str]:
+    """Reference format is 2 decimals (data_loader.py:135); raise precision
+    automatically when a finer grid would produce duplicate labels."""
+    for decimals in range(2, 8):
+        cols = [f"Freq_{f:.{decimals}f}" for f in freqs]
+        if len(set(cols)) == len(cols):
+            return cols
+    raise ValueError("cannot produce unique Freq_* labels for this grid")
+
+
+def _field(text: str) -> float:
+    text = text.strip()
+    return np.nan if text in _NA_FIELDS else float(text)
+
+
+def _read_table(path: str) -> tuple[list[str], np.ndarray]:
+    """(header, float64 (rows, cols) values) of a CSV file.  Blank lines
+    are skipped; a short row is filled with NaN; a long one raises."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"dataset not found: {path}")
+    with open(path, newline="", encoding="utf-8-sig") as fh:
+        reader = csv.reader(fh)
+        header = next(reader, [])
+        width = len(header)
+        values = []
+        for row in reader:
+            if len(row) <= 1 and not "".join(row).strip():
+                continue
+            if len(row) > width:
+                raise ValueError(
+                    f"{path}: line {reader.line_num} has {len(row)} fields, "
+                    f"the header {width}"
+                )
+            values.append([_field(f) for f in row] + [np.nan] * (width - len(row)))
+    return header, np.array(values, np.float64).reshape(len(values), width)
+
+
+def load_csv(path: str, cfg: DataConfig, *, device: torch.device | str) -> ThzDataset:
+    """Load the reference CSV schema (data_loader.py:149-181) onto ``device``.
+
+    Spectrum columns are auto-discovered by the `Freq_` prefix and sorted by
+    their numeric frequency; param/metric columns are required by name."""
+    header, table = _read_table(path)
+    spec_cols, freqs = discover_spectrum_schema(header)
+
+    def columns(names):   # the first column of a name, as pandas reads it
+        return table[:, [header.index(c) for c in names]].astype(np.float32)
+
+    return build_dataset(
+        columns(spec_cols), columns(PARAM_NAMES), columns(METRIC_NAMES), cfg,
+        frequencies=freqs, device=device,
+    )
+
+
+def write_csv(path: str, params, spectra, metrics, frequencies) -> None:
+    """Write (B, 4) params, (B, S) spectra and (B, 8) metrics (arrays or
+    tensors) in the reference CSV schema, labelled by ``frequencies``."""
+    arrays = [
+        np.asarray(a.detach().cpu() if isinstance(a, torch.Tensor) else a, np.float32)
+        for a in (params, spectra, metrics, frequencies)
+    ]
+    table = np.concatenate(arrays[:3], axis=1)
+    text = table.astype(str)          # shortest float32 round-trip form
+    text[np.isnan(table)] = ""
+    header = [*PARAM_NAMES, *_spectrum_columns(arrays[3]), *METRIC_NAMES]
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w", newline="") as fh:
+        writer = csv.writer(fh, lineterminator="\n")
+        writer.writerow(header)
+        writer.writerows(text.tolist())
+
+
+def save_csv(ds: ThzDataset, path: str) -> None:
+    """Write a dataset in the reference CSV schema (round-trips load_csv)."""
+    write_csv(path, ds.params, ds.spectra, ds.metrics, ds.frequencies)
+
+
+class ThzMetadata(NamedTuple):
+    """Dataset metadata without the data (the reference's
+    ``MetamaterialDataset(load_data=False)``, data_loader.py:116-122).
+    From a CSV only the header is parsed."""
+
+    frequencies: np.ndarray      # (S,)
+    param_names: tuple
+    metric_names: tuple
+    spectrum_dim: int
+    num_samples: int | None      # None when no CSV was given
+
+
+def load_metadata(cfg: DataConfig, csv_path: str | None = None) -> ThzMetadata:
+    """Metadata-only load.  With a CSV path: read the header, discover and
+    sort the Freq_* columns, validate the required columns, count the data
+    rows without parsing a float.  Without: everything from the config."""
+    if csv_path:
+        if not os.path.exists(csv_path):
+            raise FileNotFoundError(f"dataset not found: {csv_path}")
+        # utf-8-sig + csv.reader: BOM'd and quoted headers parse as the
+        # loader sees them (Excel writes both)
+        with open(csv_path, "r", newline="", encoding="utf-8-sig") as fh:
+            reader = csv.reader(fh)
+            header = [c.strip() for c in next(reader, [])]
+            # quoted fields with embedded newlines count as one row
+            n_rows = sum(1 for row in reader if any(c.strip() for c in row))
+        spec_cols, freqs = discover_spectrum_schema(header)
+        return ThzMetadata(
+            frequencies=freqs,
+            param_names=tuple(PARAM_NAMES),
+            metric_names=tuple(METRIC_NAMES),
+            spectrum_dim=len(spec_cols),
+            num_samples=n_rows,
+        )
+    return ThzMetadata(
+        frequencies=cfg.frequencies.numpy(),
+        param_names=tuple(PARAM_NAMES),
+        metric_names=tuple(METRIC_NAMES),
+        spectrum_dim=cfg.spectrum_dim,
+        num_samples=None,
+    )
+
+
+def load_or_synthesize(
+    cfg: DataConfig, csv_path: str | None = None, *, device: torch.device | str
+) -> ThzDataset:
+    """The CSV if it exists (reference workflow), else a synthetic dataset
+    (the CSV is a missing large blob in the reference repo)."""
+    if csv_path and os.path.exists(csv_path):
+        return load_csv(csv_path, cfg, device=device)
+    return synthetic_dataset(cfg, device=device)

@@ -8,15 +8,18 @@ Gaussian noise, and a clamp at 0 dB (reference
 ``torch.Generator``; it cannot reproduce JAX's threefry draws, so tests
 feed both packages the same numpy inputs and compare noise statistics only.
 
-The metric extraction of ``generate_dataset`` needs the peaks kernel and is
-not ported yet (ROADMAP.md, queue 2, K4).
+``generate_dataset`` adds the eight metrics of each spectrum through the
+peak analysis (``ops/peaks.py``: the dip-qualification kernel on the card).
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ..config import DataConfig
+from ..ops.peaks import batched_peak_metrics
 
 # Model constants (data_loader.py:64-77).
 _C1_BASE, _C1_R1, _C1_W = 0.870, 0.05, 0.03
@@ -26,6 +29,14 @@ _C2_BASE, _C2_R2, _C2_G = 2.115, 0.07, 0.04
 _D2_BASE, _D2_R1, _D2_W = -11.763, 1.0, -0.8
 _W2_BASE, _W2_R2 = 0.15, 0.03
 _PARAM_CENTER = 2.5
+
+
+class SyntheticBatch(NamedTuple):
+    """Raw (physical-unit) synthetic samples, all on one device."""
+
+    spectra: torch.Tensor   # (B, N) transmission in dB, <= 0
+    params: torch.Tensor    # (B, 4) physical units (r1, r2, w, g)
+    metrics: torch.Tensor   # (B, 8) f1,f2,Q1,FoM1,S1,Q2,FoM2,S2 (NaN allowed)
 
 
 def dip_centers(params: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -77,3 +88,25 @@ def sample_params(
         (n, cfg.param_dim), generator=generator, dtype=torch.float32, device=device
     )
     return cfg.param_min + (cfg.param_max - cfg.param_min) * u
+
+
+def generate_dataset(
+    generator: torch.Generator,
+    n: int,
+    cfg: DataConfig,
+    with_noise: bool = True,
+    *,
+    device: torch.device | str,
+) -> SyntheticBatch:
+    """n synthetic samples on ``device``, the counterpart of
+    ``pigan_thz_tpu/data/synthetic.py:generate_dataset``: params, then the
+    noise, drawn from ``generator`` (which lives on ``device``); metrics
+    from the peak analysis with the expected centres as fallbacks."""
+    freq = cfg.frequencies.to(device)
+    params = sample_params(generator, n, cfg, device=device)
+    spectra = synthesize_spectra(
+        freq, params, generator if with_noise else None, cfg.noise_level
+    )
+    c1, c2 = dip_centers(params)
+    metrics = batched_peak_metrics(freq, spectra, fallback_f1=c1, fallback_f2=c2)
+    return SyntheticBatch(spectra=spectra, params=params, metrics=metrics)

@@ -1,3 +1,3 @@
-from . import fused_kernels
+from . import fused_kernels, peaks
 
-__all__ = ["fused_kernels"]
+__all__ = ["fused_kernels", "peaks"]

@@ -1,14 +1,18 @@
 """Builds the port's CUDA kernels with nvcc at first use; loads them with ctypes.
 
 The sources under ``pigan_thz_torch/csrc/`` have a plain C interface (no
-PyTorch headers), so one nvcc call builds a shared library in seconds.  It
-lands in ``build/kernels/<hash of sources and flags>/`` at the root of the
-checkout (``build/`` is git-ignored); a later process with the same sources
-loads it without building.  ``nvcc.log`` beside it keeps ptxas's register,
+PyTorch headers), so nvcc builds them in seconds: one nvcc per source, all
+started together, then one link into a shared library.  It lands in
+``build/kernels/<hash of sources and flags>/`` at the root of the checkout
+(``build/`` is git-ignored); a later process with the same sources loads it
+without building.  ``nvcc.log`` beside it keeps ptxas's register,
 shared-memory and spill report.
 
 No ``--use_fast_math``: tanhf, rsqrtf and the divisions stay IEEE so that
 the kernels hold fp32 parity with their plain PyTorch versions.
+
+``LAUNCHES`` counts each kernel's successful launches; only ``launch``,
+which the wrappers (``fused_kernels.py``, ``peaks.py``) call, adds to it.
 """
 
 from __future__ import annotations
@@ -22,13 +26,20 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fused_mlp_chain.cu",)
+SOURCES = ("fused_mlp_chain.cu", "dip_qualification.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libpigan_kernels.so"
+
+# Successful kernel launches, by kernel.
+LAUNCHES: dict[str, int] = {
+    "fused_mlp_forward": 0,
+    "fused_dense_chain": 0,
+    "dip_qualification": 0,
+}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +51,7 @@ _DIMS = ctypes.POINTER(ctypes.c_int)
 ENTRY_POINTS = {
     "pigan_fused_mlp_forward": [_P, _P, _P, _OFFSETS, _DIMS, _I, _I, _F, _F, _P],
     "pigan_fused_dense_chain": [_P, _P, _P, _OFFSETS, _DIMS, _I, _I, _P],
+    "pigan_dip_qualification": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
 }
 
 
@@ -68,20 +80,34 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        (out.parent / "nvcc.log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
-            )
-        os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        tmp = Path(tmp)
+        jobs = []
+        for src in SOURCES:
+            obj, log = (tmp / (Path(src).stem + ext) for ext in (".o", ".log"))
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+            with open(log, "w") as fh:
+                proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)
+            jobs.append((cmd, obj, log, proc))
+        report, failed = [], []
+        for cmd, _, log, proc in jobs:
+            rc = proc.wait()
+            report.append(log.read_text())
+            if rc != 0:
+                failed.append(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{report[-1]}")
+        lib = tmp / LIB_NAME
+        if not failed:
+            cmd = [nvcc, "-shared", "-o", str(lib), *(str(j[1]) for j in jobs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            report.append(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"nvcc link failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{report[-1]}")
+        (out.parent / "nvcc.log").write_text("".join(report))
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        os.replace(lib, out)  # atomic: a concurrent build never sees a partial file
     return out
 
 
@@ -96,3 +122,32 @@ def load_library() -> ctypes.CDLL:
     lib.pigan_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pigan_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def check_capability(index: int) -> None:
+    """The kernels are built for sm_90a only; refuse any other card."""
+    import torch
+
+    cap = torch.cuda.get_device_capability(index)
+    if cap != (9, 0):
+        raise RuntimeError(
+            f"the port's kernels are built for sm_90a (Hopper); cuda:{index} is "
+            f"sm_{cap[0]}{cap[1]}"
+        )
+
+
+def launch(name: str, device, *args) -> None:
+    """Call entry point ``pigan_<name>`` with ``args`` and the current stream
+    of ``device``; raise on a CUDA error, else count the launch."""
+    import torch
+
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, f"pigan_{name}")(*args, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"{name}: CUDA error {rc} ({lib.pigan_cuda_error_string(rc).decode()})"
+        )
+    LAUNCHES[name] += 1

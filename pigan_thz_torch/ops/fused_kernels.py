@@ -25,7 +25,6 @@ inference only: they carry no gradient.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 from dataclasses import dataclass
 from typing import Sequence
@@ -33,8 +32,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
-# Successful kernel launches, by kernel.  Only the wrappers below add to it.
-LAUNCHES: dict[str, int] = {"fused_mlp_forward": 0, "fused_dense_chain": 0}
+# Successful kernel launches, by kernel (one dict for all the port's kernels).
+from ._cuda_build import LAUNCHES, check_capability, launch
 
 
 # ---------------------------------------------------------------------------
@@ -225,16 +224,6 @@ def fused_dense_chain_plain(x: torch.Tensor, packed: PackedChain) -> torch.Tenso
 # ---------------------------------------------------------------------------
 
 
-@functools.cache
-def _check_capability(index: int) -> None:
-    cap = torch.cuda.get_device_capability(index)
-    if cap != (9, 0):
-        raise RuntimeError(
-            f"the fused kernels are built for sm_90a (Hopper); cuda:{index} is "
-            f"sm_{cap[0]}{cap[1]}"
-        )
-
-
 def _check(x: torch.Tensor, packed: PackedChain, layer_norm: bool, name: str) -> bool:
     """Validate the call; True when it goes to the kernel (CUDA input)."""
     if packed.layer_norm != layer_norm:
@@ -251,14 +240,11 @@ def _check(x: torch.Tensor, packed: PackedChain, layer_norm: bool, name: str) ->
         return False
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
-    _check_capability(x.device.index)
+    check_capability(x.device.index)
     return True
 
 
 def _launch(name: str, x: torch.Tensor, packed: PackedChain, *scalars) -> torch.Tensor:
-    from ._cuda_build import load_library
-
-    lib = load_library()
     batch = x.shape[0]
     out = torch.empty((batch, packed.dims[-1]), dtype=torch.float32, device=x.device)
     if batch == 0:
@@ -267,17 +253,8 @@ def _launch(name: str, x: torch.Tensor, packed: PackedChain, *scalars) -> torch.
         *(o for offs in packed.offsets for o in offs)
     )
     dims = (ctypes.c_int * len(packed.dims))(*packed.dims)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = getattr(lib, f"pigan_{name}")(
-            x.data_ptr(), out.data_ptr(), packed.weights.data_ptr(), offsets, dims,
-            packed.n_layers, batch, *scalars, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"{name}: CUDA error {rc} ({lib.pigan_cuda_error_string(rc).decode()})"
-        )
-    LAUNCHES[name] += 1
+    launch(name, x.device, x.data_ptr(), out.data_ptr(), packed.weights.data_ptr(),
+           offsets, dims, packed.n_layers, batch, *scalars)
     return out
 
 

@@ -6,7 +6,9 @@ file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Weights are full-width, seeded, with flax's initialisation and non-trivial
-generator BatchNorm stats, so the folding is exercised.
+generator BatchNorm stats, so the folding is exercised.  The
+dip-qualification kernel (K4) is held against both of its plain versions on
+the spectra classes of tests/test_peaks.py.
 """
 
 import copy
@@ -21,8 +23,10 @@ from pigan_thz_torch.data import (
     sample_params,
     synthesize_spectra,
 )
+from pigan_thz_torch.design import ScreeningConfig, screen_designs
 from pigan_thz_torch.models import build_forward_model, build_generator
 from pigan_thz_torch.ops import fused_kernels as fk
+from pigan_thz_torch.ops import peaks as pk
 from pigan_thz_torch.serve import make_inverse_design_fn
 
 torch.set_num_threads(1)
@@ -118,7 +122,7 @@ def test_cycle_matches_unfused_modules(dev, models):
     got = fn(spectra)
     torch.cuda.synchronize()
     assert {k: fk.LAUNCHES[k] - before[k] for k in before} == {
-        "fused_mlp_forward": 1, "fused_dense_chain": 1}
+        "fused_mlp_forward": 1, "fused_dense_chain": 1, "dip_qualification": 0}
     with torch.no_grad():
         pn = g(spectra)
         want = (denormalize_params(pn, ds.param_lo, ds.param_hi), *f(pn))
@@ -126,3 +130,84 @@ def test_cycle_matches_unfused_modules(dev, models):
         assert bool(torch.isfinite(a).all())
         assert float((a - b).abs().max()) <= 1e-4
     assert bool(((got[0] >= 2.2) & (got[0] <= 2.8)).all())
+
+
+def _spectra(kind, b, n, dev, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    noise = torch.randn((b, n), generator=gen, device=dev)
+    if kind == "random_walk":
+        return torch.cumsum(0.8 * noise, dim=1).clamp(max=0.0)
+    if kind == "white_noise":
+        return (-1.0 + 0.6 * noise).clamp(max=0.0)
+    if kind == "quantized":
+        return torch.round((-2.0 + 1.5 * noise).clamp(max=0.0) * 2.0) / 2.0
+    cfg = default_config().data
+    freq = torch.linspace(cfg.freq_min, cfg.freq_max, n)
+    p = sample_params(gen, b, cfg, device=dev)
+    return synthesize_spectra(freq, p, gen, cfg.noise_level)
+
+
+def _assert_k4_equal(got, want):
+    assert torch.equal(got.qualified, want.qualified)
+    assert torch.equal(got.is_peak, want.is_peak)
+    pkm = want.is_peak
+    torch.testing.assert_close(got.prominence[pkm], want.prominence[pkm],
+                               rtol=1e-6, atol=0)
+    torch.testing.assert_close(got.width[pkm], want.width[pkm], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("n", [250, 199, 64, 300])
+@pytest.mark.parametrize("kind", ["synthetic", "random_walk", "white_noise", "quantized"])
+def test_dip_kernel_matches_both_plain_versions(kind, n, dev):
+    """Ragged N (199, 64) and N above the block (300: a loop over i)."""
+    t = _spectra(kind, 333, n, dev)
+    before = fk.LAUNCHES["dip_qualification"]
+    got = pk.batched_dip_qualification(t)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["dip_qualification"] == before + 1
+    assert got.qualified.dtype == torch.bool and got.qualified.shape == (333, n)
+    _assert_k4_equal(got, pk.dip_qualification(t))
+    _assert_k4_equal(got, pk._dip_qualification_lifted(t))
+    assert bool(got.qualified.any())
+
+
+def test_dip_kernel_edges(dev):
+    """N above the cap raises; an empty batch launches nothing; other
+    thresholds reach the kernel."""
+    with pytest.raises(ValueError, match="N"):
+        pk.batched_dip_qualification(torch.zeros((2, pk.MAX_N + 1), device=dev))
+    before = dict(fk.LAUNCHES)
+    out = pk.batched_dip_qualification(torch.zeros((0, 250), device=dev))
+    assert out.width.shape == (0, 250) and fk.LAUNCHES == before
+    t = _spectra("white_noise", 64, 250, dev, seed=3)
+    got = pk.batched_dip_qualification(t, min_prominence=0.5, min_width=2.0)
+    _assert_k4_equal(got, pk.dip_qualification(t, 0.5, 2.0))
+
+
+def test_card_metrics_match_cpu(dev):
+    t = _spectra("synthetic", 512, 250, dev, seed=4)
+    freq = default_config().data.frequencies
+    got = pk.batched_peak_metrics(freq, t)
+    want = pk.batched_peak_metrics(freq, t.cpu())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("use_pallas", [True, False], ids=["fused", "module"])
+def test_screening_launches_per_chunk(use_pallas, dev, models):
+    cfg = default_config()
+    f = copy.deepcopy(models[1]).to(dev)
+    lo = torch.full((4,), 2.2, device=dev)
+    hi = torch.full((4,), 2.8, device=dev)
+    sc = ScreeningConfig(num_candidates=20000, chunk_size=8192, top_k=16,
+                         use_pallas=use_pallas)
+    before = dict(fk.LAUNCHES)
+    res = screen_designs(f, cfg.data.frequencies, lo, hi,
+                         torch.Generator(device=dev).manual_seed(42), sc)
+    torch.cuda.synchronize()
+    assert {k: fk.LAUNCHES[k] - before[k] for k in before} == {
+        "fused_mlp_forward": 3 if use_pallas else 0, "fused_dense_chain": 0,
+        "dip_qualification": 3}
+    v = res.valid
+    assert bool(v.any()) and bool(torch.isfinite(res.scores[v]).all())
+    assert bool((res.scores[:-1] >= res.scores[1:]).all())
+    assert bool(((res.params >= 2.2) & (res.params <= 2.8)).all())

@@ -1,5 +1,6 @@
-"""Guards on the port's boundaries: no JAX inside it, no result from the chip
-smoke test without a card, no kernel launch for a CPU tensor."""
+"""Guards on the port's boundaries: no JAX and no pandas inside it, no result
+from the chip smoke test without a card, no kernel launch for a CPU tensor,
+no CPU fallback for a missing card."""
 
 import os
 import shutil
@@ -10,8 +11,10 @@ import pytest
 import torch
 
 from pigan_thz_torch import default_config
+from pigan_thz_torch.design import ScreeningConfig, screen_designs
 from pigan_thz_torch.models import build_forward_model, build_generator
 from pigan_thz_torch.ops import fused_kernels as fk
+from pigan_thz_torch.ops import peaks as pk
 
 torch.set_num_threads(1)
 
@@ -20,12 +23,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 import pigan_thz_torch
-names = [m.name for m in pkgutil.walk_packages(pigan_thz_torch.__path__, "pigan_thz_torch.")]
+names = [m.name for m in pkgutil.walk_packages(pigan_thz_torch.__path__, "pigan_thz_torch.")
+         if not m.name.endswith(".__main__")]     # __main__ runs the CLI
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 12, names
+assert len(names) >= 19, names
 jax = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "flax")))
 assert not jax, jax
+# the card's machine has no pandas
+assert not any(m == "pandas" or m.startswith("pandas.") for m in sys.modules)
 assert not any(m.startswith("pigan_thz_tpu") for m in sys.modules)
 print("imported", len(names))
 """
@@ -75,3 +81,47 @@ def test_cpu_tensors_take_the_plain_path():
     assert torch.equal(pn, fk.fused_dense_chain_plain(x, g))
     out = fk.fused_mlp_forward_plain(pn, f)
     assert torch.equal(spec, out[:, :250]) and torch.equal(met, out[:, 250:])
+
+
+def test_cpu_peaks_and_screening_launch_nothing():
+    gen = torch.Generator().manual_seed(1)
+    t = torch.randn(6, 250, generator=gen).clamp(max=0.0)
+    before = dict(fk.LAUNCHES)
+    got = pk.batched_dip_qualification(t)
+    assert fk.LAUNCHES == before
+    want = pk._dip_qualification_lifted(t)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    f = build_forward_model(default_config().forward_model, generator=gen)
+    for use_pallas in (True, False):
+        screen_designs(f, default_config().data.frequencies, torch.full((4,), 2.2),
+                       torch.full((4,), 2.8), gen,
+                       ScreeningConfig(num_candidates=100, chunk_size=64, top_k=4,
+                                       use_pallas=use_pallas))
+    assert fk.LAUNCHES == before
+    assert set(fk.LAUNCHES) == {"fused_mlp_forward", "fused_dense_chain",
+                                "dip_qualification"}
+
+
+@pytest.mark.parametrize("bad", ["float64", "non_contiguous", "rank_1", "meta"])
+def test_dip_wrapper_refuses(bad):
+    t = torch.zeros(4, 250)
+    x, err = {
+        "float64": (t.double(), TypeError),
+        "non_contiguous": (torch.zeros(250, 4).T, ValueError),
+        "rank_1": (torch.zeros(250), ValueError),
+        "meta": (torch.zeros(4, 250, device="meta"), ValueError),
+    }[bad]
+    with pytest.raises(err):
+        pk.batched_dip_qualification(x)
+
+
+def test_generate_data_without_a_card_does_not_fall_back(tmp_path):
+    out = tmp_path / "x.csv"
+    proc = subprocess.run(
+        [sys.executable, "-m", "pigan_thz_torch", "generate-data",
+         "--set", "data.num_samples=8", "--out", str(out)],
+        cwd=REPO, capture_output=True, text=True, timeout=300, env=_env_without_card(),
+    )
+    assert proc.returncode != 0
+    assert "--device cpu" in proc.stderr
+    assert not out.exists()

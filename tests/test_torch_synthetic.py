@@ -6,11 +6,13 @@ import pytest
 import torch
 
 from pigan_thz_torch import default_config as t_default_config
+from pigan_thz_torch.config import DataConfig as TDataConfig
 from pigan_thz_torch.data import dataset as tds
 from pigan_thz_torch.data import synthetic as tsyn
 from pigan_thz_tpu import default_config as j_default_config
 from pigan_thz_tpu.data import dataset as jds
 from pigan_thz_tpu.data import synthetic as jsyn
+from pigan_thz_tpu.ops.peaks import batched_peak_metrics as j_batched_peak_metrics
 
 torch.set_num_threads(1)
 
@@ -142,3 +144,49 @@ def test_build_dataset_matches_jax():
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL, rtol=0,
                                    err_msg=name)
     assert got.num_samples == 40 and got.spectrum_dim == 250
+
+
+@pytest.mark.parametrize("with_noise", [True, False], ids=["noisy", "clean"])
+def test_generate_dataset_metrics_match_jax(with_noise):
+    """The port's dataset on the CPU; its metrics against JAX's peak
+    analysis on the same spectra, centres and (the port's) grid."""
+    cfg = t_default_config().data
+    raw = tsyn.generate_dataset(torch.Generator().manual_seed(1), 96, cfg,
+                                with_noise=with_noise, device="cpu")
+    assert isinstance(raw, tsyn.SyntheticBatch)
+    assert [tuple(t.shape) for t in raw] == [(96, 250), (96, 4), (96, 8)]
+    assert all(t.dtype == torch.float32 for t in raw)
+    p = raw.params.numpy()
+    c1, c2 = jsyn.dip_centers(jnp.asarray(p))
+    want = j_batched_peak_metrics(jnp.asarray(cfg.frequencies.numpy()),
+                                  jnp.asarray(raw.spectra.numpy()),
+                                  fallback_f1=c1, fallback_f2=c2)
+    np.testing.assert_allclose(raw.metrics.numpy(), np.asarray(want), rtol=1e-5,
+                               equal_nan=True)
+    assert np.isfinite(raw.metrics.numpy()[:, :2]).all()   # f falls back to the centres
+    clean = tsyn.synthesize_spectra(cfg.frequencies, raw.params)
+    assert torch.equal(raw.spectra, clean) != with_noise
+
+
+def test_generate_dataset_draws_params_then_noise():
+    """One generator: params first, then the noise, so the params do not
+    depend on with_noise and a seed gives one dataset."""
+    cfg = t_default_config().data
+    a = tsyn.generate_dataset(torch.Generator().manual_seed(2), 40, cfg, device="cpu")
+    b = tsyn.generate_dataset(torch.Generator().manual_seed(2), 40, cfg,
+                              with_noise=False, device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    p = tsyn.sample_params(gen, 40, cfg)
+    assert torch.equal(a.params, b.params) and torch.equal(a.params, p)
+    noisy = tsyn.synthesize_spectra(cfg.frequencies, p, gen, cfg.noise_level)
+    assert torch.equal(a.spectra, noisy)
+
+
+def test_synthetic_dataset_is_seeded_from_the_config():
+    cfg = TDataConfig(num_samples=48, seed=5)
+    ds = tds.synthetic_dataset(cfg, device="cpu")
+    raw = tsyn.generate_dataset(torch.Generator().manual_seed(5), 48, cfg, device="cpu")
+    want = tds.build_dataset(raw.spectra, raw.params, raw.metrics, cfg, device="cpu")
+    for name, got, w in zip(ds._fields, ds, want):
+        assert torch.equal(got.nan_to_num(9.0), w.nan_to_num(9.0)), name
+    assert ds.num_samples == 48 and not torch.isnan(ds.metrics_norm).any()
