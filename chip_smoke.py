@@ -34,7 +34,21 @@ MLP trio, dataset generation, and the 1e6-candidate screen:
    launches per screen (and 123 K5 launches with the kernel), a sorted,
    finite top-k in the design box, winners re-scored on the CPU;
 9. times: K4 beside both plain versions at B = 8192, ``generate_dataset``
-   at 1000 and 65536, and each screen's wall time.
+   at 1000 and 65536, and each screen's wall time;
+10. the forward-training kernel (K1) against its plain version on the
+    card: seeded full-width F, a 1000-sample dataset, 2 epochs (30 steps)
+    from one state and one set of streams, at dropout 0.2 and 0: the same
+    dropout masks, metric rows, parameters and Adam moments within
+    tolerance, a rerun bit-identical; at dropout 0 also the eager autograd
+    step;
+11. forward pretraining: ``python -m pigan_thz_torch pretrain-forward
+    --epochs 500`` in a subprocess at the reference workload (1000
+    samples, batch 64, lr 1e-3 cosine to 0, clip 1, dropout 0.2): one K1
+    launch per 25-epoch chunk, a finite loss that ends well below where it
+    starts, artifacts that load into ``build_forward_model``, and the
+    trained F answering one serving request through K5;
+12. times: the 500-epoch run's wall time and steps/s, and per-epoch
+    CUDA-event medians of K1, its plain version and the eager step.
 
 Any failed check raises, and the script exits non-zero.  Without a CUDA
 device, or away from the package, it exits non-zero and prints no result.
@@ -70,6 +84,21 @@ DATASET_SIZES = (1000, 65536)
 # plain version by up to ~3e-6 in the spectra (phase 3), which moves the
 # interpolated FWHM edges and so Q and FoM by up to ~1e-5 relative.
 SCREEN_RTOL = 1e-4
+# K1 against its plain version (and, at dropout 0, the eager step) over 30
+# steps from one state: the same fp32 operations in another order.  Metric
+# rows within the JAX package's own K1-vs-XLA rtol (tests/test_megakernel.py:
+# 338; measured 5.4e-5, on the small late metrics loss).  Adam
+# divides each moment by its own root, so an entry whose gradient is at the
+# rounding level can take a step of up to lr in either direction: 1e-3 is
+# one step at the peak lr (measured 4.8e-4).  The moments themselves stay
+# within rounding of the gradients (measured 2.4e-6 and 8.8e-10).
+K1_ROWS_RTOL = 5e-4
+K1_PARAM_ATOL = 1e-3
+K1_M_ATOL = 1e-5
+K1_V_ATOL = 1e-8
+K1_EPOCHS = 2
+PRETRAIN_EPOCHS = 500
+EPOCHS_PER_CALL = 25
 REQUEST_BATCHES = (1, 64, 8192, 65536)
 CHECK_BATCHES = (1, 77, 257, 8192)
 TIME_BATCHES = (64, 8192)
@@ -321,7 +350,8 @@ def phase8_screen(F, cfg, dev, lo, hi) -> dict:
         res, wall = run_screen(F, cfg, dev, lo, hi, use_pallas)
         got = dict(LAUNCHES)
         want = {"fused_mlp_forward": n_chunks if use_pallas else 0,
-                "fused_dense_chain": 0, "dip_qualification": n_chunks}
+                "fused_dense_chain": 0, "dip_qualification": n_chunks,
+                "forward_train": 0}
         print(f"screen {label}: {sc.num_candidates} candidates in {n_chunks} chunks "
               f"of {sc.chunk_size}, launches {got}")
         if got != want:
@@ -373,6 +403,211 @@ def phase9_k4_times(gen, cfg, dev, f_packed) -> dict:
         p2 = cuda_median_ms(pk.dip_qualification, t, warmup=3, reps=10)
         times[name] = (min(k1, k2), min(p1, p2), min(l1, l2))
     return times
+
+
+def k1_setup(cfg, dev, ds, epochs: int):
+    """Seeded full-width F and its fresh Adam state on the card, the eager
+    optimiser, and the draws and streams of ``epochs`` epochs of ``ds``:
+    (state, tx, indices, seeds, streams)."""
+    import torch
+    from pigan_thz_torch.models import build_forward_model
+    from pigan_thz_torch.ops import forward_train as ft
+    from pigan_thz_torch.train.schedules import make_schedule
+    from pigan_thz_torch.train.state import init_forward_state, make_optimizers
+
+    b = cfg.train.batch_size
+    spe = ds.num_samples // b
+    _, _, ftx = make_optimizers(cfg, spe)
+    f = build_forward_model(cfg.forward_model, cfg.data.spectrum_dim, cfg.data.metrics_dim)
+    state = init_forward_state(f, ftx, SEED, device=dev)
+    idx, seeds = ft.resolve_draws(torch.Generator().manual_seed(SEED), ds.num_samples, b,
+                                  epochs)
+    sched = make_schedule("cosine", cfg.train.fwd_pretrain_lr,
+                          cfg.train.fwd_pretrain_epochs, spe, schedule_alpha=0.0)
+    streams = ft.build_streams(ds, idx, seeds, torch.ones(epochs), 0, sched)
+    return state, ftx, idx, seeds, streams
+
+
+def compare_k1(label: str, rows, state, want_rows, want_state) -> tuple:
+    """Metric rows and (params, m, v) of two runs from one state; fails
+    beyond the K1 tolerances.  Returns (rows max rel err, params max |err|)."""
+    rel = float(((rows - want_rows).abs() / want_rows.abs()).max())
+    errs = [float((a - b).abs().max()) for a, b in zip(state, want_state)]
+    print(f"{label}: rows max rel err {rel:.3e} (rtol {K1_ROWS_RTOL}), max|err| params "
+          f"{errs[0]:.3e} (atol {K1_PARAM_ATOL}) m {errs[1]:.3e} (atol {K1_M_ATOL}) "
+          f"v {errs[2]:.3e} (atol {K1_V_ATOL})")
+    if not (rel <= K1_ROWS_RTOL and errs[0] <= K1_PARAM_ATOL and errs[1] <= K1_M_ATOL
+            and errs[2] <= K1_V_ATOL):
+        fail(f"{label}: outside tolerance")
+    return rel, errs[0]
+
+
+def phase10_k1(cfg, dev, ds) -> dict:
+    """K1 against its plain version (and the eager step at dropout 0) over
+    K1_EPOCHS epochs from one state and one set of streams."""
+    import dataclasses
+    import torch
+    from pigan_thz_torch.ops import forward_train as ft
+    from pigan_thz_torch.train.steps import (
+        ForwardStepSettings, make_forward_step, make_multi_epoch_fn)
+
+    settings = ForwardStepSettings()
+    b = cfg.train.batch_size
+    stats = {"max_abs_err": 0.0, "rows_rel": 0.0}
+    for rate in (cfg.forward_model.dropout_rate, 0.0):
+        rcfg = cfg.replace(forward_model=dataclasses.replace(cfg.forward_model,
+                                                             dropout_rate=rate))
+        spec = ft.forward_train_spec(rcfg, settings)
+        state, ftx, idx, seeds, streams = k1_setup(rcfg, dev, ds, K1_EPOCHS)
+        start = (state.params.clone(), state.opt.m.clone(), state.opt.v.clone())
+        kern = [t.clone() for t in start]
+        work = torch.empty(ft.workspace_floats(spec, b), device=dev)
+        rows = ft.forward_train(*kern, streams, spec, work=work)
+        torch.cuda.synchronize()
+        if rate > 0:
+            # the factors the kernel applied in its last step, against the
+            # plain version's hash of the same (seed, layer, row, column)
+            masks = ft.saved_dropout(work, spec, b)
+            last = int(seeds[-1])
+            same = all(torch.equal(mk, ft.dropout_scale(last, l, b, mk.shape[1], rate, dev))
+                       for l, mk in enumerate(masks))
+            n = sum(mk.numel() for mk in masks)
+            keep = float(sum((mk > 0).sum() for mk in masks)) / n
+            sigma = ((1 - rate) * rate / n) ** 0.5
+            print(f"K1 dropout {rate}: last step's masks equal the plain version's: {same}; "
+                  f"keep share {keep:.5f} over {n} entries (expected {1 - rate}, "
+                  f"5 sigma {5 * sigma:.5f})")
+            if not same or abs(keep - (1 - rate)) > 5 * sigma:
+                fail(f"K1's dropout masks at rate {rate} are not the plain version's")
+        plain = [t.clone() for t in start]
+        want_rows = ft.forward_train_plain(*plain, streams, spec)
+        torch.cuda.synchronize()
+        rel, err = compare_k1(f"K1 vs plain, dropout {rate}, {K1_EPOCHS} epochs "
+                              f"({rows.shape[0]} steps)", rows, kern, want_rows, plain)
+        stats["rows_rel"] = max(stats["rows_rel"], rel)
+        stats["max_abs_err"] = max(stats["max_abs_err"], err)
+        again = [t.clone() for t in start]
+        rows2 = ft.forward_train(*again, streams, spec)
+        torch.cuda.synchronize()
+        if not (torch.equal(rows2, rows) and all(map(torch.equal, again, kern))):
+            fail(f"K1 rerun from the same state differs (dropout {rate})")
+        print(f"K1 dropout {rate}: a rerun from the same state is bit-identical")
+        if rate == 0.0:
+            eager = make_multi_epoch_fn(make_forward_step(ftx, settings), b)
+            state, ms = eager(state, ds, torch.ones(K1_EPOCHS), indices=idx, seeds=seeds)
+            torch.cuda.synchronize()
+            got = torch.stack([v for v in ft.epoch_means(rows, K1_EPOCHS).values()], 1)
+            want = torch.stack([ms[k] for k in ft.METRIC_KEYS], 1)
+            compare_k1(f"K1 vs the eager autograd step, dropout 0, {K1_EPOCHS} epochs "
+                       "(per-epoch rows)", got, kern, want,
+                       (state.params, state.opt.m, state.opt.v))
+    return stats
+
+
+def phase11_pretrain(cfg, dev, repo: str, G, ds_serving, request) -> dict:
+    """``pretrain-forward`` at the reference workload in a subprocess; the
+    trained F then serves one request.  Returns its launches, wall time and
+    loss curve."""
+    import ast
+    import glob
+    import torch
+    from pigan_thz_torch.config import _to_dict
+    from pigan_thz_torch.models import build_forward_model
+    from pigan_thz_torch.ops import fused_kernels as fk
+    from pigan_thz_torch.serve import make_inverse_design_fn
+    from pigan_thz_torch.train import checkpoint as ckpt
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "saved_models")
+        cmd = [sys.executable, "-m", "pigan_thz_torch", "pretrain-forward",
+               "--epochs", str(PRETRAIN_EPOCHS), "--workdir", tmp, "--out", out,
+               "--no-tensorboard"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"{' '.join(cmd[1:5])} exited {proc.returncode}: {proc.stderr[-3000:]}")
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("kernel launches: ")]
+        if len(lines) != 1:
+            fail(f"pretrain-forward printed {len(lines)} 'kernel launches' lines")
+        launches = ast.literal_eval(lines[0][len("kernel launches: "):])
+        shown = ("forward-training kernel", "eager step", f"epoch {PRETRAIN_EPOCHS}/")
+        for line in proc.stdout.splitlines():
+            if any(key in line for key in shown):
+                print(f"pretrain-forward: {line}")
+        chunks = -(-PRETRAIN_EPOCHS // EPOCHS_PER_CALL)
+        print(f"pretrain-forward: {PRETRAIN_EPOCHS} epochs in {wall:.3f} s wall, "
+              f"launches {launches} ({chunks} chunks of {EPOCHS_PER_CALL} epochs)")
+        if launches.get("forward_train") != chunks:
+            fail(f"pretrain-forward launched K1 {launches.get('forward_train')} times, "
+                 f"not once per chunk ({chunks})")
+
+        runs = glob.glob(os.path.join(tmp, "fwd_pretrain_*", "scalars.jsonl"))
+        with open(runs[0]) as fh:
+            records = [json.loads(line) for line in fh]
+        loss = [r["value"] for r in records if r["tag"] == "forward/loss"]
+        finite = all(x == x and abs(x) != float("inf") for x in loss)
+        marks = sorted({0, len(loss) // 5, len(loss) // 2, len(loss) - 1})
+        curve = ", ".join(f"{loss[i]:.6f} ({i + 1})" for i in marks)
+        print(f"pretrain-forward: loss per epoch {curve}; all finite: {finite}")
+        if len(loss) != PRETRAIN_EPOCHS or not finite or not loss[-1] < 0.05 * loss[0]:
+            fail("pretrain-forward's loss is not finite or did not fall twentyfold")
+
+        saved = ckpt.load_model_config(out)
+        if saved is None or saved["forward_model"] != _to_dict(cfg)["forward_model"]:
+            fail("model_config.json does not hold the run's forward_model section")
+        F = build_forward_model(cfg.forward_model, cfg.data.spectrum_dim,
+                                cfg.data.metrics_dim)
+        ckpt.load_model(out, ckpt.FORWARD_MODEL_PRETRAINED, F)
+    F = F.to(dev).eval()
+
+    before = dict(fk.LAUNCHES)
+    params, spec, met = make_inverse_design_fn(G, F, ds_serving)(request)
+    torch.cuda.synchronize()
+    served = {k: fk.LAUNCHES[k] - before[k] for k in before}
+    b = request.shape[0]
+    ok = (tuple(spec.shape) == (b, cfg.data.spectrum_dim) and tuple(met.shape) == (b, 8)
+          and all(bool(torch.isfinite(t).all()) for t in (params, spec, met)))
+    print(f"pretrain-forward: the trained F serves a B={b} request: launches {served}, "
+          f"finite outputs of the right shapes: {ok}")
+    if not ok or served["fused_mlp_forward"] != 1:
+        fail("the trained forward surrogate did not serve a request through K5")
+    return {"launches": launches, "wall": wall, "loss": loss}
+
+
+def phase12_k1_times(cfg, dev, ds) -> tuple:
+    """Per-epoch CUDA-event medians (ms) of K1, its plain version and the
+    eager step, one epoch each from one state: (kernel, plain, eager)."""
+    import torch
+    from pigan_thz_torch.ops import forward_train as ft
+    from pigan_thz_torch.train.steps import (
+        ForwardStepSettings, make_forward_step, make_multi_epoch_fn)
+
+    settings = ForwardStepSettings()
+    spec = ft.forward_train_spec(cfg, settings)
+    state, ftx, idx, seeds, streams = k1_setup(cfg, dev, ds, 1)
+    kern = [state.params.clone(), state.opt.m.clone(), state.opt.v.clone()]
+    plain = [t.clone() for t in kern]
+    eager = make_multi_epoch_fn(make_forward_step(ftx, settings), cfg.train.batch_size)
+    ones = torch.ones(1)
+
+    def k():
+        ft.forward_train(*kern, streams, spec)
+
+    def p():
+        ft.forward_train_plain(*plain, streams, spec)
+
+    def e():
+        eager(state, ds, ones, indices=idx, seeds=seeds)
+
+    # plain, eager, kernel, kernel, eager, plain: the best of each side's two
+    p1 = cuda_median_ms(p, warmup=1, reps=5)
+    e1 = cuda_median_ms(e, warmup=1, reps=5)
+    k1 = cuda_median_ms(k, warmup=3, reps=20)
+    k2 = cuda_median_ms(k, warmup=3, reps=20)
+    e2 = cuda_median_ms(e, warmup=1, reps=5)
+    p2 = cuda_median_ms(p, warmup=1, reps=5)
+    return min(k1, k2), min(p1, p2), min(e1, e2)
 
 
 def main() -> None:
@@ -579,12 +814,32 @@ def main() -> None:
               f"wall (first and second run), {n / wall:.0f} and {n / again:.0f} "
               f"candidates/s")
 
+    # -- 10. K1 against its plain version ------------------------------------
+    from pigan_thz_torch.data import synthetic_dataset
+
+    train_ds = synthetic_dataset(cfg.data, device=dev)
+    k1_stats = phase10_k1(cfg, dev, train_ds)
+
+    # -- 11. forward pretraining ----------------------------------------------
+    pretrain = phase11_pretrain(cfg, dev, repo, G, ds, requests[64])
+
+    # -- 12. times -------------------------------------------------------------
+    k1_ms, k1_plain_ms, k1_eager_ms = phase12_k1_times(cfg, dev, train_ds)
+    steps = PRETRAIN_EPOCHS * (train_ds.num_samples // cfg.train.batch_size)
+    print(f"time {tag} pretrain-forward {PRETRAIN_EPOCHS} epochs ({steps} steps): "
+          f"{pretrain['wall']:.4f} s wall for the command, {steps / pretrain['wall']:.1f} "
+          f"steps/s")
+    print(f"time {tag} forward_train one epoch (15 steps, B = 64): kernel {k1_ms:.4f} ms, "
+          f"plain {k1_plain_ms:.4f} ms, eager step {k1_eager_ms:.4f} ms (CUDA-event "
+          f"medians; kernel 20 and the others 5 after warm-up, best of two runs each)")
+
     big = max(TIME_BATCHES)   # the times in the record are at B = 8192
     k5_screen = screens[True][2]["fused_mlp_forward"]
     k4_screen = sum(s[2]["dip_qualification"] for s in screens.values())
+    k1_launches = pretrain["launches"]["forward_train"]
     print(f"main-path launches: serving {launches}, dataset dip_qualification "
           f"{dataset_k4}, screens fused_mlp_forward {k5_screen} dip_qualification "
-          f"{k4_screen}")
+          f"{k4_screen}, pretrain-forward forward_train {k1_launches}")
     record = {"kernels": [
         {"name": "fused_mlp_forward", "route": "cuda",
          "source": "pigan_thz_torch/csrc/fused_mlp_chain.cu",
@@ -609,6 +864,13 @@ def main() -> None:
          "ms": k4_times["screen"][0],
          "plain_ms": k4_times["screen"][1],
          "plain_lifted_ms": k4_times["screen"][2]},
+        {"name": "forward_train", "route": "cuda",
+         "source": "pigan_thz_torch/csrc/forward_train.cu",
+         "replaces": "pigan_thz_tpu/ops/megakernel.py:2623",
+         "launches": k1_launches,
+         "max_abs_err": k1_stats["max_abs_err"],
+         "rows_max_rel_err": k1_stats["rows_rel"],
+         "ms": k1_ms, "plain_ms": k1_plain_ms, "eager_ms": k1_eager_ms},
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,12 @@ The port goes slice by slice (ROADMAP.md).  The slices that exist:
   bound in ``ops/peaks.py``);
 - 1e6-candidate inverse-design screening (``design/screening.py``): the
   surrogate and the peak analysis per chunk;
-- the ``generate-data`` and ``convert-cst`` commands (``cli.py``).
+- forward-surrogate pretraining (``train/trainer.py``), each chunk of
+  epochs one launch of the forward-training kernel
+  (``csrc/forward_train.cu``, bound in ``ops/forward_train.py``), or the
+  eager autograd step (``train/steps.py``);
+- the ``generate-data``, ``convert-cst`` and ``pretrain-forward`` commands
+  (``cli.py``).
 """
 
 from .config import (

@@ -8,14 +8,18 @@ given, never as a fallback).
 Commands:
   generate-data     synthesize a reference-schema CSV dataset
   convert-cst       raw CST Studio export -> reference-schema CSV
+  pretrain-forward  train the forward surrogate           (pretrain_fwd_model.py)
 
-The other commands of the JAX package are not ported yet (ROADMAP.md
-queue 1, item 11); ``screen`` waits for the checkpoints of item 7.
+``pretrain-forward`` writes ``forward_model_pretrained.pth`` (F's torch
+state_dict) and ``model_config.json`` under ``--out``.  The other commands
+of the JAX package are not ported yet (ROADMAP.md queue 1, item 11);
+``screen`` waits for the checkpoints of item 7.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 from typing import List
 
 import torch
@@ -100,6 +104,33 @@ def cmd_convert_cst(args) -> int:
     return 0
 
 
+def cmd_pretrain_forward(args) -> int:
+    cfg = _make_cfg(args)
+    device = _device(args)
+    if args.epochs is not None:
+        # keep the cosine horizon tied to the actual run length, like the
+        # reference's CosineAnnealingLR(T_max=num_epochs)
+        cfg = apply_overrides(cfg, [f"train.fwd_pretrain_epochs={args.epochs}"])
+    from .ops._cuda_build import LAUNCHES
+    from .train import checkpoint as ckpt
+    from .train.trainer import Trainer
+    from .utils.logging import RunLogger
+
+    logger = RunLogger(cfg.workdir, name="fwd_pretrain", use_tensorboard=args.tensorboard,
+                       use_wandb=args.wandb)
+    try:
+        trainer = Trainer(cfg, logger=logger, csv_path=args.csv, device=device)
+        trainer.pretrain_forward(epochs=args.epochs, lr=args.lr)
+        out = args.out or os.path.join(cfg.workdir, "saved_models")
+        ckpt.save_model(out, ckpt.FORWARD_MODEL_PRETRAINED, trainer.forward_state.f)
+        ckpt.save_model_config(out, cfg)
+        logger.info(f"kernel launches: {dict(LAUNCHES)}")
+        logger.info(f"saved pretrained forward model under {out}")
+    finally:
+        logger.close()
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="pigan_thz_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -125,6 +156,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="derive the frequency grid from the export's sweep "
                         "instead of requiring it to cover data.freq_min/max")
     g.set_defaults(fn=cmd_convert_cst)
+
+    g = sub.add_parser("pretrain-forward", help="pretrain the forward surrogate")
+    _base_parser(g)
+    g.add_argument("--epochs", type=int, default=None)
+    g.add_argument("--lr", type=float, default=None)
+    g.add_argument("--out", default=None,
+                   help="directory for the artifacts (default <workdir>/saved_models)")
+    g.add_argument("--tensorboard", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="write tfevents scalars under <run_dir>/tb (on by default)")
+    g.add_argument("--wandb", action="store_true",
+                   help="also log scalars to Weights & Biases (needs the wandb package)")
+    g.set_defaults(fn=cmd_pretrain_forward)
     return p
 
 

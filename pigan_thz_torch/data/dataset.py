@@ -354,3 +354,62 @@ def load_or_synthesize(
     if csv_path and os.path.exists(csv_path):
         return load_csv(csv_path, cfg, device=device)
     return synthetic_dataset(cfg, device=device)
+
+
+def split_dataset(
+    ds: ThzDataset, val_frac: float = 0.2, generator: torch.Generator | None = None
+) -> tuple[ThzDataset, ThzDataset]:
+    """Shuffled (train, validation) split.  The permutation comes from
+    ``generator`` (a CPU generator; seed 0 when None).  Normalisation
+    statistics stay those of the full dataset, so both splits share one
+    scale."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    n = ds.num_samples
+    n_val = max(1, int(round(n * val_frac)))
+    perm = torch.randperm(n, generator=generator).to(ds.spectra.device)
+    val_idx, train_idx = perm[:n_val], perm[n_val:]
+
+    def take(idx):
+        return ds._replace(
+            spectra=ds.spectra[idx],
+            params=ds.params[idx],
+            params_norm=ds.params_norm[idx],
+            metrics=ds.metrics[idx],
+            metrics_norm=ds.metrics_norm[idx],
+        )
+
+    return take(train_idx), take(val_idx)
+
+
+# ---------------------------------------------------------------------------
+# Batching (index-shuffled)
+# ---------------------------------------------------------------------------
+
+
+def epoch_indices(
+    generator: torch.Generator, num_samples: int, batch_size: int
+) -> torch.Tensor:
+    """(steps, batch) int64 index matrix of one shuffled epoch, on the CPU,
+    with steps = max(1, N // B).  As in the JAX package, the last N mod B
+    samples of the permutation sit the epoch out, and a dataset smaller than
+    one batch repeats its permutation (tiled) to fill the batch, so every
+    step has the full batch shape."""
+    steps = max(1, num_samples // batch_size)
+    perm = torch.randperm(num_samples, generator=generator)
+    needed = steps * batch_size
+    if needed > num_samples:
+        perm = perm.repeat(-(-needed // num_samples))
+    return perm[:needed].reshape(steps, batch_size)
+
+
+def gather_batch(ds: ThzDataset, idx: torch.Tensor):
+    """One minibatch (spectra, params, params_norm, metrics, metrics_norm)
+    at the indices ``idx`` (on the dataset's device)."""
+    return (
+        ds.spectra[idx],
+        ds.params[idx],
+        ds.params_norm[idx],
+        ds.metrics[idx],
+        ds.metrics_norm[idx],
+    )

@@ -13,6 +13,10 @@ Mapping rules:
 - torch BatchNorm1d ``weight/bias/running_mean/running_var`` map to flax
   ``scale/bias`` (params) + ``mean/var`` (batch_stats).
 - torch LayerNorm ``weight/bias`` -> flax ``scale/bias``.
+
+``load_forward_state_`` and ``forward_state_to_flax`` carry the
+forward-pretraining state (F's parameters, Adam's moments, the count) the
+same way, so that both packages can train on from one state.
 """
 
 from __future__ import annotations
@@ -121,3 +125,48 @@ def to_flax(state_dict: Mapping[str, torch.Tensor], kind: str) -> dict:
     if stats:
         variables["batch_stats"] = stats
     return variables
+
+
+# ---------------------------------------------------------------------------
+# Forward-pretraining state: F's parameters, Adam's moments and count
+# ---------------------------------------------------------------------------
+
+
+def _flat(state_dict: Mapping[str, torch.Tensor], module: torch.nn.Module) -> torch.Tensor:
+    """A state_dict's parameters as one vector in ``module``'s flat order."""
+    return torch.cat([state_dict[name].reshape(-1) for name, _ in module.named_parameters()])
+
+
+def _unflat(flat: torch.Tensor, module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    out, pos = {}, 0
+    for name, p in module.named_parameters():
+        out[name] = flat[pos: pos + p.numel()].view(p.shape)
+        pos += p.numel()
+    return out
+
+
+@torch.no_grad()
+def load_forward_state_(state, params: Mapping, mu: Mapping, nu: Mapping, count: int,
+                        step: int | None = None):
+    """Overwrite the port's ``ForwardState`` (``train/state.py``) in place
+    with a JAX ``ForwardState`` carried across as numpy: F's flax params
+    tree, Adam's ``mu`` and ``nu`` trees (the same structure) and its
+    count; ``step`` defaults to ``count``.  Returns ``state``."""
+    f = state.f
+    for dst, tree in ((state.params, params), (state.opt.m, mu), (state.opt.v, nu)):
+        sd = from_flax({"params": tree}, "forward_model")
+        dst.copy_(_flat(sd, f).to(dst.device))
+    state.opt.count = int(count)
+    state.step = int(count if step is None else step)
+    return state
+
+
+def forward_state_to_flax(state) -> dict:
+    """The port's ``ForwardState`` as the JAX package's pieces, in numpy:
+    {"params", "mu", "nu"} flax trees, "count" and "step"."""
+    out = {}
+    for key, flat in (("params", state.params), ("mu", state.opt.m), ("nu", state.opt.v)):
+        out[key] = to_flax(_unflat(flat.detach(), state.f), "forward_model")["params"]
+    out["count"] = int(state.opt.count)
+    out["step"] = int(state.step)
+    return out

@@ -9,8 +9,8 @@ Norm constants are flax's, not torch's defaults:
 - LayerNorm eps 1e-6 (flax default; torch's is 1e-5);
 - BatchNorm eps 1e-5, torch momentum 0.1 == flax momentum 0.9.
   flax updates the running variance with the biased batch variance and
-  torch with the unbiased one; that matters only to a training step, which
-  the port does not have yet.
+  torch with the unbiased one; that matters only to the GAN training step
+  (G's BatchNorms), which the port does not have yet.
 
 ``flax_init_`` reproduces flax's initialisers (truncated lecun_normal
 kernels, zero biases, unit norm scales, BatchNorm stats 0 / 1), drawing

@@ -1,3 +1,3 @@
-from . import fused_kernels, peaks
+from . import fused_kernels, losses, peaks
 
-__all__ = ["fused_kernels", "peaks"]
+__all__ = ["fused_kernels", "losses", "peaks"]

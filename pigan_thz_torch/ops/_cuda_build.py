@@ -12,7 +12,8 @@ No ``--use_fast_math``: tanhf, rsqrtf and the divisions stay IEEE so that
 the kernels hold fp32 parity with their plain PyTorch versions.
 
 ``LAUNCHES`` counts each kernel's successful launches; only ``launch``,
-which the wrappers (``fused_kernels.py``, ``peaks.py``) call, adds to it.
+which the wrappers (``fused_kernels.py``, ``peaks.py``,
+``forward_train.py``) call, adds to it.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fused_mlp_chain.cu", "dip_qualification.cu")
+SOURCES = ("fused_mlp_chain.cu", "dip_qualification.cu", "forward_train.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -39,6 +40,7 @@ LAUNCHES: dict[str, int] = {
     "fused_mlp_forward": 0,
     "fused_dense_chain": 0,
     "dip_qualification": 0,
+    "forward_train": 0,
 }
 
 _P = ctypes.c_void_p
@@ -46,12 +48,18 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _OFFSETS = ctypes.POINTER(ctypes.c_longlong)
 _DIMS = ctypes.POINTER(ctypes.c_int)
+_U32 = ctypes.c_uint32
 
 # C entry point -> argtypes; every one returns a cudaError_t as int.
 ENTRY_POINTS = {
     "pigan_fused_mlp_forward": [_P, _P, _P, _OFFSETS, _DIMS, _I, _I, _F, _F, _P],
     "pigan_fused_dense_chain": [_P, _P, _P, _OFFSETS, _DIMS, _I, _I, _P],
     "pigan_dip_qualification": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
+    "pigan_forward_train": [
+        _P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_U32),
+        _P, _P, ctypes.c_longlong, _DIMS, _I, _OFFSETS, _I, _I, _I,
+        ctypes.POINTER(ctypes.c_double), _U32, _P,
+    ],
 }
 
 

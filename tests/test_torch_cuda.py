@@ -8,7 +8,9 @@ file imports no JAX, so it also runs where JAX is not installed:
 Weights are full-width, seeded, with flax's initialisation and non-trivial
 generator BatchNorm stats, so the folding is exercised.  The
 dip-qualification kernel (K4) is held against both of its plain versions on
-the spectra classes of tests/test_peaks.py.
+the spectra classes of tests/test_peaks.py.  The forward-training kernel
+(K1) is held against its plain version and the eager step over 2 epochs of
+a 1000-sample dataset, with the tolerances of ``chip_smoke.py``.
 """
 
 import copy
@@ -16,18 +18,30 @@ import copy
 import pytest
 import torch
 
+import dataclasses
+
 from pigan_thz_torch import default_config
 from pigan_thz_torch.data import (
     build_dataset,
     denormalize_params,
     sample_params,
     synthesize_spectra,
+    synthetic_dataset,
 )
 from pigan_thz_torch.design import ScreeningConfig, screen_designs
 from pigan_thz_torch.models import build_forward_model, build_generator
+from pigan_thz_torch.ops import forward_train as ft
 from pigan_thz_torch.ops import fused_kernels as fk
 from pigan_thz_torch.ops import peaks as pk
 from pigan_thz_torch.serve import make_inverse_design_fn
+from pigan_thz_torch.train.schedules import make_schedule
+from pigan_thz_torch.train.state import init_forward_state, make_optimizers
+from pigan_thz_torch.train.steps import (
+    ForwardStepSettings,
+    make_forward_step,
+    make_multi_epoch_fn,
+)
+from pigan_thz_torch.train.trainer import Trainer
 
 torch.set_num_threads(1)
 
@@ -122,7 +136,8 @@ def test_cycle_matches_unfused_modules(dev, models):
     got = fn(spectra)
     torch.cuda.synchronize()
     assert {k: fk.LAUNCHES[k] - before[k] for k in before} == {
-        "fused_mlp_forward": 1, "fused_dense_chain": 1, "dip_qualification": 0}
+        "fused_mlp_forward": 1, "fused_dense_chain": 1, "dip_qualification": 0,
+        "forward_train": 0}
     with torch.no_grad():
         pn = g(spectra)
         want = (denormalize_params(pn, ds.param_lo, ds.param_hi), *f(pn))
@@ -206,8 +221,109 @@ def test_screening_launches_per_chunk(use_pallas, dev, models):
     torch.cuda.synchronize()
     assert {k: fk.LAUNCHES[k] - before[k] for k in before} == {
         "fused_mlp_forward": 3 if use_pallas else 0, "fused_dense_chain": 0,
-        "dip_qualification": 3}
+        "dip_qualification": 3, "forward_train": 0}
     v = res.valid
     assert bool(v.any()) and bool(torch.isfinite(res.scores[v]).all())
     assert bool((res.scores[:-1] >= res.scores[1:]).all())
     assert bool(((res.params >= 2.2) & (res.params <= 2.8)).all())
+
+
+# -- K1: forward-surrogate pretraining ---------------------------------------
+# Tolerances and their reasons: chip_smoke.py (K1_*).
+K1_ROWS_RTOL, K1_PARAM_ATOL, K1_M_ATOL, K1_V_ATOL = 5e-4, 1e-3, 1e-5, 1e-8
+
+
+@pytest.fixture(scope="module")
+def train_ds():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return synthetic_dataset(default_config().data, device=torch.device("cuda", 0))
+
+
+def _k1_setup(ds, rate, epochs=2, seed=0):
+    cfg = default_config()
+    cfg = cfg.replace(forward_model=dataclasses.replace(cfg.forward_model,
+                                                        dropout_rate=rate))
+    _, _, ftx = make_optimizers(cfg, 15)
+    state = init_forward_state(build_forward_model(cfg.forward_model), ftx, seed,
+                               device=ds.spectra.device)
+    idx, seeds = ft.resolve_draws(torch.Generator().manual_seed(seed), ds.num_samples, 64,
+                                  epochs)
+    sched = make_schedule("cosine", 1e-3, 500, 15, schedule_alpha=0.0)
+    streams = ft.build_streams(ds, idx, seeds, torch.ones(epochs), 0, sched)
+    return cfg, state, ftx, idx, seeds, streams
+
+
+def _assert_k1_close(rows, state, want_rows, want_state):
+    assert float(((rows - want_rows).abs() / want_rows.abs()).max()) <= K1_ROWS_RTOL
+    for a, b, tol in zip(state, want_state, (K1_PARAM_ATOL, K1_M_ATOL, K1_V_ATOL)):
+        assert float((a - b).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("settings", [ForwardStepSettings(),
+                                      ForwardStepSettings(5.0, 2.0, 0.5, 0.5)],
+                         ids=["mse", "weighted_smooth_l1"])
+@pytest.mark.parametrize("rate", [0.2, 0.0])
+def test_forward_train_kernel_matches_plain(rate, settings, dev, train_ds):
+    cfg, state, _, _, seeds, streams = _k1_setup(train_ds, rate)
+    spec = ft.forward_train_spec(cfg, settings)
+    kern = [state.params.clone(), state.opt.m.clone(), state.opt.v.clone()]
+    plain = [t.clone() for t in kern]
+    work = torch.empty(ft.workspace_floats(spec, 64), device=dev)
+    before = ft.LAUNCHES["forward_train"]
+    rows = ft.forward_train(*kern, streams, spec, work=work)
+    torch.cuda.synchronize()
+    assert ft.LAUNCHES["forward_train"] == before + 1
+    if rate:
+        for l, mk in enumerate(ft.saved_dropout(work, spec, 64)):
+            assert torch.equal(mk, ft.dropout_scale(int(seeds[-1]), l, 64, mk.shape[1],
+                                                    rate, dev))
+    want = ft.forward_train_plain(*plain, streams, spec)
+    assert rows.shape == (30, 3) and bool(torch.isfinite(rows).all())
+    _assert_k1_close(rows, kern, want, plain)
+
+
+def test_forward_train_kernel_rerun_is_bit_identical(dev, train_ds):
+    cfg, state, _, _, _, streams = _k1_setup(train_ds, 0.2, epochs=1)
+    spec = ft.forward_train_spec(cfg, ForwardStepSettings())
+    runs = []
+    for _ in range(2):
+        s = [state.params.clone(), state.opt.m.clone(), state.opt.v.clone()]
+        runs.append((ft.forward_train(*s, streams, spec), s))
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(map(torch.equal, runs[0][1], runs[1][1]))
+
+
+def test_forward_train_kernel_matches_eager_step(dev, train_ds):
+    cfg, state, ftx, idx, seeds, streams = _k1_setup(train_ds, 0.0)
+    settings = ForwardStepSettings()
+    spec = ft.forward_train_spec(cfg, settings)
+    kern = [state.params.clone(), state.opt.m.clone(), state.opt.v.clone()]
+    rows = ft.epoch_means(ft.forward_train(*kern, streams, spec), 2)
+    eager = make_multi_epoch_fn(make_forward_step(ftx, settings), 64)
+    state, ms = eager(state, train_ds, torch.ones(2), indices=idx, seeds=seeds)
+    torch.cuda.synchronize()
+    got = torch.stack([rows[k] for k in ft.METRIC_KEYS])
+    want = torch.stack([ms[k] for k in ft.METRIC_KEYS])
+    _assert_k1_close(got, kern, want, (state.params, state.opt.m, state.opt.v))
+
+
+def test_forward_train_wrapper_refuses(dev, train_ds):
+    cfg, state, _, _, _, streams = _k1_setup(train_ds, 0.2, epochs=1)
+    spec = ft.forward_train_spec(cfg, ForwardStepSettings())
+    s = [state.params, state.opt.m, state.opt.v]
+    with pytest.raises(ValueError, match="work"):
+        ft.forward_train(*s, streams, spec, work=torch.empty(16, device=dev))
+    cpu_streams = streams._replace(spectra=streams.spectra.cpu())
+    with pytest.raises(ValueError):
+        ft.forward_train(*s, cpu_streams, spec)
+
+
+def test_trainer_launches_the_kernel_once_per_chunk(dev, train_ds):
+    trainer = Trainer(default_config(), ds=train_ds, epochs_per_call=2, device=dev)
+    before = ft.LAUNCHES["forward_train"]
+    hist = trainer.pretrain_forward(epochs=5)
+    assert ft.LAUNCHES["forward_train"] == before + 3
+    loss = hist["forward/loss"]
+    assert len(loss) == 5 and all(x == x for x in loss) and loss[-1] < loss[0]

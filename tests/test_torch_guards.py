@@ -1,6 +1,6 @@
-"""Guards on the port's boundaries: no JAX and no pandas inside it, no result
-from the chip smoke test without a card, no kernel launch for a CPU tensor,
-no CPU fallback for a missing card."""
+"""Guards on the port's boundaries: no JAX, flax, optax, orbax or pandas
+inside it, no result from the chip smoke test without a card, no kernel
+launch for a CPU tensor, no CPU fallback for a missing card."""
 
 import os
 import shutil
@@ -13,8 +13,11 @@ import torch
 from pigan_thz_torch import default_config
 from pigan_thz_torch.design import ScreeningConfig, screen_designs
 from pigan_thz_torch.models import build_forward_model, build_generator
+from pigan_thz_torch.ops import forward_train as ft
 from pigan_thz_torch.ops import fused_kernels as fk
 from pigan_thz_torch.ops import peaks as pk
+from pigan_thz_torch.train.state import init_forward_state, make_optimizers
+from pigan_thz_torch.train.steps import ForwardStepSettings
 
 torch.set_num_threads(1)
 
@@ -27,8 +30,9 @@ names = [m.name for m in pkgutil.walk_packages(pigan_thz_torch.__path__, "pigan_
          if not m.name.endswith(".__main__")]     # __main__ runs the CLI
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 19, names
-jax = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "flax")))
+assert len(names) >= 30, names
+jax = sorted(m for m in sys.modules if m in ("jax", "flax", "optax", "orbax")
+             or m.startswith(("jax.", "jaxlib", "flax.", "optax.", "orbax.")))
 assert not jax, jax
 # the card's machine has no pandas
 assert not any(m == "pandas" or m.startswith("pandas.") for m in sys.modules)
@@ -99,7 +103,7 @@ def test_cpu_peaks_and_screening_launch_nothing():
                                        use_pallas=use_pallas))
     assert fk.LAUNCHES == before
     assert set(fk.LAUNCHES) == {"fused_mlp_forward", "fused_dense_chain",
-                                "dip_qualification"}
+                                "dip_qualification", "forward_train"}
 
 
 @pytest.mark.parametrize("bad", ["float64", "non_contiguous", "rank_1", "meta"])
@@ -125,3 +129,38 @@ def test_generate_data_without_a_card_does_not_fall_back(tmp_path):
     assert proc.returncode != 0
     assert "--device cpu" in proc.stderr
     assert not out.exists()
+
+
+def test_cpu_forward_train_launches_nothing():
+    cfg = default_config()
+    _, _, ftx = make_optimizers(cfg, 1)
+    st = init_forward_state(build_forward_model(cfg.forward_model), ftx, 0)
+    spec = ft.forward_train_spec(cfg, ForwardStepSettings())
+    gen = torch.Generator().manual_seed(0)
+    streams = ft.Streams(torch.rand(2, 8, 4, generator=gen),
+                         torch.rand(2, 8, 250, generator=gen),
+                         torch.rand(2, 8, 8, generator=gen),
+                         torch.tensor([[1e-3, 10.0, 1000.0], [1e-3, 5.3, 500.0]]),
+                         torch.tensor([1, 2]))
+    before = dict(ft.LAUNCHES)
+    a = [st.params.clone(), st.opt.m.clone(), st.opt.v.clone()]
+    b = [t.clone() for t in a]
+    rows = ft.forward_train(*a, streams, spec)
+    assert ft.LAUNCHES == before
+    assert torch.equal(rows, ft.forward_train_plain(*b, streams, spec))
+    assert all(map(torch.equal, a, b))
+    with pytest.raises(ValueError, match="stream spectra"):
+        ft.forward_train(*a, streams._replace(spectra=streams.spectra[:, :, :249]), spec)
+
+
+def test_pretrain_forward_without_a_card_does_not_fall_back(tmp_path):
+    out = tmp_path / "saved"
+    proc = subprocess.run(
+        [sys.executable, "-m", "pigan_thz_torch", "pretrain-forward", "--epochs", "1",
+         "--set", "data.num_samples=8", "--workdir", str(tmp_path / "runs"),
+         "--out", str(out)],
+        cwd=REPO, capture_output=True, text=True, timeout=300, env=_env_without_card(),
+    )
+    assert proc.returncode != 0
+    assert "--device cpu" in proc.stderr
+    assert not out.exists() and not (tmp_path / "runs").exists()
