@@ -5,7 +5,8 @@
 
 Drives the port's slices at full published width through the
 hand-written CUDA kernels: the inverse-design serving cycle on the baseline
-MLP trio, dataset generation, and the 1e6-candidate screen:
+MLP trio, dataset generation, the 1e6-candidate screen, forward pretraining
+and the full training command (forward pretraining, then the PI-GAN phase):
 
 1. environment: the card's name and power limit, torch and CUDA versions;
    TF32 off for every fp32 product of the plain references;
@@ -48,7 +49,40 @@ MLP trio, dataset generation, and the 1e6-candidate screen:
     starts, artifacts that load into ``build_forward_model``, and the
     trained F answering one serving request through K5;
 12. times: the 500-epoch run's wall time and steps/s, and per-epoch
-    CUDA-event medians of K1, its plain version and the eager step.
+    CUDA-event medians of K1, its plain version and the eager step;
+13. the GAN-training kernel (K2) against its plain version on the card:
+    the seeded full-width trio (F after 30 epochs through K1, G's BatchNorm
+    stats non-trivial), for ``detach_forward`` False and True and for a mix
+    of knobs (``d_update_every`` 2, constraint, window, ``sigmoid_squash``,
+    EMA).  The first step and the first three steps against the plain
+    version in float64, tensor by tensor and relative to what the steps
+    changed: Adam's two moments, the parameter update, the EMA's update and
+    the BatchNorm stats' as close to float64 as the float32 plain version
+    is.  Then 2 epochs (30 steps) from one state and one set of streams
+    against the float32 plain version (rows, and by part of the state the
+    distance relative to what the steps changed, held against the float32
+    plain version's own distance from float64), a rerun bit-identical; at
+    the defaults also the eager autograd step;
+14. ``python -m pigan_thz_torch train --mode full`` in a subprocess at the
+    reference workload (500 forward epochs, then 500 GAN epochs), once as
+    typed (F's input detached in the PI-GAN phase) and once with
+    ``--fixed-physics`` (gradients through the frozen F): each 20 K1 and 20
+    K2 launches, finite rows, the three final artifacts loading into
+    ``build_trio``, the trained G and F answering a B = 64 request through
+    K6 and K5 inside the design box, and (printed, not gated) the R² of G's
+    normalised params over the training set; with ``--fixed-physics`` also
+    a reconstruction loss that ends below half of where it starts;
+15. times: both commands' wall time and steps/s, per-epoch CUDA-event medians
+    of K2, its plain version and the eager step in both ``detach_forward``
+    modes, and a ``torch.profiler`` breakdown of one K2 launch of 5 epochs.
+
+The ``kernels`` record gives each kernel's launches on the main path, its
+error against its plain version, its time beside the plain version's, the
+least time the card could take for the same work (``bound_ms``: the larger
+of the operations over 67 TFLOP/s fp32 and the bytes, each input read once
+and each output written once, over 3.35 TB/s; ``bound_by`` says which), and
+``library_ms``, the time of one PyTorch call that computes the same function
+where there is one (the modules' eval-mode forward for K5 and K6), else null.
 
 Any failed check raises, and the script exits non-zero.  Without a CUDA
 device, or away from the package, it exits non-zero and prints no result.
@@ -97,6 +131,50 @@ K1_PARAM_ATOL = 1e-3
 K1_M_ATOL = 1e-5
 K1_V_ATOL = 1e-8
 K1_EPOCHS = 2
+# K2, the first step and the first three steps against the plain version in
+# float64, tensor by tensor and relative to what the steps changed
+# (``gan_train.step_errors``): Adam's two moments, the parameter update, the
+# EMA's update and the BatchNorm stats' are each at most K2_ROUNDING times as
+# far from float64 as the float32 plain version is, or within K2_STEP_FLOOR;
+# the rows agree to K2_STEP_ROWS_RTOL with equal counts.  One step is held
+# to rounding (floor 1e-6): it holds the gradients, the clip, lr, eps and
+# the EMA's decay.  Over three steps rounding is already amplified some
+# tenfold, by another factor from run to run (measured: the kernel 7.5e-4
+# where the float32 plain version was 1.4e-4 on the card and 1.2e-3 on a
+# CPU), so the floor there is 1e-2 of the change: far below what a wrong
+# bias correction at counts 2 and 3 (0.3 and more) or, in the knob mix, a D
+# update that ignored its gate (1) would show.
+K2_ROUNDING = 8.0
+K2_STEP_FLOOR = {1: 1e-6, 3: 1e-2}
+K2_STEP_ROWS_RTOL = 1e-4
+# K2 over 30 steps against the float32 plain version (and the eager step).
+# Adam divides each moment by its own root, so an entry whose gradient is at
+# the rounding level steps by up to lr in either direction; G's BatchNorms
+# over 64 rows spread such steps over whole columns, and D then sees other
+# fakes.  Two float32 trajectories drift apart at that rate and do not come
+# back.  Each part of the state (``gan_train.state_diffs``: parameters
+# outside the gauge leaves, moments, BatchNorm stats, EMA) is held in
+# relative L2 against what the 30 steps changed, not against its own norm,
+# which 30 steps at lr 2e-4 move by 1e-2 at most: K2_PART_RTOL is four times
+# the largest distance measured (parameters 5.9e-2, BatchNorm stats 2.6e-3,
+# second moments 1.4e-2, first moments 9.5e-2, and 1.2e-1 to the eager
+# step).  The float32 plain version's own distance from the float64 run is
+# printed beside each (3e-2 to 7e-2 for G's parameters and first moments):
+# the drift is float32's, not the kernel's.  A part that did not move
+# (distance 1) or moved at another rate is outside every limit.  Metric rows
+# within K2_ROWS_RTOL (measured 1e-2), the counts within K2_COUNT_ATOL (two
+# rows of the batch on the other side of a threshold).
+K2_ROWS_RTOL = 5e-2
+K2_PART_RTOL = {"g": 0.25, "d": 0.25, "ema": 0.25, "bn": 2e-2, "g_v": 0.1, "d_v": 0.1,
+                "g_m": 0.5, "d_m": 0.5}
+K2_COUNT_ATOL = 2 / 64
+K2_EPOCHS = 2
+K2_F_EPOCHS = 30
+K2_MIX = dict(detach_forward=False, d_update_every=2, constraint_w=0.7, window_w=0.3,
+              sigmoid_squash=True, ema_decay=0.99)
+GAN_EPOCHS = 500
+PEAK_FP32_FLOPS = 67e12     # H100 SXM, fp32 outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12  # HBM3
 PRETRAIN_EPOCHS = 500
 EPOCHS_PER_CALL = 25
 REQUEST_BATCHES = (1, 64, 8192, 65536)
@@ -351,7 +429,7 @@ def phase8_screen(F, cfg, dev, lo, hi) -> dict:
         got = dict(LAUNCHES)
         want = {"fused_mlp_forward": n_chunks if use_pallas else 0,
                 "fused_dense_chain": 0, "dip_qualification": n_chunks,
-                "forward_train": 0}
+                "forward_train": 0, "gan_train": 0}
         print(f"screen {label}: {sc.num_candidates} candidates in {n_chunks} chunks "
               f"of {sc.chunk_size}, launches {got}")
         if got != want:
@@ -393,6 +471,14 @@ def phase9_k4_times(gen, cfg, dev, f_packed) -> dict:
         "screen": fk.forward_surrogate_fused(f_packed, pn)[0].contiguous(),
     }
     times = {}
+    # The kernel's work depends on the data: two neighbour comparisons on
+    # each side of every sample, and at each peak the walks to the higher
+    # samples and the half-height crossings, at least the peak's width (in
+    # samples) of loads, minima and comparisons on both sides.
+    got = pk.batched_dip_qualification(inputs["screen"])
+    times["screen_ops"] = 4.0 * inputs["screen"].numel() + 6.0 * float(
+        got.width[got.is_peak].sum())
+    times["screen_bytes"] = inputs["screen"].numel() * (4 + 1 + 1 + 4 + 4)
     for name, t in inputs.items():
         # plain, kernel, kernel, plain: the best of each side's two runs
         p1 = cuda_median_ms(pk.dip_qualification, t, warmup=3, reps=10)
@@ -418,7 +504,8 @@ def k1_setup(cfg, dev, ds, epochs: int):
     b = cfg.train.batch_size
     spe = ds.num_samples // b
     _, _, ftx = make_optimizers(cfg, spe)
-    f = build_forward_model(cfg.forward_model, cfg.data.spectrum_dim, cfg.data.metrics_dim)
+    f = build_forward_model(cfg.forward_model, cfg.data.spectrum_dim, cfg.data.metrics_dim,
+                            device="cpu")
     state = init_forward_state(f, ftx, SEED, device=dev)
     idx, seeds = ft.resolve_draws(torch.Generator().manual_seed(SEED), ds.num_samples, b,
                                   epochs)
@@ -557,7 +644,7 @@ def phase11_pretrain(cfg, dev, repo: str, G, ds_serving, request) -> dict:
         if saved is None or saved["forward_model"] != _to_dict(cfg)["forward_model"]:
             fail("model_config.json does not hold the run's forward_model section")
         F = build_forward_model(cfg.forward_model, cfg.data.spectrum_dim,
-                                cfg.data.metrics_dim)
+                                cfg.data.metrics_dim, device="cpu")
         ckpt.load_model(out, ckpt.FORWARD_MODEL_PRETRAINED, F)
     F = F.to(dev).eval()
 
@@ -608,6 +695,358 @@ def phase12_k1_times(cfg, dev, ds) -> tuple:
     e2 = cuda_median_ms(e, warmup=1, reps=5)
     p2 = cuda_median_ms(p, warmup=1, reps=5)
     return min(k1, k2), min(p1, p2), min(e1, e2)
+
+def roofline(flops: float, nbytes: float) -> tuple:
+    """(bound_ms, bound_by): the least time the card could take for work of
+    ``flops`` fp32 operations and ``nbytes`` bytes moved once."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def chain_macs(dims) -> int:
+    return sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+
+
+def k2_setup(cfg, dev, ds, f, epochs: int, knobs: dict):
+    """The seeded full-width trio on the card as a fresh PiGanState (F a
+    copy of ``f``, G's BatchNorm stats perturbed), the eager optimisers, the
+    settings, the kernel's spec and the draws and streams of ``epochs``
+    epochs of ``ds``."""
+    import torch
+    from pigan_thz_torch.models import build_trio
+    from pigan_thz_torch.ops import forward_train as ft
+    from pigan_thz_torch.ops import gan_train as gt
+    from pigan_thz_torch.train.schedules import cosine_schedule, step_schedule
+    from pigan_thz_torch.train.state import init_pigan_state, make_optimizers
+    from pigan_thz_torch.train.steps import StepSettings
+
+    b = cfg.train.batch_size
+    spe = ds.num_samples // b
+    settings = StepSettings.from_config(cfg, **knobs)
+    gtx, dtx, _ = make_optimizers(cfg, spe)
+    g, d, _ = build_trio(cfg, device="cpu")
+    state = init_pigan_state(g, d, f, gtx, dtx, SEED, device=dev,
+                             ema=settings.ema_decay > 0)
+    perturb_batch_stats_(state.g, torch.Generator().manual_seed(SEED))
+    idx, seeds = ft.resolve_draws(torch.Generator().manual_seed(SEED), ds.num_samples, b,
+                                  epochs)
+    scales = torch.linspace(1.0, 0.5, epochs)
+    streams = gt.build_streams(
+        ds, idx, scales, 0, 0, 0, settings.d_update_every,
+        cosine_schedule(cfg.train.lr_g, cfg.train.num_epochs, spe, 0.01),
+        step_schedule(cfg.train.lr_d, cfg.train.num_epochs, spe, 0.5, 0.25))
+    spec = gt.gan_train_spec(cfg, settings)
+    return state, (gtx, dtx), settings, spec, idx, seeds, scales, streams
+
+
+def k2_state_tensors(state) -> list:
+    """Every tensor a K2 chunk updates in place."""
+    from pigan_thz_torch.ops import gan_train as gt
+
+    bufs = gt.state_buffers(state)
+    return [t for t in (*bufs[:6], *bufs.bn, bufs.g_ema) if t is not None]
+
+
+def compare_k2(label: str, rows, bufs, want_rows, want_bufs, start, yard, spec, keys) -> tuple:
+    """Metric rows (T or E, len(keys)) and the state buffers of two runs from
+    ``start``; ``yard`` is the float32 plain version's distance from the
+    float64 run by part, printed beside.  Fails beyond the K2 trajectory
+    tolerances.  Returns
+    (rows max rel err, max |err| of G's and D's parameters outside the gauge
+    leaves)."""
+    from pigan_thz_torch.ops import gan_train as gt
+
+    counts = [keys.index(k) for k in ("d_accuracy", "violation_rate")]
+    floats = [j for j in range(len(keys)) if j not in counts]
+    cnt = float((rows[:, counts] - want_rows[:, counts]).abs().max())
+    rel = float(((rows - want_rows).abs() / want_rows.abs().clamp(min=1e-3))[:, floats].max())
+    diffs = gt.state_diffs(bufs, want_bufs, start, spec)
+    parts = ", ".join(f"{k} {a:.3e}/{r:.3e} (float32 plain to float64 {yard[k][1]:.3e})"
+                      for k, (a, r) in diffs.items())
+    print(f"{label}: rows max rel err {rel:.3e} (rtol {K2_ROWS_RTOL}), counts max|err| "
+          f"{cnt:.4f} (atol {K2_COUNT_ATOL:.4f}); max|err| / L2 relative to the change, by "
+          f"part: {parts} (within {K2_PART_RTOL})")
+    far = {k: r for k, (_, r) in diffs.items() if not r <= K2_PART_RTOL[k]}
+    if far or not (rel <= K2_ROWS_RTOL and cnt <= K2_COUNT_ATOL):
+        fail(f"{label}: outside tolerance; parts beyond their limit: {far}")
+    return rel, max(diffs["g"][0], diffs["d"][0])
+
+
+def k2_first_steps(label: str, state, streams, spec, n: int) -> float:
+    """The first ``n`` steps from ``state`` through the kernel, the float32
+    plain version and the float64 plain version; returns the kernel's
+    largest relative error in a tensor of Adam's first moments."""
+    import torch
+    from pigan_thz_torch.ops import gan_train as gt
+
+    few = streams._replace(spectra=streams.spectra[:n], params=streams.params[:n],
+                           metrics_norm=streams.metrics_norm[:n], sched=streams.sched[:n])
+    start = gt.state_buffers(state)
+    kern, plain = gt.state_buffers(state.clone()), gt.state_buffers(state.clone())
+    exact = gt.to_double(gt.state_buffers(state.clone()))
+    rows = gt.gan_train(kern, few, spec)
+    gt.gan_train_plain(plain, few, spec)
+    rows64 = gt.gan_train_plain(exact, gt.to_double(few), spec)
+    torch.cuda.synchronize()
+    counts = [gt.METRIC_KEYS.index(k) for k in ("d_accuracy", "violation_rate")]
+    rel = float(((rows - rows64).abs() / rows64.abs().clamp(min=1e-3)).max())
+    same = torch.equal(rows[:, counts].double(), rows64[:, counts])
+    e_k = gt.step_errors(kern, exact, start, spec)
+    e_p = gt.step_errors(plain, exact, start, spec)
+    bad = {k: (e_k[k], e_p[k]) for k in e_k
+           if not e_k[k] <= max(K2_ROUNDING * e_p[k], K2_STEP_FLOOR[n])}
+    worst = {}
+    for key, e in e_k.items():
+        kind = key.split("[")[0].split("_")[-1]
+        if e >= worst.get(kind, (-1.0,))[0]:
+            worst[kind] = (e, e_p[key], key)
+    kinds = {"m": "Adam first moments", "v": "second moments", "p": "parameter update",
+             "ema": "EMA update", "bn": "BatchNorm stats' update"}
+    shown = "; ".join(f"{kinds[k]} {e:.3e} (float32 plain {p:.3e}, {key})"
+                      for k, (e, p, key) in worst.items())
+    gated = int(n - few.sched[:, 6].sum())
+    print(f"{label}, first {n} step(s) ({gated} with D gated off) against float64: rows max "
+          f"rel err {rel:.3e} (rtol {K2_STEP_ROWS_RTOL}), counts equal: {same}; the kernel's "
+          f"worst tensor, relative to the change: {shown} (each of {len(e_k)} tensors within "
+          f"{K2_ROUNDING}x of the float32 plain version's error or {K2_STEP_FLOOR[n]})")
+    if bad or not same or rel > K2_STEP_ROWS_RTOL:
+        fail(f"{label}: the kernel's first {n} step(s) are further from float64 than "
+             f"rounding explains: {bad}")
+    return worst["m"][0]
+
+
+def phase13_k2(cfg, dev, ds, f) -> dict:
+    """K2 against its plain version (and the eager step at the defaults)."""
+    import torch
+    from pigan_thz_torch.ops import gan_train as gt
+    from pigan_thz_torch.train.steps import make_multi_epoch_fn, make_pigan_step
+
+    b = cfg.train.batch_size
+    keys = [*gt.METRIC_KEYS, "constraint_loss"]
+    stats = {"max_abs_err": 0.0, "rows_rel": 0.0, "first_step_rel": 0.0}
+    cases = (("through F", dict(detach_forward=False)), ("detached", dict(detach_forward=True)),
+             ("knob mix", K2_MIX))
+    for name, knobs in cases:
+        state, (gtx, dtx), settings, spec, idx, seeds, scales, streams = k2_setup(
+            cfg, dev, ds, f, K2_EPOCHS, knobs)
+        label = f"K2 vs plain, {name}"
+        for n in K2_STEP_FLOOR:
+            err = k2_first_steps(label, state, streams, spec, n)
+            stats["first_step_rel"] = max(stats["first_step_rel"], err)
+        steps = streams.spectra.shape[0]
+        d_steps = int(streams.sched[:, 6].sum())
+        start = gt.state_buffers(state)
+        kern, plain, again = state.clone(), state.clone(), state.clone()
+        exact = gt.to_double(gt.state_buffers(state.clone()))
+        rows = gt.gan_train(gt.state_buffers(kern), streams, spec)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(rows).all()):
+            fail(f"{label}: non-finite metric rows")
+        want = gt.gan_train_plain(gt.state_buffers(plain), streams, spec)
+        gt.gan_train_plain(exact, gt.to_double(streams), spec)
+        torch.cuda.synchronize()
+        yard = gt.state_diffs(gt.state_buffers(plain), exact, start, spec)
+        rel, err = compare_k2(f"{label}, {K2_EPOCHS} epochs ({steps} steps, {d_steps} D "
+                              "updates)", rows, gt.state_buffers(kern), want,
+                              gt.state_buffers(plain), start, yard, spec, keys)
+        stats["rows_rel"] = max(stats["rows_rel"], rel)
+        stats["max_abs_err"] = max(stats["max_abs_err"], err)
+        rows2 = gt.gan_train(gt.state_buffers(again), streams, spec)
+        torch.cuda.synchronize()
+        same = torch.equal(rows2, rows) and all(
+            map(torch.equal, k2_state_tensors(again), k2_state_tensors(kern)))
+        if not same:
+            fail(f"K2 rerun from the same state differs ({name})")
+        print(f"K2 {name}: a rerun from the same state is bit-identical")
+        if knobs is not K2_MIX:
+            eager = make_multi_epoch_fn(
+                make_pigan_step(gtx, dtx, settings, ds.param_lo, ds.param_hi), b)
+            est, ms = eager(state.clone(), ds, scales, indices=idx, seeds=seeds)
+            torch.cuda.synchronize()
+            if (est.step, est.g_opt.count, est.d_opt.count) != (steps, steps, d_steps):
+                fail(f"the eager step counted {est.step} steps, {est.g_opt.count} G and "
+                     f"{est.d_opt.count} D updates, the streams {steps}, {steps}, {d_steps}")
+            got = gt.epoch_means(rows, K2_EPOCHS, False)
+            compare_k2(f"K2 vs the eager autograd step, {name}, {K2_EPOCHS} epochs "
+                       "(per-epoch rows)",
+                       torch.stack([got[k] for k in gt.METRIC_KEYS], 1), gt.state_buffers(kern),
+                       torch.stack([ms[k] for k in gt.METRIC_KEYS], 1), gt.state_buffers(est),
+                       start, yard, spec, list(gt.METRIC_KEYS))
+    return stats
+
+
+def r2_score(pred, true) -> float:
+    """Coefficient of determination, the uniform average over columns."""
+    res = ((true - pred) ** 2).sum(dim=0)
+    tot = ((true - true.mean(dim=0)) ** 2).sum(dim=0)
+    return float((1.0 - res / tot).mean())
+
+
+def phase14_train(cfg, dev, repo: str, ds_serving, request, train_ds, fixed: bool) -> dict:
+    """``train --mode full`` at the reference workload in a subprocess, as
+    typed (the PI-GAN phase with F's input detached) or, with ``fixed``,
+    with ``--fixed-physics`` (gradients through the frozen F); the trained G
+    and F then serve one request.  Returns its launches, wall time and
+    metric curves."""
+    import ast
+    import glob
+    import torch
+    from pigan_thz_torch.models import build_trio
+    from pigan_thz_torch.ops import fused_kernels as fk
+    from pigan_thz_torch.serve import make_inverse_design_fn
+    from pigan_thz_torch.train import checkpoint as ckpt
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "saved_models")
+        cmd = [sys.executable, "-m", "pigan_thz_torch", "train", "--mode", "full",
+               *(["--fixed-physics"] if fixed else []),
+               "--forward-epochs", str(PRETRAIN_EPOCHS),
+               "--epochs", str(GAN_EPOCHS), "--workdir", tmp, "--out", out,
+               "--no-tensorboard"]
+        name = "train --mode full" + (" --fixed-physics" if fixed else "")
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"{' '.join(cmd[1:6])} exited {proc.returncode}: {proc.stderr[-3000:]}")
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("kernel launches: ")]
+        if len(lines) != 1:
+            fail(f"train printed {len(lines)} 'kernel launches' lines")
+        launches = ast.literal_eval(lines[0][len("kernel launches: "):])
+        shown = ("-training kernel", "eager step", f"epoch {PRETRAIN_EPOCHS}/",
+                 f"epoch {GAN_EPOCHS}/")
+        for line in proc.stdout.splitlines():
+            if any(key in line for key in shown):
+                print(f"{name}: {line}")
+        want = {"forward_train": -(-PRETRAIN_EPOCHS // EPOCHS_PER_CALL),
+                "gan_train": -(-GAN_EPOCHS // EPOCHS_PER_CALL)}
+        print(f"{name}: {PRETRAIN_EPOCHS} + {GAN_EPOCHS} epochs in {wall:.3f} s "
+              f"wall, launches {launches}")
+        for kernel, n in want.items():
+            if launches.get(kernel) != n:
+                fail(f"{name} launched {kernel} {launches.get(kernel)} times, not once per "
+                     f"{EPOCHS_PER_CALL}-epoch chunk ({n})")
+
+        runs = glob.glob(os.path.join(tmp, "train_full_*", "scalars.jsonl"))
+        with open(runs[0]) as fh:
+            records = [json.loads(line) for line in fh]
+        curves = {}
+        for r in records:
+            if r["tag"].startswith("pigan/"):
+                curves.setdefault(r["tag"][len("pigan/"):], []).append(r["value"])
+        finite = all(x == x and abs(x) != float("inf") for v in curves.values() for x in v)
+        for key in ("d_loss", "g_loss", "d_accuracy", "recon_spec_loss", "violation_rate"):
+            v = curves.get(key, [])
+            if len(v) != GAN_EPOCHS:
+                fail(f"train logged {len(v)} epochs of pigan/{key}, not {GAN_EPOCHS}")
+            marks = sorted({0, len(v) // 5, len(v) // 2, len(v) - 1})
+            print(f"{name}: pigan/{key} per epoch "
+                  + ", ".join(f"{v[i]:.6f} ({i + 1})" for i in marks))
+        recon = curves["recon_spec_loss"]
+        print(f"{name}: all {len(curves)} pigan curves finite: {finite}")
+        # with F's input detached the reconstruction loss sends G no gradient:
+        # its fall is held only where gradients flow through F
+        if not finite or (fixed and not recon[-1] < 0.5 * recon[0]):
+            fail(f"{name}: rows are not finite or recon_spec_loss did not halve")
+        history = ckpt.load_train_history(out)
+        if history is None or len(history.get("pigan/g_loss", [])) != GAN_EPOCHS:
+            fail("training_history.json does not hold the run's curves")
+
+        G, D, F = build_trio(cfg, device="cpu")
+        ckpt.load_final_trio(out, G, D, F)
+    G, F = G.to(dev).eval(), F.to(dev).eval()
+
+    before = dict(fk.LAUNCHES)
+    params, spec, met = make_inverse_design_fn(G, F, ds_serving)(request)
+    torch.cuda.synchronize()
+    served = {k: fk.LAUNCHES[k] - before[k] for k in before}
+    b = request.shape[0]
+    lo, hi = cfg.data.param_min, cfg.data.param_max
+    ok = (tuple(params.shape) == (b, 4) and tuple(spec.shape) == (b, cfg.data.spectrum_dim)
+          and tuple(met.shape) == (b, 8)
+          and all(bool(torch.isfinite(t).all()) for t in (params, spec, met))
+          and bool(((params >= lo) & (params <= hi)).all()))
+    print(f"{name}: the trained G and F serve a B={b} request: launches {served}, finite "
+          f"outputs of the right shapes with params in [{params.min().item():.4f}, "
+          f"{params.max().item():.4f}]: {ok}")
+    if not ok or served["fused_mlp_forward"] != 1 or served["fused_dense_chain"] != 1:
+        fail("the trained generator and surrogate did not serve a request through K6 and K5")
+    with torch.inference_mode():
+        pred = G(train_ds.spectra)
+        r2 = r2_score(pred, train_ds.params_norm)
+        recon_r2 = r2_score(F(pred)[0], train_ds.spectra)
+    print(f"{name}: R2 of G's normalised params over the {train_ds.num_samples} training "
+          f"samples {r2:.4f} (the JAX package records 0.9792 for the --fixed-physics "
+          f"recipe, RESULTS.md); R2 of F(G(s)) against s {recon_r2:.4f} (printed, not gated)")
+    return {"launches": launches, "wall": wall, "curves": curves, "r2": r2}
+
+
+def phase15_k2_times(cfg, dev, ds, f) -> dict:
+    """Per-epoch CUDA-event medians (ms) of K2, its plain version and the
+    eager step in both detach modes: {detach: (kernel, plain, eager)}; and a
+    torch.profiler breakdown of one through-F K2 launch of 5 epochs."""
+    import torch
+    from pigan_thz_torch.ops import gan_train as gt
+    from pigan_thz_torch.train.steps import make_multi_epoch_fn, make_pigan_step
+
+    out = {}
+    for detach in (False, True):
+        state, (gtx, dtx), settings, spec, idx, seeds, scales, streams = k2_setup(
+            cfg, dev, ds, f, 1, dict(detach_forward=detach))
+        kern, plain = gt.state_buffers(state.clone()), gt.state_buffers(state.clone())
+        est = state.clone()
+        eager = make_multi_epoch_fn(
+            make_pigan_step(gtx, dtx, settings, ds.param_lo, ds.param_hi),
+            cfg.train.batch_size)
+
+        def k():
+            gt.gan_train(kern, streams, spec)
+
+        def p():
+            gt.gan_train_plain(plain, streams, spec)
+
+        def e():
+            eager(est, ds, scales, indices=idx, seeds=seeds)
+
+        # plain, eager, kernel, kernel, eager, plain: the best of each side's two
+        p1 = cuda_median_ms(p, warmup=1, reps=5)
+        e1 = cuda_median_ms(e, warmup=1, reps=5)
+        k1 = cuda_median_ms(k, warmup=3, reps=20)
+        k2 = cuda_median_ms(k, warmup=3, reps=20)
+        e2 = cuda_median_ms(e, warmup=1, reps=5)
+        p2 = cuda_median_ms(p, warmup=1, reps=5)
+        out[detach] = (min(k1, k2), min(p1, p2), min(e1, e2))
+
+    # one launch of 5 epochs under the profiler, after 2 warm-up launches
+    from torch.profiler import ProfilerActivity, profile
+
+    state, _, _, spec, _, _, _, streams = k2_setup(cfg, dev, ds, f, 5,
+                                                    dict(detach_forward=False))
+    bufs = gt.state_buffers(state)
+    for _ in range(2):
+        gt.gan_train(bufs, streams, spec)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        gt.gan_train(bufs, streams, spec)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    steps = streams.spectra.shape[0]
+    kernels = [(ev.key, ev.count, getattr(ev, "device_time_total",
+                                          getattr(ev, "cuda_time_total", 0.0)))
+               for ev in prof.key_averages()
+               if getattr(ev, "device_type", None) is not None
+               and "cuda" in str(ev.device_type).lower()]
+    busy_ms = sum(t for _, _, t in kernels) / 1e3
+    print(f"profile: one K2 launch of 5 epochs ({steps} steps, through F): {wall_ms:.3f} ms "
+          f"wall, {busy_ms:.3f} ms of kernel time, idle share "
+          f"{max(0.0, 1.0 - busy_ms / wall_ms):.3f}, "
+          f"{sum(c for _, c, _ in kernels) / steps:.1f} kernels a step")
+    for key, count, total in sorted(kernels, key=lambda r: -r[2])[:14]:
+        print(f"profile:   {total / 1e3:9.3f} ms  {count:6d} calls  {total / count:8.2f} us  "
+              f"{key[:100]}")
+    out["profile"] = (wall_ms, busy_ms)
+    return out
 
 
 def main() -> None:
@@ -773,12 +1212,20 @@ def main() -> None:
                 k2 = cuda_median_ms(kern, inp, packed)
                 p2 = cuda_median_ms(plain, inp, packed)
                 times[(name, b)] = (min(k1, k2), min(p1, p2))
+            # the one PyTorch call that computes the same function: the
+            # module's eval-mode forward (cuBLAS products, torch's norms)
+            times[("library fused_mlp_forward", b)] = (cuda_median_ms(F, x),) * 2
+            times[("library fused_dense_chain", b)] = (cuda_median_ms(G, s),) * 2
             p1 = cuda_median_ms(plain_cycle, s)
             k1 = cuda_median_ms(fn, s)
             k2 = cuda_median_ms(fn, s)
             p2 = cuda_median_ms(plain_cycle, s)
             times[("cycle", b)] = (min(k1, k2), min(p1, p2))
     for (name, b), (k, p) in times.items():
+        if name.startswith("library"):
+            print(f"time {tag} {name} B={b}: the module's eval forward {k:.4f} ms "
+                  f"(CUDA-event median of 50 after 10 warm-up)")
+            continue
         print(f"time {tag} {name} B={b}: kernel {k:.4f} ms, plain {p:.4f} ms "
               f"(CUDA-event median of 50 after 10 warm-up, best of two runs each)")
 
@@ -796,6 +1243,7 @@ def main() -> None:
     from pigan_thz_torch.design import ScreeningConfig
 
     k4_times = phase9_k4_times(dgen, cfg, dev, f_packed)
+    k4_ops, k4_bytes = k4_times.pop("screen_ops"), k4_times.pop("screen_bytes")
     for name, (k, p, l) in k4_times.items():
         print(f"time {tag} dip_qualification B={K4_BATCHES[-1]} {name} spectra: "
               f"kernel {k:.4f} ms, plain lattice {p:.4f} ms, plain lifted {l:.4f} ms "
@@ -833,13 +1281,82 @@ def main() -> None:
           f"plain {k1_plain_ms:.4f} ms, eager step {k1_eager_ms:.4f} ms (CUDA-event "
           f"medians; kernel 20 and the others 5 after warm-up, best of two runs each)")
 
+    # -- 13. K2 against its plain version ------------------------------------
+    from pigan_thz_torch.train.trainer import Trainer
+
+    f_trainer = Trainer(cfg, ds=train_ds, device=dev)
+    f_trainer.pretrain_forward(epochs=K2_F_EPOCHS)
+    f_k2 = f_trainer.forward_state.f
+    k2_stats = phase13_k2(cfg, dev, train_ds, f_k2)
+
+    # -- 14. the training command, as typed and with --fixed-physics ----------
+    trains = {fixed: phase14_train(cfg, dev, repo, ds, requests[64], train_ds, fixed)
+              for fixed in (False, True)}
+
+    # -- 15. times -------------------------------------------------------------
+    k2_times = phase15_k2_times(cfg, dev, train_ds, f_k2)
+    spe = train_ds.num_samples // cfg.train.batch_size
+    steps = (PRETRAIN_EPOCHS + GAN_EPOCHS) * spe
+    for fixed, flag in ((False, ""), (True, " --fixed-physics")):
+        wall = trains[fixed]["wall"]
+        print(f"time {tag} train --mode full{flag} {PRETRAIN_EPOCHS} + {GAN_EPOCHS} "
+              f"epochs ({steps} steps): {wall:.4f} s wall for the command, "
+              f"{steps / wall:.1f} steps/s")
+    for detach, name in ((False, "through F"), (True, "detached")):
+        k, p, e = k2_times[detach]
+        print(f"time {tag} gan_train one epoch ({spe} steps, B = 64), {name}: kernel "
+              f"{k:.4f} ms, plain {p:.4f} ms, eager step {e:.4f} ms (CUDA-event medians; "
+              f"kernel 20 and the others 5 after warm-up, best of two runs each)")
+
+    # -- the record -------------------------------------------------------------
+    # bound_ms: operations over the fp32 peak against bytes moved once over the
+    # memory rate, from the shapes each timed call was given.
+    bsz = cfg.train.batch_size
+    S, nm = cfg.data.spectrum_dim, cfg.data.metrics_dim
+    f_dims = (4, *cfg.forward_model.hidden_dims, S + nm)
+    g_dims = (S, *cfg.generator.hidden_dims, 4)
+    d_dims = (S + 4, *cfg.discriminator.hidden_dims, 1)
+    macs_f, macs_g, macs_d = chain_macs(f_dims), chain_macs(g_dims), chain_macs(d_dims)
+    n_f = sum(p.numel() for p in F.parameters())
+    n_g = sum(p.numel() for p in G.parameters())
+    n_d = sum(p.numel() for p in f_trainer.discriminator.parameters())
     big = max(TIME_BATCHES)   # the times in the record are at B = 8192
+    bound = {
+        "fused_mlp_forward": roofline(2.0 * big * macs_f, 4.0 * (big * 4 + n_f + big * (S + nm))),
+        # BatchNorm folded: its four vectors per hidden layer are read too
+        "fused_dense_chain": roofline(2.0 * big * macs_g,
+                                      4.0 * (big * S + n_g + 2 * sum(g_dims[1:-1]) + big * 4)),
+        "dip_qualification": roofline(k4_ops, k4_bytes),
+        # an epoch of K1: forward, dW and dx products (no dx below the first
+        # layer); params, m and v read and written once, the streams read
+        "forward_train": roofline(
+            spe * (6.0 * bsz * macs_f - 2.0 * bsz * f_dims[0] * f_dims[1]),
+            4.0 * (6 * n_f + spe * bsz * (4 + S + nm) + spe * 3)),
+        # an epoch of K2, gradients through F: G forward, dW and dx; D on 2B
+        # rows forward, dW and dx; the adversarial pass (forward, dx down to
+        # the 4 parameter columns); F forward and input-backward
+        "gan_train": roofline(
+            spe * 2.0 * bsz * (
+                3 * macs_g - g_dims[0] * g_dims[1]
+                + 2 * (3 * macs_d - d_dims[0] * d_dims[1])
+                + 2 * macs_d - (d_dims[0] - 4) * d_dims[1]
+                + 2 * macs_f),
+            4.0 * (6 * (n_g + n_d) + n_f + 4 * sum(g_dims[1:-1])
+                   + spe * bsz * (S + 4 + nm) + spe * 11)),
+    }
     k5_screen = screens[True][2]["fused_mlp_forward"]
     k4_screen = sum(s[2]["dip_qualification"] for s in screens.values())
     k1_launches = pretrain["launches"]["forward_train"]
+    tl = {k: sum(t["launches"][k] for t in trains.values()) for k in trains[True]["launches"]}
     print(f"main-path launches: serving {launches}, dataset dip_qualification "
           f"{dataset_k4}, screens fused_mlp_forward {k5_screen} dip_qualification "
-          f"{k4_screen}, pretrain-forward forward_train {k1_launches}")
+          f"{k4_screen}, pretrain-forward forward_train {k1_launches}, train --mode full with and without "
+          f"--fixed-physics {tl}")
+
+    def bounds(name):
+        ms, by = bound[name]
+        return {"bound_ms": ms, "bound_by": by}
+
     record = {"kernels": [
         {"name": "fused_mlp_forward", "route": "cuda",
          "source": "pigan_thz_torch/csrc/fused_mlp_chain.cu",
@@ -847,30 +1364,47 @@ def main() -> None:
          "launches": launches["fused_mlp_forward"] + k5_screen,
          "max_abs_err": max_err["fused_mlp_forward"],
          "ms": times[("fused_mlp_forward", big)][0],
-         "plain_ms": times[("fused_mlp_forward", big)][1]},
+         "plain_ms": times[("fused_mlp_forward", big)][1],
+         **bounds("fused_mlp_forward"),
+         "library_ms": times[("library fused_mlp_forward", big)][0]},
         {"name": "fused_dense_chain", "route": "cuda",
          "source": "pigan_thz_torch/csrc/fused_mlp_chain.cu",
          "replaces": "pigan_thz_tpu/ops/pallas_kernels.py:185",
          "launches": launches["fused_dense_chain"],
          "max_abs_err": max_err["fused_dense_chain"],
          "ms": times[("fused_dense_chain", big)][0],
-         "plain_ms": times[("fused_dense_chain", big)][1]},
+         "plain_ms": times[("fused_dense_chain", big)][1],
+         **bounds("fused_dense_chain"),
+         "library_ms": times[("library fused_dense_chain", big)][0]},
         {"name": "dip_qualification", "route": "cuda",
          "source": "pigan_thz_torch/csrc/dip_qualification.cu",
          "replaces": "pigan_thz_tpu/ops/peaks.py:306",
-         "launches": dataset_k4 + k4_screen,
+         "launches": dataset_k4 + k4_screen + tl["dip_qualification"],
          "max_abs_err": k4_stats["max_abs_err"],
          "mask_mismatches": k4_stats["mask_mismatches"],
          "ms": k4_times["screen"][0],
          "plain_ms": k4_times["screen"][1],
-         "plain_lifted_ms": k4_times["screen"][2]},
+         "plain_lifted_ms": k4_times["screen"][2],
+         **bounds("dip_qualification"), "library_ms": None},
         {"name": "forward_train", "route": "cuda",
          "source": "pigan_thz_torch/csrc/forward_train.cu",
          "replaces": "pigan_thz_tpu/ops/megakernel.py:2623",
-         "launches": k1_launches,
+         "launches": k1_launches + tl["forward_train"],
          "max_abs_err": k1_stats["max_abs_err"],
          "rows_max_rel_err": k1_stats["rows_rel"],
-         "ms": k1_ms, "plain_ms": k1_plain_ms, "eager_ms": k1_eager_ms},
+         "ms": k1_ms, "plain_ms": k1_plain_ms, "eager_ms": k1_eager_ms,
+         **bounds("forward_train"), "library_ms": None},
+        {"name": "gan_train", "route": "cuda",
+         "source": "pigan_thz_torch/csrc/gan_train.cu",
+         "replaces": "pigan_thz_tpu/ops/megakernel.py:779",
+         "launches": tl["gan_train"],
+         "max_abs_err": k2_stats["max_abs_err"],
+         "rows_max_rel_err": k2_stats["rows_rel"],
+         "first_step_rel_err_vs_float64": k2_stats["first_step_rel"],
+         "ms": k2_times[False][0], "plain_ms": k2_times[False][1],
+         "eager_ms": k2_times[False][2], "detached_ms": k2_times[True][0],
+         "detached_plain_ms": k2_times[True][1], "detached_eager_ms": k2_times[True][2],
+         **bounds("gan_train"), "library_ms": None},
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -9,11 +9,18 @@ Commands:
   generate-data     synthesize a reference-schema CSV dataset
   convert-cst       raw CST Studio export -> reference-schema CSV
   pretrain-forward  train the forward surrogate           (pretrain_fwd_model.py)
+  train             forward_only | pigan_only | full      (unified_trainer.py)
 
 ``pretrain-forward`` writes ``forward_model_pretrained.pth`` (F's torch
-state_dict) and ``model_config.json`` under ``--out``.  The other commands
-of the JAX package are not ported yet (ROADMAP.md queue 1, item 11);
-``screen`` waits for the checkpoints of item 7.
+state_dict) and ``model_config.json`` under ``--out``; ``train`` writes the
+final trio (``generator_final.pth``, ``discriminator_final.pth``,
+``forward_model_final.pth``, with ``--ema-decay`` also
+``generator_ema.pth``), ``training_history.json`` and ``model_config.json``.
+Both training commands take ``--engine auto|eager|kernel`` (the Trainer's
+engine rule: on the card ``auto`` is the training kernels or an error, never
+the eager step).  Of ``train``'s flags, ``--preset``, ``--holdout``,
+``--checkpoint-dir`` and ``--plot`` raise until what they need is ported.  The other commands of the
+JAX package are not ported yet (ROADMAP.md queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -37,6 +44,14 @@ def _base_parser(sub: argparse.ArgumentParser) -> None:
     sub.add_argument("--seed", type=int, default=None)
     sub.add_argument("--device", default="cuda",
                      help="torch device to run on (default cuda; cpu only when asked)")
+
+
+def _engine_flag(sub: argparse.ArgumentParser) -> None:
+    sub.add_argument("--engine", choices=["auto", "eager", "kernel"], default="auto",
+                     help="auto: on cuda the training kernels, raising where they do not "
+                          "take the configuration, on the cpu the eager step; eager: the "
+                          "eager PyTorch step; kernel: the kernels (on the cpu their "
+                          "plain versions)")
 
 
 def _make_cfg(args) -> PiGanConfig:
@@ -119,13 +134,91 @@ def cmd_pretrain_forward(args) -> int:
     logger = RunLogger(cfg.workdir, name="fwd_pretrain", use_tensorboard=args.tensorboard,
                        use_wandb=args.wandb)
     try:
-        trainer = Trainer(cfg, logger=logger, csv_path=args.csv, device=device)
+        trainer = Trainer(cfg, logger=logger, csv_path=args.csv, device=device,
+                          engine=args.engine)
         trainer.pretrain_forward(epochs=args.epochs, lr=args.lr)
         out = args.out or os.path.join(cfg.workdir, "saved_models")
         ckpt.save_model(out, ckpt.FORWARD_MODEL_PRETRAINED, trainer.forward_state.f)
         ckpt.save_model_config(out, cfg)
         logger.info(f"kernel launches: {dict(LAUNCHES)}")
         logger.info(f"saved pretrained forward model under {out}")
+    finally:
+        logger.close()
+    return 0
+
+
+# train's flags that wait for a module: flag -> (its "off" value, what it waits for)
+_TRAIN_NOT_PORTED = {
+    "preset": (None, "config_presets.py (ROADMAP.md queue 1, item 1)"),
+    "holdout": (0.0, "the evaluator (ROADMAP.md queue 1, item 8)"),
+    "checkpoint_dir": (None, "CheckpointManager and resume (ROADMAP.md queue 1, item 7)"),
+    "plot": (False, "utils/viz.py (ROADMAP.md queue 1, item 16)"),
+}
+
+
+def _load_pretrained_forward(trainer, path: str) -> None:
+    """Start the trainer's forward state from ``<dir>/<name>[.pth]``."""
+    from .train import checkpoint as ckpt
+
+    directory, name = os.path.split(os.path.abspath(path))
+    name = name[:-4] if name.endswith(".pth") else name
+    trainer.pretrain_forward(epochs=0)                  # the state, untrained
+    ckpt.load_model(directory, name, trainer.forward_state.f)   # in place
+
+
+def cmd_train(args) -> int:
+    for flag, (off, waits_for) in _TRAIN_NOT_PORTED.items():
+        if getattr(args, flag) != off:
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} is not ported yet: it waits for {waits_for}")
+    if args.backup_tag in ("final", "ema", "pretrained"):
+        # fail before training, not at the final save
+        raise SystemExit(f"--backup-tag {args.backup_tag!r} collides with a canonical "
+                         "artifact name; pick another tag")
+    cfg = _make_cfg(args)
+    device = _device(args)
+    # Tie the schedules' horizons to the requested run lengths (the reference
+    # passes the actual num_epochs as CosineAnnealingLR T_max,
+    # train_pigan.py:61)
+    horizon_overrides = []
+    if args.epochs is not None:
+        key = ("train.fwd_pretrain_epochs" if args.mode == "forward_only"
+               else "train.num_epochs")
+        horizon_overrides.append(f"{key}={args.epochs}")
+    if args.forward_epochs is not None:
+        horizon_overrides.append(f"train.fwd_pretrain_epochs={args.forward_epochs}")
+    if horizon_overrides:
+        cfg = apply_overrides(cfg, horizon_overrides)
+    from .ops._cuda_build import LAUNCHES
+    from .train import checkpoint as ckpt
+    from .train.steps import StepSettings
+    from .train.trainer import Trainer
+    from .utils.logging import RunLogger
+
+    logger = RunLogger(cfg.workdir, name=f"train_{args.mode}",
+                       use_tensorboard=args.tensorboard, use_wandb=args.wandb)
+    try:
+        trainer = Trainer(cfg, logger=logger, csv_path=args.csv, device=device,
+                          engine=args.engine)
+        settings = StepSettings.from_config(
+            cfg, detach_forward=not args.fixed_physics, ema_decay=args.ema_decay)
+        out = args.out or os.path.join(cfg.workdir, "saved_models")
+        if args.mode == "forward_only":
+            trainer.pretrain_forward(epochs=args.epochs)
+            ckpt.save_model(out, ckpt.FORWARD_MODEL_PRETRAINED, trainer.forward_state.f)
+            ckpt.save_model_config(out, cfg)
+            logger.info(f"saved pretrained forward model under {out}")
+        else:
+            if args.mode == "pigan_only":
+                if args.forward_model:
+                    _load_pretrained_forward(trainer, args.forward_model)
+            else:
+                trainer.pretrain_forward(epochs=args.forward_epochs)
+            trainer.init_pigan()
+            trainer.train_pigan(epochs=args.epochs, settings=settings)
+            trainer.save_final(out, backup_tag=args.backup_tag)
+            logger.info(f"saved final models under {out}")
+        logger.info(f"kernel launches: {dict(LAUNCHES)}")
     finally:
         logger.close()
     return 0
@@ -161,6 +254,7 @@ def build_parser() -> argparse.ArgumentParser:
     _base_parser(g)
     g.add_argument("--epochs", type=int, default=None)
     g.add_argument("--lr", type=float, default=None)
+    _engine_flag(g)
     g.add_argument("--out", default=None,
                    help="directory for the artifacts (default <workdir>/saved_models)")
     g.add_argument("--tensorboard", action=argparse.BooleanOptionalAction,
@@ -169,6 +263,39 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--wandb", action="store_true",
                    help="also log scalars to Weights & Biases (needs the wandb package)")
     g.set_defaults(fn=cmd_pretrain_forward)
+
+    g = sub.add_parser("train", help="train models")
+    _base_parser(g)
+    g.add_argument("--mode", choices=["forward_only", "pigan_only", "full"], default="full")
+    g.add_argument("--epochs", type=int, default=None)
+    g.add_argument("--forward-epochs", type=int, default=None)
+    _engine_flag(g)
+    g.add_argument("--forward-model", default=None,
+                   help="path to a pretrained forward model (dir/name[.pth])")
+    g.add_argument("--ema-decay", type=float, default=0.0,
+                   help="EMA decay for the generator track (0 = off); the EMA "
+                        "generator is saved as 'generator_ema'")
+    g.add_argument("--fixed-physics", action="store_true",
+                   help="let physics-loss gradients flow through frozen F "
+                        "(recommended; default reproduces the reference's "
+                        "no_grad behaviour)")
+    g.add_argument("--holdout", type=float, default=0.0, metavar="FRAC",
+                   help="not ported yet (needs the evaluator)")
+    g.add_argument("--preset", default=None, choices=["optimized", "scaled"],
+                   help="not ported yet (needs config_presets.py)")
+    g.add_argument("--backup-tag", default=None, metavar="TAG",
+                   help="also write versioned backup artifacts generator_<TAG>/... "
+                        "next to the finals (reference *_unified.pth parity)")
+    g.add_argument("--out", default=None,
+                   help="directory for the artifacts (default <workdir>/saved_models)")
+    g.add_argument("--plot", action="store_true", help="not ported yet (needs utils/viz.py)")
+    g.add_argument("--checkpoint-dir", default=None,
+                   help="not ported yet (needs CheckpointManager)")
+    g.add_argument("--tensorboard", action=argparse.BooleanOptionalAction, default=True,
+                   help="write tfevents scalars under <run_dir>/tb (on by default)")
+    g.add_argument("--wandb", action="store_true",
+                   help="also log scalars to Weights & Biases (needs the wandb package)")
+    g.set_defaults(fn=cmd_train)
     return p
 
 

@@ -1,0 +1,714 @@
+// PI-GAN training (the fused D-then-G step), fp32, for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel pigan_thz_tpu/ops/megakernel.py:
+// _make_kernel (K2), launched by make_pallas_multi_epoch_fn: E epochs of the
+// alternating update in one launch.  Per step, at batch B, with G = S -> g1
+// -> g2 -> 4 (BatchNorm + ReLU, tanh head), D = S + 4 -> d1 -> d2 -> 1
+// (LeakyReLU 0.2, logits) and the frozen F = 4 -> ... -> S + 8 (LayerNorm +
+// LeakyReLU, eval mode):
+//   G forward  once for both phases; BatchNorm with flax's batch variance
+//              max(0, E[x^2] - E[x]^2), eps 1e-5; the running stats take
+//              the biased variance with momentum 0.9, once per step;
+//   D phase    [real; fake] (2B rows) through D, 2 mean BCE-with-logits
+//              against labels 0.9 / 0.1, backward, global-norm clip, Adam
+//              (b1 0.5).  On a step whose d_gate lane is 0 only the forward
+//              runs (for the metrics): D, its moments and its count stay;
+//   G phase    the fake rows through the just-updated D (target 1), F on
+//              G's output, the losses (recon, metrics, Maxwell, LC, range
+//              [, constraint x scale][, window]) and their adjoints: into
+//              G's output directly (adversarial, LC, range, constraint)
+//              and, unless detach, through F's input (recon, metrics,
+//              Maxwell, LC's F side, window); G's backward with the
+//              BatchNorm backward; clip, Adam; the EMA of G when on.
+//
+// Design.  The TPU kernel keeps ~12 MB of state resident in VMEM on a
+// sequential grid; an SM has 227 KB.  Here, as in forward_train.cu, one C
+// entry point per chunk of T steps (pigan_gan_train) enqueues every step's
+// kernels on the caller's stream from a host loop, over flat fp32 buffers
+// that stay in the 50 MB L2 between steps: G's and D's [param, m, v] (3 x
+// 262 K floats each), F's parameters (1.38 M floats, read only), two flat
+// gradients in the parameters' layout, and ~2.5 MB of activations.  Every
+// product is the shared tiled SGEMM (train_common.cuh: fp32 FMAs on the
+// CUDA cores, no TF32), strided so that no operand is transposed in memory;
+// the 4- and 1-wide heads go through it too.  BatchNorm is a column
+// reduction over the B rows: one thread per column, 64 columns a block, two
+// passes in row order, the column sums in double (the variance and the
+// backward's mean subtraction cancel: with float sums G's gradient was 30x
+// further from a float64 evaluation than the plain version's).  F's LayerNorm rows, the column sums of the bias
+// gradients and the two-pass clip + Adam are K1's kernels.  The losses are
+// one-block kernels that also write the gradient seeds.  The D-update gate
+// is known on the host (it is a lane of the schedule), so a skipped step
+// enqueues no D backward at all.  No atomics: reruns are bit-identical.
+//
+// Bounds on the card.  About 0.65 GFLOP a step at B = 64 with gradients
+// through F (half of it F's forward and input-backward), ~10 us at the
+// 67 TFLOP/s fp32 peak, and ~13 MB of state and weights read once a step,
+// ~4 us at 3.35 TB/s.  Neither bounds a step: on an H100 (80GB HBM3, 700 W)
+// it takes ~1.2 ms through F (69 launches) and ~0.9 ms detached (58), the
+// device busy 90 % of that, four fifths of it in the products of 64 or 128
+// rows: 32 x 32 tiles give 16-64 blocks on 132 SMs, each walking the whole
+// depth, ~34 us a product.  Split-K or tensor-core tiles for those products,
+// fusing the elementwise passes into their epilogues, and CUDA-graph
+// capture of a chunk are later work.
+//
+// Interface: plain C, loaded with ctypes.  pigan_gan_train launches on the
+// given stream, does not synchronise, allocates nothing (the workspace
+// comes from the caller, and a short one is refused), and returns the first
+// cudaError_t (0 on success), checking cudaGetLastError() after each launch.
+
+#include "train_common.cuh"
+
+namespace {
+
+constexpr int kColThreads = 64;   // columns per block of the BatchNorm kernels
+constexpr int kRowWidth = 11;     // metric values per step
+constexpr int kSchedLanes = 8;    // lr_g lr_d inv1_g inv2_g inv1_d inv2_d d_gate c_scale
+
+__device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
+
+// --------------------------------------------------------------------------
+// BatchNorm (train mode) + ReLU over the batch, one thread per column.  u
+// holds the pre-norm values on entry and u - mean on exit.
+// --------------------------------------------------------------------------
+__global__ void bn_forward(float* u, int B, int C, const float* __restrict__ gamma,
+                           const float* __restrict__ beta, float* __restrict__ xh,
+                           float* __restrict__ y, float* __restrict__ a,
+                           float* __restrict__ iv_out, float* __restrict__ run_mean,
+                           float* __restrict__ run_var, float eps, float mom,
+                           float one_minus_mom) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  // the column sums in double: E[x^2] - E[x]^2 cancels, and a sequential
+  // float sum over the rows would lose what the difference keeps
+  double s = 0.0, s2 = 0.0;
+  for (int b = 0; b < B; ++b) {
+    const double v = u[(long long)b * C + c];
+    s += v;
+    s2 += v * v;
+  }
+  const double mean = s / B;
+  const float mu = (float)mean;
+  const float var = fmaxf(0.f, (float)(s2 / B - mean * mean));
+  const float iv = 1.f / sqrtf(var + eps);
+  const float g = gamma[c], be = beta[c];
+  for (int b = 0; b < B; ++b) {
+    const long long o = (long long)b * C + c;
+    const float d = u[o] - mu;
+    const float x = d * iv;
+    const float yy = x * g + be;
+    u[o] = d;
+    xh[o] = x;
+    y[o] = yy;
+    a[o] = fmaxf(yy, 0.f);
+  }
+  iv_out[c] = iv;
+  run_mean[c] = mom * run_mean[c] + one_minus_mom * mu;
+  run_var[c] = mom * run_var[c] + one_minus_mom * var;
+}
+
+// Adjoint of ReLU(BatchNorm(u)): da at the block's output -> du at u, and
+// the column's dgamma and dbeta.  uc = u - mean.
+__global__ void bn_backward(const float* __restrict__ da, const float* __restrict__ y,
+                            const float* __restrict__ xh, const float* __restrict__ uc,
+                            const float* __restrict__ gamma, const float* __restrict__ iv_in,
+                            int B, int C, float* __restrict__ du,
+                            float* __restrict__ dgamma, float* __restrict__ dbeta) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  const float g = gamma[c], iv = iv_in[c];
+  // in double: du below subtracts the column mean, which cancels most of
+  // a gradient that all rows share
+  double sg = 0.0, sb = 0.0, sv = 0.0, st = 0.0;
+  for (int b = 0; b < B; ++b) {
+    const long long o = (long long)b * C + c;
+    const float dy = y[o] > 0.f ? da[o] : 0.f;
+    sg += (double)dy * xh[o];
+    sb += dy;
+    sv += (double)(dy * g) * uc[o];
+    st += (double)(dy * g * iv);
+  }
+  const float dvar = (float)sv * -0.5f * iv * iv * iv;
+  const float mean_dt = (float)(st / B);
+  for (int b = 0; b < B; ++b) {
+    const long long o = (long long)b * C + c;
+    const float dy = y[o] > 0.f ? da[o] : 0.f;
+    du[o] = dy * g * iv - mean_dt + dvar * 2.f * uc[o] / B;
+  }
+  dgamma[c] = (float)sg;
+  dbeta[c] = (float)sb;
+}
+
+// --------------------------------------------------------------------------
+// Elementwise passes
+// --------------------------------------------------------------------------
+
+// G's output and D's input.  z3 (B, 4) holds the head's pre-activation on
+// entry and tanh of it on exit; pn the (squashed) output; x0 (2B, S + 4) is
+// [spectra | real params] over [spectra | fake params].
+__global__ void g_output(float* z3, float* __restrict__ pn, float* __restrict__ x0,
+                         const float* __restrict__ spectra,
+                         const float* __restrict__ params_phys, int B, int S, float4 lo,
+                         float4 hi, int sigmoid) {
+  const int nd = S + 4;
+  const float los[4] = {lo.x, lo.y, lo.z, lo.w};
+  const float his[4] = {hi.x, hi.y, hi.z, hi.w};
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < B * nd;
+       e += blockDim.x * gridDim.x) {
+    const int b = e / nd;
+    const int c = e - b * nd;
+    float real, fake;
+    if (c < S) {
+      real = fake = spectra[(long long)b * S + c];
+    } else {
+      const int k = c - S;
+      const float tn = tanhf(z3[b * 4 + k]);
+      const float p = sigmoid ? sigmoidf(tn) : tn;
+      z3[b * 4 + k] = tn;
+      pn[b * 4 + k] = p;
+      real = params_phys[b * 4 + k];
+      fake = (p + 1.f) * 0.5f * (his[k] - los[k]) + los[k];
+    }
+    x0[(long long)b * nd + c] = real;
+    x0[(long long)(B + b) * nd + c] = fake;
+  }
+}
+
+__global__ void leaky_forward(const float* __restrict__ p, float* __restrict__ h,
+                              long long n, float slope) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)blockDim.x * gridDim.x) {
+    const float v = p[i];
+    h[i] = v >= 0.f ? v : slope * v;
+  }
+}
+
+__global__ void leaky_backward(float* __restrict__ d, const float* __restrict__ p,
+                               long long n, float slope) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)blockDim.x * gridDim.x) {
+    if (p[i] < 0.f) d[i] *= slope;
+  }
+}
+
+// D's head backward: dp2[r, c] = dz[r] w3[c] mask(p2[r, c]).
+__global__ void d_head_backward(const float* __restrict__ dz, const float* __restrict__ w3,
+                                const float* __restrict__ p2, float* __restrict__ dp2,
+                                int R, int C, float slope) {
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < R * C;
+       e += blockDim.x * gridDim.x) {
+    const int r = e / C;
+    const int c = e - r * C;
+    dp2[e] = dz[r] * w3[c] * (p2[e] >= 0.f ? 1.f : slope);
+  }
+}
+
+// dz3 = (dpn [+ dfin]) dsq (1 - tn^2), in place over dpn.
+__global__ void g_head_seed(float* __restrict__ dpn, const float* __restrict__ dfin,
+                            const float* __restrict__ tn, const float* __restrict__ pn,
+                            int n, int sigmoid) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  float d = dpn[e];
+  if (dfin) d += dfin[e];
+  const float dsq = sigmoid ? pn[e] * (1.f - pn[e]) : 1.f;
+  dpn[e] = d * dsq * (1.f - tn[e] * tn[e]);
+}
+
+__global__ void ema_lerp(float* __restrict__ ema, const float* __restrict__ p, long long n,
+                         float mu, float one_minus_mu) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)blockDim.x * gridDim.x) {
+    ema[i] = mu * ema[i] + one_minus_mu * p[i];
+  }
+}
+
+// --------------------------------------------------------------------------
+// Losses, one block each
+// --------------------------------------------------------------------------
+
+__device__ __forceinline__ float bce_softplus(float z) { return log1pf(expf(-fabsf(z))); }
+
+// D's loss over the 2B logits: row[0] = 2 mean BCE, row[2] = accuracy at
+// 0.5, dz = (sigmoid(z) - label) / B.
+__global__ void __launch_bounds__(kThreads)
+d_loss_kernel(const float* __restrict__ z, int B, float lab_r, float lab_f,
+              float* __restrict__ dz, float* __restrict__ row) {
+  __shared__ float red[kThreads];
+  float s = 0.f, hit_r = 0.f, hit_f = 0.f;
+  for (int r = threadIdx.x; r < 2 * B; r += kThreads) {
+    const float v = z[r];
+    const float label = r < B ? lab_r : lab_f;
+    const float p = sigmoidf(v);
+    s += fmaxf(v, 0.f) - v * label + bce_softplus(v);
+    if (r < B) hit_r += p > 0.5f ? 1.f : 0.f;
+    else hit_f += p <= 0.5f ? 1.f : 0.f;
+    dz[r] = (p - label) / B;
+  }
+  const float total = block_sum(s, red);
+  const float cr = block_sum(hit_r, red);
+  const float cf = block_sum(hit_f, red);
+  if (threadIdx.x == 0) {
+    row[0] = 2.f * (total / (2 * B));
+    row[2] = 0.5f * (cr / B + cf / B);
+  }
+}
+
+// G's adversarial loss on the B fake logits (target 1, unsmoothed):
+// row[3] = mean BCE, dz = (sigmoid(z) - 1) / B.
+__global__ void __launch_bounds__(kThreads)
+adv_loss_kernel(const float* __restrict__ z, int B, float* __restrict__ dz,
+                float* __restrict__ row) {
+  __shared__ float red[kThreads];
+  float s = 0.f;
+  for (int r = threadIdx.x; r < B; r += kThreads) {
+    const float v = z[r];
+    s += fmaxf(v, 0.f) - v + bce_softplus(v);
+    dz[r] = (sigmoidf(v) - 1.f) / B;
+  }
+  const float total = block_sum(s, red);
+  if (threadIdx.x == 0) row[3] = total / B;
+}
+
+struct GLossCoef {
+  float w_adv, w_recon, w_pmet, w_maxwell, w_lc, w_range, w_constraint, w_window;
+  float r_lo, r_hi, c_scale;
+  float half_span[4];        // (hi - lo) / 2 per parameter
+  float f_lo, f_hi;          // the resonance window
+  int detach;
+};
+
+// G's losses over F's prediction pred (B, S + 8) and G's output pn (B, 4):
+// writes the step's row (g_loss and the seven parts, the constraint loss),
+// the direct adjoint dpn (B, 4) and, unless detach, dpred (B, S + 8).
+__global__ void __launch_bounds__(kThreads)
+g_loss_kernel(const float* __restrict__ pred, const float* __restrict__ spectra,
+              const float* __restrict__ met, const float* __restrict__ pn,
+              const float* __restrict__ dpphys, float* __restrict__ dpn,
+              float* __restrict__ dpred, float* __restrict__ row, int B, int S,
+              GLossCoef k) {
+  __shared__ float red[kThreads];
+  const int M = 8;
+  const int D = S + M;
+  const float nB = (float)B;
+  const float n_spec = (float)((long long)B * S);
+  const float n_met = (float)((long long)B * M);
+  const float n_smooth = (float)((long long)B * (S - 2));
+  const float c_smooth = k.w_maxwell * 2.f / n_smooth;
+
+  float s_spec = 0.f, s_met = 0.f, s_smooth = 0.f, s_invalid = 0.f;
+  for (int e = threadIdx.x; e < B * D; e += kThreads) {
+    const int b = e / D;
+    const int c = e - b * D;
+    const float* p = pred + (long long)b * D;
+    float g;
+    if (c < S) {
+      const float d = p[c] - spectra[(long long)b * S + c];
+      s_spec = fmaf(d, d, s_spec);
+      if (p[c] != p[c] || isinf(p[c])) s_invalid += 1.f;
+      float adj = 0.f;
+      if (c <= S - 3) {
+        const float d2 = second_diff(p, c);
+        s_smooth = fmaf(d2, d2, s_smooth);
+        adj = d2;
+      }
+      if (c >= 1 && c - 1 <= S - 3) adj = adj - 2.f * second_diff(p, c - 1);
+      if (c >= 2 && c - 2 <= S - 3) adj = adj + second_diff(p, c - 2);
+      g = k.w_recon * 2.f * d / n_spec + c_smooth * adj;
+    } else {
+      const int j = c - S;
+      const float d = p[c] - met[(long long)b * M + j];
+      s_met = fmaf(d, d, s_met);
+      g = k.w_pmet * 2.f * d / n_met;
+      if (j < 2) {
+        const float* q = pn + b * 4;
+        const float th = j == 0 ? 0.4f * q[0] + 0.6f * q[2] : 0.3f * q[1] + 0.7f * q[3];
+        g += k.w_lc * 2.f * (p[c] - th) / nB;
+        if (j == 0 && k.w_window != 0.f) {
+          g += k.w_window * ((p[c] > k.f_hi ? 1.f : 0.f) - (p[c] < k.f_lo ? 1.f : 0.f));
+        }
+      }
+    }
+    if (!k.detach) dpred[e] = g;
+  }
+
+  // per row: LC, range, violation, constraint, window; the direct adjoint
+  float s_lc1 = 0.f, s_lc2 = 0.f, s_range = 0.f, s_viol = 0.f;
+  float s_hard = 0.f, s_bound = 0.f, s_sm = 0.f, s_window = 0.f;
+  const float wcs = k.w_constraint * k.c_scale;
+  for (int b = threadIdx.x; b < B; b += kThreads) {
+    const float* q = pn + b * 4;
+    const float f1 = pred[(long long)b * D + S];
+    const float f2 = pred[(long long)b * D + S + 1];
+    const float th1 = 0.4f * q[0] + 0.6f * q[2];
+    const float th2 = 0.3f * q[1] + 0.7f * q[3];
+    s_lc1 += (f1 - th1) * (f1 - th1);
+    s_lc2 += (f2 - th2) * (f2 - th2);
+    const float g1 = k.w_lc * 2.f * (th1 - f1) / nB;
+    const float g2 = k.w_lc * 2.f * (th2 - f2) / nB;
+    const float lc_side[4] = {0.4f * g1, 0.3f * g2, 0.6f * g1, 0.7f * g2};
+    bool bad = false;
+    for (int j = 0; j < 4; ++j) {
+      const float v = q[j];
+      const float below = fmaxf(k.r_lo - v, 0.f);
+      const float above = fmaxf(v - k.r_hi, 0.f);
+      s_range += below * below + above * above;
+      bad = bad || v < k.r_lo || v > k.r_hi;
+      float g = k.w_adv * dpphys[b * 4 + j] * k.half_span[j] + lc_side[j];
+      g += k.w_range * (2.f * above - 2.f * below) / (nB * 4.f);
+      if (k.w_constraint != 0.f) {
+        const float oor = fmaxf(fmaxf(v - 1.f, -v), 0.f);
+        s_hard += oor * oor;
+        const float bdist = fminf(v, 1.f - v);
+        const float arg = -20.f * bdist;
+        const float bexp = expf(fminf(arg, 25.f));
+        s_bound += bexp;
+        const float dhard = (2.f * oor / nB) * (v > 0.5f ? 1.f : -1.f);
+        const float dbound =
+            bexp * -20.f * (arg < 25.f ? 1.f : 0.f) * (v < 0.5f ? 1.f : -1.f) / nB;
+        float dsm = 0.f;    // sign(v_j - v_{j-1}) - sign(v_{j+1} - v_j)
+        if (j > 0) {
+          const float dl = v - q[j - 1];
+          s_sm += fabsf(dl);
+          dsm += (float)((dl > 0.f) - (dl < 0.f));
+        }
+        if (j < 3) {
+          const float dr = q[j + 1] - v;
+          dsm -= (float)((dr > 0.f) - (dr < 0.f));
+        }
+        dsm /= nB * 3.f;
+        g += wcs * (10.f * dhard + 0.1f * dbound + 0.05f * dsm);
+      }
+      dpn[b * 4 + j] = g;
+    }
+    s_viol += bad ? 1.f : 0.f;
+    if (k.w_window != 0.f) s_window += fmaxf(f1 - k.f_hi, 0.f) + fmaxf(k.f_lo - f1, 0.f);
+  }
+
+  const float recon_l = block_sum(s_spec, red) / n_spec;
+  const float met_l = block_sum(s_met, red) / n_met;
+  const float maxwell_l = block_sum(s_smooth, red) / n_smooth;
+  const float lc_l = block_sum(s_lc1, red) / nB + block_sum(s_lc2, red) / nB;
+  const float range_l = block_sum(s_range, red) / (nB * 4.f);
+  const float viol = block_sum(s_viol, red) / nB;
+  float loss = k.w_adv * row[3] + k.w_recon * recon_l + k.w_pmet * met_l +
+               k.w_maxwell * maxwell_l + k.w_lc * lc_l + k.w_range * range_l;
+  float c_loss = 0.f;
+  if (k.w_constraint != 0.f) {
+    const float hard = block_sum(s_hard, red) / nB;
+    const float boundary = block_sum(s_bound, red) / nB;
+    const float smooth = block_sum(s_sm, red) / (nB * 3.f);
+    const float validity = block_sum(s_invalid, red) / nB;
+    c_loss = 10.f * hard + 0.1f * boundary + 0.05f * smooth + 3.f * validity;
+    loss += wcs * c_loss;
+  }
+  if (k.w_window != 0.f) loss += k.w_window * block_sum(s_window, red);
+  if (threadIdx.x == 0) {
+    row[1] = loss;
+    row[4] = recon_l;
+    row[5] = met_l;
+    row[6] = maxwell_l;
+    row[7] = lc_l;
+    row[8] = range_l;
+    row[9] = viol;
+    row[10] = c_loss;
+  }
+}
+
+inline int blocks_for(long long n, int threads, int cap = 1024) {
+  long long b = (n + threads - 1) / threads;
+  return (int)(b < 1 ? 1 : (b > cap ? cap : b));
+}
+
+}  // namespace
+
+extern "C" {
+
+// T training steps over the state in place.
+//   g, g_m, g_v    (Pg,) device, updated; layout W1 b1 gamma1 beta1 W2 b2
+//                  gamma2 beta2 W3 b3, each W as (out, in)
+//   d, d_m, d_v    (Pd,) device, updated; layout W1 b1 W2 b2 W3 b3
+//   bn1_mean ...   G's BatchNorm running stats, device, updated
+//   f              F's parameters in forward_train.cu's layout, read only
+//   g_ema          (Pg,) device, updated when hp[12] > 0, else unused
+//   spectra, params, met   (T, B, S), (T, B, 4) physical, (T, B, 8) device
+//   sched          (T, 8) host: lr_g lr_d inv1_g inv2_g inv1_d inv2_d d_gate c_scale
+//   rows           (T, 11) device out: d_loss g_loss d_accuracy adv recon
+//                  metrics maxwell lc range violation_rate constraint
+//   work           device scratch of work_floats floats
+//   dims           host: S, g1, g2, d1, d2
+//   f_dims         n_f_hidden + 2 widths of F (host); f_offsets 4 per layer
+//   hp             host: w_adv w_recon w_pmet w_maxwell w_lc w_range
+//                  w_constraint w_window range_lo range_hi label_real
+//                  label_fake ema_decay clip lo[4] hi[4]
+//   flags          bit 0 detach_forward, bit 1 sigmoid_squash
+int pigan_gan_train(float* g, float* g_m, float* g_v, float* d, float* d_m, float* d_v,
+                    float* bn1_mean, float* bn1_var, float* bn2_mean, float* bn2_var,
+                    const float* f, float* g_ema, const float* spectra,
+                    const float* params, const float* met, const float* sched,
+                    float* rows, float* work, long long work_floats, const int* dims,
+                    const int* f_dims, int n_f_hidden, const long long* f_offsets, int B,
+                    int T, const double* hp, int flags, void* stream_ptr) {
+  cudaStream_t st = (cudaStream_t)stream_ptr;
+  const int S = dims[0], g1 = dims[1], g2 = dims[2], d1 = dims[3], d2 = dims[4];
+  const int FL = n_f_hidden + 1;
+  if (n_f_hidden < 1 || FL > kMaxLayers || B < 1 || T < 0 || S < 3) return cudaErrorInvalidValue;
+  if (g1 < 1 || g2 < 1 || d1 < 1 || d2 < 1 || f_dims[0] != 4) return cudaErrorInvalidValue;
+  int maxc = g1 > g2 ? g1 : g2;
+  for (int i = 0; i <= FL; ++i) {
+    if (f_dims[i] < 1) return cudaErrorInvalidValue;
+    if (f_dims[i] > maxc) maxc = f_dims[i];
+  }
+  for (int l = 0; l < n_f_hidden; ++l) {
+    if (f_dims[l + 1] > kThreads * kMaxPerThread) return cudaErrorInvalidValue;
+  }
+  const int D = f_dims[FL];
+  if (D != S + 8) return cudaErrorInvalidValue;
+  const int nd = S + 4;
+  const int detach = flags & 1;
+  const int sigmoid = (flags >> 1) & 1;
+  const float ema_decay = (float)hp[12];
+  if (ema_decay > 0.f && g_ema == nullptr) return cudaErrorInvalidValue;
+
+  // flat layouts of G and D
+  const long long gW1 = 0, gb1 = gW1 + (long long)S * g1, ggam1 = gb1 + g1, gbet1 = ggam1 + g1;
+  const long long gW2 = gbet1 + g1, gb2 = gW2 + (long long)g1 * g2, ggam2 = gb2 + g2,
+                  gbet2 = ggam2 + g2;
+  const long long gW3 = gbet2 + g2, gb3 = gW3 + (long long)g2 * 4;
+  const long long Pg = gb3 + 4;
+  const long long dW1 = 0, db1 = dW1 + (long long)nd * d1;
+  const long long dW2 = db1 + d1, db2 = dW2 + (long long)d1 * d2;
+  const long long dW3 = db2 + d2, db3 = dW3 + d2;
+  const long long Pd = db3 + 1;
+
+  // workspace (ops/gan_train.py: workspace_floats)
+  long long pos = 0;
+  auto take = [&](long long n) { float* p = work + pos; pos += n; return p; };
+  const int gc[2] = {g1, g2};
+  float *uc[2], *xh[2], *y[2], *a[2], *iv[2];
+  for (int l = 0; l < 2; ++l) {
+    const long long bc = (long long)B * gc[l];
+    uc[l] = take(bc); xh[l] = take(bc); y[l] = take(bc); a[l] = take(bc);
+    iv[l] = take(gc[l]);
+  }
+  float* tn = take((long long)B * 4);
+  float* pn = take((long long)B * 4);
+  float* dpn = take((long long)B * 4);
+  float* x0 = take(2LL * B * nd);
+  float* p1 = take(2LL * B * d1);
+  float* h1 = take(2LL * B * d1);
+  float* p2 = take(2LL * B * d2);
+  float* h2 = take(2LL * B * d2);
+  float* z = take(2LL * B);
+  float* dz = take(2LL * B);
+  float* dp2 = take(2LL * B * d2);
+  float* dp1 = take(2LL * B * d1);
+  float* dpphys = take((long long)B * 4);
+  float *tc[kMaxLayers], *ln[kMaxLayers], *act[kMaxLayers], *ivar[kMaxLayers];
+  for (int l = 0; l < n_f_hidden; ++l) {
+    const long long bc = (long long)B * f_dims[l + 1];
+    tc[l] = take(bc); ln[l] = take(bc); act[l] = take(bc); ivar[l] = take(B);
+  }
+  float* pred = take((long long)B * D);
+  float* dpred = take((long long)B * D);
+  float* da = take((long long)B * maxc);
+  float* dln = take((long long)B * maxc);
+  float* dt = take((long long)B * maxc);
+  float* dfin = take((long long)B * 4);
+  float* gradG = take(Pg);
+  float* gradD = take(Pd);
+  float* partial = take(kNormParts);
+  if (pos > work_floats) return cudaErrorInvalidValue;
+
+  const float slope = 0.2f, ln_eps = 1e-6f, bn_eps = 1e-5f;
+  const float bn_mom = 0.9f, bn_one_minus = (float)(1.0 - 0.9);
+  const float4 lo = make_float4((float)hp[14], (float)hp[15], (float)hp[16], (float)hp[17]);
+  const float4 hi = make_float4((float)hp[18], (float)hp[19], (float)hp[20], (float)hp[21]);
+  GLossCoef gk;
+  gk.w_adv = (float)hp[0];
+  gk.w_recon = (float)hp[1];
+  gk.w_pmet = (float)hp[2];
+  gk.w_maxwell = (float)hp[3];
+  gk.w_lc = (float)hp[4];
+  gk.w_range = (float)hp[5];
+  gk.w_constraint = (float)hp[6];
+  gk.w_window = (float)hp[7];
+  gk.r_lo = (float)hp[8];
+  gk.r_hi = (float)hp[9];
+  for (int j = 0; j < 4; ++j) gk.half_span[j] = ((float)hp[18 + j] - (float)hp[14 + j]) * 0.5f;
+  gk.f_lo = 0.5f;
+  gk.f_hi = 3.0f;
+  gk.detach = detach;
+  const float lab_r = (float)hp[10], lab_f = (float)hp[11];
+  AdamCoef ak;
+  ak.clip = (float)hp[13];
+  ak.b1 = 0.5f;
+  ak.c1 = (float)(1.0 - 0.5);
+  ak.b2 = 0.999f;
+  ak.c2 = (float)(1.0 - 0.999);
+  ak.eps = 1e-8f;
+
+  cudaError_t e;
+#define CHECK(call)                      \
+  do {                                   \
+    e = (call);                          \
+    if (e != cudaSuccess) return (int)e; \
+  } while (0)
+#define CHECK_LAUNCH() CHECK(cudaGetLastError())
+#define COLS(C) ((C) + kColThreads - 1) / kColThreads, kColThreads, 0, st
+#define ELEMS(n) blocks_for((n), kThreads), kThreads, 0, st
+
+  for (int t = 0; t < T; ++t) {
+    const float* spec_t = spectra + (long long)t * B * S;
+    const float* par_t = params + (long long)t * B * 4;
+    const float* met_t = met + (long long)t * B * 8;
+    const float* sc = sched + (long long)t * kSchedLanes;
+    float* row = rows + (long long)t * kRowWidth;
+    const bool update_d = sc[6] > 0.f;
+
+    // ---- G forward, shared by both phases --------------------------------
+    CHECK((gemm<true, false>(B, g1, S, spec_t, S, 1, g + gW1, 1, S, uc[0], g1, g + gb1, st)));
+    bn_forward<<<COLS(g1)>>>(uc[0], B, g1, g + ggam1, g + gbet1, xh[0], y[0], a[0], iv[0],
+                             bn1_mean, bn1_var, bn_eps, bn_mom, bn_one_minus);
+    CHECK_LAUNCH();
+    CHECK((gemm<true, false>(B, g2, g1, a[0], g1, 1, g + gW2, 1, g1, uc[1], g2, g + gb2, st)));
+    bn_forward<<<COLS(g2)>>>(uc[1], B, g2, g + ggam2, g + gbet2, xh[1], y[1], a[1], iv[1],
+                             bn2_mean, bn2_var, bn_eps, bn_mom, bn_one_minus);
+    CHECK_LAUNCH();
+    CHECK((gemm<true, false>(B, 4, g2, a[1], g2, 1, g + gW3, 1, g2, tn, 4, g + gb3, st)));
+    g_output<<<ELEMS((long long)B * nd)>>>(tn, pn, x0, spec_t, par_t, B, S, lo, hi, sigmoid);
+    CHECK_LAUNCH();
+
+    // ---- D phase on [real; fake] -----------------------------------------
+    CHECK((gemm<true, false>(2 * B, d1, nd, x0, nd, 1, d + dW1, 1, nd, p1, d1, d + db1, st)));
+    leaky_forward<<<ELEMS(2LL * B * d1)>>>(p1, h1, 2LL * B * d1, slope);
+    CHECK_LAUNCH();
+    CHECK((gemm<true, false>(2 * B, d2, d1, h1, d1, 1, d + dW2, 1, d1, p2, d2, d + db2, st)));
+    leaky_forward<<<ELEMS(2LL * B * d2)>>>(p2, h2, 2LL * B * d2, slope);
+    CHECK_LAUNCH();
+    CHECK((gemm<true, false>(2 * B, 1, d2, h2, d2, 1, d + dW3, 1, d2, z, 1, d + db3, st)));
+    d_loss_kernel<<<1, kThreads, 0, st>>>(z, B, lab_r, lab_f, dz, row);
+    CHECK_LAUNCH();
+    if (update_d) {
+      CHECK((gemm<false, true>(1, d2, 2 * B, dz, 1, 1, h2, d2, 1, gradD + dW3, d2, nullptr, st)));
+      column_sum<<<1, kThreads, 0, st>>>(dz, 2 * B, 1, gradD + db3);
+      CHECK_LAUNCH();
+      d_head_backward<<<ELEMS(2LL * B * d2)>>>(dz, d + dW3, p2, dp2, 2 * B, d2, slope);
+      CHECK_LAUNCH();
+      CHECK((gemm<false, true>(d2, d1, 2 * B, dp2, 1, d2, h1, d1, 1, gradD + dW2, d1, nullptr,
+                               st)));
+      column_sum<<<(d2 + kThreads - 1) / kThreads, kThreads, 0, st>>>(dp2, 2 * B, d2,
+                                                                    gradD + db2);
+      CHECK_LAUNCH();
+      CHECK((gemm<true, true>(2 * B, d1, d2, dp2, d2, 1, d + dW2, d1, 1, dp1, d1, nullptr, st)));
+      leaky_backward<<<ELEMS(2LL * B * d1)>>>(dp1, p1, 2LL * B * d1, slope);
+      CHECK_LAUNCH();
+      CHECK((gemm<false, true>(d1, nd, 2 * B, dp1, 1, d1, x0, nd, 1, gradD + dW1, nd, nullptr,
+                               st)));
+      column_sum<<<(d1 + kThreads - 1) / kThreads, kThreads, 0, st>>>(dp1, 2 * B, d1,
+                                                                    gradD + db1);
+      CHECK_LAUNCH();
+      sumsq_partial<<<kNormParts, kThreads, 0, st>>>(gradD, Pd, partial);
+      CHECK_LAUNCH();
+      ak.lr = sc[1];
+      ak.inv1 = sc[4];
+      ak.inv2 = sc[5];
+      adam_update<<<kAdamBlocks, kThreads, 0, st>>>(d, d_m, d_v, gradD, Pd, partial, ak);
+      CHECK_LAUNCH();
+    }
+
+    // ---- G phase: the fake rows through the updated D --------------------
+    const float* fake_in = x0 + (long long)B * nd;
+    CHECK((gemm<true, false>(B, d1, nd, fake_in, nd, 1, d + dW1, 1, nd, p1, d1, d + db1, st)));
+    leaky_forward<<<ELEMS((long long)B * d1)>>>(p1, h1, (long long)B * d1, slope);
+    CHECK_LAUNCH();
+    CHECK((gemm<true, false>(B, d2, d1, h1, d1, 1, d + dW2, 1, d1, p2, d2, d + db2, st)));
+    leaky_forward<<<ELEMS((long long)B * d2)>>>(p2, h2, (long long)B * d2, slope);
+    CHECK_LAUNCH();
+    CHECK((gemm<true, false>(B, 1, d2, h2, d2, 1, d + dW3, 1, d2, z, 1, d + db3, st)));
+    adv_loss_kernel<<<1, kThreads, 0, st>>>(z, B, dz, row);
+    CHECK_LAUNCH();
+    d_head_backward<<<ELEMS((long long)B * d2)>>>(dz, d + dW3, p2, dp2, B, d2, slope);
+    CHECK_LAUNCH();
+    CHECK((gemm<true, true>(B, d1, d2, dp2, d2, 1, d + dW2, d1, 1, dp1, d1, nullptr, st)));
+    leaky_backward<<<ELEMS((long long)B * d1)>>>(dp1, p1, (long long)B * d1, slope);
+    CHECK_LAUNCH();
+    // only the four parameter columns of D's input gradient are needed
+    CHECK((gemm<true, true>(B, 4, d1, dp1, d1, 1, d + dW1 + S, nd, 1, dpphys, 4, nullptr, st)));
+
+    // ---- the frozen F, eval mode -------------------------------------------
+    const float* fa = pn;
+    for (int l = 0; l < n_f_hidden; ++l) {
+      const int din = f_dims[l], C = f_dims[l + 1];
+      const long long* o = f_offsets + 4 * l;
+      CHECK((gemm<true, false>(B, C, din, fa, din, 1, f + o[0], 1, din, tc[l], C, f + o[1],
+                               st)));
+      ln_forward<<<B, kThreads, 0, st>>>(tc[l], ln[l], nullptr, act[l], ivar[l], f + o[2],
+                                         f + o[3], C, ln_eps, slope, 0u, 0, 0u, 1.f);
+      CHECK_LAUNCH();
+      fa = act[l];
+    }
+    const int dh = f_dims[n_f_hidden];
+    const long long* oh = f_offsets + 4 * n_f_hidden;
+    CHECK((gemm<true, false>(B, D, dh, fa, dh, 1, f + oh[0], 1, dh, pred, D, f + oh[1], st)));
+
+    // ---- losses and their seeds -------------------------------------------
+    gk.c_scale = sc[7];
+    g_loss_kernel<<<1, kThreads, 0, st>>>(pred, spec_t, met_t, pn, dpphys, dpn, dpred, row, B,
+                                          S, gk);
+    CHECK_LAUNCH();
+
+    // ---- through F's input ---------------------------------------------------
+    if (!detach) {
+      CHECK((gemm<true, true>(B, dh, D, dpred, D, 1, f + oh[0], dh, 1, da, dh, nullptr, st)));
+      for (int l = n_f_hidden - 1; l >= 0; --l) {
+        const int din = f_dims[l], C = f_dims[l + 1];
+        const long long* o = f_offsets + 4 * l;
+        ln_backward<<<B, kThreads, 0, st>>>(da, nullptr, ln[l], tc[l], ivar[l], f + o[2], dln,
+                                            dt, C, slope, 0);
+        CHECK_LAUNCH();
+        CHECK((gemm<true, true>(B, din, C, dt, C, 1, f + o[0], din, 1, l > 0 ? da : dfin, din,
+                                nullptr, st)));
+      }
+    }
+
+    // ---- G backward -----------------------------------------------------------
+    g_head_seed<<<ELEMS((long long)B * 4)>>>(dpn, detach ? nullptr : dfin, tn, pn, B * 4,
+                                             sigmoid);
+    CHECK_LAUNCH();
+    CHECK((gemm<false, true>(4, g2, B, dpn, 1, 4, a[1], g2, 1, gradG + gW3, g2, nullptr, st)));
+    column_sum<<<1, kThreads, 0, st>>>(dpn, B, 4, gradG + gb3);
+    CHECK_LAUNCH();
+    CHECK((gemm<true, true>(B, g2, 4, dpn, 4, 1, g + gW3, g2, 1, da, g2, nullptr, st)));
+    bn_backward<<<COLS(g2)>>>(da, y[1], xh[1], uc[1], g + ggam2, iv[1], B, g2, dt,
+                              gradG + ggam2, gradG + gbet2);
+    CHECK_LAUNCH();
+    CHECK((gemm<false, true>(g2, g1, B, dt, 1, g2, a[0], g1, 1, gradG + gW2, g1, nullptr, st)));
+    column_sum<<<(g2 + kThreads - 1) / kThreads, kThreads, 0, st>>>(dt, B, g2, gradG + gb2);
+    CHECK_LAUNCH();
+    CHECK((gemm<true, true>(B, g1, g2, dt, g2, 1, g + gW2, g1, 1, da, g1, nullptr, st)));
+    bn_backward<<<COLS(g1)>>>(da, y[0], xh[0], uc[0], g + ggam1, iv[0], B, g1, dt,
+                              gradG + ggam1, gradG + gbet1);
+    CHECK_LAUNCH();
+    CHECK((gemm<false, true>(g1, S, B, dt, 1, g1, spec_t, S, 1, gradG + gW1, S, nullptr, st)));
+    column_sum<<<(g1 + kThreads - 1) / kThreads, kThreads, 0, st>>>(dt, B, g1, gradG + gb1);
+    CHECK_LAUNCH();
+    sumsq_partial<<<kNormParts, kThreads, 0, st>>>(gradG, Pg, partial);
+    CHECK_LAUNCH();
+    ak.lr = sc[0];
+    ak.inv1 = sc[2];
+    ak.inv2 = sc[3];
+    adam_update<<<kAdamBlocks, kThreads, 0, st>>>(g, g_m, g_v, gradG, Pg, partial, ak);
+    CHECK_LAUNCH();
+    if (ema_decay > 0.f) {
+      ema_lerp<<<ELEMS(Pg)>>>(g_ema, g, Pg, ema_decay, (float)(1.0 - hp[12]));
+      CHECK_LAUNCH();
+    }
+  }
+#undef ELEMS
+#undef COLS
+#undef CHECK_LAUNCH
+#undef CHECK
+  return 0;
+}
+
+}  // extern "C"

@@ -79,8 +79,8 @@ def synthesize_spectra(
 
 
 def sample_params(
-    generator: torch.Generator, n: int, cfg: DataConfig,
-    device: torch.device | str = "cpu",
+    generator: torch.Generator, n: int, cfg: DataConfig, *,
+    device: torch.device | str,
 ) -> torch.Tensor:
     """Uniform physical parameters in [param_min, param_max]^4, float32 on
     ``device`` (where ``generator`` must live too)."""

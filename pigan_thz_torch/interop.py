@@ -16,7 +16,9 @@ Mapping rules:
 
 ``load_forward_state_`` and ``forward_state_to_flax`` carry the
 forward-pretraining state (F's parameters, Adam's moments, the count) the
-same way, so that both packages can train on from one state.
+same way, ``load_pigan_state_`` and ``pigan_state_to_flax`` the PI-GAN
+state (G with its BatchNorm stats, D, the frozen F, both Adams, the EMA and
+the step), so that both packages can train on from one state.
 """
 
 from __future__ import annotations
@@ -39,6 +41,12 @@ GENERATOR_MAP: LayerMap = [
     ("main.6", "Dense_0", "linear"),
 ]
 
+DISCRIMINATOR_MAP: LayerMap = [
+    ("main.0", "Dense_0", "linear"),
+    ("main.2", "Dense_1", "linear"),
+    ("main.4", "Dense_2", "linear"),
+]
+
 FORWARD_MODEL_MAP: LayerMap = [
     *(
         entry
@@ -53,6 +61,7 @@ FORWARD_MODEL_MAP: LayerMap = [
 
 MAPS: Dict[str, LayerMap] = {
     "generator": GENERATOR_MAP,
+    "discriminator": DISCRIMINATOR_MAP,
     "forward_model": FORWARD_MODEL_MAP,
 }
 
@@ -86,42 +95,52 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy().astype(np.float32)
 
 
-def from_flax(variables_np: Mapping, kind: str) -> Dict[str, torch.Tensor]:
-    """flax variables (nested numpy dicts) -> CPU state_dict of the port's
-    ``kind`` module ("generator" or "forward_model")."""
-    params = variables_np["params"]
-    stats = variables_np.get("batch_stats", {})
+def _params_from_flax(params: Mapping, kind: str) -> Dict[str, torch.Tensor]:
+    """A flax params tree -> the weights and biases of a ``kind`` state_dict."""
     sd: Dict[str, torch.Tensor] = {}
     for tkey, fpath, layer in _layer_map(kind):
         if layer == "linear":
             sd[f"{tkey}.weight"] = _t(np.asarray(_get(params, f"{fpath}/kernel")).T)
-            sd[f"{tkey}.bias"] = _t(_get(params, f"{fpath}/bias"))
         else:
             sd[f"{tkey}.weight"] = _t(_get(params, f"{fpath}/scale"))
-            sd[f"{tkey}.bias"] = _t(_get(params, f"{fpath}/bias"))
-            if layer == "batchnorm":
-                sd[f"{tkey}.running_mean"] = _t(_get(stats, f"{fpath}/mean"))
-                sd[f"{tkey}.running_var"] = _t(_get(stats, f"{fpath}/var"))
-                sd[f"{tkey}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+        sd[f"{tkey}.bias"] = _t(_get(params, f"{fpath}/bias"))
+    return sd
+
+
+def _params_to_flax(state_dict: Mapping[str, torch.Tensor], kind: str) -> dict:
+    """The weights and biases of a ``kind`` state_dict -> a flax params tree."""
+    params: dict = {}
+    for tkey, fpath, layer in _layer_map(kind):
+        if layer == "linear":
+            _set(params, f"{fpath}/kernel", _np(state_dict[f"{tkey}.weight"]).T.copy())
+        else:
+            _set(params, f"{fpath}/scale", _np(state_dict[f"{tkey}.weight"]))
+        _set(params, f"{fpath}/bias", _np(state_dict[f"{tkey}.bias"]))
+    return params
+
+
+def from_flax(variables_np: Mapping, kind: str) -> Dict[str, torch.Tensor]:
+    """flax variables (nested numpy dicts) -> CPU state_dict of the port's
+    ``kind`` module ("generator", "discriminator" or "forward_model")."""
+    stats = variables_np.get("batch_stats", {})
+    sd = _params_from_flax(variables_np["params"], kind)
+    for tkey, fpath, layer in _layer_map(kind):
+        if layer == "batchnorm":
+            sd[f"{tkey}.running_mean"] = _t(_get(stats, f"{fpath}/mean"))
+            sd[f"{tkey}.running_var"] = _t(_get(stats, f"{fpath}/var"))
+            sd[f"{tkey}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
     return sd
 
 
 def to_flax(state_dict: Mapping[str, torch.Tensor], kind: str) -> dict:
     """The port's ``kind`` state_dict -> flax variables as nested numpy
     dicts ({"params": ..., ["batch_stats": ...]})."""
-    params: dict = {}
     stats: dict = {}
     for tkey, fpath, layer in _layer_map(kind):
-        if layer == "linear":
-            _set(params, f"{fpath}/kernel", _np(state_dict[f"{tkey}.weight"]).T.copy())
-            _set(params, f"{fpath}/bias", _np(state_dict[f"{tkey}.bias"]))
-        else:
-            _set(params, f"{fpath}/scale", _np(state_dict[f"{tkey}.weight"]))
-            _set(params, f"{fpath}/bias", _np(state_dict[f"{tkey}.bias"]))
-            if layer == "batchnorm":
-                _set(stats, f"{fpath}/mean", _np(state_dict[f"{tkey}.running_mean"]))
-                _set(stats, f"{fpath}/var", _np(state_dict[f"{tkey}.running_var"]))
-    variables = {"params": params}
+        if layer == "batchnorm":
+            _set(stats, f"{fpath}/mean", _np(state_dict[f"{tkey}.running_mean"]))
+            _set(stats, f"{fpath}/var", _np(state_dict[f"{tkey}.running_var"]))
+    variables = {"params": _params_to_flax(state_dict, kind)}
     if stats:
         variables["batch_stats"] = stats
     return variables
@@ -154,8 +173,7 @@ def load_forward_state_(state, params: Mapping, mu: Mapping, nu: Mapping, count:
     count; ``step`` defaults to ``count``.  Returns ``state``."""
     f = state.f
     for dst, tree in ((state.params, params), (state.opt.m, mu), (state.opt.v, nu)):
-        sd = from_flax({"params": tree}, "forward_model")
-        dst.copy_(_flat(sd, f).to(dst.device))
+        dst.copy_(_flat(_params_from_flax(tree, "forward_model"), f).to(dst.device))
     state.opt.count = int(count)
     state.step = int(count if step is None else step)
     return state
@@ -166,7 +184,65 @@ def forward_state_to_flax(state) -> dict:
     {"params", "mu", "nu"} flax trees, "count" and "step"."""
     out = {}
     for key, flat in (("params", state.params), ("mu", state.opt.m), ("nu", state.opt.v)):
-        out[key] = to_flax(_unflat(flat.detach(), state.f), "forward_model")["params"]
+        out[key] = _params_to_flax(_unflat(flat.detach(), state.f), "forward_model")
     out["count"] = int(state.opt.count)
+    out["step"] = int(state.step)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# PI-GAN state: G, D, the frozen F, both Adams, BatchNorm stats, EMA, step
+# ---------------------------------------------------------------------------
+
+_GD = (("generator", "g"), ("discriminator", "d"))
+
+
+@torch.no_grad()
+def load_pigan_state_(state, trees: Mapping):
+    """Overwrite the port's ``PiGanState`` (``train/state.py``) in place with
+    a JAX ``PiGanState`` carried across as numpy.  ``trees`` holds the flax
+    variables ``"g"`` (params and batch_stats), ``"d"`` and ``"f"``; the
+    params-shaped Adam trees ``"g_mu"``, ``"g_nu"``, ``"d_mu"``, ``"d_nu"``
+    with ``"g_count"`` and ``"d_count"``; optionally ``"g_ema"`` (a params
+    tree; the state must carry the buffer) and ``"step"`` (default: G's
+    count).  An entry that is missing leaves its part as it is.  Returns
+    ``state``."""
+    for kind, key in (*_GD, ("forward_model", "f")):
+        if key in trees:
+            sd = from_flax(trees[key], kind)
+            sd = {k: v for k, v in sd.items() if not k.endswith("num_batches_tracked")}
+            # in place: the parameters stay views into the flat buffers
+            getattr(state, key).load_state_dict(sd, strict=False)
+    for kind, pre in _GD:
+        module, opt = getattr(state, pre), getattr(state, f"{pre}_opt")
+        for dst, key in ((opt.m, f"{pre}_mu"), (opt.v, f"{pre}_nu")):
+            if key in trees:
+                dst.copy_(_flat(_params_from_flax(trees[key], kind), module).to(dst.device))
+        if f"{pre}_count" in trees:
+            opt.count = int(trees[f"{pre}_count"])
+    if trees.get("g_ema") is not None:
+        if state.g_ema is None:
+            raise ValueError("the state carries no g_ema buffer (init_pigan_state(ema=True))")
+        sd = _params_from_flax(trees["g_ema"], "generator")
+        state.g_ema.copy_(_flat(sd, state.g).to(state.g_ema.device))
+    state.step = int(trees.get("step", state.g_opt.count))
+    return state
+
+
+def pigan_state_to_flax(state) -> dict:
+    """The port's ``PiGanState`` as the pieces ``load_pigan_state_`` takes,
+    in numpy."""
+    out = {
+        "g": to_flax(state.g.state_dict(), "generator"),
+        "d": to_flax(state.d.state_dict(), "discriminator"),
+        "f": to_flax(state.f.state_dict(), "forward_model"),
+    }
+    for kind, pre in _GD:
+        module, opt = getattr(state, pre), getattr(state, f"{pre}_opt")
+        for flat, key in ((opt.m, f"{pre}_mu"), (opt.v, f"{pre}_nu")):
+            out[key] = _params_to_flax(_unflat(flat.detach(), module), kind)
+        out[f"{pre}_count"] = int(opt.count)
+    if state.g_ema is not None:
+        out["g_ema"] = _params_to_flax(_unflat(state.g_ema.detach(), state.g), "generator")
     out["step"] = int(state.step)
     return out

@@ -8,9 +8,10 @@ state_dict layout (``main.0`` / ``model.0`` ... ; ``interop.py``).
 Norm constants are flax's, not torch's defaults:
 - LayerNorm eps 1e-6 (flax default; torch's is 1e-5);
 - BatchNorm eps 1e-5, torch momentum 0.1 == flax momentum 0.9.
-  flax updates the running variance with the biased batch variance and
-  torch with the unbiased one; that matters only to the GAN training step
-  (G's BatchNorms), which the port does not have yet.
+  ``FlaxBatchNorm1d`` is flax's BatchNorm in train mode: the batch variance
+  is max(0, E[x²] − E[x]²) and the running variance takes the biased batch
+  variance (``nn.BatchNorm1d`` stores the unbiased one).  In eval mode it is
+  ``nn.BatchNorm1d``, with the same state_dict keys.
 
 ``flax_init_`` reproduces flax's initialisers (truncated lecun_normal
 kernels, zero biases, unit norm scales, BatchNorm stats 0 / 1), drawing
@@ -19,6 +20,7 @@ from an explicit ``torch.Generator``.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -31,6 +33,49 @@ BATCH_NORM_MOMENTUM = 0.1
 # flax's variance_scaling(1.0, "fan_in", "truncated_normal") divides the
 # standard deviation by the std of a unit normal truncated to [-2, 2].
 _TRUNC_STD = 0.87962566103423978
+
+
+class FlaxBatchNorm1d(nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` whose train-mode forward is flax's
+    (flax/linen/normalization.py: one-pass variance clamped at 0, running
+    stats updated with the biased variance).  While ``update_stats`` is
+    False a train-mode forward leaves the running stats alone (the second
+    generator passes of the GAN step, whose statistics flax discards)."""
+
+    update_stats: bool = True
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        # the sums over the batch in float64, as the training kernel and its
+        # plain version take them: E[x²] − E[x]² cancels
+        xd = x.double()
+        mean_d = xd.mean(dim=0)
+        var = torch.clamp((xd * xd).mean(dim=0) - mean_d * mean_d, min=0.0).to(x.dtype)
+        mean = mean_d.to(x.dtype)
+        if self.update_stats:
+            with torch.no_grad():
+                keep = 1.0 - self.momentum
+                self.running_mean.mul_(keep).add_(self.momentum * mean)
+                self.running_var.mul_(keep).add_(self.momentum * var)
+                self.num_batches_tracked += 1
+        y = (x - mean) * torch.rsqrt(var + self.eps)
+        return y * self.weight + self.bias
+
+
+@contextlib.contextmanager
+def frozen_batch_stats(module: nn.Module):
+    """Train-mode forwards inside the block do not update ``module``'s
+    BatchNorm running stats."""
+    norms = [m for m in module.modules() if isinstance(m, FlaxBatchNorm1d)]
+    before = [m.update_stats for m in norms]
+    for m in norms:
+        m.update_stats = False
+    try:
+        yield module
+    finally:
+        for m, b in zip(norms, before):
+            m.update_stats = b
 
 
 def mlp_block(
@@ -48,7 +93,7 @@ def mlp_block(
     layers: list[nn.Module] = [nn.Linear(in_features, features)]
     if norm == "batch":
         layers.append(
-            nn.BatchNorm1d(features, eps=BATCH_NORM_EPS, momentum=BATCH_NORM_MOMENTUM)
+            FlaxBatchNorm1d(features, eps=BATCH_NORM_EPS, momentum=BATCH_NORM_MOMENTUM)
         )
     elif norm == "layer":
         layers.append(nn.LayerNorm(features, eps=LAYER_NORM_EPS))

@@ -3,15 +3,17 @@
 The counterpart of ``pigan_thz_tpu/models/registry.py`` for the variants
 the port has.  Modules are built on the CPU, initialised with flax's scheme
 from ``generator`` (torch's global generator when None), so one seed gives
-the same weights on every device, then moved to ``device``.
+the same weights on every device, then moved to ``device``, which every
+build function takes as a required keyword.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..config import ForwardModelConfig, GeneratorConfig
+from ..config import DiscriminatorConfig, ForwardModelConfig, GeneratorConfig, PiGanConfig
 from .blocks import flax_init_
+from .discriminator import MLPDiscriminator
 from .forward_model import ForwardMLP
 from .generator import MLPGenerator
 
@@ -23,6 +25,9 @@ _NOT_PORTED = {
     "branched": "queue 1, item 15 (enhanced variants)",
     "physics": "queue 1, item 15 (enhanced variants)",
     "uncertainty": "queue 1, item 15 (enhanced variants)",
+    "dual_encoder": "queue 1, item 15 (enhanced variants)",
+    "conv": "queue 1, item 15 (enhanced variants)",
+    "multi_scale": "queue 1, item 15 (enhanced variants)",
 }
 
 
@@ -40,7 +45,7 @@ def build_generator(
     spectrum_dim: int = 250,
     param_dim: int = 4,
     *,
-    device: torch.device | str = "cpu",
+    device: torch.device | str,
     generator: torch.Generator | None = None,
 ) -> MLPGenerator:
     _check_ported("generator", cfg.name)
@@ -51,13 +56,29 @@ def build_generator(
     return flax_init_(g, generator).to(device)
 
 
+def build_discriminator(
+    cfg: DiscriminatorConfig,
+    spectrum_dim: int = 250,
+    param_dim: int = 4,
+    *,
+    device: torch.device | str,
+    generator: torch.Generator | None = None,
+) -> MLPDiscriminator:
+    _check_ported("discriminator", cfg.name)
+    d = MLPDiscriminator(
+        spectrum_dim=spectrum_dim, param_dim=param_dim,
+        hidden_dims=tuple(cfg.hidden_dims), leaky_slope=cfg.leaky_slope,
+    )
+    return flax_init_(d, generator).to(device)
+
+
 def build_forward_model(
     cfg: ForwardModelConfig,
     spectrum_dim: int = 250,
     metrics_dim: int = 8,
     param_dim: int = 4,
     *,
-    device: torch.device | str = "cpu",
+    device: torch.device | str,
     generator: torch.Generator | None = None,
 ) -> ForwardMLP:
     _check_ported("forward model", cfg.name)
@@ -67,3 +88,22 @@ def build_forward_model(
         leaky_slope=cfg.leaky_slope,
     )
     return flax_init_(f, generator).to(device)
+
+
+def build_trio(
+    cfg: PiGanConfig,
+    *,
+    device: torch.device | str,
+    generator: torch.Generator | None = None,
+) -> tuple[MLPGenerator, MLPDiscriminator, ForwardMLP]:
+    """(generator, discriminator, forward_model) from the run config, drawn
+    in that order from ``generator``."""
+    d = cfg.data
+    return (
+        build_generator(cfg.generator, d.spectrum_dim, d.param_dim, device=device,
+                        generator=generator),
+        build_discriminator(cfg.discriminator, d.spectrum_dim, d.param_dim, device=device,
+                            generator=generator),
+        build_forward_model(cfg.forward_model, d.spectrum_dim, d.metrics_dim, d.param_dim,
+                            device=device, generator=generator),
+    )

@@ -13,7 +13,7 @@ the kernels hold fp32 parity with their plain PyTorch versions.
 
 ``LAUNCHES`` counts each kernel's successful launches; only ``launch``,
 which the wrappers (``fused_kernels.py``, ``peaks.py``,
-``forward_train.py``) call, adds to it.
+``forward_train.py``, ``gan_train.py``) call, adds to it.
 """
 
 from __future__ import annotations
@@ -27,7 +27,8 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fused_mlp_chain.cu", "dip_qualification.cu", "forward_train.cu")
+SOURCES = ("fused_mlp_chain.cu", "dip_qualification.cu", "forward_train.cu", "gan_train.cu")
+HEADERS = ("train_common.cuh",)     # included by the two training sources
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,6 +42,7 @@ LAUNCHES: dict[str, int] = {
     "fused_dense_chain": 0,
     "dip_qualification": 0,
     "forward_train": 0,
+    "gan_train": 0,
 }
 
 _P = ctypes.c_void_p
@@ -60,12 +62,17 @@ ENTRY_POINTS = {
         _P, _P, ctypes.c_longlong, _DIMS, _I, _OFFSETS, _I, _I, _I,
         ctypes.POINTER(ctypes.c_double), _U32, _P,
     ],
+    "pigan_gan_train": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        ctypes.POINTER(ctypes.c_float), _P, _P, ctypes.c_longlong, _DIMS, _DIMS, _I,
+        _OFFSETS, _I, _I, ctypes.POINTER(ctypes.c_double), _I, _P,
+    ],
 }
 
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

@@ -119,7 +119,7 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
 
 
 def dropout_bits(seed: int, layer: int, rows: int, cols: int,
-                 device: torch.device | str = "cpu") -> torch.Tensor:
+                 device: torch.device | str) -> torch.Tensor:
     """(rows, cols) int64 tensor of 32-bit hashes of (seed, layer, row,
     column): mix(mix(mix(mix(seed) ^ layer) ^ row) ^ column), mix being
     lowbias32.  ``csrc/forward_train.cu`` computes the same bits."""
@@ -135,7 +135,7 @@ def keep_threshold(rate: float) -> int:
 
 
 def dropout_scale(seed: int, layer: int, rows: int, cols: int, rate: float,
-                  device: torch.device | str = "cpu") -> torch.Tensor:
+                  device: torch.device | str) -> torch.Tensor:
     """(rows, cols) float32 dropout factors: 1/keep where kept, else 0."""
     keep = dropout_bits(seed, layer, rows, cols, device) < keep_threshold(rate)
     return torch.where(keep, 1.0 / (1.0 - float(rate)), 0.0).to(torch.float32)

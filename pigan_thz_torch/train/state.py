@@ -1,7 +1,6 @@
-"""Training state of the forward surrogate: one flat fp32 buffer.
+"""Training states: each trained model in one flat fp32 buffer.
 
-The port of ``pigan_thz_tpu/train/state.py`` for the forward-pretraining
-path.  ``ForwardState`` holds F as an ``nn.Module`` whose parameters are
+The port of ``pigan_thz_tpu/train/state.py``.  ``ForwardState`` holds F as an ``nn.Module`` whose parameters are
 views into one contiguous (P,) fp32 buffer, laid out in the module's
 ``named_parameters`` order (the reference torch layout: each Linear's
 (out, in) weight, then its bias, each LayerNorm's weight and bias).  Adam's
@@ -13,9 +12,15 @@ The state's ``generator`` is a CPU ``torch.Generator``: it draws each
 epoch's shuffle and each step's dropout seed, so one seed gives the same
 batches and masks on every device.
 
+``PiGanState`` is the GAN phase's state in the same form: G and D each a
+module over a flat buffer with Adam's moments and a count of its own, G's
+BatchNorm running stats in the module's buffers, the frozen F (a copy in
+eval mode over a flat buffer of its own, no gradients), an optional EMA of
+G's flat buffer, the step count and the generator.
+
 ``make_optimizers`` builds the three models' optimisers from the config
 (cosine for G, step decay for D, cosine to 0 for F), as the JAX package
-does.  G and D come with the GAN slice.
+does.
 """
 
 from __future__ import annotations
@@ -114,6 +119,115 @@ def init_forward_state(
     params = torch.empty(num_params(model), dtype=torch.float32, device=device)
     bind_flat_(model, params)
     return ForwardState(step=0, f=model, params=params, opt=tx.init(params), generator=gen)
+
+
+def _clone_bound(module: nn.Module, flat: torch.Tensor) -> tuple[nn.Module, torch.Tensor]:
+    """A deep copy of ``module`` bound to a copy of ``flat``."""
+    module, flat = copy.deepcopy(module), flat.clone()
+    bind_flat_(module, flat)
+    return module, flat
+
+
+@dataclass
+class PiGanState:
+    """PI-GAN training state (G + D + frozen F + both optimisers).
+
+    ``g``, ``d`` and ``f`` have their parameters in ``g_params``,
+    ``d_params`` and ``f_params``; G's BatchNorm running stats are the
+    module's buffers.  ``g_ema`` optionally carries an exponential moving
+    average of ``g_params`` (``StepSettings.ema_decay`` > 0).  Training
+    updates all of it in place."""
+
+    step: int
+    g: nn.Module
+    d: nn.Module
+    f: nn.Module
+    g_params: torch.Tensor
+    d_params: torch.Tensor
+    f_params: torch.Tensor
+    g_opt: AdamState
+    d_opt: AdamState
+    generator: torch.Generator
+    g_ema: torch.Tensor | None = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.g_params.device
+
+    def batch_norms(self) -> list[nn.Module]:
+        """G's BatchNorm layers, in order."""
+        return [m for m in self.g.modules() if isinstance(m, nn.BatchNorm1d)]
+
+    def clone(self) -> "PiGanState":
+        """An independent copy (modules, buffers and generator state)."""
+        g, g_params = _clone_bound(self.g, self.g_params)
+        d, d_params = _clone_bound(self.d, self.d_params)
+        f, f_params = _clone_bound(self.f, self.f_params)
+        gen = torch.Generator()
+        gen.set_state(self.generator.get_state())
+        return PiGanState(
+            self.step, g, d, f, g_params, d_params, f_params, self.g_opt.clone(),
+            self.d_opt.clone(), gen,
+            None if self.g_ema is None else self.g_ema.clone())
+
+    def is_finite(self) -> bool:
+        """True iff G's and D's parameters and moments, the BatchNorm stats
+        and the EMA are all finite."""
+        tensors = [self.g_params, self.d_params, self.g_opt.m, self.g_opt.v,
+                   self.d_opt.m, self.d_opt.v]
+        for bn in self.batch_norms():
+            tensors += [bn.running_mean, bn.running_var]
+        if self.g_ema is not None:
+            tensors.append(self.g_ema)
+        return all(bool(torch.isfinite(t).all()) for t in tensors)
+
+    def set_forward_(self, forward_model: nn.Module) -> None:
+        """Refresh the frozen F with ``forward_model``'s weights (a copy)."""
+        with torch.no_grad():
+            for dst, src in zip(self.f.parameters(), forward_model.parameters()):
+                dst.copy_(src.to(dst.device))
+
+
+def init_pigan_state(
+    generator: nn.Module,
+    discriminator: nn.Module,
+    forward_model: nn.Module,
+    g_tx: ClipAdam,
+    d_tx: ClipAdam,
+    seed: int,
+    *,
+    device: torch.device | str,
+    fresh_forward: bool = False,
+    ema: bool = False,
+) -> PiGanState:
+    """Initialise G and D with flax's scheme from a CPU generator seeded with
+    ``seed`` (G first, then D), bind each to a fresh flat buffer on
+    ``device`` and start both Adams at zero.  F is a copy of
+    ``forward_model`` as it stands (pretrained weights), or freshly
+    initialised from the same generator with ``fresh_forward``; it is put in
+    eval mode and takes no gradients.  ``ema`` adds an EMA track seeded at
+    G's initial parameters.  The generator then draws the run's shuffles and
+    step seeds."""
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for module in (generator, discriminator):
+        module = flax_init_(copy.deepcopy(module).cpu(), gen)
+        params = torch.empty(num_params(module), dtype=torch.float32, device=device)
+        bind_flat_(module, params)
+        for buf in module.buffers():          # BatchNorm stats; .to() would rebind
+            buf.data = buf.data.to(device)
+        out.append((module, params))
+    f = copy.deepcopy(forward_model).cpu()
+    if fresh_forward:
+        flax_init_(f, gen)
+    f_params = torch.empty(num_params(f), dtype=torch.float32, device=device)
+    bind_flat_(f, f_params)
+    f.requires_grad_(False).eval()
+    (g, g_params), (d, d_params) = out
+    return PiGanState(
+        step=0, g=g, d=d, f=f, g_params=g_params, d_params=d_params, f_params=f_params,
+        g_opt=g_tx.init(g_params), d_opt=d_tx.init(d_params), generator=gen,
+        g_ema=g_params.clone() if ema else None)
 
 
 def make_optimizers(cfg: PiGanConfig, steps_per_epoch: int):

@@ -1,45 +1,66 @@
-"""High-level Trainer: the forward half of ``pigan_thz_tpu/train/trainer.py``.
+"""High-level Trainer: the port of ``pigan_thz_tpu/train/trainer.py``.
 
-``Trainer`` builds the dataset (``load_or_synthesize``), the forward
-surrogate F through the registry, the steps per epoch and the optimisers;
+``Trainer`` builds the dataset (``load_or_synthesize``), the trio G, D, F
+through the registry, the steps per epoch and the optimisers.
 ``pretrain_forward`` trains F (pretrain_fwd_model.py, the programs' phase 1,
-the emergency recovery) in chunks of whole epochs.  G, D and the PI-GAN
-phase come with the GAN slice.
+the emergency recovery), ``init_pigan`` and ``train_pigan`` run the PI-GAN
+phase (train_pigan.py and the trainer variants' settings), both in chunks of
+whole epochs; ``train`` dispatches on the mode and ``save_final`` /
+``load_final`` write and read the artifacts.  The evaluator, the
+``CheckpointManager`` with resume, and the training programs are not ported
+yet.
 
 Each chunk of ``epochs_per_call`` epochs is one call of a multi-epoch
-function: on the card the forward-training kernel (``ops/forward_train.py``,
-one launch per chunk), else the eager step (``train/steps.py``).  The
-``engine`` argument picks:
+function: on the card a training kernel (``ops/forward_train.py``,
+``ops/gan_train.py``: one launch per chunk), else the eager step
+(``train/steps.py``).  The ``engine`` argument picks, for both phases:
 
-- ``"auto"``: the kernel on CUDA when ``supports_forward_kernel`` holds, the
-  eager step otherwise; the choice is logged;
-- ``"kernel"``: the kernel, raising where its envelope excludes the config;
-  on the CPU it runs the kernel's plain version (the port's analogue of
-  Pallas interpret mode);
-- ``"eager"``: the eager step.
+- ``"auto"``: on CUDA the kernel, raising where it does not take the
+  configuration or the settings (the error names what it waits for and
+  ``engine="eager"``): no phase runs as plain PyTorch on the card unless the
+  caller asks for it.  On the CPU, where there is no kernel, the eager step;
+- ``"kernel"``: the kernel, raising in the same way; on the CPU it runs the
+  kernel's plain version (the port's analogue of Pallas interpret mode);
+- ``"eager"``: the eager step, on either device.
 
-A non-finite metric row or state raises ``FloatingPointError``.  It does
-not restore and retry on the eager path, as the JAX package's megakernel
-net does: that would hide a fault of the kernel.
+The choice is logged.  A non-finite metric row or state raises
+``FloatingPointError``.  It does not restore and retry on the eager path,
+as the JAX package's megakernel net does: that would hide a fault of the
+kernel.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import sys
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
 from ..config import PiGanConfig
 from ..data.dataset import ThzDataset, load_or_synthesize
-from ..models.registry import build_forward_model
+from ..models.registry import build_trio
 from ..ops.forward_train import make_forward_epoch_fn, supports_forward_kernel
+from ..ops.gan_train import make_gan_epoch_fn, supports_gan_kernel
 from ..utils.logging import RunLogger
+from . import checkpoint as ckpt
 from .schedules import ReduceLROnPlateau, build_optimizer
-from .state import ForwardState, init_forward_state, make_optimizers
-from .steps import ForwardStepSettings, make_forward_step, make_multi_epoch_fn
+from .state import (
+    ForwardState,
+    PiGanState,
+    init_forward_state,
+    init_pigan_state,
+    make_optimizers,
+)
+from .steps import (
+    ForwardStepSettings,
+    StepSettings,
+    make_forward_step,
+    make_multi_epoch_fn,
+    make_pigan_step,
+)
 
 History = Dict[str, List[float]]
 ENGINES = ("auto", "eager", "kernel")
@@ -74,13 +95,14 @@ class Trainer:
                 data=dataclasses.replace(cfg.data, spectrum_dim=self.ds.spectrum_dim))
         self.cfg = cfg
         self.logger = logger
-        # initialised again from the run's seed by init_forward_state
-        self.forward_model = build_forward_model(
-            cfg.forward_model, cfg.data.spectrum_dim, cfg.data.metrics_dim,
-            cfg.data.param_dim, generator=torch.Generator().manual_seed(cfg.train.seed))
+        # templates on the CPU: init_forward_state and init_pigan_state
+        # initialise copies of them from the run's seed on the device
+        self.generator, self.discriminator, self.forward_model = build_trio(
+            cfg, device="cpu", generator=torch.Generator().manual_seed(cfg.train.seed))
         self.steps_per_epoch = max(1, self.ds.num_samples // cfg.train.batch_size)
-        _, _, self.f_tx = make_optimizers(cfg, self.steps_per_epoch)
+        self.g_tx, self.d_tx, self.f_tx = make_optimizers(cfg, self.steps_per_epoch)
         self.forward_state: Optional[ForwardState] = None
+        self.pigan_state: Optional[PiGanState] = None
         self.train_history: History = {}
         self.epochs_per_call = max(1, epochs_per_call)
         self.engine = engine
@@ -98,26 +120,47 @@ class Trainer:
         else:
             print(f"[trainer] {msg}", file=sys.stderr)
 
+    def _use_kernel(self, what: str, kernel: str, reason: Optional[str]) -> bool:
+        """The engine rule for one phase: True for the kernel (on the CPU its
+        plain version), False for the eager step.  Raises where the kernel
+        was asked for, or is the card's default, and does not take the phase
+        (``reason``)."""
+        if self.engine == "eager":
+            self._log_always(f"{what} on the eager step (engine='eager')")
+            return False
+        if self.engine == "auto" and self.device.type != "cuda":
+            self._log_always(f"{what} on the eager step (no kernel on {self.device.type})")
+            return False
+        if reason is not None:
+            kind = NotImplementedError if "ROADMAP.md" in reason else ValueError
+            raise kind(f"engine={self.engine!r} but: {reason}; engine='eager' (--engine "
+                       f"eager) runs {what} on the eager PyTorch step")
+        where = "the CUDA kernel" if self.device.type == "cuda" else "its plain version"
+        self._log_always(f"{what} through the {kernel} kernel ({where}), one launch per "
+                         "chunk")
+        return True
+
     def _forward_epoch_fn(self, settings, tx, lr, epochs, schedule):
         """(multi-epoch fn, engine used) for this phase."""
-        reason = supports_forward_kernel(self.cfg)
-        if self.engine == "kernel" and reason is not None:
-            raise ValueError(f"engine='kernel' but: {reason}")
-        use_kernel = self.engine == "kernel" or (
-            self.engine == "auto" and reason is None and self.device.type == "cuda")
-        if use_kernel:
+        if self._use_kernel("forward pretraining", "forward-training",
+                            supports_forward_kernel(self.cfg)):
             fn = make_forward_epoch_fn(
                 self.cfg, settings, lr=lr,
                 total_epochs=epochs if lr is not None else None, schedule=schedule)
-            where = "the CUDA kernel" if self.device.type == "cuda" else "its plain version"
-            self._log_always(f"forward pretraining through the forward-training kernel "
-                             f"({where}), one launch per chunk")
             return fn, "kernel"
-        why = "engine='eager'" if self.engine == "eager" else (
-            reason or f"no kernel on {self.device.type}")
-        self._log_always(f"forward pretraining on the eager step ({why})")
         fn = make_multi_epoch_fn(make_forward_step(tx, settings), self.cfg.train.batch_size)
         return fn, "eager"
+
+    def _gan_epoch_fn(self, settings, g_tx, d_tx, overrides: dict, epochs: int):
+        """(multi-epoch fn, engine used) for a PI-GAN phase."""
+        if self._use_kernel("PI-GAN training", "GAN-training",
+                            supports_gan_kernel(self.cfg, settings)):
+            fn = make_gan_epoch_fn(
+                self.cfg, settings, **overrides,
+                horizon_epochs=epochs if overrides else None)
+            return fn, "kernel"
+        step = make_pigan_step(g_tx, d_tx, settings, self.ds.param_lo, self.ds.param_hi)
+        return make_multi_epoch_fn(step, self.cfg.train.batch_size), "eager"
 
     def _record(self, metrics: Dict[str, float], prefix: str, epoch: int) -> None:
         for k, val in metrics.items():
@@ -234,3 +277,178 @@ class Trainer:
         if keep_best and best_state is not None:
             self.forward_state = best_state
         return self.train_history
+
+    # ------------------------------------------------------------------
+    # PI-GAN training (train_pigan.py / trainer-variant settings)
+    # ------------------------------------------------------------------
+    def init_pigan(self, seed: int = 0, fresh_gd: bool = False) -> PiGanState:
+        """Create the PI-GAN state (G and D fresh from the run's seed, F a
+        copy of the pretrained one, or fresh when none was trained); on a
+        later call refresh only the frozen F, unless ``fresh_gd``."""
+        trained = self.forward_state.f if self.forward_state is not None else None
+        if self.pigan_state is None or fresh_gd:
+            self.pigan_state = init_pigan_state(
+                self.generator, self.discriminator, trained or self.forward_model,
+                self.g_tx, self.d_tx, self.cfg.train.seed + 2000 + seed,
+                device=self.device, fresh_forward=trained is None)
+        elif trained is not None:
+            self.pigan_state.set_forward_(trained)
+        return self.pigan_state
+
+    def train_pigan(
+        self,
+        epochs: Optional[int] = None,
+        settings: Optional[StepSettings] = None,
+        log_every: int = 10,
+        constraint_schedule: Optional[Callable[[int], float]] = None,
+        snapshot_metric: Optional[str] = None,
+        snapshot_mode: str = "min",
+        early_stop: Optional[Callable[[Dict[str, float]], bool]] = None,
+        checkpoint_manager=None,
+        lr_g: Optional[float] = None,
+        lr_d: Optional[float] = None,
+        schedule_g: Optional[str] = None,
+        schedule_d: Optional[str] = None,
+        seed: int = 0,
+    ) -> History:
+        """Run GAN epochs with optional constraint annealing
+        (unified_constraint_trainer.py:515-529), best-snapshot restore
+        (:645-674), metric-based early stop (:662-665) and per-phase
+        optimiser overrides, the constraint trainer's per-mode learning
+        rates and schedules (:196-214).  Overriding an optimiser starts its
+        Adam moments and count afresh, and its schedule spans this call's
+        ``epochs``.
+
+        Without overrides the schedules' horizon is ``cfg.train.num_epochs``,
+        not this call's ``epochs``: callers that train in several calls need
+        a horizon that spans the total (the command sets it from
+        ``--epochs``).  ``seed`` reseeds the state's generator, so that
+        successive calls do not replay one shuffle sequence."""
+        if checkpoint_manager is not None:
+            raise NotImplementedError(
+                "checkpoint_manager: periodic full-state checkpoints and resume are not "
+                "ported yet (ROADMAP.md queue 1, item 7)")
+        cfg = self.cfg
+        epochs = cfg.train.num_epochs if epochs is None else epochs
+        settings = settings or StepSettings.from_config(cfg)
+        if self.pigan_state is None:
+            self.init_pigan()
+        state = self.pigan_state
+        if settings.ema_decay > 0.0 and state.g_ema is None:
+            state.g_ema = state.g_params.clone()     # the track starts at the current G
+
+        g_tx, d_tx, overrides = self.g_tx, self.d_tx, {}
+        if lr_g is not None or schedule_g is not None:
+            g_tx = build_optimizer(
+                lr=cfg.train.lr_g if lr_g is None else lr_g, total_epochs=epochs,
+                steps_per_epoch=self.steps_per_epoch, schedule=schedule_g or "cosine",
+                b1=0.5, grad_clip=cfg.train.grad_clip,
+                adam_state_dtype=cfg.train.adam_state_dtype)
+            state.g_opt = g_tx.init(state.g_params)
+            overrides.update(lr_g=lr_g, schedule_g=schedule_g)
+        if lr_d is not None or schedule_d is not None:
+            d_tx = build_optimizer(
+                lr=cfg.train.lr_d if lr_d is None else lr_d, total_epochs=epochs,
+                steps_per_epoch=self.steps_per_epoch, schedule=schedule_d or "step",
+                b1=0.5, grad_clip=cfg.train.grad_clip,
+                adam_state_dtype=cfg.train.adam_state_dtype)
+            state.d_opt = d_tx.init(state.d_params)
+            overrides.update(lr_d=lr_d, schedule_d=schedule_d)
+        multi_epoch, engine = self._gan_epoch_fn(settings, g_tx, d_tx, overrides, epochs)
+
+        state.generator.manual_seed(cfg.train.seed + 3000 + seed)
+        best_val, best_state = None, None
+        epoch, stop = 0, False
+        t_start = time.time()
+        while epoch < epochs and not stop:
+            chunk = min(self.epochs_per_call, epochs - epoch)
+            scales = torch.tensor(
+                [constraint_schedule(epoch + j) if constraint_schedule else 1.0
+                 for j in range(chunk)], dtype=torch.float32)
+            self.pigan_state, ms = multi_epoch(self.pigan_state, self.ds, scales)
+            host = torch.stack([ms[k] for k in ms]).cpu()        # one transfer
+            rows = {k: host[j].tolist() for j, k in enumerate(ms)}
+            if not self.pigan_state.is_finite():
+                raise FloatingPointError(
+                    f"non-finite PI-GAN state after the chunk at epoch {epoch} "
+                    f"({engine} engine)")
+            chunk_has_best = False
+            for j in range(chunk):
+                e = epoch + j
+                m = {k: v[j] for k, v in rows.items()}
+                self._record(m, "pigan/", e)
+                if (e + 1) % log_every == 0:
+                    self._log(f"[pigan] epoch {e + 1}/{epochs} D={m['d_loss']:.4f} "
+                              f"G={m['g_loss']:.4f} viol={m['violation_rate']:.3f}")
+                if snapshot_metric is not None:
+                    val = m[snapshot_metric]
+                    if (best_val is None or (snapshot_mode == "min" and val < best_val)
+                            or (snapshot_mode == "max" and val > best_val)):
+                        best_val, chunk_has_best = val, True
+                if early_stop is not None and early_stop(m):
+                    self._log(f"[pigan] early stop at epoch {e + 1}")
+                    stop = True
+                    break
+            if chunk_has_best:
+                best_state = self.pigan_state.clone()       # chunk granularity
+            epoch += chunk
+            self._progress("pigan", t_start, epoch, epochs)
+        if snapshot_metric is not None and best_state is not None:
+            self.pigan_state = best_state
+            self._log(f"[pigan] restored best snapshot ({snapshot_metric}={best_val:.4f})")
+        return self.train_history
+
+    # ------------------------------------------------------------------
+    # Full pipeline (unified_trainer.train_full_pipeline :422-455)
+    # ------------------------------------------------------------------
+    def train_full_pipeline(self, forward_epochs: Optional[int] = None,
+                            gan_epochs: Optional[int] = None) -> History:
+        self.pretrain_forward(epochs=forward_epochs)
+        self.init_pigan()
+        self.train_pigan(epochs=gan_epochs)
+        return self.train_history
+
+    def train(self, mode: str = "full", **kw) -> History:
+        """Mode dispatch (unified_trainer.py:114-155)."""
+        if mode == "forward_only":
+            return self.pretrain_forward(**kw)
+        if mode == "pigan_only":
+            self.init_pigan()
+            return self.train_pigan(**kw)
+        if mode == "full":
+            return self.train_full_pipeline(**kw)
+        raise ValueError(f"unknown mode: {mode!r}")
+
+    # ------------------------------------------------------------------
+    # Artifacts
+    # ------------------------------------------------------------------
+    def save_final(self, directory: str, backup_tag: str | None = None) -> None:
+        """The final trio (and ``generator_ema``), ``model_config.json``, the
+        training history and, when F was pretrained here,
+        ``forward_model_pretrained``; ``backup_tag`` also writes
+        ``generator_<tag>`` etc. beside the finals."""
+        if self.pigan_state is None:
+            raise ValueError("save_final: train or init_pigan first")
+        ckpt.save_final_trio(directory, self.pigan_state, backup_tag=backup_tag)
+        ckpt.save_model_config(directory, self.cfg)
+        ckpt.save_train_history(directory, self.train_history)
+        if self.forward_state is not None:
+            ckpt.save_model(directory, ckpt.FORWARD_MODEL_PRETRAINED, self.forward_state.f)
+
+    def load_final(self, directory: str) -> None:
+        """Load the final artifacts (the reference's ``.pth`` layout) into
+        the PI-GAN state, with the EMA generator and the history when they
+        are there."""
+        if self.pigan_state is None:
+            self.init_pigan()
+        st = self.pigan_state
+        ckpt.load_final_trio(directory, st.g, st.d, st.f)   # in place: views stay bound
+        st.g_ema = None
+        if ckpt.exists(directory, ckpt.GENERATOR_EMA):
+            sd = torch.load(os.path.join(directory, f"{ckpt.GENERATOR_EMA}.pth"),
+                            map_location="cpu", weights_only=True)
+            st.g_ema = torch.cat([sd[name].reshape(-1) for name, _ in
+                                  st.g.named_parameters()]).to(self.device)
+        history = ckpt.load_train_history(directory)
+        if history:
+            self.train_history = {k: [float(x) for x in v] for k, v in history.items()}

@@ -86,7 +86,7 @@ def _jax_state(jc, seed=2):
 
 def _port_state(tc, seed=0):
     _, _, ftx = t_make_optimizers(tc, N // B)
-    return ftx, init_forward_state(build_forward_model(tc.forward_model), ftx, seed)
+    return ftx, init_forward_state(build_forward_model(tc.forward_model, device="cpu"), ftx, seed)
 
 
 def _carry(jstate, tstate):
@@ -207,7 +207,7 @@ def _mix32_reference(x: int) -> int:
 
 def test_dropout_bits_match_python_reference():
     seed, layer = 2**31 - 2, 3
-    bits = ft.dropout_bits(seed, layer, 5, 7)
+    bits = ft.dropout_bits(seed, layer, 5, 7, device="cpu")
     h = _mix32_reference(_mix32_reference(seed) ^ layer)
     for r in range(5):
         rk = _mix32_reference(h ^ r)
@@ -217,15 +217,15 @@ def test_dropout_bits_match_python_reference():
 
 @pytest.mark.parametrize("rate", [0.2, 0.5])
 def test_dropout_masks_keep_a_binomial_share(rate):
-    scale = ft.dropout_scale(12345, 0, 64, 1024, rate)
+    scale = ft.dropout_scale(12345, 0, 64, 1024, rate, device="cpu")
     kept = scale > 0
     n = kept.numel()
     share = float(kept.float().mean())
     assert abs(share - (1 - rate)) <= 5 * (rate * (1 - rate) / n) ** 0.5
     assert torch.all(scale[kept] == torch.tensor(1 / (1 - rate), dtype=torch.float32))
     # other layers and seeds draw other masks
-    assert not torch.equal(scale, ft.dropout_scale(12345, 1, 64, 1024, rate))
-    assert not torch.equal(scale, ft.dropout_scale(12346, 0, 64, 1024, rate))
+    assert not torch.equal(scale, ft.dropout_scale(12345, 1, 64, 1024, rate, device="cpu"))
+    assert not torch.equal(scale, ft.dropout_scale(12346, 0, 64, 1024, rate, device="cpu"))
 
 
 def test_kernel_envelope():

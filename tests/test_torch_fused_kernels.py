@@ -48,14 +48,14 @@ def jax_generator():
 
 @pytest.fixture(scope="module")
 def port_forward(jax_forward):
-    f = build_forward_model(TFwdCfg())
+    f = build_forward_model(TFwdCfg(), device="cpu")
     f.load_state_dict(from_flax(jax_forward, "forward_model"))
     return f.eval()
 
 
 @pytest.fixture(scope="module")
 def port_generator(jax_generator):
-    g = build_generator(TGenCfg())
+    g = build_generator(TGenCfg(), device="cpu")
     g.load_state_dict(from_flax(jax_generator, "generator"))
     return g.eval()
 
@@ -137,10 +137,10 @@ def test_packed_views_reproduce_the_chain(port_generator):
 
 
 def test_non_baseline_layouts_raise(port_generator, port_forward):
-    g_layer = build_generator(TGenCfg(norm="layer"))        # no BatchNorm stats
+    g_layer = build_generator(TGenCfg(norm="layer"), device="cpu")        # no BatchNorm stats
     with pytest.raises(ValueError):
         fk.extract_generator_weights(g_layer)
-    f_short = build_forward_model(TFwdCfg(hidden_dims=(256, 512, 256)))
+    f_short = build_forward_model(TFwdCfg(hidden_dims=(256, 512, 256)), device="cpu")
     with pytest.raises(ValueError):
         fk.extract_forward_mlp_weights(f_short)
     with pytest.raises(ValueError):

@@ -1,8 +1,12 @@
 """Guards on the port's boundaries: no JAX, flax, optax, orbax or pandas
 inside it, no result from the chip smoke test without a card, no kernel
-launch for a CPU tensor, no CPU fallback for a missing card."""
+launch for a CPU tensor, no CPU fallback for a missing card, no function
+whose ``device`` defaults to the CPU."""
 
+import importlib
+import inspect
 import os
+import pkgutil
 import shutil
 import subprocess
 import sys
@@ -30,7 +34,7 @@ names = [m.name for m in pkgutil.walk_packages(pigan_thz_torch.__path__, "pigan_
          if not m.name.endswith(".__main__")]     # __main__ runs the CLI
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 30, names
+assert len(names) >= 33, names
 jax = sorted(m for m in sys.modules if m in ("jax", "flax", "optax", "orbax")
              or m.startswith(("jax.", "jaxlib", "flax.", "optax.", "orbax.")))
 assert not jax, jax
@@ -39,6 +43,53 @@ assert not any(m == "pandas" or m.startswith("pandas.") for m in sys.modules)
 assert not any(m.startswith("pigan_thz_tpu") for m in sys.modules)
 print("imported", len(names))
 """
+
+
+def _public_callables():
+    """(qualified name, callable) of every public function, class
+    constructor and method defined in the port."""
+    import pigan_thz_torch
+
+    seen = {}
+    for info in pkgutil.walk_packages(pigan_thz_torch.__path__, "pigan_thz_torch."):
+        if info.name.endswith(".__main__"):
+            continue
+        module = importlib.import_module(info.name)
+        for name, obj in vars(module).items():
+            if name.startswith("_") or getattr(obj, "__module__", None) != info.name:
+                continue
+            if inspect.isfunction(obj):
+                seen[f"{info.name}.{name}"] = obj
+            elif inspect.isclass(obj):
+                for attr, fn in vars(obj).items():
+                    if inspect.isfunction(fn) and (attr == "__init__" or attr[0] != "_"):
+                        seen[f"{info.name}.{name}.{attr}"] = fn
+    return seen
+
+
+def test_no_public_function_defaults_its_device_to_the_cpu():
+    """An entry point runs on the card unless the caller asks for the CPU:
+    a ``device`` parameter is required, or defaults to CUDA or to "where the
+    inputs are" (None), never to the CPU."""
+    fns = _public_callables()
+    assert len(fns) >= 150, len(fns)
+    with_device, bad = [], []
+    for name, fn in fns.items():
+        for pname, p in inspect.signature(fn).parameters.items():
+            if pname not in ("device", "dev"):
+                continue
+            with_device.append(name)
+            default = p.default
+            if default is not inspect.Parameter.empty and default is not None and (
+                    torch.device(default).type == "cpu"):
+                bad.append(name)
+    assert not bad, bad
+    assert {"pigan_thz_torch.models.registry.build_trio",
+            "pigan_thz_torch.models.registry.build_generator",
+            "pigan_thz_torch.data.synthetic.sample_params",
+            "pigan_thz_torch.train.state.init_pigan_state"} <= set(with_device)
+    sig = inspect.signature(fns["pigan_thz_torch.models.registry.build_trio"])
+    assert sig.parameters["device"].default is inspect.Parameter.empty
 
 
 def _env_without_card():
@@ -75,8 +126,8 @@ def test_chip_smoke_without_cuda_fails_without_result(alone, tmp_path):
 def test_cpu_tensors_take_the_plain_path():
     cfg = default_config()
     gen = torch.Generator().manual_seed(0)
-    g = fk.pack_generator(build_generator(cfg.generator, generator=gen).eval())
-    f = fk.pack_forward_model(build_forward_model(cfg.forward_model, generator=gen).eval())
+    g = fk.pack_generator(build_generator(cfg.generator, generator=gen, device="cpu").eval())
+    f = fk.pack_forward_model(build_forward_model(cfg.forward_model, generator=gen, device="cpu").eval())
     x = torch.randn(5, 250, generator=gen)
     before = dict(fk.LAUNCHES)
     pn = fk.generator_fused(g, x)
@@ -95,7 +146,7 @@ def test_cpu_peaks_and_screening_launch_nothing():
     assert fk.LAUNCHES == before
     want = pk._dip_qualification_lifted(t)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    f = build_forward_model(default_config().forward_model, generator=gen)
+    f = build_forward_model(default_config().forward_model, generator=gen, device="cpu")
     for use_pallas in (True, False):
         screen_designs(f, default_config().data.frequencies, torch.full((4,), 2.2),
                        torch.full((4,), 2.8), gen,
@@ -103,7 +154,7 @@ def test_cpu_peaks_and_screening_launch_nothing():
                                        use_pallas=use_pallas))
     assert fk.LAUNCHES == before
     assert set(fk.LAUNCHES) == {"fused_mlp_forward", "fused_dense_chain",
-                                "dip_qualification", "forward_train"}
+                                "dip_qualification", "forward_train", "gan_train"}
 
 
 @pytest.mark.parametrize("bad", ["float64", "non_contiguous", "rank_1", "meta"])
@@ -134,7 +185,7 @@ def test_generate_data_without_a_card_does_not_fall_back(tmp_path):
 def test_cpu_forward_train_launches_nothing():
     cfg = default_config()
     _, _, ftx = make_optimizers(cfg, 1)
-    st = init_forward_state(build_forward_model(cfg.forward_model), ftx, 0)
+    st = init_forward_state(build_forward_model(cfg.forward_model, device="cpu"), ftx, 0)
     spec = ft.forward_train_spec(cfg, ForwardStepSettings())
     gen = torch.Generator().manual_seed(0)
     streams = ft.Streams(torch.rand(2, 8, 4, generator=gen),
@@ -164,3 +215,37 @@ def test_pretrain_forward_without_a_card_does_not_fall_back(tmp_path):
     assert proc.returncode != 0
     assert "--device cpu" in proc.stderr
     assert not out.exists() and not (tmp_path / "runs").exists()
+
+
+def test_cpu_gan_train_launches_nothing():
+    from pigan_thz_torch.models import build_trio
+    from pigan_thz_torch.ops import gan_train as gt
+    from pigan_thz_torch.train.state import init_pigan_state
+    from pigan_thz_torch.train.steps import StepSettings
+
+    cfg = default_config()
+    gtx, dtx, _ = make_optimizers(cfg, 1)
+    st = init_pigan_state(*build_trio(cfg, device="cpu"), gtx, dtx, 0, device="cpu")
+    spec = gt.gan_train_spec(cfg, StepSettings.from_config(cfg))
+    gen = torch.Generator().manual_seed(0)
+    sched = torch.stack([torch.full((2,), v) for v in (2e-4, 2e-4, 2.0, 1e3, 2.0, 1e3, 1.0,
+                                                      1.0)], dim=1)
+    streams = gt.GanStreams(-torch.rand(2, 8, 250, generator=gen),
+                            2.2 + 0.6 * torch.rand(2, 8, 4, generator=gen),
+                            torch.rand(2, 8, 8, generator=gen), sched,
+                            torch.full((4,), 2.2), torch.full((4,), 2.8))
+    before = dict(gt.LAUNCHES)
+    rows = gt.gan_train(gt.state_buffers(st), streams, spec)
+    assert gt.LAUNCHES == before
+    assert rows.shape == (2, gt.ROW_WIDTH) and bool(torch.isfinite(rows).all())
+
+
+def test_train_without_a_card_does_not_fall_back(tmp_path):
+    cmd = [sys.executable, "-m", "pigan_thz_torch", "train", "--epochs", "1",
+           "--forward-epochs", "1", "--set", "data.num_samples=64", "--workdir",
+           str(tmp_path)]
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300,
+                          env=_env_without_card())
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert not (tmp_path / "saved_models").exists()

@@ -79,9 +79,9 @@ def test_to_flax_inverts_from_flax(kind, jax_generator, jax_forward):
 @pytest.mark.parametrize("kind", ["generator", "forward_model"])
 def test_port_layout_is_the_reference_torch_layout(kind, jax_generator, jax_forward):
     if kind == "generator":
-        module, variables = build_generator(TGenCfg()), jax_generator[1]
+        module, variables = build_generator(TGenCfg(), device="cpu"), jax_generator[1]
     else:
-        module, variables = build_forward_model(TFwdCfg()), jax_forward[1]
+        module, variables = build_forward_model(TFwdCfg(), device="cpu"), jax_forward[1]
     got, want = module.state_dict(), from_flax(variables, kind)
     assert set(got) == set(want)
     for name in want:
@@ -90,14 +90,14 @@ def test_port_layout_is_the_reference_torch_layout(kind, jax_generator, jax_forw
 
 def test_unknown_kind_raises(jax_forward):
     with pytest.raises(ValueError):
-        from_flax(jax_forward[1], "discriminator")
+        from_flax(jax_forward[1], "critic")
 
 
 def test_generator_eval_matches_flax(jax_generator):
     g, gv = jax_generator
     x = np.random.default_rng(0).normal(size=(33, 250)).astype(np.float32)
     want = np.asarray(g.apply(gv, jnp.asarray(x), train=False))
-    tg = build_generator(TGenCfg())
+    tg = build_generator(TGenCfg(), device="cpu")
     tg.load_state_dict(from_flax(gv, "generator"))
     with torch.no_grad():
         got = tg.eval()(torch.from_numpy(x)).numpy()
@@ -110,7 +110,7 @@ def test_forward_eval_matches_flax(jax_forward):
     f, fv = jax_forward
     x = np.random.default_rng(1).uniform(-1, 1, size=(33, 4)).astype(np.float32)
     want_s, want_m = f.apply(fv, jnp.asarray(x), train=False)
-    tf = build_forward_model(TFwdCfg())
+    tf = build_forward_model(TFwdCfg(), device="cpu")
     tf.load_state_dict(from_flax(fv, "forward_model"))
     with torch.no_grad():
         got_s, got_m = tf.eval()(torch.from_numpy(x))
@@ -122,7 +122,7 @@ def test_forward_eval_matches_flax(jax_forward):
 def test_flax_init_scheme():
     """Truncated lecun_normal kernels, zero biases, unit norm scales and
     BatchNorm stats 0 / 1 -- the distribution flax draws from."""
-    g = build_generator(TGenCfg(), generator=torch.Generator().manual_seed(0))
+    g = build_generator(TGenCfg(), generator=torch.Generator().manual_seed(0), device="cpu")
     w = g.main[0].weight.detach()   # (512, 250): fan_in 250
     std = np.sqrt(1.0 / 250) / 0.87962566103423978
     assert float(w.abs().max()) <= 2 * std
@@ -133,13 +133,13 @@ def test_flax_init_scheme():
     assert torch.equal(bn.running_mean, torch.zeros(512))
     assert torch.equal(bn.running_var, torch.ones(512))
     assert bn.eps == 1e-5 and bn.momentum == 0.1
-    f = build_forward_model(TFwdCfg())
+    f = build_forward_model(TFwdCfg(), device="cpu")
     assert f.model[1].eps == 1e-6
 
 
 def test_seeded_build_is_deterministic():
-    a = build_forward_model(TFwdCfg(), generator=torch.Generator().manual_seed(3))
-    b = build_forward_model(TFwdCfg(), generator=torch.Generator().manual_seed(3))
+    a = build_forward_model(TFwdCfg(), generator=torch.Generator().manual_seed(3), device="cpu")
+    b = build_forward_model(TFwdCfg(), generator=torch.Generator().manual_seed(3), device="cpu")
     for (ka, va), (kb, vb) in zip(a.state_dict().items(), b.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)
 
@@ -153,9 +153,9 @@ def test_seeded_build_is_deterministic():
 ])
 def test_unported_variants_raise(build, cfg):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(cfg)
+        build(cfg, device="cpu")
 
 
 def test_unknown_variant_raises():
     with pytest.raises(ValueError):
-        build_generator(TGenCfg(name="nope"))
+        build_generator(TGenCfg(name="nope"), device="cpu")

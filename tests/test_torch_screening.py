@@ -45,7 +45,7 @@ def forward_models(cfg):
     f = build_trio(cfg)[2]
     k = jax.random.PRNGKey(0)
     fv = f.init({"params": k, "dropout": k}, jnp.zeros((2, 4)), train=False)
-    tf = build_forward_model(t_default_config().forward_model)
+    tf = build_forward_model(t_default_config().forward_model, device="cpu")
     tf.load_state_dict(from_flax(jax.tree.map(np.asarray, fv), "forward_model"))
     return f, fv, tf.eval()
 

@@ -32,9 +32,9 @@ def trio(cfg, small_ds):
     )
     fv = f.init({"params": k, "dropout": k}, small_ds.params_norm[:2], train=False)
     tcfg = t_default_config()
-    tg = build_generator(tcfg.generator)
+    tg = build_generator(tcfg.generator, device="cpu")
     tg.load_state_dict(from_flax(jax.tree.map(np.asarray, gv), "generator"))
-    tf = build_forward_model(tcfg.forward_model)
+    tf = build_forward_model(tcfg.forward_model, device="cpu")
     tf.load_state_dict(from_flax(jax.tree.map(np.asarray, fv), "forward_model"))
     tds = build_dataset(
         np.asarray(small_ds.spectra), np.asarray(small_ds.params),
@@ -83,6 +83,6 @@ def test_compute_dtype_not_ported(trio):
 
 def test_non_baseline_generator_refused(trio):
     _, (_, tf), tds = trio
-    g_layer = build_generator(GeneratorConfig(norm="layer"))
+    g_layer = build_generator(GeneratorConfig(norm="layer"), device="cpu")
     with pytest.raises(ValueError):
         make_inverse_design_fn(g_layer, tf, tds)

@@ -99,7 +99,7 @@ def test_noise_statistics_and_clamp():
     clamp at 0 dB only."""
     cfg = t_default_config().data
     gen = torch.Generator().manual_seed(0)
-    p = tsyn.sample_params(gen, 2000, cfg)
+    p = tsyn.sample_params(gen, 2000, cfg, device="cpu")
     clean = tsyn.synthesize_spectra(cfg.frequencies, p)
     noisy = tsyn.synthesize_spectra(cfg.frequencies, p, gen, noise_level=0.1)
     assert float(noisy.max()) <= 0.0
@@ -121,8 +121,8 @@ def test_noise_statistics_and_clamp():
 
 def test_sample_params_box_and_determinism():
     cfg = t_default_config().data
-    a = tsyn.sample_params(torch.Generator().manual_seed(5), 4096, cfg)
-    b = tsyn.sample_params(torch.Generator().manual_seed(5), 4096, cfg)
+    a = tsyn.sample_params(torch.Generator().manual_seed(5), 4096, cfg, device="cpu")
+    b = tsyn.sample_params(torch.Generator().manual_seed(5), 4096, cfg, device="cpu")
     assert a.shape == (4096, 4) and a.dtype == torch.float32
     assert torch.equal(a, b)
     assert float(a.min()) >= cfg.param_min and float(a.max()) <= cfg.param_max
@@ -176,7 +176,7 @@ def test_generate_dataset_draws_params_then_noise():
     b = tsyn.generate_dataset(torch.Generator().manual_seed(2), 40, cfg,
                               with_noise=False, device="cpu")
     gen = torch.Generator().manual_seed(2)
-    p = tsyn.sample_params(gen, 40, cfg)
+    p = tsyn.sample_params(gen, 40, cfg, device="cpu")
     assert torch.equal(a.params, b.params) and torch.equal(a.params, p)
     noisy = tsyn.synthesize_spectra(cfg.frequencies, p, gen, cfg.noise_level)
     assert torch.equal(a.spectra, noisy)

@@ -152,7 +152,7 @@ def test_pretrain_forward_command_saves_a_flax_compatible_f(tmp_path):
 
     cfg = default_config()
     f = ckpt.load_model(str(out), ckpt.FORWARD_MODEL_PRETRAINED,
-                        build_forward_model(cfg.forward_model)).eval()
+                        build_forward_model(cfg.forward_model, device="cpu")).eval()
     variables = to_flax(f.state_dict(), "forward_model")
     jf = j_build_forward_model(j_default_config().forward_model)
     x = np.random.default_rng(0).uniform(-1, 1, (16, 4)).astype(np.float32)
@@ -162,5 +162,5 @@ def test_pretrain_forward_command_saves_a_flax_compatible_f(tmp_path):
     np.testing.assert_allclose(ts_.numpy(), np.asarray(js), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(tm.numpy(), np.asarray(jm), rtol=1e-5, atol=1e-5)
     # trained: not the seed's initial weights
-    init = build_forward_model(cfg.forward_model, generator=torch.Generator().manual_seed(42))
+    init = build_forward_model(cfg.forward_model, generator=torch.Generator().manual_seed(42), device="cpu")
     assert not torch.equal(init.model[0].weight, f.model[0].weight)
