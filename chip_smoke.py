@@ -5,8 +5,9 @@
 
 Drives the port's slices at full published width through the
 hand-written CUDA kernels: the inverse-design serving cycle on the baseline
-MLP trio, dataset generation, the 1e6-candidate screen, forward pretraining
-and the full training command (forward pretraining, then the PI-GAN phase):
+MLP trio, dataset generation, the 1e6-candidate screen, forward pretraining,
+the full training command (forward pretraining, then the PI-GAN phase) and a
+seed ensemble trained through the member-packed kernel, scored and served:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
    TF32 off for every fp32 product of the plain references;
@@ -74,7 +75,29 @@ and the full training command (forward pretraining, then the PI-GAN phase):
     a reconstruction loss that ends below half of where it starts;
 15. times: both commands' wall time and steps/s, per-epoch CUDA-event medians
     of K2, its plain version and the eager step in both ``detach_forward``
-    modes, and a ``torch.profiler`` breakdown of one K2 launch of 5 epochs.
+    modes, and a ``torch.profiler`` breakdown of one K2 launch of 5 epochs;
+16. the member-packed GAN kernel (K3) against K2 and against its plain
+    version: M = 4 members (own seeds, own shuffles, one shared F), 2 epochs
+    (30 steps), for ``detach_forward`` False and True and for the knob mix
+    without the EMA: one launch for all members; every member's rows and
+    whole state bit-identical to K2 on that member alone from the same state
+    and streams; a rerun bit-identical; against the plain version (a loop of
+    K2's over the members) K2's limits of phase 13; every member's first
+    step against the plain version in float64 (member 0, phase 13's state,
+    at K2's floor; the other seeds at K3_MEMBER_STEP_FLOOR);
+17. ``python examples/torch_seed_ensemble.py --members 4 --epochs 500
+    --fwd-epochs 500`` in a subprocess at the reference workload: 20 K1 and
+    20 K3 launches, finite rows for every member, members that differ, every
+    member's reconstruction loss ending below half of where it starts, each
+    member's param R² beside the ensemble mean's (printed, not gated); the
+    members' mean then served at B = 64 through
+    ``serve.make_ensemble_inverse_design_fn`` inside the design box and equal
+    to the mean of the members' own served params; then 50 epochs packed and
+    ``--unpacked``: the two runs' states bit-identical;
+18. times: K3 per epoch at M = 1, 2, 4, 8 beside M times K2's, as aggregate
+    member-steps/s and per member, the plain version at M = 4, a
+    ``torch.profiler`` breakdown of one K3 launch of 5 epochs at M = 4, and
+    phase 17's wall time.
 
 The ``kernels`` record gives each kernel's launches on the main path, its
 error against its plain version, its time beside the plain version's, the
@@ -173,6 +196,25 @@ K2_F_EPOCHS = 30
 K2_MIX = dict(detach_forward=False, d_update_every=2, constraint_w=0.7, window_w=0.3,
               sigmoid_squash=True, ema_decay=0.99)
 GAN_EPOCHS = 500
+K3_MEMBERS = 4
+K3_MIX = {**K2_MIX, "ema_decay": 0.0}      # the member-packed kernel carries no EMA
+K3_TIME_MEMBERS = (1, 2, 4, 8)
+# K3's members, first step against float64.  Member 0 is phase 13's state and
+# keeps K2's floor.  The others are other seeds, and a float32 step is not as
+# close to float64 on every seed: G's gradient is piecewise in G's output
+# (F's LeakyReLUs), so where a pre-activation lies within rounding of zero the
+# float32 forward (6e-6 from float64 in G's output) lands on another piece
+# and the gradient jumps: 2.9e-4 and 2.3e-4 of its norm on seeds 2 and 5,
+# 1e-5 on the others, with the kernel's backward arithmetic 6e-7 from float64
+# at the kernel's own forward on all of them
+# (examples/torch_gan_step_conditioning.py, H100).  Which side the float32
+# plain version lands on is chance, so it is no yardstick there: the other
+# members are held to 1e-3 of the change, still far below what a wrong lr,
+# eps, bias correction or gate shows (2e-2 and more).  K3 is held to K2 bit
+# for bit besides, and K2 to float64 at 1e-6 in phase 13.
+K3_MEMBER_STEP_FLOOR = 1e-3
+ENSEMBLE_SHORT_EPOCHS = 50    # packed against --unpacked
+ENSEMBLE_SHORT_FWD_EPOCHS = 100
 PEAK_FP32_FLOPS = 67e12     # H100 SXM, fp32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12  # HBM3
 PRETRAIN_EPOCHS = 500
@@ -429,7 +471,7 @@ def phase8_screen(F, cfg, dev, lo, hi) -> dict:
         got = dict(LAUNCHES)
         want = {"fused_mlp_forward": n_chunks if use_pallas else 0,
                 "fused_dense_chain": 0, "dip_qualification": n_chunks,
-                "forward_train": 0, "gan_train": 0}
+                "forward_train": 0, "gan_train": 0, "gan_ensemble_train": 0}
         print(f"screen {label}: {sc.num_candidates} candidates in {n_chunks} chunks "
               f"of {sc.chunk_size}, launches {got}")
         if got != want:
@@ -772,19 +814,43 @@ def compare_k2(label: str, rows, bufs, want_rows, want_bufs, start, yard, spec, 
     return rel, max(diffs["g"][0], diffs["d"][0])
 
 
+def first_steps(streams, n: int, axis: int = 0):
+    """The first ``n`` steps of a chunk's streams; ``axis`` is the step axis
+    of the batch streams (1 under a leading member axis)."""
+    cut = (slice(None),) * axis + (slice(0, n),)
+    return streams._replace(spectra=streams.spectra[cut].contiguous(),
+                            params=streams.params[cut].contiguous(),
+                            metrics_norm=streams.metrics_norm[cut].contiguous(),
+                            sched=streams.sched[:n])
+
+
 def k2_first_steps(label: str, state, streams, spec, n: int) -> float:
     """The first ``n`` steps from ``state`` through the kernel, the float32
     plain version and the float64 plain version; returns the kernel's
     largest relative error in a tensor of Adam's first moments."""
+    from pigan_thz_torch.ops import gan_train as gt
+
+    few = first_steps(streams, n)
+    kern = gt.state_buffers(state.clone())
+    rows = gt.gan_train(kern, few, spec)
+    return first_steps_against_float64(label, state, few, spec, n, rows, kern)
+
+
+def first_steps_against_float64(label: str, state, few, spec, n: int, rows, kern,
+                                floor: float | None = None) -> float:
+    """``rows`` and ``kern``: what a kernel made of the ``n`` steps ``few``
+    from ``state``.  Runs the float32 and the float64 plain version from the
+    same state and holds the kernel to the float32 one's distance from
+    float64, tensor by tensor, or to ``floor`` (default K2_STEP_FLOOR[n]);
+    returns the kernel's largest relative error in a tensor of Adam's first
+    moments."""
     import torch
     from pigan_thz_torch.ops import gan_train as gt
 
-    few = streams._replace(spectra=streams.spectra[:n], params=streams.params[:n],
-                           metrics_norm=streams.metrics_norm[:n], sched=streams.sched[:n])
+    floor = K2_STEP_FLOOR[n] if floor is None else floor
     start = gt.state_buffers(state)
-    kern, plain = gt.state_buffers(state.clone()), gt.state_buffers(state.clone())
+    plain = gt.state_buffers(state.clone())
     exact = gt.to_double(gt.state_buffers(state.clone()))
-    rows = gt.gan_train(kern, few, spec)
     gt.gan_train_plain(plain, few, spec)
     rows64 = gt.gan_train_plain(exact, gt.to_double(few), spec)
     torch.cuda.synchronize()
@@ -794,7 +860,7 @@ def k2_first_steps(label: str, state, streams, spec, n: int) -> float:
     e_k = gt.step_errors(kern, exact, start, spec)
     e_p = gt.step_errors(plain, exact, start, spec)
     bad = {k: (e_k[k], e_p[k]) for k in e_k
-           if not e_k[k] <= max(K2_ROUNDING * e_p[k], K2_STEP_FLOOR[n])}
+           if not e_k[k] <= max(K2_ROUNDING * e_p[k], floor)}
     worst = {}
     for key, e in e_k.items():
         kind = key.split("[")[0].split("_")[-1]
@@ -808,7 +874,7 @@ def k2_first_steps(label: str, state, streams, spec, n: int) -> float:
     print(f"{label}, first {n} step(s) ({gated} with D gated off) against float64: rows max "
           f"rel err {rel:.3e} (rtol {K2_STEP_ROWS_RTOL}), counts equal: {same}; the kernel's "
           f"worst tensor, relative to the change: {shown} (each of {len(e_k)} tensors within "
-          f"{K2_ROUNDING}x of the float32 plain version's error or {K2_STEP_FLOOR[n]})")
+          f"{K2_ROUNDING}x of the float32 plain version's error or {floor})")
     if bad or not same or rel > K2_STEP_ROWS_RTOL:
         fail(f"{label}: the kernel's first {n} step(s) are further from float64 than "
              f"rounding explains: {bad}")
@@ -875,13 +941,6 @@ def phase13_k2(cfg, dev, ds, f) -> dict:
     return stats
 
 
-def r2_score(pred, true) -> float:
-    """Coefficient of determination, the uniform average over columns."""
-    res = ((true - pred) ** 2).sum(dim=0)
-    tot = ((true - true.mean(dim=0)) ** 2).sum(dim=0)
-    return float((1.0 - res / tot).mean())
-
-
 def phase14_train(cfg, dev, repo: str, ds_serving, request, train_ds, fixed: bool) -> dict:
     """``train --mode full`` at the reference workload in a subprocess, as
     typed (the PI-GAN phase with F's input detached) or, with ``fixed``,
@@ -893,6 +952,7 @@ def phase14_train(cfg, dev, repo: str, ds_serving, request, train_ds, fixed: boo
     import torch
     from pigan_thz_torch.models import build_trio
     from pigan_thz_torch.ops import fused_kernels as fk
+    from pigan_thz_torch.ops.metrics import r2_score
     from pigan_thz_torch.serve import make_inverse_design_fn
     from pigan_thz_torch.train import checkpoint as ckpt
 
@@ -973,8 +1033,8 @@ def phase14_train(cfg, dev, repo: str, ds_serving, request, train_ds, fixed: boo
         fail("the trained generator and surrogate did not serve a request through K6 and K5")
     with torch.inference_mode():
         pred = G(train_ds.spectra)
-        r2 = r2_score(pred, train_ds.params_norm)
-        recon_r2 = r2_score(F(pred)[0], train_ds.spectra)
+        r2 = float(r2_score(train_ds.params_norm, pred))
+        recon_r2 = float(r2_score(train_ds.spectra, F(pred)[0]))
     print(f"{name}: R2 of G's normalised params over the {train_ds.num_samples} training "
           f"samples {r2:.4f} (the JAX package records 0.9792 for the --fixed-physics "
           f"recipe, RESULTS.md); R2 of F(G(s)) against s {recon_r2:.4f} (printed, not gated)")
@@ -1018,34 +1078,331 @@ def phase15_k2_times(cfg, dev, ds, f) -> dict:
         out[detach] = (min(k1, k2), min(p1, p2), min(e1, e2))
 
     # one launch of 5 epochs under the profiler, after 2 warm-up launches
-    from torch.profiler import ProfilerActivity, profile
-
     state, _, _, spec, _, _, _, streams = k2_setup(cfg, dev, ds, f, 5,
                                                     dict(detach_forward=False))
     bufs = gt.state_buffers(state)
+    out["profile"] = profile_launch("one K2 launch of 5 epochs",
+                                    lambda: gt.gan_train(bufs, streams, spec),
+                                    streams.spectra.shape[0])
+    return out
+
+
+def profile_launch(label: str, launch, steps: int) -> tuple:
+    """``launch()`` (one kernel launch of ``steps`` steps, gradients through
+    F) under ``torch.profiler`` after 2 warm-up launches: prints the wall
+    time, the kernel time, the idle share and the kernels by time; returns
+    (wall ms, kernel ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     for _ in range(2):
-        gt.gan_train(bufs, streams, spec)
+        launch()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        gt.gan_train(bufs, streams, spec)
+        launch()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    steps = streams.spectra.shape[0]
     kernels = [(ev.key, ev.count, getattr(ev, "device_time_total",
                                           getattr(ev, "cuda_time_total", 0.0)))
                for ev in prof.key_averages()
                if getattr(ev, "device_type", None) is not None
                and "cuda" in str(ev.device_type).lower()]
     busy_ms = sum(t for _, _, t in kernels) / 1e3
-    print(f"profile: one K2 launch of 5 epochs ({steps} steps, through F): {wall_ms:.3f} ms "
+    print(f"profile: {label} ({steps} steps, through F): {wall_ms:.3f} ms "
           f"wall, {busy_ms:.3f} ms of kernel time, idle share "
           f"{max(0.0, 1.0 - busy_ms / wall_ms):.3f}, "
           f"{sum(c for _, c, _ in kernels) / steps:.1f} kernels a step")
     for key, count, total in sorted(kernels, key=lambda r: -r[2])[:14]:
         print(f"profile:   {total / 1e3:9.3f} ms  {count:6d} calls  {total / count:8.2f} us  "
               f"{key[:100]}")
-    out["profile"] = (wall_ms, busy_ms)
+    return wall_ms, busy_ms
+
+
+def k3_setup(cfg, dev, ds, f, epochs: int, knobs: dict, members: int):
+    """``members`` seeded full-width members on the card, stacked (member m
+    from seed SEED + m: its own G, D, BatchNorm stats and shuffles; F a copy
+    of ``f``, shared), the settings, the kernel's spec and the stacked
+    streams of ``epochs`` epochs of ``ds``."""
+    import torch
+    from pigan_thz_torch.models import build_trio
+    from pigan_thz_torch.ops import forward_train as ft
+    from pigan_thz_torch.ops import gan_train as gt
+    from pigan_thz_torch.parallel.state_utils import tree_stack
+    from pigan_thz_torch.train.schedules import cosine_schedule, step_schedule
+    from pigan_thz_torch.train.state import init_pigan_state, make_optimizers
+    from pigan_thz_torch.train.steps import StepSettings
+
+    b = cfg.train.batch_size
+    spe = ds.num_samples // b
+    settings = StepSettings.from_config(cfg, **knobs)
+    gtx, dtx, _ = make_optimizers(cfg, spe)
+    g, d, _ = build_trio(cfg, device="cpu")
+    states, idx = [], []
+    for m in range(members):
+        st = init_pigan_state(g, d, f, gtx, dtx, SEED + m, device=dev)
+        perturb_batch_stats_(st.g, torch.Generator().manual_seed(SEED + m))
+        states.append(st)
+        idx.append(ft.resolve_draws(torch.Generator().manual_seed(SEED + m), ds.num_samples,
+                                    b, epochs)[0])
+    ens = tree_stack(states)
+    if not ens.shared_f:
+        fail("k3_setup: the members' copies of one F are not shared after stacking")
+    streams = gt.build_streams(
+        ds, torch.stack(idx), torch.linspace(1.0, 0.5, epochs), 0, 0, 0,
+        settings.d_update_every,
+        cosine_schedule(cfg.train.lr_g, cfg.train.num_epochs, spe, 0.01),
+        step_schedule(cfg.train.lr_d, cfg.train.num_epochs, spe, 0.5, 0.25))
+    return ens, settings, gt.gan_train_spec(cfg, settings), streams
+
+
+def ensemble_tensors(bufs) -> list:
+    """Every tensor a K3 chunk updates in place (stacked or one member's)."""
+    return [*bufs[:6], *bufs.bn]
+
+
+def phase16_k3(cfg, dev, ds, f) -> dict:
+    """K3 against K2 on each member alone (bit for bit) and against its plain
+    version (K2's limits)."""
+    import torch
+    from pigan_thz_torch.ops import gan_train as gt
+    from pigan_thz_torch.ops._cuda_build import LAUNCHES
+
+    keys = [*gt.METRIC_KEYS, "constraint_loss"]
+    stats = {"max_abs_err": 0.0, "rows_rel": 0.0, "first_step_rel": 0.0}
+    cases = (("through F", dict(detach_forward=False)), ("detached", dict(detach_forward=True)),
+             ("knob mix, no EMA", K3_MIX))
+    for name, knobs in cases:
+        start, settings, spec, streams = k3_setup(cfg, dev, ds, f, K2_EPOCHS, knobs,
+                                                  K3_MEMBERS)
+        steps = streams.spectra.shape[1]
+        d_steps = int(streams.sched[:, 6].sum())
+        kern, plain, again = start.clone(), start.clone(), start.clone()
+        before = dict(LAUNCHES)
+        rows = gt.gan_ensemble_train(gt.ensemble_buffers(kern), streams, spec)
+        torch.cuda.synchronize()
+        if (LAUNCHES["gan_ensemble_train"] != before["gan_ensemble_train"] + 1
+                or LAUNCHES["gan_train"] != before["gan_train"]):
+            fail(f"K3 {name}: {K3_MEMBERS} members did not train in exactly one K3 launch")
+        if tuple(rows.shape) != (K3_MEMBERS, steps, gt.ROW_WIDTH) or not bool(
+                torch.isfinite(rows).all()):
+            fail(f"K3 {name}: rows of shape {tuple(rows.shape)} or not finite")
+        if any(torch.equal(rows[0], rows[m]) for m in range(1, K3_MEMBERS)):
+            fail(f"K3 {name}: two members have the same rows")
+
+        # bit for bit K2 on each member alone, from the same state and streams
+        for m in range(K3_MEMBERS):
+            solo = start[m].clone()
+            got, own = gt._member(gt.ensemble_buffers(kern), streams, m)
+            want = gt.gan_train(gt.state_buffers(solo), own, spec)
+            torch.cuda.synchronize()
+            same = torch.equal(rows[m], want) and all(map(
+                torch.equal, ensemble_tensors(got), ensemble_tensors(gt.state_buffers(solo))))
+            if not same:
+                fail(f"K3 {name}: member {m} differs from K2 on that member alone")
+        print(f"K3 {name}: one launch for {K3_MEMBERS} members, {steps} steps ({d_steps} D "
+              f"updates); every member's rows and state (G, D, four moments, BatchNorm "
+              f"stats) bit-identical to K2 on that member alone")
+
+        rows2 = gt.gan_ensemble_train(gt.ensemble_buffers(again), streams, spec)
+        torch.cuda.synchronize()
+        if not (torch.equal(rows2, rows) and all(map(
+                torch.equal, ensemble_tensors(gt.ensemble_buffers(again)),
+                ensemble_tensors(gt.ensemble_buffers(kern))))):
+            fail(f"K3 rerun from the same state differs ({name})")
+        print(f"K3 {name}: a rerun from the same state is bit-identical")
+
+        # against the plain version (a loop of K2's plain version), K2's limits
+        before = dict(LAUNCHES)
+        want = gt.gan_ensemble_train_plain(gt.ensemble_buffers(plain), streams, spec)
+        torch.cuda.synchronize()
+        if LAUNCHES != before:
+            fail("K3's plain version launched a kernel")
+        for m in range(K3_MEMBERS):
+            own = gt._member(gt.ensemble_buffers(start), streams, m)[1]
+            exact = gt.to_double(gt.state_buffers(start[m].clone()))
+            gt.gan_train_plain(exact, gt.to_double(own), spec)
+            start_m = gt.state_buffers(start[m])
+            yard = gt.state_diffs(gt.state_buffers(plain[m]), exact, start_m, spec)
+            rel, err = compare_k2(
+                f"K3 vs plain, {name}, member {m}, {K2_EPOCHS} epochs ({steps} steps)",
+                rows[m], gt.state_buffers(kern[m]), want[m], gt.state_buffers(plain[m]),
+                start_m, yard, spec, keys)
+            stats["rows_rel"] = max(stats["rows_rel"], rel)
+            stats["max_abs_err"] = max(stats["max_abs_err"], err)
+
+        # every member's first step against float64
+        few = first_steps(streams, 1, axis=1)
+        one = start.clone()
+        rows1 = gt.gan_ensemble_train(gt.ensemble_buffers(one), few, spec)
+        for m in range(K3_MEMBERS):
+            got, own = gt._member(gt.ensemble_buffers(one), few, m)
+            err = first_steps_against_float64(
+                f"K3 vs plain, {name}, member {m}", start[m], own, spec, 1, rows1[m], got,
+                floor=None if m == 0 else K3_MEMBER_STEP_FLOOR)
+            stats["first_step_rel"] = max(stats["first_step_rel"], err)
+    return stats
+
+
+def run_seed_ensemble(repo: str, tmp: str, tag: str, epochs: int, fwd_epochs: int,
+                      unpacked: bool) -> tuple:
+    """``examples/torch_seed_ensemble.py`` with K3_MEMBERS members in a
+    subprocess; returns (its JSON line, its saved stacked state, wall s)."""
+    import torch
+
+    saved = os.path.join(tmp, f"{tag}.pt")
+    cmd = [sys.executable, os.path.join("examples", "torch_seed_ensemble.py"), "--members",
+           str(K3_MEMBERS), "--epochs", str(epochs), "--fwd-epochs", str(fwd_epochs),
+           "--epochs-per-call", str(EPOCHS_PER_CALL), "--save", saved,
+           *(["--unpacked"] if unpacked else [])]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"{' '.join(cmd[1:])} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    return out, torch.load(saved, map_location="cpu", weights_only=True), wall
+
+
+def phase17_ensemble(cfg, dev, repo: str, ds_serving, request) -> dict:
+    """The seed-ensemble path at the reference workload in a subprocess; the
+    members' mean then serves one request; then packed against unpacked at
+    ENSEMBLE_SHORT_EPOCHS.  Returns its launches, wall times and scores."""
+    import torch
+    from pigan_thz_torch.models import build_forward_model, build_generator
+    from pigan_thz_torch.serve import make_ensemble_inverse_design_fn, make_inverse_design_fn
+
+    name = f"torch_seed_ensemble --members {K3_MEMBERS} --epochs {GAN_EPOCHS}"
+    chunks = -(-GAN_EPOCHS // EPOCHS_PER_CALL)
+    f_chunks = -(-PRETRAIN_EPOCHS // EPOCHS_PER_CALL)
+    with tempfile.TemporaryDirectory() as tmp:
+        out, saved, wall = run_seed_ensemble(repo, tmp, "main", GAN_EPOCHS, PRETRAIN_EPOCHS,
+                                             False)
+        launches = out["launches"]
+        print(f"{name}: {PRETRAIN_EPOCHS} forward epochs, then {K3_MEMBERS} members x "
+              f"{GAN_EPOCHS} epochs in {wall:.3f} s wall for the command "
+              f"({out['wall_s']:.3f} s in train_seed_ensemble, "
+              f"{out['member_steps_per_s']:.1f} member-steps/s), launches {launches}")
+        if (launches.get("forward_train") != f_chunks
+                or launches.get("gan_ensemble_train") != chunks or launches.get("gan_train")):
+            fail(f"{name}: launches {launches}, not {f_chunks} K1, {chunks} K3 (one per "
+                 f"{EPOCHS_PER_CALL}-epoch chunk for all members) and no K2")
+        first, last = out["first_recon_spec_loss"], out["final_recon_spec_loss"]
+        print(f"{name}: recon_spec_loss per member, first -> last epoch: "
+              + ", ".join(f"{a:.6f} -> {b:.6f}" for a, b in zip(first, last))
+              + f"; all rows finite: {out['all_rows_finite']}")
+        if not out["all_rows_finite"] or len(last) != K3_MEMBERS:
+            fail(f"{name}: rows are not finite for every member")
+        if not all(b < 0.5 * a for a, b in zip(first, last)):
+            fail(f"{name}: a member's recon_spec_loss did not halve")
+        if len(set(out["final_g_loss"])) != K3_MEMBERS or len(set(out["member_r2"])) != \
+                K3_MEMBERS:
+            fail(f"{name}: two members ended alike: {out['final_g_loss']}")
+        print(f"{name}: param R2 over the training set per member "
+              + ", ".join(f"{x:.4f}" for x in out["member_r2"])
+              + f"; of the members' mean {out['ensemble_mean_r2']:.4f}; member spread "
+              f"{out['member_spread']:.4f}; recon MSE per member "
+              + ", ".join(f"{x:.5f}" for x in out["member_recon_mse"])
+              + f", of the mean {out['ensemble_mean_recon_mse']:.5f} (printed, not gated; "
+              "one member through K2 reaches 0.98, phase 14)")
+
+        # packed against unpacked at a smaller depth: bit-identical states
+        packed, p_state, p_wall = run_seed_ensemble(
+            repo, tmp, "packed", ENSEMBLE_SHORT_EPOCHS, ENSEMBLE_SHORT_FWD_EPOCHS, False)
+        unpacked, u_state, u_wall = run_seed_ensemble(
+            repo, tmp, "unpacked", ENSEMBLE_SHORT_EPOCHS, ENSEMBLE_SHORT_FWD_EPOCHS, True)
+    short = -(-ENSEMBLE_SHORT_EPOCHS // EPOCHS_PER_CALL)
+    if packed["launches"]["gan_ensemble_train"] != short or unpacked["launches"][
+            "gan_train"] != short * K3_MEMBERS or unpacked["launches"]["gan_ensemble_train"]:
+        fail(f"packed / unpacked launches {packed['launches']} / {unpacked['launches']}")
+    same = all(all(map(torch.equal, p_state[k], u_state[k])) if isinstance(p_state[k], list)
+               else torch.equal(p_state[k], u_state[k]) for k in p_state)
+    print(f"torch_seed_ensemble at {ENSEMBLE_SHORT_EPOCHS} epochs: packed "
+          f"({packed['launches']['gan_ensemble_train']} K3 launches, "
+          f"{packed['member_steps_per_s']:.1f} member-steps/s) and --unpacked "
+          f"({unpacked['launches']['gan_train']} K2 launches, "
+          f"{unpacked['member_steps_per_s']:.1f} member-steps/s): states (G, D, moments, "
+          f"BatchNorm stats of {K3_MEMBERS} members, F) bit-identical: {same}")
+    if not same or packed["member_r2"] != unpacked["member_r2"]:
+        fail("packed and unpacked seed ensembles differ")
+
+    # the trained members serve their mean
+    gens = []
+    for m in range(K3_MEMBERS):
+        g = build_generator(cfg.generator, cfg.data.spectrum_dim, device="cpu")
+        torch.nn.utils.vector_to_parameters(saved["g"][m], g.parameters())
+        norms = [mod for mod in g.modules() if isinstance(mod, torch.nn.BatchNorm1d)]
+        for j, bn in enumerate(norms):
+            bn.running_mean.copy_(saved["bn"][2 * j][m])
+            bn.running_var.copy_(saved["bn"][2 * j + 1][m])
+        gens.append(g.to(dev).eval())
+    F = build_forward_model(cfg.forward_model, cfg.data.spectrum_dim, cfg.data.metrics_dim,
+                            device="cpu")
+    torch.nn.utils.vector_to_parameters(saved["f"], F.parameters())
+    F = F.to(dev).eval()
+    params, spec, met = make_ensemble_inverse_design_fn(gens, F, ds_serving)(request)
+    own = torch.stack([make_inverse_design_fn(g, F, ds_serving)(request)[0] for g in gens])
+    torch.cuda.synchronize()
+    b = request.shape[0]
+    lo, hi = cfg.data.param_min, cfg.data.param_max
+    ok = (tuple(params.shape) == (b, 4) and tuple(spec.shape) == (b, cfg.data.spectrum_dim)
+          and tuple(met.shape) == (b, 8)
+          and all(bool(torch.isfinite(t).all()) for t in (params, spec, met))
+          and bool(((params >= lo) & (params <= hi)).all()))
+    err = float((params - own.mean(dim=0)).abs().max())
+    apart = float((own - own.mean(dim=0)).abs().max())
+    print(f"{name}: the members' mean serves a B={b} request: finite outputs of the right "
+          f"shapes with params in [{params.min().item():.4f}, {params.max().item():.4f}]: "
+          f"{ok}; max|err| against the mean of the members' own served params (K6) "
+          f"{err:.3e} (tol {K6_TOL}); the members are up to {apart:.3e} from their mean")
+    if not ok or not err <= K6_TOL or not apart > 10 * K6_TOL:
+        fail("the ensemble mean was not served inside the design box as the members' mean")
+    extra = {k: packed["launches"][k] + unpacked["launches"][k] for k in launches}
+    return {"launches": launches, "short_launches": extra, "wall": wall, "out": out,
+            "short": (packed["member_steps_per_s"], unpacked["member_steps_per_s"])}
+
+
+def phase18_k3_times(cfg, dev, ds, f) -> dict:
+    """Per-epoch CUDA-event medians (ms), gradients through F: K3 at each M
+    of K3_TIME_MEMBERS with K2 timed before and after in the same call, K3
+    detached and K3's plain version at M = K3_MEMBERS; then a profile of one
+    K3 launch of 5 epochs at M = K3_MEMBERS."""
+    from pigan_thz_torch.ops import gan_train as gt
+
+    state, _, _, spec, _, _, _, streams = k2_setup(cfg, dev, ds, f, 1,
+                                                    dict(detach_forward=False))
+    solo = gt.state_buffers(state)
+
+    def k2():
+        gt.gan_train(solo, streams, spec)
+
+    out = {"k2": [cuda_median_ms(k2, warmup=3, reps=20)], "k3": {}}
+    for members in (*K3_TIME_MEMBERS, *reversed(K3_TIME_MEMBERS)):
+        ens, _, espec, estreams = k3_setup(cfg, dev, ds, f, 1, dict(detach_forward=False),
+                                           members)
+        bufs = gt.ensemble_buffers(ens)
+        ms = cuda_median_ms(lambda: gt.gan_ensemble_train(bufs, estreams, espec),
+                            warmup=3, reps=20)
+        out["k3"][members] = min(ms, out["k3"].get(members, ms))
+    out["k2"].append(cuda_median_ms(k2, warmup=3, reps=20))
+
+    ens, _, espec, estreams = k3_setup(cfg, dev, ds, f, 1, dict(detach_forward=False),
+                                       K3_MEMBERS)
+    bufs = gt.ensemble_buffers(ens)
+    out["plain"] = cuda_median_ms(
+        lambda: gt.gan_ensemble_train_plain(bufs, estreams, espec), warmup=1, reps=3)
+    ens, _, dspec, dstreams = k3_setup(cfg, dev, ds, f, 1, dict(detach_forward=True),
+                                       K3_MEMBERS)
+    dbufs = gt.ensemble_buffers(ens)
+    out["detached"] = cuda_median_ms(
+        lambda: gt.gan_ensemble_train(dbufs, dstreams, dspec), warmup=3, reps=20)
+
+    ens, _, pspec, pstreams = k3_setup(cfg, dev, ds, f, 5, dict(detach_forward=False),
+                                       K3_MEMBERS)
+    pbufs = gt.ensemble_buffers(ens)
+    out["profile"] = profile_launch(
+        f"one K3 launch of 5 epochs at M = {K3_MEMBERS}",
+        lambda: gt.gan_ensemble_train(pbufs, pstreams, pspec), pstreams.spectra.shape[1])
     return out
 
 
@@ -1308,6 +1665,36 @@ def main() -> None:
               f"{k:.4f} ms, plain {p:.4f} ms, eager step {e:.4f} ms (CUDA-event medians; "
               f"kernel 20 and the others 5 after warm-up, best of two runs each)")
 
+    # -- 16. K3 against K2 and its plain version --------------------------------
+    k3_stats = phase16_k3(cfg, dev, train_ds, f_k2)
+
+    # -- 17. the seed-ensemble path ----------------------------------------------
+    ensemble = phase17_ensemble(cfg, dev, repo, ds, requests[64])
+
+    # -- 18. times ----------------------------------------------------------------
+    k3_times = phase18_k3_times(cfg, dev, train_ds, f_k2)
+    k2_ms = min(k3_times["k2"])
+    print(f"time {tag} torch_seed_ensemble --members {K3_MEMBERS} --epochs {GAN_EPOCHS} "
+          f"--fwd-epochs {PRETRAIN_EPOCHS}: {ensemble['wall']:.4f} s wall for the command, "
+          f"{ensemble['out']['wall_s']:.4f} s for the members' {K3_MEMBERS} x "
+          f"{GAN_EPOCHS * spe} steps, {ensemble['out']['member_steps_per_s']:.1f} "
+          f"member-steps/s; at {ENSEMBLE_SHORT_EPOCHS} epochs packed "
+          f"{ensemble['short'][0]:.1f} and --unpacked {ensemble['short'][1]:.1f} "
+          f"member-steps/s")
+    print(f"time {tag} gan_train one epoch ({spe} steps, B = 64), through F, before and "
+          f"after the K3 runs: {k3_times['k2'][0]:.4f} and {k3_times['k2'][1]:.4f} ms "
+          f"({spe / k2_ms * 1e3:.1f} steps/s)")
+    for members, ms in k3_times["k3"].items():
+        print(f"time {tag} gan_ensemble_train one epoch ({spe} steps, B = 64), through F, "
+              f"M = {members}: kernel {ms:.4f} ms ({ms / members:.4f} ms per member; M x "
+              f"K2 {members * k2_ms:.4f} ms, ratio {members * k2_ms / ms:.3f}), "
+              f"{members * spe / ms * 1e3:.1f} member-steps/s aggregate, "
+              f"{ms / k2_ms:.3f} x K2's epoch (CUDA-event medians of 20 after 3 warm-up, "
+              f"best of two runs)")
+    print(f"time {tag} gan_ensemble_train one epoch, M = {K3_MEMBERS}: detached kernel "
+          f"{k3_times['detached']:.4f} ms; plain version through F "
+          f"{k3_times['plain']:.4f} ms (median of 3 after 1 warm-up)")
+
     # -- the record -------------------------------------------------------------
     # bound_ms: operations over the fp32 peak against bytes moved once over the
     # memory rate, from the shapes each timed call was given.
@@ -1348,10 +1735,15 @@ def main() -> None:
     k4_screen = sum(s[2]["dip_qualification"] for s in screens.values())
     k1_launches = pretrain["launches"]["forward_train"]
     tl = {k: sum(t["launches"][k] for t in trains.values()) for k in trains[True]["launches"]}
+    # the seed-ensemble commands: the 500-epoch run and the two short ones
+    el = {k: ensemble["launches"][k] + ensemble["short_launches"][k]
+          for k in ensemble["launches"]}
+    bound["gan_ensemble_train"] = (K3_MEMBERS * bound["gan_train"][0], bound["gan_train"][1])
     print(f"main-path launches: serving {launches}, dataset dip_qualification "
           f"{dataset_k4}, screens fused_mlp_forward {k5_screen} dip_qualification "
           f"{k4_screen}, pretrain-forward forward_train {k1_launches}, train --mode full with and without "
-          f"--fixed-physics {tl}")
+          f"--fixed-physics {tl}, torch_seed_ensemble at {GAN_EPOCHS} epochs and twice at "
+          f"{ENSEMBLE_SHORT_EPOCHS} {el}")
 
     def bounds(name):
         ms, by = bound[name]
@@ -1379,7 +1771,8 @@ def main() -> None:
         {"name": "dip_qualification", "route": "cuda",
          "source": "pigan_thz_torch/csrc/dip_qualification.cu",
          "replaces": "pigan_thz_tpu/ops/peaks.py:306",
-         "launches": dataset_k4 + k4_screen + tl["dip_qualification"],
+         "launches": dataset_k4 + k4_screen + tl["dip_qualification"]
+         + el["dip_qualification"],
          "max_abs_err": k4_stats["max_abs_err"],
          "mask_mismatches": k4_stats["mask_mismatches"],
          "ms": k4_times["screen"][0],
@@ -1389,7 +1782,7 @@ def main() -> None:
         {"name": "forward_train", "route": "cuda",
          "source": "pigan_thz_torch/csrc/forward_train.cu",
          "replaces": "pigan_thz_tpu/ops/megakernel.py:2623",
-         "launches": k1_launches + tl["forward_train"],
+         "launches": k1_launches + tl["forward_train"] + el["forward_train"],
          "max_abs_err": k1_stats["max_abs_err"],
          "rows_max_rel_err": k1_stats["rows_rel"],
          "ms": k1_ms, "plain_ms": k1_plain_ms, "eager_ms": k1_eager_ms,
@@ -1397,7 +1790,7 @@ def main() -> None:
         {"name": "gan_train", "route": "cuda",
          "source": "pigan_thz_torch/csrc/gan_train.cu",
          "replaces": "pigan_thz_tpu/ops/megakernel.py:779",
-         "launches": tl["gan_train"],
+         "launches": tl["gan_train"] + el["gan_train"],
          "max_abs_err": k2_stats["max_abs_err"],
          "rows_max_rel_err": k2_stats["rows_rel"],
          "first_step_rel_err_vs_float64": k2_stats["first_step_rel"],
@@ -1405,6 +1798,19 @@ def main() -> None:
          "eager_ms": k2_times[False][2], "detached_ms": k2_times[True][0],
          "detached_plain_ms": k2_times[True][1], "detached_eager_ms": k2_times[True][2],
          **bounds("gan_train"), "library_ms": None},
+        {"name": "gan_ensemble_train", "route": "cuda",
+         "source": "pigan_thz_torch/csrc/gan_train.cu",
+         "replaces": "pigan_thz_tpu/ops/megakernel.py:2128",
+         "launches": el["gan_ensemble_train"],
+         "members": K3_MEMBERS,
+         "max_abs_err": k3_stats["max_abs_err"],
+         "rows_max_rel_err": k3_stats["rows_rel"],
+         "first_step_rel_err_vs_float64": k3_stats["first_step_rel"],
+         "ms": k3_times["k3"][K3_MEMBERS], "plain_ms": k3_times["plain"],
+         "detached_ms": k3_times["detached"],
+         "ms_by_members": {str(m): t for m, t in k3_times["k3"].items()},
+         "gan_train_ms_same_call": k2_ms,
+         **bounds("gan_ensemble_train"), "library_ms": None},
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-// PI-GAN training (the fused D-then-G step), fp32, for Hopper (sm_90a).
+// PI-GAN training (the fused D-then-G step), fp32, for Hopper (sm_90a), for
+// one state (K2) or for M seed-ensemble members at once (K3).
 //
 // Replaces the Pallas TPU kernel pigan_thz_tpu/ops/megakernel.py:
 // _make_kernel (K2), launched by make_pallas_multi_epoch_fn: E epochs of the
@@ -36,7 +37,7 @@
 // backward's mean subtraction cancel: with float sums G's gradient was 30x
 // further from a float64 evaluation than the plain version's).  F's LayerNorm rows, the column sums of the bias
 // gradients and the two-pass clip + Adam are K1's kernels.  The losses are
-// one-block kernels that also write the gradient seeds.  The D-update gate
+// kernels of one block (per member) that also write the gradient seeds.  The D-update gate
 // is known on the host (it is a lane of the schedule), so a skipped step
 // enqueues no D backward at all.  No atomics: reruns are bit-identical.
 //
@@ -51,9 +52,32 @@
 // fusing the elementwise passes into their epilogues, and CUDA-graph
 // capture of a chunk are later work.
 //
-// Interface: plain C, loaded with ctypes.  pigan_gan_train launches on the
-// given stream, does not synchronise, allocates nothing (the workspace
-// comes from the caller, and a short one is refused), and returns the first
+// Ensemble members (K3).  pigan_gan_ensemble_train replaces the member-packed
+// path of the same Pallas kernel (_make_kernel(members=M), launched by
+// make_pallas_ensemble_fn): M independent members' steps in one launch per
+// chunk, against one shared frozen F and one shared schedule.  The TPU
+// kernel runs the members' chains one after the other inside each grid
+// step, over state buffers with a leading member axis in VMEM.  Here the
+// member is a grid axis of every kernel of the step (train_common.cuh: Per):
+// state, moments, BatchNorm stats, streams, rows and one workspace per member
+// are contiguous (M, ...) buffers, each kernel offsets its operands by
+// member x stride, and a step stays 69 launches (58 detached) whatever M is,
+// with M times the blocks on the card.  K2 is the M = 1 case of the same
+// code.  No tile choice, reduction or loop reads M or the grid's member
+// axis, so member m's state and rows are bit for bit those of K2 on that
+// member alone.  Whether a step updates D is one host decision for all
+// members (a lane of the shared schedule): the caller holds them at equal
+// step and optimiser counts.  Per member the working set is ~13 MB (state,
+// moments, gradients, scratch) beside 5.5 MB of F, so past M = 3 it no
+// longer fits the 50 MB L2; that shows nowhere, a member reads its state once
+// a step.  On an H100 (80GB HBM3, 700 W) an epoch of 15 steps through F takes
+// 18.3 ms at M = 1 (K2's time), 20.4 at M = 2, 22.5 at M = 4 and 25.4 at
+// M = 8: the B-row products' 16-64 blocks a member were latency-bound, and M
+// times the blocks overlap on the 132 SMs.
+//
+// Interface: plain C, loaded with ctypes.  Both entry points launch on the
+// given stream, do not synchronise, allocate nothing (the workspace comes
+// from the caller, and a short one is refused), and return the first
 // cudaError_t (0 on success), checking cudaGetLastError() after each launch.
 
 #include "train_common.cuh"
@@ -70,14 +94,21 @@ __device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x
 // BatchNorm (train mode) + ReLU over the batch, one thread per column.  u
 // holds the pre-norm values on entry and u - mean on exit.
 // --------------------------------------------------------------------------
-__global__ void bn_forward(float* u, int B, int C, const float* __restrict__ gamma,
-                           const float* __restrict__ beta, float* __restrict__ xh,
-                           float* __restrict__ y, float* __restrict__ a,
-                           float* __restrict__ iv_out, float* __restrict__ run_mean,
-                           float* __restrict__ run_var, float eps, float mom,
-                           float one_minus_mom) {
+__global__ void bn_forward(PerOut um, int B, int C, PerIn gammam, PerIn betam, PerOut xhm,
+                           PerOut ym, PerOut am, PerOut ivm, PerOut run_meanm,
+                           PerOut run_varm, float eps, float mom, float one_minus_mom) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= C) return;
+  const int mem = blockIdx.y;
+  float* u = um.at(mem);
+  const float* __restrict__ gamma = gammam.at(mem);
+  const float* __restrict__ beta = betam.at(mem);
+  float* __restrict__ xh = xhm.at(mem);
+  float* __restrict__ y = ym.at(mem);
+  float* __restrict__ a = am.at(mem);
+  float* __restrict__ iv_out = ivm.at(mem);
+  float* __restrict__ run_mean = run_meanm.at(mem);
+  float* __restrict__ run_var = run_varm.at(mem);
   // the column sums in double: E[x^2] - E[x]^2 cancels, and a sequential
   // float sum over the rows would lose what the difference keeps
   double s = 0.0, s2 = 0.0;
@@ -108,13 +139,21 @@ __global__ void bn_forward(float* u, int B, int C, const float* __restrict__ gam
 
 // Adjoint of ReLU(BatchNorm(u)): da at the block's output -> du at u, and
 // the column's dgamma and dbeta.  uc = u - mean.
-__global__ void bn_backward(const float* __restrict__ da, const float* __restrict__ y,
-                            const float* __restrict__ xh, const float* __restrict__ uc,
-                            const float* __restrict__ gamma, const float* __restrict__ iv_in,
-                            int B, int C, float* __restrict__ du,
-                            float* __restrict__ dgamma, float* __restrict__ dbeta) {
+__global__ void bn_backward(PerIn dam, PerIn ym, PerIn xhm, PerIn ucm, PerIn gammam,
+                            PerIn ivm, int B, int C, PerOut dum, PerOut dgammam,
+                            PerOut dbetam) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= C) return;
+  const int mem = blockIdx.y;
+  const float* __restrict__ da = dam.at(mem);
+  const float* __restrict__ y = ym.at(mem);
+  const float* __restrict__ xh = xhm.at(mem);
+  const float* __restrict__ uc = ucm.at(mem);
+  const float* __restrict__ gamma = gammam.at(mem);
+  const float* __restrict__ iv_in = ivm.at(mem);
+  float* __restrict__ du = dum.at(mem);
+  float* __restrict__ dgamma = dgammam.at(mem);
+  float* __restrict__ dbeta = dbetam.at(mem);
   const float g = gamma[c], iv = iv_in[c];
   // in double: du below subtracts the column mean, which cancels most of
   // a gradient that all rows share
@@ -145,10 +184,15 @@ __global__ void bn_backward(const float* __restrict__ da, const float* __restric
 // G's output and D's input.  z3 (B, 4) holds the head's pre-activation on
 // entry and tanh of it on exit; pn the (squashed) output; x0 (2B, S + 4) is
 // [spectra | real params] over [spectra | fake params].
-__global__ void g_output(float* z3, float* __restrict__ pn, float* __restrict__ x0,
-                         const float* __restrict__ spectra,
-                         const float* __restrict__ params_phys, int B, int S, float4 lo,
-                         float4 hi, int sigmoid) {
+__global__ void g_output(PerOut z3m, PerOut pnm, PerOut x0m, PerIn spectram,
+                         PerIn params_physm, int B, int S, float4 lo, float4 hi,
+                         int sigmoid) {
+  const int mem = blockIdx.y;
+  float* z3 = z3m.at(mem);
+  float* __restrict__ pn = pnm.at(mem);
+  float* __restrict__ x0 = x0m.at(mem);
+  const float* __restrict__ spectra = spectram.at(mem);
+  const float* __restrict__ params_phys = params_physm.at(mem);
   const int nd = S + 4;
   const float los[4] = {lo.x, lo.y, lo.z, lo.w};
   const float his[4] = {hi.x, hi.y, hi.z, hi.w};
@@ -173,8 +217,9 @@ __global__ void g_output(float* z3, float* __restrict__ pn, float* __restrict__ 
   }
 }
 
-__global__ void leaky_forward(const float* __restrict__ p, float* __restrict__ h,
-                              long long n, float slope) {
+__global__ void leaky_forward(PerIn pm, PerOut hm, long long n, float slope) {
+  const float* __restrict__ p = pm.at(blockIdx.y);
+  float* __restrict__ h = hm.at(blockIdx.y);
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (long long)blockDim.x * gridDim.x) {
     const float v = p[i];
@@ -182,8 +227,9 @@ __global__ void leaky_forward(const float* __restrict__ p, float* __restrict__ h
   }
 }
 
-__global__ void leaky_backward(float* __restrict__ d, const float* __restrict__ p,
-                               long long n, float slope) {
+__global__ void leaky_backward(PerOut dm, PerIn pm, long long n, float slope) {
+  float* __restrict__ d = dm.at(blockIdx.y);
+  const float* __restrict__ p = pm.at(blockIdx.y);
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (long long)blockDim.x * gridDim.x) {
     if (p[i] < 0.f) d[i] *= slope;
@@ -191,9 +237,13 @@ __global__ void leaky_backward(float* __restrict__ d, const float* __restrict__ 
 }
 
 // D's head backward: dp2[r, c] = dz[r] w3[c] mask(p2[r, c]).
-__global__ void d_head_backward(const float* __restrict__ dz, const float* __restrict__ w3,
-                                const float* __restrict__ p2, float* __restrict__ dp2,
-                                int R, int C, float slope) {
+__global__ void d_head_backward(PerIn dzm, PerIn w3m, PerIn p2m, PerOut dp2m, int R, int C,
+                                float slope) {
+  const int mem = blockIdx.y;
+  const float* __restrict__ dz = dzm.at(mem);
+  const float* __restrict__ w3 = w3m.at(mem);
+  const float* __restrict__ p2 = p2m.at(mem);
+  float* __restrict__ dp2 = dp2m.at(mem);
   for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < R * C;
        e += blockDim.x * gridDim.x) {
     const int r = e / C;
@@ -203,11 +253,15 @@ __global__ void d_head_backward(const float* __restrict__ dz, const float* __res
 }
 
 // dz3 = (dpn [+ dfin]) dsq (1 - tn^2), in place over dpn.
-__global__ void g_head_seed(float* __restrict__ dpn, const float* __restrict__ dfin,
-                            const float* __restrict__ tn, const float* __restrict__ pn,
-                            int n, int sigmoid) {
+__global__ void g_head_seed(PerOut dpnm, PerIn dfinm, PerIn tnm, PerIn pnm, int n,
+                            int sigmoid) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
+  const int mem = blockIdx.y;
+  float* __restrict__ dpn = dpnm.at(mem);
+  const float* __restrict__ dfin = dfinm.p ? dfinm.at(mem) : nullptr;
+  const float* __restrict__ tn = tnm.at(mem);
+  const float* __restrict__ pn = pnm.at(mem);
   float d = dpn[e];
   if (dfin) d += dfin[e];
   const float dsq = sigmoid ? pn[e] * (1.f - pn[e]) : 1.f;
@@ -223,7 +277,7 @@ __global__ void ema_lerp(float* __restrict__ ema, const float* __restrict__ p, l
 }
 
 // --------------------------------------------------------------------------
-// Losses, one block each
+// Losses, one block per member (blockIdx.x)
 // --------------------------------------------------------------------------
 
 __device__ __forceinline__ float bce_softplus(float z) { return log1pf(expf(-fabsf(z))); }
@@ -231,9 +285,11 @@ __device__ __forceinline__ float bce_softplus(float z) { return log1pf(expf(-fab
 // D's loss over the 2B logits: row[0] = 2 mean BCE, row[2] = accuracy at
 // 0.5, dz = (sigmoid(z) - label) / B.
 __global__ void __launch_bounds__(kThreads)
-d_loss_kernel(const float* __restrict__ z, int B, float lab_r, float lab_f,
-              float* __restrict__ dz, float* __restrict__ row) {
+d_loss_kernel(PerIn zm, int B, float lab_r, float lab_f, PerOut dzm, PerOut rowm) {
   __shared__ float red[kThreads];
+  const float* __restrict__ z = zm.at(blockIdx.x);
+  float* __restrict__ dz = dzm.at(blockIdx.x);
+  float* __restrict__ row = rowm.at(blockIdx.x);
   float s = 0.f, hit_r = 0.f, hit_f = 0.f;
   for (int r = threadIdx.x; r < 2 * B; r += kThreads) {
     const float v = z[r];
@@ -256,9 +312,11 @@ d_loss_kernel(const float* __restrict__ z, int B, float lab_r, float lab_f,
 // G's adversarial loss on the B fake logits (target 1, unsmoothed):
 // row[3] = mean BCE, dz = (sigmoid(z) - 1) / B.
 __global__ void __launch_bounds__(kThreads)
-adv_loss_kernel(const float* __restrict__ z, int B, float* __restrict__ dz,
-                float* __restrict__ row) {
+adv_loss_kernel(PerIn zm, int B, PerOut dzm, PerOut rowm) {
   __shared__ float red[kThreads];
+  const float* __restrict__ z = zm.at(blockIdx.x);
+  float* __restrict__ dz = dzm.at(blockIdx.x);
+  float* __restrict__ row = rowm.at(blockIdx.x);
   float s = 0.f;
   for (int r = threadIdx.x; r < B; r += kThreads) {
     const float v = z[r];
@@ -281,12 +339,18 @@ struct GLossCoef {
 // writes the step's row (g_loss and the seven parts, the constraint loss),
 // the direct adjoint dpn (B, 4) and, unless detach, dpred (B, S + 8).
 __global__ void __launch_bounds__(kThreads)
-g_loss_kernel(const float* __restrict__ pred, const float* __restrict__ spectra,
-              const float* __restrict__ met, const float* __restrict__ pn,
-              const float* __restrict__ dpphys, float* __restrict__ dpn,
-              float* __restrict__ dpred, float* __restrict__ row, int B, int S,
-              GLossCoef k) {
+g_loss_kernel(PerIn predm, PerIn spectram, PerIn metm, PerIn pnm, PerIn dpphysm,
+              PerOut dpnm, PerOut dpredm, PerOut rowm, int B, int S, GLossCoef k) {
   __shared__ float red[kThreads];
+  const int mem = blockIdx.x;
+  const float* __restrict__ pred = predm.at(mem);
+  const float* __restrict__ spectra = spectram.at(mem);
+  const float* __restrict__ met = metm.at(mem);
+  const float* __restrict__ pn = pnm.at(mem);
+  const float* __restrict__ dpphys = dpphysm.at(mem);
+  float* __restrict__ dpn = dpnm.at(mem);
+  float* __restrict__ dpred = dpredm.at(mem);
+  float* row = rowm.at(mem);
   const int M = 8;
   const int D = S + M;
   const float nB = (float)B;
@@ -419,38 +483,22 @@ inline int blocks_for(long long n, int threads, int cap = 1024) {
   return (int)(b < 1 ? 1 : (b > cap ? cap : b));
 }
 
-}  // namespace
-
-extern "C" {
-
-// T training steps over the state in place.
-//   g, g_m, g_v    (Pg,) device, updated; layout W1 b1 gamma1 beta1 W2 b2
-//                  gamma2 beta2 W3 b3, each W as (out, in)
-//   d, d_m, d_v    (Pd,) device, updated; layout W1 b1 W2 b2 W3 b3
-//   bn1_mean ...   G's BatchNorm running stats, device, updated
-//   f              F's parameters in forward_train.cu's layout, read only
-//   g_ema          (Pg,) device, updated when hp[12] > 0, else unused
-//   spectra, params, met   (T, B, S), (T, B, 4) physical, (T, B, 8) device
-//   sched          (T, 8) host: lr_g lr_d inv1_g inv2_g inv1_d inv2_d d_gate c_scale
-//   rows           (T, 11) device out: d_loss g_loss d_accuracy adv recon
-//                  metrics maxwell lc range violation_rate constraint
-//   work           device scratch of work_floats floats
-//   dims           host: S, g1, g2, d1, d2
-//   f_dims         n_f_hidden + 2 widths of F (host); f_offsets 4 per layer
-//   hp             host: w_adv w_recon w_pmet w_maxwell w_lc w_range
-//                  w_constraint w_window range_lo range_hi label_real
-//                  label_fake ema_decay clip lo[4] hi[4]
-//   flags          bit 0 detach_forward, bit 1 sigmoid_squash
-int pigan_gan_train(float* g, float* g_m, float* g_v, float* d, float* d_m, float* d_v,
-                    float* bn1_mean, float* bn1_var, float* bn2_mean, float* bn2_var,
-                    const float* f, float* g_ema, const float* spectra,
-                    const float* params, const float* met, const float* sched,
-                    float* rows, float* work, long long work_floats, const int* dims,
-                    const int* f_dims, int n_f_hidden, const long long* f_offsets, int B,
-                    int T, const double* hp, int flags, void* stream_ptr) {
-  cudaStream_t st = (cudaStream_t)stream_ptr;
+// T training steps over the state of `members` ensemble members in place:
+// the body of both entry points.  Every operand that differs by member is a
+// Per with that operand's member stride; F's parameters and the schedule
+// are shared.  A step enqueues the same 69 launches (58 detached) whatever
+// `members` is: each launch carries the member on a grid axis.
+int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, PerOut d_m,
+                    PerOut d_v, PerOut bn1_mean, PerOut bn1_var, PerOut bn2_mean,
+                    PerOut bn2_var, const float* f, float* g_ema, PerIn spectra, PerIn params,
+                    PerIn met, const float* sched, PerOut rows, float* work,
+                    long long work_floats, const int* dims, const int* f_dims,
+                    int n_f_hidden, const long long* f_offsets, int B, int T,
+                    const double* hp, int flags, cudaStream_t st) {
   const int S = dims[0], g1 = dims[1], g2 = dims[2], d1 = dims[3], d2 = dims[4];
   const int FL = n_f_hidden + 1;
+  const int NM = members;
+  if (NM < 1 || NM > 65535) return cudaErrorInvalidValue;
   if (n_f_hidden < 1 || FL > kMaxLayers || B < 1 || T < 0 || S < 3) return cudaErrorInvalidValue;
   if (g1 < 1 || g2 < 1 || d1 < 1 || d2 < 1 || f_dims[0] != 4) return cudaErrorInvalidValue;
   int maxc = g1 > g2 ? g1 : g2;
@@ -467,7 +515,8 @@ int pigan_gan_train(float* g, float* g_m, float* g_v, float* d, float* d_m, floa
   const int detach = flags & 1;
   const int sigmoid = (flags >> 1) & 1;
   const float ema_decay = (float)hp[12];
-  if (ema_decay > 0.f && g_ema == nullptr) return cudaErrorInvalidValue;
+  // the EMA track is the one-member kernel's: an ensemble launch has none
+  if (ema_decay > 0.f && (g_ema == nullptr || NM != 1)) return cudaErrorInvalidValue;
 
   // flat layouts of G and D
   const long long gW1 = 0, gb1 = gW1 + (long long)S * g1, ggam1 = gb1 + g1, gbet1 = ggam1 + g1;
@@ -480,43 +529,44 @@ int pigan_gan_train(float* g, float* g_m, float* g_v, float* d, float* d_m, floa
   const long long dW3 = db2 + d2, db3 = dW3 + d2;
   const long long Pd = db3 + 1;
 
-  // workspace (ops/gan_train.py: workspace_floats)
+  // workspace of one member (ops/gan_train.py: workspace_floats); member m's
+  // copy of each buffer lies work_floats further on
   long long pos = 0;
-  auto take = [&](long long n) { float* p = work + pos; pos += n; return p; };
+  auto take = [&](long long n) { PerOut p(work + pos, work_floats); pos += n; return p; };
   const int gc[2] = {g1, g2};
-  float *uc[2], *xh[2], *y[2], *a[2], *iv[2];
+  PerOut uc[2], xh[2], y[2], a[2], iv[2];
   for (int l = 0; l < 2; ++l) {
     const long long bc = (long long)B * gc[l];
     uc[l] = take(bc); xh[l] = take(bc); y[l] = take(bc); a[l] = take(bc);
     iv[l] = take(gc[l]);
   }
-  float* tn = take((long long)B * 4);
-  float* pn = take((long long)B * 4);
-  float* dpn = take((long long)B * 4);
-  float* x0 = take(2LL * B * nd);
-  float* p1 = take(2LL * B * d1);
-  float* h1 = take(2LL * B * d1);
-  float* p2 = take(2LL * B * d2);
-  float* h2 = take(2LL * B * d2);
-  float* z = take(2LL * B);
-  float* dz = take(2LL * B);
-  float* dp2 = take(2LL * B * d2);
-  float* dp1 = take(2LL * B * d1);
-  float* dpphys = take((long long)B * 4);
-  float *tc[kMaxLayers], *ln[kMaxLayers], *act[kMaxLayers], *ivar[kMaxLayers];
+  PerOut tn = take((long long)B * 4);
+  PerOut pn = take((long long)B * 4);
+  PerOut dpn = take((long long)B * 4);
+  PerOut x0 = take(2LL * B * nd);
+  PerOut p1 = take(2LL * B * d1);
+  PerOut h1 = take(2LL * B * d1);
+  PerOut p2 = take(2LL * B * d2);
+  PerOut h2 = take(2LL * B * d2);
+  PerOut z = take(2LL * B);
+  PerOut dz = take(2LL * B);
+  PerOut dp2 = take(2LL * B * d2);
+  PerOut dp1 = take(2LL * B * d1);
+  PerOut dpphys = take((long long)B * 4);
+  PerOut tc[kMaxLayers], ln[kMaxLayers], act[kMaxLayers], ivar[kMaxLayers];
   for (int l = 0; l < n_f_hidden; ++l) {
     const long long bc = (long long)B * f_dims[l + 1];
     tc[l] = take(bc); ln[l] = take(bc); act[l] = take(bc); ivar[l] = take(B);
   }
-  float* pred = take((long long)B * D);
-  float* dpred = take((long long)B * D);
-  float* da = take((long long)B * maxc);
-  float* dln = take((long long)B * maxc);
-  float* dt = take((long long)B * maxc);
-  float* dfin = take((long long)B * 4);
-  float* gradG = take(Pg);
-  float* gradD = take(Pd);
-  float* partial = take(kNormParts);
+  PerOut pred = take((long long)B * D);
+  PerOut dpred = take((long long)B * D);
+  PerOut da = take((long long)B * maxc);
+  PerOut dln = take((long long)B * maxc);
+  PerOut dt = take((long long)B * maxc);
+  PerOut dfin = take((long long)B * 4);
+  PerOut gradG = take(Pg);
+  PerOut gradD = take(Pd);
+  PerOut partial = take(kNormParts);
   if (pos > work_floats) return cudaErrorInvalidValue;
 
   const float slope = 0.2f, ln_eps = 1e-6f, bn_eps = 1e-5f;
@@ -554,161 +604,235 @@ int pigan_gan_train(float* g, float* g_m, float* g_v, float* d, float* d_m, floa
     if (e != cudaSuccess) return (int)e; \
   } while (0)
 #define CHECK_LAUNCH() CHECK(cudaGetLastError())
-#define COLS(C) ((C) + kColThreads - 1) / kColThreads, kColThreads, 0, st
-#define ELEMS(n) blocks_for((n), kThreads), kThreads, 0, st
+// launch shapes, the member on the grid's y axis: columns of a (B, C) buffer
+// 64 a block or 256 a block, n elements grid-strided, B rows a block each,
+// one block per member
+#define COLS(C) dim3(((C) + kColThreads - 1) / kColThreads, NM), kColThreads, 0, st
+#define WIDE(C) dim3(((C) + kThreads - 1) / kThreads, NM), kThreads, 0, st
+#define ELEMS(n) dim3(blocks_for((n), kThreads), NM), kThreads, 0, st
+#define ROWS(R) dim3((R), NM), kThreads, 0, st
+#define ONE() NM, kThreads, 0, st
+#define GEMM(AK, BNC, ...) CHECK((gemm<AK, BNC>(__VA_ARGS__, st, NM)))
 
+  const PerIn F(f, 0);
+  const PerIn none;
   for (int t = 0; t < T; ++t) {
-    const float* spec_t = spectra + (long long)t * B * S;
-    const float* par_t = params + (long long)t * B * 4;
-    const float* met_t = met + (long long)t * B * 8;
+    const PerIn spec_t = spectra + (long long)t * B * S;
+    const PerIn par_t = params + (long long)t * B * 4;
+    const PerIn met_t = met + (long long)t * B * 8;
     const float* sc = sched + (long long)t * kSchedLanes;
-    float* row = rows + (long long)t * kRowWidth;
+    const PerOut row = rows + (long long)t * kRowWidth;
+    // one gate for all members: they sit at the same step count
     const bool update_d = sc[6] > 0.f;
 
     // ---- G forward, shared by both phases --------------------------------
-    CHECK((gemm<true, false>(B, g1, S, spec_t, S, 1, g + gW1, 1, S, uc[0], g1, g + gb1, st)));
+    GEMM(true, false, B, g1, S, spec_t, S, 1, g + gW1, 1, S, uc[0], g1, g + gb1);
     bn_forward<<<COLS(g1)>>>(uc[0], B, g1, g + ggam1, g + gbet1, xh[0], y[0], a[0], iv[0],
                              bn1_mean, bn1_var, bn_eps, bn_mom, bn_one_minus);
     CHECK_LAUNCH();
-    CHECK((gemm<true, false>(B, g2, g1, a[0], g1, 1, g + gW2, 1, g1, uc[1], g2, g + gb2, st)));
+    GEMM(true, false, B, g2, g1, a[0], g1, 1, g + gW2, 1, g1, uc[1], g2, g + gb2);
     bn_forward<<<COLS(g2)>>>(uc[1], B, g2, g + ggam2, g + gbet2, xh[1], y[1], a[1], iv[1],
                              bn2_mean, bn2_var, bn_eps, bn_mom, bn_one_minus);
     CHECK_LAUNCH();
-    CHECK((gemm<true, false>(B, 4, g2, a[1], g2, 1, g + gW3, 1, g2, tn, 4, g + gb3, st)));
+    GEMM(true, false, B, 4, g2, a[1], g2, 1, g + gW3, 1, g2, tn, 4, g + gb3);
     g_output<<<ELEMS((long long)B * nd)>>>(tn, pn, x0, spec_t, par_t, B, S, lo, hi, sigmoid);
     CHECK_LAUNCH();
 
     // ---- D phase on [real; fake] -----------------------------------------
-    CHECK((gemm<true, false>(2 * B, d1, nd, x0, nd, 1, d + dW1, 1, nd, p1, d1, d + db1, st)));
+    GEMM(true, false, 2 * B, d1, nd, x0, nd, 1, d + dW1, 1, nd, p1, d1, d + db1);
     leaky_forward<<<ELEMS(2LL * B * d1)>>>(p1, h1, 2LL * B * d1, slope);
     CHECK_LAUNCH();
-    CHECK((gemm<true, false>(2 * B, d2, d1, h1, d1, 1, d + dW2, 1, d1, p2, d2, d + db2, st)));
+    GEMM(true, false, 2 * B, d2, d1, h1, d1, 1, d + dW2, 1, d1, p2, d2, d + db2);
     leaky_forward<<<ELEMS(2LL * B * d2)>>>(p2, h2, 2LL * B * d2, slope);
     CHECK_LAUNCH();
-    CHECK((gemm<true, false>(2 * B, 1, d2, h2, d2, 1, d + dW3, 1, d2, z, 1, d + db3, st)));
-    d_loss_kernel<<<1, kThreads, 0, st>>>(z, B, lab_r, lab_f, dz, row);
+    GEMM(true, false, 2 * B, 1, d2, h2, d2, 1, d + dW3, 1, d2, z, 1, d + db3);
+    d_loss_kernel<<<ONE()>>>(z, B, lab_r, lab_f, dz, row);
     CHECK_LAUNCH();
     if (update_d) {
-      CHECK((gemm<false, true>(1, d2, 2 * B, dz, 1, 1, h2, d2, 1, gradD + dW3, d2, nullptr, st)));
-      column_sum<<<1, kThreads, 0, st>>>(dz, 2 * B, 1, gradD + db3);
+      GEMM(false, true, 1, d2, 2 * B, dz, 1, 1, h2, d2, 1, gradD + dW3, d2, none);
+      column_sum<<<WIDE(1)>>>(dz, 2 * B, 1, gradD + db3);
       CHECK_LAUNCH();
       d_head_backward<<<ELEMS(2LL * B * d2)>>>(dz, d + dW3, p2, dp2, 2 * B, d2, slope);
       CHECK_LAUNCH();
-      CHECK((gemm<false, true>(d2, d1, 2 * B, dp2, 1, d2, h1, d1, 1, gradD + dW2, d1, nullptr,
-                               st)));
-      column_sum<<<(d2 + kThreads - 1) / kThreads, kThreads, 0, st>>>(dp2, 2 * B, d2,
-                                                                    gradD + db2);
+      GEMM(false, true, d2, d1, 2 * B, dp2, 1, d2, h1, d1, 1, gradD + dW2, d1, none);
+      column_sum<<<WIDE(d2)>>>(dp2, 2 * B, d2, gradD + db2);
       CHECK_LAUNCH();
-      CHECK((gemm<true, true>(2 * B, d1, d2, dp2, d2, 1, d + dW2, d1, 1, dp1, d1, nullptr, st)));
+      GEMM(true, true, 2 * B, d1, d2, dp2, d2, 1, d + dW2, d1, 1, dp1, d1, none);
       leaky_backward<<<ELEMS(2LL * B * d1)>>>(dp1, p1, 2LL * B * d1, slope);
       CHECK_LAUNCH();
-      CHECK((gemm<false, true>(d1, nd, 2 * B, dp1, 1, d1, x0, nd, 1, gradD + dW1, nd, nullptr,
-                               st)));
-      column_sum<<<(d1 + kThreads - 1) / kThreads, kThreads, 0, st>>>(dp1, 2 * B, d1,
-                                                                    gradD + db1);
+      GEMM(false, true, d1, nd, 2 * B, dp1, 1, d1, x0, nd, 1, gradD + dW1, nd, none);
+      column_sum<<<WIDE(d1)>>>(dp1, 2 * B, d1, gradD + db1);
       CHECK_LAUNCH();
-      sumsq_partial<<<kNormParts, kThreads, 0, st>>>(gradD, Pd, partial);
+      sumsq_partial<<<ROWS(kNormParts)>>>(gradD, Pd, partial);
       CHECK_LAUNCH();
       ak.lr = sc[1];
       ak.inv1 = sc[4];
       ak.inv2 = sc[5];
-      adam_update<<<kAdamBlocks, kThreads, 0, st>>>(d, d_m, d_v, gradD, Pd, partial, ak);
+      adam_update<<<ROWS(kAdamBlocks)>>>(d, d_m, d_v, gradD, Pd, partial, ak);
       CHECK_LAUNCH();
     }
 
     // ---- G phase: the fake rows through the updated D --------------------
-    const float* fake_in = x0 + (long long)B * nd;
-    CHECK((gemm<true, false>(B, d1, nd, fake_in, nd, 1, d + dW1, 1, nd, p1, d1, d + db1, st)));
+    const PerIn fake_in = x0 + (long long)B * nd;
+    GEMM(true, false, B, d1, nd, fake_in, nd, 1, d + dW1, 1, nd, p1, d1, d + db1);
     leaky_forward<<<ELEMS((long long)B * d1)>>>(p1, h1, (long long)B * d1, slope);
     CHECK_LAUNCH();
-    CHECK((gemm<true, false>(B, d2, d1, h1, d1, 1, d + dW2, 1, d1, p2, d2, d + db2, st)));
+    GEMM(true, false, B, d2, d1, h1, d1, 1, d + dW2, 1, d1, p2, d2, d + db2);
     leaky_forward<<<ELEMS((long long)B * d2)>>>(p2, h2, (long long)B * d2, slope);
     CHECK_LAUNCH();
-    CHECK((gemm<true, false>(B, 1, d2, h2, d2, 1, d + dW3, 1, d2, z, 1, d + db3, st)));
-    adv_loss_kernel<<<1, kThreads, 0, st>>>(z, B, dz, row);
+    GEMM(true, false, B, 1, d2, h2, d2, 1, d + dW3, 1, d2, z, 1, d + db3);
+    adv_loss_kernel<<<ONE()>>>(z, B, dz, row);
     CHECK_LAUNCH();
     d_head_backward<<<ELEMS((long long)B * d2)>>>(dz, d + dW3, p2, dp2, B, d2, slope);
     CHECK_LAUNCH();
-    CHECK((gemm<true, true>(B, d1, d2, dp2, d2, 1, d + dW2, d1, 1, dp1, d1, nullptr, st)));
+    GEMM(true, true, B, d1, d2, dp2, d2, 1, d + dW2, d1, 1, dp1, d1, none);
     leaky_backward<<<ELEMS((long long)B * d1)>>>(dp1, p1, (long long)B * d1, slope);
     CHECK_LAUNCH();
     // only the four parameter columns of D's input gradient are needed
-    CHECK((gemm<true, true>(B, 4, d1, dp1, d1, 1, d + dW1 + S, nd, 1, dpphys, 4, nullptr, st)));
+    GEMM(true, true, B, 4, d1, dp1, d1, 1, d + (dW1 + S), nd, 1, dpphys, 4, none);
 
     // ---- the frozen F, eval mode -------------------------------------------
-    const float* fa = pn;
+    PerIn fa = pn;
     for (int l = 0; l < n_f_hidden; ++l) {
       const int din = f_dims[l], C = f_dims[l + 1];
       const long long* o = f_offsets + 4 * l;
-      CHECK((gemm<true, false>(B, C, din, fa, din, 1, f + o[0], 1, din, tc[l], C, f + o[1],
-                               st)));
-      ln_forward<<<B, kThreads, 0, st>>>(tc[l], ln[l], nullptr, act[l], ivar[l], f + o[2],
-                                         f + o[3], C, ln_eps, slope, 0u, 0, 0u, 1.f);
+      GEMM(true, false, B, C, din, fa, din, 1, F + o[0], 1, din, tc[l], C, F + o[1]);
+      ln_forward<<<ROWS(B)>>>(tc[l], ln[l], PerOut(), act[l], ivar[l], F + o[2], F + o[3], C,
+                              ln_eps, slope, 0u, 0, 0u, 1.f);
       CHECK_LAUNCH();
       fa = act[l];
     }
     const int dh = f_dims[n_f_hidden];
     const long long* oh = f_offsets + 4 * n_f_hidden;
-    CHECK((gemm<true, false>(B, D, dh, fa, dh, 1, f + oh[0], 1, dh, pred, D, f + oh[1], st)));
+    GEMM(true, false, B, D, dh, fa, dh, 1, F + oh[0], 1, dh, pred, D, F + oh[1]);
 
     // ---- losses and their seeds -------------------------------------------
     gk.c_scale = sc[7];
-    g_loss_kernel<<<1, kThreads, 0, st>>>(pred, spec_t, met_t, pn, dpphys, dpn, dpred, row, B,
-                                          S, gk);
+    g_loss_kernel<<<ONE()>>>(pred, spec_t, met_t, pn, dpphys, dpn, dpred, row, B, S, gk);
     CHECK_LAUNCH();
 
     // ---- through F's input ---------------------------------------------------
     if (!detach) {
-      CHECK((gemm<true, true>(B, dh, D, dpred, D, 1, f + oh[0], dh, 1, da, dh, nullptr, st)));
+      GEMM(true, true, B, dh, D, dpred, D, 1, F + oh[0], dh, 1, da, dh, none);
       for (int l = n_f_hidden - 1; l >= 0; --l) {
         const int din = f_dims[l], C = f_dims[l + 1];
         const long long* o = f_offsets + 4 * l;
-        ln_backward<<<B, kThreads, 0, st>>>(da, nullptr, ln[l], tc[l], ivar[l], f + o[2], dln,
-                                            dt, C, slope, 0);
+        ln_backward<<<ROWS(B)>>>(da, none, ln[l], tc[l], ivar[l], F + o[2], dln, dt, C, slope,
+                                 0);
         CHECK_LAUNCH();
-        CHECK((gemm<true, true>(B, din, C, dt, C, 1, f + o[0], din, 1, l > 0 ? da : dfin, din,
-                                nullptr, st)));
+        GEMM(true, true, B, din, C, dt, C, 1, F + o[0], din, 1, l > 0 ? da : dfin, din, none);
       }
     }
 
     // ---- G backward -----------------------------------------------------------
-    g_head_seed<<<ELEMS((long long)B * 4)>>>(dpn, detach ? nullptr : dfin, tn, pn, B * 4,
+    g_head_seed<<<ELEMS((long long)B * 4)>>>(dpn, detach ? none : PerIn(dfin), tn, pn, B * 4,
                                              sigmoid);
     CHECK_LAUNCH();
-    CHECK((gemm<false, true>(4, g2, B, dpn, 1, 4, a[1], g2, 1, gradG + gW3, g2, nullptr, st)));
-    column_sum<<<1, kThreads, 0, st>>>(dpn, B, 4, gradG + gb3);
+    GEMM(false, true, 4, g2, B, dpn, 1, 4, a[1], g2, 1, gradG + gW3, g2, none);
+    column_sum<<<WIDE(4)>>>(dpn, B, 4, gradG + gb3);
     CHECK_LAUNCH();
-    CHECK((gemm<true, true>(B, g2, 4, dpn, 4, 1, g + gW3, g2, 1, da, g2, nullptr, st)));
+    GEMM(true, true, B, g2, 4, dpn, 4, 1, g + gW3, g2, 1, da, g2, none);
     bn_backward<<<COLS(g2)>>>(da, y[1], xh[1], uc[1], g + ggam2, iv[1], B, g2, dt,
                               gradG + ggam2, gradG + gbet2);
     CHECK_LAUNCH();
-    CHECK((gemm<false, true>(g2, g1, B, dt, 1, g2, a[0], g1, 1, gradG + gW2, g1, nullptr, st)));
-    column_sum<<<(g2 + kThreads - 1) / kThreads, kThreads, 0, st>>>(dt, B, g2, gradG + gb2);
+    GEMM(false, true, g2, g1, B, dt, 1, g2, a[0], g1, 1, gradG + gW2, g1, none);
+    column_sum<<<WIDE(g2)>>>(dt, B, g2, gradG + gb2);
     CHECK_LAUNCH();
-    CHECK((gemm<true, true>(B, g1, g2, dt, g2, 1, g + gW2, g1, 1, da, g1, nullptr, st)));
+    GEMM(true, true, B, g1, g2, dt, g2, 1, g + gW2, g1, 1, da, g1, none);
     bn_backward<<<COLS(g1)>>>(da, y[0], xh[0], uc[0], g + ggam1, iv[0], B, g1, dt,
                               gradG + ggam1, gradG + gbet1);
     CHECK_LAUNCH();
-    CHECK((gemm<false, true>(g1, S, B, dt, 1, g1, spec_t, S, 1, gradG + gW1, S, nullptr, st)));
-    column_sum<<<(g1 + kThreads - 1) / kThreads, kThreads, 0, st>>>(dt, B, g1, gradG + gb1);
+    GEMM(false, true, g1, S, B, dt, 1, g1, spec_t, S, 1, gradG + gW1, S, none);
+    column_sum<<<WIDE(g1)>>>(dt, B, g1, gradG + gb1);
     CHECK_LAUNCH();
-    sumsq_partial<<<kNormParts, kThreads, 0, st>>>(gradG, Pg, partial);
+    sumsq_partial<<<ROWS(kNormParts)>>>(gradG, Pg, partial);
     CHECK_LAUNCH();
     ak.lr = sc[0];
     ak.inv1 = sc[2];
     ak.inv2 = sc[3];
-    adam_update<<<kAdamBlocks, kThreads, 0, st>>>(g, g_m, g_v, gradG, Pg, partial, ak);
+    adam_update<<<ROWS(kAdamBlocks)>>>(g, g_m, g_v, gradG, Pg, partial, ak);
     CHECK_LAUNCH();
     if (ema_decay > 0.f) {
-      ema_lerp<<<ELEMS(Pg)>>>(g_ema, g, Pg, ema_decay, (float)(1.0 - hp[12]));
+      ema_lerp<<<blocks_for(Pg, kThreads), kThreads, 0, st>>>(g_ema, g.p, Pg, ema_decay,
+                                                               (float)(1.0 - hp[12]));
       CHECK_LAUNCH();
     }
   }
+#undef GEMM
+#undef ONE
+#undef ROWS
 #undef ELEMS
+#undef WIDE
 #undef COLS
 #undef CHECK_LAUNCH
 #undef CHECK
   return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// T training steps over one state in place (K2).
+//   g, g_m, g_v    (Pg,) device, updated; layout W1 b1 gamma1 beta1 W2 b2
+//                  gamma2 beta2 W3 b3, each W as (out, in)
+//   d, d_m, d_v    (Pd,) device, updated; layout W1 b1 W2 b2 W3 b3
+//   bn1_mean ...   G's BatchNorm running stats, device, updated
+//   f              F's parameters in forward_train.cu's layout, read only
+//   g_ema          (Pg,) device, updated when hp[12] > 0, else unused
+//   spectra, params, met   (T, B, S), (T, B, 4) physical, (T, B, 8) device
+//   sched          (T, 8) host: lr_g lr_d inv1_g inv2_g inv1_d inv2_d d_gate c_scale
+//   rows           (T, 11) device out: d_loss g_loss d_accuracy adv recon
+//                  metrics maxwell lc range violation_rate constraint
+//   work           device scratch of work_floats floats
+//   dims           host: S, g1, g2, d1, d2
+//   f_dims         n_f_hidden + 2 widths of F (host); f_offsets 4 per layer
+//   hp             host: w_adv w_recon w_pmet w_maxwell w_lc w_range
+//                  w_constraint w_window range_lo range_hi label_real
+//                  label_fake ema_decay clip lo[4] hi[4]
+//   flags          bit 0 detach_forward, bit 1 sigmoid_squash
+int pigan_gan_train(float* g, float* g_m, float* g_v, float* d, float* d_m, float* d_v,
+                    float* bn1_mean, float* bn1_var, float* bn2_mean, float* bn2_var,
+                    const float* f, float* g_ema, const float* spectra,
+                    const float* params, const float* met, const float* sched,
+                    float* rows, float* work, long long work_floats, const int* dims,
+                    const int* f_dims, int n_f_hidden, const long long* f_offsets, int B,
+                    int T, const double* hp, int flags, void* stream_ptr) {
+  return gan_train_steps(1, g, g_m, g_v, d, d_m, d_v, bn1_mean, bn1_var, bn2_mean, bn2_var, f,
+                         g_ema, spectra, params, met, sched, rows, work, work_floats, dims,
+                         f_dims, n_f_hidden, f_offsets, B, T, hp, flags,
+                         (cudaStream_t)stream_ptr);
+}
+
+// T training steps over the states of `members` ensemble members in place,
+// all members in every launch (K3).  As pigan_gan_train, with a leading
+// member axis on everything that differs by member, each contiguous:
+//   g, g_m, g_v    (members, Pg);  d, d_m, d_v  (members, Pd)
+//   bn1_mean, bn1_var (members, g1);  bn2_mean, bn2_var (members, g2)
+//   spectra, params, met   (members, T, B, S), (members, T, B, 4), (members, T, B, 8)
+//   rows           (members, T, 11) out
+//   work           members x work_floats floats: work_floats is one member's
+// and shared by all members: f, sched (all members sit at the same step and
+// optimiser counts), dims, hp, flags.  No EMA track: hp[12] must be 0.
+int pigan_gan_ensemble_train(int members, float* g, float* g_m, float* g_v, float* d,
+                             float* d_m, float* d_v, float* bn1_mean, float* bn1_var,
+                             float* bn2_mean, float* bn2_var, const float* f,
+                             const float* spectra, const float* params, const float* met,
+                             const float* sched, float* rows, float* work,
+                             long long work_floats, const int* dims, const int* f_dims,
+                             int n_f_hidden, const long long* f_offsets, int B, int T,
+                             const double* hp, int flags, void* stream_ptr) {
+  if (hp[12] > 0.0) return cudaErrorInvalidValue;
+  const int S = dims[0], g1 = dims[1], g2 = dims[2], d1 = dims[3], d2 = dims[4];
+  const long long Pg = (long long)S * g1 + 3LL * g1 + (long long)g1 * g2 + 3LL * g2 + 4LL * g2 + 4;
+  const long long Pd = (long long)(S + 4) * d1 + d1 + (long long)d1 * d2 + d2 + d2 + 1;
+  const long long TB = (long long)T * B;
+  return gan_train_steps(
+      members, PerOut(g, Pg), PerOut(g_m, Pg), PerOut(g_v, Pg), PerOut(d, Pd), PerOut(d_m, Pd),
+      PerOut(d_v, Pd), PerOut(bn1_mean, g1), PerOut(bn1_var, g1), PerOut(bn2_mean, g2),
+      PerOut(bn2_var, g2), f, nullptr, PerIn(spectra, TB * S), PerIn(params, TB * 4),
+      PerIn(met, TB * 8), sched, PerOut(rows, (long long)T * kRowWidth), work, work_floats,
+      dims, f_dims, n_f_hidden, f_offsets, B, T, hp, flags, (cudaStream_t)stream_ptr);
 }
 
 }  // extern "C"

@@ -1,10 +1,20 @@
-// Device code shared by the two training kernels, forward_train.cu (K1) and
-// gan_train.cu (K2), fp32, for Hopper (sm_90a): the tiled SGEMM every product
-// of a training step goes through, the fixed-order block sum, the dropout
-// hash, LayerNorm rows (forward and backward), column sums over the batch,
-// and the deterministic two-pass global-norm clip with Adam.  Everything
-// lives in an anonymous namespace: each source that includes this header
-// gets its own copy, and no symbol leaves it.
+// Device code shared by the training kernels, forward_train.cu (K1) and
+// gan_train.cu (K2, and K3: K2's step for M ensemble members at once), fp32,
+// for Hopper (sm_90a): the tiled SGEMM every product of a training step goes
+// through, the fixed-order block sum, the dropout hash, LayerNorm rows
+// (forward and backward), column sums over the batch, and the deterministic
+// two-pass global-norm clip with Adam.  Everything lives in an anonymous
+// namespace: each source that includes this header gets its own copy, and no
+// symbol leaves it.
+//
+// The member axis.  Every kernel here that the GAN step launches takes its
+// operands as Per<T>: a
+// pointer and a per-member stride.  The member is the grid's last used axis
+// (blockIdx.z of the SGEMM, blockIdx.y of the others), and member m works on
+// p + m * stride.  A plain pointer converts to a Per with stride 0, so a
+// caller without members (K1; K2 is the one-member case) launches as before,
+// with that axis 1.  Nothing else reads the member or the size of its axis:
+// member m's arithmetic, and its order, are those of a launch for m alone.
 
 #pragma once
 
@@ -21,6 +31,19 @@ constexpr int kAdamBlocks = 264;    // 2 per SM on an H100
 constexpr int kBK = 16;             // depth of a GEMM tile
 static_assert(kNormParts == kThreads, "adam_update reduces one partial per thread");
 
+template <typename T>
+struct Per {
+  T* p;
+  long long stride;   // floats between two members' data; 0: shared by all
+  __host__ __device__ Per(T* ptr = nullptr, long long s = 0) : p(ptr), stride(s) {}
+  template <typename U>
+  __host__ __device__ Per(const Per<U>& o) : p(o.p), stride(o.stride) {}
+  __host__ __device__ Per operator+(long long off) const { return Per(p + off, stride); }
+  __device__ __forceinline__ T* at(int m) const { return p + (long long)m * stride; }
+};
+using PerIn = Per<const float>;
+using PerOut = Per<float>;
+
 // --------------------------------------------------------------------------
 // Tiled SGEMM: C[m, n] = sum_k A(m, k) B(k, n) (+ bias[n]), C row-major.
 // A(m, k) = A[m * sam + k * sak], B(k, n) = B[k * sbk + n * sbn].
@@ -30,9 +53,12 @@ static_assert(kNormParts == kThreads, "adam_update reduces one partial per threa
 // --------------------------------------------------------------------------
 template <int BM, int BN, bool AK, bool BNC>
 __global__ void __launch_bounds__(kThreads)
-sgemm(int M, int N, int K, const float* __restrict__ A, long long sam,
-      long long sak, const float* __restrict__ B, long long sbk, long long sbn,
-      float* __restrict__ C, int ldc, const float* __restrict__ bias) {
+sgemm(int M, int N, int K, PerIn Am, long long sam, long long sak, PerIn Bm,
+      long long sbk, long long sbn, PerOut Cm, int ldc, PerIn biasm) {
+  const float* __restrict__ A = Am.at(blockIdx.z);
+  const float* __restrict__ B = Bm.at(blockIdx.z);
+  float* __restrict__ C = Cm.at(blockIdx.z);
+  const float* __restrict__ bias = biasm.p ? biasm.at(blockIdx.z) : nullptr;
   constexpr int TM = BM / 16;
   constexpr int TN = BN / 16;
   __shared__ float As[kBK][BM + 1];
@@ -90,16 +116,17 @@ sgemm(int M, int N, int K, const float* __restrict__ A, long long sam,
 }
 
 template <bool AK, bool BNC>
-cudaError_t gemm(int M, int N, int K, const float* A, long long sam, long long sak,
-                 const float* B, long long sbk, long long sbn, float* C, int ldc,
-                 const float* bias, cudaStream_t s) {
-  // 64 x 64 tiles where they fill the card, else 32 x 32 (4x the blocks)
+cudaError_t gemm(int M, int N, int K, PerIn A, long long sam, long long sak, PerIn B,
+                 long long sbk, long long sbn, PerOut C, int ldc, PerIn bias,
+                 cudaStream_t s, int members = 1) {
+  // 64 x 64 tiles where they fill the card, else 32 x 32 (4x the blocks).
+  // The choice reads one member's shape only: it must not move with members.
   if (((M + 63) / 64) * ((N + 63) / 64) >= 128) {
-    dim3 grid((N + 63) / 64, (M + 63) / 64);
+    dim3 grid((N + 63) / 64, (M + 63) / 64, members);
     sgemm<64, 64, AK, BNC><<<grid, kThreads, 0, s>>>(M, N, K, A, sam, sak, B, sbk,
                                                       sbn, C, ldc, bias);
   } else {
-    dim3 grid((N + 31) / 32, (M + 31) / 32);
+    dim3 grid((N + 31) / 32, (M + 31) / 32, members);
     sgemm<32, 32, AK, BNC><<<grid, kThreads, 0, s>>>(M, N, K, A, sam, sak, B, sbk,
                                                       sbn, C, ldc, bias);
   }
@@ -134,12 +161,18 @@ __host__ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
 // row's pre-norm t (bias included) on entry and t - mean on exit.
 // --------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads)
-ln_forward(float* __restrict__ tc, float* __restrict__ ln, float* __restrict__ sc,
-           float* __restrict__ act, float* __restrict__ ivar_out,
-           const float* __restrict__ gamma, const float* __restrict__ beta, int C,
-           float ln_eps, float slope, uint32_t layer_key, int use_drop,
-           uint32_t thresh, float inv_keep) {
+ln_forward(PerOut tcm, PerOut lnm, PerOut scm, PerOut actm, PerOut ivarm, PerIn gammam,
+           PerIn betam, int C, float ln_eps, float slope, uint32_t layer_key,
+           int use_drop, uint32_t thresh, float inv_keep) {
   __shared__ float red[kThreads];
+  const int mem = blockIdx.y;
+  float* __restrict__ tc = tcm.at(mem);
+  float* __restrict__ ln = lnm.at(mem);
+  float* __restrict__ sc = scm.at(mem);
+  float* __restrict__ act = actm.at(mem);
+  float* __restrict__ ivar_out = ivarm.at(mem);
+  const float* __restrict__ gamma = gammam.at(mem);
+  const float* __restrict__ beta = betam.at(mem);
   const int r = blockIdx.x;
   const int tid = threadIdx.x;
   float* t = tc + (long long)r * C;
@@ -182,12 +215,18 @@ ln_forward(float* __restrict__ tc, float* __restrict__ ln, float* __restrict__ s
 // -> dln (at the pre-activation) and dt (at the pre-norm t).
 // --------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads)
-ln_backward(const float* __restrict__ da, const float* __restrict__ sc,
-            const float* __restrict__ ln, const float* __restrict__ tc,
-            const float* __restrict__ ivar_in, const float* __restrict__ gamma,
-            float* __restrict__ dln_out, float* __restrict__ dt_out, int C,
-            float slope, int use_drop) {
+ln_backward(PerIn dam, PerIn scm, PerIn lnm, PerIn tcm, PerIn ivarm, PerIn gammam,
+            PerOut dlnm, PerOut dtm, int C, float slope, int use_drop) {
   __shared__ float red[kThreads];
+  const int mem = blockIdx.y;
+  const float* __restrict__ da = dam.at(mem);
+  const float* __restrict__ sc = scm.at(mem);
+  const float* __restrict__ ln = lnm.at(mem);
+  const float* __restrict__ tc = tcm.at(mem);
+  const float* __restrict__ ivar_in = ivarm.at(mem);
+  const float* __restrict__ gamma = gammam.at(mem);
+  float* __restrict__ dln_out = dlnm.at(mem);
+  float* __restrict__ dt_out = dtm.at(mem);
   const int r = blockIdx.x;
   const int tid = threadIdx.x;
   const float ivar = ivar_in[r];
@@ -242,7 +281,9 @@ __global__ void ln_param_grads(const float* __restrict__ dln, const float* __res
   db[c] = sd;
 }
 
-__global__ void column_sum(const float* __restrict__ x, int B, int C, float* __restrict__ out) {
+__global__ void column_sum(PerIn xm, int B, int C, PerOut outm) {
+  const float* __restrict__ x = xm.at(blockIdx.y);
+  float* __restrict__ out = outm.at(blockIdx.y);
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= C) return;
   float s = 0.f;
@@ -259,8 +300,10 @@ __device__ __forceinline__ float second_diff(const float* p, int j) {
 // Clip + Adam
 // --------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads)
-sumsq_partial(const float* __restrict__ g, long long P, float* __restrict__ partial) {
+sumsq_partial(PerIn gm, long long P, PerOut partialm) {
   __shared__ float red[kThreads];
+  const float* __restrict__ g = gm.at(blockIdx.y);
+  float* __restrict__ partial = partialm.at(blockIdx.y);
   float s = 0.f;
   for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < P;
        i += (long long)kThreads * kNormParts) {
@@ -276,10 +319,14 @@ struct AdamCoef {
 };
 
 __global__ void __launch_bounds__(kThreads)
-adam_update(float* __restrict__ p, float* __restrict__ m, float* __restrict__ v,
-            const float* __restrict__ g, long long P, const float* __restrict__ partial,
+adam_update(PerOut pm, PerOut mm, PerOut vm, PerIn gm, long long P, PerIn partialm,
             AdamCoef k) {
   __shared__ float red[kThreads];
+  float* __restrict__ p = pm.at(blockIdx.y);
+  float* __restrict__ m = mm.at(blockIdx.y);
+  float* __restrict__ v = vm.at(blockIdx.y);
+  const float* __restrict__ g = gm.at(blockIdx.y);
+  const float* __restrict__ partial = partialm.at(blockIdx.y);
   // every block reduces the partials in the same order: one norm for all
   const float gn = sqrtf(block_sum(partial[threadIdx.x], red));
   const float scale = gn < k.clip ? 1.f : k.clip / gn;

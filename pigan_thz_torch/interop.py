@@ -18,7 +18,10 @@ Mapping rules:
 forward-pretraining state (F's parameters, Adam's moments, the count) the
 same way, ``load_pigan_state_`` and ``pigan_state_to_flax`` the PI-GAN
 state (G with its BatchNorm stats, D, the frozen F, both Adams, the EMA and
-the step), so that both packages can train on from one state.
+the step), so that both packages can train on from one state;
+``load_ensemble_states_`` and ``ensemble_states_to_flax`` carry a
+member-stacked state (every leaf with a leading member axis, the JAX
+package's ``tree_stack`` of ``PiGanState``s) member by member.
 """
 
 from __future__ import annotations
@@ -246,3 +249,43 @@ def pigan_state_to_flax(state) -> dict:
         out["g_ema"] = _params_to_flax(_unflat(state.g_ema.detach(), state.g), "generator")
     out["step"] = int(state.step)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Member-stacked PI-GAN state (seed ensembles)
+# ---------------------------------------------------------------------------
+
+
+def _member_tree(tree, m: int):
+    """Member m of a stacked tree: every array leaf's row m; counts and the
+    step may be stacked (one per member) or one scalar for all."""
+    if isinstance(tree, Mapping):
+        return {k: _member_tree(v, m) for k, v in tree.items()}
+    a = np.asarray(tree)
+    return a[m] if a.ndim else a
+
+
+def load_ensemble_states_(states, trees: Mapping):
+    """Overwrite the port's member-stacked state (``parallel/state_utils.py:
+    EnsembleState``, or a sequence of ``PiGanState``s) in place with the JAX
+    package's member-stacked ``PiGanState`` carried across as numpy:
+    ``trees`` as ``load_pigan_state_`` takes them, every leaf with a leading
+    member axis (``tree_stack`` of ``init_pigan_state``).  Member m's views
+    into the stacked buffers stay bound.  Returns ``states``."""
+    for m, st in enumerate(states):
+        load_pigan_state_(st, _member_tree(trees, m))
+    return states
+
+
+def ensemble_states_to_flax(states) -> dict:
+    """The port's member-stacked state as the pieces
+    ``load_ensemble_states_`` takes, in numpy: every leaf, the counts and
+    the step stacked on a leading member axis."""
+    per = [pigan_state_to_flax(st) for st in states]
+
+    def stack(nodes):
+        if isinstance(nodes[0], Mapping):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return np.stack([np.asarray(n) for n in nodes])
+
+    return stack(per)

@@ -28,7 +28,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fused_mlp_chain.cu", "dip_qualification.cu", "forward_train.cu", "gan_train.cu")
-HEADERS = ("train_common.cuh",)     # included by the two training sources
+HEADERS = ("train_common.cuh",)     # included by the training sources
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,6 +43,7 @@ LAUNCHES: dict[str, int] = {
     "dip_qualification": 0,
     "forward_train": 0,
     "gan_train": 0,
+    "gan_ensemble_train": 0,
 }
 
 _P = ctypes.c_void_p
@@ -64,6 +65,11 @@ ENTRY_POINTS = {
     ],
     "pigan_gan_train": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        ctypes.POINTER(ctypes.c_float), _P, _P, ctypes.c_longlong, _DIMS, _DIMS, _I,
+        _OFFSETS, _I, _I, ctypes.POINTER(ctypes.c_double), _I, _P,
+    ],
+    "pigan_gan_ensemble_train": [
+        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         ctypes.POINTER(ctypes.c_float), _P, _P, ctypes.c_longlong, _DIMS, _DIMS, _I,
         _OFFSETS, _I, _I, ctypes.POINTER(ctypes.c_double), _I, _P,
     ],

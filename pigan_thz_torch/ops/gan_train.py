@@ -45,6 +45,24 @@ raises, for CPU tensors it runs ``gan_train_plain`` (the kernel's math in
 torch ops with the hand-derived backward and no autograd), the port's
 analogue of Pallas interpret mode.  ``LAUNCHES["gan_train"]`` counts
 launches, one per chunk.
+
+Seed ensembles (K3).  The member-packed path of the same TPU kernel
+(``_make_kernel(members=M)``, launched by ``make_pallas_ensemble_fn``,
+:1956-2224) trains M independent members in one launch against one shared
+frozen F and one shared schedule.  Its counterpart is the second entry
+point of ``csrc/gan_train.cu``: every kernel of the step takes the member
+from a grid axis, over the stacked (M, ...) buffers of
+``parallel/state_utils.EnsembleState``.  ``gan_ensemble_train`` is its
+wrapper (``LAUNCHES["gan_ensemble_train"]``, one launch per chunk whatever
+M is), ``gan_ensemble_train_plain`` its plain version, a loop of
+``gan_train_plain`` over the members' rows, and ``make_gan_ensemble_fn`` the
+multi-epoch function.  Member m's rows and state are bit for bit those of
+``gan_train`` on that member alone with the same streams.  It takes what
+``gan_train`` takes, less the EMA.  What bounds M is memory: a chunk's
+streams are M x E x spe x B x 262 floats on the card (25 MB a member at
+25 epochs of 15 steps, B = 64) beside ~13 MB a member of state, gradients
+and scratch.  From M = 4 on the members' working sets no longer fit the
+50 MB L2 together; the kernel's time does not show it (PERF.md).
 """
 
 from __future__ import annotations
@@ -297,7 +315,9 @@ def state_buffers(state) -> GanBuffers:
 
 
 class GanStreams(NamedTuple):
-    """One chunk's inputs, T = E · spe steps."""
+    """One chunk's inputs, T = E · spe steps.  For an ensemble the three
+    batch streams carry a leading member axis, (M, T, B, ·); the schedule
+    and the bounds are shared."""
 
     spectra: torch.Tensor       # (T, B, S) on the state's device
     params: torch.Tensor        # (T, B, 4) physical units
@@ -315,10 +335,12 @@ def build_streams(ds: ThzDataset, indices: torch.Tensor, scales: torch.Tensor,
     ``g_count`` and ``d_count``.  G and D count separately: with
     ``d_update_every`` = k > 1, D's count advances only on the steps whose
     global step divides by k (``d_gate`` 1), so its learning rate and bias
-    corrections are read at the number of updates it has really taken."""
-    epochs, spe, batch = indices.shape
+    corrections are read at the number of updates it has really taken.
+    ``indices`` is (E, spe, B), or (M, E, spe, B) for M ensemble members at
+    the same counts: the batch streams then are (M, T, B, ·)."""
+    epochs, spe, batch = indices.shape[-3:]
     steps = epochs * spe
-    idx = indices.reshape(steps, batch).to(ds.spectra.device)
+    idx = indices.reshape(*indices.shape[:-3], steps, batch).to(ds.spectra.device)
     t = torch.arange(steps, dtype=torch.int64)
     if d_update_every > 1:
         gate = ((step + t) % d_update_every == 0).to(torch.int64)
@@ -678,75 +700,107 @@ def gan_train_plain(bufs: GanBuffers, streams: GanStreams,
 # ---------------------------------------------------------------------------
 
 
-def workspace_floats(spec: GanTrainSpec, batch: int) -> int:
-    """Scratch the kernel needs, in floats (``csrc/gan_train.cu`` computes
-    the same layout and refuses a smaller buffer)."""
+def workspace_layout(spec: GanTrainSpec, batch: int) -> list[tuple[str, int]]:
+    """The kernel's scratch of one member, buffer by buffer as
+    ``csrc/gan_train.cu`` lays it out: (name, floats).  G's layers are
+    ``uc`` (u - mean), ``xh``, ``y``, ``a`` (relu(y)), ``iv`` (1/sigma); F's
+    ``tc`` (t - mean), ``ln`` (pre-activation), ``act``, ``ivar``."""
     B, S = batch, spec.spectrum_dim
     g1, g2 = spec.g_hidden
     d1, d2 = spec.d_hidden
     fdims = spec.f_spec.dims
-    n = 0
-    for c in (g1, g2):                     # u - mean, xhat, y, relu(y); 1/sigma
-        n += 4 * B * c + c
-    n += 3 * B * 4                         # tanh, squashed output, d(loss)/d(output)
-    n += 2 * B * (S + 4)                   # D's input [real; fake]
-    n += 2 * (2 * B * d1) + 2 * (2 * B * d2)   # p1, h1, p2, h2
-    n += 2 * (2 * B)                       # z, dz
-    n += 2 * B * d2 + 2 * B * d1           # dp2, dp1 of D's backward
-    n += B * 4                             # d(adv)/d(fake params)
-    for c in fdims[1:-1]:                  # t - mean, pre-activation, activation; 1/sigma
-        n += 3 * B * c + B
-    n += 2 * B * fdims[-1]                 # F's prediction and its gradient
-    n += 3 * B * max(*fdims, g1, g2)       # da, dln, dt
-    n += B * 4                             # d(loss)/d(F's input)
-    n += spec.num_g + spec.num_d           # the two flat gradients
-    n += _NORM_PARTS                       # norm partials
-    return n
+    out = []
+    for l, c in enumerate((g1, g2)):
+        out += [(f"uc{l}", B * c), (f"xh{l}", B * c), (f"y{l}", B * c), (f"a{l}", B * c),
+                (f"iv{l}", c)]
+    # tanh; the squashed output; d(loss)/d(output), then the head's seed dz3
+    out += [("tn", B * 4), ("pn", B * 4), ("dpn", B * 4)]
+    out += [("x0", 2 * B * (S + 4))]                       # D's input [real; fake]
+    out += [("p1", 2 * B * d1), ("h1", 2 * B * d1), ("p2", 2 * B * d2), ("h2", 2 * B * d2)]
+    out += [("z", 2 * B), ("dz", 2 * B)]
+    out += [("dp2", 2 * B * d2), ("dp1", 2 * B * d1)]     # D's backward
+    out += [("dpphys", B * 4)]                             # d(adv)/d(fake params)
+    for l, c in enumerate(fdims[1:-1]):
+        out += [(f"tc{l}", B * c), (f"ln{l}", B * c), (f"act{l}", B * c), (f"ivar{l}", B)]
+    out += [("pred", B * fdims[-1]), ("dpred", B * fdims[-1])]
+    widest = B * max(*fdims, g1, g2)
+    out += [("da", widest), ("dln", widest), ("dt", widest)]
+    out += [("dfin", B * 4)]                               # d(loss)/d(F's input)
+    out += [("grad_g", spec.num_g), ("grad_d", spec.num_d)]
+    out += [("norm_partials", _NORM_PARTS)]
+    return out
 
 
-def _check(bufs: GanBuffers, streams: GanStreams, spec: GanTrainSpec) -> bool:
-    """Validate the call; True when it goes to the kernel (CUDA tensors)."""
+def workspace_floats(spec: GanTrainSpec, batch: int) -> int:
+    """Scratch the kernel needs for one member, in floats (``csrc/gan_train.cu``
+    computes the same layout and refuses a smaller buffer)."""
+    return sum(n for _, n in workspace_layout(spec, batch))
+
+
+def workspace_views(work: torch.Tensor, spec: GanTrainSpec, batch: int) -> dict:
+    """The named buffers of ``workspace_layout`` as flat views into ``work``:
+    what the last step of a ``gan_train(..., work=work)`` call left there."""
+    out, pos = {}, 0
+    for name, n in workspace_layout(spec, batch):
+        out[name] = work[pos: pos + n]
+        pos += n
+    return out
+
+
+def _check(bufs: GanBuffers, streams: GanStreams, spec: GanTrainSpec,
+           members: int | None = None) -> bool:
+    """Validate the call; True when it goes to the kernel (CUDA tensors).
+    With ``members`` every buffer that differs by member, and the three batch
+    streams, carry that leading axis."""
+    who = "gan_train" if members is None else "gan_ensemble_train"
+    lead = () if members is None else (members,)
     dev = bufs.g.device
     want = {"g": spec.num_g, "g_m": spec.num_g, "g_v": spec.num_g,
-            "d": spec.num_d, "d_m": spec.num_d, "d_v": spec.num_d,
-            "f": spec.f_spec.num_params}
+            "d": spec.num_d, "d_m": spec.num_d, "d_v": spec.num_d}
     if spec.ema_decay > 0.0:
         if bufs.g_ema is None:
-            raise ValueError("gan_train: ema_decay > 0 needs the g_ema buffer "
+            raise ValueError(f"{who}: ema_decay > 0 needs the g_ema buffer "
                              "(init_pigan_state(..., ema=True))")
         want["g_ema"] = spec.num_g
-    tensors = {name: (getattr(bufs, name), (n,)) for name, n in want.items()}
+    tensors = {name: (getattr(bufs, name), (*lead, n)) for name, n in want.items()}
+    tensors["f"] = (bufs.f, (spec.f_spec.num_params,))
     g1, g2 = spec.g_hidden
     if len(bufs.bn) != 4:
-        raise ValueError("gan_train: bn must hold running mean and var of two BatchNorms")
+        raise ValueError(f"{who}: bn must hold running mean and var of two BatchNorms")
     for name, t, c in zip(("bn1_mean", "bn1_var", "bn2_mean", "bn2_var"), bufs.bn,
                           (g1, g1, g2, g2)):
-        tensors[name] = (t, (c,))
-    steps, batch, _ = streams.spectra.shape
-    tensors["stream spectra"] = (streams.spectra, (steps, batch, spec.spectrum_dim))
-    tensors["stream params"] = (streams.params, (steps, batch, 4))
-    tensors["stream metrics_norm"] = (streams.metrics_norm, (steps, batch, 8))
+        tensors[name] = (t, (*lead, c))
+    if streams.spectra.ndim != len(lead) + 3:
+        raise ValueError(f"{who}: stream spectra must have {len(lead) + 3} axes, got "
+                         f"{tuple(streams.spectra.shape)}")
+    steps, batch, _ = streams.spectra.shape[-3:]
+    tensors["stream spectra"] = (streams.spectra, (*lead, steps, batch, spec.spectrum_dim))
+    tensors["stream params"] = (streams.params, (*lead, steps, batch, 4))
+    tensors["stream metrics_norm"] = (streams.metrics_norm, (*lead, steps, batch, 8))
     for name, (t, shape) in tensors.items():
         if t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"gan_train: {name} must be contiguous float32 {shape}, "
+            raise ValueError(f"{who}: {name} must be contiguous float32 {shape}, "
                              f"got {t.dtype} {tuple(t.shape)}")
         if t.device != dev:
-            raise ValueError(f"gan_train: {name} on {t.device}, state on {dev}")
+            raise ValueError(f"{who}: {name} on {t.device}, state on {dev}")
     if tuple(streams.sched.shape) != (steps, len(SCHED_LANES)):
-        raise ValueError(f"gan_train: sched must be (T, {len(SCHED_LANES)})")
+        raise ValueError(f"{who}: sched must be (T, {len(SCHED_LANES)})")
     if streams.param_lo.numel() != 4 or streams.param_hi.numel() != 4:
-        raise ValueError("gan_train: param_lo and param_hi must hold 4 values")
+        raise ValueError(f"{who}: param_lo and param_hi must hold 4 values")
     if dev.type == "cpu":
         return False
     if dev.type != "cuda":
-        raise ValueError(f"gan_train: no kernel for device {dev}")
+        raise ValueError(f"{who}: no kernel for device {dev}")
     check_capability(dev.index)
     return True
 
 
-def gan_train(bufs: GanBuffers, streams: GanStreams, spec: GanTrainSpec) -> torch.Tensor:
+def gan_train(bufs: GanBuffers, streams: GanStreams, spec: GanTrainSpec,
+              work: torch.Tensor | None = None) -> torch.Tensor:
     """T training steps over ``bufs`` in place, one kernel launch per call
-    on the card; returns the (T, 11) per-step metric rows."""
+    on the card; returns the (T, 11) per-step metric rows.  ``work``
+    optionally supplies the kernel's scratch (``workspace_floats`` floats),
+    which then holds the last step's intermediates (``workspace_views``)."""
     if not _check(bufs, streams, spec):
         return gan_train_plain(bufs, streams, spec)
     steps, batch, _ = streams.spectra.shape
@@ -755,7 +809,29 @@ def gan_train(bufs: GanBuffers, streams: GanStreams, spec: GanTrainSpec) -> torc
     if steps == 0:
         return rows
     n_work = workspace_floats(spec, batch)
-    work = torch.empty(n_work, dtype=torch.float32, device=dev)
+    if work is None:
+        work = torch.empty(n_work, dtype=torch.float32, device=dev)
+    elif (work.dtype != torch.float32 or work.device != dev or not work.is_contiguous()
+          or work.numel() < n_work):
+        raise ValueError(f"gan_train: work must be contiguous float32 with at least "
+                         f"{n_work} floats on {dev}")
+    launch(
+        "gan_train", dev, *_state_pointers(bufs),
+        bufs.f.data_ptr(), bufs.g_ema.data_ptr() if spec.ema_decay > 0.0 else None,
+        *_stream_arguments(streams, spec, rows, work, n_work, batch, steps),
+    )
+    return rows
+
+
+def _state_pointers(bufs: GanBuffers) -> list[int]:
+    return [t.data_ptr() for t in (bufs.g, bufs.g_m, bufs.g_v, bufs.d, bufs.d_m, bufs.d_v,
+                                   *bufs.bn)]
+
+
+def _stream_arguments(streams: GanStreams, spec: GanTrainSpec, rows, work, n_work: int,
+                      batch: int, steps: int) -> tuple:
+    """The arguments both C entry points share after the state's: streams,
+    schedule, rows, workspace, widths, constants and flags."""
     fs = spec.f_spec
     sched = streams.sched.to(torch.float32).contiguous().reshape(-1).tolist()
     dims = (spec.spectrum_dim, *spec.g_hidden, *spec.d_hidden)
@@ -764,12 +840,7 @@ def gan_train(bufs: GanBuffers, streams: GanStreams, spec: GanTrainSpec) -> torc
           spec.label_real, spec.label_fake, spec.ema_decay, spec.clip,
           *streams.param_lo.tolist(), *streams.param_hi.tolist())
     flags = int(spec.detach_forward) | (int(spec.sigmoid_squash) << 1)
-    launch(
-        "gan_train", dev,
-        bufs.g.data_ptr(), bufs.g_m.data_ptr(), bufs.g_v.data_ptr(),
-        bufs.d.data_ptr(), bufs.d_m.data_ptr(), bufs.d_v.data_ptr(),
-        *(t.data_ptr() for t in bufs.bn),
-        bufs.f.data_ptr(), bufs.g_ema.data_ptr() if spec.ema_decay > 0.0 else None,
+    return (
         streams.spectra.data_ptr(), streams.params.data_ptr(),
         streams.metrics_norm.data_ptr(),
         (ctypes.c_float * len(sched))(*sched),
@@ -778,6 +849,68 @@ def gan_train(bufs: GanBuffers, streams: GanStreams, spec: GanTrainSpec) -> torc
         (ctypes.c_int * len(fs.dims))(*fs.dims), fs.n_hidden,
         (ctypes.c_longlong * (4 * (fs.n_hidden + 1)))(*(o for offs in fs.offsets for o in offs)),
         batch, steps, (ctypes.c_double * len(hp))(*hp), flags,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Seed ensembles: M members in one launch (K3)
+# ---------------------------------------------------------------------------
+
+_NO_EMA = "the member-packed kernel: ema_decay > 0 unsupported"
+
+
+def ensemble_buffers(states) -> GanBuffers:
+    """An ``EnsembleState``'s stacked buffers, as the member-packed kernel
+    takes them: each of ``GanBuffers``' fields with a leading member axis,
+    one shared ``f``, no EMA."""
+    return GanBuffers(states.g_params, states.g_m, states.g_v, states.d_params, states.d_m,
+                      states.d_v, tuple(states.bn), states.f_params, None)
+
+
+def _member(bufs: GanBuffers, streams: GanStreams, m: int) -> tuple[GanBuffers, GanStreams]:
+    """Member m's rows of stacked buffers and streams, as views."""
+    one = GanBuffers(bufs.g[m], bufs.g_m[m], bufs.g_v[m], bufs.d[m], bufs.d_m[m], bufs.d_v[m],
+                     tuple(t[m] for t in bufs.bn), bufs.f, None)
+    return one, streams._replace(spectra=streams.spectra[m], params=streams.params[m],
+                                 metrics_norm=streams.metrics_norm[m])
+
+
+def gan_ensemble_train_plain(bufs: GanBuffers, streams: GanStreams,
+                             spec: GanTrainSpec) -> torch.Tensor:
+    """The member-packed kernel's plain version: ``gan_train_plain`` on each
+    member's rows in turn.  Deliberately a loop and no batched product, so
+    that member m is exactly what it is alone.  Returns (M, T, 11) rows."""
+    if spec.ema_decay > 0.0:
+        raise ValueError(_NO_EMA)
+    return torch.stack([gan_train_plain(*_member(bufs, streams, m), spec)
+                        for m in range(bufs.g.shape[0])])
+
+
+def gan_ensemble_train(bufs: GanBuffers, streams: GanStreams,
+                       spec: GanTrainSpec) -> torch.Tensor:
+    """T training steps over M members' stacked buffers in place, one kernel
+    launch per call on the card whatever M is; returns the (M, T, 11)
+    per-step metric rows.  ``bufs`` as ``ensemble_buffers`` gives them,
+    ``streams`` with (M, T, B, ·) batch streams and one shared schedule: all
+    members sit at the same step and optimiser counts."""
+    if spec.ema_decay > 0.0:
+        raise ValueError(_NO_EMA)
+    if bufs.g.ndim != 2 or bufs.g.shape[0] < 1:
+        raise ValueError("gan_ensemble_train: buffers need a leading member axis of at "
+                         f"least 1, got g {tuple(bufs.g.shape)}")
+    members = int(bufs.g.shape[0])
+    if not _check(bufs, streams, spec, members):
+        return gan_ensemble_train_plain(bufs, streams, spec)
+    steps, batch, _ = streams.spectra.shape[-3:]
+    dev = bufs.g.device
+    rows = torch.zeros((members, steps, ROW_WIDTH), dtype=torch.float32, device=dev)
+    if steps == 0:
+        return rows
+    n_work = workspace_floats(spec, batch)          # one member's
+    work = torch.empty(members * n_work, dtype=torch.float32, device=dev)
+    launch(
+        "gan_ensemble_train", dev, members, *_state_pointers(bufs), bufs.f.data_ptr(),
+        *_stream_arguments(streams, spec, rows, work, n_work, batch, steps),
     )
     return rows
 
@@ -858,3 +991,89 @@ def make_gan_epoch_fn(cfg: PiGanConfig, settings, *, lr_g: float | None = None,
         return state, epoch_means(rows, epochs, bool(settings.constraint_w))
 
     return multi_epoch
+
+
+def make_gan_ensemble_fn(cfg: PiGanConfig, settings, num_members: int):
+    """ensemble_epoch(states, ds, scales, indices=None) -> (states,
+    [{key: (E,) per-epoch means} per member]) through ``gan_ensemble_train``,
+    one launch per call for all ``num_members`` members: the counterpart of
+    ``make_pallas_ensemble_fn``.
+
+    ``states`` is an ``EnsembleState`` (``parallel/state_utils.py``) or a
+    sequence of ``PiGanState``s, which is stacked first (re-homing them in
+    place); the ``EnsembleState`` is updated in place and returned.  Member
+    m's shuffles come from member m's own generator, drawn as the
+    one-member function draws them, or from ``indices`` (M, E, spe, B).
+    Member m then is bit for bit what ``make_gan_epoch_fn`` makes of it
+    alone with the same draws, and ``num_members=1`` is that path exactly.
+
+    Checked on every call: ``len(states) == num_members``; every member's
+    ``step``, ``g_opt.count`` and ``d_opt.count`` equal member 0's (the
+    launch carries one schedule stream: a member elsewhere in its training
+    would run at the wrong learning rate and bias corrections); one frozen F
+    for all (compared exactly).  The schedules are the config's; the EMA is
+    refused, as by the TPU kernel."""
+    from ..parallel.state_utils import EnsembleState, tree_stack
+    from ..train.schedules import cosine_schedule, step_schedule
+
+    spec = gan_train_spec(cfg, settings)
+    if num_members < 1:
+        raise ValueError("num_members must be >= 1")
+    if spec.ema_decay > 0.0:
+        raise ValueError(_NO_EMA)
+    batch = cfg.train.batch_size
+    k_d = int(settings.d_update_every)
+    count = int(num_members)
+
+    def ensemble_epoch(states, ds: ThzDataset, scales: Sequence[float] | torch.Tensor,
+                       indices: torch.Tensor | None = None):
+        if len(states) != count:
+            raise ValueError(f"expected {count} states, got {len(states)}")
+        first = states[0]
+        for i in range(1, count):
+            st = states[i]
+            if (st.step, st.g_opt.count, st.d_opt.count) != (
+                    first.step, first.g_opt.count, first.d_opt.count):
+                raise ValueError(
+                    f"member {i} step/opt counts differ from member 0 ({st.step} vs "
+                    f"{first.step}): packed members share one schedule stream and must "
+                    "sit at the same training position (fresh or equally-resumed "
+                    "seed-ensemble members)")
+            if st.f_params is not first.f_params and not torch.equal(
+                    st.f_params, first.f_params.to(st.f_params.device)):
+                raise ValueError(
+                    f"member {i}'s frozen F differs from member 0's: the packed launch "
+                    "carries one shared surrogate (member 0's), so all members must be "
+                    "built from the same forward_model")
+        if not isinstance(states, EnsembleState):
+            states = tree_stack(states)
+        scales = torch.as_tensor(scales, dtype=torch.float32).reshape(-1)
+        epochs = int(scales.numel())
+        spe = max(1, ds.num_samples // batch)
+        if indices is not None and tuple(indices.shape) != (count, epochs, spe, batch):
+            raise ValueError(f"indices {tuple(indices.shape)}, expected "
+                             f"{(count, epochs, spe, batch)}")
+        # each member draws as the one-member function does: the E shuffles
+        # that are not given, then the chunk's step seeds (drawn, not used)
+        indices = torch.stack([
+            resolve_draws(st.generator, ds.num_samples, batch, epochs,
+                          None if indices is None else indices[m])[0]
+            for m, st in enumerate(states)])
+        streams = build_streams(
+            ds, indices, scales, first.step, first.g_opt.count,
+            first.d_opt.count, k_d,
+            cosine_schedule(cfg.train.lr_g, cfg.train.num_epochs, spe, 0.01),
+            step_schedule(cfg.train.lr_d, cfg.train.num_epochs, spe, 0.5, 0.25))
+        rows = gan_ensemble_train(ensemble_buffers(states), streams, spec)
+        steps = epochs * spe
+        d_steps = int(streams.sched[:, 6].sum())
+        for st in states:
+            for bn in st.batch_norms():
+                bn.num_batches_tracked += steps
+            st.step += steps
+            st.g_opt.count += steps
+            st.d_opt.count += d_steps
+        constraint = bool(settings.constraint_w)
+        return states, [epoch_means(rows[m], epochs, constraint) for m in range(count)]
+
+    return ensemble_epoch

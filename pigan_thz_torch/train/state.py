@@ -194,21 +194,22 @@ def init_pigan_state(
     forward_model: nn.Module,
     g_tx: ClipAdam,
     d_tx: ClipAdam,
-    seed: int,
+    seed: int | torch.Generator,
     *,
     device: torch.device | str,
     fresh_forward: bool = False,
     ema: bool = False,
 ) -> PiGanState:
     """Initialise G and D with flax's scheme from a CPU generator seeded with
-    ``seed`` (G first, then D), bind each to a fresh flat buffer on
+    ``seed``, or from ``seed`` itself when it is a CPU ``torch.Generator``
+    (G first, then D), bind each to a fresh flat buffer on
     ``device`` and start both Adams at zero.  F is a copy of
     ``forward_model`` as it stands (pretrained weights), or freshly
     initialised from the same generator with ``fresh_forward``; it is put in
     eval mode and takes no gradients.  ``ema`` adds an EMA track seeded at
     G's initial parameters.  The generator then draws the run's shuffles and
     step seeds."""
-    gen = torch.Generator().manual_seed(seed)
+    gen = seed if isinstance(seed, torch.Generator) else torch.Generator().manual_seed(seed)
     out = []
     for module in (generator, discriminator):
         module = flax_init_(copy.deepcopy(module).cpu(), gen)

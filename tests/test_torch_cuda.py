@@ -12,7 +12,8 @@ the spectra classes of tests/test_peaks.py.  The forward-training kernel
 (K1) is held against its plain version and the eager step over 2 epochs of
 a 1000-sample dataset, with the tolerances of ``chip_smoke.py``; so is the
 GAN-training kernel (K2), for both ``detach_forward`` modes and a mix of its
-knobs.
+knobs.  The member-packed kernel (K3) is held bit for bit against K2 on each
+member alone, and against its plain version with K2's tolerances.
 """
 
 import copy
@@ -146,7 +147,8 @@ def test_cycle_matches_unfused_modules(dev, models):
     torch.cuda.synchronize()
     assert {k: fk.LAUNCHES[k] - before[k] for k in before} == {
         "fused_mlp_forward": 1, "fused_dense_chain": 1, "dip_qualification": 0,
-        "forward_train": 0, "gan_train": 0}
+        "forward_train": 0, "gan_train": 0,
+        "gan_ensemble_train": 0}
     with torch.no_grad():
         pn = g(spectra)
         want = (denormalize_params(pn, ds.param_lo, ds.param_hi), *f(pn))
@@ -230,7 +232,8 @@ def test_screening_launches_per_chunk(use_pallas, dev, models):
     torch.cuda.synchronize()
     assert {k: fk.LAUNCHES[k] - before[k] for k in before} == {
         "fused_mlp_forward": 3 if use_pallas else 0, "fused_dense_chain": 0,
-        "dip_qualification": 3, "forward_train": 0, "gan_train": 0}
+        "dip_qualification": 3, "forward_train": 0, "gan_train": 0,
+        "gan_ensemble_train": 0}
     v = res.valid
     assert bool(v.any()) and bool(torch.isfinite(res.scores[v]).all())
     assert bool((res.scores[:-1] >= res.scores[1:]).all())
@@ -537,3 +540,121 @@ def test_trainer_launches_the_gan_kernel_once_per_chunk(dev, train_ds):
     assert gt.LAUNCHES["gan_train"] == before + 3
     loss = hist["pigan/g_loss"]
     assert len(loss) == 5 and all(x == x for x in loss)
+
+
+# -- K3: the member-packed GAN kernel --------------------------------------------
+K3_MIX = {**K2_MIX, "ema_decay": 0.0}
+
+
+def _k3_setup(ds, f, members, epochs=1, **knobs):
+    """M members from seeds 0..M-1 (``_k2_setup``), stacked, with each
+    member's own shuffles stacked to (M, E, spe, B) streams."""
+    from pigan_thz_torch.parallel.state_utils import tree_stack
+
+    setups = [_k2_setup(ds, f, epochs=epochs, seed=m, **knobs) for m in range(members)]
+    cfg, settings = setups[0][:2]
+    ens = tree_stack([s[2] for s in setups])
+    idx = torch.stack([s[5] for s in setups])
+    streams = gt.build_streams(ds, idx, torch.linspace(1.0, 0.5, epochs), 0, 0, 0,
+                               settings.d_update_every, _k2_schedule(cfg, "g"),
+                               _k2_schedule(cfg, "d"))
+    return cfg, settings, ens, streams
+
+
+def _ensemble_tensors(bufs):
+    return [*bufs[:6], *bufs.bn]
+
+
+@pytest.mark.parametrize("knobs", [dict(detach_forward=False), dict(detach_forward=True),
+                                   K3_MIX], ids=["through_f", "detached", "knob_mix"])
+def test_ensemble_kernel_is_bit_identical_to_the_solo_kernel(knobs, dev, train_ds, trained_f):
+    """M = 2, one epoch: member m's rows and whole state after one packed
+    launch equal K2's on that member alone from the same state and streams."""
+    cfg, settings, ens, streams = _k3_setup(train_ds, trained_f, 2, **knobs)
+    spec = gt.gan_train_spec(cfg, settings)
+    solo = [st.clone() for st in ens]
+    before = dict(gt.LAUNCHES)
+    rows = gt.gan_ensemble_train(gt.ensemble_buffers(ens), streams, spec)
+    torch.cuda.synchronize()
+    assert gt.LAUNCHES["gan_ensemble_train"] == before["gan_ensemble_train"] + 1
+    assert gt.LAUNCHES["gan_train"] == before["gan_train"]
+    assert rows.shape == (2, 15, gt.ROW_WIDTH) and bool(torch.isfinite(rows).all())
+    assert not torch.equal(rows[0], rows[1])
+    for m, st in enumerate(solo):
+        bufs, own = gt._member(gt.ensemble_buffers(ens), streams, m)
+        want = gt.gan_train(gt.state_buffers(st), own, spec)
+        torch.cuda.synchronize()
+        assert torch.equal(rows[m], want), m
+        for a, b in zip(_ensemble_tensors(bufs), _ensemble_tensors(gt.state_buffers(st))):
+            assert torch.equal(a, b), m
+
+
+def test_ensemble_kernel_matches_plain_and_reruns_bit_identically(dev, train_ds, trained_f):
+    cfg, settings, ens, streams = _k3_setup(train_ds, trained_f, 3, epochs=2,
+                                            detach_forward=False)
+    spec = gt.gan_train_spec(cfg, settings)
+    start, plain, again = ens.clone(), ens.clone(), ens.clone()
+    rows = gt.gan_ensemble_train(gt.ensemble_buffers(ens), streams, spec)
+    rows2 = gt.gan_ensemble_train(gt.ensemble_buffers(again), streams, spec)
+    before = dict(gt.LAUNCHES)
+    want = gt.gan_ensemble_train_plain(gt.ensemble_buffers(plain), streams, spec)
+    torch.cuda.synchronize()
+    assert gt.LAUNCHES == before          # the plain version launches nothing
+    assert torch.equal(rows, rows2)
+    for a, b in zip(_ensemble_tensors(gt.ensemble_buffers(ens)),
+                    _ensemble_tensors(gt.ensemble_buffers(again))):
+        assert torch.equal(a, b)
+    keys = [*gt.METRIC_KEYS, "constraint_loss"]
+    for m in range(3):
+        one = gt._member(gt.ensemble_buffers(start), streams, m)[1]
+        _, _, yard = _k2_yardstick(start[m], one, spec)
+        _assert_k2_close(rows[m], ens[m], want[m], plain[m], start[m], yard, spec, keys)
+
+
+def test_ensemble_fn_on_the_card(dev, train_ds, trained_f):
+    """``make_gan_ensemble_fn`` and ``train_seed_ensemble``: one launch per
+    chunk whatever M is, packed equal to unpacked, counts advanced."""
+    from pigan_thz_torch.parallel.ensemble_megakernel import train_seed_ensemble
+
+    cfg = default_config()
+    settings = StepSettings.from_config(cfg, detach_forward=False)
+    before = dict(gt.LAUNCHES)
+    packed, pm = train_seed_ensemble(cfg, train_ds, 3, settings=settings, epochs=3,
+                                     epochs_per_call=2, forward_model=trained_f, packed=True)
+    assert gt.LAUNCHES["gan_ensemble_train"] == before["gan_ensemble_train"] + 2
+    assert gt.LAUNCHES["gan_train"] == before["gan_train"]
+    solo, sm = train_seed_ensemble(cfg, train_ds, 3, settings=settings, epochs=3,
+                                   epochs_per_call=2, forward_model=trained_f)
+    assert gt.LAUNCHES["gan_train"] == before["gan_train"] + 6
+    assert pm["g_loss"].shape == (3, 3)
+    assert all((pm[k] == sm[k]).all() for k in pm)
+    for a, b in zip(_ensemble_tensors(gt.ensemble_buffers(packed)),
+                    _ensemble_tensors(gt.ensemble_buffers(solo))):
+        assert torch.equal(a, b)
+    assert [(st.step, st.g_opt.count, st.d_opt.count) for st in packed] == [(45, 45, 45)] * 3
+    with pytest.raises(ValueError, match="ema_decay"):
+        gt.make_gan_ensemble_fn(cfg, StepSettings.from_config(cfg, ema_decay=0.9), 2)
+
+
+def test_gan_train_leaves_its_intermediates_in_a_given_scratch(dev, train_ds, trained_f):
+    cfg, settings, state, _, _, idx, _ = _k2_setup(train_ds, trained_f, epochs=1,
+                                                   detach_forward=False)
+    spec = gt.gan_train_spec(cfg, settings)
+    streams = gt.build_streams(train_ds, idx[:, :1], torch.ones(1), 0, 0, 0, 1,
+                               _k2_schedule(cfg, "g"), _k2_schedule(cfg, "d"))
+    with pytest.raises(ValueError, match="work"):
+        gt.gan_train(gt.state_buffers(state.clone()), streams, spec,
+                     work=torch.empty(16, device=dev))
+    work = torch.zeros(gt.workspace_floats(spec, 64), device=dev)
+    own, given = state.clone(), state.clone()
+    rows = gt.gan_train(gt.state_buffers(own), streams, spec)
+    rows2 = gt.gan_train(gt.state_buffers(given), streams, spec, work=work)
+    torch.cuda.synchronize()
+    assert torch.equal(rows, rows2) and torch.equal(own.g_params, given.g_params)
+    views = gt.workspace_views(work, spec, 64)
+    state.g.train()
+    with torch.no_grad():
+        want = state.g(streams.spectra[0])
+    # G's output through train-mode BatchNorm, fp32 on both sides (measured 1.4e-5)
+    torch.testing.assert_close(views["tn"].view(64, 4), want, rtol=0, atol=1e-4)
+    assert float(views["grad_g"].abs().max()) > 0 and float(views["dfin"].abs().max()) > 0

@@ -364,3 +364,19 @@ def test_state_diffs_and_float64_yardstick(tcfg, datasets):
     slow = gt.state_buffers(a)
     slow = slow._replace(g=(start.g + 0.5 * (slow.g - start.g)))
     assert 0.4 < gt.step_errors(slow, exact, start, spec)["g_p[0]"] < 0.6
+
+
+def test_workspace_layout_names_the_scratch(tcfg):
+    spec = gt.gan_train_spec(tcfg, StepSettings.from_config(tcfg))
+    layout = gt.workspace_layout(spec, 64)
+    names = [n for n, _ in layout]
+    assert len(set(names)) == len(names)
+    assert names[:5] == ["uc0", "xh0", "y0", "a0", "iv0"] and names[-1] == "norm_partials"
+    assert dict(layout)["pred"] == 64 * 258 and dict(layout)["grad_g"] == spec.num_g
+    assert gt.workspace_floats(spec, 64) == sum(n for _, n in layout) == 1772613
+    work = torch.arange(gt.workspace_floats(spec, 8), dtype=torch.float32)
+    views = gt.workspace_views(work, spec, 8)
+    assert list(views) == [n for n, _ in gt.workspace_layout(spec, 8)]
+    assert views["tn"].numel() == 32 and views["tn"].data_ptr() == work[
+        int(views["tn"][0]):].data_ptr()
+    assert int(views["norm_partials"][-1]) == work.numel() - 1

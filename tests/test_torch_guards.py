@@ -34,7 +34,15 @@ names = [m.name for m in pkgutil.walk_packages(pigan_thz_torch.__path__, "pigan_
          if not m.name.endswith(".__main__")]     # __main__ runs the CLI
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 33, names
+assert len(names) >= 38, names
+for new in ("ops.metrics", "parallel.state_utils", "parallel.ensemble",
+            "parallel.ensemble_megakernel"):
+    assert "pigan_thz_torch." + new in names, new
+# the seed-ensemble example: its imports run, its main() does not
+import importlib.util
+spec = importlib.util.spec_from_file_location("torch_seed_ensemble",
+                                              "examples/torch_seed_ensemble.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 jax = sorted(m for m in sys.modules if m in ("jax", "flax", "optax", "orbax")
              or m.startswith(("jax.", "jaxlib", "flax.", "optax.", "orbax.")))
 assert not jax, jax
@@ -154,7 +162,8 @@ def test_cpu_peaks_and_screening_launch_nothing():
                                        use_pallas=use_pallas))
     assert fk.LAUNCHES == before
     assert set(fk.LAUNCHES) == {"fused_mlp_forward", "fused_dense_chain",
-                                "dip_qualification", "forward_train", "gan_train"}
+                                "dip_qualification", "forward_train", "gan_train",
+                                "gan_ensemble_train"}
 
 
 @pytest.mark.parametrize("bad", ["float64", "non_contiguous", "rank_1", "meta"])
@@ -249,3 +258,91 @@ def test_train_without_a_card_does_not_fall_back(tmp_path):
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
     assert not (tmp_path / "saved_models").exists()
+
+
+def _imported_roots(path):
+    """Top-level names of every import statement in a source file, wherever
+    it stands (module level or inside a function)."""
+    import ast
+
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", [
+    "pigan_thz_torch/ops/metrics.py", "pigan_thz_torch/ops/gan_train.py",
+    "pigan_thz_torch/parallel/__init__.py", "pigan_thz_torch/parallel/state_utils.py",
+    "pigan_thz_torch/parallel/ensemble.py", "pigan_thz_torch/parallel/ensemble_megakernel.py",
+    "pigan_thz_torch/serve.py", "pigan_thz_torch/interop.py",
+    "examples/torch_seed_ensemble.py", "examples/torch_gan_step_conditioning.py",
+    "chip_smoke.py"])
+def test_source_imports_neither_jax_nor_the_jax_package(path):
+    roots = _imported_roots(os.path.join(REPO, path))
+    assert not roots & {"jax", "jaxlib", "flax", "optax", "orbax", "pigan_thz_tpu",
+                                  "pandas"}, roots
+
+
+def test_cpu_gan_ensemble_train_launches_nothing():
+    """CPU tensors take the member-packed kernel's plain version: member m
+    is what the one-member plain version makes of it."""
+    from pigan_thz_torch.models import build_trio
+    from pigan_thz_torch.ops import gan_train as gt
+    from pigan_thz_torch.parallel.ensemble import init_ensemble_states, member_generator
+    from pigan_thz_torch.train.steps import StepSettings
+
+    cfg = default_config()
+    gtx, dtx, _ = make_optimizers(cfg, 1)
+    ens = init_ensemble_states(*build_trio(cfg, device="cpu"), gtx, dtx,
+                               [member_generator(0, i) for i in range(2)], device="cpu")
+    alone = ens.clone()
+    spec = gt.gan_train_spec(cfg, StepSettings.from_config(cfg))
+    gen = torch.Generator().manual_seed(0)
+    sched = torch.stack([torch.full((2,), v) for v in (2e-4, 2e-4, 2.0, 1e3, 2.0, 1e3, 1.0,
+                                                      1.0)], dim=1)
+    streams = gt.GanStreams(-torch.rand(2, 2, 8, 250, generator=gen),
+                            2.2 + 0.6 * torch.rand(2, 2, 8, 4, generator=gen),
+                            torch.rand(2, 2, 8, 8, generator=gen), sched,
+                            torch.full((4,), 2.2), torch.full((4,), 2.8))
+    before = dict(gt.LAUNCHES)
+    rows = gt.gan_ensemble_train(gt.ensemble_buffers(ens), streams, spec)
+    assert gt.LAUNCHES == before
+    assert rows.shape == (2, 2, gt.ROW_WIDTH) and bool(torch.isfinite(rows).all())
+    for m in range(2):
+        bufs, own = gt._member(gt.ensemble_buffers(alone), streams, m)
+        assert torch.equal(rows[m], gt.gan_train_plain(bufs, own, spec))
+        assert torch.equal(ens.g_params[m], alone.g_params[m])
+
+
+def test_seed_ensemble_example_without_a_card_does_not_fall_back():
+    cmd = [sys.executable, os.path.join("examples", "torch_seed_ensemble.py"), "--members",
+           "2", "--epochs", "1", "--fwd-epochs", "1", "--set", "data.num_samples=64"]
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300,
+                          env=_env_without_card())
+    assert proc.returncode != 0
+    assert "--device cpu" in proc.stderr and '"members"' not in proc.stdout
+
+
+def test_seed_ensemble_example_on_the_cpu():
+    cmd = [sys.executable, os.path.join("examples", "torch_seed_ensemble.py"), "--device",
+           "cpu", "--members", "2", "--epochs", "2", "--fwd-epochs", "2", "--set",
+           "data.num_samples=128", "--set", "train.batch_size=32"]
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300,
+                          env=_env_without_card())
+    assert proc.returncode == 0, proc.stderr
+    import json
+
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["members"] == 2 and out["epochs"] == 2 and out["packed"] is True
+    assert out["all_rows_finite"] and len(out["member_r2"]) == 2
+    assert set(out["launches"].values()) == {0}        # CPU: the plain versions
+    assert out["member_r2"][0] != out["member_r2"][1]
+    for key in ("wall_s", "member_steps_per_s", "ensemble_mean_r2", "ensemble_mean_recon_mse",
+                "member_spread"):
+        assert out[key] == out[key]
