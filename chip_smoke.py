@@ -6,8 +6,10 @@
 Drives the port's slices at full published width through the
 hand-written CUDA kernels: the inverse-design serving cycle on the baseline
 MLP trio, dataset generation, the 1e6-candidate screen, forward pretraining,
-the full training command (forward pretraining, then the PI-GAN phase) and a
-seed ensemble trained through the member-packed kernel, scored and served:
+the full training command (forward pretraining, then the PI-GAN phase), a
+seed ensemble trained through the member-packed kernel, scored and served,
+and the metric-gated training programs through the GAN kernel's second
+generator passes (cycle, stability) and noise streams:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
    TF32 off for every fp32 product of the plain references;
@@ -98,6 +100,31 @@ seed ensemble trained through the member-packed kernel, scored and served:
     member-steps/s and per member, the plain version at M = 4, a
     ``torch.profiler`` breakdown of one K3 launch of 5 epochs at M = 4, and
     phase 17's wall time.
+
+19. K2's second generator passes and noise streams, path by path (cycle
+    through F, cycle detached, stability, stability + cycle +
+    ``sigmoid_squash`` + constraint, instance noise, augmentation, all four
+    with ``d_update_every`` 2 and the EMA): phase 13's checks on each (first
+    step and first three steps against float64, 30 steps against the float32
+    plain version, one launch per chunk, a rerun bit-identical, the eager
+    step from the same seeds on two of them); then one deliberate fault of
+    the plain version per path, which the first-step check must see;
+20. K3 against K2 at M = 4 with cycle, stability and instance noise on:
+    phase 16's checks, every member bit for bit K2's on that member alone;
+21. the metric-gated programs: in this process a Trainer with a briefly
+    pretrained F and a fresh G runs ``run_program(trainer,
+    emergency_phases())`` with the launch counts set to 0 before it (the gate
+    reads param R² < 0.7 from the port's evaluator; ``emergency_warmup`` and
+    ``emergency_balanced_gan`` go through K2 on its cycle path, one launch
+    per chunk); then ``python -m pigan_thz_torch program finetune |
+    emergency | progressive`` and ``train --mode full --preset optimized
+    --set generator.name=mlp --set discriminator.name=mlp`` (K2's stability
+    path), each as typed in a subprocess, with their wall times, phases,
+    launches and the evaluator's param R² and violation rate;
+22. times: K2's epoch with cycle, with stability, with both, with instance
+    noise, beside today's settings in the same call, the kernels a step of
+    each (69 at today's settings, 58 detached: held), K3's at M = 4 with both,
+    and the profiler's idle share for cycle + stability.
 
 The ``kernels`` record gives each kernel's launches on the main path, its
 error against its plain version, its time beside the plain version's, the
@@ -195,8 +222,69 @@ K2_EPOCHS = 2
 K2_F_EPOCHS = 30
 K2_MIX = dict(detach_forward=False, d_update_every=2, constraint_w=0.7, window_w=0.3,
               sigmoid_squash=True, ema_decay=0.99)
+# The second G passes and the noise streams, path by path and all at once.
+K2_AUGMENT = dict(augment_noise=0.05, augment_shift=0.02, augment_scale=0.1)
+K2_PATHS = (
+    ("cycle through F", dict(detach_forward=False, cycle_w=1.0, adv_w=0.0, d_update_every=2)),
+    ("cycle detached", dict(detach_forward=True, cycle_w=1.0)),
+    ("stability", dict(detach_forward=False, stability_w=1.0)),
+    ("stability + cycle + squash + constraint",
+     dict(detach_forward=False, stability_w=1.0, cycle_w=1.0, sigmoid_squash=True,
+          constraint_w=3.0)),
+    ("instance noise", dict(detach_forward=False, instance_noise=0.05)),
+    ("augmentation", dict(detach_forward=False, **K2_AUGMENT)),
+    ("all four, D every 2nd step, EMA",
+     dict(detach_forward=False, cycle_w=1.0, stability_w=1.0, instance_noise=0.05,
+          d_update_every=2, ema_decay=0.99, **K2_AUGMENT)),
+)
+# The first step with cycle on.  Its loss is a difference of two nearly equal
+# outputs, G(F(G(s))) - G(s), and G's gradient the sum of two passes'
+# contributions that nearly cancel where the two passes see nearly the same
+# activations: each pass's float32 rounding (1e-6) is amplified by the ratio
+# of a contribution to their sum.  Measured on an H100, detached (where no
+# gradient through F covers it): the kernel 1.5e-3 of the change in bn1's beta
+# where the float32 plain version is 1.0e-5, and 2.5e-4 / 1.9e-5 in W1; the
+# plain version's own float64 run is held to float64 autograd at 1e-10
+# (tests/test_torch_gan_train.py).  The worst is W1's gradient of the second
+# pass, du1c^T x recon: the columns of du1c sum to zero (BatchNorm's backward)
+# and a fresh G gives every row nearly the same recon, so 64 products of size
+# 10 sum to nearly nothing.  Adam's first update is lr x sign(g) wherever g is
+# above eps, so one entry of 128,000 whose sign differs is 5.6e-3 of the
+# update's norm (measured: the kernel, W1, detached): the updates (and the
+# EMA's) get the wider floor, the BatchNorm stats, which only the first pass
+# moves, keep today's.  Over three steps the distance grows as it does at
+# today's settings.  A wrong or missing adjoint of this path shows at 7.6e-2
+# and above, a second pass that moves the running stats at 0.5 (K2_FAULTS).
+K2_CYCLE_STEP_FLOOR = {"m": 5e-3, "v": 5e-3, "p": 2e-2, "ema": 2e-2, "bn": 1e-6}
+# Three steps on these paths.  The augmented stream adds no device code at all
+# (the kernel reads other spectra), and its three steps land 1.5e-2 from
+# float64 on this seed where the float32 plain version lands 7e-5 (measured,
+# H100; at today's settings 7.5e-4 and 1.4e-4): how far rounding is amplified
+# in three steps depends on the batch more than on the code.  So three steps
+# are held to 5e-2 of the change on every new path: a D update that ignored
+# its gate shows at 1, a wrong bias correction at 0.3.
+K2_PATHS_3_STEP_FLOOR = 5e-2
+# One deliberate fault of the plain version per path
+# (``gan_train.FAULTS``), which the first-step check must see: with the
+# faulty float64 run in the place of the right one, the kernel must fail the
+# check, some tensor beyond its limit.  Instance noise at the size of the
+# spectra's own features (1 dB) and with F's input detached, so that the
+# adversarial term is most of G's gradient: through F the reconstruction terms
+# (weight 110) hide it, and at 0.05 dB noised fake rows move G's gradient by
+# 1.6e-4 only.
+K2_FAULTS = (
+    ("cycle through F", "cycle_seed_dropped", {}),
+    ("cycle through F", "second_pass_moves_running_stats", {}),
+    ("cycle detached", "drecon_c_when_detached", {}),
+    ("stability", "stability_seed_dropped", {}),
+    ("stability", "second_pass_moves_running_stats", {}),
+    ("instance noise", "noised_fake_rows", dict(instance_noise=1.0, detach_forward=True)),
+)
 GAN_EPOCHS = 500
 K3_MEMBERS = 4
+K3_PATHS = dict(detach_forward=False, cycle_w=1.0, stability_w=1.0, instance_noise=0.05)
+PROGRAM_F_EPOCHS = 30       # the brief pretraining before the in-process program
+PROGRAMS = ("finetune", "emergency", "progressive")
 K3_MIX = {**K2_MIX, "ema_decay": 0.0}      # the member-packed kernel carries no EMA
 K3_TIME_MEMBERS = (1, 2, 4, 8)
 # K3's members, first step against float64.  Member 0 is phase 13's state and
@@ -776,7 +864,8 @@ def k2_setup(cfg, dev, ds, f, epochs: int, knobs: dict):
     streams = gt.build_streams(
         ds, idx, scales, 0, 0, 0, settings.d_update_every,
         cosine_schedule(cfg.train.lr_g, cfg.train.num_epochs, spe, 0.01),
-        step_schedule(cfg.train.lr_d, cfg.train.num_epochs, spe, 0.5, 0.25))
+        step_schedule(cfg.train.lr_d, cfg.train.num_epochs, spe, 0.5, 0.25),
+        settings=settings, seeds=seeds)
     spec = gt.gan_train_spec(cfg, settings)
     return state, (gtx, dtx), settings, spec, idx, seeds, scales, streams
 
@@ -789,11 +878,15 @@ def k2_state_tensors(state) -> list:
     return [t for t in (*bufs[:6], *bufs.bn, bufs.g_ema) if t is not None]
 
 
-def compare_k2(label: str, rows, bufs, want_rows, want_bufs, start, yard, spec, keys) -> tuple:
+def compare_k2(label: str, rows, bufs, want_rows, want_bufs, start, yard, spec, keys,
+               rows_yard: float = 0.0) -> tuple:
     """Metric rows (T or E, len(keys)) and the state buffers of two runs from
     ``start``; ``yard`` is the float32 plain version's distance from the
     float64 run by part, printed beside.  Fails beyond the K2 trajectory
-    tolerances.  Returns
+    tolerances; where the float32 plain version's own rows are further from
+    float64's than K2_ROWS_RTOL (``rows_yard``: the second G passes detached,
+    where the trajectories drift fastest), the rows are held to four times
+    that.  Returns
     (rows max rel err, max |err| of G's and D's parameters outside the gauge
     leaves)."""
     from pigan_thz_torch.ops import gan_train as gt
@@ -805,11 +898,12 @@ def compare_k2(label: str, rows, bufs, want_rows, want_bufs, start, yard, spec, 
     diffs = gt.state_diffs(bufs, want_bufs, start, spec)
     parts = ", ".join(f"{k} {a:.3e}/{r:.3e} (float32 plain to float64 {yard[k][1]:.3e})"
                       for k, (a, r) in diffs.items())
-    print(f"{label}: rows max rel err {rel:.3e} (rtol {K2_ROWS_RTOL}), counts max|err| "
+    rows_rtol = max(K2_ROWS_RTOL, 4.0 * rows_yard)
+    print(f"{label}: rows max rel err {rel:.3e} (rtol {rows_rtol:.3g}), counts max|err| "
           f"{cnt:.4f} (atol {K2_COUNT_ATOL:.4f}); max|err| / L2 relative to the change, by "
           f"part: {parts} (within {K2_PART_RTOL})")
     far = {k: r for k, (_, r) in diffs.items() if not r <= K2_PART_RTOL[k]}
-    if far or not (rel <= K2_ROWS_RTOL and cnt <= K2_COUNT_ATOL):
+    if far or not (rel <= rows_rtol and cnt <= K2_COUNT_ATOL):
         fail(f"{label}: outside tolerance; parts beyond their limit: {far}")
     return rel, max(diffs["g"][0], diffs["d"][0])
 
@@ -818,13 +912,18 @@ def first_steps(streams, n: int, axis: int = 0):
     """The first ``n`` steps of a chunk's streams; ``axis`` is the step axis
     of the batch streams (1 under a leading member axis)."""
     cut = (slice(None),) * axis + (slice(0, n),)
-    return streams._replace(spectra=streams.spectra[cut].contiguous(),
-                            params=streams.params[cut].contiguous(),
-                            metrics_norm=streams.metrics_norm[cut].contiguous(),
-                            sched=streams.sched[:n])
+
+    def first(t):
+        return None if t is None else t[cut].contiguous()
+
+    return streams._replace(spectra=first(streams.spectra), params=first(streams.params),
+                            metrics_norm=first(streams.metrics_norm),
+                            sched=streams.sched[:n], inoise=first(streams.inoise),
+                            stab=first(streams.stab))
 
 
-def k2_first_steps(label: str, state, streams, spec, n: int) -> float:
+def k2_first_steps(label: str, state, streams, spec, n: int,
+                   floor: float | None = None) -> float:
     """The first ``n`` steps from ``state`` through the kernel, the float32
     plain version and the float64 plain version; returns the kernel's
     largest relative error in a tensor of Adam's first moments."""
@@ -833,17 +932,33 @@ def k2_first_steps(label: str, state, streams, spec, n: int) -> float:
     few = first_steps(streams, n)
     kern = gt.state_buffers(state.clone())
     rows = gt.gan_train(kern, few, spec)
-    return first_steps_against_float64(label, state, few, spec, n, rows, kern)
+    return first_steps_against_float64(label, state, few, spec, n, rows, kern, floor)
+
+
+def tensor_kind(key: str) -> str:
+    """"g_m[0]" -> "m", "g_ema[2]" -> "ema", "bn[1]" -> "bn"."""
+    return key.split("[")[0].split("_")[-1]
+
+
+def step_violations(e_k: dict, e_p: dict, floor) -> dict:
+    """The tensors of ``step_errors`` on which the kernel (``e_k``) is further
+    from float64 than K2_ROUNDING times the float32 plain version (``e_p``)
+    and than ``floor``, a number or one per kind of tensor."""
+    def limit(key):
+        return floor[tensor_kind(key)] if isinstance(floor, dict) else floor
+
+    return {k: (e_k[k], e_p[k]) for k in e_k
+            if not e_k[k] <= max(K2_ROUNDING * e_p[k], limit(k))}
 
 
 def first_steps_against_float64(label: str, state, few, spec, n: int, rows, kern,
-                                floor: float | None = None) -> float:
+                                floor=None) -> float:
     """``rows`` and ``kern``: what a kernel made of the ``n`` steps ``few``
     from ``state``.  Runs the float32 and the float64 plain version from the
     same state and holds the kernel to the float32 one's distance from
-    float64, tensor by tensor, or to ``floor`` (default K2_STEP_FLOOR[n]);
-    returns the kernel's largest relative error in a tensor of Adam's first
-    moments."""
+    float64, tensor by tensor, or to ``floor`` (default K2_STEP_FLOOR[n]; a
+    dict gives one per kind of tensor); returns the kernel's largest relative
+    error in a tensor of Adam's first moments."""
     import torch
     from pigan_thz_torch.ops import gan_train as gt
 
@@ -859,11 +974,10 @@ def first_steps_against_float64(label: str, state, few, spec, n: int, rows, kern
     same = torch.equal(rows[:, counts].double(), rows64[:, counts])
     e_k = gt.step_errors(kern, exact, start, spec)
     e_p = gt.step_errors(plain, exact, start, spec)
-    bad = {k: (e_k[k], e_p[k]) for k in e_k
-           if not e_k[k] <= max(K2_ROUNDING * e_p[k], floor)}
+    bad = step_violations(e_k, e_p, floor)
     worst = {}
     for key, e in e_k.items():
-        kind = key.split("[")[0].split("_")[-1]
+        kind = tensor_kind(key)
         if e >= worst.get(kind, (-1.0,))[0]:
             worst[kind] = (e, e_p[key], key)
     kinds = {"m": "Adam first moments", "v": "second moments", "p": "parameter update",
@@ -881,40 +995,61 @@ def first_steps_against_float64(label: str, state, few, spec, n: int, rows, kern
     return worst["m"][0]
 
 
-def phase13_k2(cfg, dev, ds, f) -> dict:
-    """K2 against its plain version (and the eager step at the defaults)."""
+def phase13_k2(cfg, dev, ds, f, cases=None, paths: bool = False) -> dict:
+    """K2 against its plain version (and the eager step at the defaults).
+    ``cases`` defaults to today's three; with ``paths`` (the second G passes
+    and the noise streams) the launch of each chunk is counted, the first
+    step with cycle on is held to K2_CYCLE_STEP_FLOOR, three steps to
+    K2_PATHS_3_STEP_FLOOR, the rows also to the
+    float32 plain version's own drift, and the eager step runs where there
+    on "cycle through F" and on "all four" (from the same seeds: the same
+    noise)."""
     import torch
     from pigan_thz_torch.ops import gan_train as gt
+    from pigan_thz_torch.ops._cuda_build import LAUNCHES
     from pigan_thz_torch.train.steps import make_multi_epoch_fn, make_pigan_step
 
     b = cfg.train.batch_size
     keys = [*gt.METRIC_KEYS, "constraint_loss"]
     stats = {"max_abs_err": 0.0, "rows_rel": 0.0, "first_step_rel": 0.0}
-    cases = (("through F", dict(detach_forward=False)), ("detached", dict(detach_forward=True)),
-             ("knob mix", K2_MIX))
+    if cases is None:
+        cases = (("through F", dict(detach_forward=False)),
+                 ("detached", dict(detach_forward=True)), ("knob mix", K2_MIX))
+    floats = [j for j, k in enumerate(keys) if k not in ("d_accuracy", "violation_rate")]
     for name, knobs in cases:
         state, (gtx, dtx), settings, spec, idx, seeds, scales, streams = k2_setup(
             cfg, dev, ds, f, K2_EPOCHS, knobs)
         label = f"K2 vs plain, {name}"
         for n in K2_STEP_FLOOR:
-            err = k2_first_steps(label, state, streams, spec, n)
+            floor = None
+            if paths:
+                floor = K2_PATHS_3_STEP_FLOOR if n == 3 else (
+                    K2_CYCLE_STEP_FLOOR if spec.cycle_w else None)
+            err = k2_first_steps(label, state, streams, spec, n, floor)
             stats["first_step_rel"] = max(stats["first_step_rel"], err)
         steps = streams.spectra.shape[0]
         d_steps = int(streams.sched[:, 6].sum())
         start = gt.state_buffers(state)
         kern, plain, again = state.clone(), state.clone(), state.clone()
         exact = gt.to_double(gt.state_buffers(state.clone()))
+        before = LAUNCHES["gan_train"]
         rows = gt.gan_train(gt.state_buffers(kern), streams, spec)
         torch.cuda.synchronize()
+        if LAUNCHES["gan_train"] != before + 1:
+            fail(f"{label}: a chunk of {steps} steps was not one launch")
         if not bool(torch.isfinite(rows).all()):
             fail(f"{label}: non-finite metric rows")
         want = gt.gan_train_plain(gt.state_buffers(plain), streams, spec)
-        gt.gan_train_plain(exact, gt.to_double(streams), spec)
+        want64 = gt.gan_train_plain(exact, gt.to_double(streams), spec)
         torch.cuda.synchronize()
+        if LAUNCHES["gan_train"] != before + 1:
+            fail(f"{label}: the plain version launched the kernel")
         yard = gt.state_diffs(gt.state_buffers(plain), exact, start, spec)
+        rows_yard = float(((want - want64).abs() / want64.abs().clamp(min=1e-3))[
+            :, floats].max()) if paths else 0.0
         rel, err = compare_k2(f"{label}, {K2_EPOCHS} epochs ({steps} steps, {d_steps} D "
                               "updates)", rows, gt.state_buffers(kern), want,
-                              gt.state_buffers(plain), start, yard, spec, keys)
+                              gt.state_buffers(plain), start, yard, spec, keys, rows_yard)
         stats["rows_rel"] = max(stats["rows_rel"], rel)
         stats["max_abs_err"] = max(stats["max_abs_err"], err)
         rows2 = gt.gan_train(gt.state_buffers(again), streams, spec)
@@ -924,7 +1059,8 @@ def phase13_k2(cfg, dev, ds, f) -> dict:
         if not same:
             fail(f"K2 rerun from the same state differs ({name})")
         print(f"K2 {name}: a rerun from the same state is bit-identical")
-        if knobs is not K2_MIX:
+        if knobs is not K2_MIX and (not paths or name.startswith("all four")
+                                    or name == "cycle through F"):
             eager = make_multi_epoch_fn(
                 make_pigan_step(gtx, dtx, settings, ds.param_lo, ds.param_hi), b)
             est, ms = eager(state.clone(), ds, scales, indices=idx, seeds=seeds)
@@ -937,8 +1073,61 @@ def phase13_k2(cfg, dev, ds, f) -> dict:
                        "(per-epoch rows)",
                        torch.stack([got[k] for k in gt.METRIC_KEYS], 1), gt.state_buffers(kern),
                        torch.stack([ms[k] for k in gt.METRIC_KEYS], 1), gt.state_buffers(est),
-                       start, yard, spec, list(gt.METRIC_KEYS))
+                       start, yard, spec, list(gt.METRIC_KEYS), rows_yard)
     return stats
+
+
+def phase19_faults(cfg, dev, ds, f) -> None:
+    """The first-step check against plain versions that are wrong on purpose,
+    one fault per path: it must see each."""
+    import torch
+    from pigan_thz_torch.ops import gan_train as gt
+
+    paths = dict(K2_PATHS)
+    for name, fault, change in K2_FAULTS:
+        knobs = {**paths[name], **change}
+        state, _, settings, spec, _, _, _, streams = k2_setup(cfg, dev, ds, f, 1, knobs)
+        few = first_steps(streams, 1)
+        kern = gt.state_buffers(state.clone())
+        gt.gan_train(kern, few, spec)
+        plain = gt.state_buffers(state.clone())
+        right = gt.to_double(gt.state_buffers(state.clone()))
+        wrong = gt.to_double(gt.state_buffers(state.clone()))
+        gt.gan_train_plain(plain, few, spec)
+        gt.gan_train_plain(right, gt.to_double(few), spec)
+        gt.gan_train_plain(wrong, gt.to_double(few), spec, faults=[fault])
+        torch.cuda.synchronize()
+        start = gt.state_buffers(state)
+        floor = K2_CYCLE_STEP_FLOOR if spec.cycle_w else K2_STEP_FLOOR[1]
+        # the float32 plain version's distance from the RIGHT float64 run is
+        # the yardstick in both comparisons, as in the check itself
+        e_p = gt.step_errors(plain, right, start, spec)
+        e_ok = gt.step_errors(kern, right, start, spec)
+        e_off = gt.step_errors(kern, wrong, start, spec)
+        passes, fails = step_violations(e_ok, e_p, floor), step_violations(e_off, e_p, floor)
+        worst = max(fails, key=lambda k: fails[k][0], default=None)
+        print(f"K2 {name}, the kernel's first step against the float64 plain version with "
+              f"'{fault}': {len(fails)} of {len(e_off)} tensors beyond their limit"
+              + (f", the worst {worst} at {fails[worst][0]:.3e} of the change (against the "
+                 f"right run {e_ok[worst]:.3e})" if worst else "")
+              + f"; against the right run {len(passes)} beyond")
+        if passes or not fails:
+            fail(f"the first-step check does not see '{fault}' on the path {name}")
+    # augmentation's fault lives in the streams: the recon target is the
+    # augmented batch, so the plain version on the clean batch must disagree
+    state, _, settings, spec, idx, _, _, streams = k2_setup(cfg, dev, ds, f, 1,
+                                                           dict(paths["augmentation"]))
+    few = first_steps(streams, 1)
+    clean = few._replace(spectra=ds.spectra[idx[0, :1].to(dev)].contiguous())
+    rows = gt.gan_train(gt.state_buffers(state.clone()), few, spec)
+    want = gt.gan_train_plain(gt.state_buffers(state.clone()), clean, spec)
+    j = gt.METRIC_KEYS.index("recon_spec_loss")
+    got, other = float(rows[0, j]), float(want[0, j])
+    print(f"K2 augmentation: recon_spec_loss on the augmented stream {got:.6f}, the plain "
+          f"version on the clean batch {other:.6f}; spectra stay <= 0 dB: "
+          f"{float(few.spectra.max()) <= 0.0}")
+    if abs(got - other) <= 1e-2 * other or float(few.spectra.max()) > 0.0:
+        fail("the augmented stream is not what the kernel reconstructs")
 
 
 def phase14_train(cfg, dev, repo: str, ds_serving, request, train_ds, fixed: bool) -> dict:
@@ -947,7 +1136,6 @@ def phase14_train(cfg, dev, repo: str, ds_serving, request, train_ds, fixed: boo
     with ``--fixed-physics`` (gradients through the frozen F); the trained G
     and F then serve one request.  Returns its launches, wall time and
     metric curves."""
-    import ast
     import glob
     import torch
     from pigan_thz_torch.models import build_trio
@@ -969,10 +1157,7 @@ def phase14_train(cfg, dev, repo: str, ds_serving, request, train_ds, fixed: boo
         wall = time.perf_counter() - t0
         if proc.returncode != 0:
             fail(f"{' '.join(cmd[1:6])} exited {proc.returncode}: {proc.stderr[-3000:]}")
-        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("kernel launches: ")]
-        if len(lines) != 1:
-            fail(f"train printed {len(lines)} 'kernel launches' lines")
-        launches = ast.literal_eval(lines[0][len("kernel launches: "):])
+        launches = launches_line(proc.stdout, "train")
         shown = ("-training kernel", "eager step", f"epoch {PRETRAIN_EPOCHS}/",
                  f"epoch {GAN_EPOCHS}/")
         for line in proc.stdout.splitlines():
@@ -1138,13 +1323,15 @@ def k3_setup(cfg, dev, ds, f, epochs: int, knobs: dict, members: int):
     settings = StepSettings.from_config(cfg, **knobs)
     gtx, dtx, _ = make_optimizers(cfg, spe)
     g, d, _ = build_trio(cfg, device="cpu")
-    states, idx = [], []
+    states, idx, seeds = [], [], []
     for m in range(members):
         st = init_pigan_state(g, d, f, gtx, dtx, SEED + m, device=dev)
         perturb_batch_stats_(st.g, torch.Generator().manual_seed(SEED + m))
         states.append(st)
-        idx.append(ft.resolve_draws(torch.Generator().manual_seed(SEED + m), ds.num_samples,
-                                    b, epochs)[0])
+        drawn = ft.resolve_draws(torch.Generator().manual_seed(SEED + m), ds.num_samples,
+                                 b, epochs)
+        idx.append(drawn[0])
+        seeds.append(drawn[1])
     ens = tree_stack(states)
     if not ens.shared_f:
         fail("k3_setup: the members' copies of one F are not shared after stacking")
@@ -1152,7 +1339,8 @@ def k3_setup(cfg, dev, ds, f, epochs: int, knobs: dict, members: int):
         ds, torch.stack(idx), torch.linspace(1.0, 0.5, epochs), 0, 0, 0,
         settings.d_update_every,
         cosine_schedule(cfg.train.lr_g, cfg.train.num_epochs, spe, 0.01),
-        step_schedule(cfg.train.lr_d, cfg.train.num_epochs, spe, 0.5, 0.25))
+        step_schedule(cfg.train.lr_d, cfg.train.num_epochs, spe, 0.5, 0.25),
+        settings=settings, seeds=torch.stack(seeds))
     return ens, settings, gt.gan_train_spec(cfg, settings), streams
 
 
@@ -1161,17 +1349,21 @@ def ensemble_tensors(bufs) -> list:
     return [*bufs[:6], *bufs.bn]
 
 
-def phase16_k3(cfg, dev, ds, f) -> dict:
+def phase16_k3(cfg, dev, ds, f, cases=None) -> dict:
     """K3 against K2 on each member alone (bit for bit) and against its plain
-    version (K2's limits)."""
+    version (K2's limits).  ``cases`` defaults to today's three; a case with
+    cycle on holds every member's first step to K2_CYCLE_STEP_FLOOR and the
+    rows also to the float32 plain version's own drift."""
     import torch
     from pigan_thz_torch.ops import gan_train as gt
     from pigan_thz_torch.ops._cuda_build import LAUNCHES
 
     keys = [*gt.METRIC_KEYS, "constraint_loss"]
     stats = {"max_abs_err": 0.0, "rows_rel": 0.0, "first_step_rel": 0.0}
-    cases = (("through F", dict(detach_forward=False)), ("detached", dict(detach_forward=True)),
-             ("knob mix, no EMA", K3_MIX))
+    if cases is None:
+        cases = (("through F", dict(detach_forward=False)),
+                 ("detached", dict(detach_forward=True)), ("knob mix, no EMA", K3_MIX))
+    floats = [j for j, k in enumerate(keys) if k not in ("d_accuracy", "violation_rate")]
     for name, knobs in cases:
         start, settings, spec, streams = k3_setup(cfg, dev, ds, f, K2_EPOCHS, knobs,
                                                   K3_MEMBERS)
@@ -1221,13 +1413,15 @@ def phase16_k3(cfg, dev, ds, f) -> dict:
         for m in range(K3_MEMBERS):
             own = gt._member(gt.ensemble_buffers(start), streams, m)[1]
             exact = gt.to_double(gt.state_buffers(start[m].clone()))
-            gt.gan_train_plain(exact, gt.to_double(own), spec)
+            want64 = gt.gan_train_plain(exact, gt.to_double(own), spec)
             start_m = gt.state_buffers(start[m])
             yard = gt.state_diffs(gt.state_buffers(plain[m]), exact, start_m, spec)
+            rows_yard = float(((want[m] - want64).abs() / want64.abs().clamp(min=1e-3))[
+                :, floats].max()) if spec.cycle_w or spec.stability_w else 0.0
             rel, err = compare_k2(
                 f"K3 vs plain, {name}, member {m}, {K2_EPOCHS} epochs ({steps} steps)",
                 rows[m], gt.state_buffers(kern[m]), want[m], gt.state_buffers(plain[m]),
-                start_m, yard, spec, keys)
+                start_m, yard, spec, keys, rows_yard)
             stats["rows_rel"] = max(stats["rows_rel"], rel)
             stats["max_abs_err"] = max(stats["max_abs_err"], err)
 
@@ -1239,7 +1433,8 @@ def phase16_k3(cfg, dev, ds, f) -> dict:
             got, own = gt._member(gt.ensemble_buffers(one), few, m)
             err = first_steps_against_float64(
                 f"K3 vs plain, {name}, member {m}", start[m], own, spec, 1, rows1[m], got,
-                floor=None if m == 0 else K3_MEMBER_STEP_FLOOR)
+                floor=K2_CYCLE_STEP_FLOOR if spec.cycle_w else (
+                    None if m == 0 else K3_MEMBER_STEP_FLOOR))
             stats["first_step_rel"] = max(stats["first_step_rel"], err)
     return stats
 
@@ -1406,6 +1601,224 @@ def phase18_k3_times(cfg, dev, ds, f) -> dict:
     return out
 
 
+def launches_line(stdout: str, what: str) -> dict:
+    import ast
+
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("kernel launches: ")]
+    if len(lines) != 1:
+        fail(f"{what} printed {len(lines)} 'kernel launches' lines")
+    return ast.literal_eval(lines[0][len("kernel launches: "):])
+
+
+def r2_and_violation(ev: dict) -> tuple:
+    return (ev["pigan_evaluation"]["parameter_prediction"]["r2"],
+            ev["structural_prediction_evaluation"]["param_range_violation_rate"])
+
+
+def phase21_programs(cfg, dev, repo: str, train_ds) -> dict:
+    """The metric-gated programs on the card.  In this process: a Trainer
+    with a briefly pretrained F and a fresh G runs ``emergency_phases()``;
+    the gate must read param R² < 0.7 from the port's evaluator and
+    ``emergency_warmup`` (cycle, ``adv_w`` 0, ``d_update_every`` 2) must go
+    through the GAN-training kernel.  Then the three ``program`` commands
+    and ``train --preset optimized`` on the baseline trio as typed, each in
+    a subprocess.  Returns the launches and wall times."""
+    import glob
+    import torch
+    from pigan_thz_torch.ops._cuda_build import LAUNCHES
+    from pigan_thz_torch.train import programs as P
+    from pigan_thz_torch.train.trainer import Trainer
+
+    spe = train_ds.num_samples // cfg.train.batch_size
+    trainer = Trainer(cfg, ds=train_ds, device=dev)
+    trainer.pretrain_forward(epochs=PROGRAM_F_EPOCHS)
+    trainer.init_pigan()
+    before = trainer.evaluate()
+    r2_0, viol_0 = r2_and_violation(before)
+    phases = P.emergency_phases()
+    if not all(p.gate(before) for p in phases) or not r2_0 < 0.7:
+        fail(f"a fresh G reads param R2 {r2_0:.4f}: the emergency gates (R2 < 0.7) stay shut")
+    reset_launches(LAUNCHES)
+    t0 = time.perf_counter()
+    result = P.run_program(trainer, phases)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counted = dict(LAUNCHES)
+    r2_1, viol_1 = r2_and_violation(result.final_eval)
+    hist = trainer.train_history
+    gan_epochs = len(hist["pigan/g_loss"])
+    fwd_epochs = len(hist["forward/loss"]) - PROGRAM_F_EPOCHS
+    print(f"run_program(emergency_phases()) on the card: phases run {result.phases_run}, "
+          f"skipped {result.phases_skipped}; the evaluator's param R2 {r2_0:.4f} -> "
+          f"{r2_1:.4f}, violation rate {viol_0:.4f} -> {viol_1:.4f}; {fwd_epochs} forward "
+          f"and {gan_epochs} GAN epochs in {wall:.3f} s; launches {counted}")
+    want_gan = -(-gan_epochs // EPOCHS_PER_CALL)
+    if (result.phases_run != [p.name for p in phases] or result.phases_skipped
+            or counted["gan_train"] != want_gan or counted["forward_train"] < 1
+            or gan_epochs != phases[1].epochs + phases[2].epochs):
+        fail("emergency_warmup and emergency_balanced_gan did not run through the "
+             f"GAN-training kernel, one launch per chunk ({want_gan})")
+    finite = all(x == x and abs(x) != float("inf") for v in hist.values() for x in v)
+    if not finite or not all(map(lambda x: x == x, (r2_1, viol_1))):
+        fail("the emergency program left non-finite rows or scores")
+    st = trainer.pigan_state
+    if st.d_opt.count >= st.g_opt.count:
+        fail("d_update_every=2 did not gate D's updates in the emergency phases")
+    out = {"inprocess": counted, "inprocess_wall": wall, "commands": {}}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in PROGRAMS:
+            work = os.path.join(tmp, name)
+            cmd = [sys.executable, "-m", "pigan_thz_torch", "program", name, "--workdir",
+                   work, "--no-tensorboard"]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                fail(f"program {name} exited {proc.returncode}: {proc.stderr[-3000:]}")
+            launches = launches_line(proc.stdout, f"program {name}")
+            ran = [ln for ln in proc.stdout.splitlines() if ln.startswith("phases run: ")]
+            (path,) = glob.glob(os.path.join(work, f"program_{name}_*", "final_eval.json"))
+            with open(path) as fh:
+                ev = json.load(fh)
+            r2, viol = r2_and_violation(ev)
+            saved = os.path.join(work, "saved_models")
+            have = all(os.path.isfile(os.path.join(saved, f"{stem}_{kind}.pth"))
+                       for stem in ("generator", "discriminator", "forward_model")
+                       for kind in ("final", name))
+            print(f"program {name}: {ran[0] if ran else 'no phases line'}; {wall:.3f} s wall "
+                  f"for the command; final_eval.json param R2 {r2:.4f}, violation rate "
+                  f"{viol:.4f}; finals and their _{name} copies written: {have}; launches "
+                  f"{launches}")
+            if (len(ran) != 1 or not have or r2 != r2 or viol != viol
+                    or launches["gan_train"] < 1):
+                fail(f"program {name} did not run its phases through the kernel and write "
+                     "its artifacts")
+            if name != "finetune" and launches["forward_train"] < 1:
+                fail(f"program {name} trained no forward phase through the kernel")
+            out["commands"][name] = (launches, wall)
+
+        # the OptimizedTrainer loss mix (stability, constraint, window, through
+        # F) on the baseline trio: K2's stability path, as typed
+        work = os.path.join(tmp, "optimized")
+        saved = os.path.join(work, "saved_models")
+        cmd = [sys.executable, "-m", "pigan_thz_torch", "train", "--mode", "full", "--preset",
+               "optimized", "--set", "generator.name=mlp", "--set", "discriminator.name=mlp",
+               "--workdir", work, "--no-tensorboard"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"train --preset optimized exited {proc.returncode}: {proc.stderr[-3000:]}")
+        launches = launches_line(proc.stdout, "train --preset optimized")
+        loaded = Trainer(cfg, ds=train_ds, device=dev)
+        loaded.load_final(saved)
+        r2, viol = r2_and_violation(loaded.evaluate())
+        hist = loaded.train_history
+        epochs = len(hist["pigan/g_loss"]) + len(hist["forward/loss"])
+        finite = all(x == x and abs(x) != float("inf") for v in hist.values() for x in v)
+        print(f"train --mode full --preset optimized --set generator.name=mlp --set "
+              f"discriminator.name=mlp: {len(hist['forward/loss'])} + "
+              f"{len(hist['pigan/g_loss'])} epochs in {wall:.3f} s wall for the command, "
+              f"{epochs * spe / wall:.1f} steps/s; launches {launches}; param R2 {r2:.4f}, "
+              f"violation rate {viol:.4f}; constraint_loss "
+              f"{hist['pigan/constraint_loss'][0]:.4f} -> {hist['pigan/constraint_loss'][-1]:.4f}"
+              f"; all curves finite: {finite}")
+        if (launches["gan_train"] != -(-len(hist["pigan/g_loss"]) // EPOCHS_PER_CALL)
+                or launches["forward_train"] < 1 or not finite or r2 != r2):
+            fail("train --preset optimized did not train through K1 and K2")
+        out["commands"]["optimized"] = (launches, wall)
+    return out
+
+
+def phase22_path_times(cfg, dev, ds, f) -> dict:
+    """Per-epoch CUDA-event medians (ms) of K2 with cycle, with stability and
+    with both beside today's settings (through F), and of K3 at M =
+    K3_MEMBERS with both beside today's, all in this one call, each timed
+    twice in turns; the kernels a step of each as the C loop counts them;
+    ``torch.profiler``'s idle share for cycle + stability."""
+    from pigan_thz_torch.ops import gan_train as gt
+
+    variants = {"today": dict(detach_forward=False),
+                "cycle": dict(detach_forward=False, cycle_w=1.0),
+                "stability": dict(detach_forward=False, stability_w=1.0),
+                "both": dict(detach_forward=False, cycle_w=1.0, stability_w=1.0),
+                "detached": dict(detach_forward=True),
+                "instance noise": dict(detach_forward=False, instance_noise=0.05)}
+    runs = {}
+    for name, knobs in variants.items():
+        state, _, _, spec, _, _, _, streams = k2_setup(cfg, dev, ds, f, 1, knobs)
+        runs[name] = (gt.state_buffers(state), streams, spec)
+    out = {"k2": {}, "k3": {}, "launches_a_step": {}}
+    order = list(variants)
+    for name in (*order, *reversed(order)):
+        bufs, streams, spec = runs[name]
+        ms = cuda_median_ms(lambda: gt.gan_train(bufs, streams, spec), warmup=3, reps=20)
+        out["k2"][name] = min(ms, out["k2"].get(name, ms))
+    # the launches a step, as the C loop counts what it enqueues (the
+    # profiler's count drops a few events a trace)
+    for name in order:
+        bufs, streams, spec = runs[name]
+        gt.gan_train(bufs, streams, spec)
+        out["launches_a_step"][name] = gt.kernels_enqueued() / streams.spectra.shape[0]
+    # the idle share as phase 15 takes today's: one launch of 5 epochs
+    state, _, _, spec5, _, _, _, streams5 = k2_setup(cfg, dev, ds, f, 5, variants["both"])
+    bufs5 = gt.state_buffers(state)
+    wall, busy = profile_launch("one K2 launch of 5 epochs, cycle + stability",
+                                   lambda: gt.gan_train(bufs5, streams5, spec5),
+                                   streams5.spectra.shape[0])
+    out["both_idle_share"] = max(0.0, 1.0 - busy / wall)
+    ens = {}
+    for name in ("today", "both"):
+        states, _, spec, streams = k3_setup(cfg, dev, ds, f, 1, variants[name], K3_MEMBERS)
+        ens[name] = (gt.ensemble_buffers(states), streams, spec)
+    for name in ("today", "both", "both", "today"):
+        bufs, streams, spec = ens[name]
+        ms = cuda_median_ms(lambda: gt.gan_ensemble_train(bufs, streams, spec),
+                            warmup=3, reps=20)
+        out["k3"][name] = min(ms, out["k3"].get(name, ms))
+    bufs, streams, spec = ens["both"]
+    gt.gan_ensemble_train(bufs, streams, spec)
+    out["launches_a_step"]["k3 both"] = gt.kernels_enqueued() / streams.spectra.shape[1]
+    return out
+
+
+def run_path_phases(cfg, dev, repo: str, train_ds, f_k2, tag: str) -> tuple:
+    """Phases 19 to 22; returns (K2's path stats, K3's, the programs'
+    launches and wall times, the paths' times)."""
+    spe = train_ds.num_samples // cfg.train.batch_size
+    # -- 19. K2's second G passes and noise streams, path by path ----------------
+    k2_paths = phase13_k2(cfg, dev, train_ds, f_k2, cases=K2_PATHS, paths=True)
+    phase19_faults(cfg, dev, train_ds, f_k2)
+
+    # -- 20. K3 against K2 with the paths on ----------------------------------------
+    k3_paths = phase16_k3(cfg, dev, train_ds, f_k2,
+                          cases=(("cycle + stability + instance noise", K3_PATHS),))
+
+    # -- 21. the metric-gated programs and the optimized preset ----------------------
+    programs = phase21_programs(cfg, dev, repo, train_ds)
+
+    # -- 22. times of the paths -------------------------------------------------------
+    path_times = phase22_path_times(cfg, dev, train_ds, f_k2)
+    for name, ms in path_times["k2"].items():
+        print(f"time {tag} gan_train one epoch ({spe} steps, B = 64), {name}: kernel "
+              f"{ms:.4f} ms ({ms / path_times['k2']['today']:.3f} x today's settings in the "
+              f"same call), {path_times['launches_a_step'][name]:g} kernels a step "
+              f"(CUDA-event medians of 20 after 3 warm-up, best of two runs)")
+    for name, ms in path_times["k3"].items():
+        print(f"time {tag} gan_ensemble_train one epoch ({spe} steps, B = 64), M = "
+              f"{K3_MEMBERS}, {name}: kernel {ms:.4f} ms "
+              f"({ms / path_times['k3']['today']:.3f} x today's settings in the same call)")
+    print(f"time {tag} gan_ensemble_train with both second passes: "
+          f"{path_times['launches_a_step']['k3 both']:g} kernels a step at M = "
+          f"{K3_MEMBERS}")
+    if path_times["launches_a_step"]["today"] != 69 or path_times["launches_a_step"][
+            "detached"] != 58:
+        fail("a step at today's settings is no longer 69 launches (58 detached): "
+             f"{path_times['launches_a_step']}")
+    return k2_paths, k3_paths, programs, path_times
+
+
 def main() -> None:
     import torch
 
@@ -1447,9 +1860,11 @@ def main() -> None:
                                      or "Compiling" in line):
             print("  " + line.strip())
 
+    cfg = default_config()
+    repo = os.path.dirname(os.path.abspath(__file__))
+
     # -- 3. each kernel against its plain version ----------------------------
     # Full-width G and F through the registry, on the card, seeded.
-    cfg = default_config()
     gen = torch.Generator().manual_seed(SEED)
     G = build_generator(cfg.generator, cfg.data.spectrum_dim, device=dev, generator=gen)
     perturb_batch_stats_(G, gen)
@@ -1590,7 +2005,6 @@ def main() -> None:
     k4_stats = phase6_k4(dgen, cfg, dev)
 
     # -- 7. dataset generation -----------------------------------------------
-    repo = os.path.dirname(os.path.abspath(__file__))
     dataset_k4 = phase7_dataset(cfg, dev, repo)
 
     # -- 8. screening --------------------------------------------------------
@@ -1695,6 +2109,10 @@ def main() -> None:
           f"{k3_times['detached']:.4f} ms; plain version through F "
           f"{k3_times['plain']:.4f} ms (median of 3 after 1 warm-up)")
 
+    # -- 19 to 22. the second G passes, the noise streams, the programs ------------
+    k2_paths, k3_paths, programs, path_times = run_path_phases(
+        cfg, dev, repo, train_ds, f_k2, tag)
+
     # -- the record -------------------------------------------------------------
     # bound_ms: operations over the fp32 peak against bytes moved once over the
     # memory rate, from the shapes each timed call was given.
@@ -1739,11 +2157,16 @@ def main() -> None:
     el = {k: ensemble["launches"][k] + ensemble["short_launches"][k]
           for k in ensemble["launches"]}
     bound["gan_ensemble_train"] = (K3_MEMBERS * bound["gan_train"][0], bound["gan_train"][1])
+    # the programs: run_program in this process (counted from 0 around it),
+    # the three program commands and train --preset optimized
+    pl = {k: programs["inprocess"][k] + sum(c[0][k] for c in programs["commands"].values())
+          for k in programs["inprocess"]}
     print(f"main-path launches: serving {launches}, dataset dip_qualification "
           f"{dataset_k4}, screens fused_mlp_forward {k5_screen} dip_qualification "
           f"{k4_screen}, pretrain-forward forward_train {k1_launches}, train --mode full with and without "
           f"--fixed-physics {tl}, torch_seed_ensemble at {GAN_EPOCHS} epochs and twice at "
-          f"{ENSEMBLE_SHORT_EPOCHS} {el}")
+          f"{ENSEMBLE_SHORT_EPOCHS} {el}, run_program(emergency_phases()), program "
+          f"{' | '.join(PROGRAMS)} and train --preset optimized {pl}")
 
     def bounds(name):
         ms, by = bound[name]
@@ -1772,7 +2195,7 @@ def main() -> None:
          "source": "pigan_thz_torch/csrc/dip_qualification.cu",
          "replaces": "pigan_thz_tpu/ops/peaks.py:306",
          "launches": dataset_k4 + k4_screen + tl["dip_qualification"]
-         + el["dip_qualification"],
+         + el["dip_qualification"] + pl["dip_qualification"],
          "max_abs_err": k4_stats["max_abs_err"],
          "mask_mismatches": k4_stats["mask_mismatches"],
          "ms": k4_times["screen"][0],
@@ -1782,7 +2205,8 @@ def main() -> None:
         {"name": "forward_train", "route": "cuda",
          "source": "pigan_thz_torch/csrc/forward_train.cu",
          "replaces": "pigan_thz_tpu/ops/megakernel.py:2623",
-         "launches": k1_launches + tl["forward_train"] + el["forward_train"],
+         "launches": k1_launches + tl["forward_train"] + el["forward_train"]
+         + pl["forward_train"],
          "max_abs_err": k1_stats["max_abs_err"],
          "rows_max_rel_err": k1_stats["rows_rel"],
          "ms": k1_ms, "plain_ms": k1_plain_ms, "eager_ms": k1_eager_ms,
@@ -1790,10 +2214,16 @@ def main() -> None:
         {"name": "gan_train", "route": "cuda",
          "source": "pigan_thz_torch/csrc/gan_train.cu",
          "replaces": "pigan_thz_tpu/ops/megakernel.py:779",
-         "launches": tl["gan_train"] + el["gan_train"],
-         "max_abs_err": k2_stats["max_abs_err"],
+         "launches": tl["gan_train"] + el["gan_train"] + pl["gan_train"],
+         "launches_on_the_paths": pl["gan_train"],
+         "max_abs_err": max(k2_stats["max_abs_err"], k2_paths["max_abs_err"]),
          "rows_max_rel_err": k2_stats["rows_rel"],
          "first_step_rel_err_vs_float64": k2_stats["first_step_rel"],
+         "paths_rows_max_rel_err": k2_paths["rows_rel"],
+         "paths_first_step_rel_err_vs_float64": k2_paths["first_step_rel"],
+         "ms_by_path": path_times["k2"],
+         "kernels_a_step_by_path": path_times["launches_a_step"],
+         "idle_share_cycle_and_stability": path_times["both_idle_share"],
          "ms": k2_times[False][0], "plain_ms": k2_times[False][1],
          "eager_ms": k2_times[False][2], "detached_ms": k2_times[True][0],
          "detached_plain_ms": k2_times[True][1], "detached_eager_ms": k2_times[True][2],
@@ -1803,9 +2233,11 @@ def main() -> None:
          "replaces": "pigan_thz_tpu/ops/megakernel.py:2128",
          "launches": el["gan_ensemble_train"],
          "members": K3_MEMBERS,
-         "max_abs_err": k3_stats["max_abs_err"],
+         "max_abs_err": max(k3_stats["max_abs_err"], k3_paths["max_abs_err"]),
          "rows_max_rel_err": k3_stats["rows_rel"],
          "first_step_rel_err_vs_float64": k3_stats["first_step_rel"],
+         "paths_rows_max_rel_err": k3_paths["rows_rel"],
+         "ms_by_path": path_times["k3"],
          "ms": k3_times["k3"][K3_MEMBERS], "plain_ms": k3_times["plain"],
          "detached_ms": k3_times["detached"],
          "ms_by_members": {str(m): t for m, t in k3_times["k3"].items()},

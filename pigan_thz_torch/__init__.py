@@ -19,8 +19,16 @@ The port goes slice by slice (ROADMAP.md).  The slices that exist:
   epochs one launch of the forward-training kernel
   (``csrc/forward_train.cu``, bound in ``ops/forward_train.py``), or the
   eager autograd step (``train/steps.py``);
-- the ``generate-data``, ``convert-cst`` and ``pretrain-forward`` commands
-  (``cli.py``).
+- PI-GAN training (``Trainer.train_pigan``), each chunk one launch of the
+  GAN-training kernel (``csrc/gan_train.cu``, bound in ``ops/gan_train.py``:
+  the fused D-then-G step with its second generator passes, cycle and
+  stability, and its noise streams), and seed ensembles, M members in one
+  launch of the same kernel's member-packed entry (``parallel/``);
+- the metric-gated training programs (``train/programs.py``) over the
+  evaluator (``evaluate/evaluator.py``), and the config overlays of
+  ``config_presets.py``;
+- the ``generate-data``, ``convert-cst``, ``pretrain-forward``, ``train`` and
+  ``program`` commands (``cli.py``).
 """
 
 from .config import (

@@ -10,22 +10,33 @@ Commands:
   convert-cst       raw CST Studio export -> reference-schema CSV
   pretrain-forward  train the forward surrogate           (pretrain_fwd_model.py)
   train             forward_only | pigan_only | full      (unified_trainer.py)
+  program           progressive | emergency | finetune    (metric-gated pipelines)
 
 ``pretrain-forward`` writes ``forward_model_pretrained.pth`` (F's torch
 state_dict) and ``model_config.json`` under ``--out``; ``train`` writes the
 final trio (``generator_final.pth``, ``discriminator_final.pth``,
 ``forward_model_final.pth``, with ``--ema-decay`` also
 ``generator_ema.pth``), ``training_history.json`` and ``model_config.json``.
-Both training commands take ``--engine auto|eager|kernel`` (the Trainer's
-engine rule: on the card ``auto`` is the training kernels or an error, never
-the eager step).  Of ``train``'s flags, ``--preset``, ``--holdout``,
-``--checkpoint-dir`` and ``--plot`` raise until what they need is ported.  The other commands of the
-JAX package are not ported yet (ROADMAP.md queue 1, item 11).
+``train --preset optimized|scaled`` lays ``config_presets.py`` over the
+config before ``--set`` (the optimized overlay names the residual generator
+and the dual-encoder discriminator, which the registry refuses by name until
+they are ported: ``--set generator.name=mlp --set discriminator.name=mlp``
+trains the baseline trio under its loss mix).  ``program`` runs one of the
+metric-gated pipelines of ``train/programs.py`` from a fresh trainer and
+writes the finals (with ``generator_<name>.pth`` etc. beside them) and
+``final_eval.json`` in the run directory.  The training commands take
+``--engine auto|eager|kernel`` (the Trainer's engine rule: on the card
+``auto`` is the training kernels or an error, never the eager step).  Of
+``train``'s flags, ``--holdout``, ``--checkpoint-dir`` and ``--plot`` raise
+until what they need is ported.  The other commands of the JAX package are
+not ported yet (ROADMAP.md queue 1, item 11).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
 import os
 from typing import List
 
@@ -60,6 +71,17 @@ def _make_cfg(args) -> PiGanConfig:
         from .config import from_yaml
 
         cfg = from_yaml(args.config, cfg)
+    preset = getattr(args, "preset", None)
+    if preset == "optimized":
+        # the reference's OptimizedTrainer overlay; before --set, so that
+        # explicit overrides still win
+        from .config_presets import apply_optimization_config
+
+        cfg = apply_optimization_config(cfg)
+    elif preset == "scaled":
+        from .config_presets import apply_scaled_batch_config
+
+        cfg = apply_scaled_batch_config(cfg)
     if args.seed is not None:
         cfg = apply_overrides(cfg, [f"train.seed={args.seed}", f"data.seed={args.seed}"])
     cfg = apply_overrides(cfg, args.set)
@@ -149,8 +171,7 @@ def cmd_pretrain_forward(args) -> int:
 
 # train's flags that wait for a module: flag -> (its "off" value, what it waits for)
 _TRAIN_NOT_PORTED = {
-    "preset": (None, "config_presets.py (ROADMAP.md queue 1, item 1)"),
-    "holdout": (0.0, "the evaluator (ROADMAP.md queue 1, item 8)"),
+    "holdout": (0.0, "the evaluator's held-out report (ROADMAP.md queue 1, item 8)"),
     "checkpoint_dir": (None, "CheckpointManager and resume (ROADMAP.md queue 1, item 7)"),
     "plot": (False, "utils/viz.py (ROADMAP.md queue 1, item 16)"),
 }
@@ -200,8 +221,33 @@ def cmd_train(args) -> int:
     try:
         trainer = Trainer(cfg, logger=logger, csv_path=args.csv, device=device,
                           engine=args.engine)
-        settings = StepSettings.from_config(
-            cfg, detach_forward=not args.fixed_physics, ema_decay=args.ema_decay)
+        gan_kw = {}
+        if args.preset == "optimized":
+            # OptimizedTrainer's GAN-phase loss mix (constraint, window and
+            # stability on, physics through F), read from the config after
+            # --set; the overlay's own detach_forward=False wins over
+            # --fixed-physics
+            from .config_presets import step_settings_from_optimized_config
+
+            settings = dataclasses.replace(step_settings_from_optimized_config(cfg),
+                                           ema_decay=args.ema_decay)
+        elif args.preset == "scaled":
+            # the recipe needs gradients through F: a conflicting flag is an
+            # error, not dropped in silence
+            if args.fixed_physics:
+                raise SystemExit(
+                    "--fixed-physics conflicts with --preset scaled: the recipe already "
+                    "sends gradients through F.  To detach anyway: --set "
+                    "train.detach_forward=true without --fixed-physics.")
+            from .config_presets import SCALED_BATCH_SCHEDULE
+
+            settings = StepSettings.from_config(cfg, ema_decay=args.ema_decay)
+            # the warmup rides as a per-phase override of both schedules; the
+            # learning rates are the config's, which the overlay scaled
+            gan_kw = dict(schedule_g=SCALED_BATCH_SCHEDULE, schedule_d=SCALED_BATCH_SCHEDULE)
+        else:
+            settings = StepSettings.from_config(
+                cfg, detach_forward=not args.fixed_physics, ema_decay=args.ema_decay)
         out = args.out or os.path.join(cfg.workdir, "saved_models")
         if args.mode == "forward_only":
             trainer.pretrain_forward(epochs=args.epochs)
@@ -215,10 +261,49 @@ def cmd_train(args) -> int:
             else:
                 trainer.pretrain_forward(epochs=args.forward_epochs)
             trainer.init_pigan()
-            trainer.train_pigan(epochs=args.epochs, settings=settings)
+            trainer.train_pigan(epochs=args.epochs, settings=settings, **gan_kw)
             trainer.save_final(out, backup_tag=args.backup_tag)
             logger.info(f"saved final models under {out}")
         logger.info(f"kernel launches: {dict(LAUNCHES)}")
+    finally:
+        logger.close()
+    return 0
+
+
+PROGRAMS = ("progressive", "emergency", "finetune")
+
+
+def cmd_program(args) -> int:
+    """One of the metric-gated pipelines from a fresh trainer; the finals,
+    ``generator_<name>.pth`` etc. beside them, and ``final_eval.json``."""
+    cfg = _make_cfg(args)
+    device = _device(args)
+    from .ops._cuda_build import LAUNCHES
+    from .train import programs as P
+    from .train.trainer import Trainer
+    from .utils.logging import RunLogger
+
+    if args.name == "progressive":
+        phases = P.progressive_pipeline()
+    elif args.name == "emergency":
+        phases = [*P.standard_phases(50, 50), *P.emergency_phases()]
+    else:
+        phases = [P.constraint_finetune_phase()]
+    logger = RunLogger(cfg.workdir, name=f"program_{args.name}",
+                       use_tensorboard=args.tensorboard, use_wandb=args.wandb)
+    try:
+        trainer = Trainer(cfg, logger=logger, csv_path=args.csv, device=device,
+                          engine=args.engine)
+        result = P.run_program(trainer, phases)
+        logger.info(f"phases run: {result.phases_run}; skipped: {result.phases_skipped}")
+        out = args.out or os.path.join(cfg.workdir, "saved_models")
+        # per-mode backup copies beside the finals (the reference's versioned
+        # *_unified / *_emergency.pth artifacts)
+        trainer.save_final(out, backup_tag=args.name)
+        with open(os.path.join(logger.run_dir, "final_eval.json"), "w") as fh:
+            json.dump(result.final_eval, fh, indent=2)
+        logger.info(f"kernel launches: {dict(LAUNCHES)}")
+        logger.info(f"saved final models under {out}")
     finally:
         logger.close()
     return 0
@@ -280,9 +365,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "(recommended; default reproduces the reference's "
                         "no_grad behaviour)")
     g.add_argument("--holdout", type=float, default=0.0, metavar="FRAC",
-                   help="not ported yet (needs the evaluator)")
+                   help="not ported yet (the held-out report)")
     g.add_argument("--preset", default=None, choices=["optimized", "scaled"],
-                   help="not ported yet (needs config_presets.py)")
+                   help="config overlay applied before --set: 'optimized' = the "
+                        "reference's OptimizedTrainer config (residual generator, "
+                        "dual-encoder discriminator, constraint/window/stability "
+                        "losses); 'scaled' = the large-batch recipe (batch 512, lr "
+                        "x2, warmup, gradients through F)")
     g.add_argument("--backup-tag", default=None, metavar="TAG",
                    help="also write versioned backup artifacts generator_<TAG>/... "
                         "next to the finals (reference *_unified.pth parity)")
@@ -296,6 +385,18 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--wandb", action="store_true",
                    help="also log scalars to Weights & Biases (needs the wandb package)")
     g.set_defaults(fn=cmd_train)
+
+    g = sub.add_parser("program", help="run a metric-gated training program")
+    _base_parser(g)
+    g.add_argument("name", choices=list(PROGRAMS))
+    _engine_flag(g)
+    g.add_argument("--out", default=None,
+                   help="directory for the artifacts (default <workdir>/saved_models)")
+    g.add_argument("--tensorboard", action=argparse.BooleanOptionalAction, default=True,
+                   help="write tfevents scalars under <run_dir>/tb (on by default)")
+    g.add_argument("--wandb", action="store_true",
+                   help="also log scalars to Weights & Biases (needs the wandb package)")
+    g.set_defaults(fn=cmd_program)
     return p
 
 

@@ -21,6 +21,20 @@
 //              and, unless detach, through F's input (recon, metrics,
 //              Maxwell, LC's F side, window); G's backward with the
 //              BatchNorm backward; clip, Adam; the EMA of G when on.
+//   second G   with cycle_w > 0 a second pass of G on F's spectrum, and with
+//   passes     stability_w > 0 one on a pre-noised spectra stream: each with
+//              the batch statistics of its own batch (the running stats
+//              stay), its own saved activations and a full BatchNorm
+//              backward; loss w mean((second - first)^2) over the 4 outputs,
+//              added to g_loss; seeds into the second pass's head and, with
+//              the other sign, into the first pass's output; the weight
+//              gradients into a flat buffer of their own, added to the main
+//              ones after the main backward (main, cycle, stability: a fixed
+//              order); cycle's input gradient joins dpred's spectrum columns
+//              before F's backward unless detach; stability's is dropped;
+//   instance   a (2B, S) noise stream added to the spectrum columns of D's
+//   noise      input in the D phase only: the D phase reads a noised copy,
+//              the G phase's adversarial pass the clean fake rows.
 //
 // Design.  The TPU kernel keeps ~12 MB of state resident in VMEM on a
 // sequential grid; an SM has 227 KB.  Here, as in forward_train.cu, one C
@@ -45,7 +59,9 @@
 // through F (half of it F's forward and input-backward), ~10 us at the
 // 67 TFLOP/s fp32 peak, and ~13 MB of state and weights read once a step,
 // ~4 us at 3.35 TB/s.  Neither bounds a step: on an H100 (80GB HBM3, 700 W)
-// it takes ~1.2 ms through F (69 launches) and ~0.9 ms detached (58), the
+// it takes ~1.2 ms through F (69 launches) and ~0.9 ms detached (58; a second
+// G pass adds 16 and ~0.25 ms, the sum of the passes' gradients 1, cycle's
+// input gradient 2, instance noise 1), the
 // device busy 90 % of that, four fifths of it in the products of 64 or 128
 // rows: 32 x 32 tiles give 16-64 blocks on 132 SMs, each walking the whole
 // depth, ~34 us a product.  Split-K or tensor-core tiles for those products,
@@ -92,7 +108,8 @@ __device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x
 
 // --------------------------------------------------------------------------
 // BatchNorm (train mode) + ReLU over the batch, one thread per column.  u
-// holds the pre-norm values on entry and u - mean on exit.
+// holds the pre-norm values on entry and u - mean on exit.  Without run_mean
+// (a null Per: the second G passes) the running stats are left alone.
 // --------------------------------------------------------------------------
 __global__ void bn_forward(PerOut um, int B, int C, PerIn gammam, PerIn betam, PerOut xhm,
                            PerOut ym, PerOut am, PerOut ivm, PerOut run_meanm,
@@ -107,8 +124,8 @@ __global__ void bn_forward(PerOut um, int B, int C, PerIn gammam, PerIn betam, P
   float* __restrict__ y = ym.at(mem);
   float* __restrict__ a = am.at(mem);
   float* __restrict__ iv_out = ivm.at(mem);
-  float* __restrict__ run_mean = run_meanm.at(mem);
-  float* __restrict__ run_var = run_varm.at(mem);
+  float* __restrict__ run_mean = run_meanm.p ? run_meanm.at(mem) : nullptr;
+  float* __restrict__ run_var = run_varm.p ? run_varm.at(mem) : nullptr;
   // the column sums in double: E[x^2] - E[x]^2 cancels, and a sequential
   // float sum over the rows would lose what the difference keeps
   double s = 0.0, s2 = 0.0;
@@ -133,8 +150,10 @@ __global__ void bn_forward(PerOut um, int B, int C, PerIn gammam, PerIn betam, P
     a[o] = fmaxf(yy, 0.f);
   }
   iv_out[c] = iv;
-  run_mean[c] = mom * run_mean[c] + one_minus_mom * mu;
-  run_var[c] = mom * run_var[c] + one_minus_mom * var;
+  if (run_mean) {
+    run_mean[c] = mom * run_mean[c] + one_minus_mom * mu;
+    run_var[c] = mom * run_var[c] + one_minus_mom * var;
+  }
 }
 
 // Adjoint of ReLU(BatchNorm(u)): da at the block's output -> du at u, and
@@ -268,6 +287,49 @@ __global__ void g_head_seed(PerOut dpnm, PerIn dfinm, PerIn tnm, PerIn pnm, int 
   dpn[e] = d * dsq * (1.f - tn[e] * tn[e]);
 }
 
+// D's input for the D phase with instance noise: xn = x0 with noise (2B, S)
+// added to the spectrum columns; the parameter columns are copied.
+__global__ void add_instance_noise(PerIn x0m, PerIn noisem, PerOut xnm, int R, int S) {
+  const int mem = blockIdx.y;
+  const float* __restrict__ x0 = x0m.at(mem);
+  const float* __restrict__ noise = noisem.at(mem);
+  float* __restrict__ xn = xnm.at(mem);
+  const int nd = S + 4;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < R * nd;
+       e += blockDim.x * gridDim.x) {
+    const int r = e / nd;
+    const int c = e - r * nd;
+    xn[e] = c < S ? x0[e] + noise[(long long)r * S + c] : x0[e];
+  }
+}
+
+// dst[b, c] += src[b, c] for the first C columns of dst's rows (ld columns).
+__global__ void add_columns(PerOut dstm, int ld, PerIn srcm, int B, int C) {
+  float* __restrict__ dst = dstm.at(blockIdx.y);
+  const float* __restrict__ src = srcm.at(blockIdx.y);
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < B * C;
+       e += blockDim.x * gridDim.x) {
+    const int b = e / C;
+    const int c = e - b * C;
+    dst[(long long)b * ld + c] += src[e];
+  }
+}
+
+// g = (g + a) + b, each of a and b only where given: the gradients of the
+// second G passes join the main ones in a fixed order.
+__global__ void add_gradients(PerOut gm, PerIn am, PerIn bm, long long n) {
+  float* __restrict__ g = gm.at(blockIdx.y);
+  const float* __restrict__ a = am.p ? am.at(blockIdx.y) : nullptr;
+  const float* __restrict__ b = bm.p ? bm.at(blockIdx.y) : nullptr;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)blockDim.x * gridDim.x) {
+    float v = g[i];
+    if (a) v += a[i];
+    if (b) v += b[i];
+    g[i] = v;
+  }
+}
+
 __global__ void ema_lerp(float* __restrict__ ema, const float* __restrict__ p, long long n,
                          float mu, float one_minus_mu) {
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
@@ -325,6 +387,39 @@ adv_loss_kernel(PerIn zm, int B, PerOut dzm, PerOut rowm) {
   }
   const float total = block_sum(s, red);
   if (threadIdx.x == 0) row[3] = total / B;
+}
+
+// The loss of a second G pass against the first: z2 (B, 4) holds the second
+// head's pre-activation on entry and tanh of it on exit; with p2 its
+// (squashed) output, loss = mean((p2 - pn)^2) over the B x 4 outputs, for
+// cycle and for stability alike.  row[1] += w loss;
+// dz2 = w 2 (p2 - pn) / (4B) dsq (1 - tanh^2), the seed at the second head;
+// dpn -= w 2 (p2 - pn) / (4B), the other side, into the first pass's output.
+__global__ void __launch_bounds__(kThreads)
+second_pass_loss(PerOut z2m, PerIn pnm, PerOut dz2m, PerOut dpnm, PerOut rowm, int B, float w,
+                 int sigmoid) {
+  __shared__ float red[kThreads];
+  const int mem = blockIdx.x;
+  float* __restrict__ z2 = z2m.at(mem);
+  const float* __restrict__ pn = pnm.at(mem);
+  float* __restrict__ dz2 = dz2m.at(mem);
+  float* __restrict__ dpn = dpnm.at(mem);
+  float* row = rowm.at(mem);
+  const float n = (float)B * 4.f;
+  float s = 0.f;
+  for (int e = threadIdx.x; e < B * 4; e += kThreads) {
+    const float tn = tanhf(z2[e]);
+    const float p = sigmoid ? sigmoidf(tn) : tn;
+    const float diff = p - pn[e];
+    s = fmaf(diff, diff, s);
+    const float g = w * 2.f * diff / n;
+    const float dsq = sigmoid ? p * (1.f - p) : 1.f;
+    z2[e] = tn;
+    dz2[e] = g * dsq * (1.f - tn * tn);
+    dpn[e] -= g;
+  }
+  const float total = block_sum(s, red);
+  if (threadIdx.x == 0) row[1] += w * (total / n);
 }
 
 struct GLossCoef {
@@ -478,6 +573,10 @@ g_loss_kernel(PerIn predm, PerIn spectram, PerIn metm, PerIn pnm, PerIn dpphysm,
   }
 }
 
+// Device kernels enqueued by the last call of gan_train_steps in this
+// process (pigan_gan_kernels_enqueued): divided by T, the launches a step.
+long long g_kernels_enqueued = 0;
+
 inline int blocks_for(long long n, int threads, int cap = 1024) {
   long long b = (n + threads - 1) / threads;
   return (int)(b < 1 ? 1 : (b > cap ? cap : b));
@@ -486,12 +585,14 @@ inline int blocks_for(long long n, int threads, int cap = 1024) {
 // T training steps over the state of `members` ensemble members in place:
 // the body of both entry points.  Every operand that differs by member is a
 // Per with that operand's member stride; F's parameters and the schedule
-// are shared.  A step enqueues the same 69 launches (58 detached) whatever
-// `members` is: each launch carries the member on a grid axis.
+// are shared.  A step enqueues the same 69 launches (58 detached; more with
+// the second G passes and instance noise) whatever `members` is: each launch
+// carries the member on a grid axis.  inoise and stab are null when off.
 int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, PerOut d_m,
                     PerOut d_v, PerOut bn1_mean, PerOut bn1_var, PerOut bn2_mean,
                     PerOut bn2_var, const float* f, float* g_ema, PerIn spectra, PerIn params,
-                    PerIn met, const float* sched, PerOut rows, float* work,
+                    PerIn met, PerIn inoise, PerIn stab, const float* sched, PerOut rows,
+                    float* work,
                     long long work_floats, const int* dims, const int* f_dims,
                     int n_f_hidden, const long long* f_offsets, int B, int T,
                     const double* hp, int flags, cudaStream_t st) {
@@ -515,6 +616,10 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
   const int detach = flags & 1;
   const int sigmoid = (flags >> 1) & 1;
   const float ema_decay = (float)hp[12];
+  const float w_cycle = (float)hp[22], w_stab = (float)hp[23];
+  const bool use_cycle = w_cycle != 0.f, use_stab = w_stab != 0.f;
+  const bool use_inoise = inoise.p != nullptr;
+  if (use_stab && stab.p == nullptr) return cudaErrorInvalidValue;
   // the EMA track is the one-member kernel's: an ensemble launch has none
   if (ema_decay > 0.f && (g_ema == nullptr || NM != 1)) return cudaErrorInvalidValue;
 
@@ -566,6 +671,23 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
   PerOut dfin = take((long long)B * 4);
   PerOut gradG = take(Pg);
   PerOut gradD = take(Pd);
+  // only what is on takes room: the D phase's noised input; one set of
+  // activations for the second G passes (cycle's are done with before
+  // stability's begin), cycle's input gradient, a flat gradient for each
+  PerOut x0n, uc2[2], xh2[2], y2[2], a2[2], iv2[2], tn2, dz2, drc, gradC, gradS;
+  if (use_inoise) x0n = take(2LL * B * nd);
+  if (use_cycle || use_stab) {
+    for (int l = 0; l < 2; ++l) {
+      const long long bc = (long long)B * gc[l];
+      uc2[l] = take(bc); xh2[l] = take(bc); y2[l] = take(bc); a2[l] = take(bc);
+      iv2[l] = take(gc[l]);
+    }
+    tn2 = take((long long)B * 4);
+    dz2 = take((long long)B * 4);
+  }
+  if (use_cycle && !detach) drc = take((long long)B * S);
+  if (use_cycle) gradC = take(Pg);
+  if (use_stab) gradS = take(Pg);
   PerOut partial = take(kNormParts);
   if (pos > work_floats) return cudaErrorInvalidValue;
 
@@ -603,7 +725,11 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
     e = (call);                          \
     if (e != cudaSuccess) return (int)e; \
   } while (0)
-#define CHECK_LAUNCH() CHECK(cudaGetLastError())
+#define CHECK_LAUNCH()         \
+  do {                         \
+    ++g_kernels_enqueued;      \
+    CHECK(cudaGetLastError()); \
+  } while (0)
 // launch shapes, the member on the grid's y axis: columns of a (B, C) buffer
 // 64 a block or 256 a block, n elements grid-strided, B rows a block each,
 // one block per member
@@ -612,10 +738,54 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
 #define ELEMS(n) dim3(blocks_for((n), kThreads), NM), kThreads, 0, st
 #define ROWS(R) dim3((R), NM), kThreads, 0, st
 #define ONE() NM, kThreads, 0, st
-#define GEMM(AK, BNC, ...) CHECK((gemm<AK, BNC>(__VA_ARGS__, st, NM)))
+#define GEMM(AK, BNC, ...)                          \
+  do {                                              \
+    ++g_kernels_enqueued;                           \
+    CHECK((gemm<AK, BNC>(__VA_ARGS__, st, NM)));    \
+  } while (0)
 
   const PerIn F(f, 0);
   const PerIn none;
+  g_kernels_enqueued = 0;
+
+  // A second pass of G on x (B rows of S values, ldx apart) with the batch
+  // statistics of that batch, the running stats untouched; its loss against
+  // the first pass (row[1], dpn); its backward into the flat gradient grad2
+  // and, with dx, its input gradient (B, S).  Uses da and dt as scratch.
+  auto second_pass = [&](PerIn x, int ldx, float w, PerOut row, PerOut grad2,
+                         PerOut dx) -> int {
+    GEMM(true, false, B, g1, S, x, ldx, 1, g + gW1, 1, S, uc2[0], g1, g + gb1);
+    bn_forward<<<COLS(g1)>>>(uc2[0], B, g1, g + ggam1, g + gbet1, xh2[0], y2[0], a2[0],
+                             iv2[0], PerOut(), PerOut(), bn_eps, bn_mom, bn_one_minus);
+    CHECK_LAUNCH();
+    GEMM(true, false, B, g2, g1, a2[0], g1, 1, g + gW2, 1, g1, uc2[1], g2, g + gb2);
+    bn_forward<<<COLS(g2)>>>(uc2[1], B, g2, g + ggam2, g + gbet2, xh2[1], y2[1], a2[1],
+                             iv2[1], PerOut(), PerOut(), bn_eps, bn_mom, bn_one_minus);
+    CHECK_LAUNCH();
+    GEMM(true, false, B, 4, g2, a2[1], g2, 1, g + gW3, 1, g2, tn2, 4, g + gb3);
+    second_pass_loss<<<ONE()>>>(tn2, pn, dz2, dpn, row, B, w, sigmoid);
+    CHECK_LAUNCH();
+    GEMM(false, true, 4, g2, B, dz2, 1, 4, a2[1], g2, 1, grad2 + gW3, g2, none);
+    column_sum<<<WIDE(4)>>>(dz2, B, 4, grad2 + gb3);
+    CHECK_LAUNCH();
+    GEMM(true, true, B, g2, 4, dz2, 4, 1, g + gW3, g2, 1, da, g2, none);
+    bn_backward<<<COLS(g2)>>>(da, y2[1], xh2[1], uc2[1], g + ggam2, iv2[1], B, g2, dt,
+                              grad2 + ggam2, grad2 + gbet2);
+    CHECK_LAUNCH();
+    GEMM(false, true, g2, g1, B, dt, 1, g2, a2[0], g1, 1, grad2 + gW2, g1, none);
+    column_sum<<<WIDE(g2)>>>(dt, B, g2, grad2 + gb2);
+    CHECK_LAUNCH();
+    GEMM(true, true, B, g1, g2, dt, g2, 1, g + gW2, g1, 1, da, g1, none);
+    bn_backward<<<COLS(g1)>>>(da, y2[0], xh2[0], uc2[0], g + ggam1, iv2[0], B, g1, dt,
+                              grad2 + ggam1, grad2 + gbet1);
+    CHECK_LAUNCH();
+    GEMM(false, true, g1, S, B, dt, 1, g1, x, ldx, 1, grad2 + gW1, S, none);
+    column_sum<<<WIDE(g1)>>>(dt, B, g1, grad2 + gb1);
+    CHECK_LAUNCH();
+    if (dx.p) GEMM(true, true, B, S, g1, dt, g1, 1, g + gW1, S, 1, dx, S, none);
+    return 0;
+  };
+
   for (int t = 0; t < T; ++t) {
     const PerIn spec_t = spectra + (long long)t * B * S;
     const PerIn par_t = params + (long long)t * B * 4;
@@ -639,7 +809,16 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
     CHECK_LAUNCH();
 
     // ---- D phase on [real; fake] -----------------------------------------
-    GEMM(true, false, 2 * B, d1, nd, x0, nd, 1, d + dW1, 1, nd, p1, d1, d + db1);
+    // with instance noise on a noised copy: the G phase below reads x0's
+    // fake rows, which stay clean
+    PerIn xd = x0;
+    if (use_inoise) {
+      add_instance_noise<<<ELEMS(2LL * B * nd)>>>(x0, inoise + (long long)t * 2 * B * S, x0n,
+                                                  2 * B, S);
+      CHECK_LAUNCH();
+      xd = x0n;
+    }
+    GEMM(true, false, 2 * B, d1, nd, xd, nd, 1, d + dW1, 1, nd, p1, d1, d + db1);
     leaky_forward<<<ELEMS(2LL * B * d1)>>>(p1, h1, 2LL * B * d1, slope);
     CHECK_LAUNCH();
     GEMM(true, false, 2 * B, d2, d1, h1, d1, 1, d + dW2, 1, d1, p2, d2, d + db2);
@@ -660,7 +839,7 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
       GEMM(true, true, 2 * B, d1, d2, dp2, d2, 1, d + dW2, d1, 1, dp1, d1, none);
       leaky_backward<<<ELEMS(2LL * B * d1)>>>(dp1, p1, 2LL * B * d1, slope);
       CHECK_LAUNCH();
-      GEMM(false, true, d1, nd, 2 * B, dp1, 1, d1, x0, nd, 1, gradD + dW1, nd, none);
+      GEMM(false, true, d1, nd, 2 * B, dp1, 1, d1, xd, nd, 1, gradD + dW1, nd, none);
       column_sum<<<WIDE(d1)>>>(dp1, 2 * B, d1, gradD + db1);
       CHECK_LAUNCH();
       sumsq_partial<<<ROWS(kNormParts)>>>(gradD, Pd, partial);
@@ -711,6 +890,22 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
     g_loss_kernel<<<ONE()>>>(pred, spec_t, met_t, pn, dpphys, dpn, dpred, row, B, S, gk);
     CHECK_LAUNCH();
 
+    // ---- the second G passes: cycle on F's spectrum, stability on the
+    // noised stream; both before F's backward, which carries cycle's input
+    // gradient on ----------------------------------------------------------
+    if (use_cycle) {
+      const int rc = second_pass(pred, D, w_cycle, row, gradC, detach ? PerOut() : drc);
+      if (rc != 0) return rc;
+      if (!detach) {
+        add_columns<<<ELEMS((long long)B * S)>>>(dpred, D, drc, B, S);
+        CHECK_LAUNCH();
+      }
+    }
+    if (use_stab) {
+      const int rc = second_pass(stab + (long long)t * B * S, S, w_stab, row, gradS, PerOut());
+      if (rc != 0) return rc;
+    }
+
     // ---- through F's input ---------------------------------------------------
     if (!detach) {
       GEMM(true, true, B, dh, D, dpred, D, 1, F + oh[0], dh, 1, da, dh, none);
@@ -745,6 +940,11 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
     GEMM(false, true, g1, S, B, dt, 1, g1, spec_t, S, 1, gradG + gW1, S, none);
     column_sum<<<WIDE(g1)>>>(dt, B, g1, gradG + gb1);
     CHECK_LAUNCH();
+    if (use_cycle || use_stab) {
+      // G's gradient is the sum over its passes: main, cycle, stability
+      add_gradients<<<ELEMS(Pg)>>>(gradG, gradC, gradS, Pg);
+      CHECK_LAUNCH();
+    }
     sumsq_partial<<<ROWS(kNormParts)>>>(gradG, Pg, partial);
     CHECK_LAUNCH();
     ak.lr = sc[0];
@@ -773,6 +973,10 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
 
 extern "C" {
 
+// The number of device kernels the last pigan_gan_train or
+// pigan_gan_ensemble_train call of this process enqueued.
+long long pigan_gan_kernels_enqueued() { return g_kernels_enqueued; }
+
 // T training steps over one state in place (K2).
 //   g, g_m, g_v    (Pg,) device, updated; layout W1 b1 gamma1 beta1 W2 b2
 //                  gamma2 beta2 W3 b3, each W as (out, in)
@@ -781,6 +985,9 @@ extern "C" {
 //   f              F's parameters in forward_train.cu's layout, read only
 //   g_ema          (Pg,) device, updated when hp[12] > 0, else unused
 //   spectra, params, met   (T, B, S), (T, B, 4) physical, (T, B, 8) device
+//   inoise         (T, 2B, S) device, the D phase's instance noise, or null
+//   stab           (T, B, S) device, the noised spectra of the stability
+//                  pass; needed when hp[23] > 0, else null
 //   sched          (T, 8) host: lr_g lr_d inv1_g inv2_g inv1_d inv2_d d_gate c_scale
 //   rows           (T, 11) device out: d_loss g_loss d_accuracy adv recon
 //                  metrics maxwell lc range violation_rate constraint
@@ -789,17 +996,19 @@ extern "C" {
 //   f_dims         n_f_hidden + 2 widths of F (host); f_offsets 4 per layer
 //   hp             host: w_adv w_recon w_pmet w_maxwell w_lc w_range
 //                  w_constraint w_window range_lo range_hi label_real
-//                  label_fake ema_decay clip lo[4] hi[4]
+//                  label_fake ema_decay clip lo[4] hi[4] w_cycle w_stability
 //   flags          bit 0 detach_forward, bit 1 sigmoid_squash
 int pigan_gan_train(float* g, float* g_m, float* g_v, float* d, float* d_m, float* d_v,
                     float* bn1_mean, float* bn1_var, float* bn2_mean, float* bn2_var,
                     const float* f, float* g_ema, const float* spectra,
-                    const float* params, const float* met, const float* sched,
+                    const float* params, const float* met, const float* inoise,
+                    const float* stab, const float* sched,
                     float* rows, float* work, long long work_floats, const int* dims,
                     const int* f_dims, int n_f_hidden, const long long* f_offsets, int B,
                     int T, const double* hp, int flags, void* stream_ptr) {
   return gan_train_steps(1, g, g_m, g_v, d, d_m, d_v, bn1_mean, bn1_var, bn2_mean, bn2_var, f,
-                         g_ema, spectra, params, met, sched, rows, work, work_floats, dims,
+                         g_ema, spectra, params, met, inoise, stab, sched, rows, work,
+                         work_floats, dims,
                          f_dims, n_f_hidden, f_offsets, B, T, hp, flags,
                          (cudaStream_t)stream_ptr);
 }
@@ -810,6 +1019,7 @@ int pigan_gan_train(float* g, float* g_m, float* g_v, float* d, float* d_m, floa
 //   g, g_m, g_v    (members, Pg);  d, d_m, d_v  (members, Pd)
 //   bn1_mean, bn1_var (members, g1);  bn2_mean, bn2_var (members, g2)
 //   spectra, params, met   (members, T, B, S), (members, T, B, 4), (members, T, B, 8)
+//   inoise, stab   (members, T, 2B, S), (members, T, B, S), or null
 //   rows           (members, T, 11) out
 //   work           members x work_floats floats: work_floats is one member's
 // and shared by all members: f, sched (all members sit at the same step and
@@ -818,6 +1028,7 @@ int pigan_gan_ensemble_train(int members, float* g, float* g_m, float* g_v, floa
                              float* d_m, float* d_v, float* bn1_mean, float* bn1_var,
                              float* bn2_mean, float* bn2_var, const float* f,
                              const float* spectra, const float* params, const float* met,
+                             const float* inoise, const float* stab,
                              const float* sched, float* rows, float* work,
                              long long work_floats, const int* dims, const int* f_dims,
                              int n_f_hidden, const long long* f_offsets, int B, int T,
@@ -831,7 +1042,9 @@ int pigan_gan_ensemble_train(int members, float* g, float* g_m, float* g_v, floa
       members, PerOut(g, Pg), PerOut(g_m, Pg), PerOut(g_v, Pg), PerOut(d, Pd), PerOut(d_m, Pd),
       PerOut(d_v, Pd), PerOut(bn1_mean, g1), PerOut(bn1_var, g1), PerOut(bn2_mean, g2),
       PerOut(bn2_var, g2), f, nullptr, PerIn(spectra, TB * S), PerIn(params, TB * 4),
-      PerIn(met, TB * 8), sched, PerOut(rows, (long long)T * kRowWidth), work, work_floats,
+      PerIn(met, TB * 8), inoise ? PerIn(inoise, 2 * TB * S) : PerIn(),
+      stab ? PerIn(stab, TB * S) : PerIn(), sched,
+      PerOut(rows, (long long)T * kRowWidth), work, work_floats,
       dims, f_dims, n_f_hidden, f_offsets, B, T, hp, flags, (cudaStream_t)stream_ptr);
 }
 

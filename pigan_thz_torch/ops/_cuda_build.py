@@ -64,12 +64,12 @@ ENTRY_POINTS = {
         ctypes.POINTER(ctypes.c_double), _U32, _P,
     ],
     "pigan_gan_train": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         ctypes.POINTER(ctypes.c_float), _P, _P, ctypes.c_longlong, _DIMS, _DIMS, _I,
         _OFFSETS, _I, _I, ctypes.POINTER(ctypes.c_double), _I, _P,
     ],
     "pigan_gan_ensemble_train": [
-        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         ctypes.POINTER(ctypes.c_float), _P, _P, ctypes.c_longlong, _DIMS, _DIMS, _I,
         _OFFSETS, _I, _I, ctypes.POINTER(ctypes.c_double), _I, _P,
     ],
@@ -142,6 +142,8 @@ def load_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.pigan_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pigan_cuda_error_string.restype = ctypes.c_char_p
+    lib.pigan_gan_kernels_enqueued.argtypes = []
+    lib.pigan_gan_kernels_enqueued.restype = ctypes.c_longlong
     return lib
 
 

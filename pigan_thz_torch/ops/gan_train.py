@@ -26,19 +26,37 @@ stream over the state's flat buffers in place.  Per step, at batch B:
   side, range, constraint), and, unless ``detach_forward``, the ones that
   reach G through F's input (recon, metrics, Maxwell, LC's F side, window);
   G's backward with the BatchNorm backward; clip and Adam over G's ten
-  tensors; the EMA of G's parameters when ``ema_decay`` > 0.
+  tensors; the EMA of G's parameters when ``ema_decay`` > 0;
+- the second G passes (megakernel.py:1179-1242, :1274-1375): with
+  ``cycle_w`` > 0 G runs again on F's spectrum, with ``stability_w`` > 0 on
+  the noised spectra stream, each time with the batch statistics of that
+  batch (the running stats stay), its own saved activations and the full
+  BatchNorm backward.  The loss w · mean((second − first)²) over the four
+  outputs joins ``g_loss``; it seeds the second pass's head and, with the
+  other sign, the first pass's output.  G's gradient is the sum over its
+  passes, added in a fixed order (main, cycle, stability).  Cycle's input
+  gradient joins the spectrum columns of F's output gradient before F's
+  backward, unless ``detach_forward``; stability's is dropped;
+- instance noise: a (2B, S) stream added to the spectrum columns of D's
+  input in the D phase only; the G phase's adversarial pass reads the clean
+  fake rows.
 
 Everything the kernel reads besides the state is built outside it
 (``build_streams``, the TPU kernel's ``_build_streams``): the gathered
-batches of every step of the chunk and the per-step schedule lanes lr_g,
-lr_d, the two bias corrections of each optimiser at that optimiser's own
-count, ``d_gate`` and the epoch's constraint scale.
+batches of every step of the chunk, augmented when the augmentation knobs
+are on (the recon target then is the augmented batch); the instance-noise
+stream and the noised spectra of the stability pass; and the per-step
+schedule lanes lr_g, lr_d, the two bias corrections of each optimiser at
+that optimiser's own count, ``d_gate`` and the epoch's constraint scale.
+The noise is drawn step by step as the eager step draws it
+(``train/steps.py``: a CPU generator seeded with the step's seed;
+augmentation, instance noise, stability noise), so one seed gives the eager
+step and the kernel the same step.
 
 What the kernel does not take yet is a reason of ``supports_gan_kernel`` and
 raises ``NotImplementedError`` from ``gan_train_spec``, with the ROADMAP.md
-row it waits for: ``wgan_gp``,
-``stability_w``, ``cycle_w``, ``instance_noise``, the augmentation knobs and
-``compute_dtype="bfloat16"`` (the eager step has them all).
+row it waits for: ``gan_loss="wgan_gp"`` and ``compute_dtype="bfloat16"``
+(the eager step has both).
 
 ``gan_train`` is the wrapper: for CUDA tensors it launches the kernel or
 raises, for CPU tensors it runs ``gan_train_plain`` (the kernel's math in
@@ -60,8 +78,10 @@ multi-epoch function.  Member m's rows and state are bit for bit those of
 ``gan_train`` on that member alone with the same streams.  It takes what
 ``gan_train`` takes, less the EMA.  What bounds M is memory: a chunk's
 streams are M x E x spe x B x 262 floats on the card (25 MB a member at
-25 epochs of 15 steps, B = 64) beside ~13 MB a member of state, gradients
-and scratch.  From M = 4 on the members' working sets no longer fit the
+25 epochs of 15 steps, B = 64), and with instance noise and stability on
+up to M x E x spe x 3B x S floats more (18 M floats, 72 MB, a member there:
+288 MB at M = 4), beside ~13 MB a member of state, gradients and scratch
+(~17 MB with both second passes).  From M = 4 on the members' working sets no longer fit the
 50 MB L2 together; the kernel's time does not show it (PERF.md).
 """
 
@@ -137,10 +157,6 @@ def supports_gan_kernel(cfg: PiGanConfig, settings) -> str | None:
     gaps = [name for name, on in (
         ("compute_dtype='bfloat16'", cfg.train.compute_dtype == "bfloat16"),
         ("gan_loss='wgan_gp'", s.gan_loss == "wgan_gp"),
-        ("stability_w > 0", float(s.stability_w) > 0.0),
-        ("cycle_w > 0", float(s.cycle_w) > 0.0),
-        ("instance_noise > 0", float(s.instance_noise) > 0.0),
-        ("data augmentation", s.augment_noise or s.augment_shift or s.augment_scale),
     ) if on]
     if gaps:
         return f"the kernel does not take {', '.join(gaps)} yet ({_NOT_IN_KERNEL})"
@@ -195,6 +211,9 @@ class GanTrainSpec:
     sigmoid_squash: bool = False
     ema_decay: float = 0.0
     clip: float = 1.0
+    cycle_w: float = 0.0             # second G pass on F's spectrum
+    stability_w: float = 0.0         # second G pass on the noised stream
+    use_inoise: bool = False         # the D phase reads the instance-noise stream
 
     @property
     def g_dims(self) -> tuple[int, ...]:
@@ -285,6 +304,8 @@ def gan_train_spec(cfg: PiGanConfig, settings) -> GanTrainSpec:
         label_real=float(s.label_real), label_fake=float(s.label_fake),
         detach_forward=bool(s.detach_forward), sigmoid_squash=bool(s.sigmoid_squash),
         ema_decay=float(s.ema_decay), clip=float(cfg.train.grad_clip),
+        cycle_w=float(s.cycle_w), stability_w=float(s.stability_w),
+        use_inoise=float(s.instance_noise) > 0.0,
     )
 
 
@@ -315,21 +336,62 @@ def state_buffers(state) -> GanBuffers:
 
 
 class GanStreams(NamedTuple):
-    """One chunk's inputs, T = E · spe steps.  For an ensemble the three
-    batch streams carry a leading member axis, (M, T, B, ·); the schedule
-    and the bounds are shared."""
+    """One chunk's inputs, T = E · spe steps.  For an ensemble the batch
+    and noise streams carry a leading member axis, (M, T, B, ·); the
+    schedule and the bounds are shared."""
 
-    spectra: torch.Tensor       # (T, B, S) on the state's device
+    spectra: torch.Tensor       # (T, B, S) on the state's device; augmented when on
     params: torch.Tensor        # (T, B, 4) physical units
     metrics_norm: torch.Tensor  # (T, B, 8)
     sched: torch.Tensor         # (T, 8) float32 on the CPU: SCHED_LANES
     param_lo: torch.Tensor      # (4,) float32 on the CPU
     param_hi: torch.Tensor      # (4,)
+    inoise: torch.Tensor | None = None   # (T, 2B, S) sigma · N(0, 1), the D phase's
+    stab: torch.Tensor | None = None     # (T, B, S) spectra + sigma · N(0, 1)
+
+
+def _noise_streams(spectra: torch.Tensor, seeds: torch.Tensor, settings, draws):
+    """One member's stochastic streams from its gathered (T, B, S) spectra:
+    (spectra, augmented when on; inoise or None; stab or None).  Step t
+    draws from a CPU generator seeded with ``seeds[t]`` in the eager step's
+    order (``train/steps.py``): the augmentation, the instance noise, the
+    stability noise; ``draws[t]`` may give the two noises at unit scale
+    instead, as it may give them to the eager step."""
+    from .augment import augment_spectra
+
+    steps, batch, width = spectra.shape
+    dev = spectra.device
+    sigma_in, sigma_st = float(settings.instance_noise), float(settings.stability_noise)
+    use_in, use_st = sigma_in > 0.0, float(settings.stability_w) > 0.0
+    augmented, inoise, stab_noise = [], [], []
+    for t in range(steps):
+        gen = torch.Generator().manual_seed(int(seeds[t]))
+        given = {} if draws is None else draws[t]
+
+        def draw(name, shape):
+            if name in given:
+                return given[name].to("cpu", torch.float32)
+            return torch.randn(shape, generator=gen)
+
+        if settings.augments:
+            augmented.append(augment_spectra(
+                gen, spectra[t], noise_level=settings.augment_noise,
+                freq_shift=settings.augment_shift, amp_scale=settings.augment_scale))
+        if use_in:
+            inoise.append(sigma_in * draw("instance_noise", (2 * batch, width)))
+        if use_st:
+            stab_noise.append(sigma_st * draw("stability_noise", (batch, width)))
+    if settings.augments:
+        spectra = torch.stack(augmented).contiguous()
+    return (spectra,
+            torch.stack(inoise).to(dev).contiguous() if use_in else None,
+            (spectra + torch.stack(stab_noise).to(dev)).contiguous() if use_st else None)
 
 
 def build_streams(ds: ThzDataset, indices: torch.Tensor, scales: torch.Tensor,
                   step: int, g_count: int, d_count: int, d_update_every: int,
-                  g_schedule, d_schedule) -> GanStreams:
+                  g_schedule, d_schedule, *, settings=None,
+                  seeds: torch.Tensor | None = None, draws=None) -> GanStreams:
     """Gather every step's batch and precompute the per-step schedule lanes
     of a chunk that starts at global step ``step`` with the optimisers at
     ``g_count`` and ``d_count``.  G and D count separately: with
@@ -337,7 +399,13 @@ def build_streams(ds: ThzDataset, indices: torch.Tensor, scales: torch.Tensor,
     global step divides by k (``d_gate`` 1), so its learning rate and bias
     corrections are read at the number of updates it has really taken.
     ``indices`` is (E, spe, B), or (M, E, spe, B) for M ensemble members at
-    the same counts: the batch streams then are (M, T, B, ·)."""
+    the same counts: the batch streams then are (M, T, B, ·).
+
+    With ``settings`` (a ``StepSettings``) whose augmentation, instance
+    noise or stability term is on, the spectra stream is the augmented one
+    and the ``inoise`` / ``stab`` streams are built, from ``seeds`` (T,) or
+    (M, T), the chunk's step seeds, and optionally ``draws``, one mapping
+    per step (per member a sequence of them): see ``_noise_streams``."""
     epochs, spe, batch = indices.shape[-3:]
     steps = epochs * spe
     idx = indices.reshape(*indices.shape[:-3], steps, batch).to(ds.spectra.device)
@@ -358,10 +426,28 @@ def build_streams(ds: ThzDataset, indices: torch.Tensor, scales: torch.Tensor,
         gate.to(torch.float32),
         torch.repeat_interleave(torch.as_tensor(scales, dtype=torch.float32).cpu(), spe),
     ], dim=1)
+    spectra, inoise, stab = ds.spectra[idx].contiguous(), None, None
+    if settings is not None and (settings.augments or float(settings.instance_noise) > 0.0
+                                 or float(settings.stability_w) > 0.0):
+        if seeds is None:
+            raise ValueError("build_streams: the stochastic settings need the steps' seeds")
+        seeds = torch.as_tensor(seeds, dtype=torch.int64).cpu()
+        if tuple(seeds.shape) != tuple(idx.shape[:-1]):
+            raise ValueError(f"seeds {tuple(seeds.shape)}, expected {tuple(idx.shape[:-1])}")
+        if idx.ndim == 2:
+            spectra, inoise, stab = _noise_streams(spectra, seeds, settings, draws)
+        else:
+            per = [_noise_streams(spectra[m], seeds[m], settings,
+                                  None if draws is None else draws[m])
+                   for m in range(idx.shape[0])]
+            spectra, inoise, stab = (
+                None if col[0] is None else torch.stack(col).contiguous()
+                for col in zip(*per))
     return GanStreams(
-        ds.spectra[idx].contiguous(), ds.params[idx].contiguous(),
+        spectra, ds.params[idx].contiguous(),
         ds.metrics_norm[idx].contiguous(), sched.contiguous(),
-        ds.param_lo.to("cpu", torch.float32), ds.param_hi.to("cpu", torch.float32))
+        ds.param_lo.to("cpu", torch.float32), ds.param_hi.to("cpu", torch.float32),
+        inoise, stab)
 
 
 def to_double(x):
@@ -455,7 +541,9 @@ def _leaky(x):
 
 
 def _leaky_mask(x):
-    return torch.where(x >= 0.0, 1.0, _SLOPE)
+    # in x's own type: two Python scalars would make a float32 mask, whose
+    # 0.2 is 1.5e-8 off in the float64 mode
+    return torch.where(x >= 0.0, torch.ones_like(x), torch.full_like(x, _SLOPE))
 
 
 def _bn_forward(u, gamma, beta):
@@ -501,12 +589,28 @@ def _clip_adam_(p, m, v, g, lr, inv1, inv2, clip):
     p.sub_(lr * (m * inv1) / (torch.sqrt(v * inv2) + _EPS))
 
 
+# Deliberately wrong variants of the plain version, one per path: a check
+# that holds the kernel (or the eager step) against the plain version must
+# fail against each, else it could not have seen that fault in the kernel.
+FAULTS = (
+    "second_pass_moves_running_stats",   # a second G pass updates the BatchNorm stats
+    "cycle_seed_dropped",                # cycle's adjoint into the first pass's output
+    "stability_seed_dropped",            # stability's adjoint into the first pass's output
+    "drecon_c_when_detached",            # cycle's input gradient through F although detached
+    "noised_fake_rows",                  # the G phase reads the D phase's noised fake rows
+)
+
+
 @torch.no_grad()
-def gan_train_plain(bufs: GanBuffers, streams: GanStreams,
-                    spec: GanTrainSpec) -> torch.Tensor:
+def gan_train_plain(bufs: GanBuffers, streams: GanStreams, spec: GanTrainSpec,
+                    faults: Sequence[str] = ()) -> torch.Tensor:
     """The kernel's math in torch ops, with its hand-derived backward and no
     autograd: T steps over ``bufs`` in place.  Returns the (T, 11) per-step
-    rows: ``METRIC_KEYS`` then ``constraint_loss`` (0 when off)."""
+    rows: ``METRIC_KEYS`` then ``constraint_loss`` (0 when off).  ``faults``
+    (names of ``FAULTS``) makes it wrong on purpose, for checks of checks."""
+    unknown = set(faults) - set(FAULTS)
+    if unknown:
+        raise ValueError(f"unknown faults {sorted(unknown)}: use {FAULTS}")
     steps, B, S = streams.spectra.shape
     dev = bufs.g.device
     fs = spec.f_spec
@@ -525,6 +629,47 @@ def gan_train_plain(bufs: GanBuffers, streams: GanStreams,
     half_span = (hi - lo) * 0.5
     labels = torch.cat([torch.full((B, 1), spec.label_real, dtype=dtype, device=dev),
                         torch.full((B, 1), spec.label_fake, dtype=dtype, device=dev)])
+
+    def update_running_stats(mu1, var1, mu2, var2):
+        rm1.copy_(_BN_MOM * rm1 + (1.0 - _BN_MOM) * mu1[0])
+        rv1.copy_(_BN_MOM * rv1 + (1.0 - _BN_MOM) * var1[0])
+        rm2.copy_(_BN_MOM * rm2 + (1.0 - _BN_MOM) * mu2[0])
+        rv2.copy_(_BN_MOM * rv2 + (1.0 - _BN_MOM) * var2[0])
+
+    def second_pass(x, pn, weight):
+        """G again on ``x`` with that batch's statistics, against the first
+        pass's output ``pn``: (loss, its adjoint at the second output (the
+        first output takes the negative), the flat gradient of G's tensors,
+        the input gradient)."""
+        u1 = x @ gW1.T + gb1
+        mu1, var1, iv1, xh1, y1, a1 = _bn_forward(u1, gam1, bet1)
+        u2 = a1 @ gW2.T + gb2
+        mu2, var2, iv2, xh2, y2, a2 = _bn_forward(u2, gam2, bet2)
+        if "second_pass_moves_running_stats" in faults:
+            update_running_stats(mu1, var1, mu2, var2)
+        tn2 = torch.tanh(a2 @ gW3.T + gb3)
+        p2 = torch.sigmoid(tn2) if spec.sigmoid_squash else tn2
+        diff = p2 - pn
+        loss = torch.sum(diff * diff) / (B * 4)
+        adj = weight * 2.0 * diff / (B * 4)
+        dsq2 = p2 * (1.0 - p2) if spec.sigmoid_squash else 1.0
+        dz = adj * dsq2 * (1.0 - tn2 * tn2)
+        grad = torch.empty_like(bufs.g)
+        hW1, hb1, hgam1, hbet1, hW2, hb2, hgam2, hbet2, hW3, hb3 = spec.g_views(grad)
+        hW3.copy_(dz.T @ a2)
+        hb3.copy_(dz.sum(dim=0))
+        du2, dg2, dbt2 = _bn_backward(dz @ gW3, y2, xh2, u2 - mu2, iv2, gam2)
+        hgam2.copy_(dg2)
+        hbet2.copy_(dbt2)
+        hW2.copy_(du2.T @ a1)
+        hb2.copy_(du2.sum(dim=0))
+        du1, dg1, dbt1 = _bn_backward(du2 @ gW2, y1, xh1, u1 - mu1, iv1, gam1)
+        hgam1.copy_(dg1)
+        hbet1.copy_(dbt1)
+        hW1.copy_(du1.T @ x)
+        hb1.copy_(du1.sum(dim=0))
+        return loss, adj, grad, du1 @ gW1
+
     for t in range(steps):
         lr_g, lr_d, inv1_g, inv2_g, inv1_d, inv2_d, d_gate, c_scale = sched[t]
         spectra, params_phys, met = streams.spectra[t], streams.params[t], streams.metrics_norm[t]
@@ -537,14 +682,17 @@ def gan_train_plain(bufs: GanBuffers, streams: GanStreams,
         tn = torch.tanh(a2 @ gW3.T + gb3)
         pn = torch.sigmoid(tn) if spec.sigmoid_squash else tn
         pphys = (pn + 1.0) * 0.5 * (hi - lo) + lo
-        rm1.copy_(_BN_MOM * rm1 + (1.0 - _BN_MOM) * mu1[0])
-        rv1.copy_(_BN_MOM * rv1 + (1.0 - _BN_MOM) * var1[0])
-        rm2.copy_(_BN_MOM * rm2 + (1.0 - _BN_MOM) * mu2[0])
-        rv2.copy_(_BN_MOM * rv2 + (1.0 - _BN_MOM) * var2[0])
+        update_running_stats(mu1, var1, mu2, var2)
 
         # ---- D phase on [real; fake] --------------------------------------
         fake_in = torch.cat([spectra, pphys], dim=1)
         x0 = torch.cat([torch.cat([spectra, params_phys], dim=1), fake_in], dim=0)
+        if spec.use_inoise:
+            # on the spectrum columns, for this phase only: the G phase below
+            # reads the clean fake rows
+            x0 = torch.cat([x0[:, :S] + streams.inoise[t], x0[:, S:]], dim=1)
+            if "noised_fake_rows" in faults:
+                fake_in = x0[B:]
         p1 = x0 @ dW1.T + db1
         h1 = _leaky(p1)
         p2 = h1 @ dW2.T + db2
@@ -647,6 +795,39 @@ def gan_train_plain(bufs: GanBuffers, streams: GanStreams,
                                  + torch.clamp(_F_LO - f1, min=0.0))
             g_loss = g_loss + spec.window_w * window_l
 
+        def f_backward(dpred):
+            """d(loss)/d(F's input) from d(loss)/d(F's output)."""
+            da = dpred @ Wh
+            for l in range(nh - 1, -1, -1):
+                W, _, gamma, _ = fs.views(bufs.f, l)
+                tc, ivar, ln = saved[l]
+                dxh = da * _leaky_mask(ln) * gamma
+                dvar = torch.sum(dxh * tc, dim=-1, keepdim=True) * (-0.5) * ivar * ivar * ivar
+                dt = dxh * ivar
+                dt = dt - dt.mean(dim=-1, keepdim=True) + dvar * 2.0 * tc / tc.shape[1]
+                da = dt @ W
+            return da
+
+        # ---- the second G passes: cycle on F's spectrum, stability on the
+        # noised stream; G's gradient is the sum over its passes ------------
+        extra_grads = []
+        drecon_c = None
+        if spec.cycle_w:
+            cycle_l, adj, grad_c, drecon_c = second_pass(recon, pn, spec.cycle_w)
+            g_loss = g_loss + spec.cycle_w * cycle_l
+            if "cycle_seed_dropped" not in faults:
+                dpn = dpn - adj
+            extra_grads.append(grad_c)
+            if spec.detach_forward and "drecon_c_when_detached" in faults:
+                zeros = torch.zeros((B, 8), dtype=dtype, device=dev)
+                dpn = dpn + f_backward(torch.cat([drecon_c, zeros], dim=1))
+        if spec.stability_w:
+            stab_l, adj, grad_s, _ = second_pass(streams.stab[t], pn, spec.stability_w)
+            g_loss = g_loss + spec.stability_w * stab_l
+            if "stability_seed_dropped" not in faults:
+                dpn = dpn - adj
+            extra_grads.append(grad_s)
+
         # ---- adjoints that reach G through F's input ----------------------
         if not spec.detach_forward:
             dmet = spec.pmet_w * 2.0 * dm / (B * 8)
@@ -660,16 +841,9 @@ def gan_train_plain(bufs: GanBuffers, streams: GanStreams,
             sh1 = torch.nn.functional.pad(d2p[:, :-1], (1, 0))
             sh2 = torch.nn.functional.pad(d2p[:, :-2], (2, 0))
             drecon = drecon + (spec.maxwell_w * 2.0 / (B * (S - 2))) * (d2p - 2.0 * sh1 + sh2)
-            da = torch.cat([drecon, dmet], dim=1) @ Wh
-            for l in range(nh - 1, -1, -1):
-                W, _, gamma, _ = fs.views(bufs.f, l)
-                tc, ivar, ln = saved[l]
-                dxh = da * _leaky_mask(ln) * gamma
-                dvar = torch.sum(dxh * tc, dim=-1, keepdim=True) * (-0.5) * ivar * ivar * ivar
-                dt = dxh * ivar
-                dt = dt - dt.mean(dim=-1, keepdim=True) + dvar * 2.0 * tc / tc.shape[1]
-                da = dt @ W
-            dpn = dpn + da                                     # F's input is pn
+            if drecon_c is not None:
+                drecon = drecon + drecon_c     # cycle's second pass read recon
+            dpn = dpn + f_backward(torch.cat([drecon, dmet], dim=1))   # F's input is pn
 
         # ---- G backward -----------------------------------------------------
         dsq = pn * (1.0 - pn) if spec.sigmoid_squash else 1.0
@@ -686,6 +860,8 @@ def gan_train_plain(bufs: GanBuffers, streams: GanStreams,
         gbet1.copy_(dbt1)
         ggW1.copy_(du1.T @ spectra)
         ggb1.copy_(du1.sum(dim=0))
+        for extra in extra_grads:              # main, then cycle, then stability
+            g_grad.add_(extra)
         _clip_adam_(bufs.g, bufs.g_m, bufs.g_v, g_grad, lr_g, inv1_g, inv2_g, spec.clip)
         if spec.ema_decay > 0.0:
             bufs.g_ema.copy_(spec.ema_decay * bufs.g_ema + (1.0 - spec.ema_decay) * bufs.g)
@@ -727,6 +903,22 @@ def workspace_layout(spec: GanTrainSpec, batch: int) -> list[tuple[str, int]]:
     out += [("da", widest), ("dln", widest), ("dt", widest)]
     out += [("dfin", B * 4)]                               # d(loss)/d(F's input)
     out += [("grad_g", spec.num_g), ("grad_d", spec.num_d)]
+    # only what is on takes room: the D phase's noised input; one set of
+    # activations for the second G passes (cycle's are done with before
+    # stability's begin), cycle's input gradient, a flat gradient for each
+    if spec.use_inoise:
+        out += [("x0n", 2 * B * (S + 4))]
+    if spec.cycle_w or spec.stability_w:
+        for l, c in enumerate((g1, g2)):
+            out += [(f"uc{l}_2", B * c), (f"xh{l}_2", B * c), (f"y{l}_2", B * c),
+                    (f"a{l}_2", B * c), (f"iv{l}_2", c)]
+        out += [("tn_2", B * 4), ("dz_2", B * 4)]
+    if spec.cycle_w and not spec.detach_forward:
+        out += [("drecon_c", B * S)]
+    if spec.cycle_w:
+        out += [("grad_cycle", spec.num_g)]
+    if spec.stability_w:
+        out += [("grad_stability", spec.num_g)]
     out += [("norm_partials", _NORM_PARTS)]
     return out
 
@@ -777,6 +969,13 @@ def _check(bufs: GanBuffers, streams: GanStreams, spec: GanTrainSpec,
     tensors["stream spectra"] = (streams.spectra, (*lead, steps, batch, spec.spectrum_dim))
     tensors["stream params"] = (streams.params, (*lead, steps, batch, 4))
     tensors["stream metrics_norm"] = (streams.metrics_norm, (*lead, steps, batch, 8))
+    for name, t, on, rows in (("inoise", streams.inoise, spec.use_inoise, 2 * batch),
+                              ("stab", streams.stab, spec.stability_w > 0.0, batch)):
+        if on != (t is not None):
+            raise ValueError(f"{who}: stream {name} is {'missing' if on else 'given'} but "
+                             f"the spec has it {'on' if on else 'off'}")
+        if on:
+            tensors[f"stream {name}"] = (t, (*lead, steps, rows, spec.spectrum_dim))
     for name, (t, shape) in tensors.items():
         if t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"{who}: {name} must be contiguous float32 {shape}, "
@@ -823,6 +1022,17 @@ def gan_train(bufs: GanBuffers, streams: GanStreams, spec: GanTrainSpec,
     return rows
 
 
+def kernels_enqueued() -> int:
+    """The device kernels that this process's last ``gan_train`` or
+    ``gan_ensemble_train`` launch enqueued, as the C loop counted them: over
+    the call's steps, the launches a step (69 through F and 58 detached;
+    +19 with cycle through F, +17 with stability, +1 with instance noise;
+    a step whose D update is gated off enqueues 11 fewer)."""
+    from ._cuda_build import load_library
+
+    return int(load_library().pigan_gan_kernels_enqueued())
+
+
 def _state_pointers(bufs: GanBuffers) -> list[int]:
     return [t.data_ptr() for t in (bufs.g, bufs.g_m, bufs.g_v, bufs.d, bufs.d_m, bufs.d_v,
                                    *bufs.bn)]
@@ -838,11 +1048,14 @@ def _stream_arguments(streams: GanStreams, spec: GanTrainSpec, rows, work, n_wor
     hp = (spec.adv_w, spec.recon_w, spec.pmet_w, spec.maxwell_w, spec.lc_w, spec.range_w,
           spec.constraint_w, spec.window_w, spec.range_lo, spec.range_hi,
           spec.label_real, spec.label_fake, spec.ema_decay, spec.clip,
-          *streams.param_lo.tolist(), *streams.param_hi.tolist())
+          *streams.param_lo.tolist(), *streams.param_hi.tolist(),
+          spec.cycle_w, spec.stability_w)
     flags = int(spec.detach_forward) | (int(spec.sigmoid_squash) << 1)
     return (
         streams.spectra.data_ptr(), streams.params.data_ptr(),
         streams.metrics_norm.data_ptr(),
+        None if streams.inoise is None else streams.inoise.data_ptr(),
+        None if streams.stab is None else streams.stab.data_ptr(),
         (ctypes.c_float * len(sched))(*sched),
         rows.data_ptr(), work.data_ptr(), n_work,
         (ctypes.c_int * len(dims))(*dims),
@@ -871,8 +1084,11 @@ def _member(bufs: GanBuffers, streams: GanStreams, m: int) -> tuple[GanBuffers, 
     """Member m's rows of stacked buffers and streams, as views."""
     one = GanBuffers(bufs.g[m], bufs.g_m[m], bufs.g_v[m], bufs.d[m], bufs.d_m[m], bufs.d_v[m],
                      tuple(t[m] for t in bufs.bn), bufs.f, None)
-    return one, streams._replace(spectra=streams.spectra[m], params=streams.params[m],
-                                 metrics_norm=streams.metrics_norm[m])
+    return one, streams._replace(
+        spectra=streams.spectra[m], params=streams.params[m],
+        metrics_norm=streams.metrics_norm[m],
+        inoise=None if streams.inoise is None else streams.inoise[m],
+        stab=None if streams.stab is None else streams.stab[m])
 
 
 def gan_ensemble_train_plain(bufs: GanBuffers, streams: GanStreams,
@@ -933,7 +1149,7 @@ def epoch_means(rows: torch.Tensor, epochs: int, constraint: bool) -> dict[str, 
 def make_gan_epoch_fn(cfg: PiGanConfig, settings, *, lr_g: float | None = None,
                       lr_d: float | None = None, schedule_g: str | None = None,
                       schedule_d: str | None = None, horizon_epochs: int | None = None):
-    """multi_epoch(state, ds, scales, indices=None, seeds=None) ->
+    """multi_epoch(state, ds, scales, indices=None, seeds=None, draws=None) ->
     (state, {key: (E,) per-epoch means}) through ``gan_train``, one launch
     per call: the contract of the eager
     ``make_multi_epoch_fn(make_pigan_step(...), B)``.
@@ -945,8 +1161,11 @@ def make_gan_epoch_fn(cfg: PiGanConfig, settings, *, lr_g: float | None = None,
     state is started afresh by the Trainer.  Without overrides the
     schedules are the config's (cosine to 0.01x for G, halving every
     quarter for D, both over ``cfg.train.num_epochs``).  The state is
-    updated in place and returned; ``seeds`` are drawn (the eager path draws
-    them too) and not used: the kernel has no stochastic knob yet."""
+    updated in place and returned.  ``seeds`` (drawn from the state's
+    generator as the eager path draws them, unless given) key each step's
+    augmentation, instance noise and stability noise; ``draws``, one mapping
+    per step, may hand the two noises over instead, as to the eager
+    ``make_multi_epoch_fn``."""
     from ..train.schedules import cosine_schedule, make_schedule, step_schedule
 
     spec = gan_train_spec(cfg, settings)
@@ -973,14 +1192,15 @@ def make_gan_epoch_fn(cfg: PiGanConfig, settings, *, lr_g: float | None = None,
 
     def multi_epoch(state, ds: ThzDataset, scales: Sequence[float] | torch.Tensor,
                     indices: torch.Tensor | None = None,
-                    seeds: torch.Tensor | None = None):
+                    seeds: torch.Tensor | None = None, draws=None):
         scales = torch.as_tensor(scales, dtype=torch.float32).reshape(-1)
         epochs = int(scales.numel())
         spe = max(1, ds.num_samples // batch)
-        indices, _ = resolve_draws(state.generator, ds.num_samples, batch, epochs,
-                                   indices, seeds)
+        indices, seeds = resolve_draws(state.generator, ds.num_samples, batch, epochs,
+                                       indices, seeds)
         streams = build_streams(ds, indices, scales, state.step, state.g_opt.count,
-                                state.d_opt.count, k_d, g_sched_of(spe), d_sched_of(spe))
+                                state.d_opt.count, k_d, g_sched_of(spe), d_sched_of(spe),
+                                settings=settings, seeds=seeds, draws=draws)
         for bn in state.batch_norms():
             bn.num_batches_tracked += epochs * spe
         rows = gan_train(state_buffers(state), streams, spec)
@@ -994,7 +1214,7 @@ def make_gan_epoch_fn(cfg: PiGanConfig, settings, *, lr_g: float | None = None,
 
 
 def make_gan_ensemble_fn(cfg: PiGanConfig, settings, num_members: int):
-    """ensemble_epoch(states, ds, scales, indices=None) -> (states,
+    """ensemble_epoch(states, ds, scales, indices=None, draws=None) -> (states,
     [{key: (E,) per-epoch means} per member]) through ``gan_ensemble_train``,
     one launch per call for all ``num_members`` members: the counterpart of
     ``make_pallas_ensemble_fn``.
@@ -1002,8 +1222,10 @@ def make_gan_ensemble_fn(cfg: PiGanConfig, settings, num_members: int):
     ``states`` is an ``EnsembleState`` (``parallel/state_utils.py``) or a
     sequence of ``PiGanState``s, which is stacked first (re-homing them in
     place); the ``EnsembleState`` is updated in place and returned.  Member
-    m's shuffles come from member m's own generator, drawn as the
-    one-member function draws them, or from ``indices`` (M, E, spe, B).
+    m's shuffles and step seeds come from member m's own generator, drawn as
+    the one-member function draws them (the shuffles also from ``indices``
+    (M, E, spe, B)); the seeds key that member's noise streams, which
+    ``draws`` (per member a sequence of per-step mappings) may give instead.
     Member m then is bit for bit what ``make_gan_epoch_fn`` makes of it
     alone with the same draws, and ``num_members=1`` is that path exactly.
 
@@ -1026,7 +1248,7 @@ def make_gan_ensemble_fn(cfg: PiGanConfig, settings, num_members: int):
     count = int(num_members)
 
     def ensemble_epoch(states, ds: ThzDataset, scales: Sequence[float] | torch.Tensor,
-                       indices: torch.Tensor | None = None):
+                       indices: torch.Tensor | None = None, draws=None):
         if len(states) != count:
             raise ValueError(f"expected {count} states, got {len(states)}")
         first = states[0]
@@ -1054,16 +1276,17 @@ def make_gan_ensemble_fn(cfg: PiGanConfig, settings, num_members: int):
             raise ValueError(f"indices {tuple(indices.shape)}, expected "
                              f"{(count, epochs, spe, batch)}")
         # each member draws as the one-member function does: the E shuffles
-        # that are not given, then the chunk's step seeds (drawn, not used)
-        indices = torch.stack([
-            resolve_draws(st.generator, ds.num_samples, batch, epochs,
-                          None if indices is None else indices[m])[0]
-            for m, st in enumerate(states)])
+        # that are not given, then the chunk's step seeds
+        drawn = [resolve_draws(st.generator, ds.num_samples, batch, epochs,
+                               None if indices is None else indices[m])
+                 for m, st in enumerate(states)]
+        indices = torch.stack([d[0] for d in drawn])
         streams = build_streams(
             ds, indices, scales, first.step, first.g_opt.count,
             first.d_opt.count, k_d,
             cosine_schedule(cfg.train.lr_g, cfg.train.num_epochs, spe, 0.01),
-            step_schedule(cfg.train.lr_d, cfg.train.num_epochs, spe, 0.5, 0.25))
+            step_schedule(cfg.train.lr_d, cfg.train.num_epochs, spe, 0.5, 0.25),
+            settings=settings, seeds=torch.stack([d[1] for d in drawn]), draws=draws)
         rows = gan_ensemble_train(ensemble_buffers(states), streams, spec)
         steps = epochs * spe
         d_steps = int(streams.sched[:, 6].sum())

@@ -145,8 +145,9 @@ def train_seed_ensemble(
 
     What bounds the members per device is memory, not the kernel: a packed
     chunk's streams are ``epochs_per_call`` x steps x batch x 262 floats per
-    member (25 MB at 25 epochs of 15 steps, batch 64) beside ~13 MB of state
-    and scratch per member."""
+    member (25 MB at 25 epochs of 15 steps, batch 64; with instance noise and
+    stability on 3 x batch x 250 floats a step more, 72 MB there) beside
+    ~13 MB of state and scratch per member."""
     if settings is None:
         settings = StepSettings.from_config(cfg)
     if num_members < 1:

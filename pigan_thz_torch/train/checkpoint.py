@@ -5,6 +5,11 @@ The artifact names are the reference's contract (unified_trainer.py:643-651,
 train_pigan.py:299-309, read at unified_evaluator.py:89-99).  A model is
 saved as its torch ``state_dict`` in ``<name>.pth``, which is the
 reference's own layout (the port's modules carry it; ``interop.py``).
+``load_model`` also takes the reference's wrapped training checkpoints
+(``{'generator_state_dict': ...}``, train_pigan.py:283-295) and, for the
+final forward model, falls back to ``forward_model_pretrained.pth``
+(unified_evaluator.py:100-106), the loader's rules of the JAX package's
+``interop.load_reference_models``.
 ``model_config.json`` holds the architecture sections and the data bounds
 as the JAX package writes them.  ``save_final_trio`` / ``load_final_trio``
 write and read the three final models of a PI-GAN run (and the EMA
@@ -73,10 +78,68 @@ def save_model(directory: str, name: str, module: nn.Module) -> str:
     return path
 
 
+_WRAPPER_KEYS = {
+    "generator": ("generator_state_dict",),
+    "discriminator": ("discriminator_state_dict",),
+    "forward_model": ("forward_model_state_dict",),
+}
+
+
+def load_torch_file(path: str):
+    """``torch.load`` a ``.pth`` on the CPU: tensors only first, then the
+    legacy pickle for the reference's wrapped training checkpoints, which
+    carry Python objects beside the state_dicts."""
+    try:
+        return torch.load(path, map_location="cpu", weights_only=True)
+    except Exception:
+        return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def extract_state_dict(obj, which: str | None = None) -> dict:
+    """The bare state_dict for ``which`` (generator | discriminator |
+    forward_model) out of a ``.pth`` payload: a bare state_dict (the
+    ``*_final.pth`` contract, train_pigan.py:301-303) is returned as it is,
+    a wrapped training checkpoint gives ``<which>_state_dict``, else
+    ``model_state_dict`` or ``state_dict``."""
+    if not isinstance(obj, dict):
+        raise TypeError(f"unsupported .pth payload: {type(obj)}")
+    # a bare state_dict is non-empty and all-tensor-valued; metadata-only
+    # wrappers ({'epoch': 5, ...}) and {} fall through to the key search and
+    # the readable error below
+    if obj and all(hasattr(v, "shape") for v in obj.values()):
+        return obj
+    for key in _WRAPPER_KEYS.get(which or "", ()) + ("model_state_dict", "state_dict"):
+        if key in obj:
+            return obj[key]
+    raise KeyError(f"no state_dict for {which!r} in checkpoint with keys {sorted(obj)[:8]}")
+
+
+def _which(name: str) -> str | None:
+    """The model an artifact name belongs to (``generator_final`` ->
+    ``generator``), or None."""
+    return next((w for w in _WRAPPER_KEYS if name.startswith(w)), None)
+
+
 def load_model(directory: str, name: str, module: nn.Module) -> nn.Module:
-    """Load ``<directory>/<name>.pth`` into ``module`` (strict) and return it."""
-    path = _path(directory, f"{name}.pth")
-    state = torch.load(path, map_location="cpu", weights_only=True)
+    """Load ``<directory>/<name>.pth`` into ``module`` (strict) and return
+    it.  The file holds a bare state_dict or a wrapped checkpoint
+    (``extract_state_dict``); ``forward_model_final`` falls back to
+    ``forward_model_pretrained`` when it is absent.  A missing file raises
+    ``FileNotFoundError`` with the paths tried, a state_dict of another
+    architecture ``ValueError`` with both sets of shapes."""
+    tried = [_path(directory, f"{name}.pth")]
+    if name == FORWARD_MODEL_FINAL:
+        tried.append(_path(directory, f"{FORWARD_MODEL_PRETRAINED}.pth"))
+    path = next((p for p in tried if os.path.isfile(p)), None)
+    if path is None:
+        raise FileNotFoundError(f"no saved model {name!r}: tried {', '.join(tried)}")
+    state = extract_state_dict(load_torch_file(path), _which(name))
+    got = {k: tuple(v.shape) for k, v in state.items()}
+    want = {k: tuple(v.shape) for k, v in module.state_dict().items()}
+    if got != want:
+        raise ValueError(
+            f"{path}: the checkpoint does not match the {type(module).__name__} it is "
+            f"loaded into.\n  loaded:   {got}\n  expected: {want}")
     module.load_state_dict(state)
     return module
 

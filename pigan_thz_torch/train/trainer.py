@@ -6,9 +6,11 @@ through the registry, the steps per epoch and the optimisers.
 the emergency recovery), ``init_pigan`` and ``train_pigan`` run the PI-GAN
 phase (train_pigan.py and the trainer variants' settings), both in chunks of
 whole epochs; ``train`` dispatches on the mode and ``save_final`` /
-``load_final`` write and read the artifacts.  The evaluator, the
-``CheckpointManager`` with resume, and the training programs are not ported
-yet.
+``load_final`` write and read the artifacts; ``evaluator`` / ``evaluate``
+run the four evaluation suites (``evaluate/evaluator.py``) on the trained
+state, which is what the gates of the training programs
+(``train/programs.py``) read.  The ``CheckpointManager`` with resume is not
+ported yet.
 
 Each chunk of ``epochs_per_call`` epochs is one call of a multi-epoch
 function: on the card a training kernel (``ops/forward_train.py``,
@@ -41,6 +43,7 @@ import torch
 
 from ..config import PiGanConfig
 from ..data.dataset import ThzDataset, load_or_synthesize
+from ..evaluate.evaluator import Evaluator
 from ..models.registry import build_trio
 from ..ops.forward_train import make_forward_epoch_fn, supports_forward_kernel
 from ..ops.gan_train import make_gan_epoch_fn, supports_gan_kernel
@@ -420,6 +423,33 @@ class Trainer:
         raise ValueError(f"unknown mode: {mode!r}")
 
     # ------------------------------------------------------------------
+    # Evaluation
+    # ------------------------------------------------------------------
+    def evaluator(self, violation_window: tuple = (0.0, 1.0),
+                  use_ema: bool = False) -> Evaluator:
+        """The four suites over the PI-GAN state's G, D and frozen F.
+        ``use_ema=True`` evaluates the EMA generator track (the parameters
+        of ``state.g_ema``, the BatchNorm stats of the live generator); it
+        needs training with ``StepSettings.ema_decay`` > 0."""
+        if self.pigan_state is None:
+            raise ValueError("evaluator: train or init_pigan first")
+        st = self.pigan_state
+        g = st.g
+        if use_ema:
+            if st.g_ema is None:
+                raise ValueError("no EMA track: train with StepSettings(ema_decay=...) first")
+            g = ckpt.ema_generator(st)
+        return Evaluator(g, st.d, st.f, violation_window=violation_window)
+
+    def evaluate(self, noise=None, violation_window: tuple = (0.0, 1.0),
+                 use_ema: bool = False) -> Dict:
+        """``run_comprehensive_evaluation`` on the training set; ``noise``
+        is the stability suite's (N, S) unit normals or a ``torch.Generator``
+        (default: seeded with 0)."""
+        return self.evaluator(violation_window, use_ema=use_ema).run_comprehensive_evaluation(
+            self.ds, noise)
+
+    # ------------------------------------------------------------------
     # Artifacts
     # ------------------------------------------------------------------
     def save_final(self, directory: str, backup_tag: str | None = None) -> None:
@@ -436,19 +466,23 @@ class Trainer:
             ckpt.save_model(directory, ckpt.FORWARD_MODEL_PRETRAINED, self.forward_state.f)
 
     def load_final(self, directory: str) -> None:
-        """Load the final artifacts (the reference's ``.pth`` layout) into
-        the PI-GAN state, with the EMA generator and the history when they
-        are there."""
+        """Load the final artifacts (the reference's ``.pth`` layout, bare
+        or wrapped; ``checkpoint.load_model``) into the PI-GAN state, with
+        the EMA generator when it is there, and the saved history when the
+        trainer has none of its own."""
         if self.pigan_state is None:
             self.init_pigan()
         st = self.pigan_state
         ckpt.load_final_trio(directory, st.g, st.d, st.f)   # in place: views stay bound
         st.g_ema = None
         if ckpt.exists(directory, ckpt.GENERATOR_EMA):
-            sd = torch.load(os.path.join(directory, f"{ckpt.GENERATOR_EMA}.pth"),
-                            map_location="cpu", weights_only=True)
+            sd = ckpt.extract_state_dict(ckpt.load_torch_file(
+                os.path.join(directory, f"{ckpt.GENERATOR_EMA}.pth")), "generator")
             st.g_ema = torch.cat([sd[name].reshape(-1) for name, _ in
                                   st.g.named_parameters()]).to(self.device)
-        history = ckpt.load_train_history(directory)
-        if history:
-            self.train_history = {k: [float(x) for x in v] for k, v in history.items()}
+        # the loss curves that save_final wrote, unless this trainer has its
+        # own: a run that loads finals and trains on keeps what it recorded
+        if not self.train_history:
+            history = ckpt.load_train_history(directory)
+            if history:
+                self.train_history = {k: [float(x) for x in v] for k, v in history.items()}

@@ -56,6 +56,12 @@ CASES = {
     "through_f": dict(detach_forward=False),
     "detached": dict(detach_forward=True),
     "d_every_2_constraint": dict(detach_forward=False, d_update_every=2, constraint_w=0.7),
+    # the second G passes and the noise streams, each member's from its own seeds
+    "second_passes_and_noise": dict(detach_forward=False, cycle_w=1.0, stability_w=1.0,
+                                    instance_noise=0.05),
+    "augmented_cycle_detached": dict(detach_forward=True, cycle_w=1.0, augment_noise=0.05,
+                                     augment_shift=0.02, augment_scale=0.1,
+                                     sigmoid_squash=True),
 }
 
 
@@ -188,7 +194,7 @@ def test_refusals(tcfg, datasets):
     with pytest.raises(ValueError, match="ema_decay > 0 unsupported"):
         gt.make_gan_ensemble_fn(tcfg, dataclasses.replace(settings, ema_decay=0.9), 2)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
-        gt.make_gan_ensemble_fn(tcfg, dataclasses.replace(settings, cycle_w=0.1), 2)
+        gt.make_gan_ensemble_fn(tcfg, dataclasses.replace(settings, gan_loss="wgan_gp"), 2)
     with pytest.raises(ValueError, match="unsupported"):
         gt.make_gan_ensemble_fn(tcfg, dataclasses.replace(settings, gan_loss="hinge"), 2)
     fn = gt.make_gan_ensemble_fn(tcfg, settings, 2)
@@ -237,7 +243,8 @@ def test_wrapper_checks_its_arguments(tcfg, datasets):
                              metrics_norm=streams.metrics_norm[:, :0],
                              sched=streams.sched[:0])
     before = ens.g_params.clone()
-    rows = gt.gan_ensemble_train(bufs, gt.GanStreams(*(t.contiguous() for t in empty)), spec)
+    rows = gt.gan_ensemble_train(bufs, gt.GanStreams(
+        *(None if t is None else t.contiguous() for t in empty)), spec)
     assert rows.shape == (2, 0, gt.ROW_WIDTH) and torch.equal(ens.g_params, before)
 
 

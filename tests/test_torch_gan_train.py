@@ -13,6 +13,12 @@ epochs = 8 steps, a freshly initialised F as in tests/test_megakernel.py):
   interpret mode, one short case;
 - ``build_streams``' schedule lanes against the JAX package's
   ``_build_streams`` (lr, bias corrections, D gate, constraint scale);
+- the second G passes (cycle, stability) and the noise streams (instance
+  noise, augmentation): against the eager step from the same seeds, against
+  the JAX XLA step on the JAX prologue's own streams (narrow widths), against
+  the Pallas kernel in interpret mode (one case at the baseline widths),
+  the float64 plain version against float64 autograd to 1e-10, and each
+  deliberate fault of the plain version seen by the comparison;
 - the envelope, the refusals, the optimiser overrides and the wrapper's
   argument checks.
 
@@ -49,6 +55,8 @@ from pigan_thz_tpu.train.schedules import step_schedule as j_step_schedule
 from pigan_thz_tpu.train.state import init_pigan_state as j_init_pigan_state
 from pigan_thz_tpu.train.state import make_optimizers as j_make_optimizers
 from pigan_thz_tpu.train.steps import StepSettings as JSettings
+from pigan_thz_tpu.train.steps import make_multi_epoch_fn as j_make_multi_epoch_fn
+from pigan_thz_tpu.train.steps import make_pigan_step as j_make_pigan_step
 
 torch.set_num_threads(1)
 
@@ -67,6 +75,19 @@ CASES = {
                                  physics_metrics_w=2.0, maxwell_w=3.0, lc_w=0.5, range_w=1.0,
                                  range_lo=-0.5, range_hi=0.5, label_real=1.0, label_fake=0.0,
                                  constraint_w=1.0),
+    # the second G passes and the noise streams: the eager step draws its
+    # noise from the step's seed, build_streams the same draws
+    "cycle_through_f": dict(detach_forward=False, cycle_w=1.0, adv_w=0.0, d_update_every=2),
+    "cycle_detached": dict(detach_forward=True, cycle_w=1.0),
+    "stability": dict(detach_forward=False, stability_w=1.0),
+    "second_passes_mix": dict(detach_forward=False, stability_w=1.0, cycle_w=0.5,
+                              sigmoid_squash=True, constraint_w=3.0, window_w=2.0),
+    "instance_noise": dict(detach_forward=True, instance_noise=0.05),
+    "augmentation": dict(detach_forward=False, augment_noise=0.05, augment_shift=0.02,
+                         augment_scale=0.1),
+    "all_four": dict(detach_forward=False, cycle_w=1.0, stability_w=1.0, instance_noise=0.05,
+                     augment_noise=0.05, augment_shift=0.02, augment_scale=0.1,
+                     d_update_every=2, ema_decay=0.9),
 }
 
 
@@ -266,11 +287,7 @@ def test_envelope_and_refusals(tcfg):
         gt.make_gan_epoch_fn(tcfg, rep(base, gan_loss="hinge"))
 
 
-@pytest.mark.parametrize("knobs", [dict(gan_loss="wgan_gp"), dict(stability_w=0.1),
-                                   dict(cycle_w=0.1), dict(instance_noise=0.05),
-                                   dict(augment_noise=0.05), dict(augment_shift=0.02),
-                                   dict(augment_scale=0.1)],
-                         ids=lambda k: next(iter(k)))
+@pytest.mark.parametrize("knobs", [dict(gan_loss="wgan_gp")], ids=lambda k: next(iter(k)))
 def test_kernel_refuses_what_it_does_not_take_yet(knobs, tcfg):
     settings = StepSettings.from_config(tcfg, **knobs)
     reason = gt.supports_gan_kernel(tcfg, settings)
@@ -283,6 +300,353 @@ def test_bf16_is_refused(tcfg):
     cfg = tcfg.replace(train=dataclasses.replace(tcfg.train, compute_dtype="bfloat16"))
     with pytest.raises(NotImplementedError, match="bfloat16"):
         gt.make_gan_epoch_fn(cfg, StepSettings.from_config(cfg))
+
+
+@pytest.mark.parametrize("knobs", [dict(stability_w=0.1), dict(cycle_w=0.1),
+                                   dict(instance_noise=0.05), dict(augment_noise=0.05),
+                                   dict(augment_shift=0.02), dict(augment_scale=0.1)],
+                         ids=lambda k: next(iter(k)))
+def test_kernel_takes_the_second_passes_and_the_noise_streams(knobs, tcfg, datasets):
+    """Each knob is inside the envelope, sets its field of the spec and its
+    stream, and only then takes scratch."""
+    _, tds = datasets
+    settings = StepSettings.from_config(tcfg, **knobs)
+    assert gt.supports_gan_kernel(tcfg, settings) is None
+    spec, base = gt.gan_train_spec(tcfg, settings), gt.gan_train_spec(
+        tcfg, StepSettings.from_config(tcfg))
+    assert (spec.cycle_w, spec.stability_w, spec.use_inoise) == (
+        settings.cycle_w, settings.stability_w, settings.instance_noise > 0)
+    idx, seeds = gt.resolve_draws(torch.Generator().manual_seed(4), N, B, 1)
+    args = (tds, idx, torch.ones(1), 0, 0, 0, 1, cosine_schedule(2e-4, 2, SPE, 0.01),
+            step_schedule(2e-4, 2, SPE, 0.5, 0.25))
+    if spec.use_inoise or spec.stability_w or settings.augments:
+        with pytest.raises(ValueError, match="seeds"):
+            gt.build_streams(*args, settings=settings)
+    streams = gt.build_streams(*args, settings=settings, seeds=seeds)
+    clean = gt.build_streams(*args)
+    assert (streams.inoise is not None) == spec.use_inoise
+    assert (streams.stab is not None) == (spec.stability_w > 0)
+    assert torch.equal(streams.spectra, clean.spectra) != settings.augments
+    if settings.augments:
+        assert float(streams.spectra.max()) <= 0.0
+    if spec.use_inoise:
+        assert tuple(streams.inoise.shape) == (SPE, 2 * B, 250)
+        assert abs(float(streams.inoise.std()) - 0.05) < 5e-3
+    if spec.stability_w:
+        noise = streams.stab - streams.spectra
+        assert abs(float(noise.std()) - settings.stability_noise) < 1e-3
+    grew = gt.workspace_floats(spec, 64) - gt.workspace_floats(base, 64)
+    assert (grew > 0) == bool(spec.cycle_w or spec.stability_w or spec.use_inoise)
+    names = [n for n, _ in gt.workspace_layout(spec, 64)]
+    assert names[-1] == "norm_partials" and len(set(names)) == len(names)
+    # a stream the spec does not expect, or one it misses, is refused
+    _, st = _state(tcfg, settings)
+    flipped = streams._replace(
+        inoise=None if spec.use_inoise else torch.zeros(SPE, 2 * B, 250))
+    with pytest.raises(ValueError, match="stream inoise"):
+        gt.gan_train(gt.state_buffers(st), flipped, spec)
+
+
+def test_streams_draw_what_the_eager_step_draws(tcfg, datasets):
+    """``build_streams`` and the eager step seed one generator per step and
+    draw in one order (augmentation, instance noise, stability noise): the
+    streams are bit for bit what the step would compute, and ``draws``
+    replace the two noises for both alike."""
+    from pigan_thz_torch.ops.augment import augment_spectra
+
+    _, tds = datasets
+    settings = StepSettings.from_config(tcfg, instance_noise=0.05, stability_w=1.0,
+                                        augment_noise=0.05, augment_shift=0.02,
+                                        augment_scale=0.1)
+    idx, seeds = gt.resolve_draws(torch.Generator().manual_seed(9), N, B, 1)
+    args = (tds, idx, torch.ones(1), 0, 0, 0, 1, cosine_schedule(2e-4, 2, SPE, 0.01),
+            step_schedule(2e-4, 2, SPE, 0.5, 0.25))
+    streams = gt.build_streams(*args, settings=settings, seeds=seeds)
+    for t in range(SPE):
+        gen = torch.Generator().manual_seed(int(seeds[t]))
+        spectra = augment_spectra(gen, tds.spectra[idx[0, t]], noise_level=0.05,
+                                  freq_shift=0.02, amp_scale=0.1)
+        inoise = 0.05 * torch.randn((2 * B, 250), generator=gen)
+        noisy = spectra + settings.stability_noise * torch.randn((B, 250), generator=gen)
+        assert torch.equal(streams.spectra[t], spectra)
+        assert torch.equal(streams.inoise[t], inoise)
+        assert torch.equal(streams.stab[t], noisy)
+    given = [{"instance_noise": torch.full((2 * B, 250), float(t)),
+              "stability_noise": torch.full((B, 250), -float(t))} for t in range(SPE)]
+    with_draws = gt.build_streams(*args, settings=settings, seeds=seeds, draws=given)
+    assert torch.equal(with_draws.spectra, streams.spectra)
+    for t in range(SPE):
+        assert torch.equal(with_draws.inoise[t], torch.full((2 * B, 250), 0.05 * t))
+        assert torch.equal(with_draws.stab[t], streams.spectra[t] - 0.01 * t)
+    # per member: member m's streams are what it gets alone
+    idx2 = torch.stack([idx, idx.flip(1)])
+    seeds2 = torch.stack([seeds, seeds + 1])
+    both = gt.build_streams(tds, idx2, *args[2:], settings=settings, seeds=seeds2)
+    alone = gt.build_streams(tds, idx2[1], *args[2:], settings=settings, seeds=seeds2[1])
+    assert tuple(both.inoise.shape) == (2, SPE, 2 * B, 250)
+    for a, b in zip((both.spectra[1], both.inoise[1], both.stab[1]),
+                    (alone.spectra, alone.inoise, alone.stab)):
+        assert torch.equal(a, b)
+    assert torch.equal(both.spectra[0], streams.spectra)
+
+
+# -- the paths against the JAX package ---------------------------------------
+NARROW = dict(g=(48, 24), d=(40, 20), f=(16, 32, 48, 32, 16))
+JAX_CASES = {
+    "cycle_through_f": dict(detach_forward=False, cycle_w=1.0, adv_w=0.0, d_update_every=2),
+    "cycle_detached": dict(detach_forward=True, cycle_w=1.0, sigmoid_squash=True),
+    "stability_instance_noise": dict(detach_forward=False, stability_w=0.8,
+                                     instance_noise=0.05),
+    "augmented_all_four": dict(detach_forward=False, cycle_w=0.5, stability_w=1.0,
+                               instance_noise=0.05, augment_noise=0.05, augment_shift=0.02,
+                               augment_scale=0.1, constraint_w=1.0),
+}
+
+
+def _narrow(cfg):
+    rep = dataclasses.replace
+    return _small(cfg).replace(
+        generator=rep(cfg.generator, hidden_dims=NARROW["g"]),
+        discriminator=rep(cfg.discriminator, hidden_dims=NARROW["d"]),
+        forward_model=rep(cfg.forward_model, hidden_dims=NARROW["f"]))
+
+
+def _np32(tree):
+    return jax.tree.map(lambda a: np.asarray(a, np.float32), tree)
+
+
+def _carry_over(jst, tst):
+    ga, da = jst.g_opt[1][0], jst.d_opt[1][0]
+    load_pigan_state_(tst, {
+        "g": {"params": _np32(jst.g.params),
+              "batch_stats": _np32(jst.g.extra["batch_stats"])},
+        "d": {"params": _np32(jst.d.params)}, "f": {"params": _np32(jst.f.params)},
+        "g_mu": _np32(ga.mu), "g_nu": _np32(ga.nu), "g_count": 0,
+        "d_mu": _np32(da.mu), "d_nu": _np32(da.nu), "d_count": 0, "step": 0})
+
+
+def _jax_streams(jc, jset, jst, jds, key, scales, spec):
+    """The JAX prologue's streams of this chunk (the XLA step's own key
+    chain), cut to their true widths, as the port's ``GanStreams``."""
+    out = jmk._build_streams(
+        jc, jset, jset.d_update_every,
+        lambda spe: j_cosine_schedule(jc.train.lr_g, jc.train.num_epochs, spe, 0.01),
+        lambda spe: j_step_schedule(jc.train.lr_d, jc.train.num_epochs, spe, 0.5, 0.25),
+        jst.rng, jst.step, jst.g_opt[1][0].count, jst.d_opt[1][0].count, jds, key,
+        jnp.asarray(scales))
+    arr = [torch.from_numpy(np.array(x, np.float32)) for x in out]
+    extra = arr[4:-2]
+    inoise = extra.pop(0)[:, :, :250].contiguous() if spec.use_inoise else None
+    stab = extra.pop(0)[:, :, :250].contiguous() if spec.stability_w else None
+    return gt.GanStreams(arr[0][:, :, :250].contiguous(), arr[1][:, :, :4].contiguous(),
+                         arr[2][:, :, :8].contiguous(), arr[3][:, 0, :8].contiguous(),
+                         arr[-2][0, :4].contiguous(), arr[-1][0, :4].contiguous(),
+                         inoise, stab)
+
+
+def _assert_matches_jax(tst, trows, jst, jrows, rows_rtol, param_atol):
+    for k in jrows:
+        atol = 1.0 / (SPE * B) if k in ("d_accuracy", "violation_rate") else 1e-6
+        np.testing.assert_allclose(trows[k].numpy(), np.asarray(jrows[k]), rtol=rows_rtol,
+                                   atol=atol, err_msg=k)
+    back = pigan_state_to_flax(tst)
+    for a, b in zip(jax.tree.leaves(back["d"]["params"]), jax.tree.leaves(_np32(jst.d.params))):
+        np.testing.assert_allclose(a, b, rtol=0, atol=param_atol)
+    for a, b in zip(jax.tree.leaves(back["g"]["batch_stats"]),
+                    jax.tree.leaves(_np32(jst.g.extra["batch_stats"]))):
+        np.testing.assert_allclose(a, b, rtol=0, atol=STATS_ATOL)
+    flat = jax.tree_util.tree_flatten_with_path(_np32(jst.g.params))[0]
+    for (path, want), got in zip(flat, jax.tree.leaves(back["g"]["params"])):
+        name = "/".join(str(getattr(k, "key", k)) for k in path)
+        if name in ("MLPBlock_0/Dense_0/bias", "MLPBlock_1/Dense_0/bias"):
+            continue                                            # the gauge leaves
+        np.testing.assert_allclose(got, want, rtol=0, atol=param_atol, err_msg=name)
+
+
+@pytest.mark.parametrize("case", list(JAX_CASES))
+def test_plain_kernel_paths_match_the_jax_xla_step(case, datasets):
+    """Two epochs (8 steps) of the JAX XLA step and of the port's plain
+    version from the same weights on the same streams, which are the JAX
+    prologue's own (``megakernel._build_streams``: augmented spectra,
+    instance noise, noised stability spectra from the step's key chain), at
+    narrow widths.  Rows within ROWS_RTOL, parameters within PARAM_ATOL
+    outside the gauge leaves (8 steps of lr 2e-4: Adam turns rounding in a
+    near-zero gradient into steps of up to lr; measured 3.7e-4 on 2 of G's
+    12000 first-layer weights, 9e-5 elsewhere), BatchNorm stats within
+    STATS_ATOL."""
+    jds, tds = datasets
+    jc, tc = _narrow(j_default_config()), _narrow(t_default_config())
+    knobs = JAX_CASES[case]
+    jset, settings = JSettings.from_config(jc, **knobs), StepSettings.from_config(tc, **knobs)
+    g, d, f = j_build_trio(jc)
+    g_tx, d_tx, _ = j_make_optimizers(jc, SPE)
+    jst = j_init_pigan_state(g, d, f, g_tx, d_tx, jax.random.PRNGKey(1))
+    tg, td, tf = t_build_trio(tc, device="cpu")
+    gtx, dtx, _ = make_optimizers(tc, SPE)
+    tst = init_pigan_state(tg, td, tf, gtx, dtx, 0, device="cpu")
+    _carry_over(jst, tst)
+    spec = dataclasses.replace(
+        gt.gan_train_spec(_small(t_default_config()), settings), g_hidden=NARROW["g"],
+        d_hidden=NARROW["d"], f_hidden=NARROW["f"])
+    key = jax.random.PRNGKey(11)
+    scales = np.array([1.0, 0.5], np.float32)
+    streams = _jax_streams(jc, jset, jst, jds, key, scales, spec)
+    if settings.augments:
+        assert not torch.equal(streams.spectra, tds.spectra[
+            torch.from_numpy(np.stack([np.asarray(j_epoch_indices(k, N, B))
+                                       for k in jax.random.split(key, E)])).reshape(-1, B)])
+    jstep = j_make_pigan_step(g, d, f, g_tx, d_tx, jset, jds.param_lo, jds.param_hi)
+    jst, jrows = j_make_multi_epoch_fn(jstep, B, with_scale=True, unroll=1)(
+        jst, jds, key, jnp.asarray(scales))
+    rows = gt.gan_train(gt.state_buffers(tst), streams, spec)
+    trows = gt.epoch_means(rows, E, bool(settings.constraint_w))
+    assert set(trows) == set(jrows)
+    _assert_matches_jax(tst, trows, jst, jrows, ROWS_RTOL, PARAM_ATOL)
+
+
+def test_plain_kernel_paths_match_the_pallas_kernel_in_interpret_mode(tcfg, datasets):
+    """One epoch (4 steps) with cycle, stability and instance noise on through
+    the JAX package's kernel in interpret mode (as tests/test_megakernel.py:
+    1292, :1304 and :1413 run it) and through the port's plain version, from
+    the same state on the kernel's own streams.  The tolerances of the
+    test above for today's settings."""
+    jds, tds = datasets
+    jc = _small(j_default_config())
+    knobs = dict(detach_forward=False, cycle_w=1.0, stability_w=0.8, instance_noise=0.05)
+    jset, settings = JSettings.from_config(jc, **knobs), StepSettings.from_config(tcfg, **knobs)
+    g, d, f = j_build_trio(jc)
+    g_tx, d_tx, _ = j_make_optimizers(jc, SPE)
+    jst = j_init_pigan_state(g, d, f, g_tx, d_tx, jax.random.PRNGKey(1))
+    _, tst = _state(tcfg, settings)
+    _carry_over(jst, tst)
+    spec = gt.gan_train_spec(tcfg, settings)
+    key = jax.random.PRNGKey(7)
+    streams = _jax_streams(jc, jset, jst, jds, key, np.ones(1, np.float32), spec)
+    jst, jrows = jmk.make_pallas_multi_epoch_fn(jc, jset, interpret=True)(
+        jst, jds, key, jnp.ones((1,), jnp.float32))
+    rows = gt.gan_train(gt.state_buffers(tst), streams, spec)
+    _assert_matches_jax(tst, gt.epoch_means(rows, 1, False), jst, jrows, PALLAS_ROWS_RTOL,
+                        PALLAS_PARAM_ATOL)
+
+
+# -- the float64 plain version against float64 autograd ------------------------
+F64_CASES = {
+    "cycle_through_f": dict(detach_forward=False, cycle_w=1.0),
+    "cycle_detached": dict(detach_forward=True, cycle_w=1.0),
+    "stability": dict(detach_forward=False, stability_w=1.0),
+    "both_squashed_constrained": dict(detach_forward=False, cycle_w=0.5, stability_w=1.0,
+                                      sigmoid_squash=True, constraint_w=3.0),
+    "instance_noise": dict(detach_forward=False, instance_noise=1.0),
+    "augmentation": dict(detach_forward=False, augment_noise=0.05, augment_shift=0.02,
+                         augment_scale=0.1),
+}
+
+
+def _double_state(st):
+    """A copy of a PiGanState in float64, with its optimisers."""
+    import copy
+
+    from pigan_thz_torch.train.state import PiGanState
+    from pigan_thz_torch.train.schedules import AdamState
+
+    def dbl(module, flat):
+        module = copy.deepcopy(module).double()
+        flat = flat.double().clone()
+        pos = 0
+        for p in module.parameters():
+            p.data = flat[pos: pos + p.numel()].view(p.shape)
+            pos += p.numel()
+        return module, flat
+
+    (g, gp), (d, dp), (f, fp) = (dbl(st.g, st.g_params), dbl(st.d, st.d_params),
+                                 dbl(st.f, st.f_params))
+    gen = torch.Generator()
+    gen.set_state(st.generator.get_state())
+    zero = lambda p: AdamState(torch.zeros_like(p), torch.zeros_like(p), 0)  # noqa: E731
+    return PiGanState(0, g, d, f.eval(), gp, dp, fp, zero(gp), zero(dp), gen)
+
+
+@pytest.mark.parametrize("case", list(F64_CASES))
+def test_float64_plain_version_matches_float64_autograd(case, tcfg, datasets):
+    """One step in float64 through the plain version's hand-derived backward
+    and through autograd (the eager step on a float64 copy of the state, the
+    same noise).  Adam's first moments are (1 - b1) x the clipped gradient,
+    whatever the learning rate: D's, with ``d_loss``, from a step that
+    updates D; G's, with every row, from a step whose D update is gated off
+    (``d_update_every`` 2 at step 1), so that both sides' G phases see one
+    D (the two Adams round their bias corrections differently, 1e-8).  Each
+    tensor agrees to 1e-10 of its norm, the rows to 1e-10: rounding cannot
+    hide a wrong adjoint here."""
+    from pigan_thz_torch.data.dataset import gather_batch
+
+    _, tds = datasets
+    # labels that float32 holds exactly: the eager step builds them in float32
+    settings = StepSettings.from_config(tcfg, label_real=0.875, label_fake=0.125,
+                                        d_update_every=2, **F64_CASES[case])
+    (gtx, dtx), st = _state(tcfg, settings)
+    spec = gt.gan_train_spec(tcfg, settings)
+    idx, seeds = gt.resolve_draws(torch.Generator().manual_seed(4), N, B, 1)
+    ds64 = ThzDataset(*(t.double() for t in tds))
+    step = make_pigan_step(gtx, dtx, settings, ds64.param_lo, ds64.param_hi)
+
+    def close(a, b):
+        return float(torch.linalg.norm(a - b) / torch.linalg.norm(b).clamp(min=1e-30))
+
+    for step0 in (0, 1):
+        streams = gt.build_streams(ds64, idx[:, :1], torch.ones(1), step0, 0, 0, 2,
+                                   cosine_schedule(2e-4, 2, SPE, 0.01),
+                                   step_schedule(2e-4, 2, SPE, 0.5, 0.25), settings=settings,
+                                   seeds=seeds[:1])
+        assert float(streams.sched[0, 6]) == 1.0 - step0
+        exact = gt.to_double(gt.state_buffers(st.clone()))
+        rows = gt.gan_train_plain(exact, gt.to_double(streams), spec)
+        auto = _double_state(st)
+        auto.step = step0
+        _, m = step(auto, gather_batch(ds64, idx[0, 0]), 1.0, int(seeds[0]))
+        keys = gt.METRIC_KEYS if step0 else ("d_loss", "d_accuracy")
+        for k in keys:
+            got = float(rows[0, gt.METRIC_KEYS.index(k)])
+            assert abs(got - float(m[k])) <= 1e-10 * max(1.0, abs(float(m[k]))), (step0, k)
+        if step0 == 0:
+            pairs = zip(spec.d_views(exact.d_m), spec.d_views(auto.d_opt.m))
+            assert max(close(a, b) for a, b in pairs) <= 1e-10
+        else:
+            assert torch.equal(exact.d, st.d_params.double())        # D gated off
+            for j, (a, b) in enumerate(zip(spec.g_views(exact.g_m),
+                                           spec.g_views(auto.g_opt.m))):
+                if j not in (1, 5):                                  # the gauge leaves
+                    assert close(a, b) <= 1e-10, (j, close(a, b))
+
+
+FAULT_CASES = [("cycle_through_f", "cycle_seed_dropped"),
+               ("cycle_through_f", "second_pass_moves_running_stats"),
+               ("cycle_detached", "drecon_c_when_detached"),
+               ("stability", "stability_seed_dropped"),
+               ("stability", "second_pass_moves_running_stats"),
+               ("instance_noise", "noised_fake_rows")]
+
+
+@pytest.mark.parametrize("case,fault", FAULT_CASES)
+def test_a_faulty_plain_version_is_seen(case, fault, tcfg, datasets):
+    """Each deliberate fault moves the float64 first step by far more than
+    the 1e-10 the test above allows: the comparison has the power to see a
+    kernel that made that mistake."""
+    _, tds = datasets
+    settings = StepSettings.from_config(tcfg, **F64_CASES[case])
+    _, st = _state(tcfg, settings)
+    spec = gt.gan_train_spec(tcfg, settings)
+    idx, seeds = gt.resolve_draws(torch.Generator().manual_seed(4), N, B, 1)
+    streams = gt.to_double(gt.build_streams(
+        tds, idx[:, :1], torch.ones(1), 0, 0, 0, 1, cosine_schedule(2e-4, 2, SPE, 0.01),
+        step_schedule(2e-4, 2, SPE, 0.5, 0.25), settings=settings, seeds=seeds[:1]))
+    start = gt.state_buffers(st)
+    right = gt.to_double(gt.state_buffers(st.clone()))
+    wrong = gt.to_double(gt.state_buffers(st.clone()))
+    gt.gan_train_plain(right, streams, spec)
+    gt.gan_train_plain(wrong, streams, spec, faults=[fault])
+    assert max(gt.step_errors(wrong, right, start, spec).values()) > 1e-4
+    with pytest.raises(ValueError, match="unknown faults"):
+        gt.gan_train_plain(wrong, streams, spec, faults=["no_such_fault"])
 
 
 def test_overrides_set_the_lanes_and_need_a_horizon(tcfg, datasets):

@@ -34,9 +34,10 @@ names = [m.name for m in pkgutil.walk_packages(pigan_thz_torch.__path__, "pigan_
          if not m.name.endswith(".__main__")]     # __main__ runs the CLI
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 38, names
+assert len(names) >= 42, names
 for new in ("ops.metrics", "parallel.state_utils", "parallel.ensemble",
-            "parallel.ensemble_megakernel"):
+            "parallel.ensemble_megakernel", "config_presets", "train.programs",
+            "evaluate", "evaluate.evaluator"):
     assert "pigan_thz_torch." + new in names, new
 # the seed-ensemble example: its imports run, its main() does not
 import importlib.util
@@ -282,7 +283,10 @@ def _imported_roots(path):
     "pigan_thz_torch/parallel/ensemble.py", "pigan_thz_torch/parallel/ensemble_megakernel.py",
     "pigan_thz_torch/serve.py", "pigan_thz_torch/interop.py",
     "examples/torch_seed_ensemble.py", "examples/torch_gan_step_conditioning.py",
-    "chip_smoke.py"])
+    "chip_smoke.py", "pigan_thz_torch/config_presets.py", "pigan_thz_torch/train/programs.py",
+    "pigan_thz_torch/evaluate/__init__.py", "pigan_thz_torch/evaluate/evaluator.py",
+    "pigan_thz_torch/train/checkpoint.py", "pigan_thz_torch/train/trainer.py",
+    "pigan_thz_torch/cli.py", "examples/torch_gan_engines.py"])
 def test_source_imports_neither_jax_nor_the_jax_package(path):
     roots = _imported_roots(os.path.join(REPO, path))
     assert not roots & {"jax", "jaxlib", "flax", "optax", "orbax", "pigan_thz_tpu",
@@ -346,3 +350,22 @@ def test_seed_ensemble_example_on_the_cpu():
     for key in ("wall_s", "member_steps_per_s", "ensemble_mean_r2", "ensemble_mean_recon_mse",
                 "member_spread"):
         assert out[key] == out[key]
+
+
+def test_engines_example_runs_on_the_cpu():
+    """``examples/torch_gan_engines.py`` at a tiny size: the plain version
+    twice (there is no kernel here) and the eager step, from one state."""
+    import json
+
+    cmd = [sys.executable, os.path.join("examples", "torch_gan_engines.py"), "--device", "cpu",
+           "--epochs", "2", "--fwd-epochs", "1", "--set", "data.num_samples=128", "--set",
+           "train.batch_size=32"]
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    engines = out["engines"]
+    assert set(engines) == {"kernel", "plain", "eager"} and out["steps"] == 8
+    assert engines["kernel"] == {**engines["plain"], "wall_s": engines["kernel"]["wall_s"]}
+    assert all(e["gan_train_launches"] == 0 and e["steps"] == 8 for e in engines.values())
+    assert abs(engines["eager"]["final_g_loss"] - engines["plain"]["final_g_loss"]) <= 1e-3 * abs(
+        engines["plain"]["final_g_loss"])

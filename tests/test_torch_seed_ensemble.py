@@ -176,7 +176,7 @@ def test_refusals(cfg, ds, shared_f):
         train_seed_ensemble(cfg, ds, 2, epochs=1, forward_model=shared_f)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
         train_seed_ensemble(cfg, ds, 2, epochs=1,
-                            settings=StepSettings.from_config(cfg, cycle_w=0.1), **kw)
+                            settings=StepSettings.from_config(cfg, gan_loss="wgan_gp"), **kw)
     base = StepSettings.from_config(cfg)
     with pytest.raises(ValueError, match="agree on ema_decay"):
         train_settings_sweep(cfg, ds, [base, dataclasses.replace(base, ema_decay=0.9)],
