@@ -32,6 +32,15 @@
 // a fixed order.  The loss kernel is one block over the (B, S + 8)
 // prediction and writes its per-step (loss, spectrum, metrics) row.
 //
+// bfloat16 operands (bf16 != 0; megakernel.py:2644-2663).  The operands of the
+// products the TPU kernel runs on its MXU are rounded to bfloat16 in the
+// SGEMM's tile loads and accumulate in fp32 (train_common.cuh): hidden layers
+// 1-4 (forward, dW, dx) and the head's spectrum columns.  The input layer
+// (forward and dW) and the head's metrics columns run on the TPU's VPU in
+// fp32 and stay fp32: in bf16 mode the head is two products each way (the
+// metrics columns' forward, dW rows and dx term apart, the dx term added
+// after the spectrum columns'), three launches more a step (39).
+//
 // Dropout.  The TPU kernel drew its masks from the TPU's hardware generator.
 // Here the bits are a counter-based hash of (step seed, layer, row, column),
 // mix(mix(mix(mix(seed) ^ layer) ^ row) ^ column) with mix the lowbias32
@@ -144,12 +153,13 @@ extern "C" {
 //   hp             host: w_spec, w_met, w_smooth, w_l1, dropout rate, clip,
 //                  b1, b2, eps, leaky slope, LayerNorm eps
 //   thresh         keep an entry when its hash is below this
+//   bf16           nonzero: bfloat16 operands of the TPU kernel's MXU products
 int pigan_forward_train(float* params, float* m, float* v, const float* x,
                         const float* spec, const float* met, const float* sched,
                         const uint32_t* seeds, float* rows, float* work,
                         long long work_floats, const int* dims, int n_hidden,
                         const long long* offsets, int S, int B, int T,
-                        const double* hp, uint32_t thresh, void* stream_ptr) {
+                        const double* hp, uint32_t thresh, int bf16, void* stream_ptr) {
   cudaStream_t st = (cudaStream_t)stream_ptr;
   const int L = n_hidden + 1;
   if (n_hidden < 1 || L > kMaxLayers || B < 1 || T < 0 || S < 3) return cudaErrorInvalidValue;
@@ -222,6 +232,7 @@ int pigan_forward_train(float* params, float* m, float* v, const float* x,
     if (e != cudaSuccess) return (int)e; \
   } while (0)
 #define CHECK_LAUNCH() CHECK(cudaGetLastError())
+  const bool rnd = bf16 != 0;
 
   for (int t = 0; t < T; ++t) {
     const float* xt = x + (long long)t * B * dims[0];
@@ -234,8 +245,9 @@ int pigan_forward_train(float* params, float* m, float* v, const float* x,
     for (int l = 0; l < n_hidden; ++l) {
       const int din = dims[l], C = dims[l + 1];
       const long long* o = offsets + 4 * l;
-      CHECK((gemm<true, false>(B, C, din, a, din, 1, params + o[0], 1, din, tc[l], C,
-                               params + o[1], st)));
+      // the input layer is the TPU kernel's VPU sum: fp32
+      CHECK((gemm_ex<true, false>(rnd && l > 0, false, B, C, din, a, din, 1, params + o[0], 1,
+                                  din, tc[l], C, params + o[1], st)));
       ln_forward<<<B, kThreads, 0, st>>>(tc[l], ln[l], sc[l], act[l], ivar[l],
                                          params + o[2], params + o[3], C, ln_eps,
                                          slope, mix32(seed_key ^ (uint32_t)l),
@@ -245,20 +257,44 @@ int pigan_forward_train(float* params, float* m, float* v, const float* x,
     }
     const int dh = dims[n_hidden];
     const long long* oh = offsets + 4 * n_hidden;
-    CHECK((gemm<true, false>(B, D, dh, a, dh, 1, params + oh[0], 1, dh, pred, D,
-                             params + oh[1], st)));
+    if (rnd) {
+      // the spectrum columns in bfloat16, the metrics columns in fp32
+      CHECK((gemm<true, false, true>(B, S, dh, a, dh, 1, params + oh[0], 1, dh, pred, D,
+                                     params + oh[1], st)));
+      CHECK((gemm<true, false>(B, Mdim, dh, a, dh, 1, params + oh[0] + (long long)S * dh, 1,
+                               dh, pred + S, D, params + oh[1] + S, st)));
+    } else {
+      CHECK((gemm<true, false>(B, D, dh, a, dh, 1, params + oh[0], 1, dh, pred, D,
+                               params + oh[1], st)));
+    }
     loss_kernel<<<1, kThreads, 0, st>>>(pred, spec_t, met_t, dpred, rows + 3LL * t,
                                         B, S, Mdim, lk);
     CHECK_LAUNCH();
 
     // backward: head
-    CHECK((gemm<false, true>(D, dh, B, dpred, 1, D, a, dh, 1, grad + oh[0], dh,
-                             nullptr, st)));
+    if (rnd) {
+      const long long om = (long long)S * dh;    // the metrics rows of the head
+      CHECK((gemm<false, true, true>(S, dh, B, dpred, 1, D, a, dh, 1, grad + oh[0], dh,
+                                     nullptr, st)));
+      CHECK((gemm<false, true>(Mdim, dh, B, dpred + S, 1, D, a, dh, 1, grad + oh[0] + om, dh,
+                               nullptr, st)));
+    } else {
+      CHECK((gemm<false, true>(D, dh, B, dpred, 1, D, a, dh, 1, grad + oh[0], dh,
+                               nullptr, st)));
+    }
     column_sum<<<(D + kThreads - 1) / kThreads, kThreads, 0, st>>>(dpred, B, D,
                                                                    grad + oh[1]);
     CHECK_LAUNCH();
-    CHECK((gemm<true, true>(B, dh, D, dpred, D, 1, params + oh[0], dh, 1, da, dh,
-                            nullptr, st)));
+    if (rnd) {
+      CHECK((gemm<true, true, true>(B, dh, S, dpred, D, 1, params + oh[0], dh, 1, da, dh,
+                                    nullptr, st)));
+      CHECK((gemm<true, true, false, true>(B, dh, Mdim, dpred + S, D, 1,
+                                           params + oh[0] + (long long)S * dh, dh, 1, da, dh,
+                                           nullptr, st)));
+    } else {
+      CHECK((gemm<true, true>(B, dh, D, dpred, D, 1, params + oh[0], dh, 1, da, dh,
+                              nullptr, st)));
+    }
     // backward: hidden layers
     for (int l = n_hidden - 1; l >= 0; --l) {
       const int din = dims[l], C = dims[l + 1];
@@ -270,11 +306,11 @@ int pigan_forward_train(float* params, float* m, float* v, const float* x,
       ln_param_grads<<<(C + kThreads - 1) / kThreads, kThreads, 0, st>>>(
           dln, tc[l], ivar[l], dt, B, C, grad + o[2], grad + o[3], grad + o[1]);
       CHECK_LAUNCH();
-      CHECK((gemm<false, true>(C, din, B, dt, 1, C, a_in, din, 1, grad + o[0], din,
-                               nullptr, st)));
+      CHECK((gemm_ex<false, true>(rnd && l > 0, false, C, din, B, dt, 1, C, a_in, din, 1,
+                                  grad + o[0], din, nullptr, st)));
       if (l > 0) {
-        CHECK((gemm<true, true>(B, din, C, dt, C, 1, params + o[0], din, 1, da, din,
-                                nullptr, st)));
+        CHECK((gemm_ex<true, true>(rnd, false, B, din, C, dt, C, 1, params + o[0], din, 1, da,
+                                   din, nullptr, st)));
       }
     }
 

@@ -35,6 +35,28 @@
 //   instance   a (2B, S) noise stream added to the spectrum columns of D's
 //   noise      input in the D phase only: the D phase reads a noised copy,
 //              the G phase's adversarial pass the clean fake rows.
+//   WGAN-GP    (flags bit 2; megakernel.py:986-1014, :1039-1053, :1068-1070)
+//              the critic loss mean(z_fake) - mean(z_real), D's seed -+1/B,
+//              and on D-update steps gp_weight mean((|grad_x D| - 1)^2) at
+//              (clean spectra, params interpolated with the eps stream):
+//              D's input gradient gvec = W1 (m1 . (W2 (m2 . w3))) over all
+//              S + 4 columns, norm sqrt(sum gvec^2 + 1e-12), the seed
+//              Gt = c gvec, c = w 2 (|g| - 1) / (B |g|), and its second-order
+//              backward with the LeakyReLU masks constant (XLA's autodiff
+//              treats them so): dW1 += a_m^T Gt, dW2 += v^T dU, dw3 +=
+//              sum_b dV m2 (dU = m1 . Gt W1^T, dV = dU W2^T), no bias term.
+//              G's adversarial seed is -1/B.  14 launches more on a D-update
+//              step, none on a skipped one (which reports the critic loss
+//              without the penalty);
+//   bfloat16   (flags bit 3; megakernel.py:792-798, :840-857) the operands of
+//              exactly the products the TPU kernel runs on its MXU are
+//              rounded to bfloat16 in the SGEMM's tile loads and accumulate
+//              in fp32 (MM below).  What the TPU kernel runs on the VPU in
+//              fp32 stays fp32 (GEMM): G's 256->4 head and its backward, D's
+//              256->1 head and its dW, F's input layer and its input
+//              backward, and the 8 metrics columns of F's head, which the
+//              bfloat16 path computes apart from the spectrum columns (one
+//              launch more forward, one more through F's backward).
 //
 // Design.  The TPU kernel keeps ~12 MB of state resident in VMEM on a
 // sequential grid; an SM has 227 KB.  Here, as in forward_train.cu, one C
@@ -573,6 +595,124 @@ g_loss_kernel(PerIn predm, PerIn spectram, PerIn metm, PerIn pnm, PerIn dpphysm,
   }
 }
 
+// --------------------------------------------------------------------------
+// WGAN-GP: the critic loss and the gradient penalty's elementwise passes
+// --------------------------------------------------------------------------
+
+// The penalty's input: xg (B, S + 4) = [spectra | eps real + (1 - eps) fake],
+// from x0's clean rows ([spectra | real params] over [spectra | fake params]).
+__global__ void gp_input(PerIn x0m, PerIn epsm, PerOut xgm, int B, int S) {
+  const int mem = blockIdx.y;
+  const float* __restrict__ x0 = x0m.at(mem);
+  const float* __restrict__ eps = epsm.at(mem);
+  float* __restrict__ xg = xgm.at(mem);
+  const int nd = S + 4;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < B * nd;
+       e += blockDim.x * gridDim.x) {
+    const int b = e / nd;
+    const int c = e - b * nd;
+    const float real = x0[e];
+    xg[e] = c < S ? real : eps[b] * real + (1.f - eps[b]) * x0[(long long)(B + b) * nd + c];
+  }
+}
+
+// v[r, c] = w3[c] m2(p2[r, c]): the head's weights through the second
+// layer's LeakyReLU mask (dz/dh2 . m2 at a unit seed).
+__global__ void gp_v(PerIn p2m, PerIn w3m, PerOut vm, int R, int C, float slope) {
+  const int mem = blockIdx.y;
+  const float* __restrict__ p2 = p2m.at(mem);
+  const float* __restrict__ w3 = w3m.at(mem);
+  float* __restrict__ v = vm.at(mem);
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < R * C;
+       e += blockDim.x * gridDim.x) {
+    const int c = e % C;
+    v[e] = w3[c] * (p2[e] >= 0.f ? 1.f : slope);
+  }
+}
+
+// dw3[c] += sum_b dv[b, c] m2(p2[b, c]), in row order: the penalty's term of
+// the head's gradient.
+__global__ void gp_w3_grad(PerIn dvm, PerIn p2m, int B, int C, float slope, PerOut gw3m) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  const float* __restrict__ dv = dvm.at(blockIdx.y);
+  const float* __restrict__ p2 = p2m.at(blockIdx.y);
+  float* __restrict__ gw3 = gw3m.at(blockIdx.y);
+  float s = 0.f;
+  for (int b = 0; b < B; ++b) {
+    const long long o = (long long)b * C + c;
+    s += dv[o] * (p2[o] >= 0.f ? 1.f : slope);
+  }
+  gw3[c] += s;
+}
+
+// The critic's loss over the 2B logits: row[0] = mean(z_fake) - mean(z_real)
+// (+ w_gp mean((|gvec| - 1)^2) when gvec is given: a D-update step),
+// row[2] = accuracy at 0.5, dz = -1/B on real rows and 1/B on fake rows; with
+// gvec also the penalty's seed gt = c gvec, c = w_gp 2 (|g| - 1) / (B |g|),
+// |g| = sqrt(sum over the S + 4 columns of gvec^2 + 1e-12), one row a thread.
+__global__ void __launch_bounds__(kThreads)
+critic_loss_kernel(PerIn zm, PerIn gvecm, int B, int nd, float w_gp, PerOut dzm, PerOut gtm,
+                   PerOut rowm) {
+  __shared__ float red[kThreads];
+  const int mem = blockIdx.x;
+  const float* __restrict__ z = zm.at(mem);
+  const float* __restrict__ gvec = gvecm.p ? gvecm.at(mem) : nullptr;
+  float* __restrict__ dz = dzm.at(mem);
+  float* __restrict__ row = rowm.at(mem);
+  float s_real = 0.f, s_fake = 0.f, hit_r = 0.f, hit_f = 0.f, s_gp = 0.f;
+  for (int r = threadIdx.x; r < 2 * B; r += kThreads) {
+    const float v = z[r];
+    const float p = sigmoidf(v);
+    if (r < B) {
+      s_real += v;
+      hit_r += p > 0.5f ? 1.f : 0.f;
+    } else {
+      s_fake += v;
+      hit_f += p <= 0.5f ? 1.f : 0.f;
+    }
+    dz[r] = (r < B ? -1.f : 1.f) / B;
+  }
+  if (gvec) {
+    float* __restrict__ gt = gtm.at(mem);
+    for (int b = threadIdx.x; b < B; b += kThreads) {
+      const float* gr = gvec + (long long)b * nd;
+      float ss = 0.f;
+      for (int c = 0; c < nd; ++c) ss = fmaf(gr[c], gr[c], ss);
+      const float gn = sqrtf(ss + 1e-12f);
+      s_gp += (gn - 1.f) * (gn - 1.f);
+      const float coef = w_gp * 2.f * (gn - 1.f) / (B * gn);
+      float* gtr = gt + (long long)b * nd;
+      for (int c = 0; c < nd; ++c) gtr[c] = coef * gr[c];
+    }
+  }
+  const float real = block_sum(s_real, red);
+  const float fake = block_sum(s_fake, red);
+  const float cr = block_sum(hit_r, red);
+  const float cf = block_sum(hit_f, red);
+  const float gp = gvec ? block_sum(s_gp, red) / B : 0.f;
+  if (threadIdx.x == 0) {
+    row[0] = fake / B - real / B + w_gp * gp;
+    row[2] = 0.5f * (cr / B + cf / B);
+  }
+}
+
+// G's adversarial loss against the critic: row[3] = -mean(z), dz = -1/B.
+__global__ void __launch_bounds__(kThreads)
+wgan_adv_kernel(PerIn zm, int B, PerOut dzm, PerOut rowm) {
+  __shared__ float red[kThreads];
+  const float* __restrict__ z = zm.at(blockIdx.x);
+  float* __restrict__ dz = dzm.at(blockIdx.x);
+  float* __restrict__ row = rowm.at(blockIdx.x);
+  float s = 0.f;
+  for (int r = threadIdx.x; r < B; r += kThreads) {
+    s += z[r];
+    dz[r] = -1.f / B;
+  }
+  const float total = block_sum(s, red);
+  if (threadIdx.x == 0) row[3] = -(total / B);
+}
+
 // Device kernels enqueued by the last call of gan_train_steps in this
 // process (pigan_gan_kernels_enqueued): divided by T, the launches a step.
 long long g_kernels_enqueued = 0;
@@ -587,11 +727,12 @@ inline int blocks_for(long long n, int threads, int cap = 1024) {
 // Per with that operand's member stride; F's parameters and the schedule
 // are shared.  A step enqueues the same 69 launches (58 detached; more with
 // the second G passes and instance noise) whatever `members` is: each launch
-// carries the member on a grid axis.  inoise and stab are null when off.
+// carries the member on a grid axis.  inoise, stab and eps are null when off.
 int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, PerOut d_m,
                     PerOut d_v, PerOut bn1_mean, PerOut bn1_var, PerOut bn2_mean,
                     PerOut bn2_var, const float* f, float* g_ema, PerIn spectra, PerIn params,
-                    PerIn met, PerIn inoise, PerIn stab, const float* sched, PerOut rows,
+                    PerIn met, PerIn inoise, PerIn stab, PerIn eps, const float* sched,
+                    PerOut rows,
                     float* work,
                     long long work_floats, const int* dims, const int* f_dims,
                     int n_f_hidden, const long long* f_offsets, int B, int T,
@@ -615,6 +756,10 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
   const int nd = S + 4;
   const int detach = flags & 1;
   const int sigmoid = (flags >> 1) & 1;
+  const bool wgan = (flags >> 2) & 1;
+  const bool bf16 = (flags >> 3) & 1;
+  const float w_gp = (float)hp[24];
+  if (wgan && eps.p == nullptr) return cudaErrorInvalidValue;
   const float ema_decay = (float)hp[12];
   const float w_cycle = (float)hp[22], w_stab = (float)hp[23];
   const bool use_cycle = w_cycle != 0.f, use_stab = w_stab != 0.f;
@@ -675,7 +820,20 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
   // activations for the second G passes (cycle's are done with before
   // stability's begin), cycle's input gradient, a flat gradient for each
   PerOut x0n, uc2[2], xh2[2], y2[2], a2[2], iv2[2], tn2, dz2, drc, gradC, gradS;
+  PerOut xg, p1g, h1g, p2g, gv, am, gvec, gt, dug, dvg;
   if (use_inoise) x0n = take(2LL * B * nd);
+  if (wgan) {
+    xg = take((long long)B * nd);
+    p1g = take((long long)B * d1);
+    h1g = take((long long)B * d1);
+    p2g = take((long long)B * d2);
+    gv = take((long long)B * d2);
+    am = take((long long)B * d1);
+    gvec = take((long long)B * nd);
+    gt = take((long long)B * nd);
+    dug = take((long long)B * d1);
+    dvg = take((long long)B * d2);
+  }
   if (use_cycle || use_stab) {
     for (int l = 0; l < 2; ++l) {
       const long long bc = (long long)B * gc[l];
@@ -738,10 +896,28 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
 #define ELEMS(n) dim3(blocks_for((n), kThreads), NM), kThreads, 0, st
 #define ROWS(R) dim3((R), NM), kThreads, 0, st
 #define ONE() NM, kThreads, 0, st
+// GEMM: an fp32 product (the TPU kernel's VPU sums); GEMM_ACC: GEMM added to
+// its output; MM: a product whose operands the TPU kernel rounds to bfloat16
+// (rounded when bf16); MM_ACC: MM added to its output
 #define GEMM(AK, BNC, ...)                          \
   do {                                              \
     ++g_kernels_enqueued;                           \
     CHECK((gemm<AK, BNC>(__VA_ARGS__, st, NM)));    \
+  } while (0)
+#define GEMM_ACC(AK, BNC, ...)                                  \
+  do {                                                          \
+    ++g_kernels_enqueued;                                       \
+    CHECK((gemm<AK, BNC, false, true>(__VA_ARGS__, st, NM)));   \
+  } while (0)
+#define MM(AK, BNC, ...)                                            \
+  do {                                                              \
+    ++g_kernels_enqueued;                                           \
+    CHECK((gemm_ex<AK, BNC>(bf16, false, __VA_ARGS__, st, NM)));    \
+  } while (0)
+#define MM_ACC(AK, BNC, ...)                                        \
+  do {                                                              \
+    ++g_kernels_enqueued;                                           \
+    CHECK((gemm_ex<AK, BNC>(bf16, true, __VA_ARGS__, st, NM)));     \
   } while (0)
 
   const PerIn F(f, 0);
@@ -754,11 +930,11 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
   // and, with dx, its input gradient (B, S).  Uses da and dt as scratch.
   auto second_pass = [&](PerIn x, int ldx, float w, PerOut row, PerOut grad2,
                          PerOut dx) -> int {
-    GEMM(true, false, B, g1, S, x, ldx, 1, g + gW1, 1, S, uc2[0], g1, g + gb1);
+    MM(true, false, B, g1, S, x, ldx, 1, g + gW1, 1, S, uc2[0], g1, g + gb1);
     bn_forward<<<COLS(g1)>>>(uc2[0], B, g1, g + ggam1, g + gbet1, xh2[0], y2[0], a2[0],
                              iv2[0], PerOut(), PerOut(), bn_eps, bn_mom, bn_one_minus);
     CHECK_LAUNCH();
-    GEMM(true, false, B, g2, g1, a2[0], g1, 1, g + gW2, 1, g1, uc2[1], g2, g + gb2);
+    MM(true, false, B, g2, g1, a2[0], g1, 1, g + gW2, 1, g1, uc2[1], g2, g + gb2);
     bn_forward<<<COLS(g2)>>>(uc2[1], B, g2, g + ggam2, g + gbet2, xh2[1], y2[1], a2[1],
                              iv2[1], PerOut(), PerOut(), bn_eps, bn_mom, bn_one_minus);
     CHECK_LAUNCH();
@@ -772,17 +948,17 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
     bn_backward<<<COLS(g2)>>>(da, y2[1], xh2[1], uc2[1], g + ggam2, iv2[1], B, g2, dt,
                               grad2 + ggam2, grad2 + gbet2);
     CHECK_LAUNCH();
-    GEMM(false, true, g2, g1, B, dt, 1, g2, a2[0], g1, 1, grad2 + gW2, g1, none);
+    MM(false, true, g2, g1, B, dt, 1, g2, a2[0], g1, 1, grad2 + gW2, g1, none);
     column_sum<<<WIDE(g2)>>>(dt, B, g2, grad2 + gb2);
     CHECK_LAUNCH();
-    GEMM(true, true, B, g1, g2, dt, g2, 1, g + gW2, g1, 1, da, g1, none);
+    MM(true, true, B, g1, g2, dt, g2, 1, g + gW2, g1, 1, da, g1, none);
     bn_backward<<<COLS(g1)>>>(da, y2[0], xh2[0], uc2[0], g + ggam1, iv2[0], B, g1, dt,
                               grad2 + ggam1, grad2 + gbet1);
     CHECK_LAUNCH();
-    GEMM(false, true, g1, S, B, dt, 1, g1, x, ldx, 1, grad2 + gW1, S, none);
+    MM(false, true, g1, S, B, dt, 1, g1, x, ldx, 1, grad2 + gW1, S, none);
     column_sum<<<WIDE(g1)>>>(dt, B, g1, grad2 + gb1);
     CHECK_LAUNCH();
-    if (dx.p) GEMM(true, true, B, S, g1, dt, g1, 1, g + gW1, S, 1, dx, S, none);
+    if (dx.p) MM(true, true, B, S, g1, dt, g1, 1, g + gW1, S, 1, dx, S, none);
     return 0;
   };
 
@@ -796,11 +972,11 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
     const bool update_d = sc[6] > 0.f;
 
     // ---- G forward, shared by both phases --------------------------------
-    GEMM(true, false, B, g1, S, spec_t, S, 1, g + gW1, 1, S, uc[0], g1, g + gb1);
+    MM(true, false, B, g1, S, spec_t, S, 1, g + gW1, 1, S, uc[0], g1, g + gb1);
     bn_forward<<<COLS(g1)>>>(uc[0], B, g1, g + ggam1, g + gbet1, xh[0], y[0], a[0], iv[0],
                              bn1_mean, bn1_var, bn_eps, bn_mom, bn_one_minus);
     CHECK_LAUNCH();
-    GEMM(true, false, B, g2, g1, a[0], g1, 1, g + gW2, 1, g1, uc[1], g2, g + gb2);
+    MM(true, false, B, g2, g1, a[0], g1, 1, g + gW2, 1, g1, uc[1], g2, g + gb2);
     bn_forward<<<COLS(g2)>>>(uc[1], B, g2, g + ggam2, g + gbet2, xh[1], y[1], a[1], iv[1],
                              bn2_mean, bn2_var, bn_eps, bn_mom, bn_one_minus);
     CHECK_LAUNCH();
@@ -818,30 +994,70 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
       CHECK_LAUNCH();
       xd = x0n;
     }
-    GEMM(true, false, 2 * B, d1, nd, xd, nd, 1, d + dW1, 1, nd, p1, d1, d + db1);
+    MM(true, false, 2 * B, d1, nd, xd, nd, 1, d + dW1, 1, nd, p1, d1, d + db1);
     leaky_forward<<<ELEMS(2LL * B * d1)>>>(p1, h1, 2LL * B * d1, slope);
     CHECK_LAUNCH();
-    GEMM(true, false, 2 * B, d2, d1, h1, d1, 1, d + dW2, 1, d1, p2, d2, d + db2);
+    MM(true, false, 2 * B, d2, d1, h1, d1, 1, d + dW2, 1, d1, p2, d2, d + db2);
     leaky_forward<<<ELEMS(2LL * B * d2)>>>(p2, h2, 2LL * B * d2, slope);
     CHECK_LAUNCH();
     GEMM(true, false, 2 * B, 1, d2, h2, d2, 1, d + dW3, 1, d2, z, 1, d + db3);
-    d_loss_kernel<<<ONE()>>>(z, B, lab_r, lab_f, dz, row);
-    CHECK_LAUNCH();
+    if (wgan) {
+      if (update_d) {
+        // the penalty's pass at (clean spectra, eps-interpolated params),
+        // with D before this step's update: gvec = dz/dx, masks constant
+        gp_input<<<ELEMS((long long)B * nd)>>>(x0, eps + (long long)t * B, xg, B, S);
+        CHECK_LAUNCH();
+        MM(true, false, B, d1, nd, xg, nd, 1, d + dW1, 1, nd, p1g, d1, d + db1);
+        leaky_forward<<<ELEMS((long long)B * d1)>>>(p1g, h1g, (long long)B * d1, slope);
+        CHECK_LAUNCH();
+        MM(true, false, B, d2, d1, h1g, d1, 1, d + dW2, 1, d1, p2g, d2, d + db2);
+        gp_v<<<ELEMS((long long)B * d2)>>>(p2g, d + dW3, gv, B, d2, slope);
+        CHECK_LAUNCH();
+        MM(true, true, B, d1, d2, gv, d2, 1, d + dW2, d1, 1, am, d1, none);
+        leaky_backward<<<ELEMS((long long)B * d1)>>>(am, p1g, (long long)B * d1, slope);
+        CHECK_LAUNCH();
+        MM(true, true, B, nd, d1, am, d1, 1, d + dW1, nd, 1, gvec, nd, none);
+      }
+      critic_loss_kernel<<<ONE()>>>(z, update_d ? PerIn(gvec) : none, B, nd, w_gp, dz, gt, row);
+      CHECK_LAUNCH();
+    } else {
+      d_loss_kernel<<<ONE()>>>(z, B, lab_r, lab_f, dz, row);
+      CHECK_LAUNCH();
+    }
     if (update_d) {
       GEMM(false, true, 1, d2, 2 * B, dz, 1, 1, h2, d2, 1, gradD + dW3, d2, none);
       column_sum<<<WIDE(1)>>>(dz, 2 * B, 1, gradD + db3);
       CHECK_LAUNCH();
       d_head_backward<<<ELEMS(2LL * B * d2)>>>(dz, d + dW3, p2, dp2, 2 * B, d2, slope);
       CHECK_LAUNCH();
-      GEMM(false, true, d2, d1, 2 * B, dp2, 1, d2, h1, d1, 1, gradD + dW2, d1, none);
-      column_sum<<<WIDE(d2)>>>(dp2, 2 * B, d2, gradD + db2);
+      MM(false, true, d2, d1, 2 * B, dp2, 1, d2, h1, d1, 1, gradD + dW2, d1, none);
+      if (wgan) {
+        column_sum_f64<<<WIDE(d2)>>>(dp2, 2 * B, d2, gradD + db2);
+      } else {
+        column_sum<<<WIDE(d2)>>>(dp2, 2 * B, d2, gradD + db2);
+      }
       CHECK_LAUNCH();
-      GEMM(true, true, 2 * B, d1, d2, dp2, d2, 1, d + dW2, d1, 1, dp1, d1, none);
+      MM(true, true, 2 * B, d1, d2, dp2, d2, 1, d + dW2, d1, 1, dp1, d1, none);
       leaky_backward<<<ELEMS(2LL * B * d1)>>>(dp1, p1, 2LL * B * d1, slope);
       CHECK_LAUNCH();
-      GEMM(false, true, d1, nd, 2 * B, dp1, 1, d1, xd, nd, 1, gradD + dW1, nd, none);
-      column_sum<<<WIDE(d1)>>>(dp1, 2 * B, d1, gradD + db1);
+      MM(false, true, d1, nd, 2 * B, dp1, 1, d1, xd, nd, 1, gradD + dW1, nd, none);
+      if (wgan) {
+        column_sum_f64<<<WIDE(d1)>>>(dp1, 2 * B, d1, gradD + db1);
+      } else {
+        column_sum<<<WIDE(d1)>>>(dp1, 2 * B, d1, gradD + db1);
+      }
       CHECK_LAUNCH();
+      if (wgan) {
+        // the penalty's second-order backward: W1 twice, W2, w3; no bias
+        MM(true, false, B, d1, nd, gt, nd, 1, d + dW1, 1, nd, dug, d1, none);
+        leaky_backward<<<ELEMS((long long)B * d1)>>>(dug, p1g, (long long)B * d1, slope);
+        CHECK_LAUNCH();
+        MM(true, false, B, d2, d1, dug, d1, 1, d + dW2, 1, d1, dvg, d2, none);
+        MM_ACC(false, true, d1, nd, B, am, 1, d1, gt, nd, 1, gradD + dW1, nd, none);
+        MM_ACC(false, true, d2, d1, B, gv, 1, d2, dug, d1, 1, gradD + dW2, d1, none);
+        gp_w3_grad<<<WIDE(d2)>>>(dvg, p2g, B, d2, slope, gradD + dW3);
+        CHECK_LAUNCH();
+      }
       sumsq_partial<<<ROWS(kNormParts)>>>(gradD, Pd, partial);
       CHECK_LAUNCH();
       ak.lr = sc[1];
@@ -853,29 +1069,37 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
 
     // ---- G phase: the fake rows through the updated D --------------------
     const PerIn fake_in = x0 + (long long)B * nd;
-    GEMM(true, false, B, d1, nd, fake_in, nd, 1, d + dW1, 1, nd, p1, d1, d + db1);
+    MM(true, false, B, d1, nd, fake_in, nd, 1, d + dW1, 1, nd, p1, d1, d + db1);
     leaky_forward<<<ELEMS((long long)B * d1)>>>(p1, h1, (long long)B * d1, slope);
     CHECK_LAUNCH();
-    GEMM(true, false, B, d2, d1, h1, d1, 1, d + dW2, 1, d1, p2, d2, d + db2);
+    MM(true, false, B, d2, d1, h1, d1, 1, d + dW2, 1, d1, p2, d2, d + db2);
     leaky_forward<<<ELEMS((long long)B * d2)>>>(p2, h2, (long long)B * d2, slope);
     CHECK_LAUNCH();
     GEMM(true, false, B, 1, d2, h2, d2, 1, d + dW3, 1, d2, z, 1, d + db3);
-    adv_loss_kernel<<<ONE()>>>(z, B, dz, row);
+    if (wgan) {
+      wgan_adv_kernel<<<ONE()>>>(z, B, dz, row);
+    } else {
+      adv_loss_kernel<<<ONE()>>>(z, B, dz, row);
+    }
     CHECK_LAUNCH();
     d_head_backward<<<ELEMS((long long)B * d2)>>>(dz, d + dW3, p2, dp2, B, d2, slope);
     CHECK_LAUNCH();
-    GEMM(true, true, B, d1, d2, dp2, d2, 1, d + dW2, d1, 1, dp1, d1, none);
+    MM(true, true, B, d1, d2, dp2, d2, 1, d + dW2, d1, 1, dp1, d1, none);
     leaky_backward<<<ELEMS((long long)B * d1)>>>(dp1, p1, (long long)B * d1, slope);
     CHECK_LAUNCH();
     // only the four parameter columns of D's input gradient are needed
-    GEMM(true, true, B, 4, d1, dp1, d1, 1, d + (dW1 + S), nd, 1, dpphys, 4, none);
+    MM(true, true, B, 4, d1, dp1, d1, 1, d + (dW1 + S), nd, 1, dpphys, 4, none);
 
     // ---- the frozen F, eval mode -------------------------------------------
     PerIn fa = pn;
     for (int l = 0; l < n_f_hidden; ++l) {
       const int din = f_dims[l], C = f_dims[l + 1];
       const long long* o = f_offsets + 4 * l;
-      GEMM(true, false, B, C, din, fa, din, 1, F + o[0], 1, din, tc[l], C, F + o[1]);
+      if (l == 0) {   // the TPU kernel's VPU sum over the 4 params: fp32
+        GEMM(true, false, B, C, din, fa, din, 1, F + o[0], 1, din, tc[l], C, F + o[1]);
+      } else {
+        MM(true, false, B, C, din, fa, din, 1, F + o[0], 1, din, tc[l], C, F + o[1]);
+      }
       ln_forward<<<ROWS(B)>>>(tc[l], ln[l], PerOut(), act[l], ivar[l], F + o[2], F + o[3], C,
                               ln_eps, slope, 0u, 0, 0u, 1.f);
       CHECK_LAUNCH();
@@ -883,7 +1107,14 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
     }
     const int dh = f_dims[n_f_hidden];
     const long long* oh = f_offsets + 4 * n_f_hidden;
-    GEMM(true, false, B, D, dh, fa, dh, 1, F + oh[0], 1, dh, pred, D, F + oh[1]);
+    if (bf16) {
+      // the spectrum columns in bfloat16, the 8 metrics columns in fp32
+      MM(true, false, B, S, dh, fa, dh, 1, F + oh[0], 1, dh, pred, D, F + oh[1]);
+      GEMM(true, false, B, D - S, dh, fa, dh, 1, F + (oh[0] + (long long)S * dh), 1, dh,
+           pred + S, D, F + (oh[1] + S));
+    } else {
+      GEMM(true, false, B, D, dh, fa, dh, 1, F + oh[0], 1, dh, pred, D, F + oh[1]);
+    }
 
     // ---- losses and their seeds -------------------------------------------
     gk.c_scale = sc[7];
@@ -908,14 +1139,25 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
 
     // ---- through F's input ---------------------------------------------------
     if (!detach) {
-      GEMM(true, true, B, dh, D, dpred, D, 1, F + oh[0], dh, 1, da, dh, none);
+      if (bf16) {
+        // the spectrum columns' term in bfloat16, then the metrics columns'
+        MM(true, true, B, dh, S, dpred, D, 1, F + oh[0], dh, 1, da, dh, none);
+        GEMM_ACC(true, true, B, dh, D - S, dpred + S, D, 1, F + (oh[0] + (long long)S * dh),
+                 dh, 1, da, dh, none);
+      } else {
+        GEMM(true, true, B, dh, D, dpred, D, 1, F + oh[0], dh, 1, da, dh, none);
+      }
       for (int l = n_f_hidden - 1; l >= 0; --l) {
         const int din = f_dims[l], C = f_dims[l + 1];
         const long long* o = f_offsets + 4 * l;
         ln_backward<<<ROWS(B)>>>(da, none, ln[l], tc[l], ivar[l], F + o[2], dln, dt, C, slope,
                                  0);
         CHECK_LAUNCH();
-        GEMM(true, true, B, din, C, dt, C, 1, F + o[0], din, 1, l > 0 ? da : dfin, din, none);
+        if (l == 0) {   // the TPU kernel's VPU sums into the 4 params: fp32
+          GEMM(true, true, B, din, C, dt, C, 1, F + o[0], din, 1, dfin, din, none);
+        } else {
+          MM(true, true, B, din, C, dt, C, 1, F + o[0], din, 1, da, din, none);
+        }
       }
     }
 
@@ -930,14 +1172,14 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
     bn_backward<<<COLS(g2)>>>(da, y[1], xh[1], uc[1], g + ggam2, iv[1], B, g2, dt,
                               gradG + ggam2, gradG + gbet2);
     CHECK_LAUNCH();
-    GEMM(false, true, g2, g1, B, dt, 1, g2, a[0], g1, 1, gradG + gW2, g1, none);
+    MM(false, true, g2, g1, B, dt, 1, g2, a[0], g1, 1, gradG + gW2, g1, none);
     column_sum<<<WIDE(g2)>>>(dt, B, g2, gradG + gb2);
     CHECK_LAUNCH();
-    GEMM(true, true, B, g1, g2, dt, g2, 1, g + gW2, g1, 1, da, g1, none);
+    MM(true, true, B, g1, g2, dt, g2, 1, g + gW2, g1, 1, da, g1, none);
     bn_backward<<<COLS(g1)>>>(da, y[0], xh[0], uc[0], g + ggam1, iv[0], B, g1, dt,
                               gradG + ggam1, gradG + gbet1);
     CHECK_LAUNCH();
-    GEMM(false, true, g1, S, B, dt, 1, g1, spec_t, S, 1, gradG + gW1, S, none);
+    MM(false, true, g1, S, B, dt, 1, g1, spec_t, S, 1, gradG + gW1, S, none);
     column_sum<<<WIDE(g1)>>>(dt, B, g1, gradG + gb1);
     CHECK_LAUNCH();
     if (use_cycle || use_stab) {
@@ -958,6 +1200,9 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
       CHECK_LAUNCH();
     }
   }
+#undef MM_ACC
+#undef GEMM_ACC
+#undef MM
 #undef GEMM
 #undef ONE
 #undef ROWS
@@ -988,6 +1233,8 @@ long long pigan_gan_kernels_enqueued() { return g_kernels_enqueued; }
 //   inoise         (T, 2B, S) device, the D phase's instance noise, or null
 //   stab           (T, B, S) device, the noised spectra of the stability
 //                  pass; needed when hp[23] > 0, else null
+//   eps            (T, B) device, WGAN-GP's interpolation weights (read on
+//                  D-update steps); needed with flags bit 2, else null
 //   sched          (T, 8) host: lr_g lr_d inv1_g inv2_g inv1_d inv2_d d_gate c_scale
 //   rows           (T, 11) device out: d_loss g_loss d_accuracy adv recon
 //                  metrics maxwell lc range violation_rate constraint
@@ -997,17 +1244,19 @@ long long pigan_gan_kernels_enqueued() { return g_kernels_enqueued; }
 //   hp             host: w_adv w_recon w_pmet w_maxwell w_lc w_range
 //                  w_constraint w_window range_lo range_hi label_real
 //                  label_fake ema_decay clip lo[4] hi[4] w_cycle w_stability
-//   flags          bit 0 detach_forward, bit 1 sigmoid_squash
+//                  gp_weight
+//   flags          bit 0 detach_forward, bit 1 sigmoid_squash, bit 2 WGAN-GP,
+//                  bit 3 bfloat16 operands
 int pigan_gan_train(float* g, float* g_m, float* g_v, float* d, float* d_m, float* d_v,
                     float* bn1_mean, float* bn1_var, float* bn2_mean, float* bn2_var,
                     const float* f, float* g_ema, const float* spectra,
                     const float* params, const float* met, const float* inoise,
-                    const float* stab, const float* sched,
+                    const float* stab, const float* eps, const float* sched,
                     float* rows, float* work, long long work_floats, const int* dims,
                     const int* f_dims, int n_f_hidden, const long long* f_offsets, int B,
                     int T, const double* hp, int flags, void* stream_ptr) {
   return gan_train_steps(1, g, g_m, g_v, d, d_m, d_v, bn1_mean, bn1_var, bn2_mean, bn2_var, f,
-                         g_ema, spectra, params, met, inoise, stab, sched, rows, work,
+                         g_ema, spectra, params, met, inoise, stab, eps, sched, rows, work,
                          work_floats, dims,
                          f_dims, n_f_hidden, f_offsets, B, T, hp, flags,
                          (cudaStream_t)stream_ptr);
@@ -1020,6 +1269,7 @@ int pigan_gan_train(float* g, float* g_m, float* g_v, float* d, float* d_m, floa
 //   bn1_mean, bn1_var (members, g1);  bn2_mean, bn2_var (members, g2)
 //   spectra, params, met   (members, T, B, S), (members, T, B, 4), (members, T, B, 8)
 //   inoise, stab   (members, T, 2B, S), (members, T, B, S), or null
+//   eps            (members, T, B), or null
 //   rows           (members, T, 11) out
 //   work           members x work_floats floats: work_floats is one member's
 // and shared by all members: f, sched (all members sit at the same step and
@@ -1028,7 +1278,7 @@ int pigan_gan_ensemble_train(int members, float* g, float* g_m, float* g_v, floa
                              float* d_m, float* d_v, float* bn1_mean, float* bn1_var,
                              float* bn2_mean, float* bn2_var, const float* f,
                              const float* spectra, const float* params, const float* met,
-                             const float* inoise, const float* stab,
+                             const float* inoise, const float* stab, const float* eps,
                              const float* sched, float* rows, float* work,
                              long long work_floats, const int* dims, const int* f_dims,
                              int n_f_hidden, const long long* f_offsets, int B, int T,
@@ -1043,7 +1293,7 @@ int pigan_gan_ensemble_train(int members, float* g, float* g_m, float* g_v, floa
       PerOut(d_v, Pd), PerOut(bn1_mean, g1), PerOut(bn1_var, g1), PerOut(bn2_mean, g2),
       PerOut(bn2_var, g2), f, nullptr, PerIn(spectra, TB * S), PerIn(params, TB * 4),
       PerIn(met, TB * 8), inoise ? PerIn(inoise, 2 * TB * S) : PerIn(),
-      stab ? PerIn(stab, TB * S) : PerIn(), sched,
+      stab ? PerIn(stab, TB * S) : PerIn(), eps ? PerIn(eps, TB) : PerIn(), sched,
       PerOut(rows, (long long)T * kRowWidth), work, work_floats,
       dims, f_dims, n_f_hidden, f_offsets, B, T, hp, flags, (cudaStream_t)stream_ptr);
 }

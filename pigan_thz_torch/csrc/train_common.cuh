@@ -7,6 +7,17 @@
 // namespace: each source that includes this header gets its own copy, and no
 // symbol leaves it.
 //
+// bfloat16 operands (compute_dtype="bfloat16").  The TPU kernels round the
+// operands of their MXU products to bfloat16 and accumulate in fp32.  The
+// SGEMM's RND flag does the same in its tile loads: each element of A and B
+// is rounded to bfloat16 (round to nearest even, __float2bfloat16_rn) as it
+// enters shared memory, and the FMAs accumulate in fp32; a product of two
+// bfloat16 values is exact in fp32, so only the order of the sums differs
+// from the MXU's.  The flag is chosen per launch (gemm_ex): the products the
+// TPU kernels run on the VPU in fp32 stay fp32.  ACC adds the product to C
+// instead of overwriting it.  The fp32 instantiations (RND and ACC false)
+// are the code of the fp32 kernels, unchanged.
+//
 // The member axis.  Every kernel here that the GAN step launches takes its
 // operands as Per<T>: a
 // pointer and a per-member stride.  The member is the grid's last used axis
@@ -18,6 +29,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,9 +61,16 @@ using PerOut = Per<float>;
 // A(m, k) = A[m * sam + k * sak], B(k, n) = B[k * sbk + n * sbn].
 // AK: A is contiguous along k (else along m); BN: B is contiguous along n
 // (else along k).  The flags choose the thread mapping of the tile loads so
-// that neighbouring threads read neighbouring addresses.
+// that neighbouring threads read neighbouring addresses.  RND rounds every
+// operand to bfloat16 as it is loaded; ACC adds to C (C += A B).
 // --------------------------------------------------------------------------
-template <int BM, int BN, bool AK, bool BNC>
+template <bool RND>
+__device__ __forceinline__ float operand(float x) {
+  if (RND) return __bfloat162float(__float2bfloat16_rn(x));
+  return x;
+}
+
+template <int BM, int BN, bool AK, bool BNC, bool RND = false, bool ACC = false>
 __global__ void __launch_bounds__(kThreads)
 sgemm(int M, int N, int K, PerIn Am, long long sam, long long sak, PerIn Bm,
       long long sbk, long long sbn, PerOut Cm, int ldc, PerIn biasm) {
@@ -80,13 +99,15 @@ sgemm(int M, int N, int K, PerIn Am, long long sam, long long sak, PerIn Bm,
       int m, k;
       if (AK) { k = e % kBK; m = e / kBK; } else { m = e % BM; k = e / BM; }
       const int gm = m0 + m, gk = k0 + k;
-      As[k][m] = (gm < M && gk < K) ? A[(long long)gm * sam + (long long)gk * sak] : 0.f;
+      As[k][m] = (gm < M && gk < K)
+                     ? operand<RND>(A[(long long)gm * sam + (long long)gk * sak]) : 0.f;
     }
     for (int e = tid; e < BN * kBK; e += kThreads) {
       int n, k;
       if (BNC) { n = e % BN; k = e / BN; } else { k = e % kBK; n = e / kBK; }
       const int gn = n0 + n, gk = k0 + k;
-      Bs[k][n] = (gn < N && gk < K) ? B[(long long)gk * sbk + (long long)gn * sbn] : 0.f;
+      Bs[k][n] = (gn < N && gk < K)
+                     ? operand<RND>(B[(long long)gk * sbk + (long long)gn * sbn]) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -110,12 +131,15 @@ sgemm(int M, int N, int K, PerIn Am, long long sam, long long sak, PerIn Bm,
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int n = n0 + tx + 16 * j;
-      if (n < N) C[(long long)m * ldc + n] = acc[i][j] + (bias ? bias[n] : 0.f);
+      if (n >= N) continue;
+      float* c = C + (long long)m * ldc + n;
+      if (ACC) *c = *c + acc[i][j] + (bias ? bias[n] : 0.f);
+      else *c = acc[i][j] + (bias ? bias[n] : 0.f);
     }
   }
 }
 
-template <bool AK, bool BNC>
+template <bool AK, bool BNC, bool RND = false, bool ACC = false>
 cudaError_t gemm(int M, int N, int K, PerIn A, long long sam, long long sak, PerIn B,
                  long long sbk, long long sbn, PerOut C, int ldc, PerIn bias,
                  cudaStream_t s, int members = 1) {
@@ -123,14 +147,31 @@ cudaError_t gemm(int M, int N, int K, PerIn A, long long sam, long long sak, Per
   // The choice reads one member's shape only: it must not move with members.
   if (((M + 63) / 64) * ((N + 63) / 64) >= 128) {
     dim3 grid((N + 63) / 64, (M + 63) / 64, members);
-    sgemm<64, 64, AK, BNC><<<grid, kThreads, 0, s>>>(M, N, K, A, sam, sak, B, sbk,
-                                                      sbn, C, ldc, bias);
+    sgemm<64, 64, AK, BNC, RND, ACC><<<grid, kThreads, 0, s>>>(M, N, K, A, sam, sak, B,
+                                                                sbk, sbn, C, ldc, bias);
   } else {
     dim3 grid((N + 31) / 32, (M + 31) / 32, members);
-    sgemm<32, 32, AK, BNC><<<grid, kThreads, 0, s>>>(M, N, K, A, sam, sak, B, sbk,
-                                                      sbn, C, ldc, bias);
+    sgemm<32, 32, AK, BNC, RND, ACC><<<grid, kThreads, 0, s>>>(M, N, K, A, sam, sak, B,
+                                                                sbk, sbn, C, ldc, bias);
   }
   return cudaGetLastError();
+}
+
+// gemm with the operand rounding and the accumulation chosen per launch.
+template <bool AK, bool BNC>
+cudaError_t gemm_ex(bool rnd, bool acc, int M, int N, int K, PerIn A, long long sam,
+                    long long sak, PerIn B, long long sbk, long long sbn, PerOut C, int ldc,
+                    PerIn bias, cudaStream_t s, int members = 1) {
+  if (rnd) {
+    return acc ? gemm<AK, BNC, true, true>(M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias, s,
+                                           members)
+               : gemm<AK, BNC, true, false>(M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias,
+                                            s, members);
+  }
+  return acc ? gemm<AK, BNC, false, true>(M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias, s,
+                                          members)
+             : gemm<AK, BNC, false, false>(M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias, s,
+                                           members);
 }
 
 // Fixed-order block sum of one value per thread (kThreads threads); the
@@ -289,6 +330,19 @@ __global__ void column_sum(PerIn xm, int B, int C, PerOut outm) {
   float s = 0.f;
   for (int b = 0; b < B; ++b) s += x[(long long)b * C + c];
   out[c] = s;
+}
+
+// column_sum with the sum in double: for the critic's bias gradients under
+// WGAN-GP, differences of the real and the fake rows' sums, rows that share
+// all but 4 of their input columns (float sums lose what the difference keeps).
+__global__ void column_sum_f64(PerIn xm, int B, int C, PerOut outm) {
+  const float* __restrict__ x = xm.at(blockIdx.y);
+  float* __restrict__ out = outm.at(blockIdx.y);
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  double s = 0.0;
+  for (int b = 0; b < B; ++b) s += x[(long long)b * C + c];
+  out[c] = (float)s;
 }
 
 // Second difference of a row at j: (p[j+2] - p[j+1]) - (p[j+1] - p[j]).

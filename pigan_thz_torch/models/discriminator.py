@@ -19,6 +19,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from .blocks import Dense, compute_dtype_of
+
 
 class MLPDiscriminator(nn.Module):
     def __init__(
@@ -27,14 +29,16 @@ class MLPDiscriminator(nn.Module):
         param_dim: int = 4,
         hidden_dims: Sequence[int] = (512, 256),
         leaky_slope: float = 0.2,
+        compute_dtype: str = "float32",
     ):
         super().__init__()
+        dt = compute_dtype_of(compute_dtype)
         layers: list[nn.Module] = []
         d = spectrum_dim + param_dim
         for h in hidden_dims:
-            layers += [nn.Linear(d, h), nn.LeakyReLU(leaky_slope)]
+            layers += [Dense(d, h, dt), nn.LeakyReLU(leaky_slope)]
             d = h
-        layers.append(nn.Linear(d, 1))
+        layers.append(Dense(d, 1, dt))
         self.main = nn.Sequential(*layers)
 
     def forward(self, spectrum: torch.Tensor, params: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from .blocks import mlp_block
+from .blocks import Dense, compute_dtype_of, mlp_block
 
 
 class ForwardMLP(nn.Module):
@@ -31,18 +31,20 @@ class ForwardMLP(nn.Module):
         hidden_dims: Sequence[int] = (256, 512, 1024, 512, 256),
         dropout_rate: float = 0.2,
         leaky_slope: float = 0.2,
+        compute_dtype: str = "float32",
     ):
         super().__init__()
+        dt = compute_dtype_of(compute_dtype)
         self.spectrum_dim = spectrum_dim
         layers: list[nn.Module] = []
         d = param_dim
         for h in hidden_dims:
             layers += mlp_block(
                 d, h, norm="layer", act="leaky_relu", leaky_slope=leaky_slope,
-                dropout_rate=dropout_rate,
+                dropout_rate=dropout_rate, compute_dtype=dt,
             )
             d = h
-        layers.append(nn.Linear(d, spectrum_dim + metrics_dim))
+        layers.append(Dense(d, spectrum_dim + metrics_dim, dt))
         self.model = nn.Sequential(*layers)
 
     def forward(self, params_norm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -16,7 +16,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from .blocks import mlp_block
+from .blocks import Dense, compute_dtype_of, mlp_block
 
 
 class MLPGenerator(nn.Module):
@@ -26,14 +26,16 @@ class MLPGenerator(nn.Module):
         output_dim: int = 4,
         hidden_dims: Sequence[int] = (512, 256),
         norm: str = "batch",
+        compute_dtype: str = "float32",
     ):
         super().__init__()
+        dt = compute_dtype_of(compute_dtype)
         layers: list[nn.Module] = []
         d = input_dim
         for h in hidden_dims:
-            layers += mlp_block(d, h, norm=norm, act="relu")
+            layers += mlp_block(d, h, norm=norm, act="relu", compute_dtype=dt)
             d = h
-        layers += [nn.Linear(d, output_dim), nn.Tanh()]
+        layers += [Dense(d, output_dim, dt), nn.Tanh()]
         self.main = nn.Sequential(*layers)
 
     def forward(self, spectrum: torch.Tensor) -> torch.Tensor:

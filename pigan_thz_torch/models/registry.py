@@ -4,7 +4,9 @@ The counterpart of ``pigan_thz_tpu/models/registry.py`` for the variants
 the port has.  Modules are built on the CPU, initialised with flax's scheme
 from ``generator`` (torch's global generator when None), so one seed gives
 the same weights on every device, then moved to ``device``, which every
-build function takes as a required keyword.
+build function takes as a required keyword.  ``dtype`` is the compute dtype
+(``models/blocks.py``); ``build_trio`` reads it from ``train.compute_dtype``,
+as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -47,11 +49,12 @@ def build_generator(
     *,
     device: torch.device | str,
     generator: torch.Generator | None = None,
+    dtype: str = "float32",
 ) -> MLPGenerator:
     _check_ported("generator", cfg.name)
     g = MLPGenerator(
         input_dim=spectrum_dim, output_dim=param_dim,
-        hidden_dims=tuple(cfg.hidden_dims), norm=cfg.norm,
+        hidden_dims=tuple(cfg.hidden_dims), norm=cfg.norm, compute_dtype=dtype,
     )
     return flax_init_(g, generator).to(device)
 
@@ -63,11 +66,13 @@ def build_discriminator(
     *,
     device: torch.device | str,
     generator: torch.Generator | None = None,
+    dtype: str = "float32",
 ) -> MLPDiscriminator:
     _check_ported("discriminator", cfg.name)
     d = MLPDiscriminator(
         spectrum_dim=spectrum_dim, param_dim=param_dim,
         hidden_dims=tuple(cfg.hidden_dims), leaky_slope=cfg.leaky_slope,
+        compute_dtype=dtype,
     )
     return flax_init_(d, generator).to(device)
 
@@ -80,12 +85,13 @@ def build_forward_model(
     *,
     device: torch.device | str,
     generator: torch.Generator | None = None,
+    dtype: str = "float32",
 ) -> ForwardMLP:
     _check_ported("forward model", cfg.name)
     f = ForwardMLP(
         param_dim=param_dim, spectrum_dim=spectrum_dim, metrics_dim=metrics_dim,
         hidden_dims=tuple(cfg.hidden_dims), dropout_rate=cfg.dropout_rate,
-        leaky_slope=cfg.leaky_slope,
+        leaky_slope=cfg.leaky_slope, compute_dtype=dtype,
     )
     return flax_init_(f, generator).to(device)
 
@@ -97,13 +103,13 @@ def build_trio(
     generator: torch.Generator | None = None,
 ) -> tuple[MLPGenerator, MLPDiscriminator, ForwardMLP]:
     """(generator, discriminator, forward_model) from the run config, drawn
-    in that order from ``generator``."""
-    d = cfg.data
+    in that order from ``generator``, computing in ``train.compute_dtype``."""
+    d, dt = cfg.data, cfg.train.compute_dtype
     return (
         build_generator(cfg.generator, d.spectrum_dim, d.param_dim, device=device,
-                        generator=generator),
+                        generator=generator, dtype=dt),
         build_discriminator(cfg.discriminator, d.spectrum_dim, d.param_dim, device=device,
-                            generator=generator),
+                            generator=generator, dtype=dt),
         build_forward_model(cfg.forward_model, d.spectrum_dim, d.metrics_dim, d.param_dim,
-                            device=device, generator=generator),
+                            device=device, generator=generator, dtype=dt),
     )

@@ -61,15 +61,15 @@ ENTRY_POINTS = {
     "pigan_forward_train": [
         _P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_U32),
         _P, _P, ctypes.c_longlong, _DIMS, _I, _OFFSETS, _I, _I, _I,
-        ctypes.POINTER(ctypes.c_double), _U32, _P,
+        ctypes.POINTER(ctypes.c_double), _U32, _I, _P,
     ],
     "pigan_gan_train": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         ctypes.POINTER(ctypes.c_float), _P, _P, ctypes.c_longlong, _DIMS, _DIMS, _I,
         _OFFSETS, _I, _I, ctypes.POINTER(ctypes.c_double), _I, _P,
     ],
     "pigan_gan_ensemble_train": [
-        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         ctypes.POINTER(ctypes.c_float), _P, _P, ctypes.c_longlong, _DIMS, _DIMS, _I,
         _OFFSETS, _I, _I, ctypes.POINTER(ctypes.c_double), _I, _P,
     ],

@@ -15,7 +15,14 @@ buffers in place.  Per step, for F = 4 -> 256 -> 512 -> 1024 -> 512 -> 256 ->
   second difference] [+ w_l1·(MAE + MAE)], each divided by its true count;
 - backward: hand-derived, LayerNorm included; global-norm clip (scale by
   clip/‖g‖ when ‖g‖ ≥ clip), then Adam (b1 0.9) with precomputed
-  per-step lr·scale and bias corrections.
+  per-step lr·scale and bias corrections;
+- ``compute_dtype="bfloat16"`` (megakernel.py:2644-2663): the operands of the
+  products the TPU kernel writes as ``mm`` / ``dotT0`` / ``dotT1`` are rounded
+  to bfloat16 and accumulate in float32: the hidden layers 1-4 (forward, dW,
+  dx) and the spectrum columns of the head (forward, dW, dx).  The input
+  layer 4→256 (forward and dW) and the 8 metrics columns of the head run on
+  the TPU's VPU in float32 and stay float32 here: the head is then two
+  products, the metrics part added after the spectrum part.
 
 Everything the kernel reads besides the state is built outside it, as the
 TPU kernel's prologue ``_streams`` builds it: the gathered batches of every
@@ -61,19 +68,15 @@ def supports_forward_kernel(cfg: PiGanConfig) -> str | None:
     """None when the kernel trains this configuration exactly, else the
     reason it does not (the envelope of ``supports_forward_megakernel``
     without the TPU's batch % 8 tiling)."""
-    if cfg.train.compute_dtype == "bfloat16":
-        raise NotImplementedError(
-            "compute_dtype='bfloat16' is not ported yet (ROADMAP.md queue 2, "
-            "K1's bf16 path)"
-        )
     if cfg.forward_model.name != "mlp" or tuple(cfg.forward_model.hidden_dims) != (
         BASELINE_HIDDEN
     ):
         return "forward model is not the baseline MLP"
-    if cfg.train.compute_dtype != "float32":
+    if cfg.train.compute_dtype not in ("float32", "bfloat16"):
         return f"compute_dtype {cfg.train.compute_dtype!r} unsupported"
     if cfg.train.adam_state_dtype != "float32":
-        return "adam_state_dtype != float32"
+        return ("adam_state_dtype != float32 (bfloat16 Adam moments are the eager "
+                "step's, as in the JAX package)")
     if cfg.data.param_dim != 4 or cfg.data.metrics_dim != 8:
         return "non-default param/metrics dims"
     if cfg.forward_model.leaky_slope != _SLOPE:
@@ -230,6 +233,7 @@ class ForwardTrainSpec:
     eps: float = _EPS
     slope: float = _SLOPE
     ln_eps: float = _LN_EPS
+    bf16: bool = False         # bfloat16 operands of the TPU kernel's MXU products
 
     @property
     def n_hidden(self) -> int:
@@ -283,33 +287,68 @@ def forward_train_spec(cfg: PiGanConfig, settings) -> ForwardTrainSpec:
         dropout_rate=float(cfg.forward_model.dropout_rate),
         clip=float(cfg.train.grad_clip),
         slope=float(cfg.forward_model.leaky_slope),
+        bf16=cfg.train.compute_dtype == "bfloat16",
     )
+
+
+def bf16_rounder(bf16: bool):
+    """The operand rounding of the TPU kernels' MXU products, in both
+    training kernels' plain versions: to bfloat16 (round to nearest even) and
+    back, in the tensor's own type; the identity in float32 mode."""
+    if not bf16:
+        return lambda x: x
+    return lambda x: x.to(torch.bfloat16).to(x.dtype)
+
+
+# Deliberately wrong variants of the plain version's bfloat16 path, for
+# checks of checks (``forward_train_plain(..., faults=)``).
+FAULTS = (
+    "bf16_head_rounded",     # the head's 8 metrics columns rounded to bfloat16
+    "bf16_hidden_fp32",      # hidden layer 2's products (512 -> 1024) left in float32
+)
 
 
 @torch.no_grad()
 def forward_train_plain(params: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
-                        streams: Streams, spec: ForwardTrainSpec) -> torch.Tensor:
+                        streams: Streams, spec: ForwardTrainSpec,
+                        faults: Sequence[str] = ()) -> torch.Tensor:
     """The kernel's math in torch ops, with its hand-derived backward and no
     autograd: T steps over the flat ``params``, ``m``, ``v`` in place.
-    Returns the (T, 3) per-step (loss, spectrum_loss, metrics_loss)."""
+    Returns the (T, 3) per-step (loss, spectrum_loss, metrics_loss).  With
+    ``spec.bf16`` the operands of the TPU kernel's MXU products are rounded
+    to bfloat16 before each product; with float64 buffers the same steps
+    run in double, the rounded operands included.  ``faults`` (names of
+    ``FAULTS``) makes it wrong on purpose."""
+    unknown = set(faults) - set(FAULTS)
+    if unknown:
+        raise ValueError(f"unknown faults {sorted(unknown)}: use {FAULTS}")
+    rb = bf16_rounder(spec.bf16)
+    ident = lambda x: x                                             # noqa: E731
+    rb_met = rb if "bf16_head_rounded" in faults else ident
+
+    def rb_l(l):
+        """The rounding of hidden layer l's products: none at the input layer."""
+        return ident if l == 0 or (l == 2 and "bf16_hidden_fp32" in faults) else rb
+
     steps, batch, _ = streams.params_norm.shape
     S = spec.spectrum_dim
     n_out = spec.dims[-1] - S
     dev = params.device
     grads = torch.empty_like(params)
-    rows = torch.empty((steps, 3), dtype=torch.float32, device=dev)
+    rows = torch.empty((steps, 3), dtype=params.dtype, device=dev)
     use_drop = spec.dropout_rate > 0.0
     c_spec = spec.spectrum_w * 2.0
     c_met = spec.metrics_w * 2.0
     c_smooth = spec.smoothness_w * 2.0 / (batch * (S - 2))
-    sched = streams.sched.to(device=dev, dtype=torch.float32)
+    sched = streams.sched.to(device=dev, dtype=params.dtype)
     for t in range(steps):
         seed = int(streams.seeds[t])
-        a = streams.params_norm[t]
+        a = streams.params_norm[t].to(params.dtype)
         saved = []
         for l in range(spec.n_hidden):
             W, b, gamma, beta = spec.views(params, l)
-            z = a @ W.T + b
+            r = rb_l(l)
+            z = r(a) @ r(W).T + b
             mu = z.mean(dim=-1, keepdim=True)
             var = torch.clamp((z * z).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
             ivar = torch.rsqrt(var + spec.ln_eps)
@@ -318,14 +357,19 @@ def forward_train_plain(params: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
             act = torch.where(ln >= 0.0, ln, spec.slope * ln)
             sc = None
             if use_drop:
-                sc = dropout_scale(seed, l, batch, ln.shape[1], spec.dropout_rate, dev)
+                sc = dropout_scale(seed, l, batch, ln.shape[1], spec.dropout_rate,
+                                   dev).to(params.dtype)
                 act = act * sc
             saved.append((a, tc, ivar, ln, sc))
             a = act
         Wh, bh = spec.views(params, spec.n_hidden)
-        pred = a @ Wh.T + bh
-        ds_spec = pred[:, :S] - streams.spectra[t]
-        ds_met = pred[:, S:] - streams.metrics_norm[t]
+        if spec.bf16:
+            pred = torch.cat([rb(a) @ rb(Wh[:S]).T + bh[:S],
+                              rb_met(a) @ rb_met(Wh[S:]).T + bh[S:]], dim=1)
+        else:
+            pred = a @ Wh.T + bh
+        ds_spec = pred[:, :S] - streams.spectra[t].to(params.dtype)
+        ds_met = pred[:, S:] - streams.metrics_norm[t].to(params.dtype)
         spec_l = torch.sum(ds_spec * ds_spec) / (batch * S)
         met_l = torch.sum(ds_met * ds_met) / (batch * n_out)
         loss = spec.spectrum_w * spec_l + spec.metrics_w * met_l
@@ -349,26 +393,32 @@ def forward_train_plain(params: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
 
         dpred = torch.cat([drecon, dmet], dim=1)
         gWh, gbh = spec.views(grads, spec.n_hidden)
-        gWh.copy_(dpred.T @ a)
+        if spec.bf16:
+            gWh[:S].copy_(rb(drecon).T @ rb(a))
+            gWh[S:].copy_(rb_met(dmet).T @ rb_met(a))
+            da = rb(drecon) @ rb(Wh[:S]) + rb_met(dmet) @ rb_met(Wh[S:])
+        else:
+            gWh.copy_(dpred.T @ a)
+            da = dpred @ Wh
         gbh.copy_(dpred.sum(dim=0))
-        da = dpred @ Wh
         for l in range(spec.n_hidden - 1, -1, -1):
             W, _, gamma, _ = spec.views(params, l)
             gW, gb, ggamma, gbeta = spec.views(grads, l)
             a_in, tc, ivar, ln, sc = saved[l]
             if sc is not None:
                 da = da * sc
-            dln = da * torch.where(ln >= 0.0, 1.0, spec.slope)
+            dln = da * torch.where(ln >= 0.0, torch.ones_like(ln), torch.full_like(ln, spec.slope))
             ggamma.copy_(torch.sum(dln * (tc * ivar), dim=0))
             gbeta.copy_(torch.sum(dln, dim=0))
             dxh = dln * gamma
             dvar = torch.sum(dxh * tc, dim=-1, keepdim=True) * (-0.5) * ivar * ivar * ivar
             dt = dxh * ivar
             dt = dt - dt.mean(dim=-1, keepdim=True) + dvar * 2.0 * tc / tc.shape[1]
-            gW.copy_(dt.T @ a_in)
+            r = rb_l(l)
+            gW.copy_(r(dt).T @ r(a_in))
             gb.copy_(dt.sum(dim=0))
             if l > 0:
-                da = dt @ W
+                da = r(dt) @ r(W)
 
         lr, inv1, inv2 = sched[t]
         norm = torch.sqrt(torch.sum(grads * grads))
@@ -477,7 +527,7 @@ def forward_train(params: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
         (ctypes.c_longlong * (4 * n_layers))(*(o for offs in spec.offsets for o in offs)),
         spec.spectrum_dim, batch, steps,
         (ctypes.c_double * len(hp))(*hp),
-        keep_threshold(spec.dropout_rate),
+        keep_threshold(spec.dropout_rate), int(spec.bf16),
     )
     return rows
 

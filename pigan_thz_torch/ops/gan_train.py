@@ -39,7 +39,27 @@ stream over the state's flat buffers in place.  Per step, at batch B:
   backward, unless ``detach_forward``; stability's is dropped;
 - instance noise: a (2B, S) stream added to the spectrum columns of D's
   input in the D phase only; the G phase's adversarial pass reads the clean
-  fake rows.
+  fake rows;
+- ``gan_loss="wgan_gp"`` (megakernel.py:986-1014, :1039-1053, :1068-1070): the
+  critic loss mean(z_fake) − mean(z_real), D's seed ∓1/B, plus on D-update
+  steps ``gp_weight`` · mean((‖∇ₓD‖ − 1)²) taken at (clean spectra,
+  params interpolated with the ε stream), the norm sqrt(Σ gvec² + 1e-12)
+  over all S + 4 input columns.  Its backward is hand-derived to second
+  order with the LeakyReLU masks of the penalty's pass held constant, as
+  XLA's autodiff treats them: dW1 += Gtᵀ·a_m (and a_mᵀ·Gt in the (out, in)
+  layout), dW2 += dUᵀ·v, dW3 += Σ dV·m2g, no bias term.  A skipped D step
+  reports the critic loss without the penalty.  G's adversarial seed is
+  −1/B;
+- ``compute_dtype="bfloat16"`` (megakernel.py:792-798, :840-857): the operands
+  of exactly the products the TPU kernel writes as ``mm`` / ``dotT0`` /
+  ``dotT1`` are rounded to bfloat16 (round to nearest even) and the products
+  accumulate in float32.  The products the TPU kernel runs on the VPU in
+  float32 stay float32: G's head 256→4 and its backward, D's head 256→1
+  and its dW, F's input layer 4→256 and its input backward, and the 8
+  metrics columns of F's head (forward and input backward), which the
+  bfloat16 path computes apart from the spectrum columns and adds after.
+  Parameters, Adam, the norm statistics and every elementwise op stay
+  float32.
 
 Everything the kernel reads besides the state is built outside it
 (``build_streams``, the TPU kernel's ``_build_streams``): the gathered
@@ -50,13 +70,13 @@ schedule lanes lr_g, lr_d, the two bias corrections of each optimiser at
 that optimiser's own count, ``d_gate`` and the epoch's constraint scale.
 The noise is drawn step by step as the eager step draws it
 (``train/steps.py``: a CPU generator seeded with the step's seed;
-augmentation, instance noise, stability noise), so one seed gives the eager
-step and the kernel the same step.
+augmentation, instance noise, the WGAN-GP ε on D-update steps only,
+stability noise), so one seed gives the eager step and the kernel the same
+step.
 
-What the kernel does not take yet is a reason of ``supports_gan_kernel`` and
-raises ``NotImplementedError`` from ``gan_train_spec``, with the ROADMAP.md
-row it waits for: ``gan_loss="wgan_gp"`` and ``compute_dtype="bfloat16"``
-(the eager step has both).
+Every setting the TPU kernel computes in its body is taken.  What it refuses
+(``adam_state_dtype="bfloat16"``, an XLA-path optimiser in the JAX package)
+is a reason of ``supports_gan_kernel``; the eager step runs it.
 
 ``gan_train`` is the wrapper: for CUDA tensors it launches the kernel or
 raises, for CPU tensors it runs ``gan_train_plain`` (the kernel's math in
@@ -96,7 +116,7 @@ import torch
 from ..config import PiGanConfig
 from ..data.dataset import ThzDataset
 from ._cuda_build import LAUNCHES, check_capability, launch
-from .forward_train import BASELINE_HIDDEN, ForwardTrainSpec, resolve_draws
+from .forward_train import BASELINE_HIDDEN, ForwardTrainSpec, bf16_rounder, resolve_draws
 
 GD_HIDDEN = (512, 256)
 METRIC_KEYS = (
@@ -112,8 +132,6 @@ _SLOPE = 0.2
 _F_LO, _F_HI = 0.5, 3.0      # physics_window_loss's window as the step calls it
 _NORM_PARTS = 256            # blocks of the kernel's first gradient-norm pass
 
-_NOT_IN_KERNEL = "ROADMAP.md queue 2, K2's remaining paths"
-
 
 # ---------------------------------------------------------------------------
 # Support envelope
@@ -123,9 +141,8 @@ _NOT_IN_KERNEL = "ROADMAP.md queue 2, K2's remaining paths"
 def supports_gan_kernel(cfg: PiGanConfig, settings) -> str | None:
     """None when the kernel trains (cfg, settings) exactly, else the reason
     it does not: a configuration outside the kernel family's envelope
-    (``supports_megakernel`` without the TPU's batch % 8 tiling), or a
-    setting inside it that this package's kernel does not take yet; those
-    reasons end with the ROADMAP.md row they wait for."""
+    (``supports_megakernel`` without the TPU's batch % 8 tiling), or bfloat16
+    Adam moments, which the JAX package's kernels refuse too."""
     s = settings
     if cfg.generator.name != "mlp" or tuple(cfg.generator.hidden_dims) != GD_HIDDEN:
         return "generator is not the baseline MLP(512,256)"
@@ -140,7 +157,8 @@ def supports_gan_kernel(cfg: PiGanConfig, settings) -> str | None:
     if cfg.train.compute_dtype not in ("float32", "bfloat16"):
         return f"compute_dtype {cfg.train.compute_dtype!r} unsupported"
     if cfg.train.adam_state_dtype != "float32":
-        return "adam_state_dtype != float32"
+        return ("adam_state_dtype != float32 (bfloat16 Adam moments are the eager "
+                "step's, as in the JAX package)")
     if cfg.data.param_dim != 4 or cfg.data.metrics_dim != 8:
         return "non-default param/metrics dims"
     if cfg.discriminator.leaky_slope != _SLOPE or cfg.forward_model.leaky_slope != _SLOPE:
@@ -154,12 +172,6 @@ def supports_gan_kernel(cfg: PiGanConfig, settings) -> str | None:
     if s.d_update_every < 1:
         return "d_update_every < 1"
     # kl_w needs nothing: bnn_kl_loss is identically zero
-    gaps = [name for name, on in (
-        ("compute_dtype='bfloat16'", cfg.train.compute_dtype == "bfloat16"),
-        ("gan_loss='wgan_gp'", s.gan_loss == "wgan_gp"),
-    ) if on]
-    if gaps:
-        return f"the kernel does not take {', '.join(gaps)} yet ({_NOT_IN_KERNEL})"
     return None
 
 
@@ -214,6 +226,9 @@ class GanTrainSpec:
     cycle_w: float = 0.0             # second G pass on F's spectrum
     stability_w: float = 0.0         # second G pass on the noised stream
     use_inoise: bool = False         # the D phase reads the instance-noise stream
+    wgan: bool = False               # gan_loss="wgan_gp": critic loss + gradient penalty
+    gp_weight: float = 10.0
+    bf16: bool = False               # bfloat16 operands of the TPU kernel's MXU products
 
     @property
     def g_dims(self) -> tuple[int, ...]:
@@ -284,12 +299,10 @@ class GanTrainSpec:
 
 def gan_train_spec(cfg: PiGanConfig, settings) -> GanTrainSpec:
     """The kernel's description of (cfg, settings); where
-    ``supports_gan_kernel`` gives a reason it raises ``NotImplementedError``
-    for what the kernel does not take yet and ``ValueError`` otherwise."""
+    ``supports_gan_kernel`` gives a reason it raises ``ValueError``."""
     reason = supports_gan_kernel(cfg, settings)
     if reason is not None:
-        kind = NotImplementedError if _NOT_IN_KERNEL in reason else ValueError
-        raise kind(f"GAN-training kernel unsupported here: {reason}")
+        raise ValueError(f"GAN-training kernel unsupported here: {reason}")
     s = settings
     return GanTrainSpec(
         spectrum_dim=cfg.data.spectrum_dim,
@@ -306,6 +319,8 @@ def gan_train_spec(cfg: PiGanConfig, settings) -> GanTrainSpec:
         ema_decay=float(s.ema_decay), clip=float(cfg.train.grad_clip),
         cycle_w=float(s.cycle_w), stability_w=float(s.stability_w),
         use_inoise=float(s.instance_noise) > 0.0,
+        wgan=s.gan_loss == "wgan_gp", gp_weight=float(s.gp_weight),
+        bf16=cfg.train.compute_dtype == "bfloat16",
     )
 
 
@@ -348,30 +363,36 @@ class GanStreams(NamedTuple):
     param_hi: torch.Tensor      # (4,)
     inoise: torch.Tensor | None = None   # (T, 2B, S) sigma · N(0, 1), the D phase's
     stab: torch.Tensor | None = None     # (T, B, S) spectra + sigma · N(0, 1)
+    eps: torch.Tensor | None = None      # (T, B, 1) U(0, 1), WGAN-GP; 0 on skipped D steps
 
 
-def _noise_streams(spectra: torch.Tensor, seeds: torch.Tensor, settings, draws):
+def _noise_streams(spectra: torch.Tensor, seeds: torch.Tensor, gate: torch.Tensor,
+                   settings, draws):
     """One member's stochastic streams from its gathered (T, B, S) spectra:
-    (spectra, augmented when on; inoise or None; stab or None).  Step t
-    draws from a CPU generator seeded with ``seeds[t]`` in the eager step's
-    order (``train/steps.py``): the augmentation, the instance noise, the
-    stability noise; ``draws[t]`` may give the two noises at unit scale
-    instead, as it may give them to the eager step."""
+    (spectra, augmented when on; inoise or None; stab or None; eps or
+    None).  Step t draws from a CPU generator seeded with ``seeds[t]`` in
+    the eager step's order (``train/steps.py``): the augmentation, the
+    instance noise, the WGAN-GP ε (only where ``gate[t]``, the steps that
+    update D: a skipped step draws none, so the stability noise after it
+    comes from another place of the generator), the stability noise;
+    ``draws[t]`` may give the two noises at unit scale and ε instead, as it
+    may give them to the eager step."""
     from .augment import augment_spectra
 
     steps, batch, width = spectra.shape
     dev = spectra.device
     sigma_in, sigma_st = float(settings.instance_noise), float(settings.stability_noise)
     use_in, use_st = sigma_in > 0.0, float(settings.stability_w) > 0.0
-    augmented, inoise, stab_noise = [], [], []
+    wgan = settings.gan_loss == "wgan_gp"
+    augmented, inoise, stab_noise, eps = [], [], [], []
     for t in range(steps):
         gen = torch.Generator().manual_seed(int(seeds[t]))
         given = {} if draws is None else draws[t]
 
-        def draw(name, shape):
+        def draw(name, shape, uniform=False):
             if name in given:
                 return given[name].to("cpu", torch.float32)
-            return torch.randn(shape, generator=gen)
+            return (torch.rand if uniform else torch.randn)(shape, generator=gen)
 
         if settings.augments:
             augmented.append(augment_spectra(
@@ -379,13 +400,17 @@ def _noise_streams(spectra: torch.Tensor, seeds: torch.Tensor, settings, draws):
                 freq_shift=settings.augment_shift, amp_scale=settings.augment_scale))
         if use_in:
             inoise.append(sigma_in * draw("instance_noise", (2 * batch, width)))
+        if wgan:
+            eps.append(draw("gp_eps", (batch, 1), uniform=True) if int(gate[t])
+                       else torch.zeros((batch, 1)))
         if use_st:
             stab_noise.append(sigma_st * draw("stability_noise", (batch, width)))
     if settings.augments:
         spectra = torch.stack(augmented).contiguous()
     return (spectra,
             torch.stack(inoise).to(dev).contiguous() if use_in else None,
-            (spectra + torch.stack(stab_noise).to(dev)).contiguous() if use_st else None)
+            (spectra + torch.stack(stab_noise).to(dev)).contiguous() if use_st else None,
+            torch.stack(eps).to(dev).contiguous() if wgan else None)
 
 
 def build_streams(ds: ThzDataset, indices: torch.Tensor, scales: torch.Tensor,
@@ -402,10 +427,11 @@ def build_streams(ds: ThzDataset, indices: torch.Tensor, scales: torch.Tensor,
     the same counts: the batch streams then are (M, T, B, ·).
 
     With ``settings`` (a ``StepSettings``) whose augmentation, instance
-    noise or stability term is on, the spectra stream is the augmented one
-    and the ``inoise`` / ``stab`` streams are built, from ``seeds`` (T,) or
-    (M, T), the chunk's step seeds, and optionally ``draws``, one mapping
-    per step (per member a sequence of them): see ``_noise_streams``."""
+    noise, stability term or WGAN-GP is on, the spectra stream is the
+    augmented one and the ``inoise`` / ``stab`` / ``eps`` streams are built,
+    from ``seeds`` (T,) or (M, T), the chunk's step seeds, and optionally
+    ``draws``, one mapping per step (per member a sequence of them): see
+    ``_noise_streams``."""
     epochs, spe, batch = indices.shape[-3:]
     steps = epochs * spe
     idx = indices.reshape(*indices.shape[:-3], steps, batch).to(ds.spectra.device)
@@ -426,28 +452,29 @@ def build_streams(ds: ThzDataset, indices: torch.Tensor, scales: torch.Tensor,
         gate.to(torch.float32),
         torch.repeat_interleave(torch.as_tensor(scales, dtype=torch.float32).cpu(), spe),
     ], dim=1)
-    spectra, inoise, stab = ds.spectra[idx].contiguous(), None, None
+    spectra, inoise, stab, eps = ds.spectra[idx].contiguous(), None, None, None
     if settings is not None and (settings.augments or float(settings.instance_noise) > 0.0
-                                 or float(settings.stability_w) > 0.0):
+                                 or float(settings.stability_w) > 0.0
+                                 or settings.gan_loss == "wgan_gp"):
         if seeds is None:
             raise ValueError("build_streams: the stochastic settings need the steps' seeds")
         seeds = torch.as_tensor(seeds, dtype=torch.int64).cpu()
         if tuple(seeds.shape) != tuple(idx.shape[:-1]):
             raise ValueError(f"seeds {tuple(seeds.shape)}, expected {tuple(idx.shape[:-1])}")
         if idx.ndim == 2:
-            spectra, inoise, stab = _noise_streams(spectra, seeds, settings, draws)
+            spectra, inoise, stab, eps = _noise_streams(spectra, seeds, gate, settings, draws)
         else:
-            per = [_noise_streams(spectra[m], seeds[m], settings,
+            per = [_noise_streams(spectra[m], seeds[m], gate, settings,
                                   None if draws is None else draws[m])
                    for m in range(idx.shape[0])]
-            spectra, inoise, stab = (
+            spectra, inoise, stab, eps = (
                 None if col[0] is None else torch.stack(col).contiguous()
                 for col in zip(*per))
     return GanStreams(
         spectra, ds.params[idx].contiguous(),
         ds.metrics_norm[idx].contiguous(), sched.contiguous(),
         ds.param_lo.to("cpu", torch.float32), ds.param_hi.to("cpu", torch.float32),
-        inoise, stab)
+        inoise, stab, eps)
 
 
 def to_double(x):
@@ -598,6 +625,11 @@ FAULTS = (
     "stability_seed_dropped",            # stability's adjoint into the first pass's output
     "drecon_c_when_detached",            # cycle's input gradient through F although detached
     "noised_fake_rows",                  # the G phase reads the D phase's noised fake rows
+    "wgan_gp_w1_second_term_dropped",    # the penalty's dW1 += a_m^T Gt left out
+    "wgan_gp_seed_sign",                 # the penalty's seed with the wrong sign
+    "bf16_head_rounded",                 # G's 256->4 head product rounded to bfloat16
+    "bf16_hidden_fp32",                  # D's first-layer product left in float32
+    "bf16_backward_fp32",                # D's backward product dp2 . W2 left in float32
 )
 
 
@@ -607,10 +639,19 @@ def gan_train_plain(bufs: GanBuffers, streams: GanStreams, spec: GanTrainSpec,
     """The kernel's math in torch ops, with its hand-derived backward and no
     autograd: T steps over ``bufs`` in place.  Returns the (T, 11) per-step
     rows: ``METRIC_KEYS`` then ``constraint_loss`` (0 when off).  ``faults``
-    (names of ``FAULTS``) makes it wrong on purpose, for checks of checks."""
+    (names of ``FAULTS``) makes it wrong on purpose, for checks of checks.
+
+    With ``spec.bf16`` the operands of the products the TPU kernel runs on
+    its MXU are rounded to bfloat16 (``bf16_rounder``) before each product, in
+    float64 mode too: the float64 run then accumulates the same rounded
+    operands in double."""
     unknown = set(faults) - set(FAULTS)
     if unknown:
         raise ValueError(f"unknown faults {sorted(unknown)}: use {FAULTS}")
+    rb = bf16_rounder(spec.bf16)
+    rb_head = rb if "bf16_head_rounded" in faults else (lambda x: x)
+    rb_d1 = (lambda x: x) if "bf16_hidden_fp32" in faults else rb
+    rb_back = (lambda x: x) if "bf16_backward_fp32" in faults else rb
     steps, B, S = streams.spectra.shape
     dev = bufs.g.device
     fs = spec.f_spec
@@ -641,13 +682,13 @@ def gan_train_plain(bufs: GanBuffers, streams: GanStreams, spec: GanTrainSpec,
         pass's output ``pn``: (loss, its adjoint at the second output (the
         first output takes the negative), the flat gradient of G's tensors,
         the input gradient)."""
-        u1 = x @ gW1.T + gb1
+        u1 = rb(x) @ rb(gW1).T + gb1
         mu1, var1, iv1, xh1, y1, a1 = _bn_forward(u1, gam1, bet1)
-        u2 = a1 @ gW2.T + gb2
+        u2 = rb(a1) @ rb(gW2).T + gb2
         mu2, var2, iv2, xh2, y2, a2 = _bn_forward(u2, gam2, bet2)
         if "second_pass_moves_running_stats" in faults:
             update_running_stats(mu1, var1, mu2, var2)
-        tn2 = torch.tanh(a2 @ gW3.T + gb3)
+        tn2 = torch.tanh(rb_head(a2) @ rb_head(gW3).T + gb3)
         p2 = torch.sigmoid(tn2) if spec.sigmoid_squash else tn2
         diff = p2 - pn
         loss = torch.sum(diff * diff) / (B * 4)
@@ -661,25 +702,25 @@ def gan_train_plain(bufs: GanBuffers, streams: GanStreams, spec: GanTrainSpec,
         du2, dg2, dbt2 = _bn_backward(dz @ gW3, y2, xh2, u2 - mu2, iv2, gam2)
         hgam2.copy_(dg2)
         hbet2.copy_(dbt2)
-        hW2.copy_(du2.T @ a1)
+        hW2.copy_(rb(du2).T @ rb(a1))
         hb2.copy_(du2.sum(dim=0))
-        du1, dg1, dbt1 = _bn_backward(du2 @ gW2, y1, xh1, u1 - mu1, iv1, gam1)
+        du1, dg1, dbt1 = _bn_backward(rb(du2) @ rb(gW2), y1, xh1, u1 - mu1, iv1, gam1)
         hgam1.copy_(dg1)
         hbet1.copy_(dbt1)
-        hW1.copy_(du1.T @ x)
+        hW1.copy_(rb(du1).T @ rb(x))
         hb1.copy_(du1.sum(dim=0))
-        return loss, adj, grad, du1 @ gW1
+        return loss, adj, grad, rb(du1) @ rb(gW1)
 
     for t in range(steps):
         lr_g, lr_d, inv1_g, inv2_g, inv1_d, inv2_d, d_gate, c_scale = sched[t]
         spectra, params_phys, met = streams.spectra[t], streams.params[t], streams.metrics_norm[t]
 
         # ---- G forward, shared by both phases -----------------------------
-        u1 = spectra @ gW1.T + gb1
+        u1 = rb(spectra) @ rb(gW1).T + gb1
         mu1, var1, iv1, xh1, y1, a1 = _bn_forward(u1, gam1, bet1)
-        u2 = a1 @ gW2.T + gb2
+        u2 = rb(a1) @ rb(gW2).T + gb2
         mu2, var2, iv2, xh2, y2, a2 = _bn_forward(u2, gam2, bet2)
-        tn = torch.tanh(a2 @ gW3.T + gb3)
+        tn = torch.tanh(rb_head(a2) @ rb_head(gW3).T + gb3)
         pn = torch.sigmoid(tn) if spec.sigmoid_squash else tn
         pphys = (pn + 1.0) * 0.5 * (hi - lo) + lo
         update_running_stats(mu1, var1, mu2, var2)
@@ -693,36 +734,75 @@ def gan_train_plain(bufs: GanBuffers, streams: GanStreams, spec: GanTrainSpec,
             x0 = torch.cat([x0[:, :S] + streams.inoise[t], x0[:, S:]], dim=1)
             if "noised_fake_rows" in faults:
                 fake_in = x0[B:]
-        p1 = x0 @ dW1.T + db1
+        p1 = rb_d1(x0) @ rb_d1(dW1).T + db1
         h1 = _leaky(p1)
-        p2 = h1 @ dW2.T + db2
+        p2 = rb(h1) @ rb(dW2).T + db2
         h2 = _leaky(p2)
         z = h2 @ dW3.T + db3                                   # (2B, 1)
         probs = torch.sigmoid(z)
         d_acc = 0.5 * ((probs[:B] > 0.5).to(dtype).mean()
                        + (probs[B:] <= 0.5).to(dtype).mean())
-        d_loss = 2.0 * torch.mean(torch.clamp(z, min=0.0) - z * labels + _softplus_neg_abs(z))
-        if float(d_gate) > 0.0:
+        update_d = float(d_gate) > 0.0
+        if spec.wgan:
+            d_loss = torch.mean(z[B:]) - torch.mean(z[:B])
+            if update_d:
+                # the penalty at (clean spectra, eps-interpolated params):
+                # gvec = dz/dx with the LeakyReLU masks m1g, m2g constants
+                eps = streams.eps[t]                               # (B, 1)
+                interp = eps * params_phys + (1.0 - eps) * pphys
+                xg = torch.cat([spectra, interp], dim=1)           # (B, S + 4)
+                p1g = rb(xg) @ rb(dW1).T + db1
+                m1g = _leaky_mask(p1g)
+                p2g = rb(_leaky(p1g)) @ rb(dW2).T + db2
+                m2g = _leaky_mask(p2g)
+                v = m2g * dW3                                      # (B, d2)
+                a_m = m1g * (rb(v) @ rb(dW2))                      # (B, d1)
+                gvec = rb(a_m) @ rb(dW1)                           # (B, S + 4)
+                gn = torch.sqrt(torch.sum(gvec * gvec, dim=1, keepdim=True) + 1e-12)
+                d_loss = d_loss + spec.gp_weight * torch.sum((gn - 1.0) ** 2) / B
+                c = spec.gp_weight * 2.0 * (gn - 1.0) / (B * gn)  # (B, 1)
+                if "wgan_gp_seed_sign" in faults:
+                    c = -c
+                gt_ = c * gvec
+            dz = torch.cat([torch.full((B, 1), -1.0 / B, dtype=dtype, device=dev),
+                            torch.full((B, 1), 1.0 / B, dtype=dtype, device=dev)])
+        else:
+            d_loss = 2.0 * torch.mean(torch.clamp(z, min=0.0) - z * labels
+                                      + _softplus_neg_abs(z))
             dz = (probs - labels) / B
+        if update_d:
             gdW3.copy_(dz.T @ h2)
             gdb3.copy_(dz.sum(dim=0))
             dp2 = (dz * dW3) * _leaky_mask(p2)
-            gdW2.copy_(dp2.T @ h1)
+            gdW2.copy_(rb(dp2).T @ rb(h1))
             gdb2.copy_(dp2.sum(dim=0))
-            dp1 = (dp2 @ dW2) * _leaky_mask(p1)
-            gdW1.copy_(dp1.T @ x0)
+            dp1 = (rb_back(dp2) @ rb_back(dW2)) * _leaky_mask(p1)
+            gdW1.copy_(rb(dp1).T @ rb(x0))
             gdb1.copy_(dp1.sum(dim=0))
+            if spec.wgan:
+                # the penalty's second-order backward: W1 twice (gvec's outer
+                # factor and a_m's inner chain), W2 and w3; no bias term
+                d_u = m1g * (rb(gt_) @ rb(dW1).T)                  # (B, d1)
+                d_v = rb(d_u) @ rb(dW2).T                          # (B, d2)
+                if "wgan_gp_w1_second_term_dropped" not in faults:
+                    gdW1.add_(rb(a_m).T @ rb(gt_))
+                gdW2.add_(rb(v).T @ rb(d_u))
+                gdW3.add_(torch.sum(d_v * m2g, dim=0, keepdim=True))
             _clip_adam_(bufs.d, bufs.d_m, bufs.d_v, d_grad, lr_d, inv1_d, inv2_d, spec.clip)
 
         # ---- G phase: the adversarial pass through the updated D ----------
-        q1 = fake_in @ dW1.T + db1
-        q2 = _leaky(q1) @ dW2.T + db2
+        q1 = rb_d1(fake_in) @ rb_d1(dW1).T + db1
+        q2 = rb(_leaky(q1)) @ rb(dW2).T + db2
         zg = _leaky(q2) @ dW3.T + db3                          # (B, 1)
-        adv = torch.mean(torch.clamp(zg, min=0.0) - zg + _softplus_neg_abs(zg))
-        dzg = (torch.sigmoid(zg) - 1.0) / B
+        if spec.wgan:
+            adv = -torch.mean(zg)
+            dzg = torch.full_like(zg, -1.0 / B)
+        else:
+            adv = torch.mean(torch.clamp(zg, min=0.0) - zg + _softplus_neg_abs(zg))
+            dzg = (torch.sigmoid(zg) - 1.0) / B
         dq2 = (dzg * dW3) * _leaky_mask(q2)
-        dq1 = (dq2 @ dW2) * _leaky_mask(q1)
-        dpphys = dq1 @ dW1[:, S:]                              # (B, 4)
+        dq1 = (rb(dq2) @ rb(dW2)) * _leaky_mask(q1)
+        dpphys = rb(dq1) @ rb(dW1[:, S:])                      # (B, 4)
         dpn = spec.adv_w * dpphys * half_span
 
         # ---- the frozen F, eval mode --------------------------------------
@@ -730,7 +810,7 @@ def gan_train_plain(bufs: GanBuffers, streams: GanStreams, spec: GanTrainSpec,
         saved = []
         for l in range(nh):
             W, b, gamma, beta = fs.views(bufs.f, l)
-            tt = a @ W.T + b
+            tt = (a @ W.T if l == 0 else rb(a) @ rb(W).T) + b      # layer 0: float32
             mu = tt.mean(dim=-1, keepdim=True)
             var = torch.clamp((tt * tt).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
             ivar = torch.rsqrt(var + _LN_EPS)
@@ -739,7 +819,11 @@ def gan_train_plain(bufs: GanBuffers, streams: GanStreams, spec: GanTrainSpec,
             saved.append((tc, ivar, ln))
             a = _leaky(ln)
         Wh, bh = fs.views(bufs.f, nh)
-        pred = a @ Wh.T + bh
+        if spec.bf16:
+            # the spectrum columns in bfloat16, the 8 metrics columns in float32
+            pred = torch.cat([rb(a) @ rb(Wh[:S]).T + bh[:S], a @ Wh[S:].T + bh[S:]], dim=1)
+        else:
+            pred = a @ Wh.T + bh
         recon, pmet = pred[:, :S], pred[:, S:]
 
         # ---- losses --------------------------------------------------------
@@ -797,7 +881,10 @@ def gan_train_plain(bufs: GanBuffers, streams: GanStreams, spec: GanTrainSpec,
 
         def f_backward(dpred):
             """d(loss)/d(F's input) from d(loss)/d(F's output)."""
-            da = dpred @ Wh
+            if spec.bf16:
+                da = rb(dpred[:, :S]) @ rb(Wh[:S]) + dpred[:, S:] @ Wh[S:]
+            else:
+                da = dpred @ Wh
             for l in range(nh - 1, -1, -1):
                 W, _, gamma, _ = fs.views(bufs.f, l)
                 tc, ivar, ln = saved[l]
@@ -805,7 +892,7 @@ def gan_train_plain(bufs: GanBuffers, streams: GanStreams, spec: GanTrainSpec,
                 dvar = torch.sum(dxh * tc, dim=-1, keepdim=True) * (-0.5) * ivar * ivar * ivar
                 dt = dxh * ivar
                 dt = dt - dt.mean(dim=-1, keepdim=True) + dvar * 2.0 * tc / tc.shape[1]
-                da = dt @ W
+                da = dt @ W if l == 0 else rb(dt) @ rb(W)
             return da
 
         # ---- the second G passes: cycle on F's spectrum, stability on the
@@ -853,12 +940,12 @@ def gan_train_plain(bufs: GanBuffers, streams: GanStreams, spec: GanTrainSpec,
         du2, dg2, dbt2 = _bn_backward(dz3 @ gW3, y2, xh2, u2 - mu2, iv2, gam2)
         ggam2.copy_(dg2)
         gbet2.copy_(dbt2)
-        ggW2.copy_(du2.T @ a1)
+        ggW2.copy_(rb(du2).T @ rb(a1))
         ggb2.copy_(du2.sum(dim=0))
-        du1, dg1, dbt1 = _bn_backward(du2 @ gW2, y1, xh1, u1 - mu1, iv1, gam1)
+        du1, dg1, dbt1 = _bn_backward(rb(du2) @ rb(gW2), y1, xh1, u1 - mu1, iv1, gam1)
         ggam1.copy_(dg1)
         gbet1.copy_(dbt1)
-        ggW1.copy_(du1.T @ spectra)
+        ggW1.copy_(rb(du1).T @ rb(spectra))
         ggb1.copy_(du1.sum(dim=0))
         for extra in extra_grads:              # main, then cycle, then stability
             g_grad.add_(extra)
@@ -908,6 +995,12 @@ def workspace_layout(spec: GanTrainSpec, batch: int) -> list[tuple[str, int]]:
     # stability's begin), cycle's input gradient, a flat gradient for each
     if spec.use_inoise:
         out += [("x0n", 2 * B * (S + 4))]
+    if spec.wgan:
+        # the penalty's pass: its input, D's two layers and their masks' sources,
+        # v = m2g w3, a_m, gvec and Gt, then dU and dV of its backward
+        out += [("xg", B * (S + 4)), ("p1g", B * d1), ("h1g", B * d1), ("p2g", B * d2),
+                ("gv", B * d2), ("am", B * d1), ("gvec", B * (S + 4)), ("gt", B * (S + 4)),
+                ("du_g", B * d1), ("dv_g", B * d2)]
     if spec.cycle_w or spec.stability_w:
         for l, c in enumerate((g1, g2)):
             out += [(f"uc{l}_2", B * c), (f"xh{l}_2", B * c), (f"y{l}_2", B * c),
@@ -969,13 +1062,15 @@ def _check(bufs: GanBuffers, streams: GanStreams, spec: GanTrainSpec,
     tensors["stream spectra"] = (streams.spectra, (*lead, steps, batch, spec.spectrum_dim))
     tensors["stream params"] = (streams.params, (*lead, steps, batch, 4))
     tensors["stream metrics_norm"] = (streams.metrics_norm, (*lead, steps, batch, 8))
-    for name, t, on, rows in (("inoise", streams.inoise, spec.use_inoise, 2 * batch),
-                              ("stab", streams.stab, spec.stability_w > 0.0, batch)):
+    for name, t, on, shape in (
+            ("inoise", streams.inoise, spec.use_inoise, (2 * batch, spec.spectrum_dim)),
+            ("stab", streams.stab, spec.stability_w > 0.0, (batch, spec.spectrum_dim)),
+            ("eps", streams.eps, spec.wgan, (batch, 1))):
         if on != (t is not None):
             raise ValueError(f"{who}: stream {name} is {'missing' if on else 'given'} but "
                              f"the spec has it {'on' if on else 'off'}")
         if on:
-            tensors[f"stream {name}"] = (t, (*lead, steps, rows, spec.spectrum_dim))
+            tensors[f"stream {name}"] = (t, (*lead, steps, *shape))
     for name, (t, shape) in tensors.items():
         if t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"{who}: {name} must be contiguous float32 {shape}, "
@@ -1026,8 +1121,10 @@ def kernels_enqueued() -> int:
     """The device kernels that this process's last ``gan_train`` or
     ``gan_ensemble_train`` launch enqueued, as the C loop counted them: over
     the call's steps, the launches a step (69 through F and 58 detached;
-    +19 with cycle through F, +17 with stability, +1 with instance noise;
-    a step whose D update is gated off enqueues 11 fewer)."""
+    +19 with cycle through F, +17 with stability, +1 with instance noise,
+    +14 with WGAN-GP; in bfloat16 +2 through F and +1 detached, F's head in
+    two products; a step whose D update is gated off enqueues 11 fewer, and
+    none of WGAN-GP's)."""
     from ._cuda_build import load_library
 
     return int(load_library().pigan_gan_kernels_enqueued())
@@ -1049,13 +1146,15 @@ def _stream_arguments(streams: GanStreams, spec: GanTrainSpec, rows, work, n_wor
           spec.constraint_w, spec.window_w, spec.range_lo, spec.range_hi,
           spec.label_real, spec.label_fake, spec.ema_decay, spec.clip,
           *streams.param_lo.tolist(), *streams.param_hi.tolist(),
-          spec.cycle_w, spec.stability_w)
-    flags = int(spec.detach_forward) | (int(spec.sigmoid_squash) << 1)
+          spec.cycle_w, spec.stability_w, spec.gp_weight)
+    flags = (int(spec.detach_forward) | (int(spec.sigmoid_squash) << 1)
+             | (int(spec.wgan) << 2) | (int(spec.bf16) << 3))
     return (
         streams.spectra.data_ptr(), streams.params.data_ptr(),
         streams.metrics_norm.data_ptr(),
         None if streams.inoise is None else streams.inoise.data_ptr(),
         None if streams.stab is None else streams.stab.data_ptr(),
+        None if streams.eps is None else streams.eps.data_ptr(),
         (ctypes.c_float * len(sched))(*sched),
         rows.data_ptr(), work.data_ptr(), n_work,
         (ctypes.c_int * len(dims))(*dims),
@@ -1088,7 +1187,8 @@ def _member(bufs: GanBuffers, streams: GanStreams, m: int) -> tuple[GanBuffers, 
         spectra=streams.spectra[m], params=streams.params[m],
         metrics_norm=streams.metrics_norm[m],
         inoise=None if streams.inoise is None else streams.inoise[m],
-        stab=None if streams.stab is None else streams.stab[m])
+        stab=None if streams.stab is None else streams.stab[m],
+        eps=None if streams.eps is None else streams.eps[m])
 
 
 def gan_ensemble_train_plain(bufs: GanBuffers, streams: GanStreams,

@@ -274,7 +274,14 @@ class AdamState:
 @dataclass(frozen=True)
 class ClipAdam:
     """optax.chain(clip_by_global_norm(grad_clip), adam(schedule)) — or
-    adamw with ``weight_decay`` > 0 — over one flat fp32 buffer."""
+    adamw with ``weight_decay`` > 0 — over one flat fp32 buffer.
+
+    ``state_dtype`` "bfloat16" is the JAX package's ``scale_by_adam_bf16``:
+    the recurrence runs in float32 and the update uses its float32 moments,
+    then the stored m and v are rounded to bfloat16 (round to nearest even;
+    the buffers stay float32 tensors that hold bfloat16 values).  It takes
+    no weight decay.  The training kernels refuse it, as the TPU kernels do:
+    it runs on the eager step."""
 
     schedule: Schedule
     b1: float = 0.9
@@ -282,6 +289,13 @@ class ClipAdam:
     eps: float = 1e-8
     grad_clip: float = 1.0
     weight_decay: float = 0.0
+    state_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.state_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"adam_state_dtype {self.state_dtype!r}: use float32 | bfloat16")
+        if self.state_dtype == "bfloat16" and self.weight_decay > 0:
+            raise ValueError("adam_state_dtype='bfloat16' does not support weight_decay")
 
     def init(self, params: torch.Tensor) -> AdamState:
         return AdamState(torch.zeros_like(params), torch.zeros_like(params), 0)
@@ -299,13 +313,17 @@ class ClipAdam:
         if self.grad_clip > 0:
             norm = torch.sqrt(torch.sum(g * g))
             g = torch.where(norm < self.grad_clip, g, g / norm * self.grad_clip)
-        state.m.copy_((1.0 - self.b1) * g + self.b1 * state.m)
-        state.v.copy_((1.0 - self.b2) * g * g + self.b2 * state.v)
+        m = (1.0 - self.b1) * g + self.b1 * state.m
+        v = (1.0 - self.b2) * g * g + self.b2 * state.v
         t = torch.tensor(state.count + 1, dtype=torch.float32)
         bc1 = 1.0 - torch.pow(torch.tensor(self.b1, dtype=torch.float32), t)
         bc2 = 1.0 - torch.pow(torch.tensor(self.b2, dtype=torch.float32), t)
         dev = params.device
-        upd = (state.m / bc1.to(dev)) / (torch.sqrt(state.v / bc2.to(dev)) + self.eps)
+        upd = (m / bc1.to(dev)) / (torch.sqrt(v / bc2.to(dev)) + self.eps)
+        if self.state_dtype == "bfloat16":
+            m, v = m.to(torch.bfloat16), v.to(torch.bfloat16)
+        state.m.copy_(m)
+        state.v.copy_(v)
         if self.weight_decay > 0:
             upd = upd + self.weight_decay * params
         upd = upd * (-self.schedule(state.count)).to(dev)
@@ -330,18 +348,11 @@ def build_optimizer(
     step_decay_every_frac: float = 0.25,
     adam_state_dtype: str = "float32",
 ) -> ClipAdam:
-    if adam_state_dtype == "bfloat16":
-        raise NotImplementedError(
-            "bfloat16 Adam moments are not ported yet (ROADMAP.md queue 2, K1's "
-            "bf16 path)"
-        )
-    if adam_state_dtype != "float32":
-        raise ValueError(f"adam_state_dtype {adam_state_dtype!r}: use float32 | bfloat16")
     sched = make_schedule(
         schedule, lr, total_epochs, steps_per_epoch,
         schedule_alpha=schedule_alpha, step_decay_rate=step_decay_rate,
         step_decay_every_frac=step_decay_every_frac,
     )
     return ClipAdam(sched, b1=b1, b2=b2, eps=eps, grad_clip=grad_clip,
-                    weight_decay=weight_decay)
+                    weight_decay=weight_decay, state_dtype=adam_state_dtype)
 

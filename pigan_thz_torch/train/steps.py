@@ -137,7 +137,7 @@ def forward_train_mode(model: nn.Module, params_norm: torch.Tensor,
         if isinstance(layer, nn.Dropout):
             if layer.p > 0.0:
                 h = h * dropout_scale(seed, block, h.shape[0], h.shape[1], layer.p,
-                                      h.device)
+                                      h.device).to(h.dtype)
             block += 1
         else:
             h = layer(h)

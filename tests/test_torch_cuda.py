@@ -375,7 +375,25 @@ K2_PATHS = {
     "augmentation": dict(detach_forward=False, **K2_AUGMENT),
     "all_four": dict(detach_forward=False, cycle_w=1.0, stability_w=1.0, instance_noise=0.05,
                      d_update_every=2, ema_decay=0.99, **K2_AUGMENT),
+    # WGAN-GP: the critic loss, the penalty and its second-order backward
+    "wgan_gp_through_f": dict(detach_forward=False, gan_loss="wgan_gp"),
+    "wgan_gp_mix": dict(detach_forward=True, gan_loss="wgan_gp", d_update_every=2,
+                        stability_w=1.0, instance_noise=0.05),
 }
+# bfloat16 operands: the kernel against its float32-accumulating plain
+# version with the same rounding (chip_smoke.py: K2_BF16_*)
+K2_BF16_PATHS = {
+    "bf16_through_f": dict(detach_forward=False),
+    "bf16_detached": dict(detach_forward=True),
+    "bf16_wgan_gp_cycle_stability": dict(detach_forward=False, gan_loss="wgan_gp", cycle_w=1.0,
+                                         stability_w=1.0, d_update_every=2),
+}
+K2_BF16_PART_RTOL = {"g": 0.4, "d": 0.4, "ema": 0.4, "bn": 3e-2, "v": 0.1, "m": 0.4}
+K2_BF16_STEP_RTOL = {"lc_loss": 5e-3, "recon_metrics_loss": 1e-3, "maxwell_loss": 1e-3}
+K2_BF16_STEP_FLOOR = 2e-4
+K2_BF16_TENSOR_FLOOR = 5e-4
+# WGAN-GP trajectories over their first steps only (chip_smoke.py: K2_WGAN_WINDOW)
+K2_WGAN_WINDOW = 8
 
 
 @pytest.fixture(scope="module")
@@ -386,8 +404,9 @@ def trained_f(train_ds):
     return trainer.forward_state.f
 
 
-def _k2_setup(ds, f, epochs=2, seed=0, **knobs):
+def _k2_setup(ds, f, epochs=2, seed=0, compute_dtype="float32", **knobs):
     cfg = default_config()
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, compute_dtype=compute_dtype))
     settings = StepSettings.from_config(cfg, **knobs)
     gtx, dtx, _ = make_optimizers(cfg, 15)
     g, d, _ = build_trio(cfg, device="cpu")
@@ -407,6 +426,17 @@ def _k2_streams(ds, cfg, settings, idx, seeds, scales, steps=None):
                             settings=settings, seeds=seeds)
 
 
+def _row_errors(rows, want, keys, wgan):
+    """|rows - want| relative to |want| (at least 1e-3); under WGAN-GP the
+    critic loss, a difference of two means, relative to their size
+    (|adv_loss| where that is the larger): chip_smoke.py ``row_errors``."""
+    scale = want.abs().clamp(min=1e-3)
+    if wgan:
+        j, a = keys.index("d_loss"), keys.index("adv_loss")
+        scale[:, j] = torch.maximum(scale[:, j], want[:, a].abs())
+    return (rows - want).abs() / scale
+
+
 def _k2_yardstick(state, streams, spec):
     """The float32 plain version's run of ``streams`` from ``state`` and how
     far it ends from the float64 run, by part (``state_diffs``)."""
@@ -416,9 +446,9 @@ def _k2_yardstick(state, streams, spec):
     want64 = gt.gan_train_plain(exact, gt.to_double(streams), spec)
     yard = gt.state_diffs(gt.state_buffers(plain), exact, gt.state_buffers(state), spec)
     # and of its rows (per step), relative, the two counts left out
-    floats = [j for j, k in enumerate(gt.METRIC_KEYS)
-              if k not in ("d_accuracy", "violation_rate")]
-    yard["rows"] = float(((want - want64).abs() / want64.abs().clamp(min=1e-3))[:, floats].max())
+    keys = [*gt.METRIC_KEYS, "constraint_loss"]
+    floats = [j for j, k in enumerate(keys) if k not in ("d_accuracy", "violation_rate")]
+    yard["rows"] = float(_row_errors(want, want64, keys, spec.wgan)[:, floats].max())
     return want, plain, yard
 
 
@@ -429,7 +459,7 @@ def _assert_k2_close(got_rows, got, want_rows, want, start, yard, spec, keys):
     counts = [keys.index(k) for k in ("d_accuracy", "violation_rate")]
     floats = [j for j in range(len(keys)) if j not in counts]
     assert float((got_rows[:, counts] - want_rows[:, counts]).abs().max()) <= K2_COUNT_ATOL
-    rel = ((got_rows - want_rows).abs() / want_rows.abs().clamp(min=1e-3))[:, floats]
+    rel = _row_errors(got_rows, want_rows, keys, spec.wgan)[:, floats]
     diffs = gt.state_diffs(gt.state_buffers(got), gt.state_buffers(want),
                            gt.state_buffers(start), spec)
     worst = {keys[j]: f"{float(rel[:, i].max()):.2e}" for i, j in enumerate(floats)}
@@ -446,7 +476,11 @@ def _assert_k2_close(got_rows, got, want_rows, want, start, yard, spec, keys):
 def test_gan_train_kernel_matches_plain(case, dev, train_ds, trained_f):
     cfg, settings, state, _, _, idx, seeds = _k2_setup(train_ds, trained_f, **K2_PATHS[case])
     spec = gt.gan_train_spec(cfg, settings)
-    streams = _k2_streams(train_ds, cfg, settings, idx, seeds, torch.tensor([1.0, 0.5]))
+    if spec.wgan:
+        streams = _k2_streams(train_ds, cfg, settings, idx[:1], seeds[:15], torch.ones(1),
+                              K2_WGAN_WINDOW)
+    else:
+        streams = _k2_streams(train_ds, cfg, settings, idx, seeds, torch.tensor([1.0, 0.5]))
     assert (streams.inoise is not None) == (settings.instance_noise > 0)
     assert (streams.stab is not None) == (settings.stability_w > 0)
     kern = state.clone()
@@ -456,7 +490,8 @@ def test_gan_train_kernel_matches_plain(case, dev, train_ds, trained_f):
     assert gt.LAUNCHES["gan_train"] == before + 1
     want, plain, yard = _k2_yardstick(state, streams, spec)
     assert gt.LAUNCHES["gan_train"] == before + 1
-    assert rows.shape == (30, gt.ROW_WIDTH) and bool(torch.isfinite(rows).all())
+    assert rows.shape == (streams.spectra.shape[0], gt.ROW_WIDTH)
+    assert bool(torch.isfinite(rows).all())
     keys = [*gt.METRIC_KEYS, "constraint_loss"]
     exact = [keys.index(k) for k in ("d_accuracy", "violation_rate")]
     assert torch.equal(rows[0, exact], want[0, exact])
@@ -482,15 +517,20 @@ def test_gan_train_kernel_first_step_matches_plain(case, steps, dev, train_ds, t
     kern, plain = gt.state_buffers(state.clone()), gt.state_buffers(state.clone())
     exact = gt.to_double(gt.state_buffers(state.clone()))
     rows = gt.gan_train(kern, streams, spec)
-    gt.gan_train_plain(plain, streams, spec)
+    rows_p = gt.gan_train_plain(plain, streams, spec)
     rows64 = gt.gan_train_plain(exact, gt.to_double(streams), spec)
     counts = [gt.METRIC_KEYS.index(k) for k in ("d_accuracy", "violation_rate")]
     assert torch.equal(rows[:, counts].double(), rows64[:, counts])
-    scale = rows64.abs().clamp(min=1e-3)
-    assert float(((rows - rows64).abs() / scale).max()) <= 1e-4
+    keys = [*gt.METRIC_KEYS, "constraint_loss"]
+    off_k = float(_row_errors(rows, rows64, keys, spec.wgan).max())
+    off_p = float(_row_errors(rows_p, rows64, keys, spec.wgan).max())
+    print(f"K2 first {steps} step(s) {case} rows: kernel {off_k:.3e}, plain fp32 {off_p:.3e}")
+    assert off_k <= 1e-4
     e_k = gt.step_errors(kern, exact, start, spec)
     e_p = gt.step_errors(plain, exact, start, spec)
-    assert {"g_m[0]", "g_v[9]", "g_p[4]", "d_p[0]", "d_v[5]", "bn[3]"} <= set(e_k)
+    # (under WGAN-GP the critic's head bias has gradient 0: no d_v[5])
+    assert {"g_m[0]", "g_v[9]", "g_p[4]", "d_p[0]", "bn[3]"} <= set(e_k)
+    assert ("d_v[5]" in e_k) != (settings.gan_loss == "wgan_gp")
     assert ("g_ema[0]" in e_k) == (settings.ema_decay > 0)
     for key, e in e_k.items():
         print(f"K2 first {steps} step(s) {key}: kernel {e:.3e}, plain fp32 {e_p[key]:.3e}")
@@ -504,6 +544,7 @@ K2_FAULTS = {
     "cycle_detached": ["drecon_c_when_detached"],
     "stability": ["stability_seed_dropped", "second_pass_moves_running_stats"],
     "instance_noise": ["noised_fake_rows"],
+    "wgan_gp_through_f": ["wgan_gp_w1_second_term_dropped", "wgan_gp_seed_sign"],
 }
 
 
@@ -607,19 +648,100 @@ def test_gan_train_kernel_matches_eager_step(case, dev, train_ds, trained_f):
                      keys)
 
 
+def _bf16_rows_rel(rows, want):
+    """Per row key of a first step: |kernel - plain| / |plain| over that
+    key's bfloat16 tolerance (a rounding flipped where two float32 upstreams
+    differ by an ulp moves F's LC and metrics terms most)."""
+    out = {}
+    for j, k in enumerate(gt.METRIC_KEYS):
+        if k in ("d_accuracy", "violation_rate"):
+            continue
+        err = abs(float(rows[0, j]) - float(want[0, j])) / max(abs(float(want[0, j])), 1e-6)
+        out[k] = err / K2_BF16_STEP_RTOL.get(k, K2_BF16_STEP_FLOOR)
+    return out
+
+
+@pytest.mark.parametrize("case", list(K2_BF16_PATHS))
+def test_gan_train_kernel_bf16_matches_plain(case, dev, train_ds, trained_f):
+    """bfloat16 operands: the first step's rows against the float32 plain
+    version with the same rounding, its state tensor by tensor against the
+    float64-accumulating one (within K2_ROUNDING of the float32 plain
+    version's distance or K2_BF16_TENSOR_FLOOR), each bfloat16 fault beyond
+    (in the rows, or in the state for the fault of the backward); 30 steps
+    (under WGAN-GP the first K2_WGAN_WINDOW) by part, relative to what they
+    changed; one launch; a rerun bit-identical."""
+    cfg, settings, state, _, _, idx, seeds = _k2_setup(
+        train_ds, trained_f, compute_dtype="bfloat16", **K2_BF16_PATHS[case])
+    spec = gt.gan_train_spec(cfg, settings)
+    assert spec.bf16
+    one = _k2_streams(train_ds, cfg, settings, idx[:1], seeds[:15], torch.ones(1), 1)
+    start1 = gt.state_buffers(state)
+    kern1 = gt.state_buffers(state.clone())
+    rows1 = gt.gan_train(kern1, one, spec)
+    plain1 = gt.state_buffers(state.clone())
+    want1 = gt.gan_train_plain(plain1, one, spec)
+    right = _bf16_rows_rel(rows1, want1)
+    print(f"K2 {case} first step, rows over their bf16 limits: {right}")
+    assert max(right.values()) <= 1.0, right
+    exact1 = gt.to_double(gt.state_buffers(state.clone()))
+    gt.gan_train_plain(exact1, gt.to_double(one), spec)
+    e_k = gt.step_errors(kern1, exact1, start1, spec)
+    e_p = gt.step_errors(plain1, exact1, start1, spec)
+    floor = K2_BF16_TENSOR_FLOOR
+
+    def beyond(e):
+        return {k: (x, e_p[k]) for k, x in e.items() if not x <= max(K2_ROUNDING * e_p[k], floor)}
+
+    print(f"K2 {case} first step by tensor: {({k: f'{x:.2e}' for k, x in e_k.items()})}")
+    assert not beyond(e_k), beyond(e_k)
+    if not spec.wgan:   # (under WGAN-GP D's seeds do not read G's head)
+        for fault in ("bf16_head_rounded", "bf16_hidden_fp32", "bf16_backward_fp32"):
+            off = gt.gan_train_plain(gt.state_buffers(state.clone()), one, spec, faults=[fault])
+            wrong = gt.to_double(gt.state_buffers(state.clone()))
+            gt.gan_train_plain(wrong, gt.to_double(one), spec, faults=[fault])
+            seen = beyond(gt.step_errors(kern1, wrong, start1, spec))
+            assert max(_bf16_rows_rel(rows1, off).values()) > 2.0 or seen, fault
+    if spec.wgan:
+        streams = _k2_streams(train_ds, cfg, settings, idx[:1], seeds[:15], torch.ones(1),
+                              K2_WGAN_WINDOW)
+    else:
+        streams = _k2_streams(train_ds, cfg, settings, idx, seeds, torch.tensor([1.0, 0.5]))
+    kern, again = state.clone(), state.clone()
+    before = gt.LAUNCHES["gan_train"]
+    rows = gt.gan_train(gt.state_buffers(kern), streams, spec)
+    rows2 = gt.gan_train(gt.state_buffers(again), streams, spec)
+    torch.cuda.synchronize()
+    assert gt.LAUNCHES["gan_train"] == before + 2
+    assert torch.equal(rows, rows2) and torch.equal(kern.g_params, again.g_params)
+    want, plain, yard = _k2_yardstick(state, streams, spec)
+    diffs = gt.state_diffs(gt.state_buffers(kern), gt.state_buffers(plain),
+                           gt.state_buffers(state), spec)
+    print(f"K2 {case} {rows.shape[0]} steps:",
+          {k: f"{r:.3e} (fp32 plain vs fp64: {yard[k][1]:.3e})" for k, (_, r) in diffs.items()})
+    for k, (_, r) in diffs.items():
+        assert r <= K2_BF16_PART_RTOL[k.split("_")[-1]], (k, diffs)
+
+
 @pytest.mark.parametrize("knobs", [dict(gan_loss="wgan_gp")])
 def test_gan_train_kernel_refuses_what_it_lacks(knobs, dev):
+    """The kernel takes WGAN-GP and bfloat16 operands; bfloat16 Adam moments
+    are refused, as by the JAX package's kernels."""
     cfg = default_config()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gt.make_gan_epoch_fn(cfg, StepSettings.from_config(cfg, **knobs))
+    assert gt.make_gan_epoch_fn(cfg, StepSettings.from_config(cfg, **knobs)) is not None
+    moments = cfg.replace(train=dataclasses.replace(cfg.train, adam_state_dtype="bfloat16"))
+    with pytest.raises(ValueError, match="adam_state_dtype"):
+        gt.make_gan_epoch_fn(moments, StepSettings.from_config(moments, **knobs))
 
 
 @pytest.mark.parametrize("knobs", [dict(gan_loss="wgan_gp")], ids=["wgan_gp"])
 def test_trainer_on_the_card_runs_the_eager_step_only_when_asked(knobs, dev, train_ds):
+    """bfloat16 Adam moments are the eager step's: "auto" raises and names
+    the eager engine, which then trains (WGAN-GP on top)."""
     cfg = default_config()
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, adam_state_dtype="bfloat16"))
     settings = StepSettings.from_config(cfg, **knobs)
     trainer = Trainer(cfg, ds=train_ds, epochs_per_call=1, device=dev)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2") as err:
+    with pytest.raises(ValueError, match="adam_state_dtype") as err:
         trainer.train_pigan(epochs=1, settings=settings)
     assert "engine='eager'" in str(err.value)
     asked = Trainer(cfg, ds=train_ds, epochs_per_call=1, device=dev, engine="eager")
@@ -669,7 +791,12 @@ K3_PATHS = {"through_f": dict(detach_forward=False), "detached": dict(detach_for
             "second_passes_and_noise": dict(detach_forward=False, cycle_w=1.0, stability_w=1.0,
                                             instance_noise=0.05),
             "all_four": {**K2_PATHS["all_four"], "ema_decay": 0.0},
-            "cycle_detached": dict(detach_forward=True, cycle_w=1.0)}
+            "cycle_detached": dict(detach_forward=True, cycle_w=1.0),
+            "wgan_gp": dict(detach_forward=False, gan_loss="wgan_gp", d_update_every=2),
+            "bf16": dict(detach_forward=False, compute_dtype="bfloat16"),
+            "wgan_gp_bf16_cycle_stability": dict(
+                detach_forward=False, gan_loss="wgan_gp", compute_dtype="bfloat16", cycle_w=1.0,
+                stability_w=1.0)}
 
 
 @pytest.mark.parametrize("knobs", list(K3_PATHS.values()), ids=list(K3_PATHS))
@@ -747,7 +874,7 @@ def test_ensemble_fn_on_the_card(dev, train_ds, trained_f):
 @pytest.mark.parametrize("case, per_step", [
     ("through_f", 69), ("detached", 58), ("cycle_detached", 58 + 17),
     ("stability", 69 + 17), ("instance_noise", 70),
-    ("second_passes_mix", 69 + 19 + 16)])
+    ("second_passes_mix", 69 + 19 + 16), ("wgan_gp_through_f", 69 + 14)])
 def test_gan_kernel_enqueues_the_launches_a_step_it_says(case, per_step, dev, train_ds,
                                                          trained_f):
     """The C loop's own count of what it enqueued: today's settings stay 69

@@ -193,8 +193,9 @@ def test_refusals(tcfg, datasets):
         gt.make_gan_ensemble_fn(tcfg, settings, 0)
     with pytest.raises(ValueError, match="ema_decay > 0 unsupported"):
         gt.make_gan_ensemble_fn(tcfg, dataclasses.replace(settings, ema_decay=0.9), 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
-        gt.make_gan_ensemble_fn(tcfg, dataclasses.replace(settings, gan_loss="wgan_gp"), 2)
+    moments = tcfg.replace(train=dataclasses.replace(tcfg.train, adam_state_dtype="bfloat16"))
+    with pytest.raises(ValueError, match="adam_state_dtype"):
+        gt.make_gan_ensemble_fn(moments, settings, 2)
     with pytest.raises(ValueError, match="unsupported"):
         gt.make_gan_ensemble_fn(tcfg, dataclasses.replace(settings, gan_loss="hinge"), 2)
     fn = gt.make_gan_ensemble_fn(tcfg, settings, 2)

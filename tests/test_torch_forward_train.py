@@ -235,9 +235,127 @@ def test_kernel_envelope():
                                                        hidden_dims=(256, 256)))
     assert "baseline" in ft.supports_forward_kernel(odd)
     bf16 = tc.replace(train=dataclasses.replace(tc.train, compute_dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ft.supports_forward_kernel(bf16)
+    assert ft.supports_forward_kernel(bf16) is None
+    assert ft.forward_train_spec(bf16, TSettings()).bf16
+    moments = tc.replace(train=dataclasses.replace(tc.train, adam_state_dtype="bfloat16"))
+    assert "adam_state_dtype" in ft.supports_forward_kernel(moments)
     with pytest.raises(ValueError, match="nll_w"):
         ft.forward_train_spec(tc, TSettings(nll_w=1.0))
     with pytest.raises(ValueError, match="nll_w"):
         t_make_forward_step(None, TSettings(nll_w=1.0))
+
+
+# -- bfloat16 operands against the Pallas kernel in interpret mode -------------
+def _bf16_pallas_case(faults=()):
+    """One epoch (2 steps, dropout 0: the TPU kernel draws its masks from the
+    TPU's generator) of F in bfloat16 through the JAX package's kernel in
+    interpret mode and through the port's plain version (float32 and
+    float64 accumulation, and with ``faults``) from the same state on the
+    kernel's own batches: {name: flat (params, m)}."""
+    from pigan_thz_tpu.ops import megakernel as jmk
+
+    jc, tc = _configs(0.0)
+    jc = jc.replace(train=dataclasses.replace(jc.train, compute_dtype="bfloat16"))
+    tc = tc.replace(train=dataclasses.replace(tc.train, compute_dtype="bfloat16"))
+    jds, tds = _bf16_pallas_case.datasets
+    f, jtx, jst = _jax_state(jc)
+    _, tst = _port_state(tc)
+    _carry(jst, tst)
+    start = [tst.params.clone(), tst.opt.m.clone(), tst.opt.v.clone()]
+    key = jax.random.PRNGKey(5)
+    jst, jrows = jmk.make_pallas_forward_epoch_fn(jc, JSettings(), interpret=True)(
+        jst, jds, key, jnp.ones((1,), jnp.float32))
+    back = _carry_back(jst)
+    idx = np.stack([np.asarray(j_epoch_indices(k, N, B)) for k in jax.random.split(key, 1)])
+    spec = ft.forward_train_spec(tc, TSettings())
+    assert spec.bf16
+    streams = ft.build_streams(tds, torch.from_numpy(idx), torch.zeros(N // B, dtype=torch.int64),
+                               torch.ones(1), 0, _schedule(tc))
+    out = {"jax": back}
+    for name, dbl, fl in (("port", False, ()), ("port64", True, ()),
+                          *((f"fault {x}", True, (x,)) for x in faults)):
+        bufs = [t.clone().double() if dbl else t.clone() for t in start]
+        rows = ft.forward_train_plain(*bufs, streams, spec, faults=fl)
+        out[name] = (bufs[0], bufs[1])
+        if name == "port":
+            out["rows"] = (rows, jrows)
+    return out, spec, start
+
+
+def _carry_back(jst):
+    """A JAX forward state's parameters and first moments as the port's flat
+    buffers."""
+    _, tc = _configs(0.0)
+    _, st = _port_state(tc)
+    _carry(jst, st)
+    return st.params.clone(), st.opt.m.clone()
+
+
+def _schedule(tc):
+    from pigan_thz_torch.train.schedules import make_schedule
+
+    return make_schedule("cosine", tc.train.fwd_pretrain_lr, tc.train.fwd_pretrain_epochs,
+                         N // B, schedule_alpha=0.0)
+
+
+def _by_tensor(spec, flat):
+    """The first moments by tensor, the head's spectrum and metrics rows
+    apart."""
+    out = {}
+    S = spec.spectrum_dim
+    for l in range(len(spec.dims) - 1):
+        views = spec.views(flat, l)
+        if l == spec.n_hidden:
+            out["head W spectrum"], out["head W metrics"] = views[0][:S], views[0][S:]
+            out["head b"] = views[1]
+        else:
+            for n, t in zip(("W", "b", "gamma", "beta"), views):
+                out[f"{l} {n}"] = t
+    return {k: t.double().reshape(-1) for k, t in out.items()}
+
+
+def _rel(a, b):
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b).clamp(min=1e-30))
+
+
+# K1 in bfloat16: rows within BF16_ROWS_RTOL (measured 5e-5); Adam's first
+# moments (the steps' gradients) tensor by tensor within BF16_MOMENT_FACTOR
+# times the port's own distance between float32 and float64 accumulation of
+# the same rounded operands.  That distance is what a flipped rounding makes
+# (an operand whose float32 upstreams differ by an ulp lands on the other
+# bfloat16 neighbour, 2^-8 away): 8e-5 (the head's bias) to 1e-2 (the input
+# layer, at the end of the backward).  Measured: the JAX kernel 1.1x to 1.4x
+# that distance from the port on every tensor; the head's metrics columns
+# rounded 10x (head W metrics) and 17x (head b); hidden layer 2 in float32
+# 11x (head W spectrum) and more.
+BF16_ROWS_RTOL, BF16_MOMENT_FACTOR = 1e-3, 3.0
+
+
+def test_plain_kernel_bf16_matches_the_pallas_kernel_in_interpret_mode(datasets):
+    _bf16_pallas_case.datasets = datasets
+    out, spec, _ = _bf16_pallas_case()
+    rows, jrows = out["rows"]
+    for j, k in enumerate(ft.METRIC_KEYS):
+        got = ft.epoch_means(rows, 1)[k].numpy()
+        np.testing.assert_allclose(got, np.asarray(jrows[k]), rtol=BF16_ROWS_RTOL, err_msg=k)
+    mj, mp, m64 = (_by_tensor(spec, out[n][1]) for n in ("jax", "port", "port64"))
+    for k in mj:
+        limit = BF16_MOMENT_FACTOR * _rel(mp[k], m64[k])
+        assert _rel(mp[k], mj[k]) <= limit, (k, _rel(mp[k], mj[k]), limit)
+
+
+def test_plain_kernel_bf16_faults_are_seen(datasets):
+    """Each bfloat16 fault (the head's metrics columns rounded; hidden layer
+    2 left in float32) moves some tensor of the first moments beyond what the
+    test above allows."""
+    _bf16_pallas_case.datasets = datasets
+    out, spec, _ = _bf16_pallas_case(faults=ft.FAULTS)
+    mj, mp, m64 = (_by_tensor(spec, out[n][1]) for n in ("jax", "port", "port64"))
+    for fault in ft.FAULTS:
+        mf = _by_tensor(spec, out[f"fault {fault}"][1])
+        beyond = [k for k in mj
+                  if _rel(mf[k], mj[k]) > 2.0 * BF16_MOMENT_FACTOR * _rel(mp[k], m64[k])]
+        assert beyond, fault
+    with pytest.raises(ValueError, match="unknown faults"):
+        ft.forward_train_plain(*[t.clone() for t in (out["port"][0],) * 3],
+                               ft.Streams(*(None,) * 5), spec, faults=["no_such_fault"])

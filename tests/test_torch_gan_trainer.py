@@ -156,51 +156,57 @@ def test_ema_track_starts_at_the_current_generator(cfg, ds):
                                    dict(stability_w=0.5), dict(instance_noise=0.05)],
                          ids=lambda k: next(iter(k)))
 def test_kernel_engine_raises_outside_the_kernel_s_reach(knobs, cfg, ds, capsys):
-    """wgan_gp is outside the kernel's reach and raises; the second G passes
-    and instance noise are inside it: engine='kernel' trains them through
-    the plain version, and from one seed as engine='auto' (the eager step)
-    does, rows within 1e-3 relative."""
+    """wgan_gp, the second G passes and instance noise are inside the
+    kernel's reach: engine='kernel' trains them through the plain version,
+    and from one seed as engine='auto' (the eager step) does, rows within
+    1e-3 relative.  bfloat16 Adam moments are outside it (an XLA-path
+    optimiser in the JAX package, refused by its kernels too) and raise,
+    naming the eager engine."""
     settings = StepSettings.from_config(cfg, **knobs)
+    moments = cfg.replace(train=dataclasses.replace(cfg.train, adam_state_dtype="bfloat16"))
+    with pytest.raises(ValueError, match="adam_state_dtype") as err:
+        _trainer(moments, ds, "kernel").train_pigan(epochs=1, settings=settings)
+    assert "engine='eager'" in str(err.value)
     kern = _trainer(cfg, ds, "kernel")
-    if "gan_loss" in knobs:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
-            kern.train_pigan(epochs=1, settings=settings)
-    else:
-        kern.train_pigan(epochs=1, settings=settings)
-        assert "GAN-training kernel (its plain version)" in capsys.readouterr().err
+    kern.train_pigan(epochs=1, settings=settings)
+    assert "GAN-training kernel (its plain version)" in capsys.readouterr().err
     # on the CPU, where there is no kernel, auto says so and takes the eager step
     tr = _trainer(cfg, ds, "auto")
     tr.train_pigan(epochs=1, settings=settings)
     assert len(tr.train_history["pigan/g_loss"]) == 1
     assert "eager step" in capsys.readouterr().err
-    if "gan_loss" not in knobs:
-        for k in PIGAN_KEYS - {"pigan/d_accuracy", "pigan/violation_rate"}:
-            np.testing.assert_allclose(kern.train_history[k], tr.train_history[k], rtol=1e-3,
-                                       err_msg=k)
+    for k in PIGAN_KEYS - {"pigan/d_accuracy", "pigan/violation_rate"}:
+        np.testing.assert_allclose(kern.train_history[k], tr.train_history[k], rtol=1e-3,
+                                   err_msg=k)
 
 
 @pytest.mark.parametrize("knobs", [dict(gan_loss="wgan_gp"), dict(cycle_w=1.0),
-                                   dict(augment_noise=0.05), dict()],
-                         ids=["wgan_gp", "cycle_w", "augment_noise", "narrow_generator"])
+                                   dict(augment_noise=0.05), dict(), "adam_bf16"],
+                         ids=["wgan_gp", "cycle_w", "augment_noise", "narrow_generator",
+                              "adam_bf16"])
 def test_auto_on_the_card_is_the_kernel_or_an_error(knobs, cfg, ds, capsys):
     """The engine rule as a CUDA device sees it (the rule reads only the
     device's type, so a trainer built on the CPU can be asked): what the
-    kernel does not take raises under "auto", naming what it waits for and
-    the eager engine, and only engine="eager" takes the eager step."""
+    kernel does not take (a generator of other widths, bfloat16 Adam
+    moments) raises under "auto", naming it and the eager engine, and only
+    engine="eager" takes the eager step; WGAN-GP, cycle and the augmentation
+    are the kernel's own paths."""
     base = cfg
     if not knobs:
         cfg = cfg.replace(generator=dataclasses.replace(cfg.generator, hidden_dims=(64, 32)))
+    what = "generator"
+    if knobs == "adam_bf16":
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train, adam_state_dtype="bfloat16"))
+        knobs, what = {}, "adam_state_dtype"
     settings = StepSettings.from_config(cfg, **knobs)
-    kind, what = (NotImplementedError, "ROADMAP.md queue 2") if knobs else (
-        ValueError, "generator")
     tr = _trainer(cfg, ds, "auto")
     tr.device = torch.device("cuda", 0)
-    if knobs and "gan_loss" not in knobs:
-        # cycle and the augmentation are the kernel's own paths: auto takes it
+    if knobs:
+        # WGAN-GP, cycle and the augmentation are the kernel's own paths: auto takes it
         assert tr._gan_epoch_fn(settings, tr.g_tx, tr.d_tx, {}, 1)[1] == "kernel"
         assert "GAN-training kernel (the CUDA kernel)" in capsys.readouterr().err
         return
-    with pytest.raises(kind, match=what) as err:
+    with pytest.raises(ValueError, match=what) as err:
         tr._gan_epoch_fn(settings, tr.g_tx, tr.d_tx, {}, 1)
     assert "engine='eager'" in str(err.value)
     tr.engine = "eager"

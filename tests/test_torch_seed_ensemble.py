@@ -174,9 +174,9 @@ def test_refusals(cfg, ds, shared_f):
         train_seed_ensemble(cfg, ds, 2, epochs=2, scales=torch.ones(3), **kw)
     with pytest.raises(ValueError, match="pass devices"):
         train_seed_ensemble(cfg, ds, 2, epochs=1, forward_model=shared_f)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
-        train_seed_ensemble(cfg, ds, 2, epochs=1,
-                            settings=StepSettings.from_config(cfg, gan_loss="wgan_gp"), **kw)
+    moments = cfg.replace(train=dataclasses.replace(cfg.train, adam_state_dtype="bfloat16"))
+    with pytest.raises(ValueError, match="adam_state_dtype"):
+        train_seed_ensemble(moments, ds, 2, epochs=1, **kw)
     base = StepSettings.from_config(cfg)
     with pytest.raises(ValueError, match="agree on ema_decay"):
         train_settings_sweep(cfg, ds, [base, dataclasses.replace(base, ema_decay=0.9)],

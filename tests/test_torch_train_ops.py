@@ -144,9 +144,54 @@ def test_clip_adam_matches_build_optimizer(grad_scale, b1, schedule, wd):
     assert tst.count == int(adam.count) == 3
 
 
+@pytest.mark.parametrize("grad_scale", [1e-3, 10.0], ids=["unclipped", "clipped"])
+@pytest.mark.parametrize("b1,schedule", [(0.9, "cosine"), (0.5, "step")])
+def test_bf16_moments_match_scale_by_adam_bf16(grad_scale, b1, schedule):
+    """``adam_state_dtype="bfloat16"``: four steps of clip -> Adam with the
+    moments stored in bfloat16 (the JAX package's ``scale_by_adam_bf16``),
+    the recurrence and the update in float32.  The stored moments are
+    bfloat16 values on both sides, equal to rounding: a moment whose float32
+    values differ by an ulp can round to neighbouring bfloat16 values (2^-8
+    relative), which the parameters see at that size times lr."""
+    rng = np.random.default_rng(int(grad_scale * 1000) + int(b1 * 10) + 7)
+    p0 = rng.normal(size=1000).astype(np.float32)
+    grads = [rng.normal(size=1000).astype(np.float32) * grad_scale for _ in range(4)]
+    kw = dict(lr=2e-3, total_epochs=4, steps_per_epoch=2, schedule=schedule, b1=b1,
+              grad_clip=1.0, adam_state_dtype="bfloat16")
+    jtx, ttx = js.build_optimizer(**kw), ts.build_optimizer(**kw)
+    jp = jnp.asarray(p0)
+    jst = jtx.init(jp)
+    tp = torch.from_numpy(p0.copy())
+    tst = ttx.init(tp)
+    for g in grads:
+        upd, jst = jtx.update(jnp.asarray(g), jst, jp)
+        jp = optax.apply_updates(jp, upd)
+        ttx.update_(torch.from_numpy(g), tst, tp)
+    adam = jst[1][0]
+    assert adam.mu.dtype == jnp.bfloat16
+    for got, want in ((tst.m, adam.mu), (tst.v, adam.nu)):
+        want = np.asarray(want.astype(jnp.float32))
+        # every stored value is a bfloat16 value
+        assert torch.equal(got, got.to(torch.bfloat16).float())
+        np.testing.assert_allclose(got.numpy(), want, rtol=2 ** -7, atol=1e-30)
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=0, atol=2e-3 * 2 ** -6)
+    assert tst.count == int(adam.count) == 4
+    # the float32 optimiser does not round its moments
+    plain = ts.build_optimizer(**{**kw, "adam_state_dtype": "float32"})
+    st32 = plain.init(torch.from_numpy(p0.copy()))
+    plain.update_(torch.from_numpy(grads[0]), st32, torch.from_numpy(p0.copy()))
+    assert not torch.equal(st32.m, st32.m.to(torch.bfloat16).float())
+
+
 def test_bf16_moments_raise_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ts.build_optimizer(1e-3, 1, 1, adam_state_dtype="bfloat16")
+    """bfloat16 moments are ported (``ClipAdam.state_dtype``); what still
+    raises is what the JAX package raises: weight decay with them, and an
+    unknown dtype."""
+    assert ts.build_optimizer(1e-3, 1, 1, adam_state_dtype="bfloat16").state_dtype == "bfloat16"
+    with pytest.raises(ValueError, match="weight_decay"):
+        ts.build_optimizer(1e-3, 1, 1, adam_state_dtype="bfloat16", weight_decay=1e-4)
+    with pytest.raises(ValueError, match="float32 | bfloat16"):
+        ts.build_optimizer(1e-3, 1, 1, adam_state_dtype="float16")
 
 
 @pytest.mark.parametrize("kw", [{}, {"mode": "max", "threshold_mode": "abs", "cooldown": 3},
