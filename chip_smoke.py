@@ -16,15 +16,20 @@ generator passes (cycle, stability) and noise streams:
 2. build: compiles the kernels from ``pigan_thz_torch/csrc`` (nvcc) and
    prints ptxas's register / shared-memory / spill report;
 3. each kernel against its plain PyTorch version on the card, at
-   B = 1, 77, 257, 8192, full-width seeded weights (generator BatchNorm
-   stats non-trivial, so the folding is exercised);
+   B = 1, 77, 257, 8192, 65536 and on both sides of the serving kernels'
+   crossover from the cluster shape to the row-tile shape, full-width
+   seeded weights (generator BatchNorm stats non-trivial, so the folding is
+   exercised); reruns bit-identical, and a cluster-shape launch equal to the
+   row-tile shape's bit for bit;
 4. the slice: answers requests at B = 1, 64, 8192, 65536 through
    ``serve.make_inverse_design_fn``, checks shapes, finiteness, the params'
    box, one launch of each kernel per request, and agreement with the
    modules' unfused eval-mode forward on the card and, at B = 64, with the
    cycle's plain CPU path;
-5. times: CUDA-event medians of each kernel and of the cycle beside their
-   plain versions at B = 64 and B = 8192;
+5. times: CUDA-event medians of each serving kernel and of the cycle beside
+   their plain versions and, in turns, the modules' eval forward (cuBLAS) at
+   B = 1, 64, 8192 and 65536, with the launch shape chosen at each; a
+   profile of one request at B = 64 and 8192;
 6. the dip-qualification kernel (K4) against both plain versions (the
    lattice and the sparse-table form) at B = 1, 7, 1000, 8192 on four
    spectra classes: masks equal, prominence and width within tolerance at
@@ -422,8 +427,9 @@ PEAK_BYTES_PER_S = 3.35e12  # HBM3
 PRETRAIN_EPOCHS = 500
 EPOCHS_PER_CALL = 25
 REQUEST_BATCHES = (1, 64, 8192, 65536)
-CHECK_BATCHES = (1, 77, 257, 8192)
-TIME_BATCHES = (64, 8192)
+CHECK_BATCHES = (1, 77, 257, 8192, 65536)   # and the crossover's two sides
+TIME_BATCHES = (1, 64, 8192, 65536)
+PEAK_TF32_FLOPS = 495e12    # H100 SXM, TF32 dense tensor cores
 SEED = 0
 
 
@@ -1459,6 +1465,35 @@ def profile_launch(label: str, launch, steps: int) -> tuple:
     return wall_ms, busy_ms
 
 
+def profile_cycle(fn, spectra, label: str) -> None:
+    """One serving request ``fn(spectra)`` under ``torch.profiler`` after 3
+    warm-up requests: its wall time, kernel time, idle share and kernels by
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        for _ in range(3):
+            fn(spectra)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn(spectra)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [(ev.key, ev.count, getattr(ev, "device_time_total",
+                                          getattr(ev, "cuda_time_total", 0.0)))
+               for ev in prof.key_averages()
+               if getattr(ev, "device_type", None) is not None
+               and "cuda" in str(ev.device_type).lower()]
+    busy_ms = sum(t for _, _, t in kernels) / 1e3
+    print(f"profile: {label}: {wall_ms:.3f} ms wall, {busy_ms:.3f} ms of kernel time, "
+          f"idle share {max(0.0, 1.0 - busy_ms / wall_ms):.3f}, "
+          f"{sum(c for _, c, _ in kernels)} kernels")
+    for key, count, total in sorted(kernels, key=lambda r: -r[2])[:6]:
+        print(f"profile:   {total / 1e3:9.4f} ms  {count:3d} calls  {key[:90]}")
+
+
 def k3_setup(cfg, dev, ds, f, epochs: int, knobs: dict, members: int):
     """``members`` seeded full-width members on the card, stacked (member m
     from seed SEED + m: its own G, D, BatchNorm stats and shuffles; F a copy
@@ -2448,27 +2483,35 @@ def main() -> None:
 
     dgen = torch.Generator(device=dev).manual_seed(SEED)
     max_err = {"fused_mlp_forward": 0.0, "fused_dense_chain": 0.0}
-    for b in CHECK_BATCHES:
+    crossovers = {fk.crossover_for(p) for p in (f_packed, g_packed)}
+    print(f"launch shape: {fk.chain_limits(f_packed)[0]} SMs; clusters resident at once "
+          f"for K5 {fk.chain_limits(f_packed)[1]}, for K6 {fk.chain_limits(g_packed)[1]}; "
+          f"the row-tile shape from B = {sorted(crossovers)}")
+    for b in sorted({*CHECK_BATCHES, *(c - 1 for c in crossovers), *crossovers}):
         x = torch.rand((b, 4), generator=dgen, device=dev) * 2 - 1
-        got = fk.fused_mlp_forward(x, f_packed)
-        torch.cuda.synchronize()
-        want = fk.fused_mlp_forward_plain(x, f_packed)
-        torch.cuda.synchronize()
-        e5 = (got - want).abs().max().item()
         s = torch.randn((b, cfg.data.spectrum_dim), generator=dgen, device=dev)
-        got = fk.fused_dense_chain(s, g_packed)
-        torch.cuda.synchronize()
-        want = fk.fused_dense_chain_plain(s, g_packed)
-        torch.cuda.synchronize()
-        e6 = (got - want).abs().max().item()
-        print(f"kernel check B={b}: fused_mlp_forward max|err| {e5:.3e} "
-              f"(tol {K5_TOL}), fused_dense_chain max|err| {e6:.3e} (tol {K6_TOL})")
-        if not e5 <= K5_TOL:
-            fail(f"fused_mlp_forward disagrees with its plain version at B={b}")
-        if not e6 <= K6_TOL:
-            fail(f"fused_dense_chain disagrees with its plain version at B={b}")
-        max_err["fused_mlp_forward"] = max(max_err["fused_mlp_forward"], e5)
-        max_err["fused_dense_chain"] = max(max_err["fused_dense_chain"], e6)
+        line = []
+        for name, inp, packed, tol in (
+                ("fused_mlp_forward", x, f_packed, K5_TOL),
+                ("fused_dense_chain", s, g_packed, K6_TOL)):
+            kern = getattr(fk, name)
+            got = kern(inp, packed)
+            again = kern(inp, packed)
+            torch.cuda.synchronize()
+            want = getattr(fk, name + "_plain")(inp, packed)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            shape = fk.chosen_shape(inp, packed)
+            line.append(f"{name} max|err| {err:.3e} (tol {tol}, cluster {shape})")
+            if not err <= tol:
+                fail(f"{name} disagrees with its plain version at B={b}")
+            if not torch.equal(got, again):
+                fail(f"{name}: a rerun at B={b} is not bit-identical")
+            # the row-tile shape sums every output in the same order
+            if shape > 1 and not torch.equal(got, kern(inp, packed, cluster=1)):
+                fail(f"{name}: cluster {shape} and the row-tile shape differ at B={b}")
+            max_err[name] = max(max_err[name], err)
+        print(f"kernel check B={b}: " + ", ".join(line) + ", reruns bit-identical")
 
     # -- 4. the slice --------------------------------------------------------
     requests = {}
@@ -2538,6 +2581,8 @@ def main() -> None:
         s_dim = cfg.data.spectrum_dim
         return denormalize_params(pn, lo, hi), out[:, :s_dim], out[:, s_dim:]
 
+    # plain, library, kernel, kernel, library, plain: the best of each
+    # side's two medians
     times = {}
     with torch.inference_mode():
         for b in TIME_BATCHES:
@@ -2545,33 +2590,43 @@ def main() -> None:
             s = requests[b]
             rows = {
                 "fused_mlp_forward": (fk.fused_mlp_forward, fk.fused_mlp_forward_plain,
-                                      x, f_packed),
+                                      F, x, f_packed),
                 "fused_dense_chain": (fk.fused_dense_chain, fk.fused_dense_chain_plain,
-                                      s, g_packed),
+                                      G, s, g_packed),
             }
-            for name, (kern, plain, inp, packed) in rows.items():
-                # plain, kernel, kernel, plain: median of each side's two runs
+            for name, (kern, plain, module, inp, packed) in rows.items():
                 p1 = cuda_median_ms(plain, inp, packed)
+                # the one PyTorch call that computes the same function: the
+                # module's eval-mode forward (cuBLAS products, torch's norms)
+                l1 = cuda_median_ms(module, inp)
                 k1 = cuda_median_ms(kern, inp, packed)
                 k2 = cuda_median_ms(kern, inp, packed)
+                l2 = cuda_median_ms(module, inp)
                 p2 = cuda_median_ms(plain, inp, packed)
                 times[(name, b)] = (min(k1, k2), min(p1, p2))
-            # the one PyTorch call that computes the same function: the
-            # module's eval-mode forward (cuBLAS products, torch's norms)
-            times[("library fused_mlp_forward", b)] = (cuda_median_ms(F, x),) * 2
-            times[("library fused_dense_chain", b)] = (cuda_median_ms(G, s),) * 2
+                times[("library " + name, b)] = (min(l1, l2),) * 2
+                times[("shape " + name, b)] = fk.chosen_shape(inp, packed)
             p1 = cuda_median_ms(plain_cycle, s)
             k1 = cuda_median_ms(fn, s)
             k2 = cuda_median_ms(fn, s)
             p2 = cuda_median_ms(plain_cycle, s)
             times[("cycle", b)] = (min(k1, k2), min(p1, p2))
-    for (name, b), (k, p) in times.items():
+    for (name, b), t in times.items():
+        if name.startswith("shape"):
+            continue
+        k, p = t
         if name.startswith("library"):
             print(f"time {tag} {name} B={b}: the module's eval forward {k:.4f} ms "
-                  f"(CUDA-event median of 50 after 10 warm-up)")
+                  f"(CUDA-event median of 50 after 10 warm-up, best of two runs, in turns "
+                  f"with the kernel)")
             continue
+        shape = times.get(("shape " + name, b))
         print(f"time {tag} {name} B={b}: kernel {k:.4f} ms, plain {p:.4f} ms "
-              f"(CUDA-event median of 50 after 10 warm-up, best of two runs each)")
+              f"(CUDA-event median of 50 after 10 warm-up, best of two runs each)"
+              + (f", cluster {shape}" if shape is not None else ""))
+
+    for b in (64, 8192):
+        profile_cycle(fn, requests[b], f"serving cycle B={b}")
 
     # -- 6. K4 against both plain versions ------------------------------------
     k4_stats = phase6_k4(dgen, cfg, dev)
@@ -2701,12 +2756,37 @@ def main() -> None:
     n_f = sum(p.numel() for p in F.parameters())
     n_g = sum(p.numel() for p in G.parameters())
     n_d = sum(p.numel() for p in f_trainer.discriminator.parameters())
-    big = max(TIME_BATCHES)   # the times in the record are at B = 8192
+    big = 8192   # the times in the record are at B = 8192, and at B = 64 beside
+    def serving_work(b):
+        """(flops, bytes) of K5 and K6 at batch b; BatchNorm folded: its
+        four vectors per hidden layer are read too."""
+        return {"fused_mlp_forward": (2.0 * b * macs_f, 4.0 * (b * 4 + n_f + b * (S + nm))),
+                "fused_dense_chain": (2.0 * b * macs_g,
+                                      4.0 * (b * S + n_g + 2 * sum(g_dims[1:-1]) + b * 4))}
+
+    def tf32x3_ms(flops, nbytes):
+        """A bound for the kernels' design, not the function's roofline
+        (that is ``roofline``'s): three TF32 products for each fp32 one
+        (3xTF32) at the tensor-core peak, so three times the operations
+        the function needs."""
+        return max(3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+
+    serving_rec = {name: {"bound_3xtf32_ms": tf32x3_ms(*serving_work(big)[name]),
+                      "bound_ms_b64": roofline(*serving_work(64)[name])[0],
+                      "bound_3xtf32_ms_b64": tf32x3_ms(*serving_work(64)[name]),
+                      "ms_b64": times[(name, 64)][0],
+                      "plain_ms_b64": times[(name, 64)][1],
+                      "library_ms_b64": times[("library " + name, 64)][0],
+                      "ms_by_batch": {str(b): times[(name, b)][0] for b in TIME_BATCHES},
+                      "library_ms_by_batch": {str(b): times[("library " + name, b)][0]
+                                              for b in TIME_BATCHES},
+                      "shape": {str(b): times[("shape " + name, b)] for b in TIME_BATCHES}}
+               for name in ("fused_mlp_forward", "fused_dense_chain")}
+    print(f"time {tag} serving cycle: " + ", ".join(
+        f"B={b} {times[('cycle', b)][0]:.4f} ms" for b in TIME_BATCHES))
     bound = {
-        "fused_mlp_forward": roofline(2.0 * big * macs_f, 4.0 * (big * 4 + n_f + big * (S + nm))),
-        # BatchNorm folded: its four vectors per hidden layer are read too
-        "fused_dense_chain": roofline(2.0 * big * macs_g,
-                                      4.0 * (big * S + n_g + 2 * sum(g_dims[1:-1]) + big * 4)),
+        "fused_mlp_forward": roofline(*serving_work(big)["fused_mlp_forward"]),
+        "fused_dense_chain": roofline(*serving_work(big)["fused_dense_chain"]),
         "dip_qualification": roofline(k4_ops, k4_bytes),
         # an epoch of K1: forward, dW and dx products (no dx below the first
         # layer); params, m and v read and written once, the streams read
@@ -2783,7 +2863,8 @@ def main() -> None:
          "ms": times[("fused_mlp_forward", big)][0],
          "plain_ms": times[("fused_mlp_forward", big)][1],
          **bounds("fused_mlp_forward"),
-         "library_ms": times[("library fused_mlp_forward", big)][0]},
+         "library_ms": times[("library fused_mlp_forward", big)][0],
+         **serving_rec["fused_mlp_forward"]},
         {"name": "fused_dense_chain", "route": "cuda",
          "source": "pigan_thz_torch/csrc/fused_mlp_chain.cu",
          "replaces": "pigan_thz_tpu/ops/pallas_kernels.py:185",
@@ -2792,7 +2873,8 @@ def main() -> None:
          "ms": times[("fused_dense_chain", big)][0],
          "plain_ms": times[("fused_dense_chain", big)][1],
          **bounds("fused_dense_chain"),
-         "library_ms": times[("library fused_dense_chain", big)][0]},
+         "library_ms": times[("library fused_dense_chain", big)][0],
+         **serving_rec["fused_dense_chain"]},
         {"name": "dip_qualification", "route": "cuda",
          "source": "pigan_thz_torch/csrc/dip_qualification.cu",
          "replaces": "pigan_thz_tpu/ops/peaks.py:306",

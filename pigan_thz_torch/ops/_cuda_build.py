@@ -55,8 +55,9 @@ _U32 = ctypes.c_uint32
 
 # C entry point -> argtypes; every one returns a cudaError_t as int.
 ENTRY_POINTS = {
-    "pigan_fused_mlp_forward": [_P, _P, _P, _OFFSETS, _DIMS, _I, _I, _F, _F, _P],
-    "pigan_fused_dense_chain": [_P, _P, _P, _OFFSETS, _DIMS, _I, _I, _P],
+    "pigan_fused_mlp_forward": [_P, _P, _P, _OFFSETS, _OFFSETS, _DIMS, _I, _I, _I, _F, _F, _P],
+    "pigan_fused_dense_chain": [_P, _P, _P, _OFFSETS, _OFFSETS, _DIMS, _I, _I, _I, _P],
+    "pigan_fused_chain_max_clusters": [_DIMS, _I, _I, _I, ctypes.POINTER(_I)],
     "pigan_dip_qualification": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
     "pigan_forward_train": [
         _P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_U32),

@@ -57,7 +57,7 @@ torch.set_num_threads(1)
 
 pytestmark = pytest.mark.cuda
 
-BATCHES = [1, 77, 257, 8192]
+BATCHES = [1, 64, 77, 257, fk.crossover_batch(132) - 1, fk.crossover_batch(132), 8192, 65536]
 
 
 @pytest.fixture
@@ -118,6 +118,61 @@ def test_small_odd_chain_matches_plain(dev):
     got = fk.fused_mlp_forward(x, packed)
     torch.cuda.synchronize()
     assert float((got - fk.fused_mlp_forward_plain(x, packed)).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("batch", [1, 64, 257])
+@pytest.mark.parametrize("kernel", ["fused_mlp_forward", "fused_dense_chain"])
+def test_serving_kernel_shapes_agree_bitwise(kernel, batch, cluster, dev, models):
+    """Each launch shape: one launch a call, within tolerance, a rerun
+    bit-identical, and the same bits as the row-tile shape (every output is
+    summed in the same order in both)."""
+    if kernel == "fused_mlp_forward":
+        packed, fn, plain, tol = (fk.pack_forward_model(models[1], dev), fk.fused_mlp_forward,
+                                  fk.fused_mlp_forward_plain, 1e-4)
+        x = torch.rand((batch, 4), device=dev) * 2 - 1
+    else:
+        packed, fn, plain, tol = (fk.pack_generator(models[0], dev), fk.fused_dense_chain,
+                                  fk.fused_dense_chain_plain, 2e-5)
+        x = torch.randn((batch, 250), device=dev)
+    before = fk.LAUNCHES[kernel]
+    got = fn(x, packed, cluster=cluster)
+    assert fk.LAUNCHES[kernel] == before + 1
+    again = fn(x, packed, cluster=cluster)
+    row_tile = fn(x, packed, cluster=1)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES[kernel] == before + 3
+    assert torch.equal(got, again)
+    assert torch.equal(got, row_tile)
+    assert float((got - plain(x, packed)).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_small_odd_chain_every_shape(cluster, dev):
+    """7 -> 33 -> 5 in the cluster shape: some blocks own no head column."""
+    gen = torch.Generator().manual_seed(1)
+    layer = (torch.randn(7, 33, generator=gen), *torch.randn(3, 33, generator=gen))
+    head = (torch.randn(33, 5, generator=gen), torch.randn(5, generator=gen))
+    packed = fk.pack_chain([layer], head, dev)
+    x = torch.randn(19, 7, device=dev)
+    got = fk.fused_mlp_forward(x, packed, cluster=cluster)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fk.fused_mlp_forward(x, packed, cluster=1))
+    assert float((got - fk.fused_mlp_forward_plain(x, packed)).abs().max()) <= 1e-4
+
+
+def test_chosen_shape_follows_the_batch(dev, models):
+    for packed, din in ((fk.pack_forward_model(models[1], dev), 4),
+                        (fk.pack_generator(models[0], dev), 250)):
+        sms, resident = fk.chain_limits(packed)
+        assert all(n > 0 for n in resident.values()), resident
+        cross = fk.crossover_for(packed)
+        assert cross == fk.crossover_batch(sms, resident)
+        assert fk.chosen_shape(torch.zeros((cross - 1, din), device=dev), packed) == 2
+        assert fk.chosen_shape(torch.zeros((cross, din), device=dev), packed) == 1
+        x = torch.randn((cross, din), device=dev)
+        fn = fk.fused_mlp_forward if packed.layer_norm else fk.fused_dense_chain
+        torch.testing.assert_close(fn(x[:-1], packed), fn(x, packed)[:-1], rtol=0, atol=0)
 
 
 def test_empty_batch_launches_nothing(dev, models):

@@ -286,7 +286,9 @@ def _imported_roots(path):
     "chip_smoke.py", "pigan_thz_torch/config_presets.py", "pigan_thz_torch/train/programs.py",
     "pigan_thz_torch/evaluate/__init__.py", "pigan_thz_torch/evaluate/evaluator.py",
     "pigan_thz_torch/train/checkpoint.py", "pigan_thz_torch/train/trainer.py",
-    "pigan_thz_torch/cli.py", "examples/torch_gan_engines.py"])
+    "pigan_thz_torch/cli.py", "examples/torch_gan_engines.py",
+    "pigan_thz_torch/ops/fused_kernels.py", "examples/torch_serving_tiles.py",
+    "examples/torch_serving_ablate.py", "examples/torch_serving_cycle.py"])
 def test_source_imports_neither_jax_nor_the_jax_package(path):
     roots = _imported_roots(os.path.join(REPO, path))
     assert not roots & {"jax", "jaxlib", "flax", "optax", "orbax", "pigan_thz_tpu",
