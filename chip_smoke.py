@@ -152,7 +152,18 @@ generator passes (cycle, stability) and noise streams:
     halved, param R2 printed;
 28. times: K2's epoch with WGAN-GP, bfloat16 and both beside today's (and
     detached in both dtypes), the kernels a step of each (69 and 58 held), K1's
-    epoch in bfloat16 beside float32, K3's at M = 4 with WGAN-GP + bfloat16.
+    epoch in bfloat16 beside float32, K3's at M = 4 with WGAN-GP + bfloat16;
+29. the batch-row products that K2 and K3 launch through
+    ``csrc/brow_gemm.cuh`` (every product with the batch as its rows: G's,
+    D's and F's forward layers and input gradients), each shape and flag of
+    a step at M = 1 and 4: the plan (the C rule against ``brow_plan``), the
+    kernel against its plain version and float64 within BROW_TOL_*, a rerun
+    bit-identical, each member bit for bit its own launch, and the us a
+    launch of the kernel, of the tiled SGEMM the step used before and of
+    ``torch.matmul`` on the same operands, back to back in a CUDA graph,
+    beside the roofline.  Phases 13,
+    16, 19, 23 and 24 also hold each chunk's count of batch-row launches to
+    ``brow_products``, and the main paths' counts are read (BROW_LAUNCHES).
 
 The ``kernels`` record gives each kernel's launches on the main path, its
 error against its plain version, its time beside the plain version's, the
@@ -162,7 +173,9 @@ and each output written once, over 3.35 TB/s; ``bound_by`` says which), and
 ``library_ms``, the time of one PyTorch call that computes the same function
 where there is one (the modules' eval-mode forward for K5 and K6), else null.
 The bfloat16 rows of K1 and K2 carry their own bound, every product counted
-at the bf16 tensor-core peak (989 TFLOP/s).
+at the bf16 tensor-core peak (989 TFLOP/s).  K2's and K3's entries note that
+their batch-row products go through ``brow_gemm`` and carry its launches on
+the main paths and its per-product times.
 
 Any failed check raises, and the script exits non-zero.  Without a CUDA
 device, or away from the package, it exits non-zero and prints no result.
@@ -1137,6 +1150,22 @@ def first_steps_against_float64(label: str, state, few, spec, n: int, rows, kern
     return worst["m"][0]
 
 
+def check_brow_launches(label: str, spec, streams, batch: int) -> int:
+    """The batch-row kernel's launches in the last K2 / K3 chunk, as the C
+    loop counted them, against ``brow_products`` over the chunk's steps (D's
+    update per the schedule's gate): every batch-row product of every step
+    went through ``brow_gemm.cuh``.  Returns the count."""
+    from pigan_thz_torch.ops import gan_train as gt
+
+    gates = (streams.sched[:, gt.SCHED_LANES.index("d_gate")] > 0).tolist()
+    want = sum(len(gt.brow_products(spec, batch, bool(u))) for u in gates)
+    got = gt.brow_kernels_enqueued()
+    if got != want:
+        fail(f"{label}: {got} batch-row kernel launches in {len(gates)} steps, "
+             f"brow_products says {want}")
+    return got
+
+
 def phase13_k2(cfg, dev, ds, f, cases=None, paths: bool = False) -> dict:
     """K2 against its plain version (and the eager step at the defaults).
     ``cases`` defaults to today's three; with ``paths`` (the second G passes
@@ -1183,6 +1212,9 @@ def phase13_k2(cfg, dev, ds, f, cases=None, paths: bool = False) -> dict:
         torch.cuda.synchronize()
         if LAUNCHES["gan_train"] != before + 1:
             fail(f"{label}: a chunk of {steps} steps was not one launch")
+        brow = check_brow_launches(label, spec, streams, b)
+        print(f"{label}: {brow} batch-row products through brow_gemm in {steps} steps, "
+              f"{gt.kernels_enqueued()} launches in all")
         if not bool(torch.isfinite(rows).all()):
             fail(f"{label}: non-finite metric rows")
         want = gt.gan_train_plain(gt.state_buffers(plain), streams, spec)
@@ -1566,6 +1598,7 @@ def phase16_k3(cfg, dev, ds, f, cases=None) -> dict:
         if (LAUNCHES["gan_ensemble_train"] != before["gan_ensemble_train"] + 1
                 or LAUNCHES["gan_train"] != before["gan_train"]):
             fail(f"K3 {name}: {K3_MEMBERS} members did not train in exactly one K3 launch")
+        check_brow_launches(f"K3 {name}", spec, streams, cfg.train.batch_size)
         if tuple(rows.shape) != (K3_MEMBERS, steps, gt.ROW_WIDTH) or not bool(
                 torch.isfinite(rows).all()):
             fail(f"K3 {name}: rows of shape {tuple(rows.shape)} or not finite")
@@ -1815,7 +1848,7 @@ def phase21_programs(cfg, dev, repo: str, train_ds) -> dict:
     a subprocess.  Returns the launches and wall times."""
     import glob
     import torch
-    from pigan_thz_torch.ops._cuda_build import LAUNCHES
+    from pigan_thz_torch.ops._cuda_build import BROW_LAUNCHES, LAUNCHES, launch_counts
     from pigan_thz_torch.train import programs as P
     from pigan_thz_torch.train.trainer import Trainer
 
@@ -1829,11 +1862,12 @@ def phase21_programs(cfg, dev, repo: str, train_ds) -> dict:
     if not all(p.gate(before) for p in phases) or not r2_0 < 0.7:
         fail(f"a fresh G reads param R2 {r2_0:.4f}: the emergency gates (R2 < 0.7) stay shut")
     reset_launches(LAUNCHES)
+    reset_launches(BROW_LAUNCHES)
     t0 = time.perf_counter()
     result = P.run_program(trainer, phases)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counted = dict(LAUNCHES)
+    counted = launch_counts()
     r2_1, viol_1 = r2_and_violation(result.final_eval)
     hist = trainer.train_history
     gan_epochs = len(hist["pigan/g_loss"])
@@ -1845,6 +1879,7 @@ def phase21_programs(cfg, dev, repo: str, train_ds) -> dict:
     want_gan = -(-gan_epochs // EPOCHS_PER_CALL)
     if (result.phases_run != [p.name for p in phases] or result.phases_skipped
             or counted["gan_train"] != want_gan or counted["forward_train"] < 1
+            or counted["brow_gemm"] < 13 * gan_epochs * spe
             or gan_epochs != phases[1].epochs + phases[2].epochs):
         fail("emergency_warmup and emergency_balanced_gan did not run through the "
              f"GAN-training kernel, one launch per chunk ({want_gan})")
@@ -2193,6 +2228,7 @@ def phase24_bf16(cfg, dev, ds, f) -> dict:
         torch.cuda.synchronize()
         if LAUNCHES["gan_train"] != before + 1:
             fail(f"K2 {name}: a chunk was not one launch")
+        check_brow_launches(f"K2 {name}", spec, streams, cfg.train.batch_size)
         want = gt.gan_train_plain(gt.state_buffers(plain), streams, spec)
         want64 = gt.gan_train_plain(exact, gt.to_double(streams), spec)
         yard = gt.state_diffs(gt.state_buffers(plain), exact, start, spec)
@@ -2258,7 +2294,8 @@ def phase27_wgan_train(cfg, dev, train_ds) -> dict:
     after PRETRAIN_EPOCHS of forward pretraining; the launch counts set to 0
     just before and read just after."""
     import torch
-    from pigan_thz_torch.ops._cuda_build import LAUNCHES
+    from pigan_thz_torch.ops import gan_train as gt
+    from pigan_thz_torch.ops._cuda_build import BROW_LAUNCHES, LAUNCHES, launch_counts
     from pigan_thz_torch.ops.metrics import r2_score
     from pigan_thz_torch.train.steps import StepSettings
     from pigan_thz_torch.train.trainer import Trainer
@@ -2268,11 +2305,12 @@ def phase27_wgan_train(cfg, dev, train_ds) -> dict:
     trainer.init_pigan()
     settings = StepSettings.from_config(cfg, detach_forward=False, gan_loss="wgan_gp")
     reset_launches(LAUNCHES)
+    reset_launches(BROW_LAUNCHES)
     t0 = time.perf_counter()
     hist = trainer.train_pigan(epochs=GAN_EPOCHS, settings=settings)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counted = dict(LAUNCHES)
+    counted = launch_counts()
     st = trainer.pigan_state
     with torch.inference_mode():
         r2 = float(r2_score(train_ds.params_norm, st.g.eval()(train_ds.spectra).float()))
@@ -2282,10 +2320,16 @@ def phase27_wgan_train(cfg, dev, train_ds) -> dict:
           f"{PRETRAIN_EPOCHS} forward epochs: {wall:.3f} s, launches {counted}; critic loss "
           f"{dl[0]:.4f} -> {dl[-1]:.4f}, recon_spec_loss {recon[0]:.6f} -> {recon[-1]:.6f}, "
           f"param R2 over the training set {r2:.4f}; all curves finite: {finite}")
+    # every step's batch-row products through brow_gemm: 18 a step with D's
+    # update gated off, 25 with it (brow_products)
+    spe = train_ds.num_samples // cfg.train.batch_size
+    spec = gt.gan_train_spec(cfg, settings)
+    lo, hi = (len(gt.brow_products(spec, cfg.train.batch_size, u)) * GAN_EPOCHS * spe
+              for u in (False, True))
     if (counted["gan_train"] != -(-GAN_EPOCHS // EPOCHS_PER_CALL) or not finite
-            or not recon[-1] < 0.5 * recon[0]):
-        fail("the WGAN-GP train_pigan did not train through K2, one launch per chunk, to a "
-             "halved recon_spec_loss")
+            or not recon[-1] < 0.5 * recon[0] or not lo <= counted["brow_gemm"] <= hi):
+        fail("the WGAN-GP train_pigan did not train through K2, one launch per chunk "
+             f"({lo} to {hi} batch-row products), to a halved recon_spec_loss")
     return {"launches": counted, "wall": wall, "r2": r2, "recon": (recon[0], recon[-1])}
 
 
@@ -2343,6 +2387,167 @@ def phase28_slice7_times(cfg, dev, ds, f) -> dict:
         out["k3"][name] = min(ms, out["k3"].get(name, ms))
     torch.cuda.synchronize()
     return out
+
+
+# The batch-row products (phase 29), each against brow_gemm_plain (the same
+# K slices, summed in rank order) and against float64 of the same operands
+# (of the bfloat16-rounded ones on the bf16 path), both within a multiple of
+# the float32 worst-case sum bound (K + S + 2) u sum |a| |b| (+ |bias|),
+# u = 2^-24, doubled because the tensor cores' fp32 accumulation may
+# truncate where the FMAs round: the same bound as tests/test_torch_cuda.py.
+BROW_TOL_FLOAT64 = 1.0     # of the doubled bound
+BROW_TOL_PLAIN = 1.5       # the kernel and its plain version each within the bound
+BROW_MEMBERS = (1, 4)
+BROW_CALLS = 20            # launches a CUDA graph, a route and shape
+
+
+def brow_step_products(cfg) -> dict:
+    """{(m, n, k, bnc, rnd, bias): {"name": the first step product of that
+    shape and flags, "a_step": {path: launches a step}}} over the paths whose
+    batch-row products differ: through F, detached, both second passes,
+    WGAN-GP (a D-update step) and bfloat16 operands."""
+    from pigan_thz_torch.ops import gan_train as gt
+    from pigan_thz_torch.train.steps import StepSettings
+
+    paths = {"through F": (cfg, dict(detach_forward=False)),
+             "detached": (cfg, dict(detach_forward=True)),
+             "cycle + stability": (cfg, dict(detach_forward=False, cycle_w=1.0,
+                                             stability_w=1.0)),
+             "WGAN-GP": (cfg, dict(detach_forward=False, gan_loss="wgan_gp")),
+             "bf16": (bf16_config(cfg), dict(detach_forward=False))}
+    out = {}
+    for path, (c, knobs) in paths.items():
+        spec = gt.gan_train_spec(c, StepSettings.from_config(c, **knobs))
+        for p in gt.brow_products(spec, c.train.batch_size):
+            key = (p.m, p.n, p.k, p.bnc, p.rnd, p.bias)
+            entry = out.setdefault(key, {"name": p.name, "a_step": {}})
+            entry["a_step"][path] = entry["a_step"].get(path, 0) + 1
+    return out
+
+
+def graph_us(fn, calls: int = BROW_CALLS) -> float:
+    """us a call of ``fn`` back to back on the card: ``calls`` calls captured
+    in one CUDA graph, its replay timed with CUDA events (median of 5 after
+    2 warm-up replays), so no host work sits between the launches.  (A
+    torch.profiler session drops the first kernels it sees, and a product's
+    launch from Python costs the host more than the product costs the card.)"""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    for _ in range(2):
+        graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times) * 1e3 / calls
+
+
+def phase29_brow_products(cfg, dev, tag: str) -> dict:
+    """Every batch-row product shape and flag of a K2 step at M = 1 and 4:
+    the plan (the C rule against its Python mirror), the kernel against its
+    plain version and float64 (BROW_TOL_*), a rerun bit-identical, at M = 4
+    each member bit for bit the launch on it alone; device us of the
+    kernel, of the tiled SGEMM the step used before and of torch.matmul on
+    the same operands (a yardstick the port never calls), beside the
+    roofline (back to back in a CUDA graph)."""
+    import torch
+    from pigan_thz_torch.ops import gan_train as gt
+
+    products = brow_step_products(cfg)
+    rows = []
+    for (m, n, k, bnc, rnd, with_bias), entry in sorted(products.items()):
+        plan = gt.brow_plan(m, n, k)
+        if gt.brow_plan_on_card(m, n, k) != plan:
+            fail(f"brow_plan and the C rule differ at {m}x{n}x{k}: "
+                 f"{gt.brow_plan_on_card(m, n, k)} vs {plan}")
+        for members in BROW_MEMBERS:
+            gen = torch.Generator(device=dev).manual_seed(m * n + k + members)
+            lead = () if members == 1 else (members,)
+            pad = 8 if k == cfg.data.spectrum_dim else 0   # rows ld apart, as the
+            a = torch.randn((*lead, m, k + pad), generator=gen, device=dev)[..., :k]
+            w = torch.randn((*lead, k, n) if bnc else (*lead, n, k), generator=gen, device=dev)
+            b = w if bnc else w.transpose(-1, -2)            # step's strided inputs
+            bias = torch.randn((*lead, n), generator=gen, device=dev) if with_bias else None
+            got = gt.brow_gemm(a, b, bias, rnd=rnd)
+            again = gt.brow_gemm(a, b, bias, rnd=rnd)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"brow {m}x{n}x{k}: a rerun is not bit-identical")
+            if members > 1 and not all(torch.equal(got[i], gt.brow_gemm(
+                    a[i], b[i], None if bias is None else bias[i], rnd=rnd))
+                    for i in range(members)):
+                fail(f"brow {m}x{n}x{k}: a member at M = {members} differs from its own launch")
+            want = gt.brow_gemm_plain(a, b, bias, rnd=rnd, split=plan.split)
+            exact = gt.brow_gemm_plain(a.double(), b.double(),
+                                       None if bias is None else bias.double(), rnd=rnd)
+            ra, rb = (a.bfloat16().float(), b.bfloat16().float()) if rnd else (a, b)
+            mag = ra.double().abs() @ rb.double().abs()
+            if bias is not None:
+                mag = mag + bias.double().abs().unsqueeze(-2)
+            bound = 2 * (k + plan.split + 2) * 2.0 ** -24 * mag
+            rel_p = float(((got.double() - want.double()).abs() / bound).max())
+            rel_x = float(((got.double() - exact).abs() / bound).max())
+            err = float((got.double() - exact).abs().max())
+            if not (rel_x <= BROW_TOL_FLOAT64 and rel_p <= BROW_TOL_PLAIN):
+                fail(f"brow {m}x{n}x{k} bnc={bnc} rnd={rnd} M={members}: {rel_x:.3e} (float64) "
+                     f"/ {rel_p:.3e} (plain) of the bound")
+            out = torch.empty_like(got)
+            if bias is None:
+                lib = (lambda: torch.matmul(a, b, out=out))
+            elif members == 1:
+                lib = (lambda: torch.addmm(bias, a, b, out=out))
+            else:
+                lib = (lambda: torch.baddbmm(bias.unsqueeze(1), a, b, out=out))
+            us = {"brow": graph_us(lambda: gt.brow_gemm(a, b, bias, out=out, rnd=rnd)),
+                  "sgemm": graph_us(lambda: gt.brow_gemm(a, b, bias, out=out, rnd=rnd,
+                                                         route="sgemm")),
+                  "library": graph_us(lib)}
+            flops = 2.0 * members * m * n * k
+            nbytes = 4.0 * members * (m * k + k * n + m * n + (n if with_bias else 0))
+            bound_ms, by = (max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3,
+                            "operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES_PER_S
+                            else "bytes") if rnd else roofline(flops, nbytes)
+            row = {"shape": [m, n, k], "bnc": bnc, "bf16": rnd, "bias": with_bias,
+                   "members": members, "name": entry["name"], "a_step": entry["a_step"],
+                   "split": plan.split, "blocks": plan.blocks * members, "slice": plan.slice,
+                   "us": us["brow"], "sgemm_us": us["sgemm"], "matmul_us": us["library"],
+                   "bound_us": bound_ms * 1e3, "bound_by": by, "max_abs_err_vs_float64": err,
+                   "of_bound_vs_float64": rel_x, "of_bound_vs_plain": rel_p}
+            rows.append(row)
+            print(f"brow {entry['name']} ({m}x{n}x{k} {'nn' if bnc else 'nt'}"
+                  f"{' bf16' if rnd else ''}{' +bias' if with_bias else ''}), M = {members}: "
+                  f"S = {plan.split}, {plan.blocks * members} blocks of {plan.slice} columns; "
+                  f"a step {entry['a_step']}; kernel {us['brow']:.2f} us, sgemm "
+                  f"{us['sgemm']:.2f} us, torch.matmul {us['library']:.2f} us, bound "
+                  f"{bound_ms * 1e3:.3f} us ({by}); max|err| vs float64 {err:.3e} "
+                  f"({rel_x:.3e} of the bound), vs plain {rel_p:.3e} of the bound")
+    # a through-F fp32 step's batch-row products at M = 1, summed
+    solo = [row for row in rows if row["members"] == 1 and not row["bf16"]]
+    step = {r: sum(row[r] * row["a_step"].get("through F", 0) for row in solo)
+            for r in ("us", "sgemm_us", "matmul_us", "bound_us")}
+    n_step = sum(row["a_step"].get("through F", 0) for row in solo)
+    print(f"time {tag} brow_gemm: a through-F step's {n_step} "
+          f"batch-row products, their us a launch summed: kernel {step['us']:.2f} us, sgemm "
+          f"{step['sgemm_us']:.2f} us, torch.matmul {step['matmul_us']:.2f} us, bound "
+          f"{step['bound_us']:.3f} us (us a launch, {BROW_CALLS} back to back in a CUDA "
+          "graph, CUDA events)")
+    return {"products": rows, "through_f_step": step}
 
 
 def run_slice7_phases(cfg, dev, repo: str, ds_serving, request, train_ds, f_k2,
@@ -2744,6 +2949,9 @@ def main() -> None:
     s7 = run_slice7_phases(cfg, dev, repo, ds, requests[64], train_ds, f_k2, tag,
                            trains[True])
 
+    # -- 29. the batch-row products of K2 and K3 -----------------------------------
+    brow = phase29_brow_products(cfg, dev, tag)
+
     # -- the record -------------------------------------------------------------
     # bound_ms: operations over the fp32 peak against bytes moved once over the
     # memory rate, from the shapes each timed call was given.
@@ -2854,6 +3062,27 @@ def main() -> None:
         ms, by = bound[name]
         return {"bound_ms": ms, "bound_by": by}
 
+    # K2 and K3 launch their batch-row products through brow_gemm.cuh from the
+    # C loop: its launches on the main paths, and each product's numbers
+    brow_main = tl["brow_gemm"] + el["brow_gemm"] + pl["brow_gemm"] + sl["brow_gemm"]
+    if not brow_main or not tl["brow_gemm"] or not el["brow_gemm"]:
+        fail(f"the main paths launched the batch-row kernel {brow_main} times "
+             f"(train {tl['brow_gemm']}, ensemble {el['brow_gemm']})")
+    brow_note = {
+        "note": "K2 and K3 route their batch-row products (M = B or 2B rows) through "
+                "brow_gemm (cluster split-K, fixed-order DSMEM sum, cp.async ring)",
+        "source": "pigan_thz_torch/csrc/brow_gemm.cuh",
+        "launches": brow_main,
+        "launches_k3_commands": el["brow_gemm"],
+        "through_f_step_us": brow["through_f_step"],
+        # a through-F fp32 step's products at M = 1 (every shape and flag at
+        # M = 1 and 4 is printed above)
+        "products": [{k: row[k] for k in ("shape", "bnc", "bias", "split", "us", "sgemm_us",
+                                          "matmul_us", "bound_us", "of_bound_vs_float64")}
+                     | {"a_step": row["a_step"]["through F"]}
+                     for row in brow["products"] if row["members"] == 1
+                     and not row["bf16"] and "through F" in row["a_step"]]}
+
     record = {"kernels": [
         {"name": "fused_mlp_forward", "route": "cuda",
          "source": "pigan_thz_torch/csrc/fused_mlp_chain.cu",
@@ -2931,6 +3160,7 @@ def main() -> None:
          "ms": k2_times[False][0], "plain_ms": k2_times[False][1],
          "eager_ms": k2_times[False][2], "detached_ms": k2_times[True][0],
          "detached_plain_ms": k2_times[True][1], "detached_eager_ms": k2_times[True][2],
+         "brow_gemm": brow_note,
          **bounds("gan_train"), "library_ms": None},
         {"name": "gan_ensemble_train", "route": "cuda",
          "source": "pigan_thz_torch/csrc/gan_train.cu",
@@ -2947,6 +3177,8 @@ def main() -> None:
          "detached_ms": k3_times["detached"],
          "ms_by_members": {str(m): t for m, t in k3_times["k3"].items()},
          "gan_train_ms_same_call": k2_ms,
+         "brow_gemm": {"note": brow_note["note"], "source": brow_note["source"],
+                       "launches": el["brow_gemm"]},
          **bounds("gan_ensemble_train"), "library_ms": None},
     ]}
     print(json.dumps(record))

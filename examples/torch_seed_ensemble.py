@@ -30,7 +30,7 @@ import torch
 
 from pigan_thz_torch import apply_overrides, default_config
 from pigan_thz_torch.data import synthetic_dataset
-from pigan_thz_torch.ops._cuda_build import LAUNCHES
+from pigan_thz_torch.ops._cuda_build import launch_counts
 from pigan_thz_torch.parallel.ensemble import evaluate_ensemble, evaluate_ensemble_mean
 from pigan_thz_torch.parallel.ensemble_megakernel import train_seed_ensemble
 from pigan_thz_torch.train.steps import StepSettings
@@ -96,7 +96,7 @@ def main() -> int:
         "epochs": args.epochs,
         "packed": not args.unpacked,
         "device": str(device),
-        "launches": dict(LAUNCHES),
+        "launches": launch_counts(),
         "wall_s": wall,
         "member_steps_per_s": args.members * args.epochs * spe / wall,
         "first_recon_spec_loss": metrics["recon_spec_loss"][:, 0].tolist(),

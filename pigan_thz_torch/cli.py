@@ -148,7 +148,7 @@ def cmd_pretrain_forward(args) -> int:
         # keep the cosine horizon tied to the actual run length, like the
         # reference's CosineAnnealingLR(T_max=num_epochs)
         cfg = apply_overrides(cfg, [f"train.fwd_pretrain_epochs={args.epochs}"])
-    from .ops._cuda_build import LAUNCHES
+    from .ops._cuda_build import launch_counts
     from .train import checkpoint as ckpt
     from .train.trainer import Trainer
     from .utils.logging import RunLogger
@@ -162,7 +162,7 @@ def cmd_pretrain_forward(args) -> int:
         out = args.out or os.path.join(cfg.workdir, "saved_models")
         ckpt.save_model(out, ckpt.FORWARD_MODEL_PRETRAINED, trainer.forward_state.f)
         ckpt.save_model_config(out, cfg)
-        logger.info(f"kernel launches: {dict(LAUNCHES)}")
+        logger.info(f"kernel launches: {launch_counts()}")
         logger.info(f"saved pretrained forward model under {out}")
     finally:
         logger.close()
@@ -210,7 +210,7 @@ def cmd_train(args) -> int:
         horizon_overrides.append(f"train.fwd_pretrain_epochs={args.forward_epochs}")
     if horizon_overrides:
         cfg = apply_overrides(cfg, horizon_overrides)
-    from .ops._cuda_build import LAUNCHES
+    from .ops._cuda_build import launch_counts
     from .train import checkpoint as ckpt
     from .train.steps import StepSettings
     from .train.trainer import Trainer
@@ -264,7 +264,7 @@ def cmd_train(args) -> int:
             trainer.train_pigan(epochs=args.epochs, settings=settings, **gan_kw)
             trainer.save_final(out, backup_tag=args.backup_tag)
             logger.info(f"saved final models under {out}")
-        logger.info(f"kernel launches: {dict(LAUNCHES)}")
+        logger.info(f"kernel launches: {launch_counts()}")
     finally:
         logger.close()
     return 0
@@ -278,7 +278,7 @@ def cmd_program(args) -> int:
     ``generator_<name>.pth`` etc. beside them, and ``final_eval.json``."""
     cfg = _make_cfg(args)
     device = _device(args)
-    from .ops._cuda_build import LAUNCHES
+    from .ops._cuda_build import launch_counts
     from .train import programs as P
     from .train.trainer import Trainer
     from .utils.logging import RunLogger
@@ -302,7 +302,7 @@ def cmd_program(args) -> int:
         trainer.save_final(out, backup_tag=args.name)
         with open(os.path.join(logger.run_dir, "final_eval.json"), "w") as fh:
             json.dump(result.final_eval, fh, indent=2)
-        logger.info(f"kernel launches: {dict(LAUNCHES)}")
+        logger.info(f"kernel launches: {launch_counts()}")
         logger.info(f"saved final models under {out}")
     finally:
         logger.close()

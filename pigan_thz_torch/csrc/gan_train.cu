@@ -65,9 +65,18 @@
 // that stay in the 50 MB L2 between steps: G's and D's [param, m, v] (3 x
 // 262 K floats each), F's parameters (1.38 M floats, read only), two flat
 // gradients in the parameters' layout, and ~2.5 MB of activations.  Every
-// product is the shared tiled SGEMM (train_common.cuh: fp32 FMAs on the
-// CUDA cores, no TF32), strided so that no operand is transposed in memory;
-// the 4- and 1-wide heads go through it too.  BatchNorm is a column
+// product is strided so that no operand is transposed in memory.  The
+// batch-row products (M = B or 2B rows, N and K a layer's widths: the
+// forward layers and input gradients of G, D and F, the second G passes'
+// and the penalty's; 19 a step through F, 14 detached, +6 with WGAN-GP on a
+// D-update step, +4 / +3 a second pass) go through brow_gemm.cuh: cluster
+// split-K with a fixed-order sum in distributed shared memory, a cp.async
+// ring, fp32 FMAs or, on bfloat16 operands, bf16 mma.sync (BMM / BGEMM
+// below).  The rest stay on the shared tiled SGEMM (train_common.cuh: fp32
+// FMAs on the CUDA cores, no TF32): the 4- and 1-wide heads, F's 4-wide
+// input layer and its input gradient, the 8 metrics columns of F's head
+// under bfloat16, and the weight gradients, whose depth is the batch and
+// whose 32 x 32 tiles already number 32-128.  BatchNorm is a column
 // reduction over the B rows: one thread per column, 64 columns a block, two
 // passes in row order, the column sums in double (the variance and the
 // backward's mean subtraction cancel: with float sums G's gradient was 30x
@@ -81,14 +90,17 @@
 // through F (half of it F's forward and input-backward), ~10 us at the
 // 67 TFLOP/s fp32 peak, and ~13 MB of state and weights read once a step,
 // ~4 us at 3.35 TB/s.  Neither bounds a step: on an H100 (80GB HBM3, 700 W)
-// it takes ~1.2 ms through F (69 launches) and ~0.9 ms detached (58; a second
-// G pass adds 16 and ~0.25 ms, the sum of the passes' gradients 1, cycle's
-// input gradient 2, instance noise 1), the
-// device busy 90 % of that, four fifths of it in the products of 64 or 128
-// rows: 32 x 32 tiles give 16-64 blocks on 132 SMs, each walking the whole
-// depth, ~34 us a product.  Split-K or tensor-core tiles for those products,
-// fusing the elementwise passes into their epilogues, and CUDA-graph
-// capture of a chunk are later work.
+// with every product on the SGEMM it took ~1.2 ms through F (69 launches)
+// and ~0.9 ms detached (58; a second G pass adds 16, the sum of the passes'
+// gradients 1, cycle's input gradient 2, instance noise 1), the device busy
+// 90 % of that, four fifths of it in the batch-row products: 32 x 32 tiles
+// gave 16-64 blocks on 132 SMs, each walking the whole depth with no
+// prefetch, ~34 us a product.  brow_gemm.cuh gives each 64-128 blocks of at
+// most a quarter of the depth: 5-14 us a product, and a step ~0.62 ms
+// through F, ~0.52 detached (PERF.md).  The products left on the SGEMM (the
+// deep heads, the weight gradients) are now as much device time as the
+// batch-row ones.  Fusing the elementwise passes into the products'
+// epilogues and CUDA-graph capture of a chunk are later work.
 //
 // Ensemble members (K3).  pigan_gan_ensemble_train replaces the member-packed
 // path of the same Pallas kernel (_make_kernel(members=M), launched by
@@ -109,16 +121,17 @@
 // moments, gradients, scratch) beside 5.5 MB of F, so past M = 3 it no
 // longer fits the 50 MB L2; that shows nowhere, a member reads its state once
 // a step.  On an H100 (80GB HBM3, 700 W) an epoch of 15 steps through F takes
-// 18.3 ms at M = 1 (K2's time), 20.4 at M = 2, 22.5 at M = 4 and 25.4 at
-// M = 8: the B-row products' 16-64 blocks a member were latency-bound, and M
-// times the blocks overlap on the 132 SMs.
+// ~9.3 ms at M = 1 (K2's time), ~10.7 at M = 2, ~13.7 at M = 4 and ~17.9 at
+// M = 8 (examples/torch_gan_times.py); with the batch-row products on the
+// SGEMM it took 18.7 / 21.1 / 22.8 / 25.7: their 16-64 blocks a member were
+// latency-bound, and M times the blocks overlapped on the 132 SMs.
 //
 // Interface: plain C, loaded with ctypes.  Both entry points launch on the
 // given stream, do not synchronise, allocate nothing (the workspace comes
 // from the caller, and a short one is refused), and return the first
 // cudaError_t (0 on success), checking cudaGetLastError() after each launch.
 
-#include "train_common.cuh"
+#include "brow_gemm.cuh"   // includes train_common.cuh
 
 namespace {
 
@@ -716,6 +729,9 @@ wgan_adv_kernel(PerIn zm, int B, PerOut dzm, PerOut rowm) {
 // Device kernels enqueued by the last call of gan_train_steps in this
 // process (pigan_gan_kernels_enqueued): divided by T, the launches a step.
 long long g_kernels_enqueued = 0;
+// Of those, the batch-row products launched through brow_gemm.cuh
+// (pigan_brow_kernels_enqueued).
+long long g_brow_enqueued = 0;
 
 inline int blocks_for(long long n, int threads, int cap = 1024) {
   long long b = (n + threads - 1) / threads;
@@ -877,7 +893,12 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
   ak.c2 = (float)(1.0 - 0.999);
   ak.eps = 1e-8f;
 
-  cudaError_t e;
+  // the batch-row products' plan reads the card's SM count (never the members)
+  int device = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return (int)e;
 #define CHECK(call)                      \
   do {                                   \
     e = (call);                          \
@@ -919,10 +940,25 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
     ++g_kernels_enqueued;                                           \
     CHECK((gemm_ex<AK, BNC>(bf16, true, __VA_ARGS__, st, NM)));     \
   } while (0)
+// BMM: an MM whose rows are the batch (M = B or 2B; N and K a layer's
+// widths) through brow_gemm.cuh; BGEMM: such a GEMM (fp32 under both flags)
+#define BMM(AK, BNC, ...)                                                        \
+  do {                                                                           \
+    ++g_kernels_enqueued;                                                        \
+    ++g_brow_enqueued;                                                           \
+    CHECK((brow_gemm<AK, BNC>(bf16, false, sms, 0, __VA_ARGS__, st, NM)));       \
+  } while (0)
+#define BGEMM(AK, BNC, ...)                                                      \
+  do {                                                                           \
+    ++g_kernels_enqueued;                                                        \
+    ++g_brow_enqueued;                                                           \
+    CHECK((brow_gemm<AK, BNC>(false, false, sms, 0, __VA_ARGS__, st, NM)));      \
+  } while (0)
 
   const PerIn F(f, 0);
   const PerIn none;
   g_kernels_enqueued = 0;
+  g_brow_enqueued = 0;
 
   // A second pass of G on x (B rows of S values, ldx apart) with the batch
   // statistics of that batch, the running stats untouched; its loss against
@@ -930,11 +966,11 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
   // and, with dx, its input gradient (B, S).  Uses da and dt as scratch.
   auto second_pass = [&](PerIn x, int ldx, float w, PerOut row, PerOut grad2,
                          PerOut dx) -> int {
-    MM(true, false, B, g1, S, x, ldx, 1, g + gW1, 1, S, uc2[0], g1, g + gb1);
+    BMM(true, false, B, g1, S, x, ldx, 1, g + gW1, 1, S, uc2[0], g1, g + gb1);
     bn_forward<<<COLS(g1)>>>(uc2[0], B, g1, g + ggam1, g + gbet1, xh2[0], y2[0], a2[0],
                              iv2[0], PerOut(), PerOut(), bn_eps, bn_mom, bn_one_minus);
     CHECK_LAUNCH();
-    MM(true, false, B, g2, g1, a2[0], g1, 1, g + gW2, 1, g1, uc2[1], g2, g + gb2);
+    BMM(true, false, B, g2, g1, a2[0], g1, 1, g + gW2, 1, g1, uc2[1], g2, g + gb2);
     bn_forward<<<COLS(g2)>>>(uc2[1], B, g2, g + ggam2, g + gbet2, xh2[1], y2[1], a2[1],
                              iv2[1], PerOut(), PerOut(), bn_eps, bn_mom, bn_one_minus);
     CHECK_LAUNCH();
@@ -951,14 +987,14 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
     MM(false, true, g2, g1, B, dt, 1, g2, a2[0], g1, 1, grad2 + gW2, g1, none);
     column_sum<<<WIDE(g2)>>>(dt, B, g2, grad2 + gb2);
     CHECK_LAUNCH();
-    MM(true, true, B, g1, g2, dt, g2, 1, g + gW2, g1, 1, da, g1, none);
+    BMM(true, true, B, g1, g2, dt, g2, 1, g + gW2, g1, 1, da, g1, none);
     bn_backward<<<COLS(g1)>>>(da, y2[0], xh2[0], uc2[0], g + ggam1, iv2[0], B, g1, dt,
                               grad2 + ggam1, grad2 + gbet1);
     CHECK_LAUNCH();
     MM(false, true, g1, S, B, dt, 1, g1, x, ldx, 1, grad2 + gW1, S, none);
     column_sum<<<WIDE(g1)>>>(dt, B, g1, grad2 + gb1);
     CHECK_LAUNCH();
-    if (dx.p) MM(true, true, B, S, g1, dt, g1, 1, g + gW1, S, 1, dx, S, none);
+    if (dx.p) BMM(true, true, B, S, g1, dt, g1, 1, g + gW1, S, 1, dx, S, none);
     return 0;
   };
 
@@ -972,11 +1008,11 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
     const bool update_d = sc[6] > 0.f;
 
     // ---- G forward, shared by both phases --------------------------------
-    MM(true, false, B, g1, S, spec_t, S, 1, g + gW1, 1, S, uc[0], g1, g + gb1);
+    BMM(true, false, B, g1, S, spec_t, S, 1, g + gW1, 1, S, uc[0], g1, g + gb1);
     bn_forward<<<COLS(g1)>>>(uc[0], B, g1, g + ggam1, g + gbet1, xh[0], y[0], a[0], iv[0],
                              bn1_mean, bn1_var, bn_eps, bn_mom, bn_one_minus);
     CHECK_LAUNCH();
-    MM(true, false, B, g2, g1, a[0], g1, 1, g + gW2, 1, g1, uc[1], g2, g + gb2);
+    BMM(true, false, B, g2, g1, a[0], g1, 1, g + gW2, 1, g1, uc[1], g2, g + gb2);
     bn_forward<<<COLS(g2)>>>(uc[1], B, g2, g + ggam2, g + gbet2, xh[1], y[1], a[1], iv[1],
                              bn2_mean, bn2_var, bn_eps, bn_mom, bn_one_minus);
     CHECK_LAUNCH();
@@ -994,10 +1030,10 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
       CHECK_LAUNCH();
       xd = x0n;
     }
-    MM(true, false, 2 * B, d1, nd, xd, nd, 1, d + dW1, 1, nd, p1, d1, d + db1);
+    BMM(true, false, 2 * B, d1, nd, xd, nd, 1, d + dW1, 1, nd, p1, d1, d + db1);
     leaky_forward<<<ELEMS(2LL * B * d1)>>>(p1, h1, 2LL * B * d1, slope);
     CHECK_LAUNCH();
-    MM(true, false, 2 * B, d2, d1, h1, d1, 1, d + dW2, 1, d1, p2, d2, d + db2);
+    BMM(true, false, 2 * B, d2, d1, h1, d1, 1, d + dW2, 1, d1, p2, d2, d + db2);
     leaky_forward<<<ELEMS(2LL * B * d2)>>>(p2, h2, 2LL * B * d2, slope);
     CHECK_LAUNCH();
     GEMM(true, false, 2 * B, 1, d2, h2, d2, 1, d + dW3, 1, d2, z, 1, d + db3);
@@ -1007,16 +1043,16 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
         // with D before this step's update: gvec = dz/dx, masks constant
         gp_input<<<ELEMS((long long)B * nd)>>>(x0, eps + (long long)t * B, xg, B, S);
         CHECK_LAUNCH();
-        MM(true, false, B, d1, nd, xg, nd, 1, d + dW1, 1, nd, p1g, d1, d + db1);
+        BMM(true, false, B, d1, nd, xg, nd, 1, d + dW1, 1, nd, p1g, d1, d + db1);
         leaky_forward<<<ELEMS((long long)B * d1)>>>(p1g, h1g, (long long)B * d1, slope);
         CHECK_LAUNCH();
-        MM(true, false, B, d2, d1, h1g, d1, 1, d + dW2, 1, d1, p2g, d2, d + db2);
+        BMM(true, false, B, d2, d1, h1g, d1, 1, d + dW2, 1, d1, p2g, d2, d + db2);
         gp_v<<<ELEMS((long long)B * d2)>>>(p2g, d + dW3, gv, B, d2, slope);
         CHECK_LAUNCH();
-        MM(true, true, B, d1, d2, gv, d2, 1, d + dW2, d1, 1, am, d1, none);
+        BMM(true, true, B, d1, d2, gv, d2, 1, d + dW2, d1, 1, am, d1, none);
         leaky_backward<<<ELEMS((long long)B * d1)>>>(am, p1g, (long long)B * d1, slope);
         CHECK_LAUNCH();
-        MM(true, true, B, nd, d1, am, d1, 1, d + dW1, nd, 1, gvec, nd, none);
+        BMM(true, true, B, nd, d1, am, d1, 1, d + dW1, nd, 1, gvec, nd, none);
       }
       critic_loss_kernel<<<ONE()>>>(z, update_d ? PerIn(gvec) : none, B, nd, w_gp, dz, gt, row);
       CHECK_LAUNCH();
@@ -1037,7 +1073,7 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
         column_sum<<<WIDE(d2)>>>(dp2, 2 * B, d2, gradD + db2);
       }
       CHECK_LAUNCH();
-      MM(true, true, 2 * B, d1, d2, dp2, d2, 1, d + dW2, d1, 1, dp1, d1, none);
+      BMM(true, true, 2 * B, d1, d2, dp2, d2, 1, d + dW2, d1, 1, dp1, d1, none);
       leaky_backward<<<ELEMS(2LL * B * d1)>>>(dp1, p1, 2LL * B * d1, slope);
       CHECK_LAUNCH();
       MM(false, true, d1, nd, 2 * B, dp1, 1, d1, xd, nd, 1, gradD + dW1, nd, none);
@@ -1049,10 +1085,10 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
       CHECK_LAUNCH();
       if (wgan) {
         // the penalty's second-order backward: W1 twice, W2, w3; no bias
-        MM(true, false, B, d1, nd, gt, nd, 1, d + dW1, 1, nd, dug, d1, none);
+        BMM(true, false, B, d1, nd, gt, nd, 1, d + dW1, 1, nd, dug, d1, none);
         leaky_backward<<<ELEMS((long long)B * d1)>>>(dug, p1g, (long long)B * d1, slope);
         CHECK_LAUNCH();
-        MM(true, false, B, d2, d1, dug, d1, 1, d + dW2, 1, d1, dvg, d2, none);
+        BMM(true, false, B, d2, d1, dug, d1, 1, d + dW2, 1, d1, dvg, d2, none);
         MM_ACC(false, true, d1, nd, B, am, 1, d1, gt, nd, 1, gradD + dW1, nd, none);
         MM_ACC(false, true, d2, d1, B, gv, 1, d2, dug, d1, 1, gradD + dW2, d1, none);
         gp_w3_grad<<<WIDE(d2)>>>(dvg, p2g, B, d2, slope, gradD + dW3);
@@ -1069,10 +1105,10 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
 
     // ---- G phase: the fake rows through the updated D --------------------
     const PerIn fake_in = x0 + (long long)B * nd;
-    MM(true, false, B, d1, nd, fake_in, nd, 1, d + dW1, 1, nd, p1, d1, d + db1);
+    BMM(true, false, B, d1, nd, fake_in, nd, 1, d + dW1, 1, nd, p1, d1, d + db1);
     leaky_forward<<<ELEMS((long long)B * d1)>>>(p1, h1, (long long)B * d1, slope);
     CHECK_LAUNCH();
-    MM(true, false, B, d2, d1, h1, d1, 1, d + dW2, 1, d1, p2, d2, d + db2);
+    BMM(true, false, B, d2, d1, h1, d1, 1, d + dW2, 1, d1, p2, d2, d + db2);
     leaky_forward<<<ELEMS((long long)B * d2)>>>(p2, h2, (long long)B * d2, slope);
     CHECK_LAUNCH();
     GEMM(true, false, B, 1, d2, h2, d2, 1, d + dW3, 1, d2, z, 1, d + db3);
@@ -1084,7 +1120,7 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
     CHECK_LAUNCH();
     d_head_backward<<<ELEMS((long long)B * d2)>>>(dz, d + dW3, p2, dp2, B, d2, slope);
     CHECK_LAUNCH();
-    MM(true, true, B, d1, d2, dp2, d2, 1, d + dW2, d1, 1, dp1, d1, none);
+    BMM(true, true, B, d1, d2, dp2, d2, 1, d + dW2, d1, 1, dp1, d1, none);
     leaky_backward<<<ELEMS((long long)B * d1)>>>(dp1, p1, (long long)B * d1, slope);
     CHECK_LAUNCH();
     // only the four parameter columns of D's input gradient are needed
@@ -1098,7 +1134,7 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
       if (l == 0) {   // the TPU kernel's VPU sum over the 4 params: fp32
         GEMM(true, false, B, C, din, fa, din, 1, F + o[0], 1, din, tc[l], C, F + o[1]);
       } else {
-        MM(true, false, B, C, din, fa, din, 1, F + o[0], 1, din, tc[l], C, F + o[1]);
+        BMM(true, false, B, C, din, fa, din, 1, F + o[0], 1, din, tc[l], C, F + o[1]);
       }
       ln_forward<<<ROWS(B)>>>(tc[l], ln[l], PerOut(), act[l], ivar[l], F + o[2], F + o[3], C,
                               ln_eps, slope, 0u, 0, 0u, 1.f);
@@ -1109,11 +1145,11 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
     const long long* oh = f_offsets + 4 * n_f_hidden;
     if (bf16) {
       // the spectrum columns in bfloat16, the 8 metrics columns in fp32
-      MM(true, false, B, S, dh, fa, dh, 1, F + oh[0], 1, dh, pred, D, F + oh[1]);
+      BMM(true, false, B, S, dh, fa, dh, 1, F + oh[0], 1, dh, pred, D, F + oh[1]);
       GEMM(true, false, B, D - S, dh, fa, dh, 1, F + (oh[0] + (long long)S * dh), 1, dh,
            pred + S, D, F + (oh[1] + S));
     } else {
-      GEMM(true, false, B, D, dh, fa, dh, 1, F + oh[0], 1, dh, pred, D, F + oh[1]);
+      BGEMM(true, false, B, D, dh, fa, dh, 1, F + oh[0], 1, dh, pred, D, F + oh[1]);
     }
 
     // ---- losses and their seeds -------------------------------------------
@@ -1141,11 +1177,11 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
     if (!detach) {
       if (bf16) {
         // the spectrum columns' term in bfloat16, then the metrics columns'
-        MM(true, true, B, dh, S, dpred, D, 1, F + oh[0], dh, 1, da, dh, none);
+        BMM(true, true, B, dh, S, dpred, D, 1, F + oh[0], dh, 1, da, dh, none);
         GEMM_ACC(true, true, B, dh, D - S, dpred + S, D, 1, F + (oh[0] + (long long)S * dh),
                  dh, 1, da, dh, none);
       } else {
-        GEMM(true, true, B, dh, D, dpred, D, 1, F + oh[0], dh, 1, da, dh, none);
+        BGEMM(true, true, B, dh, D, dpred, D, 1, F + oh[0], dh, 1, da, dh, none);
       }
       for (int l = n_f_hidden - 1; l >= 0; --l) {
         const int din = f_dims[l], C = f_dims[l + 1];
@@ -1156,7 +1192,7 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
         if (l == 0) {   // the TPU kernel's VPU sums into the 4 params: fp32
           GEMM(true, true, B, din, C, dt, C, 1, F + o[0], din, 1, dfin, din, none);
         } else {
-          MM(true, true, B, din, C, dt, C, 1, F + o[0], din, 1, da, din, none);
+          BMM(true, true, B, din, C, dt, C, 1, F + o[0], din, 1, da, din, none);
         }
       }
     }
@@ -1175,7 +1211,7 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
     MM(false, true, g2, g1, B, dt, 1, g2, a[0], g1, 1, gradG + gW2, g1, none);
     column_sum<<<WIDE(g2)>>>(dt, B, g2, gradG + gb2);
     CHECK_LAUNCH();
-    MM(true, true, B, g1, g2, dt, g2, 1, g + gW2, g1, 1, da, g1, none);
+    BMM(true, true, B, g1, g2, dt, g2, 1, g + gW2, g1, 1, da, g1, none);
     bn_backward<<<COLS(g1)>>>(da, y[0], xh[0], uc[0], g + ggam1, iv[0], B, g1, dt,
                               gradG + ggam1, gradG + gbet1);
     CHECK_LAUNCH();
@@ -1200,6 +1236,8 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
       CHECK_LAUNCH();
     }
   }
+#undef BGEMM
+#undef BMM
 #undef MM_ACC
 #undef GEMM_ACC
 #undef MM
@@ -1221,6 +1259,58 @@ extern "C" {
 // The number of device kernels the last pigan_gan_train or
 // pigan_gan_ensemble_train call of this process enqueued.
 long long pigan_gan_kernels_enqueued() { return g_kernels_enqueued; }
+
+// Of those, the batch-row products (brow_gemm.cuh).
+long long pigan_brow_kernels_enqueued() { return g_brow_enqueued; }
+
+// The plan of one batch-row product on a card of `sms` SMs: out[0] the
+// cluster size S, out[1] the row tiles, out[2] the column tiles, out[3] the
+// columns of depth a block.
+int pigan_brow_plan(int M, int N, int K, int sms, int* out) {
+  if (M < 1 || N < 1 || K < 1 || sms < 1) return cudaErrorInvalidValue;
+  const BrowPlan p = brow_plan_for(M, N, K, sms);
+  out[0] = p.split;
+  out[1] = p.tiles_m;
+  out[2] = p.tiles_n;
+  out[3] = p.slice;
+  return 0;
+}
+
+// One product in the strided convention of the step's products, for
+// `members` members (each operand's member stride in floats; 0: shared),
+// through the batch-row kernel (route 0; `split` > 0 forces its cluster
+// size, 0 takes the plan) or through the tiled SGEMM the step used before
+// (route 1).  flags: bit 0 AK, bit 1 BNC, bit 2 bfloat16 operands, bit 3
+// ACC.  bias may be null.
+int pigan_brow_gemm(int route, int split, int M, int N, int K, const float* A, long long sam,
+                    long long sak, long long a_member, const float* B, long long sbk,
+                    long long sbn, long long b_member, float* C, int ldc, long long c_member,
+                    const float* bias, long long bias_member, int members, int flags,
+                    void* stream_ptr) {
+  if (route < 0 || route > 1 || members < 1 || members > 65535) return cudaErrorInvalidValue;
+  const bool ak = flags & 1, bnc = (flags >> 1) & 1, rnd = (flags >> 2) & 1,
+             acc = (flags >> 3) & 1;
+  const PerIn a(A, a_member), b(B, b_member), bi(bias, bias_member);
+  const PerOut c(C, c_member);
+  const cudaStream_t st = (cudaStream_t)stream_ptr;
+  int sms = 0;
+  if (route == 0) {
+    int device = 0;
+    cudaError_t e = cudaGetDevice(&device);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (e != cudaSuccess) return (int)e;
+  }
+#define PRODUCT(AK, BNC)                                                                   \
+  (route == 0 ? brow_gemm<AK, BNC>(rnd, acc, sms, split, M, N, K, a, sam, sak, b, sbk, sbn, \
+                                   c, ldc, bi, st, members)                               \
+              : gemm_ex<AK, BNC>(rnd, acc, M, N, K, a, sam, sak, b, sbk, sbn, c, ldc, bi,   \
+                                 st, members))
+  cudaError_t e;
+  if (ak) e = bnc ? PRODUCT(true, true) : PRODUCT(true, false);
+  else e = bnc ? PRODUCT(false, true) : PRODUCT(false, false);
+#undef PRODUCT
+  return (int)e;
+}
 
 // T training steps over one state in place (K2).
 //   g, g_m, g_v    (Pg,) device, updated; layout W1 b1 gamma1 beta1 W2 b2

@@ -13,7 +13,9 @@ the kernels hold fp32 parity with their plain PyTorch versions.
 
 ``LAUNCHES`` counts each kernel's successful launches; only ``launch``,
 which the wrappers (``fused_kernels.py``, ``peaks.py``,
-``forward_train.py``, ``gan_train.py``) call, adds to it.
+``forward_train.py``, ``gan_train.py``) call, adds to it.  The batch-row
+product kernel that K2 and K3 launch from their C loop has its own count,
+``BROW_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fused_mlp_chain.cu", "dip_qualification.cu", "forward_train.cu", "gan_train.cu")
-HEADERS = ("train_common.cuh",)     # included by the training sources
+# included by the training sources (brow_gemm.cuh by gan_train.cu)
+HEADERS = ("train_common.cuh", "brow_gemm.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -45,6 +48,17 @@ LAUNCHES: dict[str, int] = {
     "gan_train": 0,
     "gan_ensemble_train": 0,
 }
+# Launches of the batch-row product kernel (csrc/brow_gemm.cuh), which K2 and
+# K3 launch from their C loop: their wrappers add the loop's own count after
+# each chunk, and ``gan_train.brow_gemm`` one a direct launch.  Apart from
+# LAUNCHES, whose keys stay one a TPU kernel.
+BROW_LAUNCHES: dict[str, int] = {"brow_gemm": 0}
+
+
+def launch_counts() -> dict[str, int]:
+    """Every count: LAUNCHES and BROW_LAUNCHES in one dict."""
+    return {**LAUNCHES, **BROW_LAUNCHES}
+
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -52,6 +66,7 @@ _F = ctypes.c_float
 _OFFSETS = ctypes.POINTER(ctypes.c_longlong)
 _DIMS = ctypes.POINTER(ctypes.c_int)
 _U32 = ctypes.c_uint32
+_LL = ctypes.c_longlong
 
 # C entry point -> argtypes; every one returns a cudaError_t as int.
 ENTRY_POINTS = {
@@ -73,6 +88,10 @@ ENTRY_POINTS = {
         _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         ctypes.POINTER(ctypes.c_float), _P, _P, ctypes.c_longlong, _DIMS, _DIMS, _I,
         _OFFSETS, _I, _I, ctypes.POINTER(ctypes.c_double), _I, _P,
+    ],
+    "pigan_brow_gemm": [
+        _I, _I, _I, _I, _I, _P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P, _I, _LL, _P, _LL,
+        _I, _I, _P,
     ],
 }
 
@@ -143,8 +162,11 @@ def load_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.pigan_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pigan_cuda_error_string.restype = ctypes.c_char_p
-    lib.pigan_gan_kernels_enqueued.argtypes = []
-    lib.pigan_gan_kernels_enqueued.restype = ctypes.c_longlong
+    for name in ("pigan_gan_kernels_enqueued", "pigan_brow_kernels_enqueued"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_longlong
+    lib.pigan_brow_plan.argtypes = [_I] * 4 + [ctypes.POINTER(_I)]
+    lib.pigan_brow_plan.restype = ctypes.c_int
     return lib
 
 
@@ -161,9 +183,10 @@ def check_capability(index: int) -> None:
         )
 
 
-def launch(name: str, device, *args) -> None:
+def launch(name: str, device, *args, counts: dict[str, int] | None = None) -> None:
     """Call entry point ``pigan_<name>`` with ``args`` and the current stream
-    of ``device``; raise on a CUDA error, else count the launch."""
+    of ``device``; raise on a CUDA error, else count the launch in
+    ``counts`` (LAUNCHES by default)."""
     import torch
 
     lib = load_library()
@@ -174,4 +197,4 @@ def launch(name: str, device, *args) -> None:
         raise RuntimeError(
             f"{name}: CUDA error {rc} ({lib.pigan_cuda_error_string(rc).decode()})"
         )
-    LAUNCHES[name] += 1
+    (LAUNCHES if counts is None else counts)[name] += 1

@@ -13,7 +13,11 @@ the spectra classes of tests/test_peaks.py.  The forward-training kernel
 a 1000-sample dataset, with the tolerances of ``chip_smoke.py``; so is the
 GAN-training kernel (K2), for both ``detach_forward`` modes and a mix of its
 knobs.  The member-packed kernel (K3) is held bit for bit against K2 on each
-member alone, and against its plain version with K2's tolerances.
+member alone, and against its plain version with K2's tolerances.  The
+batch-row product kernel that K2 and K3 launch (``csrc/brow_gemm.cuh``) is
+held against its plain version and float64 for every product shape and flag
+of a step, at M = 1 and 4, and each step's count of its launches against
+``brow_products``.
 """
 
 import copy
@@ -969,3 +973,153 @@ def test_gan_train_leaves_its_intermediates_in_a_given_scratch(dev, train_ds, tr
     # G's output through train-mode BatchNorm, fp32 on both sides (measured 1.4e-5)
     torch.testing.assert_close(views["tn"].view(64, 4), want, rtol=0, atol=1e-4)
     assert float(views["grad_g"].abs().max()) > 0 and float(views["dfin"].abs().max()) > 0
+
+
+# -- K2 / K3: the batch-row products (csrc/brow_gemm.cuh) -------------------------
+def _brow_cases():
+    """Every batch-row product shape and flag of a K2 step over its paths
+    (through F, detached, a second pass, WGAN-GP, bfloat16): (m, n, k, bnc,
+    rnd, bias), each once."""
+    out = set()
+    for dtype in ("float32", "bfloat16"):
+        cfg = default_config()
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train, compute_dtype=dtype))
+        for knobs in (dict(detach_forward=False, cycle_w=1.0, stability_w=1.0,
+                           gan_loss="wgan_gp"), dict(detach_forward=True, cycle_w=1.0)):
+            spec = gt.gan_train_spec(cfg, StepSettings.from_config(cfg, **knobs))
+            for p in gt.brow_products(spec, 64):
+                out.add((p.m, p.n, p.k, p.bnc, p.rnd, p.bias))
+    return sorted(out)
+
+
+BROW_CASES = _brow_cases()
+
+
+def _brow_operands(m, n, k, bnc, dev, members=None, seed=0, pad=0):
+    """A (m, k) rows ``k + pad`` floats apart (the step's strided inputs);
+    B (k, n) as the step gives it: W.t() of a (n, k) weight (BNC false) or a
+    (k, n) weight (BNC true); bias (n,); with ``members`` a leading axis on
+    each."""
+    gen = torch.Generator().manual_seed(seed)
+    lead = () if members is None else (members,)
+    a = torch.randn((*lead, m, k + pad), generator=gen)[..., :k]
+    w = torch.randn((*lead, k, n) if bnc else (*lead, n, k), generator=gen)
+    b = w if bnc else w.transpose(-1, -2)
+    bias = torch.randn((*lead, n), generator=gen)
+    return a.to(dev), b.to(dev), bias.to(dev)
+
+
+def _brow_bound(a, b, bias, k, split, rnd):
+    """The float32 worst-case sum bound of tests/test_torch_gan_products.py,
+    doubled: the tensor cores' fp32 accumulation may truncate instead of
+    round, which doubles the unit roundoff."""
+    if rnd:
+        a, b = a.bfloat16().float(), b.bfloat16().float()
+    mag = a.double().abs() @ b.double().abs()
+    if bias is not None:
+        mag = mag + bias.double().abs().unsqueeze(-2)
+    return 2 * (k + split + 2) * 2.0 ** -24 * mag
+
+
+@pytest.mark.parametrize("members", [1, 4])
+@pytest.mark.parametrize("case", BROW_CASES,
+                         ids=[f"{m}x{n}x{k}-{'nn' if c else 'nt'}{'-bf16' if r else ''}"
+                              f"{'-bias' if b else ''}" for m, n, k, c, r, b in BROW_CASES])
+def test_brow_kernel_matches_plain(case, members, dev):
+    """The kernel against ``brow_gemm_plain`` (the same slices, rank order)
+    and float64, both within twice the float32 worst-case sum bound; a rerun
+    bit-identical; at M = 4 member m bit for bit the launch on m alone."""
+    m, n, k, bnc, rnd, with_bias = case
+    a, b, bias = _brow_operands(m, n, k, bnc, dev, members if members > 1 else None,
+                                pad=8 * (k % 2))
+    bias = bias if with_bias else None
+    plan = gt.brow_plan(m, n, k)
+    assert gt.brow_plan_on_card(m, n, k) == plan
+    before = gt.BROW_LAUNCHES["brow_gemm"]
+    got = gt.brow_gemm(a, b, bias, rnd=rnd)
+    again = gt.brow_gemm(a, b, bias, rnd=rnd)
+    torch.cuda.synchronize()
+    assert gt.BROW_LAUNCHES["brow_gemm"] == before + 2
+    assert torch.equal(got, again)
+    want = gt.brow_gemm_plain(a, b, bias, rnd=rnd, split=plan.split)
+    exact = gt.brow_gemm_plain(a.double(), b.double(), None if bias is None else bias.double(),
+                               rnd=rnd)
+    bound = _brow_bound(a, b, bias, k, plan.split, rnd)
+    err_p = float(((got.double() - want.double()).abs() / bound).max())
+    err_x = float(((got.double() - exact).abs() / bound).max())
+    print(f"brow {case} M={members} split {plan.split}: |kernel - plain| "
+          f"{float((got - want).abs().max()):.3e} ({err_p:.3e} of the bound), vs float64 "
+          f"{err_x:.3e} of the bound")
+    assert err_x <= 1.0 and err_p <= 1.5
+    if members > 1:
+        for mm in range(members):
+            solo = gt.brow_gemm(a[mm], b[mm], None if bias is None else bias[mm], rnd=rnd)
+            assert torch.equal(got[mm], solo), mm
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", [(64, 512, 250, False), (128, 512, 256, True),
+                                  (64, 256, 258, True), (64, 1024, 512, False)],
+                         ids=["64x512x250-nt", "128x512x256-nn", "64x256x258-nn",
+                              "64x1024x512-nt"])
+def test_brow_kernel_every_split(case, split, dev):
+    """Any cluster size the card takes gives the product within the bound,
+    equal to its plain version's slices; the old SGEMM route too."""
+    m, n, k, bnc = case
+    a, b, bias = _brow_operands(m, n, k, bnc, dev, seed=split)
+    for rnd in (False, True):
+        got = gt.brow_gemm(a, b, bias, rnd=rnd, split=split)
+        old = gt.brow_gemm(a, b, bias, rnd=rnd, route="sgemm")
+        torch.cuda.synchronize()
+        exact = gt.brow_gemm_plain(a.double(), b.double(), bias.double(), rnd=rnd)
+        want = gt.brow_gemm_plain(a, b, bias, rnd=rnd, split=split)
+        bound = _brow_bound(a, b, bias, k, split, rnd)
+        assert float(((got.double() - exact).abs() / bound).max()) <= 1.0, rnd
+        assert float(((got.double() - want.double()).abs() / bound).max()) <= 1.5, rnd
+        assert float(((old.double() - exact).abs() / bound).max()) <= 1.0, rnd
+
+
+@pytest.mark.parametrize("layout", ["tn", "tt"])
+def test_brow_kernel_takes_every_flag(layout, dev):
+    """The flags the step does not use today: A contiguous along m (AK
+    false), C += (ACC), members sharing B (stride 0)."""
+    m, n, k = 64, 256, 512
+    bnc = layout[1] == "n"
+    a, b, bias = _brow_operands(m, n, k, bnc, dev, members=3, seed=5)
+    a = a.transpose(-1, -2).contiguous().transpose(-1, -2)   # (m, k) view, m-contiguous
+    assert a.stride(-2) == 1
+    c = torch.randn(3, m, n, device=dev)
+    for rnd in (False, True):
+        out = c.clone()
+        gt.brow_gemm(a, b[0], bias, out=out, acc=True, rnd=rnd)
+        plan = gt.brow_plan(m, n, k)
+        want = gt.brow_gemm_plain(a, b[0], bias, c, rnd, plan.split)
+        bound = _brow_bound(a, b[0], bias, k, plan.split, rnd) + 2 * 2.0 ** -24 * c.abs()
+        assert float(((out - want).abs() / bound).max()) <= 1.5, rnd
+    with pytest.raises(RuntimeError, match="brow_gemm: CUDA error"):
+        gt.brow_gemm(a[0], b[0], split=16)
+
+
+@pytest.mark.parametrize("case", ["through_f", "detached", "knob_mix", "second_passes_mix",
+                                  "wgan_gp_mix", "all_four"])
+def test_gan_step_launches_the_batch_row_kernel_as_listed(case, dev, train_ds, trained_f):
+    """One epoch of K2, and of K3 at M = 3: the C loop's count of batch-row
+    launches is ``brow_products`` summed over the steps (D's update gated
+    per the schedule), and the step's launches stay as they were."""
+    cfg, settings, state, _, _, idx, seeds = _k2_setup(train_ds, trained_f, epochs=1,
+                                                       **K2_PATHS[case])
+    spec = gt.gan_train_spec(cfg, settings)
+    streams = _k2_streams(train_ds, cfg, settings, idx, seeds, torch.ones(1))
+    gates = (streams.sched[:, gt.SCHED_LANES.index("d_gate")] > 0).tolist()
+    want = sum(len(gt.brow_products(spec, 64, bool(u))) for u in gates)
+    before = gt.BROW_LAUNCHES["brow_gemm"]
+    gt.gan_train(gt.state_buffers(state), streams, spec)
+    assert gt.brow_kernels_enqueued() == want
+    assert gt.BROW_LAUNCHES["brow_gemm"] == before + want
+    print(f"K2 {case}: {want} batch-row launches in {len(gates)} steps, "
+          f"{gt.kernels_enqueued()} launches in all")
+    ecfg, esettings, ens, estreams = _k3_setup(train_ds, trained_f, 3, **{
+        **K2_PATHS[case], "ema_decay": 0.0})
+    gt.gan_ensemble_train(gt.ensemble_buffers(ens), estreams,
+                          gt.gan_train_spec(ecfg, esettings))
+    assert gt.brow_kernels_enqueued() == want
