@@ -45,7 +45,10 @@ generator passes (cycle, stability) and noise streams:
 9. times: K4 beside both plain versions at B = 8192, ``generate_dataset``
    at 1000 and 65536, and each screen's wall time;
 10. the forward-training kernel (K1) against its plain version on the
-    card: seeded full-width F, a 1000-sample dataset, 2 epochs (30 steps)
+    card: seeded full-width F, a 1000-sample dataset; its first float32
+    step against the plain version run in float64 (rows and Adam's first
+    moments tensor by tensor, as K2's first step is held), with a planted
+    fault of its batch-row products seen; then 2 epochs (30 steps)
     from one state and one set of streams, at dropout 0.2 and 0: the same
     dropout masks, metric rows, parameters and Adam moments within
     tolerance, a rerun bit-identical; at dropout 0 also the eager autograd
@@ -53,11 +56,15 @@ generator passes (cycle, stability) and noise streams:
 11. forward pretraining: ``python -m pigan_thz_torch pretrain-forward
     --epochs 500`` in a subprocess at the reference workload (1000
     samples, batch 64, lr 1e-3 cosine to 0, clip 1, dropout 0.2): one K1
-    launch per 25-epoch chunk, a finite loss that ends well below where it
+    launch per 25-epoch chunk, ``brow_products`` batch-row launches a step
+    inside them, a finite loss that ends well below where it
     starts, artifacts that load into ``build_forward_model``, and the
     trained F answering one serving request through K5;
 12. times: the 500-epoch run's wall time and steps/s, and per-epoch
-    CUDA-event medians of K1, its plain version and the eager step;
+    CUDA-event medians of K1, its plain version and the eager step; K1's
+    launches a step (36) and batch-row launches a step as its C loop counts
+    them, and a profile of one K1 launch (device time by kernel, idle
+    share);
 13. the GAN-training kernel (K2) against its plain version on the card:
     the seeded full-width trio (F after 30 epochs through K1, G's BatchNorm
     stats non-trivial), for ``detach_forward`` False and True and for a mix
@@ -153,10 +160,11 @@ generator passes (cycle, stability) and noise streams:
 28. times: K2's epoch with WGAN-GP, bfloat16 and both beside today's (and
     detached in both dtypes), the kernels a step of each (69 and 58 held), K1's
     epoch in bfloat16 beside float32, K3's at M = 4 with WGAN-GP + bfloat16;
-29. the batch-row products that K2 and K3 launch through
+29. the batch-row products that K1, K2 and K3 launch through
     ``csrc/brow_gemm.cuh`` (every product with the batch as its rows: G's,
     D's and F's forward layers and input gradients), each shape and flag of
-    a step at M = 1 and 4: the plan (the C rule against ``brow_plan``), the
+    a step at M = 1 and 4, with its launches a step on each path (K1's
+    among them): the plan (the C rule against ``brow_plan``), the
     kernel against its plain version and float64 within BROW_TOL_*, a rerun
     bit-identical, each member bit for bit its own launch, and the us a
     launch of the kernel, of the tiled SGEMM the step used before and of
@@ -173,9 +181,10 @@ and each output written once, over 3.35 TB/s; ``bound_by`` says which), and
 ``library_ms``, the time of one PyTorch call that computes the same function
 where there is one (the modules' eval-mode forward for K5 and K6), else null.
 The bfloat16 rows of K1 and K2 carry their own bound, every product counted
-at the bf16 tensor-core peak (989 TFLOP/s).  K2's and K3's entries note that
-their batch-row products go through ``brow_gemm`` and carry its launches on
-the main paths and its per-product times.
+at the bf16 tensor-core peak (989 TFLOP/s).  K1's, K2's and K3's entries note
+that their batch-row products go through ``brow_gemm`` and carry its launches
+on the main paths and its per-product times; K1's also its first step
+against float64, its launches a step and its profile.
 
 Any failed check raises, and the script exits non-zero.  Without a CUDA
 device, or away from the package, it exits non-zero and prints no result.
@@ -224,6 +233,14 @@ K1_PARAM_ATOL = 1e-3
 K1_M_ATOL = 1e-5
 K1_V_ATOL = 1e-8
 K1_EPOCHS = 2
+# K1's first float32 step (phase 10) is held as K2's is (K2_ROUNDING below,
+# floor K2_STEP_FLOOR[1] for the moments and the rows): the batch-row
+# products split their depth over a cluster, which changes the order of
+# every such sum, so the gate is against float64, not against the float32
+# plain version's own order.  The fault a wrong cluster sum would make, layer
+# 3's input gradient without its last K slice, must be seen by it
+# (K1_BF16_FAULT_RATIO).
+K1_FP32_FAULTS = ("dx_layer3_last_slice_dropped",)
 # K2, the first step and the first three steps against the plain version in
 # float64, tensor by tensor and relative to what the steps changed
 # (``gan_train.step_errors``): Adam's two moments, the parameter update, the
@@ -792,6 +809,89 @@ def compare_k1(label: str, rows, state, want_rows, want_state) -> tuple:
     return rel, errs[0]
 
 
+def k1_first_step_distances(spec, start, streams, faults=()) -> dict:
+    """K1's first step from ``start`` (params, m, v) on the first step of
+    ``streams``, its plain version's in float32 and in float64 (and with
+    each of ``faults``, in float64): the rows' max relative distance from
+    the float64 run, and Adam's first moments' relative L2 distance tensor
+    by tensor (``k1_first_moments``): {"rows": {run: x}, "moments": {run:
+    {tensor: x}}, "faulty": {fault: {tensor: the kernel's distance from the
+    faulty run}}, "launches": K1's launches in the kernel's run}."""
+    import torch
+    from pigan_thz_torch.ops import forward_train as ft
+    from pigan_thz_torch.ops._cuda_build import LAUNCHES
+
+    one = streams._replace(params_norm=streams.params_norm[:1].contiguous(),
+                           spectra=streams.spectra[:1].contiguous(),
+                           metrics_norm=streams.metrics_norm[:1].contiguous(),
+                           sched=streams.sched[:1], seeds=streams.seeds[:1])
+
+    def run(dbl=False, faults_=(), kernel=False):
+        bufs = [t.clone().double() if dbl else t.clone() for t in start]
+        if kernel:
+            rows = ft.forward_train(*bufs, one, spec)
+        else:
+            rows = ft.forward_train_plain(*bufs, one, spec, faults=faults_)
+        torch.cuda.synchronize()
+        return rows.double(), k1_first_moments(spec, bufs[1])
+
+    def rel(a, b):
+        return float(torch.linalg.norm(a - b) / torch.linalg.norm(b).clamp(min=1e-30))
+
+    before = LAUNCHES["forward_train"]
+    runs = {"kernel": run(kernel=True)}
+    launches = LAUNCHES["forward_train"] - before
+    runs["plain"] = run()
+    rows_x, mx = run(dbl=True)
+    out = {"rows": {}, "moments": {}, "faulty": {}, "launches": launches}
+    for name, (rows, m) in runs.items():
+        out["rows"][name] = float(((rows - rows_x).abs() / rows_x.abs()).max())
+        out["moments"][name] = {k: rel(m[k], mx[k]) for k in mx}
+    mk = runs["kernel"][1]
+    for fault in faults:
+        _, mw = run(dbl=True, faults_=(fault,))
+        out["faulty"][fault] = {k: rel(mk[k], mw[k]) for k in mw}
+    return out
+
+
+def k1_first_step(label: str, spec, start, streams, floor: float, row_floor: float,
+                  faults) -> dict:
+    """K1's first step against its plain version run in float64
+    (``k1_first_step_distances``): the rows and Adam's first moments tensor
+    by tensor within K2_ROUNDING times the float32 plain version's distance,
+    or ``floor`` (``row_floor`` for the rows); each of ``faults`` is
+    K1_BF16_FAULT_RATIO times further from the kernel than the right run on
+    some tensor.  One step is one launch.  Returns the distances and each
+    fault's ratio."""
+    d = k1_first_step_distances(spec, start, streams, faults)
+    if d["launches"] != 1:
+        fail(f"{label}: one step was not one launch")
+    e_k, e_p = d["moments"]["kernel"], d["moments"]["plain"]
+    row_k, row_p = d["rows"]["kernel"], d["rows"]["plain"]
+    bad = {k: (e_k[k], e_p[k]) for k in e_k if not e_k[k] <= max(K2_ROUNDING * e_p[k], floor)}
+    worst = max(e_k, key=e_k.get)
+    print(f"{label}, first step against the float64 plain version: rows max rel err kernel "
+          f"{row_k:.3e}, float32 plain {row_p:.3e}; Adam's first moments by tensor, worst "
+          f"{worst} kernel {e_k[worst]:.3e} (float32 plain {e_p[worst]:.3e}); head metrics "
+          f"rows kernel {e_k['head W metrics rows']:.3e} (float32 plain "
+          f"{e_p['head W metrics rows']:.3e}); {len(bad)} of {len(e_k)} tensors beyond "
+          f"{K2_ROUNDING}x the float32 plain version or {floor}")
+    if bad or row_k > max(row_floor, K2_ROUNDING * row_p):
+        fail(f"{label}: the first step is further from float64 than rounding: {bad}")
+    ratios = {}
+    for fault, e_w in d["faulty"].items():
+        ratio = {k: e_w[k] / max(e_k[k], e_p[k], 1e-9) for k in e_w}
+        seen = max(ratio, key=ratio.get)
+        print(f"{label} against the float64 plain version with '{fault}': the kernel is "
+              f"{ratio[seen]:.1f}x further from it than from the right run on {seen} "
+              f"({e_w[seen]:.3e} of the tensor)")
+        if not ratio[seen] > K1_BF16_FAULT_RATIO:
+            fail(f"{label}: the first-step check does not see '{fault}'")
+        ratios[fault] = ratio[seen]
+    return {"first_step_rel": e_k[worst], "worst": worst, "plain_rel": e_p[worst],
+            "rows_rel": row_k, "plain_rows_rel": row_p, "fault_ratio": ratios}
+
+
 def phase10_k1(cfg, dev, ds) -> dict:
     """K1 against its plain version (and the eager step at dropout 0) over
     K1_EPOCHS epochs from one state and one set of streams."""
@@ -803,7 +903,12 @@ def phase10_k1(cfg, dev, ds) -> dict:
 
     settings = ForwardStepSettings()
     b = cfg.train.batch_size
-    stats = {"max_abs_err": 0.0, "rows_rel": 0.0}
+    # the first step against float64, at the published dropout
+    spec = ft.forward_train_spec(cfg, settings)
+    state, _, _, _, streams = k1_setup(cfg, dev, ds, 1)
+    gate = k1_first_step("K1 float32", spec, (state.params, state.opt.m, state.opt.v),
+                         streams, K2_STEP_FLOOR[1], K2_STEP_FLOOR[1], K1_FP32_FAULTS)
+    stats = {"max_abs_err": 0.0, "rows_rel": 0.0, "first_step": gate}
     for rate in (cfg.forward_model.dropout_rate, 0.0):
         rcfg = cfg.replace(forward_model=dataclasses.replace(cfg.forward_model,
                                                              dropout_rate=rate))
@@ -863,9 +968,11 @@ def phase11_pretrain(cfg, dev, repo: str, G, ds_serving, request) -> dict:
     import torch
     from pigan_thz_torch.config import _to_dict
     from pigan_thz_torch.models import build_forward_model
+    from pigan_thz_torch.ops import forward_train as ft
     from pigan_thz_torch.ops import fused_kernels as fk
     from pigan_thz_torch.serve import make_inverse_design_fn
     from pigan_thz_torch.train import checkpoint as ckpt
+    from pigan_thz_torch.train.steps import ForwardStepSettings
 
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "saved_models")
@@ -891,6 +998,13 @@ def phase11_pretrain(cfg, dev, repo: str, G, ds_serving, request) -> dict:
         if launches.get("forward_train") != chunks:
             fail(f"pretrain-forward launched K1 {launches.get('forward_train')} times, "
                  f"not once per chunk ({chunks})")
+        # every step's batch-row products through brow_gemm.cuh (brow_products)
+        steps = PRETRAIN_EPOCHS * (cfg.data.num_samples // cfg.train.batch_size)
+        want = steps * len(ft.brow_products(ft.forward_train_spec(cfg, ForwardStepSettings()),
+                                            cfg.train.batch_size))
+        if launches.get("brow_gemm") != want:
+            fail(f"pretrain-forward launched the batch-row kernel {launches.get('brow_gemm')} "
+                 f"times, brow_products says {want}")
 
         runs = glob.glob(os.path.join(tmp, "fwd_pretrain_*", "scalars.jsonl"))
         with open(runs[0]) as fh:
@@ -925,9 +1039,12 @@ def phase11_pretrain(cfg, dev, repo: str, G, ds_serving, request) -> dict:
     return {"launches": launches, "wall": wall, "loss": loss}
 
 
-def phase12_k1_times(cfg, dev, ds) -> tuple:
+def phase12_k1_times(cfg, dev, ds) -> dict:
     """Per-epoch CUDA-event medians (ms) of K1, its plain version and the
-    eager step, one epoch each from one state: (kernel, plain, eager)."""
+    eager step, one epoch each from one state; the launches a step and the
+    batch-row launches a step as the C loop counts them (held to 36 and to
+    ``brow_products``); and a torch.profiler breakdown of one K1 launch of 5
+    epochs."""
     import torch
     from pigan_thz_torch.ops import forward_train as ft
     from pigan_thz_torch.train.steps import (
@@ -957,7 +1074,25 @@ def phase12_k1_times(cfg, dev, ds) -> tuple:
     k2 = cuda_median_ms(k, warmup=3, reps=20)
     e2 = cuda_median_ms(e, warmup=1, reps=5)
     p2 = cuda_median_ms(p, warmup=1, reps=5)
-    return min(k1, k2), min(p1, p2), min(e1, e2)
+    steps = streams.params_norm.shape[0]
+    k()
+    a_step = ft.kernels_enqueued() / steps
+    brow_a_step = ft.brow_kernels_enqueued() / steps
+    listed = len(ft.brow_products(spec, cfg.train.batch_size))
+    print(f"K1: {a_step:g} launches a step, {brow_a_step:g} of them batch-row products "
+          f"through brow_gemm.cuh (brow_products lists {listed})")
+    if a_step != 36 or brow_a_step != listed:
+        fail(f"K1 enqueues {a_step:g} launches a step ({brow_a_step:g} batch-row), not 36 "
+             f"({listed})")
+    state5, _, _, _, streams5 = k1_setup(cfg, dev, ds, 5)
+    bufs5 = [state5.params, state5.opt.m, state5.opt.v]
+    prof = profile_launch("one K1 launch of 5 epochs, dropout "
+                          f"{cfg.forward_model.dropout_rate}",
+                          lambda: ft.forward_train(*bufs5, streams5, spec),
+                          streams5.params_norm.shape[0])
+    return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "eager_ms": min(e1, e2),
+            "a_step": a_step, "brow_a_step": brow_a_step, "profile": prof}
+
 
 def roofline(flops: float, nbytes: float) -> tuple:
     """(bound_ms, bound_by): the least time the card could take for work of
@@ -1459,17 +1594,18 @@ def phase15_k2_times(cfg, dev, ds, f) -> dict:
     state, _, _, spec, _, _, _, streams = k2_setup(cfg, dev, ds, f, 5,
                                                     dict(detach_forward=False))
     bufs = gt.state_buffers(state)
-    out["profile"] = profile_launch("one K2 launch of 5 epochs",
+    out["profile"] = profile_launch("one K2 launch of 5 epochs through F",
                                     lambda: gt.gan_train(bufs, streams, spec),
                                     streams.spectra.shape[0])
     return out
 
 
-def profile_launch(label: str, launch, steps: int) -> tuple:
-    """``launch()`` (one kernel launch of ``steps`` steps, gradients through
-    F) under ``torch.profiler`` after 2 warm-up launches: prints the wall
-    time, the kernel time, the idle share and the kernels by time; returns
-    (wall ms, kernel ms)."""
+def profile_launch(label: str, launch, steps: int) -> dict:
+    """``launch()`` (one kernel launch of ``steps`` steps) under
+    ``torch.profiler`` after 2 warm-up launches: prints the wall time, the
+    kernel time, the idle share and the kernels by time; returns them, with
+    the device time and calls a step of the batch-row kernel, of the tiled
+    SGEMM and of the rest."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1487,14 +1623,24 @@ def profile_launch(label: str, launch, steps: int) -> tuple:
                if getattr(ev, "device_type", None) is not None
                and "cuda" in str(ev.device_type).lower()]
     busy_ms = sum(t for _, _, t in kernels) / 1e3
-    print(f"profile: {label} ({steps} steps, through F): {wall_ms:.3f} ms "
-          f"wall, {busy_ms:.3f} ms of kernel time, idle share "
-          f"{max(0.0, 1.0 - busy_ms / wall_ms):.3f}, "
+    idle = max(0.0, 1.0 - busy_ms / wall_ms)
+    print(f"profile: {label} ({steps} steps): {wall_ms:.3f} ms wall, {busy_ms:.3f} ms of "
+          f"kernel time, idle share {idle:.3f}, "
           f"{sum(c for _, c, _ in kernels) / steps:.1f} kernels a step")
     for key, count, total in sorted(kernels, key=lambda r: -r[2])[:14]:
         print(f"profile:   {total / 1e3:9.3f} ms  {count:6d} calls  {total / count:8.2f} us  "
               f"{key[:100]}")
-    return wall_ms, busy_ms
+    kinds = {"brow_gemm": [0.0, 0], "sgemm": [0.0, 0], "other": [0.0, 0]}
+    for key, count, total in kernels:
+        kind = ("brow_gemm" if "brow_gemm_kernel" in key else
+                "sgemm" if "sgemm<" in key else "other")
+        kinds[kind][0] += total / 1e3
+        kinds[kind][1] += count
+    return {"wall_ms": wall_ms, "kernel_ms": busy_ms, "idle_share": idle,
+            "by_kind_ms": {k: v[0] for k, v in kinds.items()},
+            "by_kind_calls_a_step": {k: v[1] / steps for k, v in kinds.items()},
+            "by_kernel": [[key[:100], count, total / 1e3]
+                          for key, count, total in sorted(kernels, key=lambda r: -r[2])[:8]]}
 
 
 def profile_cycle(fn, spectra, label: str) -> None:
@@ -1989,10 +2135,9 @@ def phase22_path_times(cfg, dev, ds, f) -> dict:
     # the idle share as phase 15 takes today's: one launch of 5 epochs
     state, _, _, spec5, _, _, _, streams5 = k2_setup(cfg, dev, ds, f, 5, variants["both"])
     bufs5 = gt.state_buffers(state)
-    wall, busy = profile_launch("one K2 launch of 5 epochs, cycle + stability",
-                                   lambda: gt.gan_train(bufs5, streams5, spec5),
-                                   streams5.spectra.shape[0])
-    out["both_idle_share"] = max(0.0, 1.0 - busy / wall)
+    out["both_idle_share"] = profile_launch(
+        "one K2 launch of 5 epochs through F, cycle + stability",
+        lambda: gt.gan_train(bufs5, streams5, spec5), streams5.spectra.shape[0])["idle_share"]
     ens = {}
     for name in ("today", "both"):
         states, _, spec, streams = k3_setup(cfg, dev, ds, f, 1, variants[name], K3_MEMBERS)
@@ -2041,19 +2186,8 @@ def phase23_wgan(cfg, dev, ds, f) -> dict:
 
 def k1_first_moments(spec, m) -> dict:
     """Adam's first moments of F by tensor, the head's spectrum and metrics
-    rows apart: {name: flat tensor}."""
-    out = {}
-    S = spec.spectrum_dim
-    for l in range(len(spec.dims) - 1):
-        views = spec.views(m, l)
-        if l == spec.n_hidden:
-            out["head W spectrum rows"] = views[0][:S]
-            out["head W metrics rows"] = views[0][S:]
-            out["head b"] = views[1]
-        else:
-            for name, t in zip(("W", "b", "gamma", "beta"), views):
-                out[f"layer {l} {name}"] = t
-    return {k: t.reshape(-1).double() for k, t in out.items()}
+    rows apart: {name: flat float64 tensor}."""
+    return {k: t.reshape(-1).double() for k, t in spec.named_tensors(m).items()}
 
 
 def phase24_bf16(cfg, dev, ds, f) -> dict:
@@ -2074,58 +2208,17 @@ def phase24_bf16(cfg, dev, ds, f) -> dict:
         fail("K1's spec does not read train.compute_dtype")
     state, _, _, _, streams = k1_setup(bcfg, dev, ds, K1_EPOCHS)
     start = (state.params.clone(), state.opt.m.clone(), state.opt.v.clone())
-    one = streams._replace(params_norm=streams.params_norm[:1].contiguous(),
-                           spectra=streams.spectra[:1].contiguous(),
-                           metrics_norm=streams.metrics_norm[:1].contiguous(),
-                           sched=streams.sched[:1], seeds=streams.seeds[:1])
+    gate = k1_first_step("K1 bf16", spec, start, streams, K1_BF16_STEP_FLOOR, 1e-4, ft.FAULTS)
+    stats["k1_first_step_rel"] = gate["first_step_rel"]
 
-    def run(streams_, dbl=False, faults=()):
+    def run(streams_, dbl=False):
         bufs = [t.clone().double() if dbl else t.clone() for t in start]
-        if faults or dbl:
-            rows = ft.forward_train_plain(*bufs, streams_, spec, faults=faults)
+        if dbl:
+            rows = ft.forward_train_plain(*bufs, streams_, spec)
         else:
             rows = ft.forward_train(*bufs, streams_, spec)
         return rows, bufs
 
-    before = LAUNCHES["forward_train"]
-    rows_k, kern = run(one)
-    torch.cuda.synchronize()
-    if LAUNCHES["forward_train"] != before + 1:
-        fail("K1 in bfloat16: one step was not one launch")
-    plain = [t.clone() for t in start]
-    rows_p = ft.forward_train_plain(*plain, one, spec)
-    rows_x, exact = run(one, dbl=True)
-
-    def rel(a, b):
-        return float(torch.linalg.norm(a - b) / torch.linalg.norm(b).clamp(min=1e-30))
-
-    mk, mp, mx = (k1_first_moments(spec, x[1]) for x in (kern, plain, exact))
-    e_k = {k: rel(mk[k], mx[k]) for k in mx}
-    e_p = {k: rel(mp[k], mx[k]) for k in mx}
-    bad = {k: (e_k[k], e_p[k]) for k in mx if not e_k[k] <= max(K2_ROUNDING * e_p[k],
-                                                                  K1_BF16_STEP_FLOOR)}
-    row_k = float(((rows_k.double() - rows_x).abs() / rows_x.abs()).max())
-    row_p = float(((rows_p.double() - rows_x).abs() / rows_x.abs()).max())
-    worst = max(e_k, key=e_k.get)
-    print(f"K1 bf16, first step against the float64-accumulating plain version: rows max rel "
-          f"err kernel {row_k:.3e}, float32 plain {row_p:.3e}; Adam's first moments by "
-          f"tensor, worst {worst} kernel {e_k[worst]:.3e} (float32 plain {e_p[worst]:.3e}); "
-          f"head metrics rows kernel {e_k['head W metrics rows']:.3e} (float32 plain "
-          f"{e_p['head W metrics rows']:.3e}); {len(bad)} of {len(e_k)} tensors beyond "
-          f"{K2_ROUNDING}x the float32 plain version or {K1_BF16_STEP_FLOOR}")
-    if bad or row_k > max(1e-4, K2_ROUNDING * row_p):
-        fail(f"K1 in bfloat16: the first step is further from float64 than rounding: {bad}")
-    stats["k1_first_step_rel"] = max(e_k.values())
-    for fault in ft.FAULTS:
-        _, wrong = run(one, dbl=True, faults=(fault,))
-        mw = k1_first_moments(spec, wrong[1])
-        ratio = {k: rel(mk[k], mw[k]) / max(e_k[k], e_p[k], 1e-9) for k in mw}
-        seen = max(ratio, key=ratio.get)
-        print(f"K1 bf16 against the float64 plain version with '{fault}': the kernel is "
-              f"{ratio[seen]:.1f}x further from it than from the right run on {seen} "
-              f"({rel(mk[seen], mw[seen]):.3e} of the tensor)")
-        if not ratio[seen] > K1_BF16_FAULT_RATIO:
-            fail(f"K1's bfloat16 check does not see '{fault}'")
     # 30 steps: against the float32 plain version, float64's distance beside
     rows, kern = run(streams)
     rows2, again = run(streams)
@@ -2404,10 +2497,11 @@ BROW_CALLS = 20            # launches a CUDA graph, a route and shape
 def brow_step_products(cfg) -> dict:
     """{(m, n, k, bnc, rnd, bias): {"name": the first step product of that
     shape and flags, "a_step": {path: launches a step}}} over the paths whose
-    batch-row products differ: through F, detached, both second passes,
-    WGAN-GP (a D-update step) and bfloat16 operands."""
+    batch-row products differ: K2 through F, detached, both second passes,
+    WGAN-GP (a D-update step) and bfloat16 operands; K1 ("K1", "K1 bf16")."""
+    from pigan_thz_torch.ops import forward_train as ft
     from pigan_thz_torch.ops import gan_train as gt
-    from pigan_thz_torch.train.steps import StepSettings
+    from pigan_thz_torch.train.steps import ForwardStepSettings, StepSettings
 
     paths = {"through F": (cfg, dict(detach_forward=False)),
              "detached": (cfg, dict(detach_forward=True)),
@@ -2421,6 +2515,12 @@ def brow_step_products(cfg) -> dict:
         for p in gt.brow_products(spec, c.train.batch_size):
             key = (p.m, p.n, p.k, p.bnc, p.rnd, p.bias)
             entry = out.setdefault(key, {"name": p.name, "a_step": {}})
+            entry["a_step"][path] = entry["a_step"].get(path, 0) + 1
+    for path, c in (("K1", cfg), ("K1 bf16", bf16_config(cfg))):
+        for p in ft.brow_products(ft.forward_train_spec(c, ForwardStepSettings()),
+                                  c.train.batch_size):
+            key = (p.m, p.n, p.k, p.bnc, p.rnd, p.bias)
+            entry = out.setdefault(key, {"name": f"K1 {p.name}", "a_step": {}})
             entry["a_step"][path] = entry["a_step"].get(path, 0) + 1
     return out
 
@@ -2537,17 +2637,22 @@ def phase29_brow_products(cfg, dev, tag: str) -> dict:
                   f"{us['sgemm']:.2f} us, torch.matmul {us['library']:.2f} us, bound "
                   f"{bound_ms * 1e3:.3f} us ({by}); max|err| vs float64 {err:.3e} "
                   f"({rel_x:.3e} of the bound), vs plain {rel_p:.3e} of the bound")
-    # a through-F fp32 step's batch-row products at M = 1, summed
-    solo = [row for row in rows if row["members"] == 1 and not row["bf16"]]
-    step = {r: sum(row[r] * row["a_step"].get("through F", 0) for row in solo)
-            for r in ("us", "sgemm_us", "matmul_us", "bound_us")}
-    n_step = sum(row["a_step"].get("through F", 0) for row in solo)
-    print(f"time {tag} brow_gemm: a through-F step's {n_step} "
-          f"batch-row products, their us a launch summed: kernel {step['us']:.2f} us, sgemm "
-          f"{step['sgemm_us']:.2f} us, torch.matmul {step['matmul_us']:.2f} us, bound "
-          f"{step['bound_us']:.3f} us (us a launch, {BROW_CALLS} back to back in a CUDA "
-          "graph, CUDA events)")
-    return {"products": rows, "through_f_step": step}
+    # a through-F fp32 step's batch-row products at M = 1, summed; and K1's
+    solo = [row for row in rows if row["members"] == 1]
+    sums = {}
+    for path, what in (("through F", "a through-F K2 step's"), ("K1", "a K1 step's"),
+                       ("K1 bf16", "a bf16 K1 step's")):
+        step = {r: sum(row[r] * row["a_step"].get(path, 0) for row in solo)
+                for r in ("us", "sgemm_us", "matmul_us", "bound_us")}
+        n_step = sum(row["a_step"].get(path, 0) for row in solo)
+        print(f"time {tag} brow_gemm: {what} {n_step} "
+              f"batch-row products, their us a launch summed: kernel {step['us']:.2f} us, "
+              f"sgemm {step['sgemm_us']:.2f} us, torch.matmul {step['matmul_us']:.2f} us, "
+              f"bound {step['bound_us']:.3f} us (us a launch, {BROW_CALLS} back to back in a "
+              "CUDA graph, CUDA events)")
+        sums[path] = step
+    return {"products": rows, "through_f_step": sums["through F"], "k1_step": sums["K1"],
+            "k1_bf16_step": sums["K1 bf16"]}
 
 
 def run_slice7_phases(cfg, dev, repo: str, ds_serving, request, train_ds, f_k2,
@@ -2875,7 +2980,8 @@ def main() -> None:
     pretrain = phase11_pretrain(cfg, dev, repo, G, ds, requests[64])
 
     # -- 12. times -------------------------------------------------------------
-    k1_ms, k1_plain_ms, k1_eager_ms = phase12_k1_times(cfg, dev, train_ds)
+    k1_times = phase12_k1_times(cfg, dev, train_ds)
+    k1_ms, k1_plain_ms, k1_eager_ms = (k1_times[k] for k in ("ms", "plain_ms", "eager_ms"))
     steps = PRETRAIN_EPOCHS * (train_ds.num_samples // cfg.train.batch_size)
     print(f"time {tag} pretrain-forward {PRETRAIN_EPOCHS} epochs ({steps} steps): "
           f"{pretrain['wall']:.4f} s wall for the command, {steps / pretrain['wall']:.1f} "
@@ -3062,17 +3168,22 @@ def main() -> None:
         ms, by = bound[name]
         return {"bound_ms": ms, "bound_by": by}
 
-    # K2 and K3 launch their batch-row products through brow_gemm.cuh from the
-    # C loop: its launches on the main paths, and each product's numbers
-    brow_main = tl["brow_gemm"] + el["brow_gemm"] + pl["brow_gemm"] + sl["brow_gemm"]
-    if not brow_main or not tl["brow_gemm"] or not el["brow_gemm"]:
+    # K1, K2 and K3 launch their batch-row products through brow_gemm.cuh from
+    # their C loops: its launches on the main paths (K1's among them: every
+    # command here pretrains F first), and each product's numbers
+    k1_brow = pretrain["launches"]["brow_gemm"]
+    brow_main = (k1_brow + tl["brow_gemm"] + el["brow_gemm"] + pl["brow_gemm"]
+                 + sl["brow_gemm"])
+    if not k1_brow or not tl["brow_gemm"] or not el["brow_gemm"]:
         fail(f"the main paths launched the batch-row kernel {brow_main} times "
-             f"(train {tl['brow_gemm']}, ensemble {el['brow_gemm']})")
+             f"(pretrain-forward {k1_brow}, train {tl['brow_gemm']}, ensemble "
+             f"{el['brow_gemm']})")
     brow_note = {
-        "note": "K2 and K3 route their batch-row products (M = B or 2B rows) through "
+        "note": "K1, K2 and K3 route their batch-row products (M = B or 2B rows) through "
                 "brow_gemm (cluster split-K, fixed-order DSMEM sum, cp.async ring)",
         "source": "pigan_thz_torch/csrc/brow_gemm.cuh",
         "launches": brow_main,
+        "launches_k1_pretrain_forward": k1_brow,
         "launches_k3_commands": el["brow_gemm"],
         "through_f_step_us": brow["through_f_step"],
         # a through-F fp32 step's products at M = 1 (every shape and flag at
@@ -3129,6 +3240,15 @@ def main() -> None:
          "bf16_bound_by": bound["forward_train bf16"][1],
          "max_abs_err": k1_stats["max_abs_err"],
          "rows_max_rel_err": k1_stats["rows_rel"],
+         "first_step_vs_float64": k1_stats["first_step"],
+         "kernels_a_step": k1_times["a_step"],
+         "profile_5_epochs": k1_times["profile"],
+         "brow_gemm": {"note": "K1's ten batch-row products a step (F's forward layers 2-5 "
+                               "and head, their input gradients) go through brow_gemm",
+                       "source": "pigan_thz_torch/csrc/brow_gemm.cuh",
+                       "a_step": k1_times["brow_a_step"],
+                       "launches_pretrain_forward": k1_brow,
+                       "step_us": brow["k1_step"], "bf16_step_us": brow["k1_bf16_step"]},
          "ms": k1_ms, "plain_ms": k1_plain_ms, "eager_ms": k1_eager_ms,
          **bounds("forward_train"), "library_ms": None},
         {"name": "gan_train", "route": "cuda",

@@ -1,6 +1,7 @@
-// The batch-row product of the GAN training kernel (K2, and K3: K2's step
-// for M ensemble members at once), for Hopper (sm_90a): included by
-// gan_train.cu only.
+// The batch-row product of the training kernels, for Hopper (sm_90a):
+// included by gan_train.cu (K2, and K3: K2's step for M ensemble members at
+// once) and by forward_train.cu (K1).  Everything here is in an anonymous
+// namespace, so each of the two sources compiles its own copy.
 //
 //   C[m, n] = sum_k A(m, k) B(k, n) (+ bias[n]), or C += that (ACC),
 //   A(m, k) = A[m * sam + k * sak], B(k, n) = B[k * sbk + n * sbn],
@@ -10,7 +11,8 @@
 // along k), with the member on blockIdx.z through Per<T>.  It replaces the
 // products of pigan_thz_tpu/ops/megakernel.py:_make_kernel whose rows are
 // the batch (M = B or 2B): the forward layers and the input gradients of G,
-// D and the frozen F, which that kernel runs on the MXU from VMEM.
+// D and the frozen F, which that kernel runs on the MXU from VMEM; and those
+// of _make_forward_kernel (K1): F's forward layers and input gradients.
 //
 // What bounds them on an H100.  At B = 64 a product such as 64 x 512 x 250
 // is 8 MFLOP of FMAs (0.1 us at the 67 TFLOP/s fp32 peak) over 0.6 MB of
@@ -39,7 +41,7 @@
 //   contiguous dimension innermost, padded to an odd pitch), so the copies
 //   of a warp land on consecutive addresses and the compute reads are free
 //   of bank conflicts.
-// - The plan (ops/gan_train.py: brow_plan mirrors it) is a pure function of
+// - The plan (ops/brow.py: brow_plan mirrors it) is a pure function of
 //   (M, N, K) and the card's SM count: the smallest S that gives
 //   the largest power of two of blocks not above the SM count (128 on 132
 //   SMs), while every block keeps at least kBrowMinDepth columns of depth.

@@ -14,32 +14,55 @@
 //
 // Design.  One C entry point per chunk of T steps: pigan_forward_train
 // enqueues every step's kernels on the caller's stream from a host loop (36
-// launches a step), the analogue of "one Pallas launch per chunk".  The
-// state is three flat fp32 buffers of P ~ 1.38 M floats (params, m, v) in
-// the layout of ForwardMLP.named_parameters(): each Linear W is (out, in)
-// row-major, then its bias, then the LayerNorm weight and bias.  The
-// gradient is one more flat buffer in the same layout, so clip is one
-// deterministic two-pass reduction over it (per-block partial sums of
+// launches a step, 39 with bfloat16 operands; the loop counts them,
+// pigan_forward_kernels_enqueued), the analogue of "one Pallas launch per
+// chunk".  The state is three flat fp32 buffers of P ~ 1.38 M floats
+// (params, m, v) in the layout of ForwardMLP.named_parameters(): each Linear
+// W is (out, in) row-major, then its bias, then the LayerNorm weight and
+// bias.  The gradient is one more flat buffer in the same layout, so clip is
+// one deterministic two-pass reduction over it (per-block partial sums of
 // squares, then every Adam block reduces the partials in the same fixed
 // order) and Adam one elementwise pass.  No atomics anywhere: reruns are
-// bit-identical.  The products x W^T, dW = dt^T a and dx = dt W are one
-// tiled SGEMM (sgemm in train_common.cuh, shared-memory tiles, fp32 FMAs on the CUDA
-// cores, no TF32), parameterised by strides so that no operand is
-// transposed in memory.  Row kernels (one block per batch row) do bias-free
+// bit-identical.  Row kernels (one block per batch row) do bias-free
 // LayerNorm + LeakyReLU + dropout forward, saving t - mean, 1/sigma, the
 // pre-activation and the dropout factor, and the LayerNorm backward;
 // column-sum kernels reduce bias, gamma and beta gradients over the batch in
 // a fixed order.  The loss kernel is one block over the (B, S + 8)
 // prediction and writes its per-step (loss, spectrum, metrics) row.
 //
+// Products, and where each goes.  Every product is parameterised by strides,
+// so no operand is transposed in memory.
+// - The ten a step whose rows are the batch (M = B = 64; N and K a layer's
+//   widths, 250 to 1024): the forward products of hidden layers 2-5 and of
+//   the head, the head's input gradient and the input gradients of hidden
+//   layers 5-2 (ops/forward_train.py: brow_products lists them).  At B = 64
+//   they have 8 to 32 output tiles of 64 x 32 for 132 SMs and a depth of
+//   256 to 1024, so neither operations (8-67 MFLOP each, ~1 us at the fp32
+//   peak) nor bytes bound them: latency does.  On the tiled SGEMM (32 x 32
+//   tiles, 16-64 blocks, each walking the whole depth 16 columns at a time
+//   without prefetch) each took 23-91 us, ~74 % of the step's device time.
+//   They go through brow_gemm.cuh, the GAN step's batch-row kernel, with
+//   its plan, tile and sum order unchanged: split-K across a cluster of 4 or
+//   8 blocks (128 blocks a product on an H100), the partial tiles summed in
+//   rank order through distributed shared memory, a 4-stage cp.async ring;
+//   exact fp32 FMAs, bf16 mma.sync on bfloat16 operands.  On an NVIDIA H100
+//   80GB HBM3 at 700 W (PERF.md) a step's ten take 98 us back to back in a
+//   CUDA graph (456 us on the SGEMM), ~9 us a launch inside a K1 launch,
+//   and the fp32 epoch went from 10.4-10.5 to 4.4-4.7 ms.  A launch whose
+//   cluster shape the card refuses is the call's error: nothing retries
+//   elsewhere.
+// - The input layer (depth 4, the TPU kernel's VPU sum) and the six weight
+//   gradients (depth B, one output tile per 32 x 32 of W: 64-512 blocks)
+//   stay on the tiled SGEMM of train_common.cuh (fp32 FMAs, no TF32).
+//
 // bfloat16 operands (bf16 != 0; megakernel.py:2644-2663).  The operands of the
-// products the TPU kernel runs on its MXU are rounded to bfloat16 in the
-// SGEMM's tile loads and accumulate in fp32 (train_common.cuh): hidden layers
-// 1-4 (forward, dW, dx) and the head's spectrum columns.  The input layer
-// (forward and dW) and the head's metrics columns run on the TPU's VPU in
-// fp32 and stay fp32: in bf16 mode the head is two products each way (the
-// metrics columns' forward, dW rows and dx term apart, the dx term added
-// after the spectrum columns'), three launches more a step (39).
+// products the TPU kernel runs on its MXU are rounded to bfloat16 (RND: in
+// brow_gemm's fragments, in the SGEMM's tile loads) and accumulate in fp32:
+// hidden layers 2-5 (forward, dW, dx) and the head's spectrum columns.  The
+// input layer (forward and dW) and the head's metrics columns run on the
+// TPU's VPU in fp32 and stay fp32 on the SGEMM: in bf16 mode the head is two
+// products each way (the metrics columns' forward, dW rows and dx term apart,
+// the dx term added after the spectrum columns'), three launches more a step.
 //
 // Dropout.  The TPU kernel drew its masks from the TPU's hardware generator.
 // Here the bits are a counter-based hash of (step seed, layer, row, column),
@@ -48,25 +71,24 @@
 // version and the eager step (Python) compute the same bits.
 //
 // Bounds on the card.  About 0.53 GFLOP a step at B = 64 (2 * 64 * 1.38 M
-// per pass, three passes), so ~7 us at the 67 TFLOP/s fp32 peak; the state
-// (params, m, v, gradient: 22 MB) stays in the 50 MB L2 between steps.  The
-// products at B = 64 are small (64 x {256..1024} x {256..1024}, dW with
-// depth 64), so neither FLOPs nor bytes bound the step: latency does.  On
-// an H100 the 36 launches keep the device ~88 % busy, and the eleven
-// products with B output rows take ~74 % of that: their 32 x 32 tiles give
-// 16-64 blocks, each walking the whole depth.  The design keeps every
-// launch short and allocation-free; split-K for those products, a
-// persistent kernel, wgmma / TMA and CUDA-graph capture of a chunk are
-// later work.
+// per pass, three passes), so ~8 us at the 67 TFLOP/s fp32 peak; the state
+// (params, m, v, gradient: 22 MB) stays in the 50 MB L2 between steps.  What
+// remains is latency: 36 short launches a step (~0.26 ms of device time on
+// the H100 above: the batch-row products 89 us, the weight gradients 48 us,
+// the LayerNorm parameter sums 40 us, the one-block loss kernel 34 us) and
+// the host's enqueue of them (cluster launches through cudaLaunchKernelEx;
+// the device idles ~0.2 of a launch).  A multi-block loss, a persistent
+// kernel and CUDA-graph capture of a chunk are later work.
 //
 // Interface: plain C, loaded with ctypes.  pigan_forward_train launches on
 // the given stream, does not synchronise, allocates nothing (the workspace
 // comes from the caller, and a short one is refused), and returns the first
 // cudaError_t (0 on success), checking cudaGetLastError() after each launch.
 // The SGEMM, the LayerNorm rows, the column sums and clip + Adam are shared
-// with gan_train.cu through train_common.cuh.
+// with gan_train.cu through train_common.cuh, the batch-row kernel through
+// brow_gemm.cuh (each source compiles its own copy).
 
-#include "train_common.cuh"
+#include "brow_gemm.cuh"   // includes train_common.cuh
 
 namespace {
 
@@ -137,9 +159,21 @@ loss_kernel(const float* __restrict__ pred, const float* __restrict__ spec,
   }
 }
 
+// Device kernels enqueued by the last pigan_forward_train call of this
+// process (pigan_forward_kernels_enqueued): divided by T, the launches a step.
+long long g_kernels_enqueued = 0;
+// Of those, the batch-row products launched through brow_gemm.cuh
+// (pigan_forward_brow_kernels_enqueued).
+long long g_brow_enqueued = 0;
+
 }  // namespace
 
 extern "C" {
+
+// The number of device kernels the last pigan_forward_train call of this
+// process enqueued, and of those the batch-row products (brow_gemm.cuh).
+long long pigan_forward_kernels_enqueued() { return g_kernels_enqueued; }
+long long pigan_forward_brow_kernels_enqueued() { return g_brow_enqueued; }
 
 // T training steps over the flat state in place.
 //   params, m, v   (P,) device, updated
@@ -161,6 +195,8 @@ int pigan_forward_train(float* params, float* m, float* v, const float* x,
                         const long long* offsets, int S, int B, int T,
                         const double* hp, uint32_t thresh, int bf16, void* stream_ptr) {
   cudaStream_t st = (cudaStream_t)stream_ptr;
+  g_kernels_enqueued = 0;
+  g_brow_enqueued = 0;
   const int L = n_hidden + 1;
   if (n_hidden < 1 || L > kMaxLayers || B < 1 || T < 0 || S < 3) return cudaErrorInvalidValue;
   int maxc = 0;
@@ -225,14 +261,37 @@ int pigan_forward_train(float* params, float* m, float* v, const float* x,
   ak.c2 = (float)(1.0 - hp[7]);
   ak.eps = (float)hp[8];
 
-  cudaError_t e;
+  // the batch-row products' plan reads the card's SM count
+  int device = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return (int)e;
 #define CHECK(call)                      \
   do {                                   \
     e = (call);                          \
     if (e != cudaSuccess) return (int)e; \
   } while (0)
-#define CHECK_LAUNCH() CHECK(cudaGetLastError())
+#define CHECK_LAUNCH()         \
+  do {                         \
+    ++g_kernels_enqueued;      \
+    CHECK(cudaGetLastError()); \
+  } while (0)
+// GEMM: a product on the tiled SGEMM; BROW: a batch-row product (M = B)
+// through brow_gemm.cuh, its operands rounded to bfloat16 when RND
+#define GEMM(call)            \
+  do {                        \
+    ++g_kernels_enqueued;     \
+    CHECK(call);              \
+  } while (0)
+#define BROW(AK, BNC, RND, ...)                                                  \
+  do {                                                                           \
+    ++g_kernels_enqueued;                                                        \
+    ++g_brow_enqueued;                                                           \
+    CHECK((brow_gemm<AK, BNC>((RND), false, sms, 0, __VA_ARGS__, st)));          \
+  } while (0)
   const bool rnd = bf16 != 0;
+  const PerIn none;
 
   for (int t = 0; t < T; ++t) {
     const float* xt = x + (long long)t * B * dims[0];
@@ -245,9 +304,13 @@ int pigan_forward_train(float* params, float* m, float* v, const float* x,
     for (int l = 0; l < n_hidden; ++l) {
       const int din = dims[l], C = dims[l + 1];
       const long long* o = offsets + 4 * l;
-      // the input layer is the TPU kernel's VPU sum: fp32
-      CHECK((gemm_ex<true, false>(rnd && l > 0, false, B, C, din, a, din, 1, params + o[0], 1,
-                                  din, tc[l], C, params + o[1], st)));
+      if (l == 0) {   // the TPU kernel's VPU sum over the 4 params: fp32
+        GEMM((gemm<true, false>(B, C, din, a, din, 1, params + o[0], 1, din, tc[l], C,
+                                params + o[1], st)));
+      } else {
+        BROW(true, false, rnd, B, C, din, a, din, 1, params + o[0], 1, din, tc[l], C,
+             params + o[1]);
+      }
       ln_forward<<<B, kThreads, 0, st>>>(tc[l], ln[l], sc[l], act[l], ivar[l],
                                          params + o[2], params + o[3], C, ln_eps,
                                          slope, mix32(seed_key ^ (uint32_t)l),
@@ -257,15 +320,16 @@ int pigan_forward_train(float* params, float* m, float* v, const float* x,
     }
     const int dh = dims[n_hidden];
     const long long* oh = offsets + 4 * n_hidden;
+    const long long om = (long long)S * dh;    // the metrics rows of the head
     if (rnd) {
       // the spectrum columns in bfloat16, the metrics columns in fp32
-      CHECK((gemm<true, false, true>(B, S, dh, a, dh, 1, params + oh[0], 1, dh, pred, D,
-                                     params + oh[1], st)));
-      CHECK((gemm<true, false>(B, Mdim, dh, a, dh, 1, params + oh[0] + (long long)S * dh, 1,
-                               dh, pred + S, D, params + oh[1] + S, st)));
+      BROW(true, false, true, B, S, dh, a, dh, 1, params + oh[0], 1, dh, pred, D,
+           params + oh[1]);
+      GEMM((gemm<true, false>(B, Mdim, dh, a, dh, 1, params + oh[0] + om, 1, dh, pred + S, D,
+                              params + oh[1] + S, st)));
     } else {
-      CHECK((gemm<true, false>(B, D, dh, a, dh, 1, params + oh[0], 1, dh, pred, D,
-                               params + oh[1], st)));
+      BROW(true, false, false, B, D, dh, a, dh, 1, params + oh[0], 1, dh, pred, D,
+           params + oh[1]);
     }
     loss_kernel<<<1, kThreads, 0, st>>>(pred, spec_t, met_t, dpred, rows + 3LL * t,
                                         B, S, Mdim, lk);
@@ -273,27 +337,24 @@ int pigan_forward_train(float* params, float* m, float* v, const float* x,
 
     // backward: head
     if (rnd) {
-      const long long om = (long long)S * dh;    // the metrics rows of the head
-      CHECK((gemm<false, true, true>(S, dh, B, dpred, 1, D, a, dh, 1, grad + oh[0], dh,
-                                     nullptr, st)));
-      CHECK((gemm<false, true>(Mdim, dh, B, dpred + S, 1, D, a, dh, 1, grad + oh[0] + om, dh,
-                               nullptr, st)));
+      GEMM((gemm<false, true, true>(S, dh, B, dpred, 1, D, a, dh, 1, grad + oh[0], dh,
+                                    nullptr, st)));
+      GEMM((gemm<false, true>(Mdim, dh, B, dpred + S, 1, D, a, dh, 1, grad + oh[0] + om, dh,
+                              nullptr, st)));
     } else {
-      CHECK((gemm<false, true>(D, dh, B, dpred, 1, D, a, dh, 1, grad + oh[0], dh,
-                               nullptr, st)));
+      GEMM((gemm<false, true>(D, dh, B, dpred, 1, D, a, dh, 1, grad + oh[0], dh, nullptr,
+                              st)));
     }
     column_sum<<<(D + kThreads - 1) / kThreads, kThreads, 0, st>>>(dpred, B, D,
                                                                    grad + oh[1]);
     CHECK_LAUNCH();
     if (rnd) {
-      CHECK((gemm<true, true, true>(B, dh, S, dpred, D, 1, params + oh[0], dh, 1, da, dh,
-                                    nullptr, st)));
-      CHECK((gemm<true, true, false, true>(B, dh, Mdim, dpred + S, D, 1,
-                                           params + oh[0] + (long long)S * dh, dh, 1, da, dh,
-                                           nullptr, st)));
+      // the spectrum columns' term in bfloat16, then the metrics columns' added
+      BROW(true, true, true, B, dh, S, dpred, D, 1, params + oh[0], dh, 1, da, dh, none);
+      GEMM((gemm<true, true, false, true>(B, dh, Mdim, dpred + S, D, 1, params + oh[0] + om,
+                                          dh, 1, da, dh, nullptr, st)));
     } else {
-      CHECK((gemm<true, true>(B, dh, D, dpred, D, 1, params + oh[0], dh, 1, da, dh,
-                              nullptr, st)));
+      BROW(true, true, false, B, dh, D, dpred, D, 1, params + oh[0], dh, 1, da, dh, none);
     }
     // backward: hidden layers
     for (int l = n_hidden - 1; l >= 0; --l) {
@@ -306,11 +367,10 @@ int pigan_forward_train(float* params, float* m, float* v, const float* x,
       ln_param_grads<<<(C + kThreads - 1) / kThreads, kThreads, 0, st>>>(
           dln, tc[l], ivar[l], dt, B, C, grad + o[2], grad + o[3], grad + o[1]);
       CHECK_LAUNCH();
-      CHECK((gemm_ex<false, true>(rnd && l > 0, false, C, din, B, dt, 1, C, a_in, din, 1,
-                                  grad + o[0], din, nullptr, st)));
+      GEMM((gemm_ex<false, true>(rnd && l > 0, false, C, din, B, dt, 1, C, a_in, din, 1,
+                                 grad + o[0], din, nullptr, st)));
       if (l > 0) {
-        CHECK((gemm_ex<true, true>(rnd, false, B, din, C, dt, C, 1, params + o[0], din, 1, da,
-                                   din, nullptr, st)));
+        BROW(true, true, rnd, B, din, C, dt, C, 1, params + o[0], din, 1, da, din, none);
       }
     }
 
@@ -323,6 +383,8 @@ int pigan_forward_train(float* params, float* m, float* v, const float* x,
     adam_update<<<kAdamBlocks, kThreads, 0, st>>>(params, m, v, grad, P, partial, ak);
     CHECK_LAUNCH();
   }
+#undef BROW
+#undef GEMM
 #undef CHECK_LAUNCH
 #undef CHECK
   return 0;

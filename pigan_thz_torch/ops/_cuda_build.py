@@ -13,9 +13,9 @@ the kernels hold fp32 parity with their plain PyTorch versions.
 
 ``LAUNCHES`` counts each kernel's successful launches; only ``launch``,
 which the wrappers (``fused_kernels.py``, ``peaks.py``,
-``forward_train.py``, ``gan_train.py``) call, adds to it.  The batch-row
-product kernel that K2 and K3 launch from their C loop has its own count,
-``BROW_LAUNCHES``.
+``forward_train.py``, ``gan_train.py``, ``brow.py``) call, adds to it.  The
+batch-row product kernel that K1, K2 and K3 launch from their C loops has its
+own count, ``BROW_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -30,7 +30,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fused_mlp_chain.cu", "dip_qualification.cu", "forward_train.cu", "gan_train.cu")
-# included by the training sources (brow_gemm.cuh by gan_train.cu)
+# included by the training sources (brow_gemm.cuh by forward_train.cu and
+# gan_train.cu, each with its own copy: everything in it is in an anonymous
+# namespace)
 HEADERS = ("train_common.cuh", "brow_gemm.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -48,9 +50,9 @@ LAUNCHES: dict[str, int] = {
     "gan_train": 0,
     "gan_ensemble_train": 0,
 }
-# Launches of the batch-row product kernel (csrc/brow_gemm.cuh), which K2 and
-# K3 launch from their C loop: their wrappers add the loop's own count after
-# each chunk, and ``gan_train.brow_gemm`` one a direct launch.  Apart from
+# Launches of the batch-row product kernel (csrc/brow_gemm.cuh), which K1, K2
+# and K3 launch from their C loops: their wrappers add the loop's own count
+# after each chunk, and ``brow.brow_gemm`` one a direct launch.  Apart from
 # LAUNCHES, whose keys stay one a TPU kernel.
 BROW_LAUNCHES: dict[str, int] = {"brow_gemm": 0}
 
@@ -68,7 +70,9 @@ _DIMS = ctypes.POINTER(ctypes.c_int)
 _U32 = ctypes.c_uint32
 _LL = ctypes.c_longlong
 
-# C entry point -> argtypes; every one returns a cudaError_t as int.
+# C entry point -> argtypes; every one returns a cudaError_t as int.  The
+# counters of what the training kernels' C loops enqueued in their last call
+# take no argument and return a long long (COUNTERS).
 ENTRY_POINTS = {
     "pigan_fused_mlp_forward": [_P, _P, _P, _OFFSETS, _OFFSETS, _DIMS, _I, _I, _I, _F, _F, _P],
     "pigan_fused_dense_chain": [_P, _P, _P, _OFFSETS, _OFFSETS, _DIMS, _I, _I, _I, _P],
@@ -94,6 +98,8 @@ ENTRY_POINTS = {
         _I, _I, _P,
     ],
 }
+COUNTERS = ("pigan_gan_kernels_enqueued", "pigan_brow_kernels_enqueued",
+            "pigan_forward_kernels_enqueued", "pigan_forward_brow_kernels_enqueued")
 
 
 def source_hash() -> str:
@@ -162,7 +168,7 @@ def load_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.pigan_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pigan_cuda_error_string.restype = ctypes.c_char_p
-    for name in ("pigan_gan_kernels_enqueued", "pigan_brow_kernels_enqueued"):
+    for name in COUNTERS:
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_longlong
     lib.pigan_brow_plan.argtypes = [_I] * 4 + [ctypes.POINTER(_I)]

@@ -5,9 +5,9 @@ The TPU kernel ``_make_forward_kernel`` (K1) runs E epochs of F pretraining
 in one Pallas launch with F's parameters and Adam moments resident in VMEM.
 Its counterpart here is ``csrc/forward_train.cu``: one C call per chunk of
 T steps, which enqueues every step's kernels on the current stream (hand-
-written fp32 products, LayerNorm, loss, clip and Adam) over the state's flat
-buffers in place.  Per step, for F = 4 -> 256 -> 512 -> 1024 -> 512 -> 256 ->
-(S + 8), with ``settings`` weights:
+written products, LayerNorm, loss, clip and Adam; 36 launches a step) over
+the state's flat buffers in place.  Per step, for F = 4 -> 256 -> 512 ->
+1024 -> 512 -> 256 -> (S + 8), with ``settings`` weights:
 
 - forward: 5 x [Dense -> LayerNorm (flax's one-pass variance clamped at 0,
   eps 1e-6) -> LeakyReLU 0.2 -> dropout], then the linear head;
@@ -23,6 +23,22 @@ buffers in place.  Per step, for F = 4 -> 256 -> 512 -> 1024 -> 512 -> 256 ->
   layer 4→256 (forward and dW) and the 8 metrics columns of the head run on
   the TPU's VPU in float32 and stay float32 here: the head is then two
   products, the metrics part added after the spectrum part.
+
+Products.  The ten products a step whose rows are the batch (M = B = 64;
+``brow_products``) go through the batch-row kernel that the GAN step uses
+too (``csrc/brow_gemm.cuh``, Python side in ``brow.py``): the forward
+products of hidden layers 2-5 and of the head, and the input gradients of
+the head and of hidden layers 5-2.  At B = 64 each has 8 to 32 output
+tiles of 64 x 32, too few for the card's 132 SMs, and a depth of 256 to
+1024: a cluster of 4 or 8 blocks splits the depth, sums its partial tiles
+in rank order through distributed shared memory and streams the operands
+through a ``cp.async`` ring, in exact fp32 FMAs (bf16 ``mma.sync`` on
+bfloat16 operands).  The input layer (depth 4) and the six weight gradients
+(depth B, output tiles enough) stay on the tiled SGEMM of
+``train_common.cuh``.  Nothing retries elsewhere: a cluster launch the card
+refuses is an error of the call.  The C loop counts what it enqueues
+(``kernels_enqueued``, ``brow_kernels_enqueued``); the wrapper adds the
+batch-row launches to ``BROW_LAUNCHES["brow_gemm"]``.
 
 Everything the kernel reads besides the state is built outside it, as the
 TPU kernel's prologue ``_streams`` builds it: the gathered batches of every
@@ -54,7 +70,8 @@ import torch
 
 from ..config import PiGanConfig
 from ..data.dataset import ThzDataset, epoch_indices
-from ._cuda_build import LAUNCHES, check_capability, launch
+from ._cuda_build import BROW_LAUNCHES, LAUNCHES, check_capability, launch, load_library
+from .brow import BrowProduct, bf16_rounder, brow_plan
 
 BASELINE_HIDDEN = (256, 512, 1024, 512, 256)
 METRIC_KEYS = ("loss", "spectrum_loss", "metrics_loss")
@@ -269,6 +286,19 @@ class ForwardTrainSpec:
         return [flat[o: o + math.prod(s)].view(s)
                 for o, s in zip(self.offsets[l], shapes) if o >= 0]
 
+    def named_tensors(self, flat: torch.Tensor) -> dict[str, torch.Tensor]:
+        """Every tensor of ``flat`` by name ("layer l W", "layer l b", "layer
+        l gamma", "layer l beta"; the head's W apart by rows, "head W
+        spectrum rows" and "head W metrics rows", and "head b"), as views:
+        the tensors the first-step checks compare one by one."""
+        out, S = {}, self.spectrum_dim
+        for l in range(self.n_hidden):
+            out.update(zip((f"layer {l} {n}" for n in ("W", "b", "gamma", "beta")),
+                           self.views(flat, l)))
+        w, b = self.views(flat, self.n_hidden)
+        out.update({"head W spectrum rows": w[:S], "head W metrics rows": w[S:], "head b": b})
+        return out
+
 
 def forward_train_spec(cfg: PiGanConfig, settings) -> ForwardTrainSpec:
     if settings.nll_w:
@@ -291,20 +321,16 @@ def forward_train_spec(cfg: PiGanConfig, settings) -> ForwardTrainSpec:
     )
 
 
-def bf16_rounder(bf16: bool):
-    """The operand rounding of the TPU kernels' MXU products, in both
-    training kernels' plain versions: to bfloat16 (round to nearest even) and
-    back, in the tensor's own type; the identity in float32 mode."""
-    if not bf16:
-        return lambda x: x
-    return lambda x: x.to(torch.bfloat16).to(x.dtype)
-
-
-# Deliberately wrong variants of the plain version's bfloat16 path, for
-# checks of checks (``forward_train_plain(..., faults=)``).
+# Deliberately wrong variants of the plain version, for checks of checks
+# (``forward_train_plain(..., faults=)``).  The first two touch only the
+# bfloat16 path; the third both paths.
 FAULTS = (
     "bf16_head_rounded",     # the head's 8 metrics columns rounded to bfloat16
     "bf16_hidden_fp32",      # hidden layer 2's products (512 -> 1024) left in float32
+    # layer 3's (512 -> 1024) input gradient without the last K slice of its
+    # batch-row product (K[:-128] at the published widths): what a cluster
+    # sum that lost its last rank would give
+    "dx_layer3_last_slice_dropped",
 )
 
 
@@ -329,6 +355,14 @@ def forward_train_plain(params: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     def rb_l(l):
         """The rounding of hidden layer l's products: none at the input layer."""
         return ident if l == 0 or (l == 2 and "bf16_hidden_fp32" in faults) else rb
+
+    def depth_l(l):
+        """The depth of hidden layer l's input-gradient product that counts."""
+        C = spec.dims[l + 1]
+        if l == 2 and "dx_layer3_last_slice_dropped" in faults:
+            plan = brow_plan(streams.params_norm.shape[1], spec.dims[l], C)
+            return plan.slice * (plan.split - 1)
+        return C
 
     steps, batch, _ = streams.params_norm.shape
     S = spec.spectrum_dim
@@ -418,7 +452,8 @@ def forward_train_plain(params: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
             gW.copy_(r(dt).T @ r(a_in))
             gb.copy_(dt.sum(dim=0))
             if l > 0:
-                da = r(dt) @ r(W)
+                kd = depth_l(l)
+                da = r(dt[:, :kd]) @ r(W[:kd])
 
         lr, inv1, inv2 = sched[t]
         norm = torch.sqrt(torch.sum(grads * grads))
@@ -529,7 +564,53 @@ def forward_train(params: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
         (ctypes.c_double * len(hp))(*hp),
         keep_threshold(spec.dropout_rate), int(spec.bf16),
     )
+    BROW_LAUNCHES["brow_gemm"] += brow_kernels_enqueued()
     return rows
+
+
+def kernels_enqueued() -> int:
+    """The device kernels that this process's last ``forward_train`` launch
+    enqueued, as the C loop counted them: over the call's steps, 36 a step
+    (39 with bfloat16 operands, the head in two products each way)."""
+    return int(load_library().pigan_forward_kernels_enqueued())
+
+
+def brow_kernels_enqueued() -> int:
+    """Of ``kernels_enqueued()``, the launches of the batch-row kernel
+    (``csrc/brow_gemm.cuh``): ``len(brow_products(...))`` a step."""
+    return int(load_library().pigan_forward_brow_kernels_enqueued())
+
+
+def brow_products(spec: ForwardTrainSpec, batch: int) -> list[BrowProduct]:
+    """The batch-row products one step of ``csrc/forward_train.cu`` launches
+    through ``brow_gemm.cuh``, in its order: the forward products of hidden
+    layers 2 to 5 and of the head, the head's input gradient and the input
+    gradients of hidden layers 5 to 2, all with the batch as rows (10 at the
+    published widths, whatever the dropout).  Under bfloat16 operands the
+    head goes through it over the spectrum columns only, its operands
+    rounded as every hidden layer's above the first; the 8 metrics columns
+    stay on the tiled SGEMM in fp32, as do the input layer (depth 4) and
+    every weight gradient (depth B)."""
+    B, S, dims, r = batch, spec.spectrum_dim, spec.dims, spec.bf16
+    out = []
+
+    def fwd(name, n, k, rnd=r):
+        out.append(BrowProduct(name, B, n, k, True, False, rnd, True))
+
+    def dx(name, n, k, rnd=r):
+        out.append(BrowProduct(name, B, n, k, True, True, rnd, False))
+
+    for l in range(1, spec.n_hidden):
+        fwd(f"layer {l + 1}", dims[l + 1], dims[l])
+    if r:
+        fwd("head, spectrum columns", S, dims[-2])
+        dx("dx head, spectrum columns", dims[-2], S)
+    else:
+        fwd("head", dims[-1], dims[-2])
+        dx("dx head", dims[-2], dims[-1])
+    for l in range(spec.n_hidden - 1, 0, -1):
+        dx(f"dx layer {l + 1}", dims[l], dims[l + 1])
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -10,14 +10,16 @@ generator BatchNorm stats, so the folding is exercised.  The
 dip-qualification kernel (K4) is held against both of its plain versions on
 the spectra classes of tests/test_peaks.py.  The forward-training kernel
 (K1) is held against its plain version and the eager step over 2 epochs of
-a 1000-sample dataset, with the tolerances of ``chip_smoke.py``; so is the
+a 1000-sample dataset, with the tolerances of ``chip_smoke.py``, its first
+float32 step against the float64 plain version (with a planted fault of its
+batch-row products seen), and its C loop's launches a step; so is the
 GAN-training kernel (K2), for both ``detach_forward`` modes and a mix of its
 knobs.  The member-packed kernel (K3) is held bit for bit against K2 on each
 member alone, and against its plain version with K2's tolerances.  The
-batch-row product kernel that K2 and K3 launch (``csrc/brow_gemm.cuh``) is
-held against its plain version and float64 for every product shape and flag
-of a step, at M = 1 and 4, and each step's count of its launches against
-``brow_products``.
+batch-row product kernel that K1, K2 and K3 launch (``csrc/brow_gemm.cuh``)
+is held against its plain version and float64 for every product shape and
+flag of a step, at M = 1 and 4, and each step's count of its launches
+against ``brow_products``.
 """
 
 import copy
@@ -398,6 +400,73 @@ def test_trainer_launches_the_kernel_once_per_chunk(dev, train_ds):
     assert ft.LAUNCHES["forward_train"] == before + 3
     loss = hist["forward/loss"]
     assert len(loss) == 5 and all(x == x for x in loss) and loss[-1] < loss[0]
+
+
+@pytest.mark.parametrize("dtype, rate, per_step", [
+    ("float32", 0.2, 36), ("float32", 0.0, 36), ("bfloat16", 0.2, 39)])
+def test_forward_kernel_enqueues_the_launches_a_step_it_says(dtype, rate, per_step, dev,
+                                                             train_ds):
+    """The C loop's own counts over one epoch: 36 launches a step (39 with
+    bfloat16 operands), of them ``brow_products`` through the batch-row
+    kernel (10 a step), which the wrapper adds to BROW_LAUNCHES."""
+    cfg, state, _, _, _, streams = _k1_setup(train_ds, rate, epochs=1)
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, compute_dtype=dtype))
+    spec = ft.forward_train_spec(cfg, ForwardStepSettings())
+    want = len(ft.brow_products(spec, 64)) * 15
+    before = ft.BROW_LAUNCHES["brow_gemm"]
+    ft.forward_train(state.params, state.opt.m, state.opt.v, streams, spec)
+    torch.cuda.synchronize()
+    assert ft.kernels_enqueued() == per_step * 15
+    assert ft.brow_kernels_enqueued() == want == 10 * 15
+    assert ft.BROW_LAUNCHES["brow_gemm"] == before + want
+
+
+def test_forward_train_kernel_first_step_against_float64(dev, train_ds):
+    """K1's first float32 step (dropout 0.2) from the published-width state:
+    its rows and Adam's first moments, tensor by tensor, within K2_ROUNDING
+    times the float32 plain version's distance from the float64 plain
+    version, or K2_STEP_FLOOR[1]; the float64 run with the last K slice of
+    layer 3's input gradient dropped (``dx_layer3_last_slice_dropped``) is
+    K1_BF16_FAULT_RATIO times further from the kernel on some tensor."""
+    cfg, state, _, _, _, streams = _k1_setup(train_ds, 0.2, epochs=1)
+    spec = ft.forward_train_spec(cfg, ForwardStepSettings())
+    one = streams._replace(params_norm=streams.params_norm[:1].contiguous(),
+                           spectra=streams.spectra[:1].contiguous(),
+                           metrics_norm=streams.metrics_norm[:1].contiguous(),
+                           sched=streams.sched[:1], seeds=streams.seeds[:1])
+    start = (state.params, state.opt.m, state.opt.v)
+
+    def run(dbl=False, faults=(), kernel=False):
+        bufs = [t.clone().double() if dbl else t.clone() for t in start]
+        fn = ft.forward_train if kernel else (
+            lambda *a: ft.forward_train_plain(*a, faults=faults))
+        rows = fn(*bufs, one, spec)
+        torch.cuda.synchronize()
+        return rows.double(), {k: t.double().reshape(-1)
+                              for k, t in spec.named_tensors(bufs[1]).items()}
+
+    rows_k, mk = run(kernel=True)
+    rows_p, mp = run()
+    rows_x, mx = run(dbl=True)
+    _, mw = run(dbl=True, faults=("dx_layer3_last_slice_dropped",))
+
+    def rel(a, b):
+        return float(torch.linalg.norm(a - b) / torch.linalg.norm(b).clamp(min=1e-30))
+
+    e_k = {k: rel(mk[k], mx[k]) for k in mx}
+    e_p = {k: rel(mp[k], mx[k]) for k in mx}
+    floor = K2_STEP_FLOOR[1]
+    bad = {k: (e_k[k], e_p[k]) for k in mx if not e_k[k] <= max(K2_ROUNDING * e_p[k], floor)}
+    row_k = float(((rows_k - rows_x).abs() / rows_x.abs()).max())
+    row_p = float(((rows_p - rows_x).abs() / rows_x.abs()).max())
+    ratio = {k: rel(mk[k], mw[k]) / max(e_k[k], e_p[k], 1e-9) for k in mx}
+    worst, seen = max(e_k, key=e_k.get), max(ratio, key=ratio.get)
+    print(f"K1 first step vs float64: rows kernel {row_k:.3e} (float32 plain {row_p:.3e}); "
+          f"worst tensor {worst} {e_k[worst]:.3e} (float32 plain {e_p[worst]:.3e}); "
+          f"the fault seen {ratio[seen]:.1f}x on {seen}")
+    assert not bad, bad
+    assert row_k <= max(K2_ROUNDING * row_p, floor)
+    assert ratio[seen] > 4.0
 
 
 # -- K2: PI-GAN training -------------------------------------------------------

@@ -289,7 +289,9 @@ def _imported_roots(path):
     "pigan_thz_torch/cli.py", "examples/torch_gan_engines.py",
     "pigan_thz_torch/ops/fused_kernels.py", "examples/torch_serving_tiles.py",
     "examples/torch_serving_ablate.py", "examples/torch_serving_cycle.py",
-    "examples/torch_gan_times.py", "examples/torch_brow_ablate.py"])
+    "examples/torch_gan_times.py", "examples/torch_brow_ablate.py",
+    "pigan_thz_torch/ops/brow.py", "pigan_thz_torch/ops/forward_train.py",
+    "examples/torch_forward_times.py"])
 def test_source_imports_neither_jax_nor_the_jax_package(path):
     roots = _imported_roots(os.path.join(REPO, path))
     assert not roots & {"jax", "jaxlib", "flax", "optax", "orbax", "pigan_thz_tpu",
