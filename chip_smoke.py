@@ -32,8 +32,12 @@ generator passes (cycle, stability) and noise streams:
    profile of one request at B = 64 and 8192;
 6. the dip-qualification kernel (K4) against both plain versions (the
    lattice and the sparse-table form) at B = 1, 7, 1000, 8192 on four
-   spectra classes: masks equal, prominence and width within tolerance at
-   the peaks;
+   spectra classes and the screen's spectra (K5 on random candidates):
+   masks equal, prominence and width within tolerance at the peaks; its
+   metrics entry (qualification, selection and FWHM in one launch) against
+   ``spectrum_metrics`` on the lattice's qualification on the card, without
+   centres and with per-row centres, NaN in some rows, and on hostile rows
+   (tests/peak_rows.py): NaN pattern equal, every value equal;
 7. dataset generation: ``synthetic_dataset`` at 1000 samples and
    ``generate_dataset`` at 65536 on the card, one K4 launch each, metrics
    against the CPU plain path, a CSV round trip, and the ``generate-data``
@@ -42,8 +46,12 @@ generator passes (cycle, stability) and noise streams:
    with the fused surrogate kernel and with the module forward: 123 K4
    launches per screen (and 123 K5 launches with the kernel), a sorted,
    finite top-k in the design box, winners re-scored on the CPU;
-9. times: K4 beside both plain versions at B = 8192, ``generate_dataset``
-   at 1000 and 65536, and each screen's wall time;
+9. times: K4's four-output entry at B = 8192 on each class, beside both
+   plain versions on the synthetic and the screen's spectra; its metrics
+   entry beside its plain version (the sparse-table form, then
+   ``spectrum_metrics``), beside ``spectrum_metrics`` given the mask and
+   beside the four-output entry followed by ``spectrum_metrics``;
+   ``generate_dataset`` at 1000 and 65536, and each screen's wall time;
 10. the forward-training kernel (K1) against its plain version on the
     card: seeded full-width F, a 1000-sample dataset; its first float32
     step against the plain version run in float64 (rows and Adam's first
@@ -171,7 +179,12 @@ generator passes (cycle, stability) and noise streams:
     ``torch.matmul`` on the same operands, back to back in a CUDA graph,
     beside the roofline.  Phases 13,
     16, 19, 23 and 24 also hold each chunk's count of batch-row launches to
-    ``brow_products``, and the main paths' counts are read (BROW_LAUNCHES).
+    ``brow_products``, and the main paths' counts are read (BROW_LAUNCHES);
+30. a ``torch.profiler`` trace of five fused screening chunks
+    (``screen_chunk`` through K5 and K4's metrics entry, after warm-up):
+    kernels a chunk, kernel time, idle share, the kernels by time.  It runs right after
+    phase 9, beside the screens: after phase 29's CUDA graphs the profiler
+    records no kernel.
 
 The ``kernels`` record gives each kernel's launches on the main path, its
 error against its plain version, its time beside the plain version's, the
@@ -180,6 +193,8 @@ of the operations over 67 TFLOP/s fp32 and the bytes, each input read once
 and each output written once, over 3.35 TB/s; ``bound_by`` says which), and
 ``library_ms``, the time of one PyTorch call that computes the same function
 where there is one (the modules' eval-mode forward for K5 and K6), else null.
+K4's entry also carries its metrics entry's time, plain time and bound, and
+phase 30's profile of a screening chunk.
 The bfloat16 rows of K1 and K2 carry their own bound, every product counted
 at the bf16 tensor-core peak (989 TFLOP/s).  K1's, K2's and K3's entries note
 that their batch-row products go through ``brow_gemm`` and carry its launches
@@ -560,16 +575,63 @@ def compare_k4(got, want):
     return mism, bad_p + bad_w, max(err_p, err_w)
 
 
-def phase6_k4(gen, cfg, dev) -> dict:
-    """K4 against both plain versions; returns its max |err| and mismatches."""
+def screen_spectra(gen, b: int, dev, f_packed):
+    """The screen's spectra: K5 on b random candidates, (b, S)."""
+    import torch
+    from pigan_thz_torch.ops import fused_kernels as fk
+
+    pn = torch.rand((b, 4), generator=gen, device=dev) * 2 - 1
+    return fk.forward_surrogate_fused(f_packed, pn)[0].contiguous()
+
+
+def metrics_plain(freq, t, c1=None, c2=None):
+    """K4's metrics entry's plain version on the card: ``spectrum_metrics``
+    on the lattice's qualification."""
+    from pigan_thz_torch.ops import peaks as pk
+
+    return pk.spectrum_metrics(freq, t, c1, c2, qualified=pk.dip_qualification(t).qualified)
+
+
+def compare_metrics(got, want) -> tuple:
+    """(entries whose NaN-ness differs, other entries that differ, max
+    |got - want| over those)."""
+    nan_diff = int((got.isnan() != want.isnan()).sum())
+    both = ~(got.isnan() | want.isnan())
+    diff = got[both] != want[both]
+    err = float((got[both] - want[both]).abs().max()) if both.any() else 0.0
+    return nan_diff, int(diff.sum()), err
+
+
+def phase6_k4(gen, cfg, dev, f_packed, repo: str) -> dict:
+    """K4's two entries against their plain versions; returns the four-output
+    entry's max |err| and mismatches and the metrics entry's differences."""
+    import numpy as np
     import torch
     from pigan_thz_torch.ops import peaks as pk
 
-    stats = {"max_abs_err": 0.0, "mask_mismatches": 0}
+    stats = {"max_abs_err": 0.0, "mask_mismatches": 0, "metrics_nan_diff": 0,
+             "metrics_values_differing": 0, "metrics_max_abs_err": 0.0}
     plains = (("lattice", pk.dip_qualification),
               ("lifted", pk._dip_qualification_lifted))
+    freq = cfg.data.frequencies.to(dev)
+
+    def check_metrics(label, t, c1, c2):
+        got = pk.batched_peak_metrics(freq, t, c1, c2)
+        torch.cuda.synchronize()
+        nan_diff, bad, err = compare_metrics(got, metrics_plain(freq, t, c1, c2))
+        stats["metrics_nan_diff"] += nan_diff
+        stats["metrics_values_differing"] += bad
+        stats["metrics_max_abs_err"] = max(stats["metrics_max_abs_err"], err)
+        if nan_diff or bad:
+            fail(f"the metrics entry disagrees with spectrum_metrics on the lattice's "
+                 f"qualification: {label}: {nan_diff} NaN-pattern differences, {bad} "
+                 f"values differ, max|err| {err:.3e}")
+        return f"metrics ({int(got[:, 2].isfinite().sum())} Q1): equal"
+
     for b in K4_BATCHES:
-        for cls, t in spectra_classes(gen, b, cfg, dev).items():
+        classes = spectra_classes(gen, b, cfg, dev)
+        classes["screen"] = screen_spectra(gen, b, dev, f_packed)
+        for cls, t in classes.items():
             got = pk.batched_dip_qualification(t)
             torch.cuda.synchronize()
             line = []
@@ -582,11 +644,37 @@ def phase6_k4(gen, cfg, dev) -> dict:
                 if mism or bad:
                     fail(f"dip_qualification disagrees with its {plain_name} plain "
                          f"version at B={b} on {cls} spectra")
+            # centres: none, and per row from the grid with NaN in every third
+            ci = torch.randint(0, t.shape[1], (2, b), generator=gen, device=dev)
+            c1, c2 = freq[ci[0]], freq[ci[1]]
+            c1[::3] = torch.nan
+            line.append(check_metrics(f"B={b} {cls}", t, None, None))
+            line.append(check_metrics(f"B={b} {cls} with centres", t, c1, c2)
+                        + " with centres")
             print(f"K4 check B={b} {cls} ({int(got.is_peak.sum())} peaks, "
                   f"{int(got.qualified.sum())} qualified): " + "; ".join(line))
+    sys.path.insert(0, os.path.join(repo, "tests"))
+    from peak_rows import hostile_rows
+
+    f_h, t_h, c1_h, c2_h = (torch.from_numpy(np.asarray(a)).to(dev)
+                            for a in hostile_rows(cfg.data.spectrum_dim))
+    for label, c1, c2 in (("no centres", None, None), ("centres", c1_h, c2_h),
+                          ("scalar centres", 0.9, 2.1)):
+        got = pk.batched_peak_metrics(f_h, t_h, c1, c2)
+        nan_diff, bad, _ = compare_metrics(got, metrics_plain(f_h, t_h, c1, c2))
+        if nan_diff or bad:
+            fail(f"the metrics entry disagrees with its plain version on hostile rows, "
+                 f"{label}: {nan_diff} NaN-pattern differences, {bad} values differ")
+        mism, _, _ = compare_k4(pk.batched_dip_qualification(t_h),
+                                pk.dip_qualification(t_h))
+        if mism:
+            fail(f"dip_qualification disagrees with the lattice on hostile rows: {mism}")
+    print(f"K4 check hostile rows ({t_h.shape[0]} of N = {t_h.shape[1]}: NaN, +-inf, "
+          f"all-equal, border plateaus, border dips, ties): masks and metrics equal")
     print(f"K4 checks: {stats['mask_mismatches']} mask mismatches in all, max|err| "
           f"{stats['max_abs_err']:.3e} (prominence rtol {K4_PROM_RTOL}, width rtol "
-          f"{K4_WIDTH_RTOL})")
+          f"{K4_WIDTH_RTOL}); metrics entry: {stats['metrics_nan_diff']} NaN-pattern "
+          f"differences, {stats['metrics_values_differing']} values differing")
     return stats
 
 
@@ -736,30 +824,45 @@ def phase8_screen(F, cfg, dev, lo, hi) -> dict:
     return out
 
 
+def k4_work(t, got) -> tuple:
+    """(operations, bytes) of K4's four-output entry on spectra t with its
+    result got, and of its metrics entry."""
+    # The kernel's work depends on the data: two neighbour comparisons on
+    # each side of every sample, and at each peak the walks to the higher
+    # samples and the half-height crossings, at least the peak's width (in
+    # samples) of loads, minima and comparisons on both sides.
+    ops = 4.0 * t.numel() + 6.0 * float(got.width[got.is_peak].sum())
+    b, n = t.shape
+    # the metrics entry: the same, then two argmin passes over the row (a
+    # select and a compare a sample); reads t, freq and two centres a row,
+    # writes 8 floats a row
+    return (ops, t.numel() * (4 + 1 + 1 + 4 + 4),
+            ops + 4.0 * t.numel(), 4.0 * (t.numel() + n + 2 * b + 8 * b))
+
+
 def phase9_k4_times(gen, cfg, dev, f_packed) -> dict:
-    """K4 beside both plain versions at B = 8192 on synthetic spectra and on
-    the surrogate's predictions (a screening chunk): name -> (kernel,
-    lattice, lifted) ms."""
+    """K4's entries at B = 8192: the four-output entry on each class, beside
+    both plain versions on the synthetic spectra and the surrogate's
+    predictions (a screening chunk): name -> (kernel, lattice, lifted) ms
+    (None where not timed); the metrics entry on the screen's spectra and on
+    the synthetic ones with centres beside its plain version: "metrics
+    <name>" -> dict of ms."""
     import torch
-    from pigan_thz_torch.ops import fused_kernels as fk
     from pigan_thz_torch.ops import peaks as pk
 
     b = K4_BATCHES[-1]
-    pn = torch.rand((b, 4), generator=gen, device=dev) * 2 - 1
-    inputs = {
-        "synthetic": spectra_classes(gen, b, cfg, dev)["synthetic"],
-        "screen": fk.forward_surrogate_fused(f_packed, pn)[0].contiguous(),
-    }
+    inputs = spectra_classes(gen, b, cfg, dev)
+    inputs["screen"] = screen_spectra(gen, b, dev, f_packed)
     times = {}
     # The kernel's work depends on the data: two neighbour comparisons on
     # each side of every sample, and at each peak the walks to the higher
     # samples and the half-height crossings, at least the peak's width (in
     # samples) of loads, minima and comparisons on both sides.
-    got = pk.batched_dip_qualification(inputs["screen"])
-    times["screen_ops"] = 4.0 * inputs["screen"].numel() + 6.0 * float(
-        got.width[got.is_peak].sum())
-    times["screen_bytes"] = inputs["screen"].numel() * (4 + 1 + 1 + 4 + 4)
+    times["work"] = k4_work(inputs["screen"], pk.batched_dip_qualification(inputs["screen"]))
     for name, t in inputs.items():
+        if name not in ("synthetic", "screen"):
+            times[name] = (cuda_median_ms(pk.batched_dip_qualification, t), None, None)
+            continue
         # plain, kernel, kernel, plain: the best of each side's two runs
         p1 = cuda_median_ms(pk.dip_qualification, t, warmup=3, reps=10)
         l1 = cuda_median_ms(pk._dip_qualification_lifted, t, warmup=3, reps=20)
@@ -768,6 +871,29 @@ def phase9_k4_times(gen, cfg, dev, f_packed) -> dict:
         l2 = cuda_median_ms(pk._dip_qualification_lifted, t, warmup=3, reps=20)
         p2 = cuda_median_ms(pk.dip_qualification, t, warmup=3, reps=10)
         times[name] = (min(k1, k2), min(p1, p2), min(l1, l2))
+
+    freq = cfg.data.frequencies.to(dev)
+    ci = torch.randint(0, freq.shape[0], (2, b), generator=gen, device=dev)
+    centres = {"screen": (None, None), "synthetic": (freq[ci[0]], freq[ci[1]])}
+    for name, (c1, c2) in centres.items():
+        t = inputs[name]
+        runs = {
+            # the whole function in plain torch: the sparse-table form, then
+            # selection and FWHM
+            "plain": lambda: pk.spectrum_metrics(
+                freq, t, c1, c2, qualified=pk._dip_qualification_lifted(t).qualified),
+            # selection and FWHM alone, the mask given
+            "selection": lambda q=pk.batched_dip_qualification(t).qualified:
+                pk.spectrum_metrics(freq, t, c1, c2, qualified=q),
+            # the four-output entry, then selection and FWHM in torch
+            "two_step": lambda: pk.spectrum_metrics(
+                freq, t, c1, c2, qualified=pk.batched_dip_qualification(t).qualified),
+            "kernel": lambda: pk.batched_peak_metrics(freq, t, c1, c2),
+        }
+        ms = {k: [] for k in runs}
+        for k in (*runs, *reversed(runs)):
+            ms[k].append(cuda_median_ms(runs[k], warmup=3, reps=20))
+        times["metrics " + name] = {k: min(v) for k, v in ms.items()}
     return times
 
 
@@ -1643,10 +1769,10 @@ def profile_launch(label: str, launch, steps: int) -> dict:
                           for key, count, total in sorted(kernels, key=lambda r: -r[2])[:8]]}
 
 
-def profile_cycle(fn, spectra, label: str) -> None:
-    """One serving request ``fn(spectra)`` under ``torch.profiler`` after 3
-    warm-up requests: its wall time, kernel time, idle share and kernels by
-    time."""
+def profile_cycle(fn, spectra, label: str, calls: int = 1) -> dict:
+    """``calls`` serving requests ``fn(spectra)`` under ``torch.profiler``
+    after 3 warm-up requests: prints and returns the wall time, kernel time
+    and kernels a request, the idle share and the kernels by time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1656,20 +1782,45 @@ def profile_cycle(fn, spectra, label: str) -> None:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            fn(spectra)
+            for _ in range(calls):
+                fn(spectra)
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+            wall_ms = (time.perf_counter() - t0) * 1e3 / calls
     kernels = [(ev.key, ev.count, getattr(ev, "device_time_total",
                                           getattr(ev, "cuda_time_total", 0.0)))
                for ev in prof.key_averages()
                if getattr(ev, "device_type", None) is not None
                and "cuda" in str(ev.device_type).lower()]
-    busy_ms = sum(t for _, _, t in kernels) / 1e3
+    busy_ms = sum(t for _, _, t in kernels) / 1e3 / calls
+    idle = max(0.0, 1.0 - busy_ms / wall_ms)
+    n_kernels = sum(c for _, c, _ in kernels) / calls
     print(f"profile: {label}: {wall_ms:.3f} ms wall, {busy_ms:.3f} ms of kernel time, "
-          f"idle share {max(0.0, 1.0 - busy_ms / wall_ms):.3f}, "
-          f"{sum(c for _, c, _ in kernels)} kernels")
-    for key, count, total in sorted(kernels, key=lambda r: -r[2])[:6]:
+          f"idle share {idle:.3f}, {n_kernels:g} kernels"
+          + ("" if calls == 1 else f" (a call, over {calls} calls)"))
+    top = sorted(kernels, key=lambda r: -r[2])[:6]
+    for key, count, total in top:
         print(f"profile:   {total / 1e3:9.4f} ms  {count:3d} calls  {key[:90]}")
+    return {"wall_ms": wall_ms, "kernel_ms": busy_ms, "idle_share": idle,
+            "kernels": n_kernels, "calls": calls,
+            "by_kernel": [[key[:90], count, total / 1e3] for key, count, total in top]}
+
+
+def phase30_chunk_profile(F, cfg, dev, tag: str) -> dict:
+    """Chunks of the fused screen (K5, then K4's metrics entry, the scores)
+    under ``torch.profiler`` after warm-up; returns the profile a chunk."""
+    import torch
+    from pigan_thz_torch.design import ScreeningConfig, screen_chunk
+    from pigan_thz_torch.design.screening import make_surrogate
+
+    sc = ScreeningConfig(use_pallas=True)
+    freq = cfg.data.frequencies.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(cfg.train.seed)
+    pn = torch.rand((sc.chunk_size, 4), generator=gen, device=dev) * 2 - 1
+    with torch.inference_mode():
+        surrogate = make_surrogate(F, True, dev, cfg.data.spectrum_dim)
+    # five chunks: a profiler session can lose its first kernels
+    return profile_cycle(lambda x: screen_chunk(surrogate, x, freq, sc), pn,
+                         f"{tag} one fused screening chunk B={sc.chunk_size}", calls=5)
 
 
 def k3_setup(cfg, dev, ds, f, epochs: int, knobs: dict, members: int):
@@ -2939,7 +3090,7 @@ def main() -> None:
         profile_cycle(fn, requests[b], f"serving cycle B={b}")
 
     # -- 6. K4 against both plain versions ------------------------------------
-    k4_stats = phase6_k4(dgen, cfg, dev)
+    k4_stats = phase6_k4(dgen, cfg, dev, f_packed, repo)
 
     # -- 7. dataset generation -----------------------------------------------
     dataset_k4 = phase7_dataset(cfg, dev, repo)
@@ -2951,11 +3102,20 @@ def main() -> None:
     from pigan_thz_torch.design import ScreeningConfig
 
     k4_times = phase9_k4_times(dgen, cfg, dev, f_packed)
-    k4_ops, k4_bytes = k4_times.pop("screen_ops"), k4_times.pop("screen_bytes")
-    for name, (k, p, l) in k4_times.items():
+    k4_ops, k4_bytes, k4m_ops, k4m_bytes = k4_times.pop("work")
+    for name, row in k4_times.items():
+        if name.startswith("metrics"):
+            print(f"time {tag} peak_metrics B={K4_BATCHES[-1]} {name[8:]} spectra: kernel "
+                  f"{row['kernel']:.4f} ms, plain (sparse-table form + spectrum_metrics) "
+                  f"{row['plain']:.4f} ms, spectrum_metrics given the mask "
+                  f"{row['selection']:.4f} ms, four-output entry + spectrum_metrics "
+                  f"{row['two_step']:.4f} ms (CUDA-event medians, best of two runs each)")
+            continue
+        k, p, l = row
         print(f"time {tag} dip_qualification B={K4_BATCHES[-1]} {name} spectra: "
-              f"kernel {k:.4f} ms, plain lattice {p:.4f} ms, plain lifted {l:.4f} ms "
-              f"(CUDA-event medians, best of two runs each)")
+              f"kernel {k:.4f} ms" + ("" if p is None else
+                                      f", plain lattice {p:.4f} ms, plain lifted {l:.4f} ms")
+              + " (CUDA-event medians, best of two runs each)")
     for n in DATASET_SIZES:
         g = torch.Generator(device=dev).manual_seed(n)
         ms = cuda_median_ms(lambda: generate_dataset(g, n, cfg.data, device=dev),
@@ -2969,6 +3129,10 @@ def main() -> None:
         print(f"time {tag} screen {label} 1e6 candidates: {wall:.4f} s and {again:.4f} s "
               f"wall (first and second run), {n / wall:.0f} and {n / again:.0f} "
               f"candidates/s")
+
+    # -- 30. one fused screening chunk under the profiler, here beside the
+    # screens: after phase 29's CUDA graphs the profiler records no kernel
+    chunk_profile = phase30_chunk_profile(F, cfg, dev, tag)
 
     # -- 10. K1 against its plain version ------------------------------------
     from pigan_thz_torch.data import synthetic_dataset
@@ -3102,6 +3266,7 @@ def main() -> None:
         "fused_mlp_forward": roofline(*serving_work(big)["fused_mlp_forward"]),
         "fused_dense_chain": roofline(*serving_work(big)["fused_dense_chain"]),
         "dip_qualification": roofline(k4_ops, k4_bytes),
+        "peak_metrics": roofline(k4m_ops, k4m_bytes),
         # an epoch of K1: forward, dW and dx products (no dx below the first
         # layer); params, m and v read and written once, the streams read
         "forward_train": roofline(
@@ -3222,9 +3387,21 @@ def main() -> None:
          + el["dip_qualification"] + pl["dip_qualification"],
          "max_abs_err": k4_stats["max_abs_err"],
          "mask_mismatches": k4_stats["mask_mismatches"],
+         "metrics_nan_diff": k4_stats["metrics_nan_diff"],
+         "metrics_values_differing": k4_stats["metrics_values_differing"],
          "ms": k4_times["screen"][0],
          "plain_ms": k4_times["screen"][1],
          "plain_lifted_ms": k4_times["screen"][2],
+         "ms_by_class": {k: v[0] for k, v in k4_times.items()
+                         if not k.startswith("metrics")},
+         "metrics_ms": k4_times["metrics screen"]["kernel"],
+         "metrics_plain_ms": k4_times["metrics screen"]["plain"],
+         "metrics_selection_plain_ms": k4_times["metrics screen"]["selection"],
+         "metrics_two_step_ms": k4_times["metrics screen"]["two_step"],
+         "metrics_with_centres": k4_times["metrics synthetic"],
+         "metrics_bound_ms": bound["peak_metrics"][0],
+         "metrics_bound_by": bound["peak_metrics"][1],
+         "chunk_profile": chunk_profile,
          **bounds("dip_qualification"), "library_ms": None},
         {"name": "forward_train", "route": "cuda",
          "source": "pigan_thz_torch/csrc/forward_train.cu",

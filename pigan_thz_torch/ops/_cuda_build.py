@@ -78,6 +78,7 @@ ENTRY_POINTS = {
     "pigan_fused_dense_chain": [_P, _P, _P, _OFFSETS, _OFFSETS, _DIMS, _I, _I, _I, _P],
     "pigan_fused_chain_max_clusters": [_DIMS, _I, _I, _I, ctypes.POINTER(_I)],
     "pigan_dip_qualification": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
+    "pigan_peak_metrics": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
     "pigan_forward_train": [
         _P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_U32),
         _P, _P, ctypes.c_longlong, _DIMS, _I, _OFFSETS, _I, _I, _I,
@@ -189,10 +190,12 @@ def check_capability(index: int) -> None:
         )
 
 
-def launch(name: str, device, *args, counts: dict[str, int] | None = None) -> None:
+def launch(name: str, device, *args, counts: dict[str, int] | None = None,
+           count_as: str | None = None) -> None:
     """Call entry point ``pigan_<name>`` with ``args`` and the current stream
     of ``device``; raise on a CUDA error, else count the launch in
-    ``counts`` (LAUNCHES by default)."""
+    ``counts`` (LAUNCHES by default) under ``count_as`` (default ``name``):
+    the metrics entry of K4 counts as ``dip_qualification``."""
     import torch
 
     lib = load_library()
@@ -203,4 +206,4 @@ def launch(name: str, device, *args, counts: dict[str, int] | None = None) -> No
         raise RuntimeError(
             f"{name}: CUDA error {rc} ({lib.pigan_cuda_error_string(rc).decode()})"
         )
-    (LAUNCHES if counts is None else counts)[name] += 1
+    (LAUNCHES if counts is None else counts)[count_as or name] += 1

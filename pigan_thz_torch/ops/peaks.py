@@ -7,21 +7,32 @@ topographic prominence, width at half prominence.  Dip selection, the FWHM
 and the eight metrics (f1, f2, Q1, FoM1, S1, Q2, FoM2, S2) follow
 ``data_loader.py:13-111`` with the JAX package's tie rules.
 
-The qualification is the O(N^2)-per-spectrum part and has a hand-written
-CUDA kernel (``csrc/dip_qualification.cu``, the port of the Pallas kernel
-K4) and two plain PyTorch versions of the same function:
+The qualification is the O(N^2)-per-spectrum part of the TPU's Pallas
+kernel K4.  Its hand-written CUDA kernel (``csrc/dip_qualification.cu``, one
+warp a spectrum) has two entry points:
+
+- the four-output entry, behind ``batched_dip_qualification``: the masks,
+  prominence and width of every index;
+- the metrics entry, behind ``batched_peak_metrics``: the same qualification,
+  then the selection of the two dips and their FWHM in the same launch, with
+  the row still in shared memory, writing the (B, 8) metrics and nothing
+  else.  The JAX package leaves that O(N) work to XLA, which fuses it; in
+  eager torch (``spectrum_metrics``) it is ~250 small kernels a call.
+
+Their plain PyTorch versions:
 
 - ``dip_qualification``, the (N, N) index lattice of masked reductions: the
   same math as the TPU kernel, and the reference the CUDA kernel is held
   against;
 - ``_dip_qualification_lifted``, the O(N log N) sparse-table form: the CPU
-  batch path.
+  batch path (on a row with a NaN sample it differs from the lattice, as
+  the JAX package's does);
+- for the metrics, ``spectrum_metrics``: selection and FWHM in plain torch,
+  given a qualification.
 
-``batched_dip_qualification`` routes by the input's device: a CPU tensor
-goes to the lifted form, a CUDA tensor to the kernel, anything else raises;
-there is no fallback from a failed launch.  Selection and FWHM are O(N)
-per spectrum in plain torch on the input's device, as JAX too keeps them
-outside the kernel.
+The wrappers route by the input's device: a CPU tensor goes to the plain
+versions (the lifted form, then ``spectrum_metrics``), a CUDA tensor to the
+kernel, anything else raises; there is no fallback from a failed launch.
 
 Everything is batched over rows, with no Python loop over spectra.  The
 analysis computes in float32 while scipy computes in float64, so a dip
@@ -243,29 +254,39 @@ def _lifted(t, min_prominence, min_width) -> DipQualification:
 # ---------------------------------------------------------------------------
 
 
-def batched_dip_qualification(
-    spectra: torch.Tensor, min_prominence: float = 1.0, min_width: float = 1.0
-) -> DipQualification:
-    """(B, N) float32 spectra -> DipQualification, every field (B, N).
-
-    A CUDA tensor goes to the CUDA kernel (one launch; prominence and width
-    are 0 off peaks), a CPU tensor to ``_dip_qualification_lifted``; any
-    other device raises."""
-    name = "dip_qualification"
+def _check_spectra(name: str, spectra: torch.Tensor) -> None:
     if spectra.dtype != torch.float32:
         raise TypeError(f"{name}: expected float32 spectra, got {spectra.dtype}")
     if spectra.dim() != 2:
         raise ValueError(f"{name}: expected spectra (B, N), got {tuple(spectra.shape)}")
     if not spectra.is_contiguous():
         raise ValueError(f"{name}: spectra must be contiguous")
-    if spectra.device.type == "cpu":
-        return _dip_qualification_lifted(spectra, min_prominence, min_width)
-    if spectra.device.type != "cuda":
+    if spectra.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: no kernel for device {spectra.device}")
+
+
+def _kernel_shape(name: str, spectra: torch.Tensor) -> tuple[int, int]:
+    """(B, N) of CUDA spectra the kernel takes; raises for any other."""
     batch, n = spectra.shape
     if not 1 <= n <= MAX_N:
         raise ValueError(f"{name}: the kernel takes 1 <= N <= {MAX_N}, got N = {n}")
     check_capability(spectra.device.index)
+    return batch, n
+
+
+def batched_dip_qualification(
+    spectra: torch.Tensor, min_prominence: float = 1.0, min_width: float = 1.0
+) -> DipQualification:
+    """(B, N) float32 spectra -> DipQualification, every field (B, N).
+
+    A CUDA tensor goes to the CUDA kernel's four-output entry (one launch;
+    prominence and width are 0 off peaks), a CPU tensor to
+    ``_dip_qualification_lifted``; any other device raises."""
+    name = "dip_qualification"
+    _check_spectra(name, spectra)
+    if spectra.device.type == "cpu":
+        return _dip_qualification_lifted(spectra, min_prominence, min_width)
+    batch, n = _kernel_shape(name, spectra)
     out = DipQualification(*(
         torch.empty((batch, n), dtype=dtype, device=spectra.device)
         for dtype in (torch.bool, torch.bool, torch.float32, torch.float32)
@@ -278,7 +299,8 @@ def batched_dip_qualification(
 
 
 # ---------------------------------------------------------------------------
-# Selection, FWHM and the eight metrics (plain torch, on the input's device)
+# Selection, FWHM and the eight metrics: the plain version of the metrics
+# entry, in torch on the input's device
 # ---------------------------------------------------------------------------
 
 
@@ -441,12 +463,34 @@ def batched_peak_metrics(
     fallback_f2=None,
     min_prominence: float = 1.0,
 ) -> torch.Tensor:
-    """(B, N) spectra -> (B, 8) metrics on the spectra's device: one
-    ``batched_dip_qualification`` for the whole batch (the kernel on the
-    card), then selection and FWHM in plain torch."""
+    """(B, N) float32 spectra -> (B, 8) metrics (f1, f2, Q1, FoM1, S1, Q2,
+    FoM2, S2) on the spectra's device; the centres as ``spectrum_metrics``
+    takes them.
+
+    A CUDA tensor goes to the kernel's metrics entry: one launch for the
+    qualification, the selection and the FWHM of the whole batch, counted
+    under ``LAUNCHES["dip_qualification"]``.  A CPU tensor goes to the
+    plain versions: ``_dip_qualification_lifted``, then
+    ``spectrum_metrics``.  Any other device raises."""
+    name = "peak_metrics"
+    _check_spectra(name, spectra)
     freq = torch.as_tensor(freq, dtype=torch.float32, device=spectra.device)
-    qual = batched_dip_qualification(spectra, min_prominence=min_prominence).qualified
-    return spectrum_metrics(
-        freq, spectra, fallback_f1, fallback_f2, min_prominence=min_prominence,
-        qualified=qual,
-    )
+    if spectra.device.type == "cpu":
+        qual = _dip_qualification_lifted(spectra, min_prominence).qualified
+        return spectrum_metrics(
+            freq, spectra, fallback_f1, fallback_f2, min_prominence=min_prominence,
+            qualified=qual,
+        )
+    batch, n = _kernel_shape(name, spectra)
+    if tuple(freq.shape) != (n,):
+        raise ValueError(f"{name}: expected freq ({n},), got {tuple(freq.shape)}")
+    freq = freq.contiguous()
+    # no centres: a null pointer, which the kernel reads as NaN in every row
+    fb = [None if v is None else _per_row(v, spectra).contiguous()
+          for v in (fallback_f1, fallback_f2)]
+    out = torch.empty((batch, 8), dtype=torch.float32, device=spectra.device)
+    if batch:
+        launch(name, spectra.device, spectra.data_ptr(), freq.data_ptr(),
+               *(None if v is None else v.data_ptr() for v in fb), out.data_ptr(), batch,
+               n, float(min_prominence), 1.0, count_as="dip_qualification")
+    return out

@@ -8,7 +8,10 @@ file imports no JAX, so it also runs where JAX is not installed:
 Weights are full-width, seeded, with flax's initialisation and non-trivial
 generator BatchNorm stats, so the folding is exercised.  The
 dip-qualification kernel (K4) is held against both of its plain versions on
-the spectra classes of tests/test_peaks.py.  The forward-training kernel
+the spectra classes of tests/test_peaks.py and the screen's spectra, and its
+metrics entry bit for bit against ``spectrum_metrics`` on the lattice's
+qualification, hostile rows (tests/peak_rows.py) among them.  The
+forward-training kernel
 (K1) is held against its plain version and the eager step over 2 epochs of
 a 1000-sample dataset, with the tolerances of ``chip_smoke.py``, its first
 float32 step against the float64 plain version (with a planted fault of its
@@ -30,9 +33,11 @@ import torch
 import dataclasses
 
 from pigan_thz_torch import default_config
+from peak_rows import hostile_rows
 from pigan_thz_torch.data import (
     build_dataset,
     denormalize_params,
+    dip_centers,
     sample_params,
     synthesize_spectra,
     synthetic_dataset,
@@ -219,8 +224,15 @@ def test_cycle_matches_unfused_modules(dev, models):
     assert bool(((got[0] >= 2.2) & (got[0] <= 2.8)).all())
 
 
-def _spectra(kind, b, n, dev, seed=0):
+def _spectra(kind, b, n, dev, seed=0, f=None):
     gen = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "screen":
+        # the screen's spectra: K5 on random candidates, rows of n cut from
+        # consecutive predictions
+        reps = -(-n // 250)
+        pn = torch.rand((b * reps, 4), generator=gen, device=dev) * 2 - 1
+        spec = fk.forward_surrogate_fused(fk.pack_forward_model(f, dev), pn)[0]
+        return spec.reshape(b, reps * 250)[:, :n].contiguous()
     noise = torch.randn((b, n), generator=gen, device=dev)
     if kind == "random_walk":
         return torch.cumsum(0.8 * noise, dim=1).clamp(max=0.0)
@@ -234,28 +246,45 @@ def _spectra(kind, b, n, dev, seed=0):
     return synthesize_spectra(freq, p, gen, cfg.noise_level)
 
 
-def _assert_k4_equal(got, want):
+def _assert_k4_equal(got, want, equal_nan=False):
+    """equal_nan: a NaN measure (a window holding a NaN sample) equals NaN."""
     assert torch.equal(got.qualified, want.qualified)
     assert torch.equal(got.is_peak, want.is_peak)
     pkm = want.is_peak
     torch.testing.assert_close(got.prominence[pkm], want.prominence[pkm],
-                               rtol=1e-6, atol=0)
-    torch.testing.assert_close(got.width[pkm], want.width[pkm], rtol=1e-5, atol=0)
+                               rtol=1e-6, atol=0, equal_nan=equal_nan)
+    torch.testing.assert_close(got.width[pkm], want.width[pkm], rtol=1e-5, atol=0,
+                               equal_nan=equal_nan)
 
 
-@pytest.mark.parametrize("n", [250, 199, 64, 300])
-@pytest.mark.parametrize("kind", ["synthetic", "random_walk", "white_noise", "quantized"])
-def test_dip_kernel_matches_both_plain_versions(kind, n, dev):
-    """Ragged N (199, 64) and N above the block (300: a loop over i)."""
-    t = _spectra(kind, 333, n, dev)
+def _lattice(t, *thresholds):
+    """The lattice on row slices of at most 2^26 lattice entries."""
+    rows = max(1, 2**26 // t.shape[1] ** 2)
+    parts = [pk.dip_qualification(t[s:s + rows], *thresholds)
+             for s in range(0, t.shape[0], rows)]
+    return pk.DipQualification(*(torch.cat(f) for f in zip(*parts)))
+
+
+K4_KINDS = ["synthetic", "random_walk", "white_noise", "quantized", "screen"]
+
+
+@pytest.mark.parametrize("batch", [1, 7, 333, 8192])
+@pytest.mark.parametrize("n", [250, 199, 64, 300, 4096])
+@pytest.mark.parametrize("kind", K4_KINDS)
+def test_dip_kernel_matches_both_plain_versions(kind, n, batch, dev, models):
+    """Ragged N (199, 64: a warp's last candidates idle), odd N (199: scalar
+    row loads), N = 4096 (two warps a block); a batch of one, a ragged last
+    block (7, 333)."""
+    t = _spectra(kind, batch, n, dev, f=models[1])
     before = fk.LAUNCHES["dip_qualification"]
     got = pk.batched_dip_qualification(t)
     torch.cuda.synchronize()
     assert fk.LAUNCHES["dip_qualification"] == before + 1
-    assert got.qualified.dtype == torch.bool and got.qualified.shape == (333, n)
-    _assert_k4_equal(got, pk.dip_qualification(t))
+    assert got.qualified.dtype == torch.bool and got.qualified.shape == (batch, n)
+    _assert_k4_equal(got, _lattice(t))
     _assert_k4_equal(got, pk._dip_qualification_lifted(t))
-    assert bool(got.qualified.any())
+    if batch >= 7:
+        assert bool(got.qualified.any())
 
 
 def test_dip_kernel_edges(dev):
@@ -269,6 +298,86 @@ def test_dip_kernel_edges(dev):
     t = _spectra("white_noise", 64, 250, dev, seed=3)
     got = pk.batched_dip_qualification(t, min_prominence=0.5, min_width=2.0)
     _assert_k4_equal(got, pk.dip_qualification(t, 0.5, 2.0))
+
+
+def _metrics_plain(freq, t, c1, c2, prominence=1.0):
+    """The metrics entry's plain version on the card: spectrum_metrics on
+    the lattice's qualification."""
+    q = _lattice(t, prominence).qualified
+    return pk.spectrum_metrics(freq, t, c1, c2, qualified=q)
+
+
+def _assert_bit_equal(got, want):
+    """Equal NaN pattern, every other value equal (== : -0 equals +0)."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+def _metrics_centres(kind, c1, c2):
+    if kind == "none":
+        return None, None
+    if kind == "nan_mixed":
+        c1, c2 = c1.clone(), c2.clone()
+        c1[::3] = torch.nan
+        c2[1::3] = torch.nan
+    if kind == "scalar":
+        return 0.9, 2.1
+    return c1, c2
+
+
+@pytest.mark.parametrize("prominence", [1.0, 0.5, 2.0])
+@pytest.mark.parametrize("centres", ["none", "per_row", "nan_mixed", "scalar"])
+@pytest.mark.parametrize("kind", ["synthetic", "white_noise", "quantized", "screen"])
+def test_peak_metrics_kernel_matches_plain(kind, centres, prominence, dev, models):
+    cfg = default_config().data
+    b, n = 2000, cfg.spectrum_dim
+    freq = cfg.frequencies.to(dev)
+    if kind == "synthetic":
+        gen = torch.Generator(device=dev).manual_seed(5)
+        p = sample_params(gen, b, cfg, device=dev)
+        t = synthesize_spectra(freq, p, gen, cfg.noise_level)
+        c1, c2 = dip_centers(p)
+    else:
+        t = _spectra(kind, b, n, dev, seed=5, f=models[1])
+        gen = torch.Generator(device=dev).manual_seed(6)
+        c1, c2 = (freq[torch.randint(0, n, (b,), generator=gen, device=dev)]
+                  for _ in range(2))
+    c1, c2 = _metrics_centres(centres, c1, c2)
+    before = fk.LAUNCHES["dip_qualification"]
+    got = pk.batched_peak_metrics(freq, t, c1, c2, min_prominence=prominence)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["dip_qualification"] == before + 1
+    _assert_bit_equal(got, _metrics_plain(freq, t, c1, c2, prominence))
+    assert bool(got[:, 2].isfinite().any())
+
+
+@pytest.mark.parametrize("n", [64, 250, 4096])
+@pytest.mark.parametrize("centres", ["none", "per_row", "nan_mixed", "scalar"])
+def test_peak_metrics_kernel_on_hostile_rows(centres, n, dev):
+    """tests/peak_rows.py: NaN and +-inf samples, an all-equal row, border
+    plateaus, dips at the borders, ties in depth and centre distance."""
+    freq, t, c1, c2 = (torch.from_numpy(a).to(dev) for a in hostile_rows(n))
+    c1, c2 = _metrics_centres(centres, c1, c2)
+    got = pk.batched_peak_metrics(freq, t, c1, c2)
+    _assert_bit_equal(got, _metrics_plain(freq, t, c1, c2))
+    four = pk.batched_dip_qualification(t)
+    _assert_k4_equal(four, _lattice(t), equal_nan=True)
+
+
+def test_peak_metrics_kernel_edges(dev):
+    """An empty batch launches nothing; a grid of another length raises;
+    the dataset's centres (B,) on the CPU are moved to the card."""
+    freq = default_config().data.frequencies
+    before = dict(fk.LAUNCHES)
+    out = pk.batched_peak_metrics(freq, torch.zeros((0, 250), device=dev))
+    assert out.shape == (0, 8) and fk.LAUNCHES == before
+    t = _spectra("synthetic", 64, 250, dev, seed=2)
+    with pytest.raises(ValueError, match="freq"):
+        pk.batched_peak_metrics(freq[:-1], t)
+    c = torch.full((64,), 1.1)
+    got = pk.batched_peak_metrics(freq, t, c, c + 1.0)
+    _assert_bit_equal(got, _metrics_plain(freq.to(dev), t, c.to(dev), c.to(dev) + 1.0))
 
 
 def test_card_metrics_match_cpu(dev):
