@@ -6,9 +6,14 @@ kernel), trains N independent GAN members against it with gradients through
 the frozen F and the cosine horizon set to the budget, all members in ONE
 member-packed kernel launch per chunk (or, with --unpacked, one solo launch
 per member and chunk), scores every member and the ensemble mean, and prints
-one JSON line.
+one JSON line.  With --holdout the members train on an 800-cell split
+(validation fraction 0.2, split seed 9, the port's ``split_dataset``) and the
+held-out 200 cells are scored too: the honest protocol of
+examples/seed_search.py --holdout (its split is the JAX package's own, not
+this one).
 
     python examples/torch_seed_ensemble.py --members 4 --epochs 500
+    python examples/torch_seed_ensemble.py --members 4 --epochs 500 --holdout
     python examples/torch_seed_ensemble.py --device cpu --members 2 \
         --epochs 2 --fwd-epochs 2        # the kernels' plain versions
 
@@ -29,7 +34,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch
 
 from pigan_thz_torch import apply_overrides, default_config
-from pigan_thz_torch.data import synthetic_dataset
+from pigan_thz_torch.data import split_dataset, synthetic_dataset
 from pigan_thz_torch.ops._cuda_build import launch_counts
 from pigan_thz_torch.parallel.ensemble import evaluate_ensemble, evaluate_ensemble_mean
 from pigan_thz_torch.parallel.ensemble_megakernel import train_seed_ensemble
@@ -51,6 +56,8 @@ def main() -> int:
                     help="config override, e.g. data.num_samples=128")
     ap.add_argument("--save", metavar="PATH",
                     help="write the members' stacked buffers and the frozen F (torch.save)")
+    ap.add_argument("--holdout", action="store_true",
+                    help="train on an 800-cell split; also score the held-out cells")
     args = ap.parse_args()
 
     device = torch.device(args.device)
@@ -66,6 +73,10 @@ def main() -> int:
     # would stop a longer run's members short, or never decay a shorter one's
     cfg = cfg.replace(train=dataclasses.replace(cfg.train, num_epochs=args.epochs))
     ds = synthetic_dataset(cfg.data, device=device)
+    heldout = None
+    if args.holdout:
+        ds, heldout = split_dataset(ds, val_frac=0.2,
+                                    generator=torch.Generator().manual_seed(9))
     engine = "auto" if device.type == "cuda" else "kernel"
     trainer = Trainer(cfg, ds=ds, epochs_per_call=args.epochs_per_call, engine=engine,
                       device=device)
@@ -86,6 +97,14 @@ def main() -> int:
     spe = max(1, ds.num_samples // cfg.train.batch_size)
     ev = {k: v.tolist() for k, v in evaluate_ensemble(states, ds).items()}
     mean_ev = {k: float(v) for k, v in evaluate_ensemble_mean(states, ds).items()}
+    scores = {}
+    if heldout is not None:
+        scores = {
+            "heldout_cells": heldout.num_samples,
+            "heldout_member_r2": evaluate_ensemble(states, heldout)["param_r2"].tolist(),
+            "heldout_ensemble_mean_r2": float(
+                evaluate_ensemble_mean(states, heldout)["param_r2"]),
+        }
     if args.save:
         torch.save({"g": states.g_params.cpu(), "d": states.d_params.cpu(),
                     "bn": [t.cpu() for t in states.bn], "f": states.f_params.cpu(),
@@ -94,6 +113,8 @@ def main() -> int:
     print(json.dumps({
         "members": args.members,
         "epochs": args.epochs,
+        "train_cells": ds.num_samples,
+        "steps_per_epoch": spe,
         "packed": not args.unpacked,
         "device": str(device),
         "launches": launch_counts(),
@@ -109,6 +130,7 @@ def main() -> int:
         "ensemble_mean_r2": mean_ev["param_r2"],
         "ensemble_mean_recon_mse": mean_ev["recon_mse"],
         "member_spread": mean_ev["member_spread"],
+        **scores,
         "ok": bool(all(x > 0.5 for x in ev["param_r2"])),
     }))
     return 0

@@ -11,6 +11,7 @@ Commands:
   pretrain-forward  train the forward surrogate           (pretrain_fwd_model.py)
   train             forward_only | pigan_only | full      (unified_trainer.py)
   program           progressive | emergency | finetune    (metric-gated pipelines)
+  evaluate          the four suites + the target report   (unified_evaluator.py)
 
 ``pretrain-forward`` writes ``forward_model_pretrained.pth`` (F's torch
 state_dict) and ``model_config.json`` under ``--out``; ``train`` writes the
@@ -27,9 +28,23 @@ writes the finals (with ``generator_<name>.pth`` etc. beside them) and
 ``final_eval.json`` in the run directory.  The training commands take
 ``--engine auto|eager|kernel`` (the Trainer's engine rule: on the card
 ``auto`` is the training kernels or an error, never the eager step).  Of
-``train``'s flags, ``--holdout``, ``--checkpoint-dir`` and ``--plot`` raise
-until what they need is ported.  The other commands of the JAX package are
-not ported yet (ROADMAP.md queue 1, item 11).
+``train``'s flags, ``--checkpoint-dir`` raises until what it needs is
+ported.  ``train --holdout FRAC --holdout-seed N`` trains on the (1 - FRAC)
+split and writes ``holdout_eval.json`` (train vs held-out rows) in the run
+directory; ``evaluate --holdout`` with the same pair scores the same held-out
+cells.  The split is the port's own (``torch.randperm`` from a CPU generator
+seeded with N): the same pair reproduces it within the port, not the JAX
+package's split for that seed.
+
+``evaluate --models DIR`` rebuilds the saved architectures from
+``model_config.json``, loads the final trio and prints the unified report;
+on synthetic data (no ``--csv``) it adds the noise ceilings and the
+clean-oracle scores (``evaluate/ceilings.py``) and the ceiling-adjusted
+rating, and writes ``unified_evaluation_report.txt`` beside the models.
+``--suite X`` runs one suite and prints its rubric; ``--json`` writes the
+results; ``--plot`` (and ``train --plot``) writes the figures and needs
+matplotlib.  The other commands of the JAX package are not ported yet
+(ROADMAP.md queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -86,6 +101,55 @@ def _make_cfg(args) -> PiGanConfig:
         cfg = apply_overrides(cfg, [f"train.seed={args.seed}", f"data.seed={args.seed}"])
     cfg = apply_overrides(cfg, args.set)
     return cfg.replace(workdir=args.workdir)
+
+
+def _overlay_model_config_dir(
+    cfg: PiGanConfig, directory: str, user_set: List[str]
+) -> PiGanConfig:
+    """Merge <directory>/model_config.json (written by the save paths) into
+    cfg so consumers rebuild the saved run's architectures; explicit user
+    --set overrides for model sections still win."""
+    from .config import dict_to_overrides
+    from .train import checkpoint as ckpt
+
+    saved = ckpt.load_model_config(directory)
+    if saved is None:
+        return cfg
+    prefixes = tuple(f"{s}." for s in saved)
+    user = [o for o in user_set if o.partition("=")[0].strip().startswith(prefixes)]
+    return apply_overrides(cfg, dict_to_overrides(saved) + user)
+
+
+def _split_holdout(cfg: PiGanConfig, csv_path, frac: float, seed: int, device):
+    """Shuffled (train, held-out) split of the configured dataset, the
+    honest protocol of examples/holdout_eval.py.  The same (frac, seed) at
+    train and evaluate time reproduces the identical split."""
+    from .data.dataset import load_or_synthesize, split_dataset
+
+    full = load_or_synthesize(cfg.data, csv_path, device=device)
+    return split_dataset(full, val_frac=frac, generator=torch.Generator().manual_seed(seed))
+
+
+def _holdout_row(ev: dict) -> dict:
+    return {
+        "param_r2": round(ev["pigan_evaluation"]["parameter_prediction"]["r2"], 4),
+        "spectrum_r2": round(
+            ev["forward_network_evaluation"]["spectrum_prediction"]["r2"], 4),
+        "metrics_r2": round(
+            ev["forward_network_evaluation"]["metrics_prediction"]["r2"], 4),
+        "cycle": round(ev["model_validation"]["cycle_consistency_error_mean"], 6),
+        "violation_rate": round(
+            ev["structural_prediction_evaluation"]["param_range_violation_rate"], 4),
+    }
+
+
+def _check_plot(args) -> None:
+    """``--plot`` needs matplotlib: say so before any work, not after it."""
+    if getattr(args, "plot", False):
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            raise SystemExit("--plot needs matplotlib, which does not import here")
 
 
 def _device(args) -> torch.device:
@@ -171,9 +235,7 @@ def cmd_pretrain_forward(args) -> int:
 
 # train's flags that wait for a module: flag -> (its "off" value, what it waits for)
 _TRAIN_NOT_PORTED = {
-    "holdout": (0.0, "the evaluator's held-out report (ROADMAP.md queue 1, item 8)"),
     "checkpoint_dir": (None, "CheckpointManager and resume (ROADMAP.md queue 1, item 7)"),
-    "plot": (False, "utils/viz.py (ROADMAP.md queue 1, item 16)"),
 }
 
 
@@ -196,6 +258,7 @@ def cmd_train(args) -> int:
         # fail before training, not at the final save
         raise SystemExit(f"--backup-tag {args.backup_tag!r} collides with a canonical "
                          "artifact name; pick another tag")
+    _check_plot(args)
     cfg = _make_cfg(args)
     device = _device(args)
     # Tie the schedules' horizons to the requested run lengths (the reference
@@ -210,17 +273,26 @@ def cmd_train(args) -> int:
         horizon_overrides.append(f"train.fwd_pretrain_epochs={args.forward_epochs}")
     if horizon_overrides:
         cfg = apply_overrides(cfg, horizon_overrides)
+    if args.mode == "pigan_only" and args.forward_model:
+        # rebuild the pretrained surrogate's architecture from the
+        # model_config.json saved next to it
+        cfg = _overlay_model_config_dir(
+            cfg, os.path.dirname(os.path.abspath(args.forward_model)), args.set)
     from .ops._cuda_build import launch_counts
     from .train import checkpoint as ckpt
     from .train.steps import StepSettings
     from .train.trainer import Trainer
     from .utils.logging import RunLogger
 
+    train_ds = holdout_ds = None
+    if args.holdout:
+        train_ds, holdout_ds = _split_holdout(cfg, args.csv, args.holdout,
+                                              args.holdout_seed, device)
     logger = RunLogger(cfg.workdir, name=f"train_{args.mode}",
                        use_tensorboard=args.tensorboard, use_wandb=args.wandb)
     try:
-        trainer = Trainer(cfg, logger=logger, csv_path=args.csv, device=device,
-                          engine=args.engine)
+        trainer = Trainer(cfg, ds=train_ds, logger=logger, csv_path=args.csv,
+                          device=device, engine=args.engine)
         gan_kw = {}
         if args.preset == "optimized":
             # OptimizedTrainer's GAN-phase loss mix (constraint, window and
@@ -264,6 +336,23 @@ def cmd_train(args) -> int:
             trainer.train_pigan(epochs=args.epochs, settings=settings, **gan_kw)
             trainer.save_final(out, backup_tag=args.backup_tag)
             logger.info(f"saved final models under {out}")
+            if holdout_ds is not None:
+                ev = trainer.evaluator()
+                summary = {
+                    "holdout_frac": args.holdout,
+                    "holdout_seed": args.holdout_seed,
+                    "train": _holdout_row(ev.run_comprehensive_evaluation(trainer.ds)),
+                    "heldout": _holdout_row(ev.run_comprehensive_evaluation(holdout_ds)),
+                }
+                logger.info("held-out evaluation: " + json.dumps(summary))
+                with open(os.path.join(logger.run_dir, "holdout_eval.json"), "w") as fh:
+                    json.dump(summary, fh, indent=2)
+                print(json.dumps(summary, indent=2))
+        if args.plot:
+            from .utils.viz import plot_training_curves
+
+            plot_training_curves(trainer.train_history,
+                                 os.path.join(logger.run_dir, "training_curves.png"))
         logger.info(f"kernel launches: {launch_counts()}")
     finally:
         logger.close()
@@ -306,6 +395,120 @@ def cmd_program(args) -> int:
         logger.info(f"saved final models under {out}")
     finally:
         logger.close()
+    return 0
+
+
+def cmd_evaluate(args) -> int:
+    """The four suites on the saved trio (or one suite with its rubric),
+    the noise ceilings and the clean oracle on synthetic data, the report,
+    the held-out comparison, the JSON and the figures."""
+    import time
+
+    _check_plot(args)
+    cfg = _make_cfg(args)
+    cfg = _overlay_model_config_dir(cfg, args.models, args.set)
+    device = _device(args)
+    from .evaluate import (
+        SUITE_RUBRICS,
+        generate_summary_report,
+        noise_ceilings,
+        oracle_validation,
+    )
+    from .evaluate.evaluator import to_floats
+    from .ops._cuda_build import launch_counts
+    from .train.trainer import Trainer
+
+    holdout = args.holdout
+    if holdout:
+        # honest protocol: evaluate on cells the model never trained on (the
+        # same frac and seed as `train --holdout` reproduce its split)
+        train_split, val_split = _split_holdout(cfg, args.csv, holdout, args.holdout_seed,
+                                                device)
+        trainer = Trainer(cfg, ds=val_split, csv_path=args.csv, device=device)
+    else:
+        train_split = None
+        trainer = Trainer(cfg, csv_path=args.csv, device=device)
+    trainer.load_final(args.models)
+    if args.use_ema and trainer.pigan_state.g_ema is None:
+        raise SystemExit(f"--use-ema: no generator_ema artifact in {args.models}")
+    window = (-1.0, 1.0) if args.violation_window == "sane" else (0.0, 1.0)
+    synthetic_data = args.csv is None  # the oracle and the ceilings need it
+    ds = trainer.ds
+    ev = trainer.evaluator(violation_window=window, use_ema=args.use_ema)
+    if args.suite != "all":
+        # per-suite frontends (the reference's four evaluation CLI wrappers):
+        # graded console rubric and the suite's figure
+        suite_fns = {
+            "forward": lambda: ev.forward_network(ds),
+            "pigan": lambda: ev.pigan(ds),
+            "structural": lambda: ev.structural_prediction(ds),
+            "validation": lambda: ev.model_validation(ds),
+        }
+        res = to_floats(suite_fns[args.suite]())
+        print(SUITE_RUBRICS[args.suite](res))
+        if args.json:
+            with open(args.json, "w") as fh:
+                json.dump(res, fh, indent=2)
+        if args.plot:
+            from .utils import eval_viz
+
+            fname, plot_fn = eval_viz.SUITE_FIGURES[args.suite]
+            path = plot_fn(res, ev.sample_arrays(ds), os.path.join(args.models, fname))
+            print(f"\nfigure saved: {path}")
+        print(f"kernel launches: {launch_counts()}")
+        return 0
+    t0 = time.time()
+    results = ev.run_comprehensive_evaluation(ds)
+    ceilings = oracle = None
+    if synthetic_data:
+        ceilings = noise_ceilings(trainer.cfg.data, device=device)
+        oracle = oracle_validation(ev, ds)
+        results["noise_ceilings"] = ceilings
+        results["oracle_validation"] = oracle
+    results["evaluation_time"] = time.time() - t0
+    report = generate_summary_report(
+        results,
+        save_path=os.path.join(args.models, "unified_evaluation_report.txt"),
+        ceilings=ceilings,
+        oracle=oracle,
+    )
+    print(report)
+    if holdout:
+        comparison = {
+            "holdout_frac": holdout,
+            "holdout_seed": args.holdout_seed,
+            "heldout": _holdout_row(results),
+            "train": _holdout_row(ev.run_comprehensive_evaluation(train_split)),
+        }
+        results["holdout_comparison"] = comparison
+        print("\nholdout comparison (train split vs held-out split):")
+        print(json.dumps(comparison, indent=2))
+    if args.json:
+        with open(args.json, "w") as fh:
+            json.dump(results, fh, indent=2)
+    if args.plot:
+        from .utils import eval_viz
+        from .utils.viz import plot_forward_predictions, plot_gan_comparison
+
+        arrays = ev.sample_arrays(ds)
+        suite_results = {
+            "forward": results["forward_network_evaluation"],
+            "pigan": results["pigan_evaluation"],
+            "structural": results["structural_prediction_evaluation"],
+            "validation": results["model_validation"],
+        }
+        for suite, (fname, plot_fn) in eval_viz.SUITE_FIGURES.items():
+            kw = ({"history": trainer.train_history}
+                  if suite == "pigan" and trainer.train_history else {})
+            plot_fn(suite_results[suite], arrays, os.path.join(args.models, fname), **kw)
+        eval_viz.plot_comprehensive_summary(
+            results, os.path.join(args.models, "evaluation_summary.png"), ceilings=ceilings)
+        # plot_utils-parity sample grids (plot_utils.py:37-161)
+        st = trainer.pigan_state
+        plot_forward_predictions(ds, st.f, os.path.join(args.models, "forward_predictions.png"))
+        plot_gan_comparison(ds, st.g, st.f, os.path.join(args.models, "gan_comparison.png"))
+        print(f"figures saved under {args.models}")
+    print(f"kernel launches: {launch_counts()}")
     return 0
 
 
@@ -365,7 +568,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "(recommended; default reproduces the reference's "
                         "no_grad behaviour)")
     g.add_argument("--holdout", type=float, default=0.0, metavar="FRAC",
-                   help="not ported yet (the held-out report)")
+                   help="train on a (1-FRAC) split and report train vs held-out "
+                        "metrics in holdout_eval.json (the honest protocol)")
+    g.add_argument("--holdout-seed", type=int, default=9,
+                   help="split shuffle seed; reuse at evaluate time to reproduce "
+                        "the identical split")
     g.add_argument("--preset", default=None, choices=["optimized", "scaled"],
                    help="config overlay applied before --set: 'optimized' = the "
                         "reference's OptimizedTrainer config (residual generator, "
@@ -377,7 +584,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "next to the finals (reference *_unified.pth parity)")
     g.add_argument("--out", default=None,
                    help="directory for the artifacts (default <workdir>/saved_models)")
-    g.add_argument("--plot", action="store_true", help="not ported yet (needs utils/viz.py)")
+    g.add_argument("--plot", action="store_true",
+                   help="write training_curves.png in the run directory (needs matplotlib)")
     g.add_argument("--checkpoint-dir", default=None,
                    help="not ported yet (needs CheckpointManager)")
     g.add_argument("--tensorboard", action=argparse.BooleanOptionalAction, default=True,
@@ -397,6 +605,28 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--wandb", action="store_true",
                    help="also log scalars to Weights & Biases (needs the wandb package)")
     g.set_defaults(fn=cmd_program)
+
+    g = sub.add_parser("evaluate", help="run the four evaluation suites")
+    _base_parser(g)
+    g.add_argument("--models", required=True, help="saved_models directory")
+    g.add_argument("--suite", default="all",
+                   choices=["all", "forward", "pigan", "structural", "validation"],
+                   help="run one suite only (parity with the per-suite CLIs)")
+    g.add_argument("--use-ema", action="store_true",
+                   help="evaluate the EMA generator track (requires a "
+                        "'generator_ema' artifact in --models)")
+    g.add_argument("--violation-window", default="parity", choices=["parity", "sane"],
+                   help="parity: reference's [0,1] window on tanh outputs; "
+                        "sane: [-1,1] convention-consistent window")
+    g.add_argument("--holdout", type=float, default=0.0, metavar="FRAC",
+                   help="evaluate on the held-out FRAC split (the same frac and seed "
+                        "as `train --holdout` reproduce that run's split); the report "
+                        "then scores unseen cells, with a train-vs-heldout comparison")
+    g.add_argument("--holdout-seed", type=int, default=9)
+    g.add_argument("--json", default=None, help="also dump results JSON")
+    g.add_argument("--plot", action="store_true",
+                   help="write the suites' figures beside the models (needs matplotlib)")
+    g.set_defaults(fn=cmd_evaluate)
     return p
 
 

@@ -43,6 +43,25 @@ def _std(x: torch.Tensor) -> torch.Tensor:
     return torch.std(x, unbiased=False)
 
 
+def eval_forward(module: nn.Module, *args):
+    """The module's eval-mode forward without gradients; the module is left
+    in the mode it was in."""
+    was_training = module.training
+    module.eval()
+    try:
+        with torch.no_grad():
+            return module(*args)
+    finally:
+        module.train(was_training)
+
+
+def to_floats(results):
+    """A suite's nested dict with every tensor as a Python float."""
+    if isinstance(results, dict):
+        return {k: to_floats(v) for k, v in results.items()}
+    return float(results) if isinstance(results, torch.Tensor) else results
+
+
 class Evaluator:
     """Holds the three trained modules; every suite runs them in eval mode
     without gradients and leaves their training mode as it found it."""
@@ -70,23 +89,14 @@ class Evaluator:
         self.violation_window = violation_window
 
     # -- the modules in eval mode ------------------------------------------
-    def _eval(self, module: nn.Module, *args):
-        was_training = module.training
-        module.eval()
-        try:
-            with torch.no_grad():
-                return module(*args)
-        finally:
-            module.train(was_training)
-
     def _g(self, spectra):
-        return self._eval(self.generator, spectra)
+        return eval_forward(self.generator, spectra)
 
     def _d(self, spectra, params):
-        return self._eval(self.discriminator, spectra, params)
+        return eval_forward(self.discriminator, spectra, params)
 
     def _f(self, params_norm):
-        out = self._eval(self.forward_model, params_norm)
+        out = eval_forward(self.forward_model, params_norm)
         return out[0], out[1]
 
     def _noise(self, ds: ThzDataset, noise) -> torch.Tensor:
@@ -206,9 +216,4 @@ class Evaluator:
             "total_samples": ds.num_samples,
         }
 
-        def to_float(x):
-            if isinstance(x, dict):
-                return {k: to_float(v) for k, v in x.items()}
-            return float(x) if isinstance(x, torch.Tensor) else x
-
-        return to_float(results)
+        return to_floats(results)

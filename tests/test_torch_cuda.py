@@ -1301,3 +1301,57 @@ def test_gan_step_launches_the_batch_row_kernel_as_listed(case, dev, train_ds, t
     gt.gan_ensemble_train(gt.ensemble_buffers(ens), estreams,
                           gt.gan_train_spec(ecfg, esettings))
     assert gt.brow_kernels_enqueued() == want
+
+
+def _nan_equal(a, b) -> bool:
+    a, b = a.cpu(), b.cpu()
+    return bool(torch.equal(torch.isnan(a), torch.isnan(b))
+                and torch.equal(a[~torch.isnan(a)], b[~torch.isnan(b)]))
+
+
+def test_noise_ceilings_on_the_card_equal_the_cpu(dev):
+    """The evaluate path's ceilings: the same CPU draws on both devices, two
+    launches of K4's metrics entry on the card, the metrics equal to the
+    plain versions' (NaN pattern and values), every ceiling within 1e-5."""
+    from pigan_thz_torch.evaluate import ceilings as ce
+
+    data = default_config().data
+    draws = ce.ceiling_draws(data)
+    before = fk.LAUNCHES["dip_qualification"]
+    got, got_metrics = ce.ceilings_from_draws(*(t.to(dev) for t in draws), data.noise_level)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["dip_qualification"] == before + 2
+    want, want_metrics = ce.ceilings_from_draws(*draws, data.noise_level)
+    assert all(_nan_equal(g, w) for g, w in zip(got_metrics, want_metrics))
+    assert set(got) == set(want)
+    assert all(abs(got[k] - want[k]) <= 1e-5 for k in want), (got, want)
+    before = fk.LAUNCHES["dip_qualification"]
+    assert ce.noise_ceilings(data, device=dev) == got
+    assert fk.LAUNCHES["dip_qualification"] == before + 2
+
+
+def test_oracle_and_suites_on_the_card_equal_the_cpu(dev, models):
+    """The clean oracle and the four suites on the card against the same
+    modules and dataset tensors on the CPU."""
+    from pigan_thz_torch.evaluate import Evaluator, oracle_validation
+
+    cfg = default_config()
+    ds = synthetic_dataset(cfg.data, device=dev)
+    g, f = models
+    d = build_trio(cfg, device="cpu", generator=torch.Generator().manual_seed(2))[1]
+    cpu_ds = ds._replace(**{k: v.cpu() for k, v in ds._asdict().items()})
+    on_card = Evaluator(*(copy.deepcopy(m).to(dev) for m in (g, d, f)))
+    on_cpu = Evaluator(g, d, f)
+    got = {**on_card.run_comprehensive_evaluation(ds), **oracle_validation(on_card, ds)}
+    want = {**on_cpu.run_comprehensive_evaluation(cpu_ds), **oracle_validation(on_cpu, cpu_ds)}
+
+    def flat(tree, prefix=""):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat(v, f"{prefix}{k}/") if isinstance(v, dict) else {prefix + k: v})
+        return out
+
+    got, want = flat(got), flat(want)
+    assert set(got) == set(want)
+    for k in want:
+        assert abs(got[k] - want[k]) <= 1e-4 * max(1.0, abs(want[k])), (k, got[k], want[k])

@@ -354,8 +354,8 @@ def test_train_command_ties_the_horizon_to_epochs(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag, waits_for", [
-    (["--preset", "optimized"], "residual"), (["--holdout", "0.2"], "evaluator"),
-    (["--checkpoint-dir", "ckpts"], "CheckpointManager"), (["--plot"], "viz")])
+    (["--preset", "optimized"], "residual"),
+    (["--checkpoint-dir", "ckpts"], "CheckpointManager")])
 def test_train_command_guards_what_is_not_ported(flag, waits_for, tmp_path):
     with pytest.raises(NotImplementedError, match=waits_for) as err:
         cli_main(_train_args(tmp_path, *flag))

@@ -37,7 +37,8 @@ for name in names:
 assert len(names) >= 42, names
 for new in ("ops.metrics", "parallel.state_utils", "parallel.ensemble",
             "parallel.ensemble_megakernel", "config_presets", "train.programs",
-            "evaluate", "evaluate.evaluator"):
+            "evaluate", "evaluate.evaluator", "evaluate.ceilings", "evaluate.grading",
+            "evaluate.report", "evaluate.rubrics", "utils.viz", "utils.eval_viz"):
     assert "pigan_thz_torch." + new in names, new
 # the seed-ensemble example: its imports run, its main() does not
 import importlib.util
@@ -47,8 +48,9 @@ spec.loader.exec_module(importlib.util.module_from_spec(spec))
 jax = sorted(m for m in sys.modules if m in ("jax", "flax", "optax", "orbax")
              or m.startswith(("jax.", "jaxlib", "flax.", "optax.", "orbax.")))
 assert not jax, jax
-# the card's machine has no pandas
+# the card's machine has no pandas; matplotlib is imported by the figures only
 assert not any(m == "pandas" or m.startswith("pandas.") for m in sys.modules)
+assert not any(m == "matplotlib" or m.startswith("matplotlib.") for m in sys.modules)
 assert not any(m.startswith("pigan_thz_tpu") for m in sys.modules)
 print("imported", len(names))
 """
@@ -291,7 +293,10 @@ def _imported_roots(path):
     "examples/torch_serving_ablate.py", "examples/torch_serving_cycle.py",
     "examples/torch_gan_times.py", "examples/torch_brow_ablate.py",
     "pigan_thz_torch/ops/brow.py", "pigan_thz_torch/ops/forward_train.py",
-    "examples/torch_forward_times.py"])
+    "examples/torch_forward_times.py", "pigan_thz_torch/evaluate/ceilings.py",
+    "pigan_thz_torch/evaluate/grading.py", "pigan_thz_torch/evaluate/rubrics.py",
+    "pigan_thz_torch/evaluate/report.py", "pigan_thz_torch/utils/viz.py",
+    "pigan_thz_torch/utils/eval_viz.py"])
 def test_source_imports_neither_jax_nor_the_jax_package(path):
     roots = _imported_roots(os.path.join(REPO, path))
     assert not roots & {"jax", "jaxlib", "flax", "optax", "orbax", "pigan_thz_tpu",
