@@ -202,7 +202,26 @@ generator passes (cycle, stability) and noise streams:
     --holdout-seed 9`` (20 K1 + 20 K2 launches) and ``evaluate --holdout``
     with the same pair: the held-out rows equal field by field, printed
     beside the JAX record; (e) ``evaluate --violation-window sane --plot``:
-    violation rate 0 and, where matplotlib imports, the seven figures.
+    violation rate 0 and, where matplotlib imports, the seven figures;
+32. serving completed, on a copy of phase 14's ``--fixed-physics`` trio:
+    (a) the bf16 and int8 cycles (``make_inverse_design_fn(compute_dtype=
+    ...)``) at B = 1, 64, 8192, 65536 beside the fp32 kernel cycle: shapes,
+    finite outputs, params in the box, no kernel launch, their distances
+    from the fp32 cycle printed; int8 within the JAX package's envelope of
+    fp32 where it states it (fresh weights: phase 3's seeded trio, B = 64);
+    each dtype at B = 64 against itself on the CPU; CUDA-event medians of each; the fp32 cycle's latency at B = 1 and 64
+    (median and p99 over 1000 requests); (b) ``export`` in fp32, bf16 and
+    int8 (written on the CPU), with ``--pallas`` (the kernels' custom ops)
+    and ``--artifact ensemble`` from phase 17's saved members: each artifact
+    loaded with ``load_exported`` on the card and held against the
+    in-process function (the ``--pallas`` designer bit for bit, one launch
+    each of K6 and K5 a call), a wrong batch refused; (c) ``screen
+    --candidates 1000000`` with ``--pallas`` and with ``--dtype bfloat16``
+    as typed (in this process): K4 once a chunk and once for the dataset,
+    the top-k valid and sorted, the wall time and bf16's gap in the top
+    FoM1; (d) ``design --target-index 0 --target-index 1 --refine-steps 200
+    --uncertainty`` beside ``--refine-steps 0``: the MSE no higher, the MC
+    std finite and positive.
 
 The ``kernels`` record gives each kernel's launches on the main path, its
 error against its plain version, its time beside the plain version's, the
@@ -230,6 +249,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -504,6 +524,26 @@ HOLDOUT = ("0.2", "9")      # --holdout, --holdout-seed: the 800 / 200 split
 EVAL_KEYS = {"forward_network_evaluation", "pigan_evaluation",
              "structural_prediction_evaluation", "model_validation", "total_samples",
              "noise_ceilings", "oracle_validation", "evaluation_time"}
+# Phase 32, serving completed.  int8 against the fp32 cycle: the JAX
+# package's accuracy contract (tests/test_quantized.py:70-73): params_norm
+# within 0.05, spectrum and metrics within 10 % of their scale, stated on
+# flax-initialised weights and 64 spectra, and held there (phase 3's seeded
+# trio).  A trained G leans on finer features of the spectrum than one step
+# of its int8 rows (a row's range / 127): on a trio trained 150 + 150 epochs
+# the int8 params_norm sit a median 0.046 and up to 0.18 from fp32, as the
+# JAX package's cycle would, whose int8 the port follows to 1e-6
+# (tests/test_torch_quantized.py); so on the trained trio they are printed.  Each dtype
+# at B = 64 against the same dtype on the CPU: fp32 the kernels against their
+# plain versions (CYCLE_TOL); bf16 within the bf16 models' 2e-2 of the
+# largest magnitude (tests/test_torch_bf16.py); int8 the same (its products
+# are exact on both, the fp32 sums around them may move a row's rounding by
+# one step).  Exported artifacts against the in-process function: the
+# --pallas designer bit for bit (the same kernels), the others within 1e-5.
+INT8_PN_TOL, INT8_SCALE_TOL = 0.05, 0.10
+DTYPE_CPU_RTOL = 2e-2
+ARTIFACT_TOL = 1e-5
+LATENCY_REQUESTS = 1000
+SERVING_DTYPES = ("float32", "bfloat16", "int8")
 EVAL_FIGURES = ("forward_network_evaluation.png", "pigan_evaluation.png",
                 "structural_prediction_evaluation.png", "model_validation_evaluation.png",
                 "evaluation_summary.png", "forward_predictions.png", "gan_comparison.png")
@@ -2338,7 +2378,8 @@ def phase17_ensemble(cfg, dev, repo: str, ds_serving, request) -> dict:
         fail("the ensemble mean was not served inside the design box as the members' mean")
     extra = {k: packed["launches"][k] + unpacked["launches"][k] for k in launches}
     return {"launches": launches, "short_launches": extra, "wall": wall, "out": out,
-            "short": (packed["member_steps_per_s"], unpacked["member_steps_per_s"])}
+            "short": (packed["member_steps_per_s"], unpacked["member_steps_per_s"]),
+            "saved": saved}
 
 
 def phase18_k3_times(cfg, dev, ds, f) -> dict:
@@ -3070,6 +3111,292 @@ def phase29_brow_products(cfg, dev, tag: str) -> dict:
             "k1_bf16_step": sums["K1 bf16"]}
 
 
+def served_ok(out, b: int, cfg) -> bool:
+    import torch
+
+    params, spec, met = out
+    lo, hi = cfg.data.param_min, cfg.data.param_max
+    return (tuple(params.shape) == (b, 4) and tuple(spec.shape) == (b, cfg.data.spectrum_dim)
+            and tuple(met.shape) == (b, cfg.data.metrics_dim)
+            and all(t.dtype == torch.float32 and bool(torch.isfinite(t).all()) for t in out)
+            and bool(((params >= lo) & (params <= hi)).all()))
+
+
+def latency_ms(fn, x, requests: int) -> tuple:
+    """(median, p99) ms of ``requests`` requests, each timed on the host from
+    the call to its synchronisation."""
+    import torch
+
+    for _ in range(10):
+        fn(x)
+    torch.cuda.synchronize()
+    t = []
+    for _ in range(requests):
+        t0 = time.perf_counter()
+        fn(x)
+        torch.cuda.synchronize()
+        t.append((time.perf_counter() - t0) * 1e3)
+    t.sort()
+    return statistics.median(t), t[min(len(t) - 1, int(round(0.99 * (len(t) - 1))))]
+
+
+def counted(launches: dict, into: dict, fn, *args):
+    """``fn(*args)`` with the kernels' launch counts around it added to ``into``."""
+    import torch
+
+    before = dict(launches)
+    out = fn(*args)
+    torch.cuda.synchronize()
+    for k in launches:
+        into[k] = into.get(k, 0) + launches[k] - before[k]
+    return out
+
+
+def envelope(got, want, span) -> tuple:
+    """(params_norm max|err|, spectrum and metrics max|err| of their scale)."""
+    return (float((2.0 * (got[0] - want[0]).abs() / span).max()),
+            *(float((g - w).abs().max() / w.abs().max()) for g, w in zip(got[1:], want[1:])))
+
+
+def fmt3(t) -> str:
+    return " / ".join(f"{x:.3e}" for x in t)
+
+
+def phase32_serving(cfg, dev, repo: str, models: str, ds, requests: dict, ensemble_state,
+                    G_seed, F_seed, tag: str) -> dict:
+    """Serving completed, on phase 14's ``--fixed-physics`` trio: the bf16 and
+    int8 cycles at every request batch against the fp32 kernel cycle and the
+    CPU, their times and the fp32 cycle's latency; every ``export`` artifact
+    (``all`` in fp32 / bf16 / int8 written on the CPU, ``--pallas`` written
+    on the card, ``--artifact ensemble`` from phase 17's saved members) loaded
+    on the card and held against the in-process function; ``screen
+    --candidates 1000000`` with ``--pallas`` and with ``--dtype bfloat16``;
+    ``design --refine-steps 200 --uncertainty``.  Returns its main-path
+    launches and its numbers."""
+    import torch
+    from pigan_thz_torch import cli
+    from pigan_thz_torch.design import ScreeningConfig
+    from pigan_thz_torch.models import build_trio
+    from pigan_thz_torch.ops._cuda_build import LAUNCHES
+    from pigan_thz_torch.serve import (
+        load_exported, make_ensemble_inverse_design_fn, make_inverse_design_fn)
+    from pigan_thz_torch.train import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    main = {}                       # the phase's main-path launches
+    G, D, F = build_trio(cfg, device="cpu")
+    ckpt.load_final_trio(models, G, D, F)
+    G_cpu, F_cpu = G.eval(), F.eval()
+    G_dev, F_dev = copy.deepcopy(G).to(dev).eval(), copy.deepcopy(F).to(dev).eval()
+    ds_cpu = type(ds)(*(t.cpu() for t in ds))
+    kw = {"float32": None, "bfloat16": torch.bfloat16, "int8": "int8"}
+    fns = {d: make_inverse_design_fn(G_dev, F_dev, ds, compute_dtype=kw[d])
+           for d in SERVING_DTYPES}
+    span = (ds.param_hi - ds.param_lo)
+
+    # (a) the cycles at every request batch
+    out, distances = {}, {}
+    for b, x in requests.items():
+        for d, fn in fns.items():
+            before = dict(LAUNCHES)
+            out[(d, b)] = counted(LAUNCHES, main, fn, x)
+            k5 = LAUNCHES["fused_mlp_forward"] - before["fused_mlp_forward"]
+            k6 = LAUNCHES["fused_dense_chain"] - before["fused_dense_chain"]
+            if (k5, k6) != ((1, 1) if d == "float32" else (0, 0)):
+                fail(f"serving {d} at B={b} launched K5 {k5} and K6 {k6} times")
+            if not served_ok(out[(d, b)], b, cfg):
+                fail(f"serving {d} at B={b}: shapes, finiteness or params outside the box")
+        dist = {d: envelope(out[(d, b)], out[("float32", b)], span)
+                for d in ("bfloat16", "int8")}
+        distances[str(b)] = dist
+        print(f"serving B={b} on the trained trio: bf16 and int8 finite, params in the box; "
+              f"from the fp32 kernel cycle (params_norm, spectrum and metrics of their "
+              f"scale): bf16 {fmt3(dist['bfloat16'])}, int8 {fmt3(dist['int8'])} (printed, "
+              f"not gated: the JAX package states its int8 envelope on fresh weights)")
+    # the JAX package's int8 contract where it states it (tests/test_quantized.py:
+    # 56-73: flax-initialised weights, 64 spectra): phase 3's seeded trio
+    fresh = {d: make_inverse_design_fn(G_seed, F_seed, ds, compute_dtype=kw[d])(requests[64])
+             for d in ("float32", "int8")}
+    pn_err, s_err, m_err = envelope(fresh["int8"], fresh["float32"], span)
+    print(f"serving int8 B=64 on phase 3's seeded trio: params_norm {pn_err:.3e} from the "
+          f"fp32 kernel cycle (tol {INT8_PN_TOL}), spectrum {s_err:.3e} and metrics "
+          f"{m_err:.3e} of their scale (tol {INT8_SCALE_TOL})")
+    if not (pn_err < INT8_PN_TOL and s_err < INT8_SCALE_TOL and m_err < INT8_SCALE_TOL):
+        fail("int8 serving is outside the JAX package's envelope of fp32")
+    x64 = requests[64]
+    for d in SERVING_DTYPES:
+        want = make_inverse_design_fn(G_cpu, F_cpu, ds_cpu, compute_dtype=kw[d])(x64.cpu())
+        errs = [float((a.cpu() - w).abs().max() / (w.abs().max() if d != "float32" else 1.0))
+                for a, w in zip(out[(d, 64)], want)]
+        tol = CYCLE_TOL if d == "float32" else DTYPE_CPU_RTOL
+        unit = "max|err|" if d == "float32" else "of the largest magnitude"
+        print(f"serving {d} B=64 against {d} on the CPU: params {errs[0]:.3e}, spectrum "
+              f"{errs[1]:.3e}, metrics {errs[2]:.3e} ({unit}, tol {tol})")
+        if not max(errs) <= tol:
+            fail(f"serving {d} on the card disagrees with the CPU")
+
+    # times: CUDA-event medians of each dtype beside the fp32 kernel cycle,
+    # and the fp32 cycle's latency
+    times = {}
+    with torch.inference_mode():
+        for b, x in requests.items():
+            row = {d: cuda_median_ms(fns[d], x) for d in SERVING_DTYPES}
+            row["float32 again"] = cuda_median_ms(fns["float32"], x)
+            times[str(b)] = row
+            print(f"time {tag} serving B={b}: fp32 kernels {row['float32']:.4f} / "
+                  f"{row['float32 again']:.4f} ms, bf16 {row['bfloat16']:.4f} ms, int8 "
+                  f"{row['int8']:.4f} ms (CUDA-event medians of 50 after 10 warm-up)")
+    latency = {}
+    for b in (1, 64):
+        med, p99 = latency_ms(fns["float32"], requests[b], LATENCY_REQUESTS)
+        latency[str(b)] = {"median_ms": med, "p99_ms": p99}
+        print(f"time {tag} serving fp32 latency B={b}: median {med:.4f} ms, p99 {p99:.4f} ms "
+              f"over {LATENCY_REQUESTS} requests (host clock, call to synchronisation)")
+
+    # (b) every export artifact, loaded and run on the card
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    try:
+        t0 = time.perf_counter()
+        for d in SERVING_DTYPES:
+            counted(LAUNCHES, main, cli.main, ["export", "--models", models, "--dtype", d,
+                                               "--batch-size", "64", "--device", "cpu",
+                                               "--out", os.path.join(tmp, d)])
+        counted(LAUNCHES, main, cli.main, ["export", "--models", models, "--pallas",
+                                           "--batch-size", "64", "--out",
+                                           os.path.join(tmp, "pallas")])
+        torch.save(ensemble_state, os.path.join(models, cli.ENSEMBLE_FILE))
+        counted(LAUNCHES, main, cli.main, ["export", "--models", models, "--artifact",
+                                           "ensemble", "--ensemble-members", str(K3_MEMBERS),
+                                           "--batch-size", "64", "--out",
+                                           os.path.join(tmp, "ensemble")])
+        export_wall = time.perf_counter() - t0
+        modules = make_inverse_design_fn(G_dev, F_dev, ds, use_pallas=False)
+        gens, f_ens = cli._load_ensemble(cfg, models, K3_MEMBERS, dev)
+        ens = make_ensemble_inverse_design_fn(gens, f_ens, ds)
+        pn64 = torch.rand((64, 4), generator=torch.Generator(device=dev).manual_seed(5),
+                          device=dev) * 2 - 1
+        checks = []
+        for d in (*SERVING_DTYPES, "pallas", "ensemble"):
+            folder = os.path.join(tmp, d)
+            for name in sorted(os.listdir(folder)):
+                fn = load_exported(os.path.join(folder, name), device=dev)
+                inp = pn64 if name == "surrogate.pt2" else x64
+                before = dict(LAUNCHES)
+                got = counted(LAUNCHES, main, fn, inp)
+                k = {n: LAUNCHES[n] - before[n] for n in ("fused_dense_chain",
+                                                          "fused_mlp_forward")}
+                got = got if isinstance(got, tuple) else (got,)
+                if name == "designer.pt2":
+                    want = (fns["float32"] if d == "pallas" else
+                            modules if d == "float32" else fns[d])(x64)
+                elif name == "ensemble_designer.pt2":
+                    want = ens(x64)
+                elif name == "generator.pt2":
+                    want = ((modules if d != "bfloat16" else fns[d])(x64)[0],)
+                else:
+                    want = artifact_surrogate(F_dev, d, pn64)
+                if d == "pallas" and name != "generator.pt2":
+                    ok = all(torch.equal(a, w) for a, w in zip(got, want))
+                    err = 0.0 if ok else float("inf")
+                    if k != {"fused_dense_chain": int(name == "designer.pt2"),
+                             "fused_mlp_forward": 1}:
+                        fail(f"--pallas {name}: one call launched {k}")
+                else:
+                    err = max(float((a - w).abs().max()) / max(1.0, float(w.abs().max()))
+                              for a, w in zip(got, want))
+                    ok = err <= ARTIFACT_TOL and k == {"fused_dense_chain": 0,
+                                                       "fused_mlp_forward": 0}
+                try:
+                    fn(inp[:63])
+                    ok = False
+                except ValueError:
+                    pass
+                size = os.path.getsize(os.path.join(folder, name)) / 1e6
+                checks.append((f"{d}/{name}", err, k))
+                print(f"export {d}/{name} ({size:.1f} MB, written on the "
+                      f"{'card' if d in ('pallas', 'ensemble') else 'CPU'}): loaded on the "
+                      f"card, {'bit for bit' if d == 'pallas' and name != 'generator.pt2' else f'max|err| {err:.3e} (tol {ARTIFACT_TOL})'} "
+                      f"against the in-process function, launches a call {k}, a batch of 63 "
+                      f"refused: {ok}")
+                if not ok:
+                    fail(f"the exported {d}/{name} disagrees with the in-process function")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (c) the 1e6 screen as typed, fused and in bf16
+    sc = ScreeningConfig()
+    n_chunks = -(-sc.num_candidates // sc.chunk_size)
+    screens = {}
+    for label, extra in (("--pallas", ["--pallas"]), ("--dtype bfloat16",
+                                                      ["--dtype", "bfloat16"])):
+        path = os.path.join(models, "screening_results.json")
+        before = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        counted(LAUNCHES, main, cli.main, ["screen", "--models", models, "--candidates",
+                                           str(sc.num_candidates), "--out", path, *extra])
+        wall = time.perf_counter() - t0
+        k = {n: LAUNCHES[n] - before[n] for n in ("dip_qualification", "fused_mlp_forward")}
+        with open(path) as fh:
+            rows = json.load(fh)["designs"]
+        scores = [r["score"] for r in rows]
+        ok = (len(rows) == sc.top_k and all(a >= b for a, b in zip(scores, scores[1:]))
+              and all(cfg.data.param_min <= r[n] <= cfg.data.param_max for r in rows
+                      for n in ("r1", "r2", "w", "g")))
+        screens[label] = {"wall_s": wall, "top": scores[0], "launches": k}
+        print(f"screen {label} as typed: {sc.num_candidates} candidates, {wall:.3f} s wall "
+              f"for the command in this process, K4 {k['dip_qualification']} launches "
+              f"({n_chunks} chunks + the dataset), K5 {k['fused_mlp_forward']}; "
+              f"{len(rows)} winners sorted in the box: {ok}; top FoM1 {scores[0]:.6g}")
+        want_k5 = n_chunks if label == "--pallas" else 0
+        if not ok or k != {"dip_qualification": n_chunks + 1, "fused_mlp_forward": want_k5}:
+            fail(f"screen {label}: launches {k} or its top-k is not valid and sorted")
+    gap = (screens["--pallas"]["top"] - screens["--dtype bfloat16"]["top"]) / abs(
+        screens["--pallas"]["top"])
+    print(f"screen: bf16's top FoM1 {gap:+.3e} of fp32's (relative gap)")
+
+    # (d) design, refined and not, with MC dropout
+    designs = {}
+    for steps in (0, 200):
+        path = os.path.join(models, f"design_{steps}.json")
+        counted(LAUNCHES, main, cli.main, [
+            "design", "--models", models, "--target-index", "0", "--target-index", "1",
+            "--refine-steps", str(steps), "--uncertainty", "--out", path])
+        with open(path) as fh:
+            designs[steps] = json.load(fh)["designs"]
+    for i, (a, b) in enumerate(zip(designs[0], designs[200])):
+        ok = (b["spectrum_mse"] <= a["spectrum_mse"]
+              and all(0.0 < r[k] < float("inf") for r in (a, b)
+                      for k in ("spectrum_std_mean", "metrics_std_mean")))
+        print(f"design --target-index {i} --refine-steps 200 --uncertainty: spectrum_mse "
+              f"{a['spectrum_mse']:.6g} -> {b['spectrum_mse']:.6g}, std of the spectrum "
+              f"{b['spectrum_std_mean']:.4g}, of the metrics {b['metrics_std_mean']:.4g}: {ok}")
+        if not ok:
+            fail("design: refinement raised the MSE or the MC-dropout std is not positive")
+    wall = time.perf_counter() - t_phase
+    print(f"phase 32: main-path launches {main}; {wall:.1f} s")
+    return {"launches": main, "times": times, "latency": latency, "screens": screens,
+            "screen_bf16_gap": gap, "export_wall_s": export_wall, "distances": distances,
+            "int8_fresh_envelope": (pn_err, s_err, m_err),
+            "design": {k: v for k, v in designs.items()}, "wall_s": wall}
+
+
+def artifact_surrogate(F, d: str, pn):
+    """What a surrogate artifact of kind ``d`` computes, in this process."""
+    import torch
+    from pigan_thz_torch.models.blocks import bf16_twin
+    from pigan_thz_torch.ops import fused_kernels as fk
+    from pigan_thz_torch.ops import quantized
+
+    with torch.inference_mode():
+        if d == "pallas":
+            return fk.forward_surrogate_fused(fk.pack_forward_model(F, pn.device), pn)
+        if d == "int8":
+            return quantized.int8_forward_apply(quantized.quantize_forward(F), pn,
+                                                F.spectrum_dim)
+        module = bf16_twin(F) if d == "bfloat16" else F
+        return tuple(t.float() for t in module(pn))
+
+
 def run_slice7_phases(cfg, dev, repo: str, ds_serving, request, train_ds, f_k2,
                       tag: str, fixed_run: dict) -> dict:
     """Phases 23 to 28: WGAN-GP and bfloat16 operands through K1, K2 and K3,
@@ -3428,9 +3755,17 @@ def main() -> None:
 
     # -- 14. the training command, as typed and with --fixed-physics ----------
     # -- 31. the evaluation entry point, on the --fixed-physics trio ------------
+    # -- 32 runs later on a copy of the --fixed-physics trio ----------------------
+    kept = tempfile.mkdtemp(prefix="chip_smoke_trio_")
+    serving_models = os.path.join(kept, "saved_models")
+
+    def on_fixed_trio(out):
+        shutil.copytree(out, serving_models)
+        return phase31_evaluate(cfg, dev, repo, out, tag)
+
     trains = {fixed: phase14_train(
         cfg, dev, repo, ds, requests[64], train_ds, fixed,
-        then=(lambda out: phase31_evaluate(cfg, dev, repo, out, tag)) if fixed else None)
+        then=on_fixed_trio if fixed else None)
         for fixed in (False, True)}
     evaluation = trains[True]["then"]
 
@@ -3490,6 +3825,15 @@ def main() -> None:
 
     # -- 29. the batch-row products of K2 and K3 -----------------------------------
     brow = phase29_brow_products(cfg, dev, tag)
+
+    # -- 32. serving completed: the dtypes, the artifacts, screen, design ----------
+    reset_launches(_cuda_build.LAUNCHES)
+    try:
+        serving = phase32_serving(cfg, dev, repo, serving_models, ds, requests,
+                                  ensemble["saved"], G, F, tag)
+    finally:
+        shutil.rmtree(kept, ignore_errors=True)
+    sv = serving["launches"]
 
     # -- the record -------------------------------------------------------------
     # bound_ms: operations over the fp32 peak against bytes moved once over the
@@ -3597,7 +3941,8 @@ def main() -> None:
           f"--fixed-physics {tl}, torch_seed_ensemble at {GAN_EPOCHS} epochs and twice at "
           f"{ENSEMBLE_SHORT_EPOCHS} {el}, run_program(emergency_phases()), program "
           f"{' | '.join(PROGRAMS)} and train --preset optimized {pl}, phase 31's evaluate "
-          f"commands and train --holdout {evaluation['launches']}")
+          f"commands and train --holdout {evaluation['launches']}, phase 32's serving "
+          f"paths and commands {sv}")
     ev_l = evaluation["launches"]
 
     def bounds(name):
@@ -3634,7 +3979,11 @@ def main() -> None:
         {"name": "fused_mlp_forward", "route": "cuda",
          "source": "pigan_thz_torch/csrc/fused_mlp_chain.cu",
          "replaces": "pigan_thz_tpu/ops/pallas_kernels.py:73",
-         "launches": launches["fused_mlp_forward"] + k5_screen,
+         "launches": launches["fused_mlp_forward"] + k5_screen + sv["fused_mlp_forward"],
+         "launches_serving_completed": sv["fused_mlp_forward"],
+         "serving": {k: serving[k] for k in ("times", "latency", "screens",
+                                             "screen_bf16_gap", "export_wall_s",
+                                             "distances", "int8_fresh_envelope")},
          "max_abs_err": max_err["fused_mlp_forward"],
          "ms": times[("fused_mlp_forward", big)][0],
          "plain_ms": times[("fused_mlp_forward", big)][1],
@@ -3644,7 +3993,8 @@ def main() -> None:
         {"name": "fused_dense_chain", "route": "cuda",
          "source": "pigan_thz_torch/csrc/fused_mlp_chain.cu",
          "replaces": "pigan_thz_tpu/ops/pallas_kernels.py:185",
-         "launches": launches["fused_dense_chain"],
+         "launches": launches["fused_dense_chain"] + sv["fused_dense_chain"],
+         "launches_serving_completed": sv["fused_dense_chain"],
          "max_abs_err": max_err["fused_dense_chain"],
          "ms": times[("fused_dense_chain", big)][0],
          "plain_ms": times[("fused_dense_chain", big)][1],
@@ -3655,7 +4005,9 @@ def main() -> None:
          "source": "pigan_thz_torch/csrc/dip_qualification.cu",
          "replaces": "pigan_thz_tpu/ops/peaks.py:306",
          "launches": dataset_k4 + k4_screen + tl["dip_qualification"]
-         + el["dip_qualification"] + pl["dip_qualification"] + ev_l["dip_qualification"],
+         + el["dip_qualification"] + pl["dip_qualification"] + ev_l["dip_qualification"]
+         + sv["dip_qualification"],
+         "launches_serving_completed": sv["dip_qualification"],
          "launches_evaluate_path": ev_l["dip_qualification"],
          "evaluate": {k: evaluation[k] for k in ("ceilings", "eval_ms", "ceilings_oracle_ms",
                                                  "adjusted", "walls", "heldout", "plot")},

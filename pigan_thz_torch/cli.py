@@ -12,6 +12,9 @@ Commands:
   train             forward_only | pigan_only | full      (unified_trainer.py)
   program           progressive | emergency | finetune    (metric-gated pipelines)
   evaluate          the four suites + the target report   (unified_evaluator.py)
+  screen            batched inverse-design screening      (1e6 candidates, top-k)
+  design            inverse design for target spectra     (G + refinement + F check)
+  export            torch.export serving artifacts        (.pt2, weights baked in)
 
 ``pretrain-forward`` writes ``forward_model_pretrained.pth`` (F's torch
 state_dict) and ``model_config.json`` under ``--out``; ``train`` writes the
@@ -43,8 +46,24 @@ clean-oracle scores (``evaluate/ceilings.py``) and the ceiling-adjusted
 rating, and writes ``unified_evaluation_report.txt`` beside the models.
 ``--suite X`` runs one suite and prints its rubric; ``--json`` writes the
 results; ``--plot`` (and ``train --plot``) writes the figures and needs
-matplotlib.  The other commands of the JAX package are not ported yet
-(ROADMAP.md queue 1, item 11).
+matplotlib.
+
+The serving commands read the saved models with the same overlay.
+``screen --models DIR`` screens ``--candidates`` random designs with F
+(``forward_model_pretrained.pth`` if it is there, else
+``forward_model_final.pth``) and writes ``screening_results.json``
+(``--pallas``: the fused surrogate kernel; ``--dtype bfloat16``: F's bf16
+twin; not both).  ``design --models DIR`` designs for dataset rows
+(``--target-index``, repeatable) or a ``.npy`` / CSV file of spectra
+(``--target-file``), with ``--refine-steps`` of surrogate-gradient
+refinement and ``--uncertainty`` (MC dropout).  ``export --models DIR``
+writes ``torch.export`` programs (``.pt2``, loaded by
+``serve.load_exported``): the designer, the generator and the surrogate in
+fp32, bf16 or int8, ``--pallas`` for the fused-kernel designer and
+surrogate, or ``--artifact ensemble`` from the ``ensemble_best.pt`` that
+``examples/torch_seed_ensemble.py --save`` writes.  Of the JAX package's
+other commands, ``cache-data``, ``profile``, ``doctor`` and ``bench`` are
+not ported yet (ROADMAP.md queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -512,6 +531,203 @@ def cmd_evaluate(args) -> int:
     return 0
 
 
+def _load_forward_model(cfg: PiGanConfig, models: str, device):
+    """F from ``models``: ``forward_model_pretrained`` if it is there, else
+    ``forward_model_final``; eval mode, on ``device``."""
+    from .models.registry import build_forward_model
+    from .train import checkpoint as ckpt
+
+    d = cfg.data
+    f = build_forward_model(cfg.forward_model, d.spectrum_dim, d.metrics_dim, d.param_dim,
+                            device="cpu")
+    name = (ckpt.FORWARD_MODEL_PRETRAINED
+            if ckpt.exists(models, ckpt.FORWARD_MODEL_PRETRAINED) else ckpt.FORWARD_MODEL_FINAL)
+    ckpt.load_model(models, name, f)
+    return f.to(device).eval()
+
+
+ENSEMBLE_FILE = "ensemble_best.pt"
+
+
+def _load_ensemble(cfg: PiGanConfig, models: str, members: int, device):
+    """The members' generators and the shared F from ``<models>/ensemble_best.pt``,
+    the stacked state ``examples/torch_seed_ensemble.py --save`` writes."""
+    from .models.registry import build_forward_model, build_generator
+
+    path = os.path.join(models, ENSEMBLE_FILE)
+    if not os.path.isfile(path):
+        raise SystemExit(f"--artifact ensemble: no {ENSEMBLE_FILE} in {models} "
+                         "(examples/torch_seed_ensemble.py --save writes one)")
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    if saved["g"].shape[0] != members:
+        raise SystemExit(f"--ensemble-members {members}: {path} holds "
+                         f"{saved['g'].shape[0]} members")
+    d = cfg.data
+    gens = []
+    with torch.no_grad():
+        for m in range(members):
+            g = build_generator(cfg.generator, d.spectrum_dim, d.param_dim, device="cpu")
+            torch.nn.utils.vector_to_parameters(saved["g"][m], g.parameters())
+            norms = [mod for mod in g.modules() if isinstance(mod, torch.nn.BatchNorm1d)]
+            for j, bn in enumerate(norms):
+                bn.running_mean.copy_(saved["bn"][2 * j][m])
+                bn.running_var.copy_(saved["bn"][2 * j + 1][m])
+            gens.append(g.to(device).eval())
+        f = build_forward_model(cfg.forward_model, d.spectrum_dim, d.metrics_dim, d.param_dim,
+                                device="cpu")
+        torch.nn.utils.vector_to_parameters(saved["f"], f.parameters())
+    return gens, f.to(device).eval()
+
+
+def cmd_screen(args) -> int:
+    """Screen ``--candidates`` random designs with the saved F; the top-k
+    to ``screening_results.json``."""
+    if args.pallas and args.dtype == "bfloat16":
+        # before any model load or device work
+        raise SystemExit("--pallas supports float32 only; drop --dtype")
+    if args.mesh_data > 1:
+        raise NotImplementedError("--mesh-data > 1 is not ported yet: screening over ranks "
+                                  "waits for ROADMAP.md queue 1, item 14")
+    import time
+
+    cfg = _make_cfg(args)
+    cfg = _overlay_model_config_dir(cfg, args.models, args.set)
+    device = _device(args)
+    from .data.dataset import load_or_synthesize
+    from .design import ScreeningConfig, screen_designs
+    from .ops._cuda_build import launch_counts
+
+    ds = load_or_synthesize(cfg.data, args.csv, device=device)
+    f = _load_forward_model(cfg, args.models, device)
+    sc = ScreeningConfig(
+        num_candidates=args.candidates, top_k=args.top_k, objective=args.objective,
+        chunk_size=args.chunk_size, use_pallas=args.pallas, compute_dtype=args.dtype,
+    )
+    t0 = time.perf_counter()
+    res = screen_designs(f, ds.frequencies, ds.param_lo, ds.param_hi,
+                         torch.Generator(device=device).manual_seed(cfg.train.seed), sc)
+    valid = res.valid.tolist()             # waits for the screen
+    wall = time.perf_counter() - t0
+    scores, params = res.scores.tolist(), res.params.tolist()
+    rows = [{"rank": i + 1, "score": scores[i],
+             **dict(zip(("r1", "r2", "w", "g"), params[i]))}
+            for i in range(args.top_k) if valid[i]]    # the rest: filler rows
+    out = args.out or "screening_results.json"
+    with open(out, "w") as fh:
+        json.dump({"objective": args.objective, "designs": rows}, fh, indent=2)
+    print(f"screened {args.candidates} candidates in {wall:.3f} s; top-{args.top_k} -> {out}")
+    print(json.dumps(rows[:3], indent=2))
+    print(f"kernel launches: {launch_counts()}")
+    return 0
+
+
+def cmd_design(args) -> int:
+    """Inverse design for specific target spectra: G's prediction and the
+    surrogate's check, optional gradient refinement and MC-dropout
+    uncertainty."""
+    cfg = _make_cfg(args)
+    cfg = _overlay_model_config_dir(cfg, args.models, args.set)
+    device = _device(args)
+    import numpy as np
+
+    from .design import InverseDesigner
+    from .ops._cuda_build import launch_counts
+    from .train.trainer import Trainer
+
+    trainer = Trainer(cfg, csv_path=args.csv, device=device)
+    trainer.load_final(args.models)
+    st = trainer.pigan_state
+    designer = InverseDesigner(st.g, st.f, trainer.ds)
+    if args.target_file:
+        raw = (np.load(args.target_file) if args.target_file.endswith(".npy")
+               else np.loadtxt(args.target_file, delimiter=","))
+        spectra = torch.as_tensor(np.asarray(raw, np.float32), device=device).reshape(
+            -1, trainer.ds.spectrum_dim)
+    else:
+        spectra = trainer.ds.spectra[torch.as_tensor(args.target_index or [0], device=device)]
+
+    res = designer.design(spectra, refine_steps=args.refine_steps)
+    params, mse = res.params.tolist(), res.spectrum_mse.tolist()
+    rows = [{**dict(zip(("r1", "r2", "w", "g"), params[i])), "spectrum_mse": mse[i]}
+            for i in range(spectra.shape[0])]
+    if args.uncertainty:
+        _, spec_std, _, met_std = designer.uncertainty(
+            spectra, torch.Generator(device=device).manual_seed(cfg.train.seed),
+            params_norm=res.params_norm)
+        for row, s_std, m_std in zip(rows, spec_std.mean(dim=-1).tolist(),
+                                     met_std.mean(dim=-1).tolist()):
+            row["spectrum_std_mean"] = s_std
+            row["metrics_std_mean"] = m_std
+    out = {"refine_steps": args.refine_steps, "designs": rows}
+    print(json.dumps(out, indent=2))
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump(out, fh, indent=2)
+    print(f"kernel launches: {launch_counts()}")
+    return 0
+
+
+def cmd_export(args) -> int:
+    """Serialize trained models as ``torch.export`` serving artifacts
+    (``serve.py``; ``.pt2``, loaded by ``serve.load_exported``)."""
+    if args.pallas and args.dtype != "float32":
+        raise SystemExit("--pallas and --dtype are mutually exclusive "
+                         "(the fused kernels run fp32)")
+    if args.artifact == "ensemble":
+        if not args.ensemble_members or args.ensemble_members < 1:
+            raise SystemExit("--artifact ensemble needs --ensemble-members N (>= 1)")
+        if args.dtype == "int8":
+            raise SystemExit("int8 covers the single-model designer only")
+        if args.use_ema or args.pallas:
+            raise SystemExit("--use-ema / --pallas are single-model options; the ensemble "
+                             "artifact serves the members' saved weights on the portable path")
+    cfg = _make_cfg(args)
+    cfg = _overlay_model_config_dir(cfg, args.models, args.set)
+    device = _device(args)
+    from . import serve
+    from .train import checkpoint as ckpt
+
+    dtype = {"bfloat16": torch.bfloat16, "int8": "int8"}.get(args.dtype)
+    os.makedirs(args.out, exist_ok=True)
+    written = []
+    if args.artifact == "ensemble":
+        from .data.dataset import load_or_synthesize
+
+        ds = load_or_synthesize(cfg.data, args.csv, device=device)
+        gens, f = _load_ensemble(cfg, args.models, args.ensemble_members, device)
+        written.append(serve.export_ensemble_inverse_design(
+            gens, f, ds, os.path.join(args.out, "ensemble_designer.pt2"),
+            batch_size=args.batch_size, compute_dtype=dtype))
+    else:
+        from .train.trainer import Trainer
+
+        trainer = Trainer(cfg, csv_path=args.csv, device=device)
+        trainer.load_final(args.models)
+        st = trainer.pigan_state
+        g = st.g
+        if args.use_ema:
+            if st.g_ema is None:
+                raise SystemExit(f"--use-ema: no 'generator_ema' artifact in {args.models}")
+            g = ckpt.ema_generator(st)
+        ds = trainer.ds
+        if args.artifact in ("designer", "all"):
+            written.append(serve.export_inverse_design(
+                g, st.f, ds, os.path.join(args.out, "designer.pt2"),
+                batch_size=args.batch_size, use_pallas=args.pallas, compute_dtype=dtype))
+        if args.artifact in ("generator", "all"):
+            # int8 covers the designer and the surrogate; bf16 every artifact
+            written.append(serve.export_generator(
+                g, ds, os.path.join(args.out, "generator.pt2"), batch_size=args.batch_size,
+                compute_dtype=None if args.dtype == "int8" else dtype))
+        if args.artifact in ("surrogate", "all"):
+            written.append(serve.export_forward_surrogate(
+                st.f, ds, os.path.join(args.out, "surrogate.pt2"),
+                batch_size=args.batch_size, use_pallas=args.pallas, compute_dtype=dtype))
+    for path in written:
+        print(f"exported {path} ({os.path.getsize(path) / 1e6:.1f} MB)")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="pigan_thz_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -627,6 +843,58 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--plot", action="store_true",
                    help="write the suites' figures beside the models (needs matplotlib)")
     g.set_defaults(fn=cmd_evaluate)
+
+    g = sub.add_parser("screen", help="batched inverse-design screening")
+    _base_parser(g)
+    g.add_argument("--models", required=True, help="saved_models directory (F)")
+    g.add_argument("--candidates", type=int, default=1_000_000)
+    g.add_argument("--top-k", type=int, default=100)
+    g.add_argument("--chunk-size", type=int, default=8192)
+    g.add_argument("--objective", default="FoM1")
+    g.add_argument("--pallas", action="store_true",
+                   help="the surrogate through the fused forward kernel (K5)")
+    g.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                   help="surrogate forward-pass dtype; bfloat16 runs F's bf16 twin "
+                        "(rankings may differ near ties)")
+    g.add_argument("--mesh-data", type=int, default=1,
+                   help="shard candidate batches over N devices (not ported yet)")
+    g.add_argument("--out", default=None, help="results JSON (default screening_results.json)")
+    g.set_defaults(fn=cmd_screen)
+
+    g = sub.add_parser("design", help="inverse design for target spectra")
+    _base_parser(g)
+    g.add_argument("--models", required=True, help="saved_models directory")
+    g.add_argument("--target-index", type=int, action="append", default=None,
+                   help="dataset row(s) to use as targets (repeatable)")
+    g.add_argument("--target-file", default=None,
+                   help=".npy or CSV file of target spectra (rows of S points)")
+    g.add_argument("--refine-steps", type=int, default=0,
+                   help="surrogate-gradient refinement steps (0 = G only)")
+    g.add_argument("--uncertainty", action="store_true",
+                   help="MC-dropout spread of the surrogate verification")
+    g.add_argument("--out", default=None, help="also write results JSON here")
+    g.set_defaults(fn=cmd_design)
+
+    g = sub.add_parser("export", help="torch.export serving artifacts (.pt2)")
+    _base_parser(g)
+    g.add_argument("--models", required=True, help="saved_models directory")
+    g.add_argument("--artifact", default="all",
+                   choices=["all", "designer", "generator", "surrogate", "ensemble"])
+    g.add_argument("--ensemble-members", type=int, default=None,
+                   help=f"--artifact ensemble: member count of {ENSEMBLE_FILE} in --models "
+                        "(examples/torch_seed_ensemble.py --save)")
+    g.add_argument("--out", default="exported")
+    g.add_argument("--batch-size", type=int, default=8192)
+    g.add_argument("--use-ema", action="store_true",
+                   help="export the EMA generator track (requires a 'generator_ema' "
+                        "artifact in --models)")
+    g.add_argument("--dtype", default="float32", choices=["float32", "bfloat16", "int8"],
+                   help="bfloat16: the models' bf16 twins in every artifact; int8: the "
+                        "post-training-quantized designer and surrogate (baseline trio)")
+    g.add_argument("--pallas", action="store_true",
+                   help="the designer and surrogate through the fused kernels, as custom "
+                        "ops (runs where pigan_thz_torch is imported; baseline trio only)")
+    g.set_defaults(fn=cmd_export)
     return p
 
 

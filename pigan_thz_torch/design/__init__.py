@@ -1,3 +1,4 @@
+from .inverse import DesignResult, InverseDesigner
 from .screening import (
     METRIC_INDEX,
     ScreeningConfig,
@@ -8,6 +9,8 @@ from .screening import (
 )
 
 __all__ = [
+    "DesignResult",
+    "InverseDesigner",
     "METRIC_INDEX",
     "ScreeningConfig",
     "ScreeningResult",

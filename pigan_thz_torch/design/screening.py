@@ -6,8 +6,11 @@ The port of ``pigan_thz_tpu/design/screening.py`` (BASELINE.json config #5:
 1. draw candidate parameters uniformly in the normalised design box from
    one ``torch.Generator`` on the device;
 2. run the frozen forward surrogate on each chunk, either its eval-mode
-   module forward or, with ``use_pallas``, the fused forward kernel
-   (``ops/fused_kernels.py``, K5; the name is the JAX package's);
+   module forward (in fp32, or with ``compute_dtype="bfloat16"`` its bf16
+   twin, whose parameters are rounded to bf16 once, as the JAX package
+   casts the variables; the spectra go back to fp32) or, with
+   ``use_pallas``, the fused forward kernel (``ops/fused_kernels.py``, K5;
+   the name is the JAX package's; fp32 only);
 3. derive the physics metrics (f_res, Q, FoM, S) from the PREDICTED spectra
    with the peak analysis (``ops/peaks.py``, the K4 kernel on the card);
 4. keep a running top-k over the chunks with ``torch.topk``.
@@ -27,6 +30,7 @@ from torch import nn
 
 from ..config import METRIC_NAMES
 from ..data.dataset import denormalize_params
+from ..models.blocks import bf16_twin
 from ..ops.fused_kernels import forward_surrogate_fused, pack_forward_model
 from ..ops.peaks import batched_peak_metrics
 
@@ -52,7 +56,8 @@ class ScreeningConfig:
     # Run the surrogate through the fused forward kernel (baseline
     # ForwardMLP only) instead of the module's forward.
     use_pallas: bool = False
-    # "float32" only; "bfloat16" is not ported yet.
+    # "float32" | "bfloat16" (the surrogate's forward; rankings may differ
+    # near ties)
     compute_dtype: str = "float32"
 
 
@@ -84,13 +89,18 @@ def screen_chunk(
 
 
 def make_surrogate(
-    forward_model: nn.Module, use_pallas: bool, device: torch.device, spectrum_dim: int
+    forward_model: nn.Module, use_pallas: bool, device: torch.device, spectrum_dim: int,
+    compute_dtype: str = "float32",
 ) -> Callable[[torch.Tensor], torch.Tensor]:
-    """params_norm -> predicted spectra: the fused kernel on weights packed
-    once here, or the module's forward (call it in eval mode)."""
+    """params_norm -> predicted spectra (fp32): the fused kernel on weights
+    packed once here, the module's forward (call it in eval mode) or, in
+    bfloat16, the module's bf16 twin with its parameters rounded to bf16."""
     if use_pallas:
         packed = pack_forward_model(forward_model, device)
         return lambda pn: forward_surrogate_fused(packed, pn, spectrum_dim)[0]
+    if compute_dtype == "bfloat16":
+        twin = bf16_twin(forward_model, round_params=True).eval()
+        return lambda pn: twin(pn)[0].to(torch.float32)
     return lambda pn: forward_model(pn)[0]
 
 
@@ -107,12 +117,10 @@ def screen_designs(
     ``param_lo`` (where the forward model and ``generator`` live too);
     returns the global top-k designs.  The forward model runs in eval mode
     and is left in the mode it came in."""
-    if cfg.compute_dtype == "bfloat16":
-        raise NotImplementedError(
-            "bf16 screening is not ported yet: ROADMAP.md queue 1, item 13"
-        )
-    if cfg.compute_dtype != "float32":
+    if cfg.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: use float32 | bfloat16")
+    if cfg.compute_dtype == "bfloat16" and cfg.use_pallas:
+        raise ValueError("use_pallas supports float32 only")
     if mesh is not None:
         raise NotImplementedError(
             "screening over a device mesh is not ported yet: ROADMAP.md queue 1, item 14"
@@ -131,7 +139,8 @@ def screen_designs(
     forward_model.eval()
     try:
         with torch.inference_mode():
-            surrogate = make_surrogate(forward_model, cfg.use_pallas, device, s)
+            surrogate = make_surrogate(forward_model, cfg.use_pallas, device, s,
+                                       cfg.compute_dtype)
             for c in range(n_chunks):
                 n_valid = min(cfg.chunk_size, cfg.num_candidates - c * cfg.chunk_size)
                 params_norm = torch.rand(

@@ -30,6 +30,7 @@ is torch's own.
 from __future__ import annotations
 
 import contextlib
+import copy
 import math
 
 import torch
@@ -124,6 +125,25 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
             return ((x.float() - mean) * mul + self.bias).to(dt)
         y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias
+
+
+def bf16_twin(module: nn.Module, round_params: bool = False) -> nn.Module:
+    """A copy of ``module`` whose layers compute in bfloat16 (flax's
+    ``dtype=bfloat16`` semantics above): the model the registry builds with
+    ``compute_dtype="bfloat16"``, holding ``module``'s weights and stats.
+    With ``round_params`` every floating parameter and buffer is also
+    rounded to bfloat16 once (kept in float32), as the JAX package does
+    where it casts the variables themselves (screening)."""
+    twin = copy.deepcopy(module)
+    for m in twin.modules():
+        if isinstance(m, (Dense, FlaxLayerNorm, FlaxBatchNorm1d)):
+            m.compute_dtype = torch.bfloat16
+    if round_params:
+        with torch.no_grad():
+            for t in [*twin.parameters(), *twin.buffers()]:
+                if t.is_floating_point():
+                    t.copy_(t.to(torch.bfloat16).to(t.dtype))
+    return twin
 
 
 @contextlib.contextmanager

@@ -25,6 +25,12 @@ the kernel, and anything else raises.  There is no fallback from a failed
 launch, and none to another shape.  ``LAUNCHES[name]`` counts the kernel's
 successful launches, so a run can show that its path went through the
 kernel.  The wrappers serve inference only: they carry no gradient.
+
+The two kernels are also registered as the custom ops
+``torch.ops.pigan_thz.fused_mlp_forward`` and ``...fused_dense_chain`` (a
+packed chain's buffer and its layout as int lists; ``packed_op_args``),
+which call the wrappers and so route and count the same way; torch.export
+traces them as opaque calls (``serve.export_*`` with ``use_pallas``).
 """
 
 from __future__ import annotations
@@ -508,3 +514,57 @@ def forward_surrogate_fused(
     (B, 258) output."""
     out = fused_mlp_forward(params_norm, packed)
     return out[:, :spectrum_dim], out[:, spectrum_dim:]
+
+
+# ---------------------------------------------------------------------------
+# The kernels as custom ops (what torch.export traces)
+# ---------------------------------------------------------------------------
+#
+# ``torch.ops.pigan_thz.fused_mlp_forward`` and ``...fused_dense_chain`` take
+# a packed chain as its buffer plus its layout as int lists, and run the
+# wrappers above: a CUDA tensor launches the kernel and counts LAUNCHES, a
+# CPU tensor takes the plain version, anything else raises.  The ctypes
+# launch and the count happen inside the op's implementation, which
+# torch.export keeps opaque; the registered fake gives the output's shape.
+# An exported program that calls them runs only where this module is
+# imported (``serve.load_exported`` imports it).
+
+
+def packed_op_args(packed: PackedChain) -> tuple[list[int], list[int], list[int], bool]:
+    """(offsets flattened, tiled, dims, layer_norm): a packed chain's layout
+    as the custom ops take it beside ``packed.weights``."""
+    return ([o for offs in packed.offsets for o in offs], list(packed.tiled),
+            list(packed.dims), packed.layer_norm)
+
+
+def _packed_from(weights: torch.Tensor, offsets: list[int], tiled: list[int],
+                 dims: list[int], layer_norm: bool) -> PackedChain:
+    n = len(dims) - 1
+    return PackedChain(weights, tuple(tuple(offsets[4 * l: 4 * l + 4]) for l in range(n)),
+                       tuple(dims), layer_norm=layer_norm, tiled=tuple(tiled))
+
+
+@torch.library.custom_op("pigan_thz::fused_mlp_forward", mutates_args=())
+def fused_mlp_forward_op(x: torch.Tensor, weights: torch.Tensor, offsets: list[int],
+                         tiled: list[int], dims: list[int], layer_norm: bool,
+                         leaky_slope: float, ln_eps: float) -> torch.Tensor:
+    """``fused_mlp_forward`` (K5) as a custom op."""
+    packed = _packed_from(weights, offsets, tiled, dims, layer_norm)
+    return fused_mlp_forward(x, packed, leaky_slope, ln_eps)
+
+
+@torch.library.custom_op("pigan_thz::fused_dense_chain", mutates_args=())
+def fused_dense_chain_op(x: torch.Tensor, weights: torch.Tensor, offsets: list[int],
+                         tiled: list[int], dims: list[int], layer_norm: bool) -> torch.Tensor:
+    """``fused_dense_chain`` (K6) as a custom op."""
+    return fused_dense_chain(x, _packed_from(weights, offsets, tiled, dims, layer_norm))
+
+
+@fused_mlp_forward_op.register_fake
+def _(x, weights, offsets, tiled, dims, layer_norm, leaky_slope, ln_eps):
+    return x.new_empty((x.shape[0], dims[-1]))
+
+
+@fused_dense_chain_op.register_fake
+def _(x, weights, offsets, tiled, dims, layer_norm):
+    return x.new_empty((x.shape[0], dims[-1]))

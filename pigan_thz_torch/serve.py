@@ -1,38 +1,67 @@
-"""Model serving: the in-process inverse-design cycle.
+"""Model serving: the in-process inverse-design cycle and exported artifacts.
 
-``make_inverse_design_fn`` is the port of
-``pigan_thz_tpu/serve.py:make_inverse_design_fn`` on its fused path:
-spectra (B, S) -> generator -> normalised params (B, 4) -> frozen forward
-surrogate -> (spectrum (B, S), metrics (B, 8)), and the params denormalised
-to physical units.  Both models run through the fused kernels of
-``ops/fused_kernels.py``: on the card that is one CUDA kernel launch per
-model, on the CPU their plain PyTorch versions.  The modules' own
-eval-mode ``forward`` is the unfused reference the tests compare against.
+The port of ``pigan_thz_tpu/serve.py``.  ``make_inverse_design_fn`` is the
+cycle spectra (B, S) -> generator -> normalised params (B, 4) -> frozen
+forward surrogate -> (spectrum (B, S), metrics (B, 8)), the params
+denormalised to physical units, on one of four paths:
 
-``make_ensemble_inverse_design_fn`` is the port of the ensemble-mean cycle
-(``pigan_thz_tpu/serve.py:make_ensemble_inverse_design_fn``): the mean of N
-seed-ensemble members' normalised predictions, then F on the mean.  The JAX
-package computes it outside any Pallas kernel (one vmap over the members),
-and so does the port: plain PyTorch, the members' eval-mode forwards.
+- fp32, the default: both models through the fused kernels of
+  ``ops/fused_kernels.py`` (on the card one launch of K6, then one of K5;
+  on the CPU their plain PyTorch versions);
+- fp32 with ``use_pallas=False``: the modules' eval-mode forward in plain
+  PyTorch, the JAX package's XLA path and the portable artifacts' body;
+- ``compute_dtype=torch.bfloat16`` (or "bfloat16"): the models' bf16 twins
+  (``models/blocks.py:bf16_twin``, flax's ``dtype=bfloat16``
+  semantics), plain PyTorch as the JAX path is plain XLA, fp32 outputs;
+- ``compute_dtype="int8"`` (or ``torch.int8``): the post-training-quantized
+  cycle of ``ops/quantized.py``.
 
-Not ported yet (ROADMAP.md, queue 1, item 13): the bf16 and int8 serving
-dtypes and exported artifacts (``export_ensemble_inverse_design`` with them).
+``make_ensemble_inverse_design_fn`` is the ensemble-mean cycle: the mean of
+N seed-ensemble members' normalised predictions, then F on the mean, plain
+PyTorch (the JAX package runs one vmap over the members, outside any Pallas
+kernel), in fp32 or bf16.
+
+The ``export_*`` functions write ``torch.export`` programs with the weights
+baked in and a fixed batch, as ``.pt2`` files (the JAX package writes
+StableHLO ``.stablehlo`` files): the generator, the forward surrogate, the
+designer and the ensemble designer.  With ``use_pallas`` the surrogate and
+the designer call the fused kernels as the custom ops
+``pigan_thz::fused_dense_chain`` (K6) and ``pigan_thz::fused_mlp_forward``
+(K5): such a program runs only where ``pigan_thz_torch`` is imported, and
+there on the card through the kernels (the JAX package's ``use_pallas``
+artifacts are TPU-only for the same reason).  The other artifacts are
+portable.  ``load_exported`` runs an artifact on the device the caller
+asks for, wherever it was written.
+
+Every path reads its weights (and folds the generator's BatchNorm) once, at
+construction, onto the device of ``ds``; later changes to the modules are
+not seen.  The single-model paths take the baseline MLP trio only.
 """
 
 from __future__ import annotations
 
 import copy
+import os
 from typing import Callable, Sequence
 
 import torch
 from torch import nn
 
 from .data.dataset import ThzDataset, denormalize_params
+from .models.blocks import bf16_twin
 from .ops.fused_kernels import (
-    forward_surrogate_fused,
-    generator_fused,
+    PackedChain,
+    fused_dense_chain,
+    fused_mlp_forward,
     pack_forward_model,
     pack_generator,
+    packed_op_args,
+)
+from .ops.quantized import (
+    int8_forward_apply,
+    int8_generator_apply,
+    quantize_forward,
+    quantize_generator,
 )
 
 InverseDesignFn = Callable[
@@ -40,35 +69,220 @@ InverseDesignFn = Callable[
 ]
 
 
+def serving_dtype(compute_dtype) -> str:
+    """The serving dtype a ``compute_dtype`` names: "float32" (None),
+    "bfloat16" or "int8"."""
+    if compute_dtype is None or compute_dtype in ("float32", torch.float32):
+        return "float32"
+    if compute_dtype in ("bfloat16", torch.bfloat16):
+        return "bfloat16"
+    if compute_dtype in ("int8", torch.int8):
+        return "int8"
+    raise ValueError(f"compute_dtype {compute_dtype!r}: use None | bfloat16 | int8")
+
+
+# ---------------------------------------------------------------------------
+# Stages: one model's serving form as a module (its tensors are buffers or
+# parameters, so torch.export bakes them in and .to() moves them).  Every
+# stage returns float32.
+# ---------------------------------------------------------------------------
+
+
+class ModuleStage(nn.Module):
+    """A model's eval-mode forward (fp32 or its bf16 twin), outputs in fp32."""
+
+    def __init__(self, module: nn.Module):
+        super().__init__()
+        self.module = module.eval()
+
+    def forward(self, x: torch.Tensor):
+        out = self.module(x)
+        if isinstance(out, tuple):
+            return tuple(t.to(torch.float32) for t in out[:2])
+        return out.to(torch.float32)
+
+
+class FusedStage(nn.Module):
+    """A packed chain through its fused kernel: K6 for the generator, K5 for
+    the surrogate (split at ``spectrum_dim``).  With ``via_ops`` it calls the
+    kernels' custom ops on its buffer, which torch.export can trace;
+    without, the wrappers on the packed chain, which stays on the device it
+    was packed on."""
+
+    def __init__(self, packed: PackedChain, spectrum_dim: int | None = None,
+                 via_ops: bool = False):
+        super().__init__()
+        self.register_buffer("weights", packed.weights)
+        self._packed = packed
+        self._layout = packed_op_args(packed)
+        self.spectrum_dim = spectrum_dim
+        self.via_ops = via_ops
+
+    def forward(self, x: torch.Tensor):
+        if self.via_ops:
+            ops = torch.ops.pigan_thz
+            if self._packed.layer_norm:
+                out = ops.fused_mlp_forward(x, self.weights, *self._layout, 0.2, 1e-6)
+            else:
+                out = ops.fused_dense_chain(x, self.weights, *self._layout)
+        elif self._packed.layer_norm:
+            out = fused_mlp_forward(x, self._packed)
+        else:
+            out = fused_dense_chain(x, self._packed)
+        if self.spectrum_dim is None:
+            return out
+        return out[:, :self.spectrum_dim], out[:, self.spectrum_dim:]
+
+
+class Int8Stage(nn.Module):
+    """An int8 chain of ``ops/quantized.py``: the generator's
+    (``spectrum_dim`` None) or the surrogate's."""
+
+    def __init__(self, q_chain, spectrum_dim: int | None = None):
+        super().__init__()
+        layers, head = q_chain
+        self._arity = [len(t) for t in layers]
+        for i, tensors in enumerate([*layers, head]):
+            for j, t in enumerate(tensors):
+                self.register_buffer(f"q{i}_{j}", t.detach().clone())
+        self.spectrum_dim = spectrum_dim
+
+    def _chain(self):
+        tensors = [tuple(getattr(self, f"q{i}_{j}") for j in range(n))
+                   for i, n in enumerate([*self._arity, 3])]
+        return tensors[:-1], tensors[-1]
+
+    def forward(self, x: torch.Tensor):
+        if self.spectrum_dim is None:
+            return int8_generator_apply(self._chain(), x)
+        return int8_forward_apply(self._chain(), x, self.spectrum_dim)
+
+
+class MeanStage(nn.Module):
+    """The members' eval-mode predictions, averaged in fp32."""
+
+    def __init__(self, members: Sequence[nn.Module]):
+        super().__init__()
+        self.members = nn.ModuleList(m.eval() for m in members)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.stack([m(x).to(torch.float32) for m in self.members]).mean(dim=0)
+
+
+class Designer(nn.Module):
+    """The cycle: generator stage -> surrogate stage, params denormalised."""
+
+    def __init__(self, generator: nn.Module, surrogate: nn.Module, ds: ThzDataset):
+        super().__init__()
+        self.generator, self.surrogate = generator, surrogate
+        self.register_buffer("lo", ds.param_lo.clone())
+        self.register_buffer("hi", ds.param_hi.clone())
+
+    def forward(self, spectra: torch.Tensor):
+        # the stages' forward, not __call__: the hook machinery costs the
+        # host a few µs a module, which shows in a request's latency at B = 1
+        pn = self.generator.forward(spectra)
+        spec, met = self.surrogate.forward(pn)
+        return denormalize_params(pn, self.lo, self.hi), spec, met
+
+
+class GeneratorArtifact(nn.Module):
+    """spectra -> physical params through a generator stage."""
+
+    def __init__(self, generator: nn.Module, ds: ThzDataset):
+        super().__init__()
+        self.generator = generator
+        self.register_buffer("lo", ds.param_lo.clone())
+        self.register_buffer("hi", ds.param_hi.clone())
+
+    def forward(self, spectra: torch.Tensor) -> torch.Tensor:
+        return denormalize_params(self.generator(spectra), self.lo, self.hi)
+
+
+def _copy(module: nn.Module, device, kind: str) -> nn.Module:
+    """An eval-mode copy of ``module`` on ``device`` computing in ``kind``,
+    its tensors its own (a member bound to a stacked buffer is copied out)."""
+    twin = bf16_twin(module) if kind == "bfloat16" else copy.deepcopy(module)
+    with torch.no_grad():
+        for t in [*twin.parameters(), *twin.buffers()]:
+            t.data = t.data.to(device, copy=True)
+    return twin.eval().requires_grad_(False)
+
+
+def _stage(model, device, kind: str, fused: bool, spectrum_dim: int | None = None,
+           via_ops: bool = False) -> nn.Module:
+    """One model's serving stage: the generator's (``spectrum_dim`` None) or
+    the surrogate's, through its kernel, its int8 chain or its module."""
+    generator = spectrum_dim is None
+    if fused:
+        pack = pack_generator if generator else pack_forward_model
+        return FusedStage(pack(model, device), spectrum_dim, via_ops)
+    if kind == "int8":
+        quantize = quantize_generator if generator else quantize_forward
+        return Int8Stage(quantize(model), spectrum_dim).to(device)
+    return ModuleStage(_copy(model, device, kind))
+
+
+def _check_pallas(use_pallas, kind: str) -> bool:
+    """Whether the path is the fused kernels' (None: fp32's default)."""
+    if use_pallas and kind != "float32":
+        raise ValueError("use_pallas and compute_dtype are mutually exclusive "
+                         "(the fused kernels run fp32)")
+    return kind == "float32" if use_pallas is None else bool(use_pallas)
+
+
+def _designer(generator, forward_model, ds, use_pallas, compute_dtype,
+              via_ops: bool = False) -> Designer:
+    kind = serving_dtype(compute_dtype)
+    fused = _check_pallas(use_pallas, kind)
+    device = ds.param_lo.device
+    return Designer(_stage(generator, device, kind, fused, via_ops=via_ops),
+                    _stage(forward_model, device, kind, fused, ds.spectrum_dim, via_ops), ds)
+
+
+def _serving_fn(module: nn.Module) -> InverseDesignFn:
+    @torch.inference_mode()
+    def fn(spectra: torch.Tensor):
+        return module.forward(spectra)
+
+    return fn
+
+
 def make_inverse_design_fn(
     generator: nn.Module,
     forward_model: nn.Module,
     ds: ThzDataset,
+    use_pallas: bool | None = None,
     compute_dtype=None,
 ) -> InverseDesignFn:
     """Serving callable: spectra (B, S) float32, contiguous, on the device of
-    ``ds`` -> (params_phys (B, 4), recon_spectrum (B, S), metrics (B, 8)).
+    ``ds`` -> (params_phys (B, 4), recon_spectrum (B, S), metrics (B, 8)),
+    all float32.
 
-    The weights are read (and the generator's BatchNorm folded) once, here,
-    onto the device of ``ds``; later changes to the modules are not seen.
-    Baseline MLP trio only: other layouts raise."""
-    if compute_dtype is not None:
-        raise NotImplementedError(
-            "the port serves fp32 only; bf16 / int8 serving is ROADMAP.md "
-            "queue 1, item 13"
-        )
+    ``use_pallas`` None (the default) serves fp32 through the fused kernels
+    and the other dtypes on their own paths; True asks for the kernels
+    (with a ``compute_dtype`` it raises ValueError, as the kernels run
+    fp32); False serves fp32 through the modules' eval-mode forward."""
+    return _serving_fn(_designer(generator, forward_model, ds, use_pallas, compute_dtype))
+
+
+def _ensemble_designer(generators, forward_model, ds, compute_dtype) -> Designer:
+    kind = serving_dtype(compute_dtype)
+    if kind == "int8":
+        raise ValueError("int8 covers the single-model designer only")
+    generators = list(generators)
+    if not generators:
+        raise ValueError("make_ensemble_inverse_design_fn: no member generators")
     device = ds.param_lo.device
-    g_packed = pack_generator(generator, device)
-    f_packed = pack_forward_model(forward_model, device)
-    lo, hi, spectrum_dim = ds.param_lo, ds.param_hi, ds.spectrum_dim
-
-    @torch.inference_mode()
-    def fn(spectra: torch.Tensor):
-        pn = generator_fused(g_packed, spectra)
-        spec, met = forward_surrogate_fused(f_packed, pn, spectrum_dim=spectrum_dim)
-        return denormalize_params(pn, lo, hi), spec, met
-
-    return fn
+    # one eval-mode skeleton and every member's tensors: a member bound to a
+    # stacked buffer is read through its state_dict, not deep-copied
+    skeleton = _copy(generators[0], device, kind)
+    members = []
+    for g in generators:
+        member = copy.deepcopy(skeleton)
+        member.load_state_dict({k: v.detach() for k, v in g.state_dict().items()})
+        members.append(member)
+    return Designer(MeanStage(members), ModuleStage(_copy(forward_model, device, kind)), ds)
 
 
 def make_ensemble_inverse_design_fn(
@@ -85,33 +299,98 @@ def make_ensemble_inverse_design_fn(
     the scoring twin of this path).  Each member predicts in eval mode, its
     BatchNorm on its own running stats; the normalised predictions are
     averaged in fp32, denormalised, and ``forward_model`` reconstructs the
-    spectrum and metrics of the mean.  The members' weights and stats are
-    read once, here, onto the device of ``ds``; later training is not seen.
-    Plain PyTorch on either device, as the JAX package's is plain XLA."""
-    if compute_dtype is not None:
-        raise NotImplementedError(
-            "the port serves fp32 only; bf16 / int8 serving is ROADMAP.md "
-            "queue 1, item 13"
-        )
-    generators = list(generators)
-    if not generators:
-        raise ValueError("make_ensemble_inverse_design_fn: no member generators")
-    device = ds.param_lo.device
-    # one eval-mode skeleton and every member's tensors: a member bound to a
-    # stacked buffer is read through its state_dict, not deep-copied
-    members = [{k: v.detach().to(device, copy=True) for k, v in g.state_dict().items()}
-               for g in generators]
-    skeleton = copy.deepcopy(generators[0]).to(device).eval()
-    f = copy.deepcopy(forward_model).to(device).eval()
-    lo, hi = ds.param_lo, ds.param_hi
+    spectrum and metrics of the mean.  ``compute_dtype`` bfloat16 runs the
+    members and F as their bf16 twins.  Plain PyTorch on either device, as
+    the JAX package's is plain XLA."""
+    return _serving_fn(_ensemble_designer(generators, forward_model, ds, compute_dtype))
 
-    @torch.inference_mode()
-    def fn(spectra: torch.Tensor):
-        preds = torch.stack([torch.func.functional_call(skeleton, sd, (spectra,))
-                             for sd in members])                    # (N, B, 4)
-        mean_norm = preds.to(torch.float32).mean(dim=0)
-        spec, met = f(mean_norm)[:2]
-        return (denormalize_params(mean_norm, lo, hi), spec.to(torch.float32),
-                met.to(torch.float32))
 
-    return fn
+# ---------------------------------------------------------------------------
+# Exported artifacts
+# ---------------------------------------------------------------------------
+
+
+def _save(module: nn.Module, example: torch.Tensor, path: str) -> str:
+    program = torch.export.export(module.eval(), (example,))
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    torch.export.save(program, path)
+    return path
+
+
+def _spectra_example(ds: ThzDataset, batch_size: int) -> torch.Tensor:
+    return torch.zeros((batch_size, ds.spectrum_dim), device=ds.param_lo.device)
+
+
+def export_generator(
+    generator: nn.Module, ds: ThzDataset, path: str, batch_size: int = 64,
+    compute_dtype=None,
+) -> str:
+    """spectrum (B, S) -> physical params (B, 4), the generator's eval-mode
+    forward in fp32 or (``compute_dtype`` bfloat16) its bf16 twin; a
+    ``torch.export`` program (``.pt2``) for ``batch_size`` rows."""
+    kind = serving_dtype(compute_dtype)
+    if kind == "int8":
+        raise ValueError("int8 covers the designer and the surrogate, not the generator")
+    stage = _stage(generator, ds.param_lo.device, kind, fused=False)
+    return _save(GeneratorArtifact(stage, ds), _spectra_example(ds, batch_size), path)
+
+
+def export_forward_surrogate(
+    forward_model: nn.Module, ds: ThzDataset, path: str, batch_size: int = 64,
+    use_pallas: bool = False, compute_dtype=None,
+) -> str:
+    """normalised params (B, 4) -> (spectrum (B, S), metrics (B, 8)).
+
+    ``use_pallas`` bakes the fused forward kernel (K5, as its custom op) in;
+    ``compute_dtype`` "int8" the post-training-quantized chain; bfloat16 the
+    bf16 twin; both together raise ValueError."""
+    kind = serving_dtype(compute_dtype)
+    fused = _check_pallas(use_pallas, kind)
+    stage = _stage(forward_model, ds.param_lo.device, kind, fused, ds.spectrum_dim,
+                   via_ops=True)
+    example = torch.zeros((batch_size, ds.params_norm.shape[1]), device=ds.param_lo.device)
+    return _save(stage, example, path)
+
+
+def export_inverse_design(
+    generator: nn.Module, forward_model: nn.Module, ds: ThzDataset, path: str,
+    batch_size: int = 64, use_pallas: bool = False, compute_dtype=None,
+) -> str:
+    """The full cycle of ``make_inverse_design_fn`` (spectrum -> physical
+    params, surrogate spectrum, metrics) as a ``torch.export`` program.
+    ``use_pallas`` bakes K6 and K5 in as custom ops (one launch of each a
+    call on the card); the default is the portable modules' path."""
+    module = _designer(generator, forward_model, ds, use_pallas, compute_dtype, via_ops=True)
+    return _save(module, _spectra_example(ds, batch_size), path)
+
+
+def export_ensemble_inverse_design(
+    generators: Sequence[nn.Module], forward_model: nn.Module, ds: ThzDataset, path: str,
+    batch_size: int = 64, compute_dtype=None,
+) -> str:
+    """The ensemble-mean cycle of ``make_ensemble_inverse_design_fn`` as a
+    portable ``torch.export`` program, every member's weights baked in."""
+    module = _ensemble_designer(generators, forward_model, ds, compute_dtype)
+    return _save(module, _spectra_example(ds, batch_size), path)
+
+
+def load_exported(path: str, device: torch.device | str = "cuda"):
+    """A callable that runs the ``torch.export`` program at ``path`` on
+    ``device`` (its weights moved there, wherever it was written).  Inputs
+    of another shape than the program's raise ValueError."""
+    from torch.export.passes import move_to_device_pass
+
+    program = move_to_device_pass(torch.export.load(path), torch.device(device))
+    names = set(program.graph_signature.user_inputs)
+    shapes = [tuple(n.meta["val"].shape) for n in program.graph.nodes
+              if n.op == "placeholder" and n.name in names]
+    module = program.module()
+
+    def call(*args):
+        got = [tuple(a.shape) for a in args]
+        if got != shapes:
+            raise ValueError(f"{path}: exported for inputs of shape {shapes}, got {got}")
+        with torch.inference_mode():
+            return module(*args)
+
+    return call

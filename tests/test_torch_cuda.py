@@ -22,7 +22,11 @@ member alone, and against its plain version with K2's tolerances.  The
 batch-row product kernel that K1, K2 and K3 launch (``csrc/brow_gemm.cuh``)
 is held against its plain version and float64 for every product shape and
 flag of a step, at M = 1 and 4, and each step's count of its launches
-against ``brow_products``.
+against ``brow_products``.  The serving kernels' custom ops
+(``torch.ops.pigan_thz.*``) are held bit for bit against their wrappers,
+and a ``use_pallas`` designer artifact written on the CPU runs on the card
+through one launch of each kernel a call; the int8 products and the bf16 /
+int8 cycles are held against the CPU.
 """
 
 import copy
@@ -223,6 +227,98 @@ def test_cycle_matches_unfused_modules(dev, models):
         assert float((a - b).abs().max()) <= 1e-4
     assert bool(((got[0] >= 2.2) & (got[0] <= 2.8)).all())
 
+
+
+@pytest.mark.parametrize("batch", [1, 64, 8192])
+def test_custom_ops_equal_the_wrappers(batch, dev, models):
+    """``torch.ops.pigan_thz.*``: the kernels' wrappers, bit for bit, one
+    launch a call."""
+    g, f = models
+    gp, fp = fk.pack_generator(g, dev), fk.pack_forward_model(f, dev)
+    gen = torch.Generator(device=dev).manual_seed(batch)
+    x = torch.randn((batch, 250), generator=gen, device=dev)
+    before = dict(fk.LAUNCHES)
+    pn = torch.ops.pigan_thz.fused_dense_chain(x, gp.weights, *fk.packed_op_args(gp))
+    out = torch.ops.pigan_thz.fused_mlp_forward(pn, fp.weights, *fk.packed_op_args(fp),
+                                                0.2, 1e-6)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["fused_dense_chain"] - before["fused_dense_chain"] == 1
+    assert fk.LAUNCHES["fused_mlp_forward"] - before["fused_mlp_forward"] == 1
+    assert torch.equal(pn, fk.fused_dense_chain(x, gp))
+    assert torch.equal(out, fk.fused_mlp_forward(pn, fp))
+
+
+def test_pallas_artifact_runs_the_kernels(dev, models, tmp_path):
+    """A ``use_pallas`` designer written on the CPU, loaded on the card: one
+    launch of K6 and one of K5 a call, bit for bit the in-process cycle."""
+    from pigan_thz_torch import serve
+
+    cfg = default_config()
+    g, f = models
+    gen = torch.Generator().manual_seed(3)
+    p = sample_params(gen, 64, cfg.data, device="cpu")
+    spectra = synthesize_spectra(cfg.data.frequencies, p, gen, cfg.data.noise_level)
+    ds = build_dataset(spectra, p, torch.full((64, 8), float("nan")), cfg.data, device="cpu")
+    path = serve.export_inverse_design(g, f, ds, str(tmp_path / "designer.pt2"), 64,
+                                       use_pallas=True)
+    fn = serve.load_exported(path, device=dev)
+    x = spectra.to(dev)
+    before = dict(fk.LAUNCHES)
+    got = fn(x)
+    torch.cuda.synchronize()
+    assert {k: fk.LAUNCHES[k] - before[k] for k in ("fused_dense_chain",
+                                                     "fused_mlp_forward")} == {
+        "fused_dense_chain": 1, "fused_mlp_forward": 1}
+    # the in-process cycle on the same packing: weights read on the CPU (the
+    # card's division folds BatchNorm an ulp apart from the CPU's)
+    ds_dev = type(ds)(*(t.to(dev) for t in ds))
+    want = serve.make_inverse_design_fn(g, f, ds_dev)(x)
+    for a, b in zip(got, want):
+        assert a.device == x.device and torch.equal(a, b)
+    with pytest.raises(ValueError, match="exported for inputs"):
+        fn(x[:7])
+
+
+INT8_CHAIN = [(250, 512), (512, 256), (256, 4), (4, 256), (256, 512), (512, 1024),
+              (1024, 512), (256, 258)]
+
+
+@pytest.mark.parametrize("b", [1, 3, 17, 64, 65, 8192])
+@pytest.mark.parametrize("k, n", INT8_CHAIN)
+def test_int_mm_on_the_card_equals_the_cpu(k, n, b, dev):
+    """The int8 chain's products through ``torch._int_mm`` on the card, with
+    the padding to its shape rules: exact."""
+    from pigan_thz_torch.ops.quantized import int_mm
+
+    gen = torch.Generator().manual_seed(b + k + n)
+    x = torch.randint(-127, 128, (b, k), generator=gen, dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8)
+    assert torch.equal(int_mm(x.to(dev), w.to(dev)).cpu(), int_mm(x, w))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_serving_dtypes_on_the_card_match_the_cpu(dtype, dev, models):
+    """Within 2e-2 of each output's largest magnitude: bf16 by the bf16
+    models' bound; int8's products are exact on both, the fp32 sums around
+    them may move a rounding of an int8 row by one step, which
+    tests/test_torch_quantized.py bounds far inside this."""
+    cfg = default_config()
+    g, f = models
+    gen = torch.Generator().manual_seed(4)
+    p = sample_params(gen, 64, cfg.data, device="cpu")
+    spectra = synthesize_spectra(cfg.data.frequencies, p, gen, cfg.data.noise_level)
+    ds = build_dataset(spectra, p, torch.full((64, 8), float("nan")), cfg.data, device="cpu")
+    ds_dev = type(ds)(*(t.to(dev) for t in ds))
+    want = make_inverse_design_fn(g, f, ds, compute_dtype=dtype)(spectra)
+    before = dict(fk.LAUNCHES)
+    got = make_inverse_design_fn(copy.deepcopy(g).to(dev), copy.deepcopy(f).to(dev), ds_dev,
+                                 compute_dtype=dtype)(spectra.to(dev))
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES == before
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and bool(torch.isfinite(a).all())
+        assert float((a.cpu() - b).abs().max()) <= 2e-2 * float(b.abs().max())
+    assert bool(((got[0] >= 2.2) & (got[0] <= 2.8)).all())
 
 def _spectra(kind, b, n, dev, seed=0, f=None):
     gen = torch.Generator(device=dev).manual_seed(seed)

@@ -38,6 +38,7 @@ torch.set_num_threads(1)
 
 N, M = 96, 3
 SCORE_RTOL, PARAMS_NORM_ATOL, OUT_ATOL = 1e-4, 1e-5, 1e-4
+BF16_RTOL = 2e-2
 
 
 @pytest.fixture(scope="module")
@@ -146,8 +147,19 @@ def test_ensemble_mean_serving_matches_jax(ensembles, datasets):
         again = fn(spectra)[0]
         states.g_params.mul_(2.0)
     assert torch.equal(again, params)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # bf16: the members and F as their bf16 twins, against the JAX package's
+    # bf16 ensemble mean within the bf16 models' MODEL_RTOL (tests/test_torch_bf16.py)
+    got16 = make_ensemble_inverse_design_fn([st.g for st in states], states.f, tds,
+                                            compute_dtype="bfloat16")(spectra)
+    want16 = jserve.make_ensemble_inverse_design_fn(
+        jg, jf, jstates.g.variables, jax.tree.map(lambda x: x[0], jstates.f.variables), jds,
+        compute_dtype=jnp.bfloat16)(jnp.asarray(spectra.numpy()))
+    for a, b in zip(got16, want16):
+        b = np.asarray(b, np.float32)
+        assert a.dtype == torch.float32
+        assert np.abs(a.numpy() - b).max() <= BF16_RTOL * np.abs(b).max()
+    with pytest.raises(ValueError, match="int8"):
         make_ensemble_inverse_design_fn([st.g for st in states], states.f, tds,
-                                        compute_dtype="bfloat16")
+                                        compute_dtype="int8")
     with pytest.raises(ValueError, match="no member"):
         make_ensemble_inverse_design_fn([], states.f, tds)

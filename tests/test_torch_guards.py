@@ -38,7 +38,8 @@ assert len(names) >= 42, names
 for new in ("ops.metrics", "parallel.state_utils", "parallel.ensemble",
             "parallel.ensemble_megakernel", "config_presets", "train.programs",
             "evaluate", "evaluate.evaluator", "evaluate.ceilings", "evaluate.grading",
-            "evaluate.report", "evaluate.rubrics", "utils.viz", "utils.eval_viz"):
+            "evaluate.report", "evaluate.rubrics", "utils.viz", "utils.eval_viz",
+            "ops.quantized", "design.inverse"):
     assert "pigan_thz_torch." + new in names, new
 # the seed-ensemble example: its imports run, its main() does not
 import importlib.util
@@ -296,7 +297,9 @@ def _imported_roots(path):
     "examples/torch_forward_times.py", "pigan_thz_torch/evaluate/ceilings.py",
     "pigan_thz_torch/evaluate/grading.py", "pigan_thz_torch/evaluate/rubrics.py",
     "pigan_thz_torch/evaluate/report.py", "pigan_thz_torch/utils/viz.py",
-    "pigan_thz_torch/utils/eval_viz.py"])
+    "pigan_thz_torch/utils/eval_viz.py", "pigan_thz_torch/ops/quantized.py",
+    "pigan_thz_torch/design/inverse.py", "pigan_thz_torch/design/screening.py",
+    "pigan_thz_torch/models/forward_model.py", "examples/torch_serving_bench.py"])
 def test_source_imports_neither_jax_nor_the_jax_package(path):
     roots = _imported_roots(os.path.join(REPO, path))
     assert not roots & {"jax", "jaxlib", "flax", "optax", "orbax", "pigan_thz_tpu",

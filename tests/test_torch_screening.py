@@ -22,6 +22,7 @@ from pigan_thz_torch.design import (
 from pigan_thz_torch.design.screening import make_surrogate
 from pigan_thz_torch.interop import from_flax
 from pigan_thz_torch.models import build_forward_model
+from pigan_thz_torch.models.blocks import bf16_twin
 from pigan_thz_tpu.config import DataConfig as JDataConfig
 from pigan_thz_tpu.design.screening import _score as j_score
 from pigan_thz_tpu.models import build_trio
@@ -144,11 +145,20 @@ def test_screening_leaves_the_module_mode(forward_models):
 
 
 def test_unported_options_raise(forward_models):
+    """bf16 screening is ported (its chunk against the JAX package's in
+    test_bf16_chunk_matches_jax): the screen runs and ranks by the bf16
+    surrogate's scores; with use_pallas it raises, as the JAX package's
+    does.  float16 and the mesh still raise."""
     tf = forward_models[2]
     sc = ScreeningConfig(num_candidates=64, chunk_size=64, top_k=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 13"):
+    res = screen_designs(tf, FREQ, LO, HI, torch.Generator(),
+                         dataclasses.replace(sc, compute_dtype="bfloat16"))
+    assert res.spectra.dtype == torch.float32 and bool(torch.isfinite(res.spectra).all())
+    scores = res.scores[res.valid]
+    assert bool((scores[:-1] >= scores[1:]).all())
+    with pytest.raises(ValueError, match="float32 only"):
         screen_designs(tf, FREQ, LO, HI, torch.Generator(),
-                       dataclasses.replace(sc, compute_dtype="bfloat16"))
+                       dataclasses.replace(sc, compute_dtype="bfloat16", use_pallas=True))
     with pytest.raises(ValueError, match="compute_dtype"):
         screen_designs(tf, FREQ, LO, HI, torch.Generator(),
                        dataclasses.replace(sc, compute_dtype="float16"))
@@ -161,3 +171,56 @@ def test_config_matches_jax():
     from pigan_thz_tpu.design.screening import ScreeningConfig as JScreeningConfig
 
     assert dataclasses.asdict(ScreeningConfig()) == dataclasses.asdict(JScreeningConfig())
+
+
+# bf16 against the JAX package's bf16 surrogate, whose variables are cast to
+# bf16 once (pigan_thz_tpu/design/screening.py:102-119): the eager bf16
+# models' MODEL_RTOL of tests/test_torch_bf16.py, relative to the largest
+# magnitude.
+BF16_RTOL = 2e-2
+
+
+def _perturbed(fv):
+    """F's LayerNorm scales and shifts and every bias moved off flax's 1 / 0
+    init, so that rounding them to bf16 changes them."""
+    def move(path, x):
+        name = jax.tree_util.keystr(path)
+        if "LayerNorm" not in name and "bias" not in name:
+            return x
+        r = np.random.default_rng(sum(map(ord, name)))
+        return x + 0.3 * r.standard_normal(x.shape).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(move, jax.tree.map(np.asarray, fv))
+
+
+@pytest.mark.parametrize("objective", ["FoM1", "Q2"])
+def test_bf16_chunk_matches_jax(forward_models, objective):
+    f, fv, _ = forward_models
+    fv = _perturbed(fv)
+    tf = build_forward_model(t_default_config().forward_model, device="cpu")
+    tf.load_state_dict(from_flax(fv, "forward_model"))
+    tf.eval()
+    pn = np.random.default_rng(1).uniform(-1, 1, (512, 4)).astype(np.float32)
+    sc = ScreeningConfig(objective=objective, compute_dtype="bfloat16")
+    fv16 = jax.tree.map(lambda x: jnp.asarray(x).astype(jnp.bfloat16), fv)
+    spec_j = np.asarray(f.clone(dtype=jnp.bfloat16).apply(fv16, jnp.asarray(pn),
+                                                          train=False)[0], np.float32)
+    with torch.inference_mode():
+        surrogate = make_surrogate(tf, False, torch.device("cpu"), 250, "bfloat16")
+        spec, met, scores = screen_chunk(surrogate, torch.from_numpy(pn),
+                                         torch.from_numpy(FREQ), sc)
+        unrounded = bf16_twin(tf)(torch.from_numpy(pn))[0].float()
+    assert spec.dtype == torch.float32
+    err = np.abs(spec.numpy() - spec_j)
+    assert err.max() <= BF16_RTOL * np.abs(spec_j).max()
+    # the parameters are rounded to bf16 once, as the JAX package casts the
+    # variables: without that the port sits further from it
+    assert err.mean() < 0.8 * np.abs(unrounded.numpy() - spec_j).mean()
+    # the metrics and scores follow from K4's plain version on the fp32 spectra
+    met_j = j_batched_peak_metrics(jnp.asarray(FREQ), jnp.asarray(spec.numpy()),
+                                   min_prominence=sc.min_prominence)
+    np.testing.assert_allclose(met.numpy(), np.asarray(met_j), rtol=METRICS_RTOL,
+                               equal_nan=True)
+    scores_j = np.asarray(j_score(met_j, objective))
+    np.testing.assert_allclose(scores.numpy(), np.where(np.isnan(scores_j), -np.inf, scores_j),
+                               rtol=METRICS_RTOL)

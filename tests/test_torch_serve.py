@@ -75,10 +75,24 @@ def test_cycle_equals_unfused_modules_and_launches_nothing_on_cpu(trio, small_ds
     assert float(params.min()) >= 2.2 and float(params.max()) <= 2.8
 
 
-def test_compute_dtype_not_ported(trio):
-    _, (tg, tf), tds = trio
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_inverse_design_fn(tg, tf, tds, compute_dtype=torch.bfloat16)
+def test_compute_dtype_not_ported(trio, small_ds):
+    """The serving dtypes are ported: bf16 and int8 follow the JAX package's
+    cycle on the same weights (bf16 within the eager bf16 models' MODEL_RTOL
+    of tests/test_torch_bf16.py, int8 within one quantization step of the
+    last layers, as tests/test_torch_quantized.py derives), and use_pallas
+    with a compute_dtype raises as the JAX package's does."""
+    (g, f, gv, fv), (tg, tf), tds = trio
+    x = np.array(small_ds.spectra[:16])
+    for dtype, jdtype, rtol in ((torch.bfloat16, jnp.bfloat16, 2e-2), ("int8", "int8", 5e-2)):
+        got = make_inverse_design_fn(tg, tf, tds, compute_dtype=dtype)(torch.from_numpy(x))
+        want = j_make_inverse_design_fn(g, f, gv, fv, small_ds, compute_dtype=jdtype)(
+            jnp.asarray(x))
+        for a, b in zip(got, want):
+            assert a.dtype == torch.float32
+            b = np.asarray(b, np.float32)
+            assert np.abs(a.numpy() - b).max() <= rtol * np.abs(b).max()
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        make_inverse_design_fn(tg, tf, tds, use_pallas=True, compute_dtype=torch.bfloat16)
 
 
 def test_non_baseline_generator_refused(trio):
