@@ -221,7 +221,29 @@ generator passes (cycle, stability) and noise streams:
     the top-k valid and sorted, the wall time and bf16's gap in the top
     FoM1; (d) ``design --target-index 0 --target-index 1 --refine-steps 200
     --uncertainty`` beside ``--refine-steps 0``: the MSE no higher, the MC
-    std finite and positive.
+    std finite and positive;
+33. preemption-safe training and the operational commands, at full width
+    on the 1000-sample dataset: (a) in process, an uninterrupted trainer
+    (forward 2 x 25 epochs, then PI-GAN 2 x 25 through F with the EMA, two
+    calls a stage) against one that saves after each stage's first call and
+    resumes in a fresh ``Trainer``: bit for bit equal (parameters, moments,
+    counts, BatchNorm buffers, EMA, the generator's state, the history);
+    (b) ``examples/torch_full_pipeline.py --fwd-epochs 100 --gan-epochs 100
+    --ft-epochs 50 --chunk 25`` uninterrupted, sent SIGKILL at ``gan
+    50/100`` and rerun to DONE: ``saved_models/*`` and ``final_eval.json``
+    equal byte for byte; (c) ``train --mode full --checkpoint-dir`` at
+    100 + 100 epochs with ``train.save_interval=50``: epochs 50 and 100
+    kept, the latest restored into a fresh ``Trainer`` equal to the saved
+    finals; (d) the shadow replay of K1 and K2 with ``shadow_parity="all"``
+    over 2 chunks each, all ``ok`` (worst key and relative difference
+    printed), a planted first-epoch fault (``loss`` / ``g_loss`` x 10)
+    raising ``RuntimeError``, one replay's ms, and the training of ``train
+    --mode full`` (500 + 500) with the default cadence against ``"off"`` in
+    turns; a checkpoint's size and its save and restore ms; (e) ``doctor``
+    (exit 0, the card named), ``profile --epochs 10 --repeats 3`` (3 K2
+    launches counted, the trace written) and ``cache-data`` of a
+    1000-sample CSV (arrays equal to the CSV's), with the CSV, native CSV
+    and ``.thzb`` load times.
 
 The ``kernels`` record gives each kernel's launches on the main path, its
 error against its plain version, its time beside the plain version's, the
@@ -3478,6 +3500,515 @@ def run_path_phases(cfg, dev, repo: str, train_ds, f_k2, tag: str) -> tuple:
     return k2_paths, k3_paths, programs, path_times
 
 
+# ---------------------------------------------------------------------------
+# Phase 33: preemption-safe training and the operational commands
+# ---------------------------------------------------------------------------
+
+RESUME_EPOCHS = 25          # each stage: two calls of one chunk each
+PIPELINE_ARGS = ("--fwd-epochs", "100", "--gan-epochs", "100", "--ft-epochs", "50",
+                 "--chunk", "25")
+PIPELINE_KILL_AT = "gan 50/100"
+CKPT_COMMAND_EPOCHS = 100   # train --mode full --checkpoint-dir, each stage
+CKPT_INTERVAL = 50
+SHADOW_CHUNKS = 2
+SHADOW_FAULT = 10.0         # the planted first-epoch fault (the round-3d class)
+CKPT_REPEATS = 5            # save / restore timings, medians
+
+
+def _payload_equal(a: dict, b: dict) -> list:
+    """The keys of two state_dicts that differ (tensors compared on the CPU,
+    bit for bit)."""
+    import torch
+
+    bad = sorted(set(a) ^ set(b))
+    for k in set(a) & set(b):
+        x, y = a[k], b[k]
+        same = (torch.equal(x.cpu(), y.cpu()) if isinstance(x, torch.Tensor) else x == y)
+        if not same:
+            bad.append(k)
+    return bad
+
+
+def _counted(fn):
+    """(fn's result, the kernel launches it made): the counts set to 0 just
+    before and read just after."""
+    from pigan_thz_torch.ops import _cuda_build
+
+    reset_launches(_cuda_build.LAUNCHES)
+    reset_launches(_cuda_build.BROW_LAUNCHES)
+    out = fn()
+    return out, _cuda_build.launch_counts()
+
+
+def _add(total: dict, launches: dict) -> dict:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def p33_resume_in_process(cfg, dev, train_ds, epochs: int = RESUME_EPOCHS) -> dict:
+    """An uninterrupted trainer (forward 2 x ``epochs``, then PI-GAN
+    2 x ``epochs`` through F with the EMA, two calls a stage with the
+    pipeline's seeding) against one that saves after each stage's first
+    call, where a fresh trainer resumes: bit for bit equal at the end."""
+    import torch
+    from pigan_thz_torch.train import checkpoint as ckpt
+    from pigan_thz_torch.train.steps import StepSettings
+    from pigan_thz_torch.train.trainer import Trainer
+
+    settings = StepSettings.from_config(cfg, detach_forward=False, ema_decay=0.999)
+
+    def trainer():
+        return Trainer(cfg, ds=train_ds, device=dev, epochs_per_call=epochs, engine="kernel")
+
+    def run(tmp=None):
+        t = trainer()
+        t.pretrain_forward(epochs=epochs, seed=0, log_every=10**9)
+        if tmp:
+            mgr = ckpt.CheckpointManager(os.path.join(tmp, "fwd"), save_interval=1)
+            mgr.save(epochs, t.forward_state, history=t.train_history, config=cfg)
+            t = trainer()
+            if t.resume_from(mgr, "forward") != epochs:
+                fail("phase 33: the forward checkpoint did not restore")
+        t.pretrain_forward(epochs=epochs, seed=epochs, log_every=10**9)
+        forward = {k: v.clone() if isinstance(v, torch.Tensor) else v
+                   for k, v in t.forward_state.state_dict().items()}
+        t.init_pigan()
+        t.train_pigan(epochs=epochs, settings=settings, seed=0, log_every=10**9)
+        if tmp:
+            mgr = ckpt.CheckpointManager(os.path.join(tmp, "gan"), save_interval=1)
+            mgr.save(epochs, t.pigan_state, history=t.train_history, config=cfg)
+            t = trainer()
+            if t.resume_from(mgr, "pigan") != epochs:
+                fail("phase 33: the PI-GAN checkpoint did not restore")
+        t.train_pigan(epochs=epochs, settings=settings, seed=epochs, log_every=10**9)
+        _sync(dev)
+        return forward, t
+
+    def both():
+        with tempfile.TemporaryDirectory() as tmp:
+            return run(), run(tmp)
+
+    ((ref_f, ref), (got_f, got)), launches = _counted(both)
+    bad = (_payload_equal(got_f, ref_f)
+           + _payload_equal(got.pigan_state.state_dict(), ref.pigan_state.state_dict()))
+    same_history = got.train_history == ref.train_history
+    print(f"phase 33 in-process kill and resume: forward 2 x {epochs} then PI-GAN 2 x "
+          f"{epochs} epochs through F with the EMA; the resumed run against the "
+          f"uninterrupted one: {len(ref.pigan_state.state_dict())} PI-GAN and "
+          f"{len(ref_f)} forward state entries, {len(bad)} differ {bad[:6]}; history "
+          f"equal: {same_history}; launches {launches}")
+    if bad or not same_history or got.pigan_state.g_ema is None:
+        fail("phase 33: the resumed run is not bit for bit the uninterrupted one")
+    if dev.type == "cuda" and not (launches["forward_train"] and launches["gan_train"]):
+        fail(f"phase 33: kill and resume ran no K1 / K2 launch: {launches}")
+    return {"launches": launches}
+
+
+def _json_block(stdout: str) -> dict:
+    """The JSON object a command printed with indent=2 (from a line "{" to
+    the next line "}")."""
+    lines = stdout.splitlines()
+    start = lines.index("{")
+    return json.loads("\n".join(lines[start: lines.index("}", start) + 1]))
+
+
+def _pipeline_cmd(repo: str, workdir: str, extra) -> list:
+    return [sys.executable, os.path.join(repo, "examples", "torch_full_pipeline.py"),
+            "--workdir", workdir, *PIPELINE_ARGS, *extra]
+
+
+def _pipeline_outputs(workdir: str) -> dict:
+    """{name: bytes} of saved_models/* and final_eval.json."""
+    out = {}
+    models = os.path.join(workdir, "saved_models")
+    for name in sorted(os.listdir(models)):
+        with open(os.path.join(models, name), "rb") as fh:
+            out[f"saved_models/{name}"] = fh.read()
+    with open(os.path.join(workdir, "final_eval.json"), "rb") as fh:
+        out["final_eval.json"] = fh.read()
+    return out
+
+
+def p33_pipeline(repo: str, extra=()) -> dict:
+    """``examples/torch_full_pipeline.py`` three times: uninterrupted; sent
+    SIGKILL when it prints ``gan 50/100``; that workdir rerun to DONE.  The
+    killed-and-resumed run writes the uninterrupted run's files bit for
+    bit."""
+    import signal
+
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        t0 = time.perf_counter()
+        proc = subprocess.run(_pipeline_cmd(repo, a, extra), cwd=repo, capture_output=True,
+                              text=True, timeout=900)
+        wall_a = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"phase 33: the pipeline exited {proc.returncode}: {proc.stderr[-3000:]}")
+        launches = launches_line(proc.stdout, "the pipeline")
+
+        t0 = time.perf_counter()
+        killed = subprocess.Popen(_pipeline_cmd(repo, b, extra), cwd=repo,
+                                  stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        seen = False
+        for line in killed.stdout:
+            if line.startswith(PIPELINE_KILL_AT):
+                killed.send_signal(signal.SIGKILL)
+                seen = True
+                break
+        killed.stdout.close()
+        rc_killed = killed.wait(timeout=120)
+        wall_killed = time.perf_counter() - t0
+        if not seen or rc_killed != -signal.SIGKILL:
+            fail(f"phase 33: the pipeline was not killed at '{PIPELINE_KILL_AT}' (rc "
+                 f"{rc_killed})")
+        with open(os.path.join(b, "progress.json")) as fh:
+            at_kill = json.load(fh)
+        t0 = time.perf_counter()
+        proc_b = subprocess.run(_pipeline_cmd(repo, b, extra), cwd=repo, capture_output=True,
+                                text=True, timeout=900)
+        wall_rerun = time.perf_counter() - t0
+        if proc_b.returncode != 0 or not os.path.exists(os.path.join(b, "DONE")):
+            fail(f"phase 33: the rerun exited {proc_b.returncode}: {proc_b.stderr[-3000:]}")
+        launches_rerun = launches_line(proc_b.stdout, "the pipeline's rerun")
+        resumed = [ln for ln in proc_b.stdout.splitlines() if ln.startswith("resume state")]
+        want, got = _pipeline_outputs(a), _pipeline_outputs(b)
+        differ = sorted(k for k in set(want) | set(got) if want.get(k) != got.get(k))
+        summary = _json_block(proc.stdout)
+    print(f"phase 33 pipeline {' '.join(PIPELINE_ARGS)}: uninterrupted {wall_a:.3f} s wall "
+          f"(launches {launches}); killed at '{PIPELINE_KILL_AT}' after {wall_killed:.3f} s "
+          f"with progress {at_kill}, rerun ({resumed[0] if resumed else '?'}) "
+          f"{wall_rerun:.3f} s (launches {launches_rerun}); {len(want)} files compared, "
+          f"{len(differ)} differ {differ}; param R2 {summary['param_r2']:.4f}, repair "
+          f"accepted {summary['repair_accepted']}")
+    if differ or at_kill.get("gan_epochs") != int(PIPELINE_KILL_AT.split()[1].split("/")[0]):
+        fail("phase 33: the killed and resumed pipeline differs from the uninterrupted one")
+    return {"launches": _add(dict(launches), launches_rerun),
+            "walls": {"uninterrupted": wall_a, "killed": wall_killed, "rerun": wall_rerun}}
+
+
+def p33_checkpoint_command(cfg, dev, train_ds, extra=()) -> dict:
+    """``train --mode full --checkpoint-dir`` at 100 + 100 epochs with
+    ``train.save_interval=50`` in process: the epochs kept, and the latest
+    checkpoint restored into a fresh trainer equal to the saved finals."""
+    import torch
+    from pigan_thz_torch.cli import main as cli_main
+    from pigan_thz_torch.train import checkpoint as ckpt
+    from pigan_thz_torch.train.trainer import Trainer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, out = os.path.join(tmp, "ckpt"), os.path.join(tmp, "saved_models")
+        argv = ["train", "--mode", "full", "--forward-epochs", str(CKPT_COMMAND_EPOCHS),
+                "--epochs", str(CKPT_COMMAND_EPOCHS), "--workdir", tmp, "--out", out,
+                "--no-tensorboard", "--checkpoint-dir", ck, "--set",
+                f"train.save_interval={CKPT_INTERVAL}", *extra]
+        t0 = time.perf_counter()
+        rc, launches = _counted(lambda: cli_main(argv))
+        wall = time.perf_counter() - t0
+        mgr = ckpt.CheckpointManager(ck)
+        kept = mgr.all_epochs()
+        t = Trainer(cfg, ds=train_ds, device=dev)
+        epoch = t.resume_from(mgr, "pigan")
+        differ = []
+        for name, module in (("generator_final", t.pigan_state.g),
+                             ("discriminator_final", t.pigan_state.d),
+                             ("forward_model_final", t.pigan_state.f)):
+            saved = torch.load(os.path.join(out, f"{name}.pth"), weights_only=True)
+            differ += [f"{name}:{k}" for k, v in module.state_dict().items()
+                       if not torch.equal(v.cpu(), saved[k])]
+    print(f"phase 33 train --mode full --checkpoint-dir, {CKPT_COMMAND_EPOCHS} + "
+          f"{CKPT_COMMAND_EPOCHS} epochs, train.save_interval={CKPT_INTERVAL}: rc {rc}, "
+          f"{wall:.3f} s in process, epochs kept {kept} (25-epoch chunks; max_to_keep 3), "
+          f"the latest ({epoch}) restored into a fresh Trainer against the saved finals: "
+          f"{len(differ)} tensors differ; launches {launches}")
+    want = [e for e in range(EPOCHS_PER_CALL, CKPT_COMMAND_EPOCHS + 1, EPOCHS_PER_CALL)
+            if e % CKPT_INTERVAL == 0][-3:]
+    if rc != 0 or kept != want or epoch != CKPT_COMMAND_EPOCHS or differ:
+        fail("phase 33: train --checkpoint-dir kept the wrong epochs or its latest "
+             "checkpoint is not the saved final trio")
+    return {"launches": launches, "wall": wall, "kept": kept}
+
+
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def p33_shadow(cfg, dev, train_ds, epochs: int = EPOCHS_PER_CALL,
+               full_epochs: int = PRETRAIN_EPOCHS) -> dict:
+    """K1 and K2 with ``shadow_parity="all"`` over two chunks each (every
+    replay ``ok``); the planted first-epoch fault raising ``RuntimeError``;
+    one replay's time; the training of ``train --mode full`` (as typed) at
+    ``full_epochs`` + ``full_epochs`` with the default cadence against
+    ``"off"``, in turns."""
+    from pigan_thz_torch.train import trainer as trainer_mod
+    from pigan_thz_torch.train.steps import StepSettings
+    from pigan_thz_torch.train.trainer import Trainer
+
+    through_f = StepSettings.from_config(cfg, detach_forward=False)
+
+    def timed_replays(t, into):
+        replay = t._shadow_replay
+
+        def timed(*a):
+            _sync(dev)
+            t0 = time.perf_counter()
+            replay(*a)
+            _sync(dev)
+            into.append((a[0], (time.perf_counter() - t0) * 1e3))
+        t._shadow_replay = timed
+
+    def clean():
+        t = Trainer(cfg, ds=train_ds, device=dev, epochs_per_call=epochs, engine="kernel",
+                    shadow_parity="all")
+        replays = []
+        timed_replays(t, replays)
+        t.pretrain_forward(epochs=SHADOW_CHUNKS * epochs, log_every=10**9)
+        t.init_pigan()
+        t.train_pigan(epochs=SHADOW_CHUNKS * epochs, settings=through_f, log_every=10**9)
+        return t, replays
+
+    (t, replays), launches = _counted(clean)
+    checks = t.shadow_checks
+    worst = {}
+    for c in checks:
+        if c["worst_rel"] >= worst.get(c["what"], {}).get("worst_rel", -1.0):
+            worst[c["what"]] = {k: c[k] for k in ("worst_key", "worst_rel", "rtol")}
+    print(f"phase 33 shadow replay, shadow_parity='all', {SHADOW_CHUNKS} chunks of {epochs} "
+          f"epochs each through K1 and K2: {len(checks)} replays, all ok: "
+          f"{all(c['ok'] for c in checks)}; worst by kind {worst}; launches {launches}")
+    print("phase 33 shadow replay ms (first epoch on the eager step, synchronised; the first "
+          "of each kind includes the eager step's warm-up): "
+          + ", ".join(f"{w} {ms:.3f}" for w, ms in replays))
+    if len(checks) != 2 * SHADOW_CHUNKS or not all(c["ok"] for c in checks):
+        fail(f"phase 33: the shadow replays on the card did not all pass: {checks}")
+
+    def faulty(make, keys):
+        def factory(*a, **kw):
+            fn = make(*a, **kw)
+
+            def multi_epoch(*args, **kwargs):
+                state, ms = fn(*args, **kwargs)
+                ms = dict(ms)
+                for k in keys:
+                    ms[k] = ms[k].clone()
+                    ms[k][0] *= SHADOW_FAULT
+                return state, ms
+            return multi_epoch
+        return factory
+
+    faults = {}
+    for what, name, keys in (("forward", "make_forward_epoch_fn", ["loss"]),
+                             ("pigan", "make_gan_epoch_fn", ["g_loss"])):
+        t = Trainer(cfg, ds=train_ds, device=dev, epochs_per_call=epochs, engine="kernel")
+        if what == "pigan":
+            t.pretrain_forward(epochs=epochs, log_every=10**9)
+            t.init_pigan()
+        real = getattr(trainer_mod, name)
+        setattr(trainer_mod, name, faulty(real, keys))
+        try:
+            if what == "pigan":
+                t.train_pigan(epochs=epochs, settings=through_f, log_every=10**9)
+            else:
+                t.pretrain_forward(epochs=epochs, log_every=10**9)
+            raised = None
+        except RuntimeError as e:
+            raised = str(e)
+        finally:
+            setattr(trainer_mod, name, real)
+        check = t.shadow_checks[-1] if t.shadow_checks else {}
+        faults[what] = {k: check.get(k) for k in ("ok", "worst_key", "worst_rel")}
+        print(f"phase 33 planted fault, {what}: the kernel function's first-epoch "
+              f"{'/'.join(keys)} x {SHADOW_FAULT:g}: RuntimeError raised: {raised is not None}; "
+              f"the replay's record {faults[what]}")
+        if raised is None or check.get("ok") is not False:
+            fail(f"phase 33: the planted {what} fault did not raise")
+
+    def full(parity):
+        t = Trainer(cfg, ds=train_ds, device=dev, engine="kernel", shadow_parity=parity)
+        _sync(dev)
+        t0 = time.perf_counter()
+        t.pretrain_forward(epochs=full_epochs, log_every=10**9)
+        t.init_pigan()
+        t.train_pigan(epochs=full_epochs, settings=StepSettings.from_config(cfg),
+                      log_every=10**9)
+        _sync(dev)
+        return time.perf_counter() - t0, len(t.shadow_checks)
+
+    walls, total = {"every:20": [], "off": []}, {}
+    for parity in ("off", "every:20", "every:20", "off"):
+        (wall, n), launched = _counted(lambda: full(parity))
+        walls[parity].append(wall)
+        _add(total, launched)
+    on, off = min(walls["every:20"]), min(walls["off"])
+    print(f"phase 33 the training of train --mode full ({full_epochs} + {full_epochs} "
+          f"epochs, as typed) in process, in turns off / every:20 / every:20 / off: "
+          f"{', '.join(f'{w:.4f}' for w in walls['off'][:1] + walls['every:20'] + walls['off'][1:])}"
+          f" s; the default cadence's share (best of each) {(on - off) / off:+.4f}")
+    return {"launches": _add(launches, total), "checks": worst, "faults": faults,
+            "replay_ms": replays, "full_walls": walls, "share": (on - off) / off}
+
+
+def p33_checkpoint_cost(cfg, dev, train_ds) -> dict:
+    """A checkpoint's size, and its save and restore ms (host clock, the
+    card synchronised), for a ForwardState and a PiGanState with the EMA."""
+    import torch
+    from pigan_thz_torch.train import checkpoint as ckpt
+    from pigan_thz_torch.train.steps import StepSettings
+    from pigan_thz_torch.train.trainer import Trainer
+
+    t = Trainer(cfg, ds=train_ds, device=dev, shadow_parity="off")
+    t.pretrain_forward(epochs=1, log_every=10**9)
+    t.init_pigan()
+    t.train_pigan(epochs=1, settings=StepSettings.from_config(cfg, ema_decay=0.999),
+                  log_every=10**9)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for what, state in (("forward", t.forward_state), ("pigan", t.pigan_state)):
+            mgr = ckpt.CheckpointManager(os.path.join(tmp, what), max_to_keep=2,
+                                         save_interval=1)
+            saves, restores = [], []
+            for i in range(CKPT_REPEATS):
+                _sync(dev)
+                t0 = time.perf_counter()
+                mgr.save(i + 1, state, history=t.train_history, config=cfg)
+                saves.append((time.perf_counter() - t0) * 1e3)
+                target = state.clone()
+                _sync(dev)
+                t0 = time.perf_counter()
+                mgr.restore(target, i + 1)
+                _sync(dev)
+                restores.append((time.perf_counter() - t0) * 1e3)
+                if _payload_equal(target.state_dict(), state.state_dict()):
+                    fail(f"phase 33: a restored {what} state differs from the saved one")
+            size = os.path.getsize(os.path.join(tmp, what, "train_state", str(CKPT_REPEATS),
+                                                "state.pt"))
+            floats = sum(v.numel() for v in state.state_dict().values()
+                         if isinstance(v, torch.Tensor) and v.is_floating_point())
+            out[what] = {"bytes": size, "floats": floats,
+                         "save_ms": statistics.median(saves),
+                         "restore_ms": statistics.median(restores)}
+            print(f"phase 33 checkpoint of a {what} state: {size} bytes ({floats} floats), "
+                  f"save {statistics.median(saves):.3f} ms, restore "
+                  f"{statistics.median(restores):.3f} ms (medians of {CKPT_REPEATS}; save: "
+                  f"the copy to the host, torch.save, fsync, rename)")
+    return out
+
+
+def p33_commands(cfg, dev, repo: str, train_ds, extra=(), doctor_must_pass=True) -> dict:
+    """``doctor`` (exits 0 and names the card), ``profile --epochs 10
+    --repeats 3`` (its report, the K2 launches counted, the trace there) and
+    ``cache-data`` of a 1000-sample CSV (arrays equal to the CSV's), with
+    the walls of a ``.thzb`` load and of the CSV loads."""
+    import torch
+    from pigan_thz_torch.cli import main as cli_main
+    from pigan_thz_torch.data import native_io, save_csv
+    from pigan_thz_torch.data.dataset import load_csv
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        report = os.path.join(tmp, "doctor.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "pigan_thz_torch", "doctor", "--json",
+                               report], cwd=repo, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            print(f"phase 33 doctor: {line}")
+        card = torch.cuda.get_device_name(0) if torch.cuda.is_available() else "no card"
+        if doctor_must_pass and (proc.returncode != 0 or card not in proc.stdout):
+            fail(f"phase 33: doctor exited {proc.returncode} or did not name {card}: "
+                 f"{proc.stderr[-2000:]}")
+        out["doctor"] = {"rc": proc.returncode, "wall": wall}
+
+        trace_dir = os.path.join(tmp, "trace")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "pigan_thz_torch", "profile", "--epochs",
+                               "10", "--repeats", "3", "--trace-dir", trace_dir, *extra],
+                              cwd=repo, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"phase 33: profile exited {proc.returncode}: {proc.stderr[-3000:]}")
+        prof = _json_block(proc.stdout)
+        traced = os.path.getsize(os.path.join(trace_dir, "trace.json"))
+        print(f"phase 33 profile --epochs 10 --repeats 3: {wall:.3f} s wall; report {prof}; "
+              f"trace.json {traced} bytes")
+        if dev.type == "cuda" and prof["launches"].get("gan_train") != 3:
+            fail(f"phase 33: profile counted {prof['launches']} launches, not 3 of K2")
+        out["profile"] = prof
+
+        csv_path, thzb = os.path.join(tmp, "d.csv"), os.path.join(tmp, "d.thzb")
+        save_csv(train_ds, csv_path)
+        t0 = time.perf_counter()
+        rc, launches = _counted(lambda: cli_main(["cache-data", "--csv", csv_path, "--out",
+                                                  thzb, *extra]))
+        cache_wall = time.perf_counter() - t0
+        loads = {}
+        for name, fn in (("csv", lambda: load_csv(csv_path, cfg.data, device=dev)),
+                         ("csv_native", lambda: native_io.load_csv_native(
+                             csv_path, cfg.data, device=dev)),
+                         ("thzb", lambda: native_io.load_cached(thzb, cfg.data, device=dev))):
+            times = []
+            for _ in range(3):
+                _sync(dev)
+                t0 = time.perf_counter()
+                ds = fn()
+                _sync(dev)
+                times.append((time.perf_counter() - t0) * 1e3)
+            loads[name] = (min(times), ds)
+        ref = loads["csv"][1]
+        differ = [f"{n}:{k}" for n, (_, ds) in loads.items() for k in ("spectra", "params",
+                                                                        "metrics")
+                  if not torch.equal(getattr(ds, k), getattr(ref, k))]
+        print(f"phase 33 cache-data of {ref.num_samples} samples: rc {rc}, {cache_wall:.3f} s in "
+              f"process (native extension: {native_io.native_available()}); loads, best of "
+              f"3: CSV {loads['csv'][0]:.3f} ms, CSV native {loads['csv_native'][0]:.3f} ms, "
+              f".thzb {loads['thzb'][0]:.3f} ms; arrays differing from the CSV's: {differ}")
+        if rc != 0 or differ or ref.num_samples != train_ds.num_samples:
+            fail("phase 33: cache-data did not round-trip the CSV's arrays")
+        out["cache"] = {"wall": cache_wall, "native": native_io.native_available(),
+                        "load_ms": {k: v[0] for k, v in loads.items()}}
+    return out
+
+
+def phase33_preemption(cfg, dev, repo: str, train_ds, k2_epoch_ms: float, tag: str) -> dict:
+    """Preemption-safe training and the operational commands at full width
+    (module docstring, phase 33).  Returns the main-path launches and the
+    numbers for the record."""
+    t0 = time.perf_counter()
+    launches = {}
+    resume = p33_resume_in_process(cfg, dev, train_ds)
+    _add(launches, resume["launches"])
+    pipeline = p33_pipeline(repo)
+    _add(launches, pipeline["launches"])
+    command = p33_checkpoint_command(cfg, dev, train_ds)
+    _add(launches, command["launches"])
+    shadow = p33_shadow(cfg, dev, train_ds)
+    _add(launches, shadow["launches"])
+    cost = p33_checkpoint_cost(cfg, dev, train_ds)
+    commands = p33_commands(cfg, dev, repo, train_ds)
+    _add(launches, {"gan_train": commands["profile"]["launches"].get("gan_train", 0)})
+    spe = train_ds.num_samples // cfg.train.batch_size
+    prof = commands["profile"]
+    print(f"time {tag} profile: {prof['train_steps_per_sec']} train steps/s "
+          f"({1e3 * spe / prof['train_steps_per_sec']:.4f} ms an epoch) beside phase 15's K2 "
+          f"epoch {k2_epoch_ms:.4f} ms ({1e3 * spe / k2_epoch_ms:.1f} steps/s), as typed")
+    print(f"time {tag} checkpoints: " + "; ".join(
+        f"{w} {c['bytes'] / 1e6:.2f} MB, save {c['save_ms']:.3f} ms, restore "
+        f"{c['restore_ms']:.3f} ms" for w, c in cost.items()))
+    print(f"time {tag} pipeline {' '.join(PIPELINE_ARGS)}: uninterrupted "
+          f"{pipeline['walls']['uninterrupted']:.3f} s, killed at '{PIPELINE_KILL_AT}' after "
+          f"{pipeline['walls']['killed']:.3f} s and rerun {pipeline['walls']['rerun']:.3f} s")
+    wall = time.perf_counter() - t0
+    print(f"phase 33: main-path launches {launches}; {wall:.1f} s")
+    return {"launches": launches, "pipeline": pipeline["walls"], "checkpoint": cost,
+            "shadow": {k: shadow[k] for k in ("checks", "faults", "replay_ms", "full_walls",
+                                              "share")},
+            "checkpoint_command": {"wall": command["wall"], "kept": command["kept"]},
+            "commands": commands, "wall": wall}
+
+
 def main() -> None:
     import torch
 
@@ -3835,6 +4366,10 @@ def main() -> None:
         shutil.rmtree(kept, ignore_errors=True)
     sv = serving["launches"]
 
+    # -- 33. preemption-safe training and the operational commands ---------------
+    preempt = phase33_preemption(cfg, dev, repo, train_ds, k2_times[True][0], tag)
+    pr = preempt["launches"]
+
     # -- the record -------------------------------------------------------------
     # bound_ms: operations over the fp32 peak against bytes moved once over the
     # memory rate, from the shapes each timed call was given.
@@ -3954,7 +4489,7 @@ def main() -> None:
     # command here pretrains F first), and each product's numbers
     k1_brow = pretrain["launches"]["brow_gemm"]
     brow_main = (k1_brow + tl["brow_gemm"] + el["brow_gemm"] + pl["brow_gemm"]
-                 + sl["brow_gemm"] + ev_l["brow_gemm"])
+                 + sl["brow_gemm"] + ev_l["brow_gemm"] + pr.get("brow_gemm", 0))
     if not k1_brow or not tl["brow_gemm"] or not el["brow_gemm"]:
         fail(f"the main paths launched the batch-row kernel {brow_main} times "
              f"(pretrain-forward {k1_brow}, train {tl['brow_gemm']}, ensemble "
@@ -4006,7 +4541,8 @@ def main() -> None:
          "replaces": "pigan_thz_tpu/ops/peaks.py:306",
          "launches": dataset_k4 + k4_screen + tl["dip_qualification"]
          + el["dip_qualification"] + pl["dip_qualification"] + ev_l["dip_qualification"]
-         + sv["dip_qualification"],
+         + sv["dip_qualification"] + pr.get("dip_qualification", 0),
+         "launches_preemption_safe_training": pr.get("dip_qualification", 0),
          "launches_serving_completed": sv["dip_qualification"],
          "launches_evaluate_path": ev_l["dip_qualification"],
          "evaluate": {k: evaluation[k] for k in ("ceilings", "eval_ms", "ceilings_oracle_ms",
@@ -4033,7 +4569,12 @@ def main() -> None:
          "source": "pigan_thz_torch/csrc/forward_train.cu",
          "replaces": "pigan_thz_tpu/ops/megakernel.py:2623",
          "launches": k1_launches + tl["forward_train"] + el["forward_train"]
-         + pl["forward_train"] + sl["forward_train"] + ev_l["forward_train"],
+         + pl["forward_train"] + sl["forward_train"] + ev_l["forward_train"]
+         + pr.get("forward_train", 0),
+         "launches_preemption_safe_training": pr.get("forward_train", 0),
+         "preemption_safe_training": {
+             "shadow_replay": preempt["shadow"], "checkpoint": preempt["checkpoint"]["forward"],
+             "pipeline_walls_s": preempt["pipeline"]},
          "launches_bf16": s7["train_bf16"]["launches"]["forward_train"],
          "bf16_ms": s7["times"]["k1"]["bf16"], "float32_ms_same_call": s7["times"]["k1"][
              "float32"],
@@ -4058,7 +4599,13 @@ def main() -> None:
          "source": "pigan_thz_torch/csrc/gan_train.cu",
          "replaces": "pigan_thz_tpu/ops/megakernel.py:779",
          "launches": tl["gan_train"] + el["gan_train"] + pl["gan_train"] + sl["gan_train"]
-         + ev_l["gan_train"],
+         + ev_l["gan_train"] + pr.get("gan_train", 0),
+         "launches_preemption_safe_training": pr.get("gan_train", 0),
+         "preemption_safe_training": {
+             "checkpoint": preempt["checkpoint"]["pigan"],
+             "checkpoint_command": preempt["checkpoint_command"],
+             "profile": preempt["commands"]["profile"],
+             "cache_data": preempt["commands"]["cache"]},
          "launches_on_the_paths": pl["gan_train"],
          "launches_bf16_command": s7["train_bf16"]["launches"]["gan_train"],
          "launches_wgan_gp_train_pigan": s7["wgan_train"]["launches"]["gan_train"],

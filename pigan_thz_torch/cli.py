@@ -15,6 +15,9 @@ Commands:
   screen            batched inverse-design screening      (1e6 candidates, top-k)
   design            inverse design for target spectra     (G + refinement + F check)
   export            torch.export serving artifacts        (.pt2, weights baked in)
+  cache-data        dataset -> binary .thzb cache         (native/thzio.cpp)
+  profile           torch.profiler trace of the GAN training chunk + report
+  doctor            environment health report             (exits 1 on a failed check)
 
 ``pretrain-forward`` writes ``forward_model_pretrained.pth`` (F's torch
 state_dict) and ``model_config.json`` under ``--out``; ``train`` writes the
@@ -30,9 +33,11 @@ metric-gated pipelines of ``train/programs.py`` from a fresh trainer and
 writes the finals (with ``generator_<name>.pth`` etc. beside them) and
 ``final_eval.json`` in the run directory.  The training commands take
 ``--engine auto|eager|kernel`` (the Trainer's engine rule: on the card
-``auto`` is the training kernels or an error, never the eager step).  Of
-``train``'s flags, ``--checkpoint-dir`` raises until what it needs is
-ported.  ``train --holdout FRAC --holdout-seed N`` trains on the (1 - FRAC)
+``auto`` is the training kernels or an error, never the eager step).
+``train --checkpoint-dir DIR`` saves the full training state every
+``train.save_interval`` epochs (``forward_only`` F's, ``full`` and
+``pigan_only`` the GAN stage's) for ``Trainer.resume_from``.
+``train --holdout FRAC --holdout-seed N`` trains on the (1 - FRAC)
 split and writes ``holdout_eval.json`` (train vs held-out rows) in the run
 directory; ``evaluate --holdout`` with the same pair scores the same held-out
 cells.  The split is the port's own (``torch.randperm`` from a CPU generator
@@ -61,9 +66,19 @@ writes ``torch.export`` programs (``.pt2``, loaded by
 ``serve.load_exported``): the designer, the generator and the surrogate in
 fp32, bf16 or int8, ``--pallas`` for the fused-kernel designer and
 surrogate, or ``--artifact ensemble`` from the ``ensemble_best.pt`` that
-``examples/torch_seed_ensemble.py --save`` writes.  Of the JAX package's
-other commands, ``cache-data``, ``profile``, ``doctor`` and ``bench`` are
-not ported yet (ROADMAP.md queue 1, item 11).
+``examples/torch_seed_ensemble.py --save`` writes.
+
+``cache-data`` writes the dataset (``--csv`` or synthetic) as a ``.thzb``
+cache that either package loads (``data/native_io.py``) and checks the
+round trip.  ``profile`` runs the PI-GAN multi-epoch function the engine
+rule picks (on the card the GAN-training kernel): one warm-up call, then
+``--repeats`` calls of ``--epochs`` epochs under ``torch.profiler``, and
+prints a JSON report (calls/s, train steps/s, device memory, kernel
+launches) with a Chrome trace in ``--trace-dir``.  ``doctor`` reports the
+versions, the card, nvcc, the kernel library's build, the native IO
+extension, the kernels' verdicts for the config and a device round trip,
+the last two in killable subprocesses.  The JAX package's ``bench`` is not
+ported: a benchmark of the port is its own change.
 """
 
 from __future__ import annotations
@@ -252,12 +267,6 @@ def cmd_pretrain_forward(args) -> int:
     return 0
 
 
-# train's flags that wait for a module: flag -> (its "off" value, what it waits for)
-_TRAIN_NOT_PORTED = {
-    "checkpoint_dir": (None, "CheckpointManager and resume (ROADMAP.md queue 1, item 7)"),
-}
-
-
 def _load_pretrained_forward(trainer, path: str) -> None:
     """Start the trainer's forward state from ``<dir>/<name>[.pth]``."""
     from .train import checkpoint as ckpt
@@ -269,10 +278,6 @@ def _load_pretrained_forward(trainer, path: str) -> None:
 
 
 def cmd_train(args) -> int:
-    for flag, (off, waits_for) in _TRAIN_NOT_PORTED.items():
-        if getattr(args, flag) != off:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet: it waits for {waits_for}")
     if args.backup_tag in ("final", "ema", "pretrained"):
         # fail before training, not at the final save
         raise SystemExit(f"--backup-tag {args.backup_tag!r} collides with a canonical "
@@ -339,9 +344,13 @@ def cmd_train(args) -> int:
         else:
             settings = StepSettings.from_config(
                 cfg, detach_forward=not args.fixed_physics, ema_decay=args.ema_decay)
+        mgr = None
+        if args.checkpoint_dir:
+            mgr = ckpt.CheckpointManager(args.checkpoint_dir,
+                                         save_interval=cfg.train.save_interval)
         out = args.out or os.path.join(cfg.workdir, "saved_models")
         if args.mode == "forward_only":
-            trainer.pretrain_forward(epochs=args.epochs)
+            trainer.pretrain_forward(epochs=args.epochs, checkpoint_manager=mgr)
             ckpt.save_model(out, ckpt.FORWARD_MODEL_PRETRAINED, trainer.forward_state.f)
             ckpt.save_model_config(out, cfg)
             logger.info(f"saved pretrained forward model under {out}")
@@ -350,9 +359,12 @@ def cmd_train(args) -> int:
                 if args.forward_model:
                     _load_pretrained_forward(trainer, args.forward_model)
             else:
+                # one manager holds one kind of state: full mode checkpoints
+                # the GAN stage
                 trainer.pretrain_forward(epochs=args.forward_epochs)
             trainer.init_pigan()
-            trainer.train_pigan(epochs=args.epochs, settings=settings, **gan_kw)
+            trainer.train_pigan(epochs=args.epochs, settings=settings,
+                                checkpoint_manager=mgr, **gan_kw)
             trainer.save_final(out, backup_tag=args.backup_tag)
             logger.info(f"saved final models under {out}")
             if holdout_ds is not None:
@@ -372,6 +384,10 @@ def cmd_train(args) -> int:
 
             plot_training_curves(trainer.train_history,
                                  os.path.join(logger.run_dir, "training_curves.png"))
+        if mgr is not None:
+            mgr.close()
+            logger.info(f"checkpoints kept under {mgr.directory}: epochs "
+                        f"{mgr.all_epochs()}")
         logger.info(f"kernel launches: {launch_counts()}")
     finally:
         logger.close()
@@ -728,6 +744,188 @@ def cmd_export(args) -> int:
     return 0
 
 
+def cmd_cache_data(args) -> int:
+    """The dataset (``--csv`` or synthetic) -> a binary ``.thzb`` cache, read
+    back and checked against the arrays it was written from."""
+    cfg = _make_cfg(args)
+    device = _device(args)
+    from .data import load_or_synthesize
+    from .data.native_io import cache_dataset, load_cached, native_available
+
+    ds = load_or_synthesize(cfg.data, args.csv, device=device)
+    cache_dataset(ds, args.out)
+    reloaded = load_cached(args.out, dataclasses.replace(cfg.data, spectrum_dim=ds.spectrum_dim),
+                           device=device)
+    for name in ("spectra", "params", "metrics"):
+        if not torch.equal(getattr(reloaded, name), getattr(ds, name)):
+            raise SystemExit(f"cache-data: the cache's {name} differ from the dataset's")
+    where = args.out if native_available() else args.out + ".npy (no C++ extension here)"
+    print(f"cached {ds.num_samples} samples -> {where}")
+    return 0
+
+
+def cmd_profile(args) -> int:
+    """A ``torch.profiler`` trace of the PI-GAN multi-epoch function the
+    engine rule picks, and a warm-up-aware throughput and memory report."""
+    cfg = _make_cfg(args)
+    device = _device(args)
+    from .ops._cuda_build import launch_counts
+    from .train.steps import StepSettings
+    from .train.trainer import Trainer
+    from .utils.profiling import TRACE_FILE, StepTimer, device_memory_stats, trace
+
+    trainer = Trainer(cfg, csv_path=args.csv, device=device, engine=args.engine)
+    state = trainer.init_pigan()
+    multi, _ = trainer._gan_epoch_fn(StepSettings.from_config(cfg), trainer.g_tx,
+                                     trainer.d_tx, {}, args.epochs)
+    ones = torch.ones(args.epochs)
+    # the build and the first call's set-up outside the trace
+    state, m = multi(state, trainer.ds, ones)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+    timer = StepTimer(warmup=1)
+    trace_dir = args.trace_dir or os.path.join(cfg.workdir, "trace")
+    before = launch_counts()
+    with trace(trace_dir):
+        for _ in range(args.repeats):
+            state, m = multi(state, trainer.ds, ones)
+            timer.tick(m)
+    launches = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+    spe = trainer.steps_per_epoch
+    report = {
+        "trace_dir": trace_dir,
+        "epochs_per_call": args.epochs,
+        "calls_per_sec": round(timer.steps_per_sec(), 3),
+        "train_steps_per_sec": round(timer.steps_per_sec() * args.epochs * spe, 1),
+        "device_memory": device_memory_stats(),
+        "launches": launches,
+    }
+    print(json.dumps(report, indent=2))
+    print(f"open {os.path.join(trace_dir, TRACE_FILE)} in a Chrome-trace viewer (Perfetto)")
+    return 0
+
+
+_PROBE = """
+import time, torch
+t0 = time.time()
+x = torch.ones((8, 8), device="cuda")
+torch.cuda.synchronize()
+t1 = time.time()
+v = float((x @ x).sum())
+rtt = time.time() - t1
+print(f"{torch.cuda.device_count()} {time.time() - t0:.2f} {rtt * 1000:.2f} {v}")
+"""
+
+_BUILD_PROBE = """
+import time
+from pigan_thz_torch.ops import _cuda_build
+t0 = time.time()
+path = _cuda_build.build()
+_cuda_build.load_library()
+print(f"{path} {time.time() - t0:.1f}")
+"""
+
+
+def cmd_doctor(args) -> int:
+    """Environment health report: versions, the card (name and power
+    limit), nvcc, the kernel library (built in a killable subprocess), the
+    native IO extension, the kernels' verdicts for the config, and a device
+    round trip in a killable subprocess.  Exits 1 when a check fails."""
+    import platform
+    import shutil
+    import subprocess
+    import sys
+    import time
+
+    checks = []
+
+    def add(name, ok, detail=""):
+        checks.append({"check": name, "ok": bool(ok), "detail": detail})
+        print(f"[{'ok ' if ok else 'FAIL'}] {name}{': ' + detail if detail else ''}")
+
+    def run(cmd, timeout):
+        """(returncode, stdout, stderr) of a subprocess, killed at ``timeout``."""
+        try:
+            out = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout,
+                                 cwd=root)
+            return out.returncode, out.stdout.strip(), out.stderr.strip()
+        except subprocess.TimeoutExpired:
+            return None, "", f"no answer within {timeout} s (killed)"
+        except OSError as e:
+            return None, "", f"{type(e).__name__}: {e}"
+
+    t0 = time.time()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    print(f"python {platform.python_version()} on {platform.platform()}")
+    add("torch", True, f"{torch.__version__}, built for CUDA {torch.version.cuda}")
+    cuda = torch.cuda.is_available()
+    add("CUDA device", cuda,
+        f"{torch.cuda.device_count()}x {torch.cuda.get_device_name(0)}, capability "
+        f"{torch.cuda.get_device_capability(0)}" if cuda else
+        "torch.cuda.is_available() is False: no card, or a CPU-only torch")
+    if shutil.which("nvidia-smi"):
+        rc, out, err = run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], args.timeout)
+        add("card", rc == 0 and bool(out), out.replace("\n", "; ") if rc == 0 else err[-200:])
+    else:
+        add("card", False, "nvidia-smi not found")
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else shutil.which("nvcc")
+    if nvcc and os.path.exists(nvcc):
+        rc, out, err = run([nvcc, "--version"], args.timeout)
+        add("nvcc", rc == 0, f"{nvcc}: {out.splitlines()[-1] if out else err[-200:]}")
+    else:
+        add("nvcc", False, "not found (set CUDA_HOME or put nvcc on PATH)")
+    if cuda and nvcc:
+        rc, out, err = run([sys.executable, "-c", _BUILD_PROBE], args.timeout)
+        add("kernel library", rc == 0,
+            f"{out.split()[0]} ready in {out.split()[-1]} s" if rc == 0 and out
+            else err[-300:])
+    else:
+        add("kernel library", False, "not built: it needs a card and nvcc")
+    try:
+        from .data.native_io import build_error, native_available
+
+        ok = native_available()
+        add("native IO extension", ok,
+            "C++ CSV parser and .thzb cache built" if ok
+            else f"unavailable, the Python fallback runs: {build_error()}")
+    except Exception as e:  # noqa: BLE001 (a report, not a crash)
+        add("native IO extension", False, f"{type(e).__name__}: {e}")
+    try:
+        from .ops.forward_train import supports_forward_kernel
+        from .ops.gan_train import supports_gan_kernel
+        from .train.steps import StepSettings
+
+        cfg = _make_cfg(args)
+        r_fwd = supports_forward_kernel(cfg)
+        r_gan = supports_gan_kernel(cfg, StepSettings.from_config(cfg))
+        # verdicts, not failures: a config outside a kernel runs --engine eager
+        add("forward-training kernel", True,
+            "takes this config" if r_fwd is None else f"eager step only: {r_fwd}")
+        add("GAN-training kernel", True,
+            "takes this config" if r_gan is None else f"eager step only: {r_gan}")
+    except Exception as e:  # noqa: BLE001
+        add("kernel verdicts", False, f"{type(e).__name__}: {e}")
+    if cuda:
+        rc, out, err = run([sys.executable, "-c", _PROBE], args.timeout)
+        try:
+            n, init_s, rtt_ms, v = out.splitlines()[-1].split()
+            add("device round trip", rc == 0 and float(v) == 512.0,
+                f"{n} card(s), first tensor {init_s} s, round trip {rtt_ms} ms")
+        except (ValueError, IndexError):
+            add("device round trip", False, f"probe rc={rc}: {(err or out)[-300:]}")
+    else:
+        add("device round trip", False, "no CUDA device to probe")
+    print(f"doctor finished in {time.time() - t0:.1f} s")
+    if args.json:
+        with open(args.json, "w") as fh:
+            json.dump(checks, fh, indent=2)
+    return 0 if all(c["ok"] for c in checks) else 1
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="pigan_thz_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -803,7 +1001,8 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--plot", action="store_true",
                    help="write training_curves.png in the run directory (needs matplotlib)")
     g.add_argument("--checkpoint-dir", default=None,
-                   help="not ported yet (needs CheckpointManager)")
+                   help="save the full training state every train.save_interval epochs "
+                        "here (the GAN stage in full mode), for Trainer.resume_from")
     g.add_argument("--tensorboard", action=argparse.BooleanOptionalAction, default=True,
                    help="write tfevents scalars under <run_dir>/tb (on by default)")
     g.add_argument("--wandb", action="store_true",
@@ -895,6 +1094,29 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the designer and surrogate through the fused kernels, as custom "
                         "ops (runs where pigan_thz_torch is imported; baseline trio only)")
     g.set_defaults(fn=cmd_export)
+
+    g = sub.add_parser("cache-data", help="dataset -> binary .thzb cache")
+    _base_parser(g)
+    g.add_argument("--out", default="dataset/thz.thzb")
+    g.set_defaults(fn=cmd_cache_data)
+
+    g = sub.add_parser("profile", help="torch.profiler trace of the GAN training chunk")
+    _base_parser(g)
+    g.add_argument("--epochs", type=int, default=10, help="epochs per traced call")
+    g.add_argument("--repeats", type=int, default=3,
+                   help="traced calls (the first anchors the timer)")
+    g.add_argument("--trace-dir", default=None,
+                   help="where trace.json goes (default <workdir>/trace)")
+    _engine_flag(g)
+    g.set_defaults(fn=cmd_profile)
+
+    g = sub.add_parser("doctor", help="environment health report")
+    _base_parser(g)   # --set / --config: the kernels' verdicts for that config
+    g.add_argument("--timeout", type=int, default=300,
+                   help="seconds for each subprocess (the build, the device probe); "
+                        "a subprocess past it is killed and its check fails")
+    g.add_argument("--json", default=None, help="also write the checks as JSON")
+    g.set_defaults(fn=cmd_doctor)
     return p
 
 

@@ -1,4 +1,4 @@
-"""Saved-model artifacts: the port of the named-artifact half of
+"""Saved-model artifacts and full-state checkpoints: the port of
 ``pigan_thz_tpu/train/checkpoint.py``.
 
 The artifact names are the reference's contract (unified_trainer.py:643-651,
@@ -16,8 +16,11 @@ write and read the three final models of a PI-GAN run (and the EMA
 generator when the state carries one), ``save_train_history`` /
 ``load_train_history`` the Trainer's per-epoch metric history.
 
-Orbax is not used here.  ``CheckpointManager``, the full-state checkpoints
-and resume come later (ROADMAP.md queue 1, item 7).
+``CheckpointManager`` keeps periodic full-state checkpoints with retention
+on ``torch.save`` where the JAX package uses Orbax: the training state
+(``ForwardState`` or ``PiGanState``, through their ``state_dict``) and a
+JSON meta item with the epoch, the history, the config snapshot and a free
+``extra`` dict, so that ``Trainer.resume_from`` continues the run exactly.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import shutil
 
 import torch
 from torch import nn
@@ -207,3 +211,143 @@ def load_train_history(directory: str):
         return None
     with open(p) as fh:
         return json.load(fh)
+
+
+# ---------------------------------------------------------------------------
+# Full-state checkpoints
+# ---------------------------------------------------------------------------
+
+_PARTIAL, _REPLACED = ".partial", ".replaced"
+
+
+def _config_meta(config):
+    """JSON-able view of a config (dicts and None pass through)."""
+    if config is None or isinstance(config, dict):
+        return config
+    return _to_dict(config)
+
+
+def _fsync_dir(path: str) -> None:
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+class CheckpointManager:
+    """Periodic full-state checkpoints with retention: the JAX package's
+    manager (``pigan_thz_tpu/train/checkpoint.py``) on ``torch.save``.
+
+    ``<directory>/train_state/<epoch>/`` holds ``state.pt`` (the state's
+    ``state_dict`` on the CPU: tensors, ints and floats only, so it loads
+    with ``weights_only=True``) and ``meta.json`` (``{epoch, history,
+    config, extra}``, ``extra`` a JSON-able dict such as the plateau
+    controller's state).  A save is written into
+    ``train_state/<epoch>.partial`` and renamed into place, so a kill
+    mid-save leaves no epoch directory: ``latest_epoch`` ignores the
+    partial one and the next save removes it.  Retention keeps the
+    ``max_to_keep`` latest saves (None keeps all), deleting the oldest only
+    after a save has completed.  As with Orbax, "latest" is the last epoch
+    saved through this manager, or the highest on disk when it opened.
+    Unlike Orbax, saving an epoch that is already there replaces it (a run
+    resumed from an earlier epoch saves its later ones again).
+
+    Saves are synchronous; ``close`` has nothing left to wait for.  The JAX
+    package's legacy Orbax layout (a bare state item) is not read: no
+    checkpoint of this package predates this manager."""
+
+    def __init__(self, directory: str, max_to_keep: int | None = 3, save_interval: int = 50):
+        self.directory = os.path.abspath(directory)
+        self.save_interval = max(1, save_interval)
+        self.max_to_keep = max_to_keep
+        self._root = os.path.join(self.directory, TRAIN_STATE)
+        os.makedirs(self._root, exist_ok=True)
+        # completed epochs, oldest save first (at open: by epoch)
+        self._epochs = sorted(int(n) for n in os.listdir(self._root) if n.isdigit())
+        self._last_saved: int | None = None
+
+    def _epoch_dir(self, epoch: int) -> str:
+        return os.path.join(self._root, str(int(epoch)))
+
+    def _write(self, epoch: int, state, history, config, extra) -> None:
+        for name in os.listdir(self._root):       # what a killed save left
+            if name.endswith((_PARTIAL, _REPLACED)):
+                shutil.rmtree(os.path.join(self._root, name), ignore_errors=True)
+        final = self._epoch_dir(epoch)
+        tmp = final + _PARTIAL
+        os.makedirs(tmp)
+        payload = {k: v.detach().cpu() if isinstance(v, torch.Tensor) else v
+                   for k, v in state.state_dict().items()}
+        meta = {"epoch": int(epoch), "history": history if history is not None else {},
+                "config": _config_meta(config), "extra": extra if extra is not None else {}}
+        with open(os.path.join(tmp, "state.pt"), "wb") as fh:
+            torch.save(payload, fh)
+            fh.flush()
+            os.fsync(fh.fileno())
+        with open(os.path.join(tmp, "meta.json"), "w") as fh:
+            json.dump(meta, fh)
+            fh.flush()
+            os.fsync(fh.fileno())
+        if os.path.isdir(final):
+            os.replace(final, final + _REPLACED)
+        os.replace(tmp, final)
+        _fsync_dir(self._root)
+        shutil.rmtree(final + _REPLACED, ignore_errors=True)
+        if epoch in self._epochs:
+            self._epochs.remove(epoch)
+        self._epochs.append(int(epoch))
+        while self.max_to_keep and len(self._epochs) > self.max_to_keep:
+            shutil.rmtree(self._epoch_dir(self._epochs.pop(0)), ignore_errors=True)
+
+    def maybe_save(self, epoch: int, state, history=None, config=None, extra=None) -> bool:
+        """Save when an interval boundary was crossed since the last save
+        through this method, and never below ``save_interval``: callers
+        that see only chunked epoch counts (25-epoch chunks at interval 30
+        save at 50 and 75) still save."""
+        prev = self._last_saved if self._last_saved is not None else 0
+        if epoch // self.save_interval <= prev // self.save_interval and prev != 0:
+            return False
+        if epoch < self.save_interval:
+            return False
+        self._write(epoch, state, history, config, extra)
+        self._last_saved = epoch
+        return True
+
+    def save(self, epoch: int, state, history=None, config=None, extra=None) -> None:
+        """Save ``state`` at ``epoch`` now, whatever the interval."""
+        self._write(epoch, state, history, config, extra)
+
+    def latest_epoch(self) -> int | None:
+        return self._epochs[-1] if self._epochs else None
+
+    def all_epochs(self) -> list[int]:
+        """The epochs kept, in increasing order."""
+        return sorted(self._epochs)
+
+    def restore(self, state, epoch: int | None = None):
+        """(epoch, state): see ``restore_with_meta``."""
+        epoch, state, _ = self.restore_with_meta(state, epoch)
+        return epoch, state
+
+    def restore_with_meta(self, state, epoch: int | None = None):
+        """(epoch, state, meta) of ``epoch`` (default: the latest), or
+        (None, None, None) when there is none.  The checkpoint is loaded
+        into ``state`` in place (``load_state_dict_``, onto its device);
+        with ``state=None`` only the meta is read."""
+        epoch = self.latest_epoch() if epoch is None else int(epoch)
+        if epoch is None:
+            return None, None, None
+        path = self._epoch_dir(epoch)
+        if not os.path.isdir(path):
+            raise FileNotFoundError(f"no checkpoint for epoch {epoch} under {self._root}")
+        with open(os.path.join(path, "meta.json")) as fh:
+            meta = json.load(fh)
+        if state is not None:
+            payload = torch.load(os.path.join(path, "state.pt"), map_location=state.device,
+                                 weights_only=True)
+            state.load_state_dict_(payload)
+        return epoch, state, meta
+
+    def close(self) -> None:
+        """Nothing to wait for: every save completed before it returned."""

@@ -21,6 +21,14 @@ G's flat buffer, the step count and the generator.
 ``make_optimizers`` builds the three models' optimisers from the config
 (cosine for G, step decay for D, cosine to 0 for F), as the JAX package
 does.
+
+Each state's ``state_dict`` names everything training reads and updates
+(the step, the flat buffers, Adam's moments and counts, the modules'
+buffers, the EMA, the generator's state), and ``load_state_dict_`` copies a
+payload back into the state's own buffers: the modules' parameters are
+views into those buffers, so assigning new tensors would unbind them from
+the memory that the kernels and the eager step update.  The checkpoint
+manager (``checkpoint.py``) saves and restores through these two.
 """
 
 from __future__ import annotations
@@ -65,6 +73,30 @@ def num_params(module: nn.Module) -> int:
     return sum(p.numel() for p in module.parameters())
 
 
+def _module_buffers(prefix: str, module: nn.Module) -> dict:
+    """``module``'s buffers (BatchNorm running stats and counts) by name."""
+    return {f"{prefix}.{name}": buf for name, buf in module.named_buffers()}
+
+
+def _signature(payload: dict) -> dict:
+    return {k: tuple(v.shape) if isinstance(v, torch.Tensor) else type(v).__name__
+            for k, v in payload.items()}
+
+
+def _load_payload_(own: dict, payload: dict, what: str) -> None:
+    """Check ``payload`` against ``own`` (a state's ``state_dict``) key by
+    key and shape by shape, then copy its tensors into ``own``'s in place
+    (the generator's state aside: the caller sets it)."""
+    if _signature(payload) != _signature(own):
+        raise ValueError(
+            f"the checkpoint does not match the {what} it is loaded into.\n"
+            f"  loaded:   {_signature(payload)}\n  expected: {_signature(own)}")
+    with torch.no_grad():
+        for key, dst in own.items():
+            if isinstance(dst, torch.Tensor) and key != "generator":
+                dst.copy_(payload[key])
+
+
 @dataclass
 class ForwardState:
     """Forward-surrogate pretraining state.
@@ -99,6 +131,22 @@ class ForwardState:
             & torch.isfinite(self.opt.m).all()
             & torch.isfinite(self.opt.v).all()
         )
+
+    def state_dict(self) -> dict:
+        """The step, F's flat buffer, Adam's m, v and count, F's buffers and
+        the generator's state (a CPU ``ByteTensor``); the tensors are the
+        state's own, not copies."""
+        return {"step": self.step, "params": self.params, "opt.m": self.opt.m,
+                "opt.v": self.opt.v, "opt.count": self.opt.count,
+                **_module_buffers("f", self.f), "generator": self.generator.get_state()}
+
+    def load_state_dict_(self, payload: dict) -> None:
+        """Copy ``payload`` (a ``state_dict``, from any device) into this
+        state in place; a payload of another architecture raises
+        ``ValueError`` with both sets of shapes."""
+        _load_payload_(self.state_dict(), payload, "ForwardState")
+        self.step, self.opt.count = int(payload["step"]), int(payload["opt.count"])
+        self.generator.set_state(payload["generator"].cpu())
 
 
 def init_forward_state(
@@ -180,6 +228,47 @@ class PiGanState:
         if self.g_ema is not None:
             tensors.append(self.g_ema)
         return all(bool(torch.isfinite(t).all()) for t in tensors)
+
+    def state_dict(self) -> dict:
+        """The step, G's, D's and F's flat buffers, both Adams' m, v and
+        count, the modules' buffers (G's BatchNorm running stats and
+        counts), ``g_ema`` when the state carries one and the generator's
+        state (a CPU ``ByteTensor``); the tensors are the state's own."""
+        payload = {"step": self.step, "g_params": self.g_params, "d_params": self.d_params,
+                   "f_params": self.f_params}
+        for name, opt in (("g_opt", self.g_opt), ("d_opt", self.d_opt)):
+            payload.update({f"{name}.m": opt.m, f"{name}.v": opt.v, f"{name}.count": opt.count})
+        for name in ("g", "d", "f"):
+            payload.update(_module_buffers(name, getattr(self, name)))
+        if self.g_ema is not None:
+            payload["g_ema"] = self.g_ema
+        payload["generator"] = self.generator.get_state()
+        return payload
+
+    def load_state_dict_(self, payload: dict) -> None:
+        """Copy ``payload`` into this state in place.  A payload with
+        ``g_ema`` gives a state without one the track, and a payload without
+        it drops the state's: a checkpoint of an EMA run resumes into a
+        plain state and the reverse.  A payload of another architecture
+        raises ``ValueError`` with both sets of shapes."""
+        own = self.state_dict()
+        own.pop("g_ema", None)
+        rest = {k: v for k, v in payload.items() if k != "g_ema"}
+        ema = payload.get("g_ema")
+        if ema is not None and tuple(ema.shape) != tuple(self.g_params.shape):
+            raise ValueError(f"the checkpoint's g_ema has shape {tuple(ema.shape)}, the "
+                             f"generator {tuple(self.g_params.shape)}")
+        _load_payload_(own, rest, "PiGanState")
+        self.step = int(payload["step"])
+        self.g_opt.count, self.d_opt.count = (int(payload["g_opt.count"]),
+                                              int(payload["d_opt.count"]))
+        if ema is None:
+            self.g_ema = None
+        elif self.g_ema is None:
+            self.g_ema = ema.to(self.device, torch.float32).clone()
+        else:
+            self.g_ema.copy_(ema)
+        self.generator.set_state(payload["generator"].cpu())
 
     def set_forward_(self, forward_model: nn.Module) -> None:
         """Refresh the frozen F with ``forward_model``'s weights (a copy)."""

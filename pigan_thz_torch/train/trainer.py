@@ -9,8 +9,10 @@ whole epochs; ``train`` dispatches on the mode and ``save_final`` /
 ``load_final`` write and read the artifacts; ``evaluator`` / ``evaluate``
 run the four evaluation suites (``evaluate/evaluator.py``) on the trained
 state, which is what the gates of the training programs
-(``train/programs.py``) read.  The ``CheckpointManager`` with resume is not
-ported yet.
+(``train/programs.py``) read.  With a ``CheckpointManager``
+(``checkpoint.py``) both phases save the full state after the chunks that
+cross its interval, and ``resume_from`` restores a checkpoint into a fresh
+trainer: the run then continues bit for bit as if it had not stopped.
 
 Each chunk of ``epochs_per_call`` epochs is one call of a multi-epoch
 function: on the card a training kernel (``ops/forward_train.py``,
@@ -29,6 +31,18 @@ The choice is logged.  A non-finite metric row or state raises
 ``FloatingPointError``.  It does not restore and retry on the eager path,
 as the JAX package's megakernel net does: that would hide a fault of the
 kernel.
+
+On the kernel engine a *shadow replay* guards against a kernel result that
+is finite but wrong (``shadow_parity``, default ``"every:20"``: chunk 0 of
+each phase kind and every 20th after; ``"first"``, ``"all"``, ``"off"``).
+A due chunk's draws are resolved from the state's generator before the
+launch, the state is cloned, and after the kernel's chunk the clone runs
+the chunk's first epoch on the eager step with the same draws.  The two
+first-epoch metric rows are compared with the JAX package's tolerances
+(relative 0.25, 0.5 for the forward phase with dropout, absolute 1e-2);
+each replay is recorded in ``shadow_checks``, and a mismatch raises
+``RuntimeError``: the run does not continue, neither from the kernel's
+result nor from the eager one.
 """
 
 from __future__ import annotations
@@ -41,11 +55,11 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from ..config import PiGanConfig
+from ..config import PiGanConfig, _to_dict
 from ..data.dataset import ThzDataset, load_or_synthesize
 from ..evaluate.evaluator import Evaluator
 from ..models.registry import build_trio
-from ..ops.forward_train import make_forward_epoch_fn, supports_forward_kernel
+from ..ops.forward_train import make_forward_epoch_fn, resolve_draws, supports_forward_kernel
 from ..ops.gan_train import make_gan_epoch_fn, supports_gan_kernel
 from ..utils.logging import RunLogger
 from . import checkpoint as ckpt
@@ -68,6 +82,13 @@ from .steps import (
 History = Dict[str, List[float]]
 ENGINES = ("auto", "eager", "kernel")
 
+# The shadow replay's tolerances on a first-epoch row, the JAX package's: the
+# kernel and the eager step differ by float reassociation over one epoch
+# (~1e-3 relative); the finite-but-wrong fault it was built for was ~10x off.
+_SHADOW_RTOL = 0.25
+_SHADOW_RTOL_DROPOUT = 0.5
+_SHADOW_ATOL = 1e-2
+
 
 class Trainer:
     def __init__(
@@ -79,9 +100,22 @@ class Trainer:
         epochs_per_call: int = 25,
         engine: str = "auto",
         device: torch.device | str = "cuda",
+        shadow_parity: str = "every:20",
     ):
         if engine not in ENGINES:
             raise ValueError(f"engine {engine!r}: use one of {ENGINES}")
+        self._shadow_every: Optional[int] = None
+        if shadow_parity.startswith("every:"):
+            n = int(shadow_parity.split(":", 1)[1])
+            if n < 1:
+                raise ValueError(f"shadow_parity {shadow_parity!r}: N >= 1")
+            self._shadow_every = n
+        elif shadow_parity not in ("off", "first", "all"):
+            raise ValueError(f"shadow_parity {shadow_parity!r}: use off | first | all | every:N")
+        self.shadow_parity = shadow_parity
+        self._shadow_counts: Dict[str, int] = {}     # chunks of each kind (every:N)
+        self._shadow_done: set = set()
+        self.shadow_checks: List[dict] = []          # one record per replay
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -143,6 +177,13 @@ class Trainer:
                          "chunk")
         return True
 
+    def _eager_forward_fn(self, settings, tx):
+        return make_multi_epoch_fn(make_forward_step(tx, settings), self.cfg.train.batch_size)
+
+    def _eager_gan_fn(self, settings, g_tx, d_tx):
+        step = make_pigan_step(g_tx, d_tx, settings, self.ds.param_lo, self.ds.param_hi)
+        return make_multi_epoch_fn(step, self.cfg.train.batch_size)
+
     def _forward_epoch_fn(self, settings, tx, lr, epochs, schedule):
         """(multi-epoch fn, engine used) for this phase."""
         if self._use_kernel("forward pretraining", "forward-training",
@@ -151,8 +192,7 @@ class Trainer:
                 self.cfg, settings, lr=lr,
                 total_epochs=epochs if lr is not None else None, schedule=schedule)
             return fn, "kernel"
-        fn = make_multi_epoch_fn(make_forward_step(tx, settings), self.cfg.train.batch_size)
-        return fn, "eager"
+        return self._eager_forward_fn(settings, tx), "eager"
 
     def _gan_epoch_fn(self, settings, g_tx, d_tx, overrides: dict, epochs: int):
         """(multi-epoch fn, engine used) for a PI-GAN phase."""
@@ -162,8 +202,86 @@ class Trainer:
                 self.cfg, settings, **overrides,
                 horizon_epochs=epochs if overrides else None)
             return fn, "kernel"
-        step = make_pigan_step(g_tx, d_tx, settings, self.ds.param_lo, self.ds.param_hi)
-        return make_multi_epoch_fn(step, self.cfg.train.batch_size), "eager"
+        return self._eager_gan_fn(settings, g_tx, d_tx), "eager"
+
+    # ------------------------------------------------------------------
+    # One chunk, and the shadow replay
+    # ------------------------------------------------------------------
+    def _shadow_due(self, what: str) -> bool:
+        """Whether the next ``what`` chunk on the kernel is replayed (the JAX
+        package's cadence; each call counts one chunk)."""
+        if self.shadow_parity == "off":
+            return False
+        if self._shadow_every is not None:
+            c = self._shadow_counts.get(what, 0)
+            self._shadow_counts[what] = c + 1
+            return c % self._shadow_every == 0
+        return self.shadow_parity == "all" or what not in self._shadow_done
+
+    def _run_chunk(self, what: str, fn, eager, state, scales: torch.Tensor, at: int):
+        """One chunk of ``len(scales)`` epochs through ``fn``: (state,
+        {key: [per-epoch floats]}), with one host transfer.  A non-finite
+        state raises ``FloatingPointError``; on the kernel engine (``eager``
+        given) a due shadow replay that disagrees raises ``RuntimeError``."""
+        replay = None
+        if eager is not None and self._shadow_due(what):
+            # the chunk's draws as the kernel's function would draw them, so
+            # that the state's generator ends where it ends without a replay
+            indices, seeds = resolve_draws(state.generator, self.ds.num_samples,
+                                           self.cfg.train.batch_size, int(scales.numel()))
+            replay = (state.clone(), indices, seeds)   # the kernel updates in place
+            state, ms = fn(state, self.ds, scales, indices, seeds)
+        else:
+            state, ms = fn(state, self.ds, scales)
+        host = torch.stack([ms[k] for k in ms]).cpu()        # one transfer
+        rows = {k: host[j].tolist() for j, k in enumerate(ms)}
+        if not state.is_finite():
+            raise FloatingPointError(
+                f"non-finite {what} state after the chunk at epoch {at} "
+                f"({'kernel' if eager is not None else 'eager'} engine)")
+        # a non-finite row raises in _record, before a replay could mistake it
+        if replay is not None and all(math.isfinite(x) for v in rows.values() for x in v):
+            self._shadow_replay(what, eager, *replay, scales, rows, at)
+        return state, rows
+
+    def _shadow_replay(self, what: str, eager, backup, indices, seeds, scales, rows, at):
+        """Run the chunk's first epoch on the eager step from the pre-chunk
+        ``backup`` with the chunk's own draws, and hold the kernel's
+        first-epoch row to it.  Records the replay in ``shadow_checks``;
+        raises ``RuntimeError`` on a mismatch (a non-finite replay row is
+        one)."""
+        self._shadow_done.add(what)
+        spe = indices.shape[1]
+        _, sms = eager(backup, self.ds, scales[:1], indices[:1], seeds[:spe])
+        srows = {k: float(v[0]) for k, v in sms.items()}
+        rtol = _SHADOW_RTOL
+        if what == "forward" and self.cfg.forward_model.dropout_rate > 0:
+            rtol = _SHADOW_RTOL_DROPOUT
+        bad, worst_key, worst_rel = [], None, 0.0
+        for k, v in rows.items():
+            if k not in srows:
+                bad.append(f"{k}: missing in the replay")
+                continue
+            a, b = v[0], srows[k]
+            if not math.isfinite(b):
+                bad.append(f"{k}: {a:.6g} vs {b:.6g} (replay non-finite)")
+                worst_key, worst_rel = k, float("inf")
+                continue
+            denom = max(abs(a), abs(b))
+            rel = abs(a - b) / denom if denom > 0 else 0.0
+            if abs(a - b) > _SHADOW_ATOL + rtol * denom:
+                bad.append(f"{k}: {a:.6g} vs {b:.6g}")
+            if rel > worst_rel:
+                worst_key, worst_rel = k, rel
+        self.shadow_checks.append(dict(what=what, at=at, ok=not bad, rtol=rtol,
+                                       worst_key=worst_key, worst_rel=worst_rel))
+        if bad:
+            raise RuntimeError(
+                f"{what} chunk at epoch {at}: the kernel's first epoch disagrees with the "
+                f"eager step's replay from the same state and draws ({'; '.join(bad)}). "
+                "A finite but wrong kernel result: the run stops here")
+        self._log_always(f"{what} shadow replay ok at epoch {at} "
+                         f"(worst {worst_key} rel diff {worst_rel:.2e})")
 
     def _record(self, metrics: Dict[str, float], prefix: str, epoch: int) -> None:
         for k, val in metrics.items():
@@ -205,6 +323,7 @@ class Trainer:
         reset: bool = False,
         schedule: str = "cosine",
         plateau: Optional[ReduceLROnPlateau] = None,
+        checkpoint_manager: Optional[ckpt.CheckpointManager] = None,
     ) -> History:
         """Train F for ``epochs`` (default ``train.fwd_pretrain_epochs``).
 
@@ -213,7 +332,11 @@ class Trainer:
         each epoch's loss; its scale multiplies the learning rate from the
         next chunk on.  ``early_stop_patience`` stops after that many epochs
         without a new best loss; ``keep_best`` restores the state at the end
-        of the last chunk that improved it."""
+        of the last chunk that improved it.  ``checkpoint_manager`` is
+        offered the state after each chunk (``maybe_save``) at the epoch
+        count of the whole history, with the plateau controller's state in
+        ``extra``; a pristine controller paired with a manager that holds a
+        saved one resumes from it."""
         cfg = self.cfg
         # epochs=0 means "initialise the state only"
         epochs = cfg.train.fwd_pretrain_epochs if epochs is None else epochs
@@ -235,21 +358,34 @@ class Trainer:
             # horizon is `epochs`, so the old count would start it mid-decay
             self.forward_state.opt = tx.init(self.forward_state.params)
         multi_epoch, engine = self._forward_epoch_fn(settings, tx, lr, epochs, schedule)
+        # the eager step of the same phase, for the kernel's shadow replay
+        eager = self._eager_forward_fn(settings, tx) if engine == "kernel" else None
+
+        if (plateau is not None and checkpoint_manager is not None
+                and math.isinf(plateau.best) and plateau.num_bad_epochs == 0):
+            # a killed run resumed: a pristine controller takes the saved
+            # one's reductions instead of retraining at the pre-plateau rate
+            latest = checkpoint_manager.latest_epoch()
+            if latest is not None:
+                _, _, meta = checkpoint_manager.restore_with_meta(None, latest)
+                saved = (meta or {}).get("extra", {}).get("plateau")
+                if saved:
+                    plateau.load_state_dict(saved)
+                    self._log(f"[forward] plateau controller resumed from checkpoint "
+                              f"{latest} (scale {plateau.scale:g})")
 
         best_loss, best_state, bad_epochs = float("inf"), None, 0
         epoch, stop = 0, False
+        # checkpoint epochs count the whole history, so that repeated calls
+        # with one manager keep saving
+        ckpt_base = len(self.train_history.get("forward/loss", []))
         t_start = time.time()
         while epoch < epochs and not stop:
             chunk = min(self.epochs_per_call, epochs - epoch)
             lr_scale = plateau.scale if plateau is not None else 1.0
-            self.forward_state, ms = multi_epoch(
-                self.forward_state, self.ds, torch.full((chunk,), lr_scale))
-            host = torch.stack([ms[k] for k in ms]).cpu()        # one transfer
-            rows = {k: host[j].tolist() for j, k in enumerate(ms)}
-            if not self.forward_state.is_finite():
-                raise FloatingPointError(
-                    f"non-finite forward state after the chunk at epoch {epoch} "
-                    f"({engine} engine)")
+            self.forward_state, rows = self._run_chunk(
+                "forward", multi_epoch, eager, self.forward_state,
+                torch.full((chunk,), lr_scale), epoch)
             improved_in_chunk = False
             for j in range(chunk):
                 e = epoch + j
@@ -275,6 +411,11 @@ class Trainer:
                         break
             if keep_best and improved_in_chunk:
                 best_state = self.forward_state.clone()     # chunk granularity
+            if checkpoint_manager is not None:
+                checkpoint_manager.maybe_save(
+                    ckpt_base + epoch + chunk, self.forward_state, history=self.train_history,
+                    config=self.cfg,
+                    extra={"plateau": plateau.state_dict()} if plateau is not None else None)
             epoch += chunk
             self._progress("forward", t_start, epoch, epochs)
         if keep_best and best_state is not None:
@@ -307,7 +448,7 @@ class Trainer:
         snapshot_metric: Optional[str] = None,
         snapshot_mode: str = "min",
         early_stop: Optional[Callable[[Dict[str, float]], bool]] = None,
-        checkpoint_manager=None,
+        checkpoint_manager: Optional[ckpt.CheckpointManager] = None,
         lr_g: Optional[float] = None,
         lr_d: Optional[float] = None,
         schedule_g: Optional[str] = None,
@@ -326,11 +467,9 @@ class Trainer:
         not this call's ``epochs``: callers that train in several calls need
         a horizon that spans the total (the command sets it from
         ``--epochs``).  ``seed`` reseeds the state's generator, so that
-        successive calls do not replay one shuffle sequence."""
-        if checkpoint_manager is not None:
-            raise NotImplementedError(
-                "checkpoint_manager: periodic full-state checkpoints and resume are not "
-                "ported yet (ROADMAP.md queue 1, item 7)")
+        successive calls do not replay one shuffle sequence.
+        ``checkpoint_manager`` is offered the state after each chunk
+        (``maybe_save``) at the epoch count of the whole history."""
         cfg = self.cfg
         epochs = cfg.train.num_epochs if epochs is None else epochs
         settings = settings or StepSettings.from_config(cfg)
@@ -358,23 +497,20 @@ class Trainer:
             state.d_opt = d_tx.init(state.d_params)
             overrides.update(lr_d=lr_d, schedule_d=schedule_d)
         multi_epoch, engine = self._gan_epoch_fn(settings, g_tx, d_tx, overrides, epochs)
+        eager = self._eager_gan_fn(settings, g_tx, d_tx) if engine == "kernel" else None
 
         state.generator.manual_seed(cfg.train.seed + 3000 + seed)
         best_val, best_state = None, None
         epoch, stop = 0, False
+        ckpt_base = len(self.train_history.get("pigan/d_loss", []))
         t_start = time.time()
         while epoch < epochs and not stop:
             chunk = min(self.epochs_per_call, epochs - epoch)
             scales = torch.tensor(
                 [constraint_schedule(epoch + j) if constraint_schedule else 1.0
                  for j in range(chunk)], dtype=torch.float32)
-            self.pigan_state, ms = multi_epoch(self.pigan_state, self.ds, scales)
-            host = torch.stack([ms[k] for k in ms]).cpu()        # one transfer
-            rows = {k: host[j].tolist() for j, k in enumerate(ms)}
-            if not self.pigan_state.is_finite():
-                raise FloatingPointError(
-                    f"non-finite PI-GAN state after the chunk at epoch {epoch} "
-                    f"({engine} engine)")
+            self.pigan_state, rows = self._run_chunk(
+                "pigan", multi_epoch, eager, self.pigan_state, scales, epoch)
             chunk_has_best = False
             for j in range(chunk):
                 e = epoch + j
@@ -394,12 +530,56 @@ class Trainer:
                     break
             if chunk_has_best:
                 best_state = self.pigan_state.clone()       # chunk granularity
+            if checkpoint_manager is not None:
+                checkpoint_manager.maybe_save(
+                    ckpt_base + epoch + chunk, self.pigan_state, history=self.train_history,
+                    config=self.cfg)
             epoch += chunk
             self._progress("pigan", t_start, epoch, epochs)
         if snapshot_metric is not None and best_state is not None:
             self.pigan_state = best_state
             self._log(f"[pigan] restored best snapshot ({snapshot_metric}={best_val:.4f})")
         return self.train_history
+
+    # ------------------------------------------------------------------
+    # Resume (unified_constraint_trainer.py:1140-1176: epoch, models,
+    # optimiser moments, history and config all come back)
+    # ------------------------------------------------------------------
+    def resume_from(self, manager: ckpt.CheckpointManager, which: str = "pigan",
+                    epoch: Optional[int] = None) -> Optional[int]:
+        """Restore the latest (or ``epoch``'s) checkpoint of ``manager``
+        into this trainer: the full state of the ``which`` phase ("pigan" or
+        "forward"), the generator's state among it, and the history, so the
+        run continues as if it had not stopped.  Returns the epoch, or None
+        when the manager is empty.  Each model section whose config differs
+        from the checkpoint's is logged: the restored weights then run under
+        the current settings."""
+        if which == "pigan":
+            if self.pigan_state is None:
+                self.init_pigan()
+            step, _, meta = manager.restore_with_meta(self.pigan_state, epoch)
+        elif which == "forward":
+            if self.forward_state is None:
+                self.pretrain_forward(epochs=0)
+            step, _, meta = manager.restore_with_meta(self.forward_state, epoch)
+        else:
+            raise ValueError(f"unknown target: {which!r}")
+        if step is None:
+            return None
+        if meta.get("history"):
+            self.train_history = {k: [float(x) for x in v] for k, v in meta["history"].items()}
+        if isinstance(meta.get("config"), dict):
+            cur = _to_dict(self.cfg)
+            for sec in ("generator", "discriminator", "forward_model"):
+                saved = meta["config"].get(sec)
+                if saved is not None and saved != cur.get(sec):
+                    diff = {k: (v, cur[sec].get(k)) for k, v in saved.items()
+                            if cur[sec].get(k) != v}
+                    self._log_always(
+                        f"resume: {sec} config differs from the checkpoint's (saved, "
+                        f"current): {diff}; the restored weights run under the current "
+                        "settings")
+        return step
 
     # ------------------------------------------------------------------
     # Full pipeline (unified_trainer.train_full_pipeline :422-455)

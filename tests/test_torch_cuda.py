@@ -26,7 +26,11 @@ against ``brow_products``.  The serving kernels' custom ops
 (``torch.ops.pigan_thz.*``) are held bit for bit against their wrappers,
 and a ``use_pallas`` designer artifact written on the CPU runs on the card
 through one launch of each kernel a call; the int8 products and the bf16 /
-int8 cycles are held against the CPU.
+int8 cycles are held against the CPU.  Training killed after a chunk and
+resumed from a checkpoint in a fresh trainer ends bit for bit where the
+uninterrupted run ends, through K1 and K2; a checkpoint written on the card
+restores on the CPU with equal tensors; the shadow replay passes on a clean
+run and raises on a planted first-epoch fault.
 """
 
 import copy
@@ -1451,3 +1455,111 @@ def test_oracle_and_suites_on_the_card_equal_the_cpu(dev, models):
     assert set(got) == set(want)
     for k in want:
         assert abs(got[k] - want[k]) <= 1e-4 * max(1.0, abs(want[k])), (k, got[k], want[k])
+
+
+# -- preemption-safe training: checkpoints, resume, the shadow replay -------------
+
+
+def _state_equal(a: dict, b: dict) -> list:
+    """Keys of two state_dicts that differ, tensors compared on the CPU."""
+    bad = sorted(set(a) ^ set(b))
+    for k in set(a) & set(b):
+        x, y = a[k], b[k]
+        if not (torch.equal(x.cpu(), y.cpu()) if isinstance(x, torch.Tensor) else x == y):
+            bad.append(k)
+    return bad
+
+
+def _resume_stages(dev, ds, tmp=None, epochs=2):
+    """Forward 2 x ``epochs``, then PI-GAN 2 x ``epochs`` through F with the
+    EMA, through K1 and K2; with ``tmp`` a fresh trainer resumes each stage's
+    second call from a checkpoint."""
+    from pigan_thz_torch.train import checkpoint as ckpt
+
+    cfg = default_config()
+    settings = StepSettings.from_config(cfg, detach_forward=False, ema_decay=0.99)
+
+    def trainer():
+        return Trainer(cfg, ds=ds, epochs_per_call=epochs, device=dev, engine="kernel")
+
+    t = trainer()
+    t.pretrain_forward(epochs=epochs, seed=0, log_every=10**9)
+    if tmp:
+        mgr = ckpt.CheckpointManager(str(tmp / "fwd"), save_interval=1)
+        mgr.save(epochs, t.forward_state, history=t.train_history, config=cfg)
+        t = trainer()
+        assert t.resume_from(mgr, "forward") == epochs
+    t.pretrain_forward(epochs=epochs, seed=epochs, log_every=10**9)
+    forward = {k: v.clone() if isinstance(v, torch.Tensor) else v
+               for k, v in t.forward_state.state_dict().items()}
+    t.init_pigan()
+    t.train_pigan(epochs=epochs, settings=settings, seed=0, log_every=10**9)
+    if tmp:
+        mgr = ckpt.CheckpointManager(str(tmp / "gan"), save_interval=1)
+        mgr.save(epochs, t.pigan_state, history=t.train_history, config=cfg)
+        t = trainer()
+        assert t.resume_from(mgr, "pigan") == epochs
+    t.train_pigan(epochs=epochs, settings=settings, seed=epochs, log_every=10**9)
+    return forward, t
+
+
+def test_kill_and_resume_through_k1_and_k2_is_bit_for_bit(dev, train_ds, tmp_path):
+    before = (ft.LAUNCHES["forward_train"], gt.LAUNCHES["gan_train"])
+    ref_f, ref = _resume_stages(dev, train_ds)
+    got_f, got = _resume_stages(dev, train_ds, tmp_path)
+    assert (ft.LAUNCHES["forward_train"] - before[0], gt.LAUNCHES["gan_train"] - before[1]) \
+        == (4, 4)
+    assert _state_equal(got_f, ref_f) == []
+    assert _state_equal(got.pigan_state.state_dict(), ref.pigan_state.state_dict()) == []
+    assert got.train_history == ref.train_history
+    assert got.pigan_state.g_ema is not None
+
+
+def test_a_card_checkpoint_restores_on_the_cpu(dev, train_ds, tmp_path):
+    from pigan_thz_torch.train import checkpoint as ckpt
+
+    cfg = default_config()
+    card = Trainer(cfg, ds=train_ds, epochs_per_call=1, device=dev)
+    card.pretrain_forward(epochs=1, log_every=10**9)
+    card.init_pigan()
+    card.train_pigan(epochs=1, log_every=10**9,
+                     settings=StepSettings.from_config(cfg, ema_decay=0.9))
+    cpu_ds = type(train_ds)(*(t.cpu() for t in train_ds))
+    cpu = Trainer(cfg, ds=cpu_ds, device="cpu")
+    for which, state in (("forward", card.forward_state), ("pigan", card.pigan_state)):
+        mgr = ckpt.CheckpointManager(str(tmp_path / which), save_interval=1)
+        mgr.save(1, state, history=card.train_history, config=cfg)
+        assert cpu.resume_from(mgr, which) == 1
+        restored = cpu.forward_state if which == "forward" else cpu.pigan_state
+        assert restored.device.type == "cpu"
+        assert _state_equal(restored.state_dict(), state.state_dict()) == []
+
+
+def test_shadow_replay_on_the_card(dev, train_ds, monkeypatch):
+    from pigan_thz_torch.train import trainer as trainer_mod
+
+    cfg = default_config()
+    settings = StepSettings.from_config(cfg, detach_forward=False)
+    t = Trainer(cfg, ds=train_ds, epochs_per_call=2, device=dev, shadow_parity="all")
+    t.pretrain_forward(epochs=4, log_every=10**9)
+    t.init_pigan()
+    t.train_pigan(epochs=4, settings=settings, log_every=10**9)
+    assert [c["what"] for c in t.shadow_checks] == ["forward"] * 2 + ["pigan"] * 2
+    assert all(c["ok"] and c["worst_rel"] < 0.05 for c in t.shadow_checks), t.shadow_checks
+
+    real = trainer_mod.make_gan_epoch_fn
+
+    def faulty(*a, **kw):
+        fn = real(*a, **kw)
+
+        def multi_epoch(*args, **kwargs):
+            state, ms = fn(*args, **kwargs)
+            ms = dict(ms, g_loss=ms["g_loss"].clone())
+            ms["g_loss"][0] *= 10.0
+            return state, ms
+        return multi_epoch
+
+    monkeypatch.setattr(trainer_mod, "make_gan_epoch_fn", faulty)
+    with pytest.raises(RuntimeError, match="disagrees"):
+        t.train_pigan(epochs=2, settings=settings, log_every=10**9)
+    assert not t.shadow_checks[-1]["ok"] and t.shadow_checks[-1]["worst_key"] == "g_loss"

@@ -234,11 +234,6 @@ def test_kernel_engine_raises_outside_the_envelope(cfg, ds):
         _trainer(narrow, ds, "kernel").train_pigan(epochs=1)
 
 
-def test_checkpoint_manager_is_not_ported(cfg, ds):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        _trainer(cfg, ds).train_pigan(epochs=1, checkpoint_manager=object())
-
-
 def test_non_finite_chunk_raises(cfg, ds):
     tr = _trainer(cfg, ds, "kernel")
     tr.init_pigan()
@@ -354,8 +349,7 @@ def test_train_command_ties_the_horizon_to_epochs(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag, waits_for", [
-    (["--preset", "optimized"], "residual"),
-    (["--checkpoint-dir", "ckpts"], "CheckpointManager")])
+    (["--preset", "optimized"], "residual")])
 def test_train_command_guards_what_is_not_ported(flag, waits_for, tmp_path):
     with pytest.raises(NotImplementedError, match=waits_for) as err:
         cli_main(_train_args(tmp_path, *flag))

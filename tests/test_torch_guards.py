@@ -34,12 +34,12 @@ names = [m.name for m in pkgutil.walk_packages(pigan_thz_torch.__path__, "pigan_
          if not m.name.endswith(".__main__")]     # __main__ runs the CLI
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 42, names
+assert len(names) >= 44, names
 for new in ("ops.metrics", "parallel.state_utils", "parallel.ensemble",
             "parallel.ensemble_megakernel", "config_presets", "train.programs",
             "evaluate", "evaluate.evaluator", "evaluate.ceilings", "evaluate.grading",
             "evaluate.report", "evaluate.rubrics", "utils.viz", "utils.eval_viz",
-            "ops.quantized", "design.inverse"):
+            "ops.quantized", "design.inverse", "utils.profiling", "data.native_io"):
     assert "pigan_thz_torch." + new in names, new
 # the seed-ensemble example: its imports run, its main() does not
 import importlib.util
@@ -299,7 +299,9 @@ def _imported_roots(path):
     "pigan_thz_torch/evaluate/report.py", "pigan_thz_torch/utils/viz.py",
     "pigan_thz_torch/utils/eval_viz.py", "pigan_thz_torch/ops/quantized.py",
     "pigan_thz_torch/design/inverse.py", "pigan_thz_torch/design/screening.py",
-    "pigan_thz_torch/models/forward_model.py", "examples/torch_serving_bench.py"])
+    "pigan_thz_torch/models/forward_model.py", "examples/torch_serving_bench.py",
+    "pigan_thz_torch/train/state.py", "pigan_thz_torch/utils/profiling.py",
+    "pigan_thz_torch/data/native_io.py", "examples/torch_full_pipeline.py"])
 def test_source_imports_neither_jax_nor_the_jax_package(path):
     roots = _imported_roots(os.path.join(REPO, path))
     assert not roots & {"jax", "jaxlib", "flax", "optax", "orbax", "pigan_thz_tpu",
