@@ -243,7 +243,22 @@ generator passes (cycle, stability) and noise streams:
     (exit 0, the card named), ``profile --epochs 10 --repeats 3`` (3 K2
     launches counted, the trace written) and ``cache-data`` of a
     1000-sample CSV (arrays equal to the CSV's), with the CSV, native CSV
-    and ``.thzb`` load times.
+    and ``.thzb`` load times;
+34. the enhanced variants, at full published width on the 1000-sample
+    dataset: ``train --preset optimized`` as typed (its residual G and
+    spectral-norm dual-encoder D; GAN depth cut to ``--epochs 50``) in a
+    subprocess: F pretrains through K1 at the preset's 200 epochs, the GAN
+    phase on the eager step with the engine rule's log line, no K2 launch,
+    finite history; ``evaluate`` on the saved trio (finite param R²); one
+    B = 64 request through ``make_inverse_design_fn`` with K5 serving F and
+    the residual G's module (1 K5 launch, no K6; params in the design box;
+    equal to the all-module cycle); then each of the eight variants swapped
+    alone into the baseline trio, its state built on the CPU from a seed and
+    carried to the card through ``state_dict`` / ``load_state_dict_``,
+    takes eager steps on the card (PI-GAN steps; a surrogate also forward
+    steps, the uncertainty one with ``nll_w`` 0.5), finite, each variant's
+    steps/s beside the baseline trio's eager steps in the same call; the K1
+    and K4 launches of the phase printed.
 
 The ``kernels`` record gives each kernel's launches on the main path, its
 error against its plain version, its time beside the plain version's, the
@@ -4009,6 +4024,188 @@ def phase33_preemption(cfg, dev, repo: str, train_ds, k2_epoch_ms: float, tag: s
             "commands": commands, "wall": wall}
 
 
+P34_GAN_EPOCHS = 50          # train --preset optimized: the GAN depth, cut
+P34_WARMUP, P34_STEPS = 2, 10  # eager steps a variant: untimed, then timed
+P34_VARIANTS = (("generator", "residual"), ("generator", "conv_attn"),
+                ("discriminator", "dual_encoder"), ("discriminator", "conv"),
+                ("discriminator", "multi_scale"), ("forward_model", "branched"),
+                ("forward_model", "physics"), ("forward_model", "uncertainty"))
+
+
+def _p34_variant_steps(cfg, dev, train_ds, role: str, name: str) -> dict:
+    """Eager steps of the baseline trio with ``role`` swapped for ``name``
+    (``role`` None: the baseline trio itself) on the card: the state built
+    on the CPU from SEED and carried over as a ``state_dict``; steps/s of
+    the PI-GAN step (and of the forward step for a surrogate)."""
+    import dataclasses
+
+    import torch
+
+    from pigan_thz_torch.data.dataset import gather_batch
+    from pigan_thz_torch.models import build_trio
+    from pigan_thz_torch.train.state import (init_forward_state, init_pigan_state,
+                                             make_optimizers)
+    from pigan_thz_torch.train.steps import (ForwardStepSettings, StepSettings,
+                                             make_forward_step, make_pigan_step)
+
+    c = cfg
+    if role is not None:
+        section = getattr(cfg, role)
+        knobs = {"name": name}
+        if role == "discriminator" and name != "conv":
+            knobs["use_spectral_norm"] = True
+        c = cfg.replace(**{role: dataclasses.replace(section, **knobs)})
+    spe = train_ds.num_samples // c.train.batch_size
+    g_tx, d_tx, f_tx = make_optimizers(c, spe)
+    states = []
+    for device in ("cpu", dev):
+        g, d, f = build_trio(c, device="cpu", generator=torch.Generator().manual_seed(SEED))
+        states.append(init_pigan_state(g, d, f, g_tx, d_tx, SEED, device=device,
+                                       fresh_forward=True))
+    cpu_state, state = states
+    state.load_state_dict_(cpu_state.state_dict())
+    if state.d_params.data_ptr() != next(state.d.parameters()).data_ptr():
+        fail(f"phase 34: the {name} state's parameters are not views of its buffers")
+    idx = torch.randperm(train_ds.num_samples, generator=torch.Generator().manual_seed(SEED))
+    idx = idx.to(dev)
+    out = {}
+    steps = {"pigan": (make_pigan_step(g_tx, d_tx, StepSettings.from_config(c),
+                                       train_ds.param_lo, train_ds.param_hi), state)}
+    if role == "forward_model":
+        f_state = init_forward_state(build_trio(c, device="cpu")[2], f_tx, SEED, device=dev)
+        nll = 0.5 if name == "uncertainty" else 0.0
+        steps["forward"] = (make_forward_step(f_tx, ForwardStepSettings(nll_w=nll)), f_state)
+    for what, (step, st) in steps.items():
+        rows = []
+        for i in range(P34_WARMUP + P34_STEPS):
+            if i == P34_WARMUP:
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+            b = i % spe
+            batch = gather_batch(train_ds, idx[b * c.train.batch_size:(b + 1) * c.train.batch_size])
+            st, m = step(st, batch, 1.0, 1000 + i)
+            rows.append(m)
+        torch.cuda.synchronize(dev)
+        rate = P34_STEPS / (time.perf_counter() - t0)
+        finite = st.is_finite() and all(bool(torch.isfinite(v).all()) for r in rows
+                                        for v in r.values())
+        if not finite:
+            fail(f"phase 34: {name} ({role}) {what} steps are not finite on the card")
+        out[what] = {"steps_per_s": rate, "loss": float(rows[-1].get("g_loss", rows[-1].get(
+            "loss")))}
+    return out
+
+
+def phase34_enhanced(cfg, dev, repo: str, train_ds, tag: str) -> dict:
+    """The enhanced variants on the card (module docstring, phase 34).
+    Returns the main-path launches and the numbers for the record."""
+    import tempfile
+
+    import torch
+
+    from pigan_thz_torch import config_presets
+    from pigan_thz_torch.ops import _cuda_build
+    from pigan_thz_torch.serve import make_inverse_design_fn
+    from pigan_thz_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    launches, out = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        work = os.path.join(tmp, "optimized")
+        saved = os.path.join(work, "saved_models")
+        cmd = [sys.executable, "-m", "pigan_thz_torch", "train", "--mode", "full", "--preset",
+               "optimized", "--epochs", str(P34_GAN_EPOCHS), "--workdir", work,
+               "--no-tensorboard"]
+        t1 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t1
+        if proc.returncode != 0:
+            fail(f"phase 34: train --preset optimized exited {proc.returncode}: "
+                 f"{proc.stderr[-3000:]}")
+        got = launches_line(proc.stdout, "train --preset optimized (phase 34)")
+        _add(launches, got)
+        said = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+                if "on the eager step" in ln or "through the forward-training kernel" in ln]
+        for line in said:
+            print(f"phase 34 engine: {line}")
+        if (got.get("gan_train", 0) != 0 or got.get("forward_train", 0) < 1
+                or not any("no TPU kernel covers the generator 'residual'" in ln
+                           for ln in said)):
+            fail(f"phase 34: train --preset optimized did not pretrain F through K1 and train "
+                 f"the GAN phase on the eager step as the engine rule says: {got}")
+        ocfg = config_presets.apply_optimization_config(cfg)
+        loaded = Trainer(ocfg, ds=train_ds, device=dev)
+        loaded.load_final(saved)
+        hist = loaded.train_history
+        finite = all(x == x and abs(x) != float("inf") for v in hist.values() for x in v)
+        g, f = loaded.pigan_state.g, loaded.pigan_state.f
+        print(f"phase 34 train --mode full --preset optimized --epochs {P34_GAN_EPOCHS} as "
+              f"typed: {type(g).__name__} + {type(loaded.pigan_state.d).__name__}, "
+              f"{len(hist['forward/loss'])} + {len(hist['pigan/g_loss'])} epochs in "
+              f"{wall:.3f} s wall; launches {got}; recon_spec_loss "
+              f"{hist['pigan/recon_spec_loss'][0]:.4f} -> {hist['pigan/recon_spec_loss'][-1]:.4f}"
+              f"; all curves finite: {finite}")
+        if not finite or type(g).__name__ != "ResidualGenerator":
+            fail("phase 34: the optimized trio's history is not finite or not the residual G")
+        out["optimized"] = {"wall_s": wall, "launches": got,
+                            "epochs": [len(hist["forward/loss"]), len(hist["pigan/g_loss"])]}
+
+        epath = os.path.join(tmp, "eval.json")
+        t1 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "pigan_thz_torch", "evaluate", "--models",
+                               saved, "--json", epath], cwd=repo, capture_output=True,
+                              text=True, timeout=600)
+        ewall = time.perf_counter() - t1
+        if proc.returncode != 0:
+            fail(f"phase 34: evaluate exited {proc.returncode}: {proc.stderr[-3000:]}")
+        egot = launches_line(proc.stdout, "evaluate (phase 34)")
+        _add(launches, egot)
+        with open(epath) as fh:
+            ev = json.load(fh)
+        r2, viol = r2_and_violation(ev)
+        print(f"phase 34 evaluate --models (the optimized trio): param R2 {r2:.4f}, violation "
+              f"rate {viol:.4f}, {ewall:.3f} s wall, launches {egot}")
+        if r2 != r2:
+            fail("phase 34: evaluate gave no finite param R2 for the optimized trio")
+        out["evaluate"] = {"param_r2": r2, "violation_rate": viol, "wall_s": ewall}
+
+        spectra = train_ds.spectra[:64].contiguous()
+        fn = make_inverse_design_fn(g, f, train_ds)
+        (served, spec), sl = _counted(lambda: tuple(t.clone() for t in fn(spectra))[:2])
+        _add(launches, sl)
+        plain = make_inverse_design_fn(g, f, train_ds, use_pallas=False)(spectra)
+        diff = float((served - plain[0]).abs().max())
+        spec_diff = float((spec - plain[1]).abs().max())
+        lo, hi = train_ds.param_lo, train_ds.param_hi
+        inside = bool(((served >= lo - 1e-4) & (served <= hi + 1e-4)).all())
+        print(f"phase 34 B = 64 request, K5 serving F and the residual G's module: launches "
+              f"{ {k: v for k, v in sl.items() if v} }, against the all-module cycle params "
+              f"max|diff| {diff:.3e}, spectra (K5) {spec_diff:.3e} (tol {K5_TOL}); inside the "
+              f"design box: {inside}")
+        if (sl.get("fused_mlp_forward") != 1 or sl.get("fused_dense_chain", 0) != 0
+                or not inside or diff > 1e-6 or not spec_diff <= K5_TOL):
+            fail("phase 34: the B = 64 request did not go through K5 and the residual G's "
+                 "module, or its params are off")
+        out["request"] = {"launches": sl, "params_max_diff_vs_modules": diff,
+                          "spectra_max_diff_vs_modules": spec_diff}
+
+    rates = {"baseline": _p34_variant_steps(cfg, dev, train_ds, None, "mlp")}
+    for role, name in P34_VARIANTS:
+        rates[name] = _p34_variant_steps(cfg, dev, train_ds, role, name)
+    for name, r in rates.items():
+        extra = (f", forward step {r['forward']['steps_per_s']:.1f} steps/s"
+                 if "forward" in r else "")
+        print(f"time {tag} phase 34 eager {name}: PI-GAN step {r['pigan']['steps_per_s']:.1f} "
+              f"steps/s{extra} (B = {cfg.train.batch_size}, {P34_STEPS} steps after "
+              f"{P34_WARMUP})")
+    out["eager_steps_per_s"] = rates
+    wall = time.perf_counter() - t0
+    k1k4 = {k: launches.get(k, 0) for k in ("forward_train", "dip_qualification")}
+    print(f"phase 34: main-path launches {launches} (K1 and K4: {k1k4}); {wall:.1f} s")
+    out.update(launches=launches, wall=wall)
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -4370,6 +4567,10 @@ def main() -> None:
     preempt = phase33_preemption(cfg, dev, repo, train_ds, k2_times[True][0], tag)
     pr = preempt["launches"]
 
+    # -- 34. the enhanced variants ---------------------------------------------------
+    enhanced = phase34_enhanced(cfg, dev, repo, train_ds, tag)
+    p34 = enhanced["launches"]
+
     # -- the record -------------------------------------------------------------
     # bound_ms: operations over the fp32 peak against bytes moved once over the
     # memory rate, from the shapes each timed call was given.
@@ -4489,7 +4690,8 @@ def main() -> None:
     # command here pretrains F first), and each product's numbers
     k1_brow = pretrain["launches"]["brow_gemm"]
     brow_main = (k1_brow + tl["brow_gemm"] + el["brow_gemm"] + pl["brow_gemm"]
-                 + sl["brow_gemm"] + ev_l["brow_gemm"] + pr.get("brow_gemm", 0))
+                 + sl["brow_gemm"] + ev_l["brow_gemm"] + pr.get("brow_gemm", 0)
+                 + p34.get("brow_gemm", 0))
     if not k1_brow or not tl["brow_gemm"] or not el["brow_gemm"]:
         fail(f"the main paths launched the batch-row kernel {brow_main} times "
              f"(pretrain-forward {k1_brow}, train {tl['brow_gemm']}, ensemble "
@@ -4514,8 +4716,10 @@ def main() -> None:
         {"name": "fused_mlp_forward", "route": "cuda",
          "source": "pigan_thz_torch/csrc/fused_mlp_chain.cu",
          "replaces": "pigan_thz_tpu/ops/pallas_kernels.py:73",
-         "launches": launches["fused_mlp_forward"] + k5_screen + sv["fused_mlp_forward"],
+         "launches": launches["fused_mlp_forward"] + k5_screen + sv["fused_mlp_forward"]
+         + p34.get("fused_mlp_forward", 0),
          "launches_serving_completed": sv["fused_mlp_forward"],
+         "launches_enhanced_variants": p34.get("fused_mlp_forward", 0),
          "serving": {k: serving[k] for k in ("times", "latency", "screens",
                                              "screen_bf16_gap", "export_wall_s",
                                              "distances", "int8_fresh_envelope")},
@@ -4541,8 +4745,10 @@ def main() -> None:
          "replaces": "pigan_thz_tpu/ops/peaks.py:306",
          "launches": dataset_k4 + k4_screen + tl["dip_qualification"]
          + el["dip_qualification"] + pl["dip_qualification"] + ev_l["dip_qualification"]
-         + sv["dip_qualification"] + pr.get("dip_qualification", 0),
+         + sv["dip_qualification"] + pr.get("dip_qualification", 0)
+         + p34.get("dip_qualification", 0),
          "launches_preemption_safe_training": pr.get("dip_qualification", 0),
+         "launches_enhanced_variants": p34.get("dip_qualification", 0),
          "launches_serving_completed": sv["dip_qualification"],
          "launches_evaluate_path": ev_l["dip_qualification"],
          "evaluate": {k: evaluation[k] for k in ("ceilings", "eval_ms", "ceilings_oracle_ms",
@@ -4570,8 +4776,11 @@ def main() -> None:
          "replaces": "pigan_thz_tpu/ops/megakernel.py:2623",
          "launches": k1_launches + tl["forward_train"] + el["forward_train"]
          + pl["forward_train"] + sl["forward_train"] + ev_l["forward_train"]
-         + pr.get("forward_train", 0),
+         + pr.get("forward_train", 0) + p34.get("forward_train", 0),
          "launches_preemption_safe_training": pr.get("forward_train", 0),
+         "launches_enhanced_variants": p34.get("forward_train", 0),
+         "enhanced_variants": {k: enhanced[k] for k in ("optimized", "evaluate", "request",
+                                                        "eager_steps_per_s", "wall")},
          "preemption_safe_training": {
              "shadow_replay": preempt["shadow"], "checkpoint": preempt["checkpoint"]["forward"],
              "pipeline_walls_s": preempt["pipeline"]},

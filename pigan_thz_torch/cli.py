@@ -26,14 +26,18 @@ final trio (``generator_final.pth``, ``discriminator_final.pth``,
 ``generator_ema.pth``), ``training_history.json`` and ``model_config.json``.
 ``train --preset optimized|scaled`` lays ``config_presets.py`` over the
 config before ``--set`` (the optimized overlay names the residual generator
-and the dual-encoder discriminator, which the registry refuses by name until
-they are ported: ``--set generator.name=mlp --set discriminator.name=mlp``
-trains the baseline trio under its loss mix).  ``program`` runs one of the
+and the spectral-norm dual-encoder discriminator: F pretrains through its
+kernel and the GAN phase trains on the eager step, which "auto" takes for
+models no TPU kernel covers; ``--set generator.name=mlp --set
+discriminator.name=mlp`` trains the baseline trio under its loss mix through
+the GAN-training kernel).  Every command that loads a trio rebuilds the
+saved architectures from ``model_config.json``.  ``program`` runs one of the
 metric-gated pipelines of ``train/programs.py`` from a fresh trainer and
 writes the finals (with ``generator_<name>.pth`` etc. beside them) and
 ``final_eval.json`` in the run directory.  The training commands take
 ``--engine auto|eager|kernel`` (the Trainer's engine rule: on the card
-``auto`` is the training kernels or an error, never the eager step).
+``auto`` is the training kernels or an error, and the eager step only for a
+phase with a model that no TPU kernel covers, said in the log).
 ``train --checkpoint-dir DIR`` saves the full training state every
 ``train.save_interval`` epochs (``forward_only`` F's, ``full`` and
 ``pigan_only`` the GAN stage's) for ``Trainer.resume_from``.

@@ -13,11 +13,13 @@ recorded values) and provides translators into the typed config
 (optimized_trainer.py:30-550: "driven entirely by get_optimization_config()")
 are expressed as: preset dict -> PiGanConfig / StepSettings -> Trainer.
 
-The optimized overlay names the residual generator and the dual-encoder
-discriminator, which the port's registry does not build yet; with
-``generator.name=mlp`` and ``discriminator.name=mlp`` set after it, the
-baseline trio trains under its loss mix (constraint, window and stability
-on, gradients through F).
+The optimized overlay names the residual generator and the spectral-norm
+dual-encoder discriminator, which no TPU kernel covers: ``train --preset
+optimized`` pretrains the baseline F through its kernel and trains the GAN
+phase on the eager step.  With ``generator.name=mlp`` and
+``discriminator.name=mlp`` set after it, the baseline trio trains under
+its loss mix (constraint, window and stability on, gradients through F)
+through the GAN-training kernel.
 """
 
 from __future__ import annotations

@@ -20,8 +20,8 @@ device, named explicitly by the caller.
 The CSV reader and writer use the ``csv`` module and numpy, not pandas, and
 read and write what the JAX package's pandas path does: float32 values in
 their shortest round-trip form, NaN as an empty field, pandas' default NA
-spellings read as NaN, blank lines skipped.  The native C++ loader
-(``pigan_thz_tpu/data/native_io.py``) is not ported yet.
+spellings read as NaN, blank lines skipped.  The native C++ loader and
+its ``.thzb`` cache are ``data/native_io.py``.
 """
 
 from __future__ import annotations

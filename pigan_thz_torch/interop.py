@@ -11,8 +11,24 @@ Mapping rules:
 - torch ``nn.Linear.weight`` is (out, in); flax ``nn.Dense.kernel`` is
   (in, out) -> transpose.
 - torch BatchNorm1d ``weight/bias/running_mean/running_var`` map to flax
-  ``scale/bias`` (params) + ``mean/var`` (batch_stats).
+  ``scale/bias`` (params) + ``mean/var`` (batch_stats), the conv stack's
+  too (e.g. ``ConvStack1D_0/NormAct_0/BatchNorm_0``).
 - torch LayerNorm ``weight/bias`` -> flax ``scale/bias``.
+- torch ``Conv1d.weight`` is (out, in, width); flax ``Conv.kernel`` is
+  (width, in, out).
+- attention: flax's q / k / v kernels are (in, heads, head_dim) with
+  (heads, head_dim) biases, the out kernel (heads, head_dim, out); the
+  port's projections are (heads·head_dim, in) and (out, heads·head_dim)
+  ``Dense`` weights.
+- spectral norm: flax's ``SpectralDense_i/Dense_0`` params, and in
+  batch_stats ``SpectralDense_i/SpectralNorm_0`` the variables named
+  ``Dense_0/kernel/u`` and ``Dense_0/kernel/sigma`` (one key each) -> the
+  port's ``SpectralDense`` weight, bias, ``u`` (1, out) and ``sigma``.
+
+A layer map is the baseline's table for the baseline models (by the kind
+"generator", "discriminator", "forward_model" or by the module) and the one
+each enhanced model records as it builds (``flax_layer_map``), so every
+function here takes the module where a map is needed.
 
 ``load_forward_state_`` and ``forward_state_to_flax`` carry the
 forward-pretraining state (F's parameters, Adam's moments, the count) the
@@ -26,7 +42,7 @@ package's ``tree_stack`` of ``PiGanState``s) member by member.
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Tuple
+from typing import Dict, List, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -69,9 +85,22 @@ MAPS: Dict[str, LayerMap] = {
 }
 
 
-def _layer_map(kind: str) -> LayerMap:
+_BASELINE_KIND = {"MLPGenerator": "generator", "MLPDiscriminator": "discriminator",
+                  "ForwardMLP": "forward_model"}
+
+Kind = Union[str, torch.nn.Module]
+
+
+def _layer_map(kind: Kind) -> LayerMap:
+    """The layer map of a kind ("generator", "discriminator",
+    "forward_model": the baseline's) or of a module."""
+    if isinstance(kind, torch.nn.Module):
+        if hasattr(kind, "flax_layer_map"):
+            return kind.flax_layer_map()
+        kind = _BASELINE_KIND.get(type(kind).__name__, type(kind).__name__)
     if kind not in MAPS:
-        raise ValueError(f"unknown model kind {kind!r}; expected one of {sorted(MAPS)}")
+        raise ValueError(f"unknown model kind {kind!r}; expected one of {sorted(MAPS)} "
+                         "or a module of the port")
     return MAPS[kind]
 
 
@@ -82,12 +111,28 @@ def _get(tree: Mapping, path: str):
     return node
 
 
+# flax names spectral norm's stats "Dense_0/kernel/u" and ".../sigma": one
+# key each, slashes included, under the SpectralNorm module
+_SN_VAR = "Dense_0/kernel"
+
+
 def _set(tree: dict, path: str, leaf) -> None:
+    if f"/SpectralNorm_0/{_SN_VAR}/" in path:
+        head, var = path.split(f"/SpectralNorm_0/")
+        tree = _get_or_make(tree, f"{head}/SpectralNorm_0")
+        tree[var] = leaf
+        return
     parts = path.split("/")
     node = tree
     for p in parts[:-1]:
         node = node.setdefault(p, {})
     node[parts[-1]] = leaf
+
+
+def _get_or_make(tree: dict, path: str) -> dict:
+    for p in path.split("/"):
+        tree = tree.setdefault(p, {})
+    return tree
 
 
 def _t(a) -> torch.Tensor:
@@ -98,33 +143,74 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy().astype(np.float32)
 
 
-def _params_from_flax(params: Mapping, kind: str) -> Dict[str, torch.Tensor]:
+def _weight_from_flax(kernel: np.ndarray, layer: str) -> np.ndarray:
+    if layer == "conv":
+        return kernel.transpose(2, 1, 0)
+    if layer == "attn_in":
+        return kernel.reshape(kernel.shape[0], -1).T
+    if layer == "attn_out":
+        return kernel.reshape(-1, kernel.shape[-1]).T
+    return kernel.T                                     # linear, spectral
+
+
+def _weight_to_flax(weight: np.ndarray, layer: str, split=None) -> np.ndarray:
+    """The inverse of ``_weight_from_flax``; ``split`` is attention's
+    (heads, head_dim)."""
+    if layer == "conv":
+        return weight.transpose(2, 1, 0).copy()
+    if layer == "attn_in":
+        return weight.T.reshape(weight.shape[1], *split).copy()
+    if layer == "attn_out":
+        return weight.T.reshape(*split, weight.shape[0]).copy()
+    return weight.T.copy()
+
+
+def _dense_path(fpath: str, layer: str) -> str:
+    return f"{fpath}/Dense_0" if layer == "spectral" else fpath
+
+
+def _params_from_flax(params: Mapping, kind: Kind) -> Dict[str, torch.Tensor]:
     """A flax params tree -> the weights and biases of a ``kind`` state_dict."""
     sd: Dict[str, torch.Tensor] = {}
     for tkey, fpath, layer in _layer_map(kind):
-        if layer == "linear":
-            sd[f"{tkey}.weight"] = _t(np.asarray(_get(params, f"{fpath}/kernel")).T)
+        fp = _dense_path(fpath, layer)
+        if layer in ("batchnorm", "layernorm"):
+            sd[f"{tkey}.weight"] = _t(_get(params, f"{fp}/scale"))
         else:
-            sd[f"{tkey}.weight"] = _t(_get(params, f"{fpath}/scale"))
-        sd[f"{tkey}.bias"] = _t(_get(params, f"{fpath}/bias"))
+            sd[f"{tkey}.weight"] = _t(_weight_from_flax(np.asarray(_get(params, f"{fp}/kernel")),
+                                                        layer))
+        sd[f"{tkey}.bias"] = _t(np.asarray(_get(params, f"{fp}/bias")).reshape(-1))
     return sd
 
 
-def _params_to_flax(state_dict: Mapping[str, torch.Tensor], kind: str) -> dict:
-    """The weights and biases of a ``kind`` state_dict -> a flax params tree."""
+def _params_to_flax(state_dict: Mapping[str, torch.Tensor], kind: Kind) -> dict:
+    """The weights and biases of a ``kind`` state_dict -> a flax params
+    tree; attention's bias shapes come from the module's map."""
     params: dict = {}
     for tkey, fpath, layer in _layer_map(kind):
-        if layer == "linear":
-            _set(params, f"{fpath}/kernel", _np(state_dict[f"{tkey}.weight"]).T.copy())
+        fp = _dense_path(fpath, layer)
+        w, b = _np(state_dict[f"{tkey}.weight"]), _np(state_dict[f"{tkey}.bias"])
+        if layer in ("batchnorm", "layernorm"):
+            _set(params, f"{fp}/scale", w)
         else:
-            _set(params, f"{fpath}/scale", _np(state_dict[f"{tkey}.weight"]))
-        _set(params, f"{fpath}/bias", _np(state_dict[f"{tkey}.bias"]))
+            split = _attn_split(kind, tkey) if layer.startswith("attn") else None
+            if layer == "attn_in":
+                b = b.reshape(split)
+            _set(params, f"{fp}/kernel", _weight_to_flax(w, layer, split))
+        _set(params, f"{fp}/bias", b)
     return params
 
 
-def from_flax(variables_np: Mapping, kind: str) -> Dict[str, torch.Tensor]:
+def _attn_split(module: Kind, tkey: str) -> tuple:
+    """(heads, head_dim) of the attention that owns the projection ``tkey``."""
+    owner = module.get_submodule(tkey.rsplit(".", 1)[0]) if "." in tkey else module
+    return owner.num_heads, owner.head_dim
+
+
+def from_flax(variables_np: Mapping, kind: Kind) -> Dict[str, torch.Tensor]:
     """flax variables (nested numpy dicts) -> CPU state_dict of the port's
-    ``kind`` module ("generator", "discriminator" or "forward_model")."""
+    module ``kind`` (a module, or "generator", "discriminator" or
+    "forward_model" for the baseline's)."""
     stats = variables_np.get("batch_stats", {})
     sd = _params_from_flax(variables_np["params"], kind)
     for tkey, fpath, layer in _layer_map(kind):
@@ -132,17 +218,25 @@ def from_flax(variables_np: Mapping, kind: str) -> Dict[str, torch.Tensor]:
             sd[f"{tkey}.running_mean"] = _t(_get(stats, f"{fpath}/mean"))
             sd[f"{tkey}.running_var"] = _t(_get(stats, f"{fpath}/var"))
             sd[f"{tkey}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+        elif layer == "spectral":
+            sn = _get(stats, f"{fpath}/SpectralNorm_0")
+            sd[f"{tkey}.u"] = _t(sn[f"{_SN_VAR}/u"])
+            sd[f"{tkey}.sigma"] = _t(sn[f"{_SN_VAR}/sigma"])
     return sd
 
 
-def to_flax(state_dict: Mapping[str, torch.Tensor], kind: str) -> dict:
-    """The port's ``kind`` state_dict -> flax variables as nested numpy
+def to_flax(state_dict: Mapping[str, torch.Tensor], kind: Kind) -> dict:
+    """The port's state_dict of ``kind`` -> flax variables as nested numpy
     dicts ({"params": ..., ["batch_stats": ...]})."""
     stats: dict = {}
     for tkey, fpath, layer in _layer_map(kind):
         if layer == "batchnorm":
             _set(stats, f"{fpath}/mean", _np(state_dict[f"{tkey}.running_mean"]))
             _set(stats, f"{fpath}/var", _np(state_dict[f"{tkey}.running_var"]))
+        elif layer == "spectral":
+            _set(stats, f"{fpath}/SpectralNorm_0/{_SN_VAR}/u", _np(state_dict[f"{tkey}.u"]))
+            _set(stats, f"{fpath}/SpectralNorm_0/{_SN_VAR}/sigma",
+                 _np(state_dict[f"{tkey}.sigma"]))
     variables = {"params": _params_to_flax(state_dict, kind)}
     if stats:
         variables["batch_stats"] = stats
@@ -176,7 +270,7 @@ def load_forward_state_(state, params: Mapping, mu: Mapping, nu: Mapping, count:
     count; ``step`` defaults to ``count``.  Returns ``state``."""
     f = state.f
     for dst, tree in ((state.params, params), (state.opt.m, mu), (state.opt.v, nu)):
-        dst.copy_(_flat(_params_from_flax(tree, "forward_model"), f).to(dst.device))
+        dst.copy_(_flat(_params_from_flax(tree, f), f).to(dst.device))
     state.opt.count = int(count)
     state.step = int(count if step is None else step)
     return state
@@ -187,7 +281,7 @@ def forward_state_to_flax(state) -> dict:
     {"params", "mu", "nu"} flax trees, "count" and "step"."""
     out = {}
     for key, flat in (("params", state.params), ("mu", state.opt.m), ("nu", state.opt.v)):
-        out[key] = _params_to_flax(_unflat(flat.detach(), state.f), "forward_model")
+        out[key] = _params_to_flax(_unflat(flat.detach(), state.f), state.f)
     out["count"] = int(state.opt.count)
     out["step"] = int(state.step)
     return out
@@ -197,36 +291,36 @@ def forward_state_to_flax(state) -> dict:
 # PI-GAN state: G, D, the frozen F, both Adams, BatchNorm stats, EMA, step
 # ---------------------------------------------------------------------------
 
-_GD = (("generator", "g"), ("discriminator", "d"))
-
 
 @torch.no_grad()
 def load_pigan_state_(state, trees: Mapping):
     """Overwrite the port's ``PiGanState`` (``train/state.py``) in place with
     a JAX ``PiGanState`` carried across as numpy.  ``trees`` holds the flax
-    variables ``"g"`` (params and batch_stats), ``"d"`` and ``"f"``; the
+    variables ``"g"``, ``"d"`` and ``"f"`` (params, and batch_stats where
+    the model has them: G's BatchNorm stats, D's spectral-norm ``u`` and
+    ``sigma``); the
     params-shaped Adam trees ``"g_mu"``, ``"g_nu"``, ``"d_mu"``, ``"d_nu"``
     with ``"g_count"`` and ``"d_count"``; optionally ``"g_ema"`` (a params
     tree; the state must carry the buffer) and ``"step"`` (default: G's
     count).  An entry that is missing leaves its part as it is.  Returns
     ``state``."""
-    for kind, key in (*_GD, ("forward_model", "f")):
+    for key in ("g", "d", "f"):
         if key in trees:
-            sd = from_flax(trees[key], kind)
+            sd = from_flax(trees[key], getattr(state, key))
             sd = {k: v for k, v in sd.items() if not k.endswith("num_batches_tracked")}
             # in place: the parameters stay views into the flat buffers
             getattr(state, key).load_state_dict(sd, strict=False)
-    for kind, pre in _GD:
+    for pre in ("g", "d"):
         module, opt = getattr(state, pre), getattr(state, f"{pre}_opt")
         for dst, key in ((opt.m, f"{pre}_mu"), (opt.v, f"{pre}_nu")):
             if key in trees:
-                dst.copy_(_flat(_params_from_flax(trees[key], kind), module).to(dst.device))
+                dst.copy_(_flat(_params_from_flax(trees[key], module), module).to(dst.device))
         if f"{pre}_count" in trees:
             opt.count = int(trees[f"{pre}_count"])
     if trees.get("g_ema") is not None:
         if state.g_ema is None:
             raise ValueError("the state carries no g_ema buffer (init_pigan_state(ema=True))")
-        sd = _params_from_flax(trees["g_ema"], "generator")
+        sd = _params_from_flax(trees["g_ema"], state.g)
         state.g_ema.copy_(_flat(sd, state.g).to(state.g_ema.device))
     state.step = int(trees.get("step", state.g_opt.count))
     return state
@@ -236,17 +330,17 @@ def pigan_state_to_flax(state) -> dict:
     """The port's ``PiGanState`` as the pieces ``load_pigan_state_`` takes,
     in numpy."""
     out = {
-        "g": to_flax(state.g.state_dict(), "generator"),
-        "d": to_flax(state.d.state_dict(), "discriminator"),
-        "f": to_flax(state.f.state_dict(), "forward_model"),
+        "g": to_flax(state.g.state_dict(), state.g),
+        "d": to_flax(state.d.state_dict(), state.d),
+        "f": to_flax(state.f.state_dict(), state.f),
     }
-    for kind, pre in _GD:
+    for pre in ("g", "d"):
         module, opt = getattr(state, pre), getattr(state, f"{pre}_opt")
         for flat, key in ((opt.m, f"{pre}_mu"), (opt.v, f"{pre}_nu")):
-            out[key] = _params_to_flax(_unflat(flat.detach(), module), kind)
+            out[key] = _params_to_flax(_unflat(flat.detach(), module), module)
         out[f"{pre}_count"] = int(opt.count)
     if state.g_ema is not None:
-        out["g_ema"] = _params_to_flax(_unflat(state.g_ema.detach(), state.g), "generator")
+        out["g_ema"] = _params_to_flax(_unflat(state.g_ema.detach(), state.g), state.g)
     out["step"] = int(state.step)
     return out
 

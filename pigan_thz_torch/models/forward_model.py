@@ -12,8 +12,19 @@ Dropout doubles as MC-dropout uncertainty (reference forward_model.py:33):
 ``mc_dropout_predict`` draws stochastic forward passes with masks from an
 explicit ``torch.Generator``.
 
-The enhanced forward models (branched, physics, uncertainty) are not
-ported yet.
+The enhanced forward models (``pigan_thz_tpu/models/forward_model.py``,
+reference enhanced_forward_model.py), LayerNorm + ReLU MLPBlocks with the
+JAX classes' own dropout rates:
+- ``BranchedForwardModel``: a shared 128 / 256 / 512 trunk, then a
+  1024 / 2048 / 1024 spectrum branch and a 256 / 128 / 64 metrics branch;
+- ``PhysicsForwardModel``: a 64 / 128 / 256 / 512 trunk, self-attention
+  over the single token (8 heads of 64), then a 1024 / 2048 / 1024 spectrum
+  branch and a 256 / 128 metrics branch;
+- ``UncertaintyForwardModel``: a 256 / 512 / 1024 trunk and four heads,
+  returning (spectrum mean, metrics mean, spectrum variance, metrics
+  variance), the variances through softplus; ``sample_predictions`` draws
+  from that Gaussian with an explicit generator.
+Every consumer reads ``out[0]`` and ``out[1]``, so each variant serves as F.
 """
 
 from __future__ import annotations
@@ -22,8 +33,9 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
-from .blocks import Dense, compute_dtype_of, mlp_block
+from .blocks import Dense, FlaxMapped, SelfAttention, compute_dtype_of, mlp_block
 
 
 class ForwardMLP(nn.Module):
@@ -56,6 +68,93 @@ class ForwardMLP(nn.Module):
         return out[..., : self.spectrum_dim], out[..., self.spectrum_dim :]
 
 
+class BranchedForwardModel(FlaxMapped):
+    def __init__(self, param_dim: int = 4, spectrum_dim: int = 250, metrics_dim: int = 8,
+                 compute_dtype: str = "float32"):
+        super().__init__()
+        dt = compute_dtype_of(compute_dtype)
+        blocks = _BlockPairer(self, dt)
+        self.trunk = nn.Sequential(*blocks.chain(param_dim, ((128, 0.2), (256, 0.2),
+                                                             (512, 0.2))))
+        self.spectrum = nn.Sequential(
+            *blocks.chain(512, ((1024, 0.3), (2048, 0.3), (1024, 0.2))),
+            self._pair(Dense(1024, spectrum_dim, dt), "Dense_0"))
+        self.metrics = nn.Sequential(
+            *blocks.chain(512, ((256, 0.2), (128, 0.2), (64, 0.1))),
+            self._pair(Dense(64, metrics_dim, dt), "Dense_1"))
+
+    def forward(self, params_norm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        x = self.trunk(params_norm)
+        return self.spectrum(x), self.metrics(x)
+
+
+class PhysicsForwardModel(FlaxMapped):
+    def __init__(self, param_dim: int = 4, spectrum_dim: int = 250, metrics_dim: int = 8,
+                 compute_dtype: str = "float32"):
+        super().__init__()
+        dt = compute_dtype_of(compute_dtype)
+        blocks = _BlockPairer(self, dt)
+        self.trunk = nn.Sequential(*blocks.chain(
+            param_dim, ((64, None), (128, None), (256, 0.2), (512, 0.2))))
+        # self-attention over the single token (enhanced_forward_model.py:156-175)
+        self.attention = self._pair_child(SelfAttention(512, 8, compute_dtype=dt),
+                                          "SelfAttention_0")
+        self.spectrum = nn.Sequential(
+            *blocks.chain(512, ((1024, 0.3), (2048, 0.3), (1024, 0.2))),
+            self._pair(Dense(1024, spectrum_dim, dt), "Dense_0"))
+        self.metrics = nn.Sequential(
+            *blocks.chain(512, ((256, 0.2), (128, 0.2))),
+            self._pair(Dense(128, metrics_dim, dt), "Dense_1"))
+
+    def forward(self, params_norm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        x = self.attention(self.trunk(params_norm)[:, None, :])[:, 0, :]
+        return self.spectrum(x), self.metrics(x)
+
+
+class UncertaintyForwardModel(FlaxMapped):
+    """(spec_mean, met_mean, spec_var, met_var), the variances through
+    softplus, in train and eval mode alike (the JAX package's arity)."""
+
+    def __init__(self, param_dim: int = 4, spectrum_dim: int = 250, metrics_dim: int = 8,
+                 compute_dtype: str = "float32"):
+        super().__init__()
+        dt = compute_dtype_of(compute_dtype)
+        blocks = _BlockPairer(self, dt)
+        self.trunk = nn.Sequential(*blocks.chain(param_dim, ((256, 0.2), (512, 0.2),
+                                                             (1024, 0.2))))
+        heads = []
+        for j, (feat, drop, out) in enumerate(((2048, 0.3, spectrum_dim),
+                                               (1024, 0.2, spectrum_dim),
+                                               (256, 0.2, metrics_dim),
+                                               (128, 0.1, metrics_dim))):
+            heads.append(nn.Sequential(*blocks.chain(1024, ((feat, drop),)),
+                                       self._pair(Dense(feat, out, dt), f"Dense_{j}")))
+        self.spectrum_mean, self.spectrum_var, self.metrics_mean, self.metrics_var = heads
+
+    def forward(self, params_norm: torch.Tensor):
+        x = self.trunk(params_norm)
+        return (self.spectrum_mean(x), self.metrics_mean(x),
+                F.softplus(self.spectrum_var(x)), F.softplus(self.metrics_var(x)))
+
+
+class _BlockPairer:
+    """Builds LayerNorm + ReLU MLPBlocks for ``owner``, numbered as flax
+    numbers them (``MLPBlock_0``, ``MLPBlock_1`` ... in build order)."""
+
+    def __init__(self, owner: FlaxMapped, dt):
+        self.owner, self.dt, self.count = owner, dt, 0
+
+    def chain(self, d_in: int, spec) -> list[nn.Module]:
+        layers: list[nn.Module] = []
+        for feat, drop in spec:
+            layers += self.owner._pair_block(
+                mlp_block(d_in, feat, norm="layer", act="relu", dropout_rate=drop,
+                          compute_dtype=self.dt), f"MLPBlock_{self.count}")
+            self.count += 1
+            d_in = feat
+        return layers
+
+
 @torch.no_grad()
 def mc_dropout_predict(
     model: nn.Module,
@@ -73,7 +172,9 @@ def mc_dropout_predict(
     its vmap; exact, since the model normalises by rows).  Each
     ``nn.Dropout`` of rate p > 0 draws its keep mask from ``generator``
     (on the rows' device) and keeps ``x / (1 - p)`` where the mask is set,
-    as flax's Dropout does; the rest of the model runs in eval mode.  The
+    as flax's Dropout does; the rest of the model runs in eval mode.  A
+    layer whose mask is shared by the batch (attention weights) draws one
+    mask a sample, as each of the JAX package's vmapped draws does.  The
     masks are not the JAX package's (threefry there, Philox here): only
     their statistics agree.  The module is left in the mode it came in."""
     b = params_norm.shape[0]
@@ -83,7 +184,12 @@ def mc_dropout_predict(
         keep = 1.0 - module.p
         if module.p == 0.0:
             return output
-        mask = torch.rand(output.shape, generator=generator, device=output.device) < keep
+        if 0 in getattr(module, "shared_dims", ()):
+            shape = (num_samples, *module.mask_shape(output)[1:])
+            mask = torch.rand(shape, generator=generator, device=output.device) < keep
+            mask = mask.repeat_interleave(b, dim=0)
+        else:
+            mask = torch.rand(output.shape, generator=generator, device=output.device) < keep
         return torch.where(mask, output / keep, torch.zeros_like(output))
 
     was_training = model.training
@@ -102,3 +208,29 @@ def mc_dropout_predict(
     met = met.double().reshape(num_samples, b, -1)
     return tuple(t.float() for t in (spec.mean(dim=0), spec.std(dim=0, correction=0),
                                      met.mean(dim=0), met.std(dim=0, correction=0)))
+
+
+@torch.no_grad()
+def sample_predictions(
+    model: nn.Module,
+    params_norm: torch.Tensor,
+    generator: torch.Generator,
+    num_samples: int = 100,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Monte-Carlo samples from the uncertainty model's predictive Gaussian:
+    (spectra (N, B, S), metrics (N, B, M)), mean + sqrt(var) · ε with ε
+    drawn from ``generator`` (spectra first, then metrics; on the rows'
+    device).  The port of
+    ``pigan_thz_tpu/models/forward_model.py:sample_predictions``; its draws
+    are threefry's, these Philox's, so only their statistics agree.  The
+    model runs in eval mode and is left in the mode it came in."""
+    was_training = model.training
+    model.eval()
+    try:
+        spec_mean, met_mean, spec_var, met_var = model(params_norm)
+    finally:
+        model.train(was_training)
+    dev = params_norm.device
+    eps_s = torch.randn((num_samples, *spec_mean.shape), generator=generator, device=dev)
+    eps_m = torch.randn((num_samples, *met_mean.shape), generator=generator, device=dev)
+    return spec_mean + torch.sqrt(spec_var) * eps_s, met_mean + torch.sqrt(met_var) * eps_m

@@ -81,10 +81,17 @@ _NORM_PARTS = 256   # blocks of the kernel's first gradient-norm pass
 _SEED_HIGH = 2**31 - 1
 
 
-def supports_forward_kernel(cfg: PiGanConfig) -> str | None:
-    """None when the kernel trains this configuration exactly, else the
-    reason it does not (the envelope of ``supports_forward_megakernel``
-    without the TPU's batch % 8 tiling)."""
+_NLL_REASON = ("ForwardStepSettings.nll_w > 0 trains variance heads, which the baseline "
+               "forward model that the kernel trains does not have")
+
+
+def supports_forward_kernel(cfg: PiGanConfig, settings=None) -> str | None:
+    """None when the kernel trains this configuration (and, given, these
+    ``ForwardStepSettings``) exactly, else the reason it does not (the
+    envelope of ``supports_forward_megakernel`` without the TPU's batch % 8
+    tiling)."""
+    if settings is not None and settings.nll_w:
+        return _NLL_REASON
     if cfg.forward_model.name != "mlp" or tuple(cfg.forward_model.hidden_dims) != (
         BASELINE_HIDDEN
     ):
@@ -159,6 +166,24 @@ def dropout_scale(seed: int, layer: int, rows: int, cols: int, rate: float,
     """(rows, cols) float32 dropout factors: 1/keep where kept, else 0."""
     keep = dropout_bits(seed, layer, rows, cols, device) < keep_threshold(rate)
     return torch.where(keep, 1.0 / (1.0 - float(rate)), 0.0).to(torch.float32)
+
+
+def hash_masks(seed: int, stream: int = 0):
+    """The mask provider (``models/blocks.py:dropout_masks``) of one model
+    call of a step: layer i of the model draws ``dropout_scale`` at layer
+    id ``stream · 256 + i``, rows the mask's first dimension, columns the
+    rest.  Stream 0 is the forward step's, whose ids are the kernel's layer
+    indices."""
+
+    def masks(layer: int, shape: tuple, rate: float, device) -> torch.Tensor:
+        if layer >= 256:
+            raise ValueError(f"dropout layer {layer}: at most 256 a model")
+        rows = shape[0]
+        cols = math.prod(shape[1:])
+        return dropout_scale(seed, stream * 256 + layer, rows, cols, rate,
+                             device).view(shape)
+
+    return masks
 
 
 # ---------------------------------------------------------------------------
@@ -302,10 +327,7 @@ class ForwardTrainSpec:
 
 def forward_train_spec(cfg: PiGanConfig, settings) -> ForwardTrainSpec:
     if settings.nll_w:
-        raise ValueError(
-            "ForwardStepSettings.nll_w > 0 needs the uncertainty forward model, "
-            "which is not ported (ROADMAP.md queue 1, item 15)"
-        )
+        raise ValueError(f"the forward-training kernel does not take this phase: {_NLL_REASON}")
     d = cfg.data
     return ForwardTrainSpec(
         dims=(d.param_dim, *cfg.forward_model.hidden_dims, d.spectrum_dim + d.metrics_dim),

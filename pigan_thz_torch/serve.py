@@ -5,9 +5,12 @@ cycle spectra (B, S) -> generator -> normalised params (B, 4) -> frozen
 forward surrogate -> (spectrum (B, S), metrics (B, 8)), the params
 denormalised to physical units, on one of four paths:
 
-- fp32, the default: both models through the fused kernels of
-  ``ops/fused_kernels.py`` (on the card one launch of K6, then one of K5;
-  on the CPU their plain PyTorch versions);
+- fp32, the default: each baseline model through its fused kernel of
+  ``ops/fused_kernels.py`` (on the card one launch of K6 for the
+  ``MLPGenerator``, one of K5 for the ``ForwardMLP``; on the CPU their
+  plain PyTorch versions), and a model that no TPU kernel covers (the
+  enhanced variants) through its module, as the JAX package's XLA path
+  serves it: the choice is made stage by stage, by the model's type;
 - fp32 with ``use_pallas=False``: the modules' eval-mode forward in plain
   PyTorch, the JAX package's XLA path and the portable artifacts' body;
 - ``compute_dtype=torch.bfloat16`` (or "bfloat16"): the models' bf16 twins
@@ -35,7 +38,9 @@ asks for, wherever it was written.
 
 Every path reads its weights (and folds the generator's BatchNorm) once, at
 construction, onto the device of ``ds``; later changes to the modules are
-not seen.  The single-model paths take the baseline MLP trio only.
+not seen.  The int8 path and the kernels (``use_pallas=True``, the
+``use_pallas`` artifacts) take the baseline MLP models only and raise
+``ValueError`` for another.
 """
 
 from __future__ import annotations
@@ -49,6 +54,8 @@ from torch import nn
 
 from .data.dataset import ThzDataset, denormalize_params
 from .models.blocks import bf16_twin
+from .models.forward_model import ForwardMLP
+from .models.generator import MLPGenerator
 from .ops.fused_kernels import (
     PackedChain,
     fused_dense_chain,
@@ -231,13 +238,27 @@ def _check_pallas(use_pallas, kind: str) -> bool:
     return kind == "float32" if use_pallas is None else bool(use_pallas)
 
 
+def kernel_covers(model: nn.Module) -> bool:
+    """Whether a TPU kernel (K6 / K5) serves this model: the baseline
+    ``MLPGenerator`` and ``ForwardMLP``, by type."""
+    return isinstance(model, (MLPGenerator, ForwardMLP))
+
+
 def _designer(generator, forward_model, ds, use_pallas, compute_dtype,
               via_ops: bool = False) -> Designer:
     kind = serving_dtype(compute_dtype)
     fused = _check_pallas(use_pallas, kind)
     device = ds.param_lo.device
-    return Designer(_stage(generator, device, kind, fused, via_ops=via_ops),
-                    _stage(forward_model, device, kind, fused, ds.spectrum_dim, via_ops), ds)
+
+    def stage_fused(model):
+        # None: the kernel where one covers the model; True raises in the
+        # packing for a model it does not cover
+        return fused and (use_pallas is not None or kernel_covers(model))
+
+    return Designer(
+        _stage(generator, device, kind, stage_fused(generator), via_ops=via_ops),
+        _stage(forward_model, device, kind, stage_fused(forward_model), ds.spectrum_dim,
+               via_ops), ds)
 
 
 def _serving_fn(module: nn.Module) -> InverseDesignFn:
@@ -259,10 +280,14 @@ def make_inverse_design_fn(
     ``ds`` -> (params_phys (B, 4), recon_spectrum (B, S), metrics (B, 8)),
     all float32.
 
-    ``use_pallas`` None (the default) serves fp32 through the fused kernels
-    and the other dtypes on their own paths; True asks for the kernels
-    (with a ``compute_dtype`` it raises ValueError, as the kernels run
-    fp32); False serves fp32 through the modules' eval-mode forward."""
+    ``use_pallas`` None (the default) serves fp32 through the fused kernel
+    of each stage whose model is the baseline (``kernel_covers``: K6 for
+    the ``MLPGenerator``, K5 for the ``ForwardMLP``) and through the module
+    for a stage that no kernel covers (an enhanced variant), and the other
+    dtypes on their own paths; True asks for the kernels (``ValueError``
+    for an enhanced model, as the packing refuses its layout, and with a
+    ``compute_dtype``, as the kernels run fp32); False serves fp32 through
+    the modules' eval-mode forward."""
     return _serving_fn(_designer(generator, forward_model, ds, use_pallas, compute_dtype))
 
 

@@ -181,8 +181,9 @@ class PiGanState:
     """PI-GAN training state (G + D + frozen F + both optimisers).
 
     ``g``, ``d`` and ``f`` have their parameters in ``g_params``,
-    ``d_params`` and ``f_params``; G's BatchNorm running stats are the
-    module's buffers.  ``g_ema`` optionally carries an exponential moving
+    ``d_params`` and ``f_params``; what flax keeps in ``batch_stats`` (G's
+    BatchNorm running stats, the conv stack's too; D's spectral-norm ``u``
+    and ``sigma``) are the modules' buffers.  ``g_ema`` optionally carries an exponential moving
     average of ``g_params`` (``StepSettings.ema_decay`` > 0).  Training
     updates all of it in place."""
 
@@ -219,20 +220,20 @@ class PiGanState:
             None if self.g_ema is None else self.g_ema.clone())
 
     def is_finite(self) -> bool:
-        """True iff G's and D's parameters and moments, the BatchNorm stats
-        and the EMA are all finite."""
+        """True iff G's and D's parameters and moments, their floating
+        buffers (BatchNorm stats, spectral norm's ``u`` and ``sigma``) and
+        the EMA are all finite."""
         tensors = [self.g_params, self.d_params, self.g_opt.m, self.g_opt.v,
                    self.d_opt.m, self.d_opt.v]
-        for bn in self.batch_norms():
-            tensors += [bn.running_mean, bn.running_var]
+        tensors += [t for m in (self.g, self.d) for t in m.buffers() if t.is_floating_point()]
         if self.g_ema is not None:
             tensors.append(self.g_ema)
         return all(bool(torch.isfinite(t).all()) for t in tensors)
 
     def state_dict(self) -> dict:
         """The step, G's, D's and F's flat buffers, both Adams' m, v and
-        count, the modules' buffers (G's BatchNorm running stats and
-        counts), ``g_ema`` when the state carries one and the generator's
+        count, the modules' buffers (BatchNorm running stats and counts,
+        spectral norm's ``u`` and ``sigma``), ``g_ema`` when the state carries one and the generator's
         state (a CPU ``ByteTensor``); the tensors are the state's own."""
         payload = {"step": self.step, "g_params": self.g_params, "d_params": self.d_params,
                    "f_params": self.f_params}

@@ -3,22 +3,34 @@
 ``make_forward_step`` is one pretraining step with autograd: F's forward in
 train mode, the loss of ``ForwardStepSettings``, the gradient, then the
 optimiser (clip -> Adam -> schedule, ``schedules.ClipAdam``) on the state's
-flat buffers in place.  Dropout takes its masks from the counter-based hash
-of ``ops/forward_train.py`` keyed by the step's seed, so the eager step, the
-plain version of the training kernel and the kernel see the same masks, and
-nothing reads torch's global generator.  F's LayerNorms are torch's
-``nn.LayerNorm`` here, which computes the variance in another order than
-flax's one-pass form: a rounding difference only.
+flat buffers in place.  F's LayerNorms are torch's ``nn.LayerNorm`` here,
+which computes the variance in another order than flax's one-pass form: a
+rounding difference only.  Every model of the zoo trains here; the
+uncertainty model's variance heads too, with ``nll_w`` > 0.
+
+Dropout, in every model and every call of a step (attention-weight dropout
+included), takes its masks from the counter-based hash of
+``ops/forward_train.py`` (``hash_masks``), keyed by the step's seed, the
+call (``stream``) and the layer's index in the model, through
+``dropout_scale``.  Nothing reads torch's global generator, so a resumed run
+and the shadow replay redraw the same masks, and the forward step, the plain
+version of the forward-training kernel and the kernel see the same masks.
+``draws["dropout"]`` may hand a step other masks (the parity tests hand it
+the JAX package's).
 
 ``make_pigan_step`` is one PI-GAN step with autograd, the whole alternating
 update of the reference's hot loop (train_pigan.py:114-187): D on
 [real; detached fake] with smoothed labels, then G against the
 just-updated D, with the frozen forward surrogate's reconstruction,
 metrics, Maxwell, LC and range losses and the extended trainers' terms of
-``StepSettings``.  G's forward runs once per step and serves both phases
-(the JAX step calls it twice on the same parameters and batch and keeps
-one set of BatchNorm stats), so the running stats move once; the second
-generator passes of the stability and cycle terms leave them alone.
+``StepSettings``.  The model calls follow the JAX step's: G's D-phase pass (its
+``batch_stats`` discarded), D on [real; fake] (its ``batch_stats`` stored:
+spectral norm's ``u`` and ``sigma``), WGAN-GP's critic pass (discarded),
+G's G-phase pass (stored), D on the G-phase batch (discarded), and G's
+stability and cycle passes with the G-phase pass's masks (discarded); a
+step that skips D's update stores D's from its forward.  A G without
+dropout computes the same thing in both phases, so its one pass serves
+both, as it always has.
 
 ``make_multi_epoch_fn`` is the epoch loop as a Python loop, with the
 contract of the JAX package's: per-epoch scales in (the learning-rate scale
@@ -29,6 +41,7 @@ mean metric rows out.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Callable, Dict, Mapping, Sequence
 
@@ -37,10 +50,10 @@ from torch import nn
 
 from ..config import PiGanConfig
 from ..data.dataset import ThzDataset, denormalize_params, gather_batch
-from ..models.blocks import frozen_batch_stats
+from ..models.blocks import MaskFn, dropout_masks, frozen_batch_stats, has_dropout
 from ..ops import losses as L
 from ..ops.augment import augment_spectra
-from ..ops.forward_train import dropout_scale, resolve_draws
+from ..ops.forward_train import hash_masks, resolve_draws
 from .schedules import ClipAdam
 from .state import ForwardState, PiGanState
 
@@ -116,9 +129,10 @@ class ForwardStepSettings:
     Defaults = pretrain_fwd_model.py:81-85 (MSE + MSE).  The constraint
     trainer's phase 1 uses spectrum 5 / metrics 2 / smoothness 0.5
     (unified_constraint_trainer.py:251-255); the emergency trainer adds
-    0.5*L1 (emergency_trainer.py:131).  ``nll_w`` > 0 trains the variance
-    heads of the uncertainty forward model, which is not ported: it
-    raises."""
+    0.5*L1 (emergency_trainer.py:131).  ``nll_w`` > 0 adds
+    ``losses.gaussian_nll`` of both heads and trains the variance heads of
+    the uncertainty forward model (beyond the reference, as in the JAX
+    package); a model with fewer than four outputs raises ``ValueError``."""
 
     spectrum_w: float = 1.0
     metrics_w: float = 1.0
@@ -127,22 +141,24 @@ class ForwardStepSettings:
     nll_w: float = 0.0
 
 
-def forward_train_mode(model: nn.Module, params_norm: torch.Tensor,
-                       seed: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """ForwardMLP's forward in train mode, with each Dropout layer replaced
-    by the hash masks of ``seed`` (layer index = block index)."""
-    h = params_norm
-    block = 0
-    for layer in model.model:
-        if isinstance(layer, nn.Dropout):
-            if layer.p > 0.0:
-                h = h * dropout_scale(seed, block, h.shape[0], h.shape[1], layer.p,
-                                      h.device).to(h.dtype)
-            block += 1
-        else:
-            h = layer(h)
-    s = model.spectrum_dim
-    return h[:, :s], h[:, s:]
+# The calls of a step, each with masks of its own (the JAX step's dropout
+# keys): the forward step's one call, then the PI-GAN step's G in the D phase,
+# D in the D phase (and WGAN-GP's critic), G in the G phase (and its
+# stability and cycle passes), D in the G phase.
+FORWARD, G_IN_D_PHASE, D_IN_D_PHASE, G_IN_G_PHASE, D_IN_G_PHASE = range(5)
+
+
+def _masks(draws: Mapping | None, seed: int, stream: int) -> MaskFn:
+    provider = (draws or {}).get("dropout")
+    if provider is not None:
+        return functools.partial(provider, stream)
+    return hash_masks(seed, stream)
+
+
+def call_train_mode(model: nn.Module, masks: MaskFn, *inputs):
+    """``model``'s train-mode forward with every dropout mask from ``masks``."""
+    with dropout_masks(model, masks):
+        return model.train()(*inputs)
 
 
 def make_forward_step(
@@ -152,20 +168,17 @@ def make_forward_step(
     pretraining step (pretrain_fwd_model.py:68-92) of ``state.f`` on
     ``state`` in place.  ``lr_scale`` multiplies the parameter update (the
     plateau controller's runtime scale); ``seed`` keys the step's dropout
-    masks.  The JAX step takes the flax module as its first argument; here
-    the module is part of the state."""
-    if settings.nll_w:
-        raise ValueError(
-            "ForwardStepSettings.nll_w > 0 needs a model with variance heads "
-            "(forward_model.name='uncertainty'), which is not ported "
-            "(ROADMAP.md queue 1, item 15)"
-        )
-
-    def step(state: ForwardState, batch: Batch, lr_scale=None, seed: int = 0):
+    masks, or ``draws["dropout"]`` supplies them.  The JAX step takes the
+    flax module as its first argument; here the module is part of the
+    state."""
+    def step(state: ForwardState, batch: Batch, lr_scale=None, seed: int = 0,
+             draws: Mapping | None = None):
         spectra, _, params_norm, _, metrics_norm = batch[:5]
-        model = state.f.train()
+        model = state.f
         params = list(model.parameters())
-        pred_spec, pred_met = forward_train_mode(model, params_norm, seed)
+        out = call_train_mode(model, _masks(draws, seed, FORWARD), params_norm)
+        # means lead whatever the arity (the uncertainty model returns four)
+        pred_spec, pred_met = out[0], out[1]
         spec_l = L.mse(pred_spec, spectra)
         met_l = L.mse(pred_met, metrics_norm)
         total = settings.spectrum_w * spec_l + settings.metrics_w * met_l
@@ -174,7 +187,17 @@ def make_forward_step(
         if settings.l1_w:
             total = total + settings.l1_w * (
                 L.mae(pred_spec, spectra) + L.mae(pred_met, metrics_norm))
-        grads = torch.autograd.grad(total, params)
+        if settings.nll_w:
+            if len(out) < 4:
+                raise ValueError(
+                    "ForwardStepSettings.nll_w > 0 needs a model with "
+                    "variance heads (forward_model.name='uncertainty')")
+            total = total + settings.nll_w * (
+                L.gaussian_nll(pred_spec, out[2], spectra)
+                + L.gaussian_nll(pred_met, out[3], metrics_norm))
+        # heads the loss does not read (the uncertainty model's variances
+        # without nll_w) take zero gradients, as jax.grad gives them
+        grads = torch.autograd.grad(total, params, allow_unused=True, materialize_grads=True)
         flat = torch.cat([g.reshape(-1) for g in grads])
         tx.update_(flat, state.opt, state.params, lr_scale)
         state.step += 1
@@ -208,8 +231,10 @@ def make_pigan_step(
     weights, the stability noise.  ``draws`` may supply any of
     ``"instance_noise"`` (2B, S), ``"gp_eps"`` (B, 1) and
     ``"stability_noise"`` (B, S) instead (unit scale; the step multiplies
-    by the settings' levels).  The JAX step takes the three flax modules
-    first; here they are part of the state."""
+    by the settings' levels), and ``"dropout"`` a mask provider taking the
+    call (``G_IN_D_PHASE`` ...) before the layer index, shape, rate and
+    device.  The JAX step takes the three flax modules first; here they are
+    part of the state."""
     if runtime_weights:
         raise NotImplementedError(
             "runtime_weights=True (the ensemble λ-sweep's dynamic loss weights) is "
@@ -243,13 +268,22 @@ def make_pigan_step(
                                       amp_scale=st.augment_scale)
         g, d, f = state.g.train(), state.d.train(), state.f.eval()
         g_params, d_params = list(g.parameters()), list(d.parameters())
+        g_masks = _masks(draws, seed, G_IN_G_PHASE)
+        d_masks = _masks(draws, seed, D_IN_D_PHASE)
 
-        # G's forward, once for both phases; the BatchNorm stats move here
-        pred_norm = squash(g(spectra))
+        # G's G-phase pass; G's BatchNorm stats move here
+        pred_norm = squash(call_train_mode(g, g_masks, spectra))
         pred_phys = denormalize_params(pred_norm, lo, hi)
 
         # ---- D update (train_pigan.py:123-143) -------------------------
-        fake_phys = pred_phys.detach()
+        if has_dropout(g):
+            # the D phase's own pass of G, with masks of its own
+            with torch.no_grad(), frozen_batch_stats(g):
+                fake_norm = squash(call_train_mode(
+                    g, _masks(draws, seed, G_IN_D_PHASE), spectra))
+            fake_phys = denormalize_params(fake_norm, lo, hi)
+        else:
+            fake_phys = pred_phys.detach()
         cat_spec = torch.cat([spectra, spectra], dim=0)
         cat_par = torch.cat([params_phys, fake_phys], dim=0)
         if st.instance_noise > 0.0:
@@ -257,49 +291,60 @@ def make_pigan_step(
         labels = torch.cat([torch.full((b, 1), st.label_real, device=dev),
                             torch.full((b, 1), st.label_fake, device=dev)], dim=0)
 
-        def d_loss_of(logits, with_penalty: bool):
+        def gradient_penalty():
+            # at (clean spectra, interpolated params), D's batch_stats as the
+            # step found them and discarded after; per-row gradients are
+            # exact: a row of D reads only its own inputs
+            eps = draw("gp_eps", (b, 1), uniform=True)
+            sp = spectra.detach().clone().requires_grad_(True)
+            par = (eps * params_phys + (1.0 - eps) * fake_phys).requires_grad_(True)
+            with frozen_batch_stats(d):
+                critic = call_train_mode(d, d_masks, sp, par)
+            g_spec, g_par = torch.autograd.grad(critic.sum(), (sp, par), create_graph=True)
+            norm = torch.sqrt(torch.sum(g_spec**2, dim=1) + torch.sum(g_par**2, dim=1)
+                              + 1e-12)
+            return torch.mean((norm - 1.0) ** 2)
+
+        def d_loss_of(logits, penalty=None):
             if not wgan:
                 # the reference sums two means: 2x the mean over the concat batch
                 return 2.0 * L.bce_logits(logits, labels)
             loss = torch.mean(logits[b:]) - torch.mean(logits[:b])
-            if with_penalty:
-                # gradient penalty at (clean spectra, interpolated params);
-                # per-row gradients are exact: a row of D reads only its own inputs
-                eps = draw("gp_eps", (b, 1), uniform=True)
-                sp = spectra.detach().clone().requires_grad_(True)
-                par = (eps * params_phys + (1.0 - eps) * fake_phys).requires_grad_(True)
-                g_spec, g_par = torch.autograd.grad(d(sp, par).sum(), (sp, par),
-                                                    create_graph=True)
-                norm = torch.sqrt(torch.sum(g_spec**2, dim=1) + torch.sum(g_par**2, dim=1)
-                                  + 1e-12)
-                loss = loss + st.gp_weight * torch.mean((norm - 1.0) ** 2)
+            if penalty is not None:
+                loss = loss + st.gp_weight * penalty
             return loss
 
         if st.d_update_every <= 1 or state.step % st.d_update_every == 0:
-            d_logits = d(cat_spec, cat_par)
-            d_loss = d_loss_of(d_logits, with_penalty=True)
+            penalty = gradient_penalty() if wgan else None
+            d_logits = call_train_mode(d, d_masks, cat_spec, cat_par)   # stores D's stats
+            d_loss = d_loss_of(d_logits, penalty)
             grads = torch.autograd.grad(d_loss, d_params)
             d_tx.update_(torch.cat([x.reshape(-1) for x in grads]), state.d_opt,
                          state.d_params)
         else:
-            # skipped: forward only, D and its optimiser untouched; the
-            # reported d_loss leaves the penalty out
+            # skipped: forward only, D's parameters and optimiser untouched
+            # (its batch_stats stored, as the JAX step's skip branch does);
+            # the reported d_loss leaves the penalty out
             with torch.no_grad():
-                d_logits = d(cat_spec, cat_par)
-                d_loss = d_loss_of(d_logits, with_penalty=False)
+                d_logits = call_train_mode(d, d_masks, cat_spec, cat_par)
+                d_loss = d_loss_of(d_logits)
         d_logits, d_loss = d_logits.detach(), d_loss.detach()
         # D accuracy at threshold 0.5 (unified_evaluator.py:315-317)
         probs = torch.sigmoid(d_logits)
         d_acc = 0.5 * ((probs[:b] > 0.5).float().mean() + (probs[b:] <= 0.5).float().mean())
 
         # ---- G update against the just-updated D (train_pigan.py:145-187)
-        adv_logits = d(spectra, pred_phys)
+        with frozen_batch_stats(d):
+            adv_logits = call_train_mode(d, _masks(draws, seed, D_IN_G_PHASE), spectra,
+                                         pred_phys)
         if wgan:
             adv = -torch.mean(adv_logits)
         else:
             adv = L.bce_logits(adv_logits, torch.ones((b, 1), device=dev))  # unsmoothed
-        # frozen forward surrogate, eval mode (train_pigan.py:75)
-        recon_spec, pred_met = f(pred_norm)
+        # frozen forward surrogate, eval mode (train_pigan.py:75); out[0] and
+        # out[1] whatever the arity (the uncertainty model returns four)
+        f_out = f(pred_norm)
+        recon_spec, pred_met = f_out[0], f_out[1]
         if st.detach_forward:
             recon_spec, pred_met = recon_spec.detach(), pred_met.detach()
         recon_l = L.mse(recon_spec, spectra)
@@ -336,11 +381,11 @@ def make_pigan_step(
         if st.stability_w:
             noisy = spectra + st.stability_noise * draw("stability_noise", spectra.shape)
             with frozen_batch_stats(g):
-                pred_noisy = squash(g(noisy))
+                pred_noisy = squash(call_train_mode(g, g_masks, noisy))
             total = total + st.stability_w * L.stability_loss(pred_norm, pred_noisy)
         if st.cycle_w:
             with frozen_batch_stats(g):
-                cycled = squash(g(recon_spec))
+                cycled = squash(call_train_mode(g, g_masks, recon_spec))
             total = total + st.cycle_w * L.cycle_consistency_loss(pred_norm, cycled)
 
         grads = torch.autograd.grad(total, g_params)

@@ -22,9 +22,15 @@ function: on the card a training kernel (``ops/forward_train.py``,
 - ``"auto"``: on CUDA the kernel, raising where it does not take the
   configuration or the settings (the error names what it waits for and
   ``engine="eager"``): no phase runs as plain PyTorch on the card unless the
-  caller asks for it.  On the CPU, where there is no kernel, the eager step;
-- ``"kernel"``: the kernel, raising in the same way; on the CPU it runs the
-  kernel's plain version (the port's analogue of Pallas interpret mode);
+  caller asks for it, or no TPU kernel covers the phase's models.  A phase
+  whose config names a model other than the baseline ``mlp`` (the
+  enhanced variants: G and D for the PI-GAN phase, which reads F too, F
+  for the forward phase) takes the eager step, as the JAX package's
+  ``megakernel="auto"`` takes the XLA path for them, and says so.  On the
+  CPU, where there is no kernel, the eager step;
+- ``"kernel"``: the kernel, raising in the same way, for an enhanced model
+  too; on the CPU it runs the kernel's plain version (the port's analogue
+  of Pallas interpret mode);
 - ``"eager"``: the eager step, on either device.
 
 The choice is logged.  A non-finite metric row or state raises
@@ -157,9 +163,20 @@ class Trainer:
         else:
             print(f"[trainer] {msg}", file=sys.stderr)
 
-    def _use_kernel(self, what: str, kernel: str, reason: Optional[str]) -> bool:
+    def _uncovered(self, roles: tuple) -> list:
+        """The phase's models that no TPU kernel covers: any name but the
+        baseline ``mlp`` in the config."""
+        cfg = self.cfg
+        names = {"generator": cfg.generator.name, "discriminator": cfg.discriminator.name,
+                 "forward model": cfg.forward_model.name}
+        return [f"{role} {names[role]!r}" for role in roles if names[role] != "mlp"]
+
+    def _use_kernel(self, what: str, kernel: str, reason: Optional[str],
+                    roles: tuple) -> bool:
         """The engine rule for one phase: True for the kernel (on the CPU its
-        plain version), False for the eager step.  Raises where the kernel
+        plain version), False for the eager step.  Under "auto" on the card
+        a phase with a model that no TPU kernel covers (``roles`` named other
+        than ``mlp``) takes the eager step; otherwise raises where the kernel
         was asked for, or is the card's default, and does not take the phase
         (``reason``)."""
         if self.engine == "eager":
@@ -167,6 +184,11 @@ class Trainer:
             return False
         if self.engine == "auto" and self.device.type != "cuda":
             self._log_always(f"{what} on the eager step (no kernel on {self.device.type})")
+            return False
+        uncovered = self._uncovered(roles)
+        if self.engine == "auto" and uncovered:
+            self._log_always(f"{what} on the eager step: no TPU kernel covers the "
+                             f"{', '.join(uncovered)} (engine='auto')")
             return False
         if reason is not None:
             kind = NotImplementedError if "ROADMAP.md" in reason else ValueError
@@ -187,7 +209,7 @@ class Trainer:
     def _forward_epoch_fn(self, settings, tx, lr, epochs, schedule):
         """(multi-epoch fn, engine used) for this phase."""
         if self._use_kernel("forward pretraining", "forward-training",
-                            supports_forward_kernel(self.cfg)):
+                            supports_forward_kernel(self.cfg, settings), ("forward model",)):
             fn = make_forward_epoch_fn(
                 self.cfg, settings, lr=lr,
                 total_epochs=epochs if lr is not None else None, schedule=schedule)
@@ -197,7 +219,8 @@ class Trainer:
     def _gan_epoch_fn(self, settings, g_tx, d_tx, overrides: dict, epochs: int):
         """(multi-epoch fn, engine used) for a PI-GAN phase."""
         if self._use_kernel("PI-GAN training", "GAN-training",
-                            supports_gan_kernel(self.cfg, settings)):
+                            supports_gan_kernel(self.cfg, settings),
+                            ("generator", "discriminator", "forward model")):
             fn = make_gan_epoch_fn(
                 self.cfg, settings, **overrides,
                 horizon_epochs=epochs if overrides else None)

@@ -241,8 +241,16 @@ def test_kernel_envelope():
     assert "adam_state_dtype" in ft.supports_forward_kernel(moments)
     with pytest.raises(ValueError, match="nll_w"):
         ft.forward_train_spec(tc, TSettings(nll_w=1.0))
-    with pytest.raises(ValueError, match="nll_w"):
-        t_make_forward_step(None, TSettings(nll_w=1.0))
+    assert "variance heads" in ft.supports_forward_kernel(tc, TSettings(nll_w=1.0))
+    # the eager step trains the variance heads of the uncertainty model
+    # (test_torch_enhanced_train.py) and refuses a model without them, as
+    # the JAX step does
+    f_tx = t_make_optimizers(tc, 4)[2]
+    state = init_forward_state(build_forward_model(tc.forward_model, device="cpu"), f_tx, 0,
+                               device="cpu")
+    batch = (torch.zeros(4, 250), None, torch.zeros(4, 4), None, torch.zeros(4, 8))
+    with pytest.raises(ValueError, match="variance heads"):
+        t_make_forward_step(f_tx, TSettings(nll_w=1.0))(state, batch)
 
 
 # -- bfloat16 operands against the Pallas kernel in interpret mode -------------

@@ -172,8 +172,28 @@ def test_build_trio_draws_g_then_d_then_f():
 
 @pytest.mark.parametrize("name", ["dual_encoder", "conv", "multi_scale"])
 def test_unported_discriminators_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_discriminator(TDiscCfg(name=name), device="cpu")
+    """The enhanced discriminators, once refused by name, now build: the JAX
+    package's parameter and batch_stats counts (spectral norm's u and sigma
+    with ``use_spectral_norm``), and finite (B, 1) logits in eval mode
+    (their parity is in test_torch_enhanced_models.py)."""
+    d = build_discriminator(TDiscCfg(name=name, use_spectral_norm=True), device="cpu",
+                            generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    spec = rng.normal(size=(3, 250)).astype(np.float32)
+    par = rng.uniform(2.2, 2.8, size=(3, 4)).astype(np.float32)
+    shapes = jax.eval_shape(lambda: j_build_discriminator(
+        DiscriminatorConfig(name=name, use_spectral_norm=True)).init(
+        {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
+        jnp.asarray(spec), jnp.asarray(par)))
+
+    def count(tree):
+        return sum(int(np.prod(a.shape)) for a in jax.tree.leaves(tree))
+
+    assert sum(p.numel() for p in d.parameters()) == count(shapes["params"])
+    assert sum(b.numel() for b in d.buffers()) == count(shapes.get("batch_stats", {}))
+    with torch.no_grad():
+        out = d.eval()(torch.from_numpy(spec), torch.from_numpy(par))
+    assert tuple(out.shape) == (3, 1) and bool(torch.isfinite(out).all())
 
 
 @pytest.mark.parametrize("build", [build_generator, build_discriminator])

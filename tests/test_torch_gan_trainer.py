@@ -351,9 +351,13 @@ def test_train_command_ties_the_horizon_to_epochs(tmp_path, monkeypatch):
 @pytest.mark.parametrize("flag, waits_for", [
     (["--preset", "optimized"], "residual")])
 def test_train_command_guards_what_is_not_ported(flag, waits_for, tmp_path):
-    with pytest.raises(NotImplementedError, match=waits_for) as err:
-        cli_main(_train_args(tmp_path, *flag))
-    assert "ROADMAP.md" in str(err.value)
+    """``--preset optimized``, once refused by name until its residual G
+    was ported, now trains as typed (the eager step on the CPU) and saves
+    the residual G's architecture."""
+    rc = cli_main(_train_args(tmp_path, *flag, "--epochs", "1", "--forward-epochs", "1"))
+    assert rc == 0
+    saved = json.loads((tmp_path / "saved_models" / "model_config.json").read_text())
+    assert saved["generator"]["name"] == waits_for
 
 
 def test_train_command_refuses_colliding_tag_and_missing_card(tmp_path):

@@ -152,8 +152,24 @@ def test_seeded_build_is_deterministic():
     (build_forward_model, TFwdCfg(name="uncertainty")),
 ])
 def test_unported_variants_raise(build, cfg):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(cfg, device="cpu")
+    """The enhanced variants, once refused by name, now build: the JAX
+    package's parameter count, and finite outputs of its shapes in eval
+    mode (their parity is in test_torch_enhanced_models.py)."""
+    m = build(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    is_g = build is build_generator
+    jbuild = j_build_generator if is_g else j_build_forward_model
+    jcfg = (GeneratorConfig if is_g else ForwardModelConfig)(name=cfg.name)
+    x = np.random.default_rng(0).normal(size=(3, 250 if is_g else 4)).astype(np.float32)
+    shapes = jax.eval_shape(lambda: jbuild(jcfg).init(
+        {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)}, jnp.asarray(x)))
+    assert sum(p.numel() for p in m.parameters()) == sum(
+        int(np.prod(a.shape)) for a in jax.tree.leaves(shapes["params"]))
+    with torch.no_grad():
+        out = m.eval()(torch.from_numpy(x))
+    out = out if isinstance(out, tuple) else (out,)
+    want = [(3, 4)] if is_g else [(3, 250), (3, 8)] * (2 if cfg.name == "uncertainty" else 1)
+    assert [tuple(o.shape) for o in out] == want
+    assert all(bool(torch.isfinite(o).all()) for o in out)
 
 
 def test_unknown_variant_raises():

@@ -155,7 +155,7 @@ def test_profile_prints_its_report(tmp_path, capsys):
                            "train_steps_per_sec", "device_memory", "launches"}
     assert report["epochs_per_call"] == 1 and report["calls_per_sec"] > 0
     assert report["train_steps_per_sec"] == pytest.approx(
-        report["calls_per_sec"] * N // B, rel=1e-2)
+        report["calls_per_sec"] * (N // B), rel=1e-2)
     assert report["launches"] == {} and report["device_memory"] == {}   # the CPU
     assert json.loads((trace_dir / profiling.TRACE_FILE).read_text())["traceEvents"]
 

@@ -94,9 +94,12 @@ def test_optimized_loss_mix_is_inside_the_kernel_s_envelope():
     assert gt.supports_gan_kernel(cfg, settings) is None
     spec = gt.gan_train_spec(cfg, settings)
     assert spec.stability_w == 1.0 and spec.cycle_w == 0.0 and not spec.use_inoise
-    # as the overlay stands it names models that the registry does not build yet
-    with pytest.raises(NotImplementedError, match="residual"):
-        Trainer(tp.apply_optimization_config(t_default_config()), device="cpu")
+    # as the overlay stands it names the residual G and the spectral-norm
+    # dual-encoder D, which the registry builds and no kernel covers
+    trainer = Trainer(tp.apply_optimization_config(t_default_config()), device="cpu")
+    assert type(trainer.generator).__name__ == "ResidualGenerator"
+    assert type(trainer.discriminator).__name__ == "DualEncoderDiscriminator"
+    assert "generator" in gt.supports_gan_kernel(trainer.cfg, settings)
 
 
 def _args(tmp_path, *extra):
@@ -125,9 +128,18 @@ def test_train_command_preset_optimized_trains_the_baseline_trio(tmp_path, monke
     assert "GAN-training kernel (its plain version)" in capsys.readouterr().out
     hist = json.loads((tmp_path / "saved_models" / "training_history.json").read_text())
     assert len(hist["pigan/constraint_loss"]) == 1
-    # as typed, the overlay's models are refused by name
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 15"):
-        cli_main(_args(tmp_path, "--preset", "optimized"))
+    # as typed, the overlay's residual G and dual-encoder D train on the
+    # eager step (the CPU's "auto"; test_torch_enhanced_train.py holds the
+    # card's engine rule)
+    rc = cli_main(_args(tmp_path / "as_typed", "--preset", "optimized",
+                        "--set", "train.batch_size=32"))
+    assert rc == 0
+    assert type(seen["cfg"]).__name__ == "PiGanConfig"
+    assert seen["cfg"].generator.name == "residual"
+    assert seen["cfg"].discriminator.name == "dual_encoder"
+    hist = json.loads((tmp_path / "as_typed" / "saved_models" /
+                       "training_history.json").read_text())
+    assert all(v[-1] == v[-1] for v in hist.values())
 
 
 def test_train_command_preset_scaled(tmp_path, monkeypatch):
