@@ -258,7 +258,22 @@ generator passes (cycle, stability) and noise streams:
     takes eager steps on the card (PI-GAN steps; a surrogate also forward
     steps, the uncertainty one with ``nll_w`` 0.5), finite, each variant's
     steps/s beside the baseline trio's eager steps in the same call; the K1
-    and K4 launches of the phase printed.
+    and K4 launches of the phase printed;
+35. ensembles and data parallelism, two ranks on the one card (processes
+    of a gloo group: NCCL refuses two ranks on one device), spawned once:
+    (i) ``Trainer(mesh=...)`` 20 forward + 20 GAN epochs at B = 64 global
+    (the eager step, as JAX's mesh path runs no training kernel) against a
+    world-1 eager run of the same phase: the replicas' state hashes equal
+    after every 5-epoch chunk, the first epoch's rows of each phase within
+    1e-4 (the GAN phase over the ranks from world 1's F), the later rows'
+    distance printed (float32's drift), PI-GAN and forward steps/s at world 1 and 2; (ii) the
+    1e6 fused and module screens over the ranks (K5 and K4 on each rank's
+    chunks, launches counted per rank) equal to phase 8's, row for row;
+    (iii) ``screen --mesh-data`` beyond the devices refused before work;
+    (iv) ``examples/torch_ablation_sweep.py --members 8 --forward-epochs 100
+    --epochs 20`` at ``--world 1`` and ``--world 2 --backend gloo`` in
+    subprocesses (K1 pretrains F on rank 0, K4 each rank's dataset): the
+    rankings equal bit for bit in param R², member-steps/s of each.
 
 The ``kernels`` record gives each kernel's launches on the main path, its
 error against its plain version, its time beside the plain version's, the
@@ -4206,6 +4221,306 @@ def phase34_enhanced(cfg, dev, repo: str, train_ds, tag: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 35: ensembles and data parallelism
+# ---------------------------------------------------------------------------
+# Two ranks, each a process of its own, on the one card: NCCL refuses two
+# ranks on one device, so they form a gloo group, which moves CUDA tensors
+# through the host.  Trainer(mesh=...) trains P35_EPOCHS forward then
+# P35_EPOCHS GAN epochs in chunks of P35_EPOCHS_PER_CALL (B = 64 global, 32 a
+# rank), and the replicas' states are hashed and compared after every chunk.
+# Against the world-1 eager run of the same phase every history row of the
+# first P35_HELD_EPOCHS epoch of each phase is held to
+# tests/test_torch_parallel.py's tolerance (rtol 1e-4; the count rows,
+# d_accuracy and violation_rate, within one sample of the epoch), each phase
+# from one state: the GAN phase over the ranks starts from world 1's
+# pretrained F.  The later rows are printed, not held: two float32 orders of
+# the same sums part where an activation mask flips and do not come back
+# (measured on an H100: the forward rows 1e-7 apart for 4 epochs, 1e-3 by
+# epoch 17; a GAN phase started from those two Fs 4e-3 apart in its first
+# epoch; from one F the GAN rows 1.2e-5 apart in epoch 1 (15 steps), 4.2e-4
+# in epoch 2, 2e-2 by epoch 12, as K2's 30 steps against its float32 plain
+# version drift, K2_ROWS_RTOL).  The CPU test holds 8 steps at narrow width.
+P35_WORLD = 2
+P35_EPOCHS = 20
+P35_EPOCHS_PER_CALL = 5
+P35_ROWS_RTOL = 1e-4
+P35_HELD_EPOCHS = 1
+P35_COUNT_ROWS = ("pigan/d_accuracy", "pigan/violation_rate")
+P35_SWEEP = ("--members", "8", "--forward-epochs", "100", "--epochs", "20")
+
+
+def _p35_digest(state, mesh) -> list:
+    """Every rank's sha256 of ``state``'s payload, in rank order."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    h = hashlib.sha256()
+    for key, v in state.state_dict().items():
+        h.update(key.encode())
+        if isinstance(v, torch.Tensor):
+            h.update(v.detach().cpu().contiguous().numpy().tobytes())
+        else:
+            h.update(repr(v).encode())
+    every = [None] * mesh.size
+    dist.all_gather_object(every, h.hexdigest())
+    return every
+
+
+def _p35_rank(rank: int, world: int, address: str, out_dir: str, device: str) -> None:
+    """One rank of phase 35 (i) and (ii); writes ``out_dir/rank<r>.pt``."""
+    import torch
+
+    from pigan_thz_torch import default_config
+    from pigan_thz_torch.design import ScreeningConfig, screen_designs
+    from pigan_thz_torch.models import build_forward_model
+    from pigan_thz_torch.ops import _cuda_build
+    from pigan_thz_torch.parallel import initialize_distributed, make_mesh
+    from pigan_thz_torch.train.trainer import Trainer
+
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(address, world, rank, backend="gloo", device=dev)
+    mesh = make_mesh(data=world)
+    inputs = torch.load(os.path.join(out_dir, "inputs.pt"), weights_only=False)
+    cfg = inputs["cfg"]
+    out = {"rank": rank, "digests": []}
+
+    class Checked(Trainer):
+        def _run_chunk(self, *args, **kw):
+            state, rows = super()._run_chunk(*args, **kw)
+            out["digests"].append(_p35_digest(state, mesh))
+            return state, rows
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        mesh.barrier()
+
+    reset_launches(_cuda_build.LAUNCHES)
+    trainer = Checked(cfg, device=dev, mesh=mesh, epochs_per_call=P35_EPOCHS_PER_CALL)
+    sync()
+    t0 = time.perf_counter()
+    trainer.pretrain_forward(epochs=inputs["epochs"])
+    sync()
+    t1 = time.perf_counter()
+    trainer.forward_state.load_state_dict_(inputs["forward_world1"])   # one start state
+    trainer.init_pigan()
+    trainer.train_pigan(epochs=inputs["epochs"])
+    sync()
+    out.update(history=trainer.train_history, forward_s=t1 - t0,
+               pigan_s=time.perf_counter() - t1, train_launches=dict(_cuda_build.LAUNCHES),
+               steps_per_epoch=trainer.steps_per_epoch)
+
+    f = build_forward_model(cfg.forward_model, cfg.data.spectrum_dim, cfg.data.metrics_dim,
+                            device=dev)
+    f.load_state_dict(inputs["F"])
+    f.eval()
+    lo, hi = inputs["lo"].to(dev), inputs["hi"].to(dev)
+    for use_pallas in (True, False):
+        reset_launches(_cuda_build.LAUNCHES)
+        sc = ScreeningConfig(use_pallas=use_pallas, **inputs["screen"])
+        gen = torch.Generator(device=dev).manual_seed(cfg.train.seed)
+        sync()
+        t0 = time.perf_counter()
+        res = screen_designs(f, cfg.data.frequencies.to(dev), lo, hi, gen, sc, mesh=mesh)
+        sync()
+        out[f"screen_{use_pallas}"] = ({k: getattr(res, k).cpu() for k in res._fields},
+                                       time.perf_counter() - t0, dict(_cuda_build.LAUNCHES))
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def _p35_rows_apart(got: dict, want: dict, atol_count: float) -> tuple:
+    """Each history row's largest |got - want| / (rtol |want| + atol) over
+    the first P35_HELD_EPOCHS epochs (above 1 fails), and its largest
+    relative difference over every epoch, with the epoch it is at."""
+    held, every = {}, {}
+    for k, w in want.items():
+        g = got[k]
+        if len(g) != len(w):
+            fail(f"phase 35: history {k} has {len(g)} rows over the ranks, {len(w)} alone")
+        atol = atol_count if k in P35_COUNT_ROWS else 1e-6
+        held[k] = max(abs(a - b) / (P35_ROWS_RTOL * abs(b) + atol)
+                      for a, b in list(zip(g, w))[:P35_HELD_EPOCHS])
+        rel = [abs(a - b) / max(abs(b), 1e-12) for a, b in zip(g, w)]
+        every[k] = (max(rel), rel.index(max(rel)))
+    return held, every
+
+
+def phase35_parallel(cfg, dev, repo: str, F, lo, hi, screens: dict, tag: str,
+                     epochs: int = P35_EPOCHS, sweep: tuple = P35_SWEEP,
+                     screen: dict | None = None) -> dict:
+    """Ensembles and data parallelism on the card (module docstring, phase
+    35).  ``screens`` are the world-1 screens of ``F`` (phase 8's); the
+    other arguments cut the phase for a rehearsal on the CPU.  Returns the
+    main-path launches and the numbers for the record."""
+    import torch
+
+    from pigan_thz_torch.cli import main as cli_main
+    from pigan_thz_torch.ops import _cuda_build
+    from pigan_thz_torch.parallel.mesh import spawn_ranks
+    from pigan_thz_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="p35_") as out_dir:
+        # (i) world 1, the eager step
+        reset_launches(_cuda_build.LAUNCHES)
+        alone = Trainer(cfg, device=dev, engine="eager", epochs_per_call=P35_EPOCHS_PER_CALL)
+        sync()
+        t0 = time.perf_counter()
+        alone.pretrain_forward(epochs=epochs)
+        sync()
+        t1 = time.perf_counter()
+        forward_world1 = {k: v.detach().cpu().clone() if isinstance(v, torch.Tensor) else v
+                          for k, v in alone.forward_state.state_dict().items()}
+        alone.init_pigan()
+        alone.train_pigan(epochs=epochs)
+        sync()
+        w1 = dict(forward_s=t1 - t0, pigan_s=time.perf_counter() - t1)
+        add(_cuda_build.LAUNCHES)
+        torch.save({"cfg": cfg, "epochs": epochs, "screen": screen or {},
+                    "F": {k: v.cpu() for k, v in F.state_dict().items()},
+                    "lo": lo.cpu(), "hi": hi.cpu(), "forward_world1": forward_world1},
+                   os.path.join(out_dir, "inputs.pt"))
+        # (i) and (ii) over the ranks, one spawn
+        t0 = time.perf_counter()
+        spawn_ranks(_p35_rank, P35_WORLD, out_dir, str(dev))
+        spawn_wall = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+                 for r in range(P35_WORLD)]
+
+        r0 = ranks[0]
+        spe = r0["steps_per_epoch"]
+        for chunk, digests in enumerate(r0["digests"]):
+            if len(set(digests)) != 1:
+                fail(f"phase 35: the replicas differ after chunk {chunk}: {digests}")
+        for r in ranks[1:]:
+            if r["digests"] != r0["digests"] or r["history"] != r0["history"]:
+                fail(f"phase 35: rank {r['rank']} saw other replicas or rows than rank 0")
+        held, apart = _p35_rows_apart(r0["history"], alone.train_history,
+                                      1.0 / (spe * cfg.train.batch_size))
+        worst = max(held, key=held.get)
+        rates = {"world1_pigan_steps_per_s": epochs * spe / w1["pigan_s"],
+                 "world2_pigan_steps_per_s": epochs * spe / r0["pigan_s"],
+                 "world1_forward_steps_per_s": epochs * spe / w1["forward_s"],
+                 "world2_forward_steps_per_s": epochs * spe / r0["forward_s"]}
+        print(f"phase 35 (i) Trainer(mesh=...) on {P35_WORLD} gloo ranks of {dev}, "
+              f"{epochs} forward + {epochs} GAN epochs of {spe} steps (B = "
+              f"{cfg.train.batch_size} global): forward {r0['forward_s']:.3f} s, PI-GAN "
+              f"{r0['pigan_s']:.3f} s; world 1 eager {w1['forward_s']:.3f} s / "
+              f"{w1['pigan_s']:.3f} s; replicas equal after each of "
+              f"{len(r0['digests'])} chunks; the first {P35_HELD_EPOCHS} epoch's rows at "
+              f"most {held[worst]:.3g} of the limit ({worst}; rtol {P35_ROWS_RTOL})")
+        for k, (rel, at) in apart.items():
+            first = [abs(a - b) / max(abs(b), 1e-12) for a, b in
+                     zip(r0["history"][k][:4], alone.train_history[k][:4])]
+            print(f"phase 35 (i) {k}: world 2 against world 1, relative, epochs 1-4 "
+                  + " ".join(f"{x:.2e}" for x in first)
+                  + f"; largest {rel:.3e} at epoch {at + 1}; world 1 last "
+                  f"{alone.train_history[k][-1]:.6g}, world 2 last {r0['history'][k][-1]:.6g}")
+        print(f"time {tag} phase 35 PI-GAN steps/s: world 1 "
+              f"{rates['world1_pigan_steps_per_s']:.1f}, world 2 "
+              f"{rates['world2_pigan_steps_per_s']:.1f}; forward steps/s: world 1 "
+              f"{rates['world1_forward_steps_per_s']:.1f}, world 2 "
+              f"{rates['world2_forward_steps_per_s']:.1f}")
+        failures = []
+        if held[worst] > 1.0:
+            failures.append(f"{worst} over the ranks is {held[worst]:.3g} of its limit in the "
+                            f"first {P35_HELD_EPOCHS} epoch")
+        out.update(rates, rows_apart={k: v[0] for k, v in apart.items()},
+                   rows_held=held, spawn_s=spawn_wall)
+        for r in ranks:
+            add(r["train_launches"])
+
+        # (ii) the screens over the ranks against phase 8's world-1 screens
+        for use_pallas in (True, False):
+            want = screens[use_pallas][0]
+            label = "fused" if use_pallas else "module"
+            per_rank = []
+            for r in ranks:
+                got, wall, counted = r[f"screen_{use_pallas}"]
+                for k in got:
+                    w = getattr(want, k).cpu()
+                    if not (torch.equal(got[k], w) or bool(
+                            ((got[k] == w) | (got[k] != got[k]) & (w != w)).all())):
+                        fail(f"phase 35: the {label} screen over the ranks differs from "
+                             f"world 1's in {k} (rank {r['rank']})")
+                per_rank.append(counted)
+                add(counted)
+            if dev.type == "cuda" and (
+                    not all(c.get("dip_qualification", 0) for c in per_rank)
+                    or use_pallas and not all(c.get("fused_mlp_forward", 0) for c in per_rank)):
+                fail(f"phase 35: a rank of the {label} screen launched no kernel: {per_rank}")
+            wall = r0[f"screen_{use_pallas}"][1]
+            print(f"phase 35 (ii) {label} screen over {P35_WORLD} ranks: {wall:.3f} s "
+                  f"(world 1 {screens[use_pallas][1]:.3f} s), equal to world 1's row for "
+                  f"row; launches per rank {per_rank}")
+            out[f"screen_{label}_s"] = wall
+            out[f"screen_{label}_world1_s"] = screens[use_pallas][1]
+
+        # (iii) more ranks than devices: refused before any work
+        try:
+            cli_main(["screen", "--models", out_dir, "--mesh-data",
+                      str(torch.cuda.device_count() + 1)])
+        except ValueError as e:
+            print(f"phase 35 (iii) screen --mesh-data {torch.cuda.device_count() + 1}: "
+                  f"refused: {e}")
+        else:
+            fail("phase 35: screen --mesh-data beyond the devices did not raise")
+
+    # (iv) the λ-sweep, one rank and two ranks on one card
+    sweeps = {}
+    for world in (1, P35_WORLD):
+        cmd = [sys.executable, os.path.join(repo, "examples", "torch_ablation_sweep.py"),
+               *sweep, "--world", str(world), "--device", str(dev)]
+        if world > 1:
+            cmd += ["--backend", "gloo"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"phase 35: the sweep at world {world} exited {proc.returncode}: "
+                 f"{proc.stderr[-3000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        sweeps[world] = res
+        for counted in res["launches"]:
+            add(counted)
+        print(f"phase 35 (iv) torch_ablation_sweep.py {' '.join(sweep)} --world {world}: "
+              f"{wall:.1f} s wall, members' phase {res['wall_s']:.3f} s, "
+              f"{res['member_steps_per_s']:.1f} member-steps/s, {res['members_a_rank']} "
+              f"members a rank, launches per rank {res['launches']}, best member "
+              f"{res['ranking'][0]['member']} param R2 {res['ranking'][0]['param_r2']:.6f}")
+        if not res["all_rows_finite"]:
+            fail(f"phase 35: the sweep at world {world} has non-finite rows")
+    key = [(r["member"], r["param_r2"]) for r in sweeps[1]["ranking"]]
+    if key != [(r["member"], r["param_r2"]) for r in sweeps[P35_WORLD]["ranking"]]:
+        fail("phase 35: the sweep's ranking over the ranks is not the one-rank ranking")
+    print(f"phase 35 (iv) the rankings at world 1 and {P35_WORLD} are equal bit for bit in "
+          f"param R2: {key}")
+    if failures:
+        fail("phase 35: " + "; ".join(failures))
+    out.update(sweep_member_steps_per_s={w: s["member_steps_per_s"] for w, s in sweeps.items()},
+               sweep_ranking=sweeps[1]["ranking"])
+    wall = time.perf_counter() - t_phase
+    print(f"phase 35: main-path launches {launches}; {wall:.1f} s")
+    out.update(launches=launches, wall=wall)
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -4571,6 +4886,10 @@ def main() -> None:
     enhanced = phase34_enhanced(cfg, dev, repo, train_ds, tag)
     p34 = enhanced["launches"]
 
+    # -- 35. ensembles and data parallelism --------------------------------------------
+    parallel = phase35_parallel(cfg, dev, repo, F, lo, hi, screens, tag)
+    p35 = parallel["launches"]
+
     # -- the record -------------------------------------------------------------
     # bound_ms: operations over the fp32 peak against bytes moved once over the
     # memory rate, from the shapes each timed call was given.
@@ -4691,7 +5010,7 @@ def main() -> None:
     k1_brow = pretrain["launches"]["brow_gemm"]
     brow_main = (k1_brow + tl["brow_gemm"] + el["brow_gemm"] + pl["brow_gemm"]
                  + sl["brow_gemm"] + ev_l["brow_gemm"] + pr.get("brow_gemm", 0)
-                 + p34.get("brow_gemm", 0))
+                 + p34.get("brow_gemm", 0) + p35.get("brow_gemm", 0))
     if not k1_brow or not tl["brow_gemm"] or not el["brow_gemm"]:
         fail(f"the main paths launched the batch-row kernel {brow_main} times "
              f"(pretrain-forward {k1_brow}, train {tl['brow_gemm']}, ensemble "
@@ -4717,9 +5036,13 @@ def main() -> None:
          "source": "pigan_thz_torch/csrc/fused_mlp_chain.cu",
          "replaces": "pigan_thz_tpu/ops/pallas_kernels.py:73",
          "launches": launches["fused_mlp_forward"] + k5_screen + sv["fused_mlp_forward"]
-         + p34.get("fused_mlp_forward", 0),
+         + p34.get("fused_mlp_forward", 0) + p35.get("fused_mlp_forward", 0),
          "launches_serving_completed": sv["fused_mlp_forward"],
          "launches_enhanced_variants": p34.get("fused_mlp_forward", 0),
+         "launches_ensembles_and_data_parallelism": p35.get("fused_mlp_forward", 0),
+         "screens_over_ranks": {k: parallel[k] for k in (
+             "screen_fused_s", "screen_fused_world1_s", "screen_module_s",
+             "screen_module_world1_s")},
          "serving": {k: serving[k] for k in ("times", "latency", "screens",
                                              "screen_bf16_gap", "export_wall_s",
                                              "distances", "int8_fresh_envelope")},
@@ -4732,7 +5055,8 @@ def main() -> None:
         {"name": "fused_dense_chain", "route": "cuda",
          "source": "pigan_thz_torch/csrc/fused_mlp_chain.cu",
          "replaces": "pigan_thz_tpu/ops/pallas_kernels.py:185",
-         "launches": launches["fused_dense_chain"] + sv["fused_dense_chain"],
+         "launches": launches["fused_dense_chain"] + sv["fused_dense_chain"]
+         + p35.get("fused_dense_chain", 0),
          "launches_serving_completed": sv["fused_dense_chain"],
          "max_abs_err": max_err["fused_dense_chain"],
          "ms": times[("fused_dense_chain", big)][0],
@@ -4746,9 +5070,10 @@ def main() -> None:
          "launches": dataset_k4 + k4_screen + tl["dip_qualification"]
          + el["dip_qualification"] + pl["dip_qualification"] + ev_l["dip_qualification"]
          + sv["dip_qualification"] + pr.get("dip_qualification", 0)
-         + p34.get("dip_qualification", 0),
+         + p34.get("dip_qualification", 0) + p35.get("dip_qualification", 0),
          "launches_preemption_safe_training": pr.get("dip_qualification", 0),
          "launches_enhanced_variants": p34.get("dip_qualification", 0),
+         "launches_ensembles_and_data_parallelism": p35.get("dip_qualification", 0),
          "launches_serving_completed": sv["dip_qualification"],
          "launches_evaluate_path": ev_l["dip_qualification"],
          "evaluate": {k: evaluation[k] for k in ("ceilings", "eval_ms", "ceilings_oracle_ms",
@@ -4776,9 +5101,15 @@ def main() -> None:
          "replaces": "pigan_thz_tpu/ops/megakernel.py:2623",
          "launches": k1_launches + tl["forward_train"] + el["forward_train"]
          + pl["forward_train"] + sl["forward_train"] + ev_l["forward_train"]
-         + pr.get("forward_train", 0) + p34.get("forward_train", 0),
+         + pr.get("forward_train", 0) + p34.get("forward_train", 0)
+         + p35.get("forward_train", 0),
          "launches_preemption_safe_training": pr.get("forward_train", 0),
          "launches_enhanced_variants": p34.get("forward_train", 0),
+         "launches_ensembles_and_data_parallelism": p35.get("forward_train", 0),
+         "data_parallelism": {k: parallel[k] for k in (
+             "world1_pigan_steps_per_s", "world2_pigan_steps_per_s",
+             "world1_forward_steps_per_s", "world2_forward_steps_per_s", "rows_apart",
+             "sweep_member_steps_per_s", "wall")},
          "enhanced_variants": {k: enhanced[k] for k in ("optimized", "evaluate", "request",
                                                         "eager_steps_per_s", "wall")},
          "preemption_safe_training": {
@@ -4808,7 +5139,7 @@ def main() -> None:
          "source": "pigan_thz_torch/csrc/gan_train.cu",
          "replaces": "pigan_thz_tpu/ops/megakernel.py:779",
          "launches": tl["gan_train"] + el["gan_train"] + pl["gan_train"] + sl["gan_train"]
-         + ev_l["gan_train"] + pr.get("gan_train", 0),
+         + ev_l["gan_train"] + pr.get("gan_train", 0) + p35.get("gan_train", 0),
          "launches_preemption_safe_training": pr.get("gan_train", 0),
          "preemption_safe_training": {
              "checkpoint": preempt["checkpoint"]["pigan"],
@@ -4845,7 +5176,7 @@ def main() -> None:
         {"name": "gan_ensemble_train", "route": "cuda",
          "source": "pigan_thz_torch/csrc/gan_train.cu",
          "replaces": "pigan_thz_tpu/ops/megakernel.py:2128",
-         "launches": el["gan_ensemble_train"],
+         "launches": el["gan_ensemble_train"] + p35.get("gan_ensemble_train", 0),
          "members": K3_MEMBERS,
          "max_abs_err": max(k3_stats["max_abs_err"], k3_paths["max_abs_err"]),
          "rows_max_rel_err": k3_stats["rows_rel"],

@@ -33,6 +33,13 @@ The port goes slice by slice (ROADMAP.md).  The slices that exist:
   stability, and its noise streams), the eager step for a trio with an
   enhanced model (no TPU kernel covers one), and seed ensembles, M members
   in one launch of the same kernel's member-packed entry (``parallel/``);
+- ensembles and data parallelism (``parallel/``): the λ-ablation sweep,
+  N members with loss weights of their own through the eager runtime-weights
+  step (``make_ensemble_multi_epoch_fn``, ``examples/torch_ablation_sweep.py``);
+  data-parallel training over ``torch.distributed`` ranks with BatchNorm
+  over the global batch (``Trainer(mesh=...)``, ``make_parallel_multi_epoch_fn``);
+  screening over ranks, each running the fused surrogate and peaks kernels
+  on its own chunks (``screen_designs(mesh=...)``, ``screen --mesh-data N``);
 - preemption-safe training: full-state checkpoints
   (``train/checkpoint.py:CheckpointManager``), ``Trainer.resume_from`` and
   the kernel engine's shadow replay;

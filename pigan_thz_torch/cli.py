@@ -62,7 +62,8 @@ The serving commands read the saved models with the same overlay.
 (``forward_model_pretrained.pth`` if it is there, else
 ``forward_model_final.pth``) and writes ``screening_results.json``
 (``--pallas``: the fused surrogate kernel; ``--dtype bfloat16``: F's bf16
-twin; not both).  ``design --models DIR`` designs for dataset rows
+twin; not both; ``--mesh-data N``: over N ranks it spawns, one device a
+rank, the result the one-rank screen's).  ``design --models DIR`` designs for dataset rows
 (``--target-index``, repeatable) or a ``.npy`` / CSV file of spectra
 (``--target-file``), with ``--refine-steps`` of surrogate-gradient
 refinement and ``--uncertainty`` (MC dropout).  ``export --models DIR``
@@ -601,18 +602,44 @@ def _load_ensemble(cfg: PiGanConfig, models: str, members: int, device):
 
 def cmd_screen(args) -> int:
     """Screen ``--candidates`` random designs with the saved F; the top-k
-    to ``screening_results.json``."""
+    to ``screening_results.json``.  With ``--mesh-data N`` > 1 the command
+    spawns N ranks on this host (rank r on ``cuda:r``, or on the CPU under
+    ``--device cpu``), each screening its share of the chunks; rank 0
+    writes the file and prints what one rank prints."""
     if args.pallas and args.dtype == "bfloat16":
         # before any model load or device work
         raise SystemExit("--pallas supports float32 only; drop --dtype")
-    if args.mesh_data > 1:
-        raise NotImplementedError("--mesh-data > 1 is not ported yet: screening over ranks "
-                                  "waits for ROADMAP.md queue 1, item 14")
+    if args.mesh_data < 1:
+        raise SystemExit(f"--mesh-data {args.mesh_data}: at least 1")
+    if args.mesh_data == 1:
+        return _screen(args)
+    from .parallel.mesh import spawn_ranks
+
+    device = _device(args)
+    if device.type == "cuda" and torch.cuda.device_count() < args.mesh_data:
+        # one device a rank, as make_mesh(data=N) over jax.devices()[:N]
+        raise ValueError(f"mesh {args.mesh_data}x1 != {torch.cuda.device_count()} devices: "
+                         f"--mesh-data {args.mesh_data} needs one CUDA device a rank")
+    spawn_ranks(_screen_rank, args.mesh_data, vars(args))
+    return 0
+
+
+def _screen_rank(rank: int, world: int, address: str, argd: dict) -> None:
+    """One rank of ``screen --mesh-data N``."""
+    from .parallel.mesh import initialize_distributed, make_mesh
+
+    args = argparse.Namespace(**argd)
+    initialize_distributed(address, world, rank,
+                           device="cpu" if args.device == "cpu" else f"cuda:{rank}")
+    _screen(args, make_mesh(data=world))
+
+
+def _screen(args, mesh=None) -> int:
     import time
 
     cfg = _make_cfg(args)
     cfg = _overlay_model_config_dir(cfg, args.models, args.set)
-    device = _device(args)
+    device = _device(args) if mesh is None else mesh.device
     from .data.dataset import load_or_synthesize
     from .design import ScreeningConfig, screen_designs
     from .ops._cuda_build import launch_counts
@@ -625,9 +652,12 @@ def cmd_screen(args) -> int:
     )
     t0 = time.perf_counter()
     res = screen_designs(f, ds.frequencies, ds.param_lo, ds.param_hi,
-                         torch.Generator(device=device).manual_seed(cfg.train.seed), sc)
+                         torch.Generator(device=device).manual_seed(cfg.train.seed), sc,
+                         mesh=mesh)
     valid = res.valid.tolist()             # waits for the screen
     wall = time.perf_counter() - t0
+    if mesh is not None and mesh.rank != 0:
+        return 0                           # rank 0 writes and prints
     scores, params = res.scores.tolist(), res.params.tolist()
     rows = [{"rank": i + 1, "score": scores[i],
              **dict(zip(("r1", "r2", "w", "g"), params[i]))}
@@ -1060,7 +1090,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="surrogate forward-pass dtype; bfloat16 runs F's bf16 twin "
                         "(rankings may differ near ties)")
     g.add_argument("--mesh-data", type=int, default=1,
-                   help="shard candidate batches over N devices (not ported yet)")
+                   help="screen over N ranks, one device each (rank r on cuda:r; "
+                        "--device cpu: N CPU ranks)")
     g.add_argument("--out", default=None, help="results JSON (default screening_results.json)")
     g.set_defaults(fn=cmd_screen)
 

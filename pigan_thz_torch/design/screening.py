@@ -13,11 +13,23 @@ The port of ``pigan_thz_tpu/design/screening.py`` (BASELINE.json config #5:
    the name is the JAX package's; fp32 only);
 3. derive the physics metrics (f_res, Q, FoM, S) from the PREDICTED spectra
    with the peak analysis (``ops/peaks.py``, the K4 kernel on the card);
-4. keep a running top-k over the chunks with ``torch.topk``.
+4. keep a running top-k over the chunks: a stable descending sort of the
+   kept and the new scores, so that equal scores keep the earlier
+   candidate, as ``jax.lax.top_k`` breaks ties by index.
 
 The chunk loop is a Python loop; every chunk stays on the device and the
 host never waits on it.  ``screen_designs`` returns physical-unit
 parameters with their scores.
+
+Over the ranks of a mesh (``parallel/mesh.py``) every rank draws every
+chunk's candidates from its generator, the draw sequence of one rank, and
+screens the chunks c with c mod W = its rank, at the same chunk size, so
+each candidate gets the same bits as on one rank; the ranks then gather
+their top-k (with each candidate's index) and merge them by score and
+index: the result is the one-rank screen's, row for row.  Unlike the JAX
+package, which refuses ``use_pallas`` with a mesh (``pallas_call`` has no
+SPMD partitioning rule), each rank here launches the fused kernel on whole
+chunks of its own.
 """
 
 from __future__ import annotations
@@ -104,6 +116,13 @@ def make_surrogate(
     return lambda pn: forward_model(pn)[0]
 
 
+def _best(k: int, scores: torch.Tensor, *rows: torch.Tensor) -> tuple:
+    """The k best of ``scores`` and the matching rows of ``rows``: a stable
+    descending sort, so equal scores keep their order."""
+    order = torch.sort(scores, descending=True, stable=True).indices[:k]
+    return (scores[order], *(r[order] for r in rows))
+
+
 def screen_designs(
     forward_model: nn.Module,
     frequencies: torch.Tensor,
@@ -116,25 +135,26 @@ def screen_designs(
     """Screen ``cfg.num_candidates`` candidates on the device of
     ``param_lo`` (where the forward model and ``generator`` live too);
     returns the global top-k designs.  The forward model runs in eval mode
-    and is left in the mode it came in."""
+    and is left in the mode it came in.  With ``mesh`` every rank calls
+    this with the same arguments and gets the whole result."""
     if cfg.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: use float32 | bfloat16")
     if cfg.compute_dtype == "bfloat16" and cfg.use_pallas:
         raise ValueError("use_pallas supports float32 only")
-    if mesh is not None:
-        raise NotImplementedError(
-            "screening over a device mesh is not ported yet: ROADMAP.md queue 1, item 14"
-        )
+    world, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
     device = param_lo.device
     frequencies = torch.as_tensor(frequencies, dtype=torch.float32, device=device)
     n_chunks = -(-cfg.num_candidates // cfg.chunk_size)
     k, p, s = cfg.top_k, param_lo.shape[0], frequencies.shape[0]
     rows = torch.arange(cfg.chunk_size, device=device)
 
-    top_scores = torch.full((k,), -torch.inf, device=device)
-    top_params = torch.zeros((k, p), device=device)
-    top_metrics = torch.zeros((k, len(METRIC_NAMES)), device=device)
-    top_spectra = torch.zeros((k, s), device=device)
+    # (scores, candidate index, params_norm, metrics, spectra); filler rows
+    # come first among equal scores (index -1)
+    top = (torch.full((k,), -torch.inf, device=device),
+           torch.full((k,), -1, dtype=torch.int64, device=device),
+           torch.zeros((k, p), device=device),
+           torch.zeros((k, len(METRIC_NAMES)), device=device),
+           torch.zeros((k, s), device=device))
     was_training = forward_model.training
     forward_model.eval()
     try:
@@ -146,18 +166,25 @@ def screen_designs(
                 params_norm = torch.rand(
                     (cfg.chunk_size, p), generator=generator, device=device
                 ) * 2.0 - 1.0
+                if c % world != rank:
+                    continue            # another rank's chunk: drawn, not screened
                 spectra, metrics, scores = screen_chunk(
                     surrogate, params_norm, frequencies, cfg
                 )
                 # ceil-divide chunking: rows past num_candidates in the final
                 # chunk are padding, not extra free screening
                 scores = torch.where(rows < n_valid, scores, -torch.inf)
-                top_scores, idx = torch.topk(torch.cat([top_scores, scores]), k)
-                top_params = torch.cat([top_params, params_norm])[idx]
-                top_metrics = torch.cat([top_metrics, metrics])[idx]
-                top_spectra = torch.cat([top_spectra, spectra])[idx]
+                new = (scores, c * cfg.chunk_size + rows, params_norm, metrics, spectra)
+                top = _best(k, *(torch.cat([a, b]) for a, b in zip(top, new)))
+        if world > 1:
+            # every rank's top-k in candidate order, then by score: the
+            # order of one rank's running merge
+            every = [torch.cat(mesh.all_gather(t)) for t in top]
+            by_index = torch.sort(every[1], stable=True).indices
+            top = _best(k, *(t[by_index] for t in every))
     finally:
         forward_model.train(was_training)
+    top_scores, _, top_params, top_metrics, top_spectra = top
     return ScreeningResult(
         params=denormalize_params(top_params, param_lo, param_hi),
         scores=top_scores, metrics=top_metrics, spectra=top_spectra,

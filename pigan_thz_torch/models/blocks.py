@@ -116,10 +116,16 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
     statistics are over the batch and the length for each channel, as flax's
     BatchNorm reduces every axis but the features.  While ``update_stats``
     is False a train-mode forward leaves the running stats alone (the second
-    generator passes of the GAN step, whose statistics flax discards)."""
+    generator passes of the GAN step, whose statistics flax discards).
+    While ``sum_over`` is set (``batch_stats_over``: a data-parallel step)
+    the train-mode statistics are over every rank's rows: the local float64
+    sums (Σx, Σx², count) go through ``sum_over``, a differentiable sum over
+    ranks, so the normalisation, its backward and the running stats see the
+    global batch, as the JAX package's one global program does."""
 
     update_stats: bool = True
     compute_dtype: torch.dtype | None = None
+    sum_over: Callable[[torch.Tensor], torch.Tensor] | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
@@ -135,8 +141,14 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
         dims = (0,) if x.dim() == 2 else (0, 2)
         stat = x.dtype if dt is None else torch.float32
         xd = x.double()
-        mean_d = xd.mean(dim=dims)
-        var = torch.clamp((xd * xd).mean(dim=dims) - mean_d * mean_d, min=0.0).to(stat)
+        if self.sum_over is None:
+            mean_d, sq_d = xd.mean(dim=dims), (xd * xd).mean(dim=dims)
+        else:
+            c = x.shape[1]
+            sums = self.sum_over(torch.cat([xd.sum(dim=dims), (xd * xd).sum(dim=dims),
+                                            xd.new_full((1,), x.numel() / c)]))
+            mean_d, sq_d = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+        var = torch.clamp(sq_d - mean_d * mean_d, min=0.0).to(stat)
         mean = mean_d.to(stat)
         if self.update_stats:
             with torch.no_grad():
@@ -318,6 +330,22 @@ def frozen_batch_stats(module: nn.Module):
     finally:
         for m, b in zip(norms, before):
             m.update_stats = b
+
+
+@contextlib.contextmanager
+def batch_stats_over(sum_fn: Callable[[torch.Tensor], torch.Tensor], *modules: nn.Module):
+    """Inside the block the train-mode BatchNorm statistics of ``modules``
+    are over every rank's rows, through ``sum_fn`` (``parallel/mesh.py:
+    BatchShard.sum``)."""
+    norms = [m for module in modules for m in module.modules()
+             if isinstance(m, FlaxBatchNorm1d)]
+    for m in norms:
+        m.sum_over = sum_fn
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.sum_over = None
 
 
 def mlp_block(

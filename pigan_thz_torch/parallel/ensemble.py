@@ -1,33 +1,94 @@
-"""Seed ensembles: initialisation and scoring.  The port of the part of
-``pigan_thz_tpu/parallel/ensemble.py`` that the seed-ensemble path runs:
-``init_ensemble_states`` (:98-116), ``evaluate_ensemble`` (:136-158) and
-``evaluate_ensemble_mean`` (:161-202).
+"""Ensembles: initialisation, the λ-ablation sweep and scoring.  The port of
+``pigan_thz_tpu/parallel/ensemble.py``: ``init_ensemble_states``
+(:98-116), ``evaluate_ensemble`` (:136-158) and ``evaluate_ensemble_mean``
+(:161-202), which the seed-ensemble path runs, and the λ-ensemble with
+runtime loss weights: ``WEIGHT_NAMES`` / ``weight_vector`` (:31-49),
+``EnsembleSettings`` and ``make_ensemble_pigan_step`` (:52-95),
+``shard_ensemble`` (:119-133), ``make_ensemble_epoch_fn`` and
+``make_ensemble_multi_epoch_fn`` (:205-259).
 
-Not ported yet (ROADMAP.md queue 1, item 14): the vmapped runtime-weights
-λ-ablation ensemble (``make_ensemble_pigan_step``, ``make_ensemble_epoch_fn``,
-``make_ensemble_multi_epoch_fn``, ``shard_ensemble``, ``weight_vector``),
-which needs ``make_pigan_step(runtime_weights=True)``.
-
-The JAX functions vmap the modules over the stacked variables; here the
-members are modules over rows of the stacked buffers
-(``state_utils.EnsembleState``), so scoring is a loop over the members'
-eval-mode forwards.  No kernel is involved on either side.
+The JAX functions vmap the step and the modules over the stacked variables;
+here the members are modules over rows of the stacked buffers
+(``state_utils.EnsembleState``), and the sweep is a loop over the members
+that runs the one step of ``train/steps.py`` (``runtime_weights=True``) on
+each member's views: member m is then bit for bit a solo run with its
+weights on the same batches and seeds.  Every member sees the same batches
+(a controlled ablation).  The member-packed kernel (K3) takes one set of
+scalar loss weights for all members, so the sweep is eager in both packages.
+No kernel is involved in scoring either.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Sequence
+from dataclasses import dataclass
+from typing import Callable, Dict, Sequence
 
 import torch
 from torch import nn
 
-from ..data.dataset import ThzDataset, denormalize_params
+from ..data.dataset import ThzDataset, denormalize_params, gather_batch
+from ..ops.forward_train import resolve_draws
 from ..ops.losses import violation_rate
 from ..ops.metrics import r2_score
 from ..train.schedules import ClipAdam
 from ..train.state import init_pigan_state
-from .state_utils import EnsembleState, tree_stack
+from .mesh import DATA_AXIS
+from .state_utils import EnsembleState, MemberBlock, tree_stack
+
+WEIGHT_NAMES = ("adv", "recon", "physics_spectrum", "physics_metrics", "maxwell", "lc",
+                "range")
+
+
+def weight_vector(
+    adv: float = 1.0,
+    recon: float = 100.0,
+    physics_spectrum: float = 10.0,
+    physics_metrics: float = 1.0,
+    maxwell: float = 1.0,
+    lc: float = 1.0,
+    range_: float = 0.1,
+) -> torch.Tensor:
+    """The seven core G-loss weights in ``WEIGHT_NAMES`` order, a (7,)
+    float32 tensor on the CPU (the epoch functions move it)."""
+    return torch.tensor([adv, recon, physics_spectrum, physics_metrics, maxwell, lc, range_],
+                        dtype=torch.float32)
+
+
+@dataclass(frozen=True)
+class EnsembleSettings:
+    # True = reference-parity loss surface (physics losses carry no gradient
+    # into G, as StepSettings' default); False = gradients through frozen F
+    detach_forward: bool = True
+    label_real: float = 0.9
+    label_fake: float = 0.1
+    range_lo: float = 0.0
+    range_hi: float = 1.0
+
+
+def make_ensemble_pigan_step(
+    g_tx: ClipAdam,
+    d_tx: ClipAdam,
+    settings: EnsembleSettings,
+    param_lo: torch.Tensor,
+    param_hi: torch.Tensor,
+    step_settings=None,
+) -> Callable:
+    """step(state, batch, weights(7,), seed=0, draws=None) -> (state,
+    metrics): one member's D-then-G update with runtime loss weights, which
+    is ``make_pigan_step(..., runtime_weights=True)``.  A full
+    ``StepSettings`` as ``step_settings`` gives the knobs beyond
+    ``EnsembleSettings``; its seven core loss weights are then ignored for
+    the runtime vector."""
+    from ..train.steps import StepSettings, make_pigan_step
+
+    if step_settings is None:
+        step_settings = StepSettings(
+            detach_forward=settings.detach_forward, label_real=settings.label_real,
+            label_fake=settings.label_fake, range_lo=settings.range_lo,
+            range_hi=settings.range_hi)
+    return make_pigan_step(g_tx, d_tx, step_settings, param_lo, param_hi,
+                           runtime_weights=True)
 
 
 def member_generator(seed: int, member: int) -> torch.Generator:
@@ -132,3 +193,113 @@ def evaluate_ensemble_mean(states: EnsembleState, ds: ThzDataset) -> Dict[str, t
         "cycle_error": torch.mean((cycled - mean_norm) ** 2),
         "member_spread": torch.mean(torch.std(preds, dim=0, unbiased=False)),
     }
+
+
+def shard_ensemble(states: EnsembleState, mesh) -> EnsembleState:
+    """Split the members over the ranks of ``mesh``: with N members and W
+    ranks, W dividing N, rank r keeps members r·N/W ... (r+1)·N/W - 1 (copies,
+    stacked anew; ``states.block`` says which) and trains them on whole
+    batches with no traffic between ranks; otherwise every rank keeps all N
+    (the JAX package replicates them then).  ``gather_ensemble`` gives every
+    rank the whole ensemble back."""
+    n, w = len(states), mesh.shape[DATA_AXIS]
+    if n % w:
+        return states
+    k = n // w
+    start = mesh.rank * k
+    local = tree_stack([states[m].clone() for m in range(start, start + k)])
+    local.block = MemberBlock(mesh, start, n)
+    return local
+
+
+def gather_ensemble(states: EnsembleState) -> EnsembleState:
+    """The whole ensemble on every rank, from the blocks of
+    ``shard_ensemble`` (an unsplit ensemble is returned as it is).  The
+    members' parameters, moments, BatchNorm stats and EMA are theirs; their
+    counts are this rank's (every member took the same steps) and their
+    generators copies of this rank's first member's."""
+    block = states.block
+    if block is None:
+        return states
+    mesh = block.mesh
+    full = tree_stack([states[0].clone() for _ in range(block.total)])
+    pairs = [(full.g_params, states.g_params), (full.d_params, states.d_params),
+             (full.g_m, states.g_m), (full.g_v, states.g_v), (full.d_m, states.d_m),
+             (full.d_v, states.d_v), *zip(full.bn, states.bn)]
+    if states.g_ema is not None:
+        pairs.append((full.g_ema, states.g_ema))
+    with torch.no_grad():
+        for dst, src in pairs:
+            dst.copy_(torch.cat(mesh.all_gather(src)))
+    return full
+
+
+def _ensemble_weights(states: EnsembleState, weights) -> torch.Tensor:
+    """The (M, 7) weight rows of the members ``states`` holds, on their
+    device: all N rows given, this rank's block kept."""
+    weights = torch.as_tensor(weights, dtype=torch.float32)
+    if states.block is not None:
+        weights = weights[states.block.start:states.block.start + len(states)]
+    if tuple(weights.shape) != (len(states), 7):
+        raise ValueError(f"weights of shape {tuple(weights.shape)} for {len(states)} members: "
+                         "(N, 7), one row of WEIGHT_NAMES a member")
+    return weights.to(states.device)
+
+
+def make_ensemble_multi_epoch_fn(step_fn: Callable, batch_size: int):
+    """multi_epoch(states, ds, generator, weights(N, 7), num_epochs,
+    indices=None, seeds=None) -> (states, {key: (E, N) per-epoch means}).
+
+    ``step_fn`` is ``make_ensemble_pigan_step``'s; member m takes it with
+    its weight row on each batch.  Every member sees the same batches and
+    step seeds: ``indices`` (E, spe, B) and ``seeds`` (E·spe,) default to
+    draws from the CPU ``generator`` (``ops.forward_train.resolve_draws``;
+    the JAX package's ``key``).  Under ``shard_ensemble`` each rank trains
+    its block of members on the same draws and the rows of all N members
+    are gathered once a call."""
+
+    def multi_epoch(states: EnsembleState, ds: ThzDataset, generator: torch.Generator,
+                    weights, num_epochs: int, indices: torch.Tensor | None = None,
+                    seeds: torch.Tensor | None = None):
+        w = _ensemble_weights(states, weights)
+        indices, seeds = resolve_draws(generator, ds.num_samples, batch_size, num_epochs,
+                                       indices, seeds)
+        spe = indices.shape[1]
+        idx_dev = indices.to(ds.spectra.device)
+        rows: Dict[str, list] = {}
+        for e in range(num_epochs):
+            sums: list[Dict[str, list]] = [{} for _ in states]      # a member's steps
+            for s in range(spe):
+                batch = gather_batch(ds, idx_dev[e, s])
+                seed = int(seeds[e * spe + s])
+                for m, st in enumerate(states):
+                    _, met = step_fn(st, batch, w[m], seed)
+                    for k, v in met.items():
+                        sums[m].setdefault(k, []).append(v)
+            for k in sums[0]:
+                rows.setdefault(k, []).append(
+                    torch.stack([torch.stack(sm[k]).mean() for sm in sums]))
+        out = {k: torch.stack(v) for k, v in rows.items()}          # (E, M)
+        if states.block is not None:
+            keys = list(out)
+            parts = states.block.mesh.all_gather(torch.stack([out[k] for k in keys]))
+            full = torch.cat(parts, dim=-1)                          # (K, E, N)
+            out = {k: full[i] for i, k in enumerate(keys)}
+        return states, out
+
+    return multi_epoch
+
+
+def make_ensemble_epoch_fn(step_fn: Callable, batch_size: int):
+    """epoch(states, ds, generator, weights(N, 7), indices=None, seeds=None)
+    -> (states, {key: (N,) means over the epoch}): one epoch of
+    ``make_ensemble_multi_epoch_fn``; ``indices`` is (spe, B)."""
+    multi = make_ensemble_multi_epoch_fn(step_fn, batch_size)
+
+    def epoch(states: EnsembleState, ds: ThzDataset, generator: torch.Generator, weights,
+              indices: torch.Tensor | None = None, seeds: torch.Tensor | None = None):
+        states, rows = multi(states, ds, generator, weights, 1,
+                             None if indices is None else indices[None], seeds)
+        return states, {k: v[0] for k, v in rows.items()}
+
+    return epoch

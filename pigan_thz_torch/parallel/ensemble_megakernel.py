@@ -15,6 +15,10 @@ alone, the port's ``fold_in(key, i)``.
 ``train_settings_sweep`` is the controlled A/B counterpart: one arm per
 ``StepSettings``, every arm from the same initial state on the same batches.
 
+``devices=[...]`` with more than one card is coded and tested on the CPU
+(``devices=["cpu", "cpu"]``) but untried on two cards: the machine that runs
+the port's card checks has one H100.
+
 On CPU tensors the kernels' plain versions run (the port's analogue of the
 JAX package's ``interpret=True``); there is no such argument here.  Not
 ported, because they guard limits of the TPU compiler that this card does not

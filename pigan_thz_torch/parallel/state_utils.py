@@ -24,6 +24,16 @@ from torch import nn
 from ..train.state import PiGanState, bind_flat_
 
 
+@dataclass(frozen=True)
+class MemberBlock:
+    """Members ``start`` ... ``start + k - 1`` of ``total``, this rank's
+    share of an ensemble split over the ranks of ``mesh``."""
+
+    mesh: object
+    start: int
+    total: int
+
+
 @dataclass
 class EnsembleState:
     """M ``PiGanState``s over stacked buffers.
@@ -45,6 +55,9 @@ class EnsembleState:
     bn: tuple[torch.Tensor, ...]
     g_ema: torch.Tensor | None
     shared_f: bool
+    # set by ``parallel/ensemble.py:shard_ensemble``: this rank's members
+    # are ``block.start`` ... of ``block.total`` over ``block.mesh``
+    block: "MemberBlock | None" = None
 
     def __len__(self) -> int:
         return len(self.members)
@@ -70,7 +83,9 @@ class EnsembleState:
 
     def clone(self) -> "EnsembleState":
         """An independent copy: stacked buffers of its own."""
-        return tree_stack([m.clone() for m in self.members])
+        out = tree_stack([m.clone() for m in self.members])
+        out.block = self.block
+        return out
 
     def is_finite(self) -> bool:
         tensors = [self.g_params, self.d_params, self.g_m, self.g_v, self.d_m, self.d_v,

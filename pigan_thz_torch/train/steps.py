@@ -40,6 +40,7 @@ mean metric rows out.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from dataclasses import dataclass
@@ -50,7 +51,8 @@ from torch import nn
 
 from ..config import PiGanConfig
 from ..data.dataset import ThzDataset, denormalize_params, gather_batch
-from ..models.blocks import MaskFn, dropout_masks, frozen_batch_stats, has_dropout
+from ..models.blocks import (MaskFn, batch_stats_over, dropout_masks, frozen_batch_stats,
+                             has_dropout)
 from ..ops import losses as L
 from ..ops.augment import augment_spectra
 from ..ops.forward_train import hash_masks, resolve_draws
@@ -148,11 +150,37 @@ class ForwardStepSettings:
 FORWARD, G_IN_D_PHASE, D_IN_D_PHASE, G_IN_G_PHASE, D_IN_G_PHASE = range(5)
 
 
-def _masks(draws: Mapping | None, seed: int, stream: int) -> MaskFn:
+def _masks(draws: Mapping | None, seed: int, stream: int, shard=None) -> MaskFn:
     provider = (draws or {}).get("dropout")
     if provider is not None:
-        return functools.partial(provider, stream)
-    return hash_masks(seed, stream)
+        masks = functools.partial(provider, stream)
+    else:
+        masks = hash_masks(seed, stream)
+    if shard is None:
+        return masks
+
+    def rows(layer, shape, rate, device):
+        # the global batch's mask, of which this rank keeps its rows
+        return shard.take(masks(layer, shard.global_shape(shape), rate, device))
+
+    return rows
+
+
+def _sharded(shard, *modules: nn.Module):
+    """The block a step runs in: under a ``shard`` the modules' BatchNorm
+    statistics are over every rank's rows."""
+    if shard is None:
+        return contextlib.nullcontext()
+    return batch_stats_over(shard.sum, *modules)
+
+
+def _gradient(loss: torch.Tensor, params: list, shard, **kw) -> torch.Tensor:
+    """The flat gradient of ``loss``; under a ``shard`` averaged over the
+    ranks (every rank's loss is its share of the global loss, scaled so
+    that the ranks' mean is the global loss), the same bits on every rank."""
+    grads = torch.autograd.grad(loss, params, **kw)
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    return flat if shard is None else shard.mean(flat)
 
 
 def call_train_mode(model: nn.Module, masks: MaskFn, *inputs):
@@ -164,19 +192,28 @@ def call_train_mode(model: nn.Module, masks: MaskFn, *inputs):
 def make_forward_step(
     tx: ClipAdam, settings: ForwardStepSettings = ForwardStepSettings()
 ) -> Callable:
-    """step(state, batch, lr_scale=None, seed=0) -> (state, metrics): one
-    pretraining step (pretrain_fwd_model.py:68-92) of ``state.f`` on
-    ``state`` in place.  ``lr_scale`` multiplies the parameter update (the
-    plateau controller's runtime scale); ``seed`` keys the step's dropout
-    masks, or ``draws["dropout"]`` supplies them.  The JAX step takes the
-    flax module as its first argument; here the module is part of the
-    state."""
+    """step(state, batch, lr_scale=None, seed=0, draws=None, shard=None) ->
+    (state, metrics): one pretraining step (pretrain_fwd_model.py:68-92) of
+    ``state.f`` on ``state`` in place.  ``lr_scale`` multiplies the
+    parameter update (the plateau controller's runtime scale); ``seed`` keys
+    the step's dropout masks, or ``draws["dropout"]`` supplies them.  With
+    ``shard`` (``parallel/mesh.py:BatchShard``, the data-parallel epoch)
+    ``batch`` is the global batch: the step trains on this rank's rows with
+    the global batch's masks and averages its gradient over the ranks.  The
+    JAX step takes the flax module as its first argument; here the module
+    is part of the state."""
     def step(state: ForwardState, batch: Batch, lr_scale=None, seed: int = 0,
-             draws: Mapping | None = None):
+             draws: Mapping | None = None, shard=None):
+        with _sharded(shard, state.f):
+            return _forward_step(state, batch, lr_scale, seed, draws, shard)
+
+    def _forward_step(state, batch, lr_scale, seed, draws, shard):
+        if shard is not None:
+            batch = tuple(shard.take(t) for t in batch[:5])
         spectra, _, params_norm, _, metrics_norm = batch[:5]
         model = state.f
         params = list(model.parameters())
-        out = call_train_mode(model, _masks(draws, seed, FORWARD), params_norm)
+        out = call_train_mode(model, _masks(draws, seed, FORWARD, shard), params_norm)
         # means lead whatever the arity (the uncertainty model returns four)
         pred_spec, pred_met = out[0], out[1]
         spec_l = L.mse(pred_spec, spectra)
@@ -197,8 +234,7 @@ def make_forward_step(
                 + L.gaussian_nll(pred_met, out[3], metrics_norm))
         # heads the loss does not read (the uncertainty model's variances
         # without nll_w) take zero gradients, as jax.grad gives them
-        grads = torch.autograd.grad(total, params, allow_unused=True, materialize_grads=True)
-        flat = torch.cat([g.reshape(-1) for g in grads])
+        flat = _gradient(total, params, shard, allow_unused=True, materialize_grads=True)
         tx.update_(flat, state.opt, state.params, lr_scale)
         state.step += 1
         metrics = {"loss": total.detach(), "spectrum_loss": spec_l.detach(),
@@ -221,8 +257,14 @@ def make_pigan_step(
     param_hi: torch.Tensor | None = None,
     runtime_weights: bool = False,
 ) -> Callable:
-    """step(state, batch, constraint_scale=1.0, seed=0, draws=None) ->
-    (state, metrics): one PI-GAN step on ``state`` in place.
+    """step(state, batch, constraint_scale=1.0, seed=0, draws=None,
+    shard=None) -> (state, metrics): one PI-GAN step on ``state`` in place.
+    With ``runtime_weights`` the step is step(state, batch, weights,
+    seed=0, draws=None, shard=None): ``weights`` (7,) gives the seven core
+    G-loss weights in ``parallel/ensemble.py:WEIGHT_NAMES`` order (adv,
+    recon, physics_spectrum, physics_metrics, maxwell, lc, range) in place
+    of the settings' and the constraint scale is 1; with the settings'
+    weights it is the static step, bit for bit (one body serves both).
 
     ``constraint_scale`` multiplies the constraint loss (the annealing knob
     of unified_constraint_trainer.py:515-529).  ``seed`` seeds the step's
@@ -233,12 +275,19 @@ def make_pigan_step(
     ``"stability_noise"`` (B, S) instead (unit scale; the step multiplies
     by the settings' levels), and ``"dropout"`` a mask provider taking the
     call (``G_IN_D_PHASE`` ...) before the layer index, shape, rate and
-    device.  The JAX step takes the three flax modules first; here they are
-    part of the state."""
-    if runtime_weights:
-        raise NotImplementedError(
-            "runtime_weights=True (the ensemble λ-sweep's dynamic loss weights) is "
-            "not ported yet: ROADMAP.md queue 1, item 14 (ensembles and parallelism)")
+    device.
+
+    With ``shard`` (``parallel/mesh.py:BatchShard``, the data-parallel
+    epoch) ``batch`` is the global batch.  The step draws everything at the
+    global shape (the augmentation on the whole batch, the noise, the
+    interpolation weights, every dropout mask) and keeps this rank's rows;
+    G's BatchNorm statistics are over every rank's rows; each loss is this
+    rank's share of the global loss, scaled so that the ranks' mean is the
+    global one (the means over rows as they are, the window term's sum over
+    rows times the world size), and each update's flat gradient is averaged
+    over the ranks before the optimiser: the JAX package's global-batch
+    step on every rank.  The JAX step takes the three flax modules first;
+    here they are part of the state."""
     if settings.gan_loss not in ("bce", "wgan_gp"):
         raise ValueError(f"gan_loss {settings.gan_loss!r}: use bce | wgan_gp")
     st = settings
@@ -247,29 +296,43 @@ def make_pigan_step(
     def squash(p):
         return torch.sigmoid(p) if st.sigmoid_squash else p
 
-    def step(state: PiGanState, batch: Batch, constraint_scale=1.0, seed: int = 0,
-             draws: Mapping[str, torch.Tensor] | None = None):
+    static_weights = (st.adv_w, st.recon_w, st.physics_spec_w, st.physics_metrics_w,
+                      st.maxwell_w, st.lc_w, st.range_w)
+
+    def step_body(state: PiGanState, batch: Batch, constraint_scale, seed: int,
+                  draws: Mapping[str, torch.Tensor] | None, shard, weights):
+        with _sharded(shard, state.g, state.d):
+            return _pigan_step(state, batch, constraint_scale, seed, draws, shard, weights)
+
+    def _pigan_step(state, batch, constraint_scale, seed, draws, shard, weights):
+        w_adv, w_recon, w_pspec, w_pmet, w_maxwell, w_lc, w_range = weights
         spectra, params_phys, _, _, metrics_norm = batch[:5]
-        b, dev = spectra.shape[0], spectra.device
+        gb, dev = spectra.shape[0], spectra.device      # the global batch under a shard
         lo = param_lo if param_lo is not None else torch.full((4,), 2.2, device=dev)
         hi = param_hi if param_hi is not None else torch.full((4,), 2.8, device=dev)
         draws = draws or {}
         gen = torch.Generator().manual_seed(int(seed))
 
+        def rows(x):
+            return x if shard is None else shard.take(x)
+
         def draw(name, shape, uniform=False):
+            # at the global shape; under a shard this rank's rows of it
             if name in draws:
-                return draws[name].to(dev)
+                return rows(draws[name]).to(dev)
             fn = torch.rand if uniform else torch.randn
-            return fn(shape, generator=gen).to(dev)
+            return rows(fn(shape, generator=gen)).to(dev)
 
         if st.augments:
             spectra = augment_spectra(gen, spectra, noise_level=st.augment_noise,
                                       freq_shift=st.augment_shift,
                                       amp_scale=st.augment_scale)
+        spectra, params_phys, metrics_norm = rows(spectra), rows(params_phys), rows(metrics_norm)
+        b = spectra.shape[0]
         g, d, f = state.g.train(), state.d.train(), state.f.eval()
         g_params, d_params = list(g.parameters()), list(d.parameters())
-        g_masks = _masks(draws, seed, G_IN_G_PHASE)
-        d_masks = _masks(draws, seed, D_IN_D_PHASE)
+        g_masks = _masks(draws, seed, G_IN_G_PHASE, shard)
+        d_masks = _masks(draws, seed, D_IN_D_PHASE, shard)
 
         # G's G-phase pass; G's BatchNorm stats move here
         pred_norm = squash(call_train_mode(g, g_masks, spectra))
@@ -280,14 +343,15 @@ def make_pigan_step(
             # the D phase's own pass of G, with masks of its own
             with torch.no_grad(), frozen_batch_stats(g):
                 fake_norm = squash(call_train_mode(
-                    g, _masks(draws, seed, G_IN_D_PHASE), spectra))
+                    g, _masks(draws, seed, G_IN_D_PHASE, shard), spectra))
             fake_phys = denormalize_params(fake_norm, lo, hi)
         else:
             fake_phys = pred_phys.detach()
         cat_spec = torch.cat([spectra, spectra], dim=0)
         cat_par = torch.cat([params_phys, fake_phys], dim=0)
         if st.instance_noise > 0.0:
-            cat_spec = cat_spec + st.instance_noise * draw("instance_noise", cat_spec.shape)
+            cat_spec = cat_spec + st.instance_noise * draw("instance_noise",
+                                                           (2 * gb, cat_spec.shape[1]))
         labels = torch.cat([torch.full((b, 1), st.label_real, device=dev),
                             torch.full((b, 1), st.label_fake, device=dev)], dim=0)
 
@@ -295,7 +359,7 @@ def make_pigan_step(
             # at (clean spectra, interpolated params), D's batch_stats as the
             # step found them and discarded after; per-row gradients are
             # exact: a row of D reads only its own inputs
-            eps = draw("gp_eps", (b, 1), uniform=True)
+            eps = draw("gp_eps", (gb, 1), uniform=True)
             sp = spectra.detach().clone().requires_grad_(True)
             par = (eps * params_phys + (1.0 - eps) * fake_phys).requires_grad_(True)
             with frozen_batch_stats(d):
@@ -318,9 +382,7 @@ def make_pigan_step(
             penalty = gradient_penalty() if wgan else None
             d_logits = call_train_mode(d, d_masks, cat_spec, cat_par)   # stores D's stats
             d_loss = d_loss_of(d_logits, penalty)
-            grads = torch.autograd.grad(d_loss, d_params)
-            d_tx.update_(torch.cat([x.reshape(-1) for x in grads]), state.d_opt,
-                         state.d_params)
+            d_tx.update_(_gradient(d_loss, d_params, shard), state.d_opt, state.d_params)
         else:
             # skipped: forward only, D's parameters and optimiser untouched
             # (its batch_stats stored, as the JAX step's skip branch does);
@@ -335,7 +397,7 @@ def make_pigan_step(
 
         # ---- G update against the just-updated D (train_pigan.py:145-187)
         with frozen_batch_stats(d):
-            adv_logits = call_train_mode(d, _masks(draws, seed, D_IN_G_PHASE), spectra,
+            adv_logits = call_train_mode(d, _masks(draws, seed, D_IN_G_PHASE, shard), spectra,
                                          pred_phys)
         if wgan:
             adv = -torch.mean(adv_logits)
@@ -354,13 +416,13 @@ def make_pigan_step(
         range_l = L.param_range_loss(pred_norm, st.range_lo, st.range_hi)
         # kl_w multiplies bnn_kl_loss, which is identically zero
         total = (
-            st.adv_w * adv
-            + st.recon_w * recon_l
-            + st.physics_spec_w * recon_l   # double-count parity
-            + st.physics_metrics_w * met_l
-            + st.maxwell_w * maxwell_l
-            + st.lc_w * lc_l
-            + st.range_w * range_l
+            w_adv * adv
+            + w_recon * recon_l
+            + w_pspec * recon_l   # double-count parity
+            + w_pmet * met_l
+            + w_maxwell * maxwell_l
+            + w_lc * lc_l
+            + w_range * range_l
         )
         aux = {
             "adv_loss": adv,
@@ -376,10 +438,14 @@ def make_pigan_step(
             total = total + st.constraint_w * constraint_scale * ec.loss
             aux["constraint_loss"] = ec.loss
         if st.window_w:
+            # a sum over rows: this rank's share of the global sum is its
+            # own sum times the world size (the ranks' mean is the sum)
             total = total + st.window_w * L.physics_window_loss(
-                recon_spec, spectra, pred_met, consistency_weight=0.0, window_weight=1.0)
+                recon_spec, spectra, pred_met, consistency_weight=0.0,
+                window_weight=1.0 if shard is None else float(shard.world))
         if st.stability_w:
-            noisy = spectra + st.stability_noise * draw("stability_noise", spectra.shape)
+            noisy = spectra + st.stability_noise * draw("stability_noise",
+                                                        (gb, spectra.shape[1]))
             with frozen_batch_stats(g):
                 pred_noisy = squash(call_train_mode(g, g_masks, noisy))
             total = total + st.stability_w * L.stability_loss(pred_norm, pred_noisy)
@@ -388,8 +454,7 @@ def make_pigan_step(
                 cycled = squash(call_train_mode(g, g_masks, recon_spec))
             total = total + st.cycle_w * L.cycle_consistency_loss(pred_norm, cycled)
 
-        grads = torch.autograd.grad(total, g_params)
-        g_tx.update_(torch.cat([x.reshape(-1) for x in grads]), state.g_opt, state.g_params)
+        g_tx.update_(_gradient(total, g_params, shard), state.g_opt, state.g_params)
         if st.ema_decay > 0.0:
             if state.g_ema is None:
                 raise ValueError(
@@ -402,6 +467,20 @@ def make_pigan_step(
                    **{k: v.detach() for k, v in aux.items()}}
         return state, metrics
 
+    if runtime_weights:
+        def step(state: PiGanState, batch: Batch, weights: torch.Tensor, seed: int = 0,
+                 draws: Mapping[str, torch.Tensor] | None = None, shard=None):
+            weights = torch.as_tensor(weights, dtype=torch.float32, device=state.device)
+            if tuple(weights.shape) != (7,):
+                raise ValueError(f"weights of shape {tuple(weights.shape)}: the seven core "
+                                 "G-loss weights, shape (7,)")
+            return step_body(state, batch, 1.0, seed, draws, shard, weights.unbind())
+    else:
+        def step(state: PiGanState, batch: Batch, constraint_scale=1.0, seed: int = 0,
+                 draws: Mapping[str, torch.Tensor] | None = None, shard=None):
+            return step_body(state, batch, constraint_scale, seed, draws, shard,
+                             static_weights)
+
     return step
 
 
@@ -410,7 +489,7 @@ def make_pigan_step(
 # ---------------------------------------------------------------------------
 
 
-def make_multi_epoch_fn(step_fn: Callable, batch_size: int):
+def make_multi_epoch_fn(step_fn: Callable, batch_size: int, shard=None):
     """multi_epoch(state, ds, scales, indices=None, seeds=None, draws=None)
     -> (state, {key: (E,) per-epoch mean}) running E whole epochs of
     ``step_fn``.  ``scales`` (E,) is each epoch's scale, passed to the step
@@ -420,7 +499,9 @@ def make_multi_epoch_fn(step_fn: Callable, batch_size: int):
     ``seeds`` (E·spe,) default to draws from ``state.generator``
     (``ops.forward_train.resolve_draws``, shared with the kernel paths).
     ``draws``, a sequence of one mapping per step, hands the PI-GAN step
-    its noise instead of its own generator's."""
+    its noise instead of its own generator's.  ``shard`` is handed to every
+    step with the global batch (``parallel/sharding.py``); the rows are
+    then this rank's."""
 
     def multi_epoch(state, ds: ThzDataset, scales: Sequence[float] | torch.Tensor,
                     indices: torch.Tensor | None = None,
@@ -440,7 +521,8 @@ def make_multi_epoch_fn(step_fn: Callable, batch_size: int):
                 batch = gather_batch(ds, idx_dev[e, s])
                 t = e * spe + s
                 extra = () if draws is None else (draws[t],)
-                state, m = step_fn(state, batch, scale, int(seeds[t]), *extra)
+                kw = {} if shard is None else {"shard": shard}
+                state, m = step_fn(state, batch, scale, int(seeds[t]), *extra, **kw)
                 for k, v in m.items():
                     sums.setdefault(k, []).append(v)
             for k, v in sums.items():

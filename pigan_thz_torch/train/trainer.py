@@ -33,6 +33,18 @@ function: on the card a training kernel (``ops/forward_train.py``,
   of Pallas interpret mode);
 - ``"eager"``: the eager step, on either device.
 
+With a ``mesh`` (``parallel/mesh.py:make_mesh``, one trainer a rank) both
+phases run data-parallel over the ranks on the eager step
+(``parallel/sharding.py:make_parallel_multi_epoch_fn``: the global batch
+of ``train.batch_size`` rows, each rank its share, BatchNorm over all of
+them), as the JAX package's ``Trainer(mesh=...)`` runs only its XLA path:
+``engine="kernel"`` raises ``ValueError``, ``"auto"`` logs why it takes the
+eager step.  Every rank holds the whole dataset and a replica of the state
+(rank 0's, broadcast); the metric rows every decision reads (plateau,
+keep-best, early stop, snapshots, the programs' gates) are averaged over
+the ranks, so every rank takes the same one.  Rank 0 alone logs and writes
+checkpoints and artifacts, and the ranks then meet at a barrier.
+
 The choice is logged.  A non-finite metric row or state raises
 ``FloatingPointError``.  It does not restore and retry on the eager path,
 as the JAX package's megakernel net does: that would hide a fault of the
@@ -67,6 +79,7 @@ from ..evaluate.evaluator import Evaluator
 from ..models.registry import build_trio
 from ..ops.forward_train import make_forward_epoch_fn, resolve_draws, supports_forward_kernel
 from ..ops.gan_train import make_gan_epoch_fn, supports_gan_kernel
+from ..parallel.sharding import make_parallel_multi_epoch_fn, replicate_dataset, shard_state
 from ..utils.logging import RunLogger
 from . import checkpoint as ckpt
 from .schedules import ReduceLROnPlateau, build_optimizer
@@ -107,6 +120,7 @@ class Trainer:
         engine: str = "auto",
         device: torch.device | str = "cuda",
         shadow_parity: str = "every:20",
+        mesh=None,
     ):
         if engine not in ENGINES:
             raise ValueError(f"engine {engine!r}: use one of {ENGINES}")
@@ -129,6 +143,14 @@ class Trainer:
             cfg.data, csv_path, device=self.device)
         if self.ds.spectra.device != self.device:
             raise ValueError(f"dataset on {self.ds.spectra.device}, trainer on {self.device}")
+        self.mesh = mesh
+        if mesh is not None:
+            if mesh.device != self.device:
+                raise ValueError(f"mesh rank {mesh.rank} on {mesh.device}, trainer on "
+                                 f"{self.device}")
+            self.ds = replicate_dataset(self.ds, mesh)
+            if mesh.rank != 0:
+                logger = None           # rank 0 logs
         if self.ds.spectrum_dim != cfg.data.spectrum_dim:
             # a CSV with another Freq_* column count adapts the config, so
             # that F is built against the real spectrum width
@@ -157,7 +179,10 @@ class Trainer:
             self.logger.info(msg)
 
     def _log_always(self, msg: str) -> None:
-        """Engine choices are never silent: without a logger they go to stderr."""
+        """Engine choices are never silent: without a logger they go to
+        stderr (rank 0's, under a mesh)."""
+        if self.mesh is not None and self.mesh.rank != 0:
+            return
         if self.logger:
             self.logger.info(msg)
         else:
@@ -179,6 +204,16 @@ class Trainer:
         than ``mlp``) takes the eager step; otherwise raises where the kernel
         was asked for, or is the card's default, and does not take the phase
         (``reason``)."""
+        if self.mesh is not None:
+            if self.engine == "kernel":
+                raise ValueError(
+                    "engine='kernel' is incompatible with mesh: data parallelism over ranks "
+                    "runs the eager step (as the JAX package's megakernel='force' with a mesh "
+                    "raises)")
+            self._log_always(f"{what} on the eager step: data parallelism over "
+                             f"{self.mesh.size} ranks runs no training kernel "
+                             f"(engine={self.engine!r})")
+            return False
         if self.engine == "eager":
             self._log_always(f"{what} on the eager step (engine='eager')")
             return False
@@ -199,12 +234,30 @@ class Trainer:
                          "chunk")
         return True
 
+    def _eager_epochs(self, step):
+        """The eager multi-epoch function of ``step``: over the ranks under a
+        mesh."""
+        if self.mesh is None:
+            return make_multi_epoch_fn(step, self.cfg.train.batch_size)
+        return make_parallel_multi_epoch_fn(step, self.cfg.train.batch_size, self.mesh)
+
     def _eager_forward_fn(self, settings, tx):
-        return make_multi_epoch_fn(make_forward_step(tx, settings), self.cfg.train.batch_size)
+        return self._eager_epochs(make_forward_step(tx, settings))
 
     def _eager_gan_fn(self, settings, g_tx, d_tx):
-        step = make_pigan_step(g_tx, d_tx, settings, self.ds.param_lo, self.ds.param_hi)
-        return make_multi_epoch_fn(step, self.cfg.train.batch_size)
+        return self._eager_epochs(
+            make_pigan_step(g_tx, d_tx, settings, self.ds.param_lo, self.ds.param_hi))
+
+    def _replicas(self, state):
+        """``state`` as rank 0 holds it on every rank (under a mesh)."""
+        return state if self.mesh is None else shard_state(state, self.mesh)
+
+    def _rank0_writes(self, fn, *args, **kw) -> None:
+        """``fn`` on rank 0 alone, then a barrier (under a mesh)."""
+        if self.mesh is None or self.mesh.rank == 0:
+            fn(*args, **kw)
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def _forward_epoch_fn(self, settings, tx, lr, epochs, schedule):
         """(multi-epoch fn, engine used) for this phase."""
@@ -374,8 +427,8 @@ class Trainer:
                 schedule=schedule, b1=0.9, grad_clip=cfg.train.grad_clip,
                 schedule_alpha=0.0, adam_state_dtype=cfg.train.adam_state_dtype)
         if self.forward_state is None or reset:
-            self.forward_state = init_forward_state(
-                self.forward_model, tx, cfg.train.seed + seed, device=self.device)
+            self.forward_state = self._replicas(init_forward_state(
+                self.forward_model, tx, cfg.train.seed + seed, device=self.device))
         elif lr is not None:
             # fresh moments for the new learning rate: the override's
             # horizon is `epochs`, so the old count would start it mid-decay
@@ -435,7 +488,8 @@ class Trainer:
             if keep_best and improved_in_chunk:
                 best_state = self.forward_state.clone()     # chunk granularity
             if checkpoint_manager is not None:
-                checkpoint_manager.maybe_save(
+                self._rank0_writes(
+                    checkpoint_manager.maybe_save,
                     ckpt_base + epoch + chunk, self.forward_state, history=self.train_history,
                     config=self.cfg,
                     extra={"plateau": plateau.state_dict()} if plateau is not None else None)
@@ -454,10 +508,10 @@ class Trainer:
         later call refresh only the frozen F, unless ``fresh_gd``."""
         trained = self.forward_state.f if self.forward_state is not None else None
         if self.pigan_state is None or fresh_gd:
-            self.pigan_state = init_pigan_state(
+            self.pigan_state = self._replicas(init_pigan_state(
                 self.generator, self.discriminator, trained or self.forward_model,
                 self.g_tx, self.d_tx, self.cfg.train.seed + 2000 + seed,
-                device=self.device, fresh_forward=trained is None)
+                device=self.device, fresh_forward=trained is None))
         elif trained is not None:
             self.pigan_state.set_forward_(trained)
         return self.pigan_state
@@ -554,7 +608,8 @@ class Trainer:
             if chunk_has_best:
                 best_state = self.pigan_state.clone()       # chunk granularity
             if checkpoint_manager is not None:
-                checkpoint_manager.maybe_save(
+                self._rank0_writes(
+                    checkpoint_manager.maybe_save,
                     ckpt_base + epoch + chunk, self.pigan_state, history=self.train_history,
                     config=self.cfg)
             epoch += chunk
@@ -662,6 +717,9 @@ class Trainer:
         ``generator_<tag>`` etc. beside the finals."""
         if self.pigan_state is None:
             raise ValueError("save_final: train or init_pigan first")
+        self._rank0_writes(self._save_final, directory, backup_tag)
+
+    def _save_final(self, directory: str, backup_tag: str | None) -> None:
         ckpt.save_final_trio(directory, self.pigan_state, backup_tag=backup_tag)
         ckpt.save_model_config(directory, self.cfg)
         ckpt.save_train_history(directory, self.train_history)

@@ -277,10 +277,16 @@ def test_eager_trajectory_matches_jax_xla(case, datasets):
         np.testing.assert_allclose(a, b, rtol=0, atol=STATS_ATOL)
 
 
-def test_runtime_weights_and_unknown_loss_raise():
-    (gtx, dtx), _ = _port_state(ema=False)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        t_make_pigan_step(gtx, dtx, TSettings(), runtime_weights=True)
+def test_runtime_weights_and_unknown_loss_raise(datasets):
+    """runtime_weights builds the λ-ensemble's step, which refuses a weight
+    vector that is not the seven core weights; an unknown GAN loss raises
+    (the runtime step itself: tests/test_torch_lambda_ensemble.py)."""
+    _, tds = datasets
+    (gtx, dtx), st = _port_state(ema=False)
+    step = t_make_pigan_step(gtx, dtx, TSettings(), tds.param_lo, tds.param_hi,
+                             runtime_weights=True)
+    with pytest.raises(ValueError, match=r"shape \(7,\)"):
+        step(st, tuple(t[:B] for t in tds[:5]), torch.ones(8))
     with pytest.raises(ValueError, match="hinge"):
         t_make_pigan_step(gtx, dtx, TSettings(gan_loss="hinge"))
 

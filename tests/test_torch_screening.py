@@ -23,6 +23,7 @@ from pigan_thz_torch.design.screening import make_surrogate
 from pigan_thz_torch.interop import from_flax
 from pigan_thz_torch.models import build_forward_model
 from pigan_thz_torch.models.blocks import bf16_twin
+from pigan_thz_torch.parallel.mesh import Mesh
 from pigan_thz_tpu.config import DataConfig as JDataConfig
 from pigan_thz_tpu.design.screening import _score as j_score
 from pigan_thz_tpu.models import build_trio
@@ -148,7 +149,7 @@ def test_unported_options_raise(forward_models):
     """bf16 screening is ported (its chunk against the JAX package's in
     test_bf16_chunk_matches_jax): the screen runs and ranks by the bf16
     surrogate's scores; with use_pallas it raises, as the JAX package's
-    does.  float16 and the mesh still raise."""
+    does.  float16 still raises; a mesh of one rank changes nothing."""
     tf = forward_models[2]
     sc = ScreeningConfig(num_candidates=64, chunk_size=64, top_k=4)
     res = screen_designs(tf, FREQ, LO, HI, torch.Generator(),
@@ -162,8 +163,12 @@ def test_unported_options_raise(forward_models):
     with pytest.raises(ValueError, match="compute_dtype"):
         screen_designs(tf, FREQ, LO, HI, torch.Generator(),
                        dataclasses.replace(sc, compute_dtype="float16"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 14"):
-        screen_designs(tf, FREQ, LO, HI, torch.Generator(), sc, mesh=object())
+    # a mesh of one rank screens what no mesh screens (more ranks:
+    # tests/test_torch_parallel.py)
+    one = Mesh(rank=0, size=1, device=torch.device("cpu"), backend="gloo")
+    a = screen_designs(tf, FREQ, LO, HI, torch.Generator().manual_seed(2), sc, mesh=one)
+    b = screen_designs(tf, FREQ, LO, HI, torch.Generator().manual_seed(2), sc)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert screening_throughput(1_000_000, 0.5) == 2_000_000.0
 
 

@@ -192,9 +192,18 @@ def test_ensemble_export_without_the_file_exits(tmp_path):
                   "--ensemble-members", "2", "--out", str(tmp_path / "x")])
 
 
-def test_screen_over_a_mesh_is_not_ported(models):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        cli.main(["screen", "--models", models, *SMALL, "--mesh-data", "2"])
+def test_screen_over_a_mesh_is_not_ported(models, monkeypatch):
+    """Screening over ranks is ported (``--mesh-data 2 --device cpu`` against
+    one rank: tests/test_torch_parallel.py).  What stays refused: fewer CUDA
+    devices than ranks, before any work (one device a rank, as the JAX
+    package's make_mesh over jax.devices()[:N]), and fewer than one rank."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match=r"mesh 2x1 != 1 devices"):
+        cli.main(["screen", "--models", models, *SMALL, "--device", "cuda",
+                  "--mesh-data", "2"])
+    with pytest.raises(SystemExit, match="at least 1"):
+        cli.main(["screen", "--models", models, *SMALL, "--mesh-data", "0"])
 
 
 @pytest.mark.parametrize("command", ["screen", "design", "export"])
