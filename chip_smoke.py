@@ -261,7 +261,7 @@ generator passes (cycle, stability) and noise streams:
     and K4 launches of the phase printed;
 35. ensembles and data parallelism, two ranks on the one card (processes
     of a gloo group: NCCL refuses two ranks on one device), spawned once:
-    (i) ``Trainer(mesh=...)`` 20 forward + 20 GAN epochs at B = 64 global
+    (i) ``Trainer(mesh=...)`` 10 forward + 10 GAN epochs at B = 64 global
     (the eager step, as JAX's mesh path runs no training kernel) against a
     world-1 eager run of the same phase: the replicas' state hashes equal
     after every 5-epoch chunk, the first epoch's rows of each phase within
@@ -271,9 +271,30 @@ generator passes (cycle, stability) and noise streams:
     chunks, launches counted per rank) equal to phase 8's, row for row;
     (iii) ``screen --mesh-data`` beyond the devices refused before work;
     (iv) ``examples/torch_ablation_sweep.py --members 8 --forward-epochs 100
-    --epochs 20`` at ``--world 1`` and ``--world 2 --backend gloo`` in
+    --epochs 10`` at ``--world 1`` and ``--world 2 --backend gloo`` in
     subprocesses (K1 pretrains F on rank 0, K4 each rank's dataset): the
-    rankings equal bit for bit in param R², member-steps/s of each.
+    rankings equal bit for bit in param R², member-steps/s of each;
+36. the last modules, at full published width on the 1000-sample dataset:
+    (i) the seed search (``parallel/ensemble_megakernel.py:seed_search``,
+    the loop of ``examples/torch_seed_search.py``) with 4 members on the
+    800-cell split, F pretrained 500 epochs through K1, 500 GAN epochs (cut
+    from 24,000) in 25-epoch K3 launches, every member on the same draws,
+    scored every 100 epochs on both splits; the chunk's first two epochs
+    held first against the eager engine (the λ-ensemble step with the
+    default weights) from the same state on the same draws, at K2's
+    trajectory limits member by member; the best snapshot saved as
+    ``--save-best`` saves it and served through ``export --artifact ensemble
+    --ensemble-members 4`` (or, if a member wins, the designer of its trio):
+    the served held-out param R² equal to the in-process snapshot's within
+    1e-4; (ii) tensor parallelism: two gloo ranks on the card as
+    ``make_mesh(data=1, model=2)``, ``Trainer`` 5 forward + 5 GAN epochs
+    against a world-1 eager run, the first epoch's rows of each phase
+    within 1e-4, F's 1024-wide layers' shard shapes printed; (iii)
+    ``examples/torch_holdout_eval.py --fwd-epochs 100 --gan-epochs 100
+    --ema-decay 0.99`` (K4, K1, K2 with its EMA) in a subprocess: the JSON
+    keys, finite rows; (iv) ``examples/torch_scaled_batch_probe.py
+    --throughput`` at B = 64 and 512, kernel (K2) and eager, with TFLOP/s
+    and MFU from ``ops/costs.py``.
 
 The ``kernels`` record gives each kernel's launches on the main path, its
 error against its plain version, its time beside the plain version's, the
@@ -307,6 +328,15 @@ import subprocess
 import sys
 import tempfile
 import time
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+try:
+    # the card's peaks and the bound of every kernel in the record
+    from pigan_thz_torch.ops.costs import (  # noqa: E402
+        PEAK_BF16_FLOPS, PEAK_BYTES_PER_S, design_bound_3xtf32, roofline)
+except ImportError:
+    # away from the package: main() fails before any work
+    roofline = design_bound_3xtf32 = None
 
 K5_TOL = 1e-4   # (B, 258) surrogate output; tests/test_pallas.py:43
 K6_TOL = 2e-5   # (B, 4) generator output; tests/test_pallas.py:101
@@ -533,7 +563,6 @@ K1_BF16_PARAMS_RTOL = 0.15      # 30 steps, parameters (measured 2.9e-2, H100)
 # K3 with every new path at once (phase 25), and the bfloat16 training command
 # and a WGAN-GP train_pigan at the reference workload (phases 26, 27).
 K3_SLICE7 = dict(detach_forward=False, gan_loss="wgan_gp", cycle_w=1.0, stability_w=1.0)
-PEAK_BF16_FLOPS = 989e12    # H100 SXM, bf16 dense tensor cores
 GAN_EPOCHS = 500
 K3_MEMBERS = 4
 K3_PATHS = dict(detach_forward=False, cycle_w=1.0, stability_w=1.0, instance_noise=0.05)
@@ -557,14 +586,11 @@ K3_TIME_MEMBERS = (1, 2, 4, 8)
 K3_MEMBER_STEP_FLOOR = 1e-3
 ENSEMBLE_SHORT_EPOCHS = 50    # packed against --unpacked
 ENSEMBLE_SHORT_FWD_EPOCHS = 100
-PEAK_FP32_FLOPS = 67e12     # H100 SXM, fp32 outside the tensor cores
-PEAK_BYTES_PER_S = 3.35e12  # HBM3
 PRETRAIN_EPOCHS = 500
 EPOCHS_PER_CALL = 25
 REQUEST_BATCHES = (1, 64, 8192, 65536)
 CHECK_BATCHES = (1, 77, 257, 8192, 65536)   # and the crossover's two sides
 TIME_BATCHES = (1, 64, 8192, 65536)
-PEAK_TF32_FLOPS = 495e12    # H100 SXM, TF32 dense tensor cores
 SEED = 0
 # Phase 31, the evaluation entry point.  The ceilings on the card and on the
 # CPU come from the same CPU draws and the same metrics (held equal), so
@@ -1341,13 +1367,6 @@ def phase12_k1_times(cfg, dev, ds) -> dict:
                           streams5.params_norm.shape[0])
     return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "eager_ms": min(e1, e2),
             "a_step": a_step, "brow_a_step": brow_a_step, "profile": prof}
-
-
-def roofline(flops: float, nbytes: float) -> tuple:
-    """(bound_ms, bound_by): the least time the card could take for work of
-    ``flops`` fp32 operations and ``nbytes`` bytes moved once."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
 def chain_macs(dims) -> int:
@@ -4242,12 +4261,12 @@ def phase34_enhanced(cfg, dev, repo: str, train_ds, tag: str) -> dict:
 # in epoch 2, 2e-2 by epoch 12, as K2's 30 steps against its float32 plain
 # version drift, K2_ROWS_RTOL).  The CPU test holds 8 steps at narrow width.
 P35_WORLD = 2
-P35_EPOCHS = 20
+P35_EPOCHS = 10              # cut from 20, to keep the whole run near half its time limit
 P35_EPOCHS_PER_CALL = 5
 P35_ROWS_RTOL = 1e-4
 P35_HELD_EPOCHS = 1
 P35_COUNT_ROWS = ("pigan/d_accuracy", "pigan/violation_rate")
-P35_SWEEP = ("--members", "8", "--forward-epochs", "100", "--epochs", "20")
+P35_SWEEP = ("--members", "8", "--forward-epochs", "100", "--epochs", "10")
 
 
 def _p35_digest(state, mesh) -> list:
@@ -4517,6 +4536,322 @@ def phase35_parallel(cfg, dev, repo: str, F, lo, hi, screens: dict, tag: str,
                sweep_ranking=sweeps[1]["ranking"])
     wall = time.perf_counter() - t_phase
     print(f"phase 35: main-path launches {launches}; {wall:.1f} s")
+    out.update(launches=launches, wall=wall)
+    return out
+
+
+P36_MEMBERS = 4
+P36_EPOCHS = 500             # the seed search's GAN depth, cut from 24,000
+P36_EVAL_EVERY = 100
+P36_FWD_EPOCHS = 500
+P36_SERVE_TOL = 1e-4         # the served ensemble's held-out param R2 against the snapshot's
+P36_TP_EPOCHS = 5
+P36_TP_ROWS_RTOL = 1e-4
+# the EMA at 0.99: at 0.999 the track still holds 22 % of the initial G after
+# 100 epochs of 15 steps (its held-out param R2 -1.96, NVIDIA H100 80GB HBM3)
+P36_HOLDOUT = ("--fwd-epochs", "100", "--gan-epochs", "100", "--ema-decay", "0.99")
+P36_THROUGHPUT = ("--throughput", "--batches", "64,512", "--chunk", "20", "--chain", "2",
+                  "--meas", "2", "--eager-chunk", "1")
+
+
+def _p36_tp_rank(rank: int, world: int, address: str, out_dir: str, device: str) -> None:
+    """One rank of phase 36 (ii); writes ``out_dir/rank<r>.pt``."""
+    import torch
+
+    from pigan_thz_torch.ops import _cuda_build
+    from pigan_thz_torch.parallel import initialize_distributed, make_mesh
+    from pigan_thz_torch.train.trainer import Trainer
+
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(address, world, rank, backend="gloo", device=dev)
+    mesh = make_mesh(data=1, model=world)
+    inputs = torch.load(os.path.join(out_dir, "inputs.pt"), weights_only=False)
+    cfg, epochs = inputs["cfg"], inputs["epochs"]
+    reset_launches(_cuda_build.LAUNCHES)
+    trainer = Trainer(cfg, device=dev, mesh=mesh, epochs_per_call=epochs)
+    t0 = time.perf_counter()
+    trainer.pretrain_forward(epochs=epochs)
+    trainer.init_pigan()
+    trainer.train_pigan(epochs=epochs)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    f = trainer.pigan_state.f
+    shapes = {n: tuple(p.shape) for n, p in f.named_parameters()
+              if n in ("model.8.weight", "model.8.bias", "model.9.weight",
+                       "model.12.weight", "model.12.bias")}
+    torch.save({"rank": rank, "history": trainer.train_history, "wall": wall,
+                "shapes": shapes, "launches": dict(_cuda_build.LAUNCHES),
+                "model_rank": mesh.model_rank, "f_split": trainer.pigan_state.f.tp_plan.split},
+               os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def _p36_search(cfg, dev, repo: str, tag: str, add, epochs: int, eval_every: int,
+                fwd_epochs: int) -> dict:
+    """Phase 36 (i): the seed search, its first chunk against the eager
+    engine, the snapshot served."""
+    import dataclasses
+
+    import torch
+
+    from pigan_thz_torch.cli import main as cli_main
+    from pigan_thz_torch.data import split_dataset, synthetic_dataset
+    from pigan_thz_torch.data.dataset import denormalize_params
+    from pigan_thz_torch.ops import _cuda_build
+    from pigan_thz_torch.ops import gan_train as gt
+    from pigan_thz_torch.ops.forward_train import resolve_draws
+    from pigan_thz_torch.ops.metrics import r2_score
+    from pigan_thz_torch.parallel.ensemble import evaluate_ensemble
+    from pigan_thz_torch.parallel.ensemble_megakernel import (
+        SEARCH_DRAW_SEED, SEARCH_EPOCHS_PER_CALL, save_ensemble_best, search_chunk_fn,
+        search_settings, search_states, seed_search)
+    from pigan_thz_torch.serve import load_exported
+    from pigan_thz_torch.train import checkpoint as ckpt
+    from pigan_thz_torch.train.trainer import Trainer
+
+    out = {}
+    scfg = cfg.replace(train=dataclasses.replace(cfg.train, num_epochs=epochs))
+    reset_launches(_cuda_build.LAUNCHES)
+    full = synthetic_dataset(scfg.data, device=dev)
+    train_ds, held = split_dataset(full, val_frac=0.2,
+                                   generator=torch.Generator().manual_seed(9))
+    t0 = time.perf_counter()
+    trainer = Trainer(scfg, ds=train_ds, epochs_per_call=50, device=dev, shadow_parity="off")
+    trainer.pretrain_forward(epochs=fwd_epochs, log_every=10**9)
+    _sync(dev)
+    f_s = time.perf_counter() - t0
+    add(_cuda_build.LAUNCHES)
+    f = trainer.forward_state.f
+
+    # the first chunk's first two epochs: K3 against the eager engine from
+    # the search's own start, on the search's own first draws
+    spec = gt.gan_train_spec(scfg, search_settings())
+    start = search_states(scfg, train_ds, P36_MEMBERS, f)
+    indices, seeds = resolve_draws(torch.Generator().manual_seed(SEARCH_DRAW_SEED),
+                                   train_ds.num_samples, scfg.train.batch_size,
+                                   SEARCH_EPOCHS_PER_CALL)
+    keep = K2_EPOCHS
+    spe = indices.shape[1]
+    runs = {}
+    for engine in ("kernel", "eager"):
+        st = start.clone()
+        before = dict(_cuda_build.LAUNCHES)
+        st, rows = search_chunk_fn(scfg, train_ds, engine, P36_MEMBERS)(
+            st, indices[:keep], seeds[:keep * spe])
+        _sync(dev)
+        launched = {k: _cuda_build.LAUNCHES[k] - before[k] for k in before}
+        want = {"gan_ensemble_train": int(engine == "kernel" and dev.type == "cuda"),
+                "gan_train": 0}
+        if any(launched[k] != v for k, v in want.items()):
+            fail(f"phase 36: the {engine} engine's chunk launched {launched}")
+        runs[engine] = (st, rows)
+    (ks, kr), (es, er) = runs["kernel"], runs["eager"]
+    keys = list(er[0])
+    counts = [keys.index(k) for k in ("d_accuracy", "violation_rate")]
+    floats = [j for j in range(len(keys)) if j not in counts]
+    worst = 0.0
+    for m in range(P36_MEMBERS):
+        a = torch.stack([kr[m][k] for k in keys], 1).cpu()
+        b = torch.stack([er[m][k] for k in keys], 1).cpu()
+        rel = float(row_errors(a, b, keys, False)[:, floats].max())
+        cnt = float((a[:, counts] - b[:, counts]).abs().max())
+        diffs = gt.state_diffs(gt.state_buffers(ks[m]), gt.state_buffers(es[m]),
+                               gt.state_buffers(start[m]), spec)
+        far = {k: r for k, (_, r) in diffs.items() if not r <= K2_PART_RTOL[k]}
+        print(f"phase 36 (i) first chunk, K3 against the eager engine, member {m}, {keep} "
+              f"epochs ({keep * spe} steps): rows max rel err {rel:.3e} (rtol "
+              f"{K2_ROWS_RTOL}), counts {cnt:.4f} (atol {K2_COUNT_ATOL:.4f}); by part "
+              + ", ".join(f"{k} {r:.3e}" for k, (_, r) in diffs.items())
+              + f" (within {K2_PART_RTOL})")
+        if far or not (rel <= K2_ROWS_RTOL and cnt <= K2_COUNT_ATOL):
+            fail(f"phase 36: K3's first chunk against the eager engine, member {m}: rows "
+                 f"{rel:.3e}, counts {cnt:.4f}, parts beyond their limit {far}")
+        worst = max(worst, rel)
+    out["first_chunk_rows_rel"] = worst
+
+    # the search, as examples/torch_seed_search.py runs it
+    reset_launches(_cuda_build.LAUNCHES)
+    _sync(dev)
+    t0 = time.perf_counter()
+    printed = []
+
+    def on_row(row):
+        printed.append(row)
+        print(f"phase 36 (i) {json.dumps(row)}")
+
+    states, best, _ = seed_search(scfg, train_ds, P36_MEMBERS, forward_model=f,
+                                  epochs=epochs, eval_every=eval_every, heldout=held,
+                                  engine="kernel", keep_snapshot=True, on_row=on_row)
+    _sync(dev)
+    search_s = time.perf_counter() - t0
+    launched = dict(_cuda_build.LAUNCHES)
+    add(launched)
+    want = -(-epochs // SEARCH_EPOCHS_PER_CALL)
+    if launched["gan_ensemble_train"] != want * (dev.type == "cuda") or launched["gan_train"]:
+        fail(f"phase 36: the search launched {launched}, not {want} K3 launches")
+    if len(printed) != -(-epochs // eval_every) or best.snapshot is None:
+        fail("phase 36: the search printed the wrong rows or kept no snapshot")
+    member_steps = P36_MEMBERS * epochs * spe / search_s
+    print(f"time {tag} phase 36 (i) seed search: F {f_s:.3f} s ({fwd_epochs} epochs, "
+          f"K1), {P36_MEMBERS} members x {epochs} epochs in {search_s:.3f} s "
+          f"({member_steps:.1f} member-steps/s, {want} K3 launches, evaluations "
+          f"included); best {best.member} param R2 {best.r2:.6f} at epoch {best.epoch}")
+
+    # --save-best, then the artifact the export command writes
+    with tempfile.TemporaryDirectory(prefix="p36_") as tmp:
+        models = os.path.join(tmp, "best")
+        if isinstance(best.member, int):
+            ckpt.save_final_trio(models, best.snapshot[best.member])
+            artifact = ["--artifact", "designer"]
+            name = "designer.pt2"
+        else:
+            save_ensemble_best(models, best.snapshot)
+            artifact = ["--artifact", "ensemble", "--ensemble-members", str(P36_MEMBERS)]
+            name = "ensemble_designer.pt2"
+        ckpt.save_model_config(models, scfg)
+        reset_launches(_cuda_build.LAUNCHES)
+        t0 = time.perf_counter()
+        rc = cli_main(["export", *artifact, "--models", models, "--out",
+                       os.path.join(tmp, "art"), "--batch-size", str(held.num_samples),
+                       "--device", str(dev)])
+        export_s = time.perf_counter() - t0
+        add(_cuda_build.LAUNCHES)
+        if rc != 0:
+            fail(f"phase 36: export {' '.join(artifact)} exited {rc}")
+        served = load_exported(os.path.join(tmp, "art", name), device=dev)(held.spectra)
+        params = served[0]
+        served_r2 = float(r2_score(held.params, params))
+    if isinstance(best.member, int):
+        snap_r2 = float(evaluate_ensemble(best.snapshot, held)["param_r2"][best.member])
+    else:
+        from pigan_thz_torch.parallel.ensemble import member_predictions
+
+        mean = member_predictions(best.snapshot, held.spectra).mean(0)
+        snap_r2 = float(r2_score(held.params, denormalize_params(mean, held.param_lo,
+                                                                 held.param_hi)))
+    print(f"phase 36 (i) export {' '.join(artifact)} in {export_s:.1f} s: the served "
+          f"held-out param R2 {served_r2:.6f}, the snapshot's in process {snap_r2:.6f} "
+          f"(the search's best {best.r2:.6f}), |diff| {abs(served_r2 - snap_r2):.2e} "
+          f"(tol {P36_SERVE_TOL})")
+    if not abs(served_r2 - snap_r2) <= P36_SERVE_TOL or not abs(snap_r2 - best.r2) <= 1e-5:
+        fail(f"phase 36: the served snapshot's held-out param R2 {served_r2} is not the "
+             f"snapshot's {snap_r2} (best {best.r2})")
+    out.update(search_s=search_s, f_s=f_s, member_steps_per_s=member_steps, best=best.r2,
+               best_member=best.member, best_epoch=best.epoch, served_r2=served_r2,
+               rows=printed)
+    return out
+
+
+def _p36_subprocess(repo: str, script: str, args, add, what: str, timeout: int = 900):
+    """``examples/<script>`` in a subprocess: (its stdout, wall s); its
+    ``kernel launches`` line (on stderr) added to the phase's."""
+    cmd = [sys.executable, os.path.join(repo, "examples", script), *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"phase 36: {what} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    add(launches_line(proc.stderr, what))
+    return proc.stdout, wall
+
+
+def phase36_slice18(cfg, dev, repo: str, tag: str, epochs: int = P36_EPOCHS,
+                    eval_every: int = P36_EVAL_EVERY, fwd_epochs: int = P36_FWD_EPOCHS,
+                    tp_epochs: int = P36_TP_EPOCHS, holdout=P36_HOLDOUT,
+                    throughput=P36_THROUGHPUT) -> dict:
+    """The last modules on the card (module docstring, phase 36).  The
+    arguments cut the phase for a rehearsal on the CPU.  Returns the
+    main-path launches and the numbers for the record."""
+    import torch
+
+    from pigan_thz_torch.ops import _cuda_build
+    from pigan_thz_torch.parallel.mesh import spawn_ranks
+    from pigan_thz_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    out = {"search": _p36_search(cfg, dev, repo, tag, add, epochs, eval_every, fwd_epochs)}
+
+    # (ii) tensor parallelism: two gloo ranks on the card as a model axis
+    with tempfile.TemporaryDirectory(prefix="p36_tp_") as out_dir:
+        reset_launches(_cuda_build.LAUNCHES)
+        alone = Trainer(cfg, device=dev, engine="eager", epochs_per_call=tp_epochs)
+        t0 = time.perf_counter()
+        alone.pretrain_forward(epochs=tp_epochs)
+        alone.init_pigan()
+        alone.train_pigan(epochs=tp_epochs)
+        _sync(dev)
+        w1_wall = time.perf_counter() - t0
+        add(_cuda_build.LAUNCHES)
+        torch.save({"cfg": cfg, "epochs": tp_epochs}, os.path.join(out_dir, "inputs.pt"))
+        t0 = time.perf_counter()
+        spawn_ranks(_p36_tp_rank, 2, out_dir, str(dev))
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    r0 = ranks[0]
+    for r in ranks:
+        add(r["launches"])
+    if ranks[1]["history"] != r0["history"] or not r0["f_split"]:
+        fail("phase 36: the model ranks saw other rows, or F did not compute split")
+    spe = cfg.data.num_samples // cfg.train.batch_size
+    held = {}
+    for k, w in alone.train_history.items():
+        g = r0["history"][k]
+        atol = 1.0 / (spe * cfg.train.batch_size) if k in P35_COUNT_ROWS else 1e-6
+        held[k] = abs(g[0] - w[0]) / (P36_TP_ROWS_RTOL * abs(w[0]) + atol)
+    worst = max(held, key=held.get)
+    print(f"phase 36 (ii) Trainer(mesh=make_mesh(data=1, model=2)) on two gloo ranks of "
+          f"{dev}, {tp_epochs} + {tp_epochs} epochs: {r0['wall']:.2f} s (world 1 "
+          f"eager {w1_wall:.2f} s, spawn {spawn_s:.1f} s); F's 1024-wide layers on each "
+          f"rank: " + ", ".join(f"{n} {s}" for n, s in r0["shapes"].items())
+          + f"; the first epoch's rows at most {held[worst]:.3g} of the limit ({worst}, "
+          f"rtol {P36_TP_ROWS_RTOL})")
+    for k, w in alone.train_history.items():
+        print(f"phase 36 (ii) {k}: model axis " + " ".join(f"{x:.6g}" for x in
+                                                         r0["history"][k])
+              + " | world 1 " + " ".join(f"{x:.6g}" for x in w))
+    if held[worst] > 1.0:
+        fail(f"phase 36: the model axis's first-epoch {worst} is {held[worst]:.3g} of its "
+             "limit from world 1's")
+    out.update(tp_wall=r0["wall"], tp_world1_wall=w1_wall, tp_shapes=r0["shapes"],
+               tp_rows_held=held)
+
+    # (iii) the held-out example
+    stdout, wall = _p36_subprocess(repo, "torch_holdout_eval.py",
+                                   [*holdout, "--device", str(dev)], add,
+                                   "torch_holdout_eval.py")
+    res = json.loads(stdout)
+    if set(res) != {"ceilings", "train", "heldout", "heldout_ema", "wall_s"} or not all(
+            v == v and abs(v) != float("inf") for part in ("train", "heldout", "heldout_ema")
+            for v in res[part].values()):
+        fail(f"phase 36: torch_holdout_eval.py printed {res}")
+    print(f"phase 36 (iii) torch_holdout_eval.py {' '.join(holdout)}: {wall:.1f} s; "
+          f"train {res['train']}, held out {res['heldout']}, held out EMA "
+          f"{res['heldout_ema']}")
+    out["holdout"] = res
+
+    # (iv) the scaled-batch throughput
+    stdout, wall = _p36_subprocess(repo, "torch_scaled_batch_probe.py",
+                                   [*throughput, "--device", str(dev)], add,
+                                   "torch_scaled_batch_probe.py")
+    res = json.loads(stdout.strip().splitlines()[-1])
+    rows = res["rows"]
+    if len(rows) != 4 or any("error" in r for r in rows):
+        fail(f"phase 36: the throughput probe's rows {rows}")
+    for r in rows:
+        print(f"time {tag} phase 36 (iv) B = {r['batch']} {r['backend']}: "
+              f"{r['steps_per_sec']} steps/s, {r['samples_per_sec']} samples/s, "
+              f"{r['tflops_per_sec']} TFLOP/s, MFU {r.get('mfu_pct')} %")
+    out["throughput"] = rows
+    wall = time.perf_counter() - t_phase
+    print(f"phase 36: main-path launches {launches}; {wall:.1f} s")
     out.update(launches=launches, wall=wall)
     return out
 
@@ -4890,6 +5225,10 @@ def main() -> None:
     parallel = phase35_parallel(cfg, dev, repo, F, lo, hi, screens, tag)
     p35 = parallel["launches"]
 
+    # -- 36. the last modules: the seed search, the model axis, the examples -------------
+    slice18 = phase36_slice18(cfg, dev, repo, tag)
+    p36 = slice18["launches"]
+
     # -- the record -------------------------------------------------------------
     # bound_ms: operations over the fp32 peak against bytes moved once over the
     # memory rate, from the shapes each timed call was given.
@@ -4910,16 +5249,9 @@ def main() -> None:
                 "fused_dense_chain": (2.0 * b * macs_g,
                                       4.0 * (b * S + n_g + 2 * sum(g_dims[1:-1]) + b * 4))}
 
-    def tf32x3_ms(flops, nbytes):
-        """A bound for the kernels' design, not the function's roofline
-        (that is ``roofline``'s): three TF32 products for each fp32 one
-        (3xTF32) at the tensor-core peak, so three times the operations
-        the function needs."""
-        return max(3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
-
-    serving_rec = {name: {"bound_3xtf32_ms": tf32x3_ms(*serving_work(big)[name]),
+    serving_rec = {name: {"bound_3xtf32_ms": design_bound_3xtf32(*serving_work(big)[name]),
                       "bound_ms_b64": roofline(*serving_work(64)[name])[0],
-                      "bound_3xtf32_ms_b64": tf32x3_ms(*serving_work(64)[name]),
+                      "bound_3xtf32_ms_b64": design_bound_3xtf32(*serving_work(64)[name]),
                       "ms_b64": times[(name, 64)][0],
                       "plain_ms_b64": times[(name, 64)][1],
                       "library_ms_b64": times[("library " + name, 64)][0],
@@ -5010,7 +5342,8 @@ def main() -> None:
     k1_brow = pretrain["launches"]["brow_gemm"]
     brow_main = (k1_brow + tl["brow_gemm"] + el["brow_gemm"] + pl["brow_gemm"]
                  + sl["brow_gemm"] + ev_l["brow_gemm"] + pr.get("brow_gemm", 0)
-                 + p34.get("brow_gemm", 0) + p35.get("brow_gemm", 0))
+                 + p34.get("brow_gemm", 0) + p35.get("brow_gemm", 0)
+                 + p36.get("brow_gemm", 0))
     if not k1_brow or not tl["brow_gemm"] or not el["brow_gemm"]:
         fail(f"the main paths launched the batch-row kernel {brow_main} times "
              f"(pretrain-forward {k1_brow}, train {tl['brow_gemm']}, ensemble "
@@ -5036,7 +5369,7 @@ def main() -> None:
          "source": "pigan_thz_torch/csrc/fused_mlp_chain.cu",
          "replaces": "pigan_thz_tpu/ops/pallas_kernels.py:73",
          "launches": launches["fused_mlp_forward"] + k5_screen + sv["fused_mlp_forward"]
-         + p34.get("fused_mlp_forward", 0) + p35.get("fused_mlp_forward", 0),
+         + p34.get("fused_mlp_forward", 0) + p35.get("fused_mlp_forward", 0) + p36.get("fused_mlp_forward", 0),
          "launches_serving_completed": sv["fused_mlp_forward"],
          "launches_enhanced_variants": p34.get("fused_mlp_forward", 0),
          "launches_ensembles_and_data_parallelism": p35.get("fused_mlp_forward", 0),
@@ -5056,7 +5389,7 @@ def main() -> None:
          "source": "pigan_thz_torch/csrc/fused_mlp_chain.cu",
          "replaces": "pigan_thz_tpu/ops/pallas_kernels.py:185",
          "launches": launches["fused_dense_chain"] + sv["fused_dense_chain"]
-         + p35.get("fused_dense_chain", 0),
+         + p35.get("fused_dense_chain", 0) + p36.get("fused_dense_chain", 0),
          "launches_serving_completed": sv["fused_dense_chain"],
          "max_abs_err": max_err["fused_dense_chain"],
          "ms": times[("fused_dense_chain", big)][0],
@@ -5070,10 +5403,12 @@ def main() -> None:
          "launches": dataset_k4 + k4_screen + tl["dip_qualification"]
          + el["dip_qualification"] + pl["dip_qualification"] + ev_l["dip_qualification"]
          + sv["dip_qualification"] + pr.get("dip_qualification", 0)
-         + p34.get("dip_qualification", 0) + p35.get("dip_qualification", 0),
+         + p34.get("dip_qualification", 0) + p35.get("dip_qualification", 0)
+         + p36.get("dip_qualification", 0),
          "launches_preemption_safe_training": pr.get("dip_qualification", 0),
          "launches_enhanced_variants": p34.get("dip_qualification", 0),
          "launches_ensembles_and_data_parallelism": p35.get("dip_qualification", 0),
+         "launches_last_modules": p36.get("dip_qualification", 0),
          "launches_serving_completed": sv["dip_qualification"],
          "launches_evaluate_path": ev_l["dip_qualification"],
          "evaluate": {k: evaluation[k] for k in ("ceilings", "eval_ms", "ceilings_oracle_ms",
@@ -5102,10 +5437,11 @@ def main() -> None:
          "launches": k1_launches + tl["forward_train"] + el["forward_train"]
          + pl["forward_train"] + sl["forward_train"] + ev_l["forward_train"]
          + pr.get("forward_train", 0) + p34.get("forward_train", 0)
-         + p35.get("forward_train", 0),
+         + p35.get("forward_train", 0) + p36.get("forward_train", 0),
          "launches_preemption_safe_training": pr.get("forward_train", 0),
          "launches_enhanced_variants": p34.get("forward_train", 0),
          "launches_ensembles_and_data_parallelism": p35.get("forward_train", 0),
+         "launches_last_modules": p36.get("forward_train", 0),
          "data_parallelism": {k: parallel[k] for k in (
              "world1_pigan_steps_per_s", "world2_pigan_steps_per_s",
              "world1_forward_steps_per_s", "world2_forward_steps_per_s", "rows_apart",
@@ -5139,8 +5475,10 @@ def main() -> None:
          "source": "pigan_thz_torch/csrc/gan_train.cu",
          "replaces": "pigan_thz_tpu/ops/megakernel.py:779",
          "launches": tl["gan_train"] + el["gan_train"] + pl["gan_train"] + sl["gan_train"]
-         + ev_l["gan_train"] + pr.get("gan_train", 0) + p35.get("gan_train", 0),
+         + ev_l["gan_train"] + pr.get("gan_train", 0) + p35.get("gan_train", 0)
+         + p36.get("gan_train", 0),
          "launches_preemption_safe_training": pr.get("gan_train", 0),
+         "launches_last_modules": p36.get("gan_train", 0),
          "preemption_safe_training": {
              "checkpoint": preempt["checkpoint"]["pigan"],
              "checkpoint_command": preempt["checkpoint_command"],
@@ -5176,8 +5514,14 @@ def main() -> None:
         {"name": "gan_ensemble_train", "route": "cuda",
          "source": "pigan_thz_torch/csrc/gan_train.cu",
          "replaces": "pigan_thz_tpu/ops/megakernel.py:2128",
-         "launches": el["gan_ensemble_train"] + p35.get("gan_ensemble_train", 0),
+         "launches": el["gan_ensemble_train"] + p35.get("gan_ensemble_train", 0)
+         + p36.get("gan_ensemble_train", 0),
          "members": K3_MEMBERS,
+         "launches_last_modules": p36.get("gan_ensemble_train", 0),
+         "seed_search": {k: slice18["search"][k] for k in (
+             "search_s", "f_s", "member_steps_per_s", "best", "best_member", "best_epoch",
+             "served_r2", "first_chunk_rows_rel")},
+         "model_axis": {k: slice18[k] for k in ("tp_wall", "tp_world1_wall", "tp_shapes")},
          "max_abs_err": max(k3_stats["max_abs_err"], k3_paths["max_abs_err"]),
          "rows_max_rel_err": k3_stats["rows_rel"],
          "first_step_rel_err_vs_float64": k3_stats["first_step_rel"],

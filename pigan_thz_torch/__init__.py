@@ -40,6 +40,13 @@ The port goes slice by slice (ROADMAP.md).  The slices that exist:
   over the global batch (``Trainer(mesh=...)``, ``make_parallel_multi_epoch_fn``);
   screening over ranks, each running the fused surrogate and peaks kernels
   on its own chunks (``screen_designs(mesh=...)``, ``screen --mesh-data N``);
+  tensor parallelism over a model axis (``make_mesh(data, model)``,
+  ``parallel/tensor.py``: the JAX package's placement rule, the wide layers'
+  compute split with their leaves); the seed search through the
+  member-packed kernel with held-out scores and best snapshots
+  (``seed_search``, ``examples/torch_seed_search.py``);
+- the cost model and the card's peaks (``ops/costs.py``), ``set_seed``
+  (``utils/seed.py``);
 - preemption-safe training: full-state checkpoints
   (``train/checkpoint.py:CheckpointManager``), ``Trainer.resume_from`` and
   the kernel engine's shadow replay;

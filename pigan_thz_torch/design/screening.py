@@ -141,7 +141,7 @@ def screen_designs(
         raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: use float32 | bfloat16")
     if cfg.compute_dtype == "bfloat16" and cfg.use_pallas:
         raise ValueError("use_pallas supports float32 only")
-    world, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    world, rank = (1, 0) if mesh is None else (mesh.data_size, mesh.data_rank)
     device = param_lo.device
     frequencies = torch.as_tensor(frequencies, dtype=torch.float32, device=device)
     n_chunks = -(-cfg.num_candidates // cfg.chunk_size)

@@ -73,12 +73,19 @@ class Dense(nn.Linear):
     """``nn.Linear`` with flax's ``Dense(dtype=...)``: under a compute dtype
     the input, kernel and bias are cast to it, and the output is in it."""
 
+    # set by parallel/tensor.py on a model split over a model axis
+    tp = None
+
     def __init__(self, in_features: int, out_features: int,
                  compute_dtype: torch.dtype | None = None):
         super().__init__(in_features, out_features)
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            from ..parallel.tensor import dense_forward
+
+            return dense_forward(self, x)
         dt = self.compute_dtype
         if dt is None:
             return super().forward(x)
@@ -90,11 +97,20 @@ class FlaxLayerNorm(nn.LayerNorm):
     the one-pass variance max(0, E[x²] − E[x]²) and the normalisation in
     float32, the output in the compute dtype."""
 
+    tp = None       # set by parallel/tensor.py on a model split over a model axis
+
     def __init__(self, features: int, eps: float, compute_dtype: torch.dtype | None = None):
         super().__init__(features, eps=eps)
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            from ..parallel.tensor import layer_norm_forward
+
+            return layer_norm_forward(self, x)
+        return self.plain_forward(x)
+
+    def plain_forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.compute_dtype is None:
             return super().forward(x)
         x32 = x.float()
@@ -126,8 +142,16 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
     update_stats: bool = True
     compute_dtype: torch.dtype | None = None
     sum_over: Callable[[torch.Tensor], torch.Tensor] | None = None
+    tp = None       # set by parallel/tensor.py on a model split over a model axis
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is None:
+            return self._forward(x)
+        from ..parallel.tensor import batch_norm_input
+
+        return self.tp.finish(self._forward(batch_norm_input(self, x)))
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         shape = (1, -1) if x.dim() == 2 else (1, -1, 1)
         weight, bias = self.weight.view(shape), self.bias.view(shape)
@@ -250,6 +274,8 @@ class Dropout(nn.Dropout):
     attention weights, flax's ``broadcast_dropout``).  Eval mode and rate 0
     pass x through; train mode without a provider is torch's dropout."""
 
+    tp = None       # set by parallel/tensor.py on a model split over a model axis
+
     def __init__(self, p: float, shared_dims: Sequence[int] = ()):
         super().__init__(p)
         self.shared_dims = tuple(shared_dims)
@@ -259,6 +285,10 @@ class Dropout(nn.Dropout):
         return tuple(1 if d in self.shared_dims else n for d, n in enumerate(x.shape))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self._drop(x)
+        return y if self.tp is None else self.tp.finish(y)
+
+    def _drop(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
         if self.masks is None:
@@ -266,6 +296,11 @@ class Dropout(nn.Dropout):
                 raise RuntimeError("a shared-mask Dropout in train mode needs a provider "
                                    "(dropout_masks)")
             return super().forward(x)
+        if self.tp is not None:
+            from ..parallel.tensor import SHARD, dropout_mask
+
+            if self.tp.x_state == SHARD:
+                return x * dropout_mask(self, self.mask_shape(x), x.device).to(x.dtype)
         return x * self.masks(self.mask_shape(x), self.p, x.device).to(x.dtype)
 
 

@@ -1400,8 +1400,8 @@ def make_gan_epoch_fn(cfg: PiGanConfig, settings, *, lr_g: float | None = None,
 
 
 def make_gan_ensemble_fn(cfg: PiGanConfig, settings, num_members: int):
-    """ensemble_epoch(states, ds, scales, indices=None, draws=None) -> (states,
-    [{key: (E,) per-epoch means} per member]) through ``gan_ensemble_train``,
+    """ensemble_epoch(states, ds, scales, indices=None, draws=None, seeds=None) ->
+    (states, [{key: (E,) per-epoch means} per member]) through ``gan_ensemble_train``,
     one launch per call for all ``num_members`` members: the counterpart of
     ``make_pallas_ensemble_fn``.
 
@@ -1410,8 +1410,10 @@ def make_gan_ensemble_fn(cfg: PiGanConfig, settings, num_members: int):
     place); the ``EnsembleState`` is updated in place and returned.  Member
     m's shuffles and step seeds come from member m's own generator, drawn as
     the one-member function draws them (the shuffles also from ``indices``
-    (M, E, spe, B)); the seeds key that member's noise streams, which
-    ``draws`` (per member a sequence of per-step mappings) may give instead.
+    (M, E, spe, B), the step seeds from ``seeds`` (M, E·spe), or (E·spe,)
+    shared by every member); the seeds key that member's noise streams,
+    which ``draws`` (per member a sequence of per-step mappings) may give
+    instead.
     Member m then is bit for bit what ``make_gan_epoch_fn`` makes of it
     alone with the same draws, and ``num_members=1`` is that path exactly.
 
@@ -1434,7 +1436,8 @@ def make_gan_ensemble_fn(cfg: PiGanConfig, settings, num_members: int):
     count = int(num_members)
 
     def ensemble_epoch(states, ds: ThzDataset, scales: Sequence[float] | torch.Tensor,
-                       indices: torch.Tensor | None = None, draws=None):
+                       indices: torch.Tensor | None = None, draws=None,
+                       seeds: torch.Tensor | None = None):
         if len(states) != count:
             raise ValueError(f"expected {count} states, got {len(states)}")
         first = states[0]
@@ -1463,8 +1466,13 @@ def make_gan_ensemble_fn(cfg: PiGanConfig, settings, num_members: int):
                              f"{(count, epochs, spe, batch)}")
         # each member draws as the one-member function does: the E shuffles
         # that are not given, then the chunk's step seeds
+        if seeds is not None:
+            seeds = torch.as_tensor(seeds, dtype=torch.int64).cpu()
+            if seeds.ndim == 1:
+                seeds = seeds.expand(count, -1)
         drawn = [resolve_draws(st.generator, ds.num_samples, batch, epochs,
-                               None if indices is None else indices[m])
+                               None if indices is None else indices[m],
+                               None if seeds is None else seeds[m])
                  for m, st in enumerate(states)]
         indices = torch.stack([d[0] for d in drawn])
         streams = build_streams(

@@ -2,7 +2,8 @@
 and scoring, the λ-ablation sweep with runtime loss weights, the functions
 that train N seed members through the GAN-training kernels
 (``ensemble_megakernel.py``), and data-parallel training over
-``torch.distributed`` ranks (``mesh.py``, ``sharding.py``)."""
+``torch.distributed`` ranks (``mesh.py``, ``sharding.py``), with tensor
+parallelism over a model axis (``tensor.py``)."""
 
 from .ensemble import (
     WEIGHT_NAMES,
@@ -34,6 +35,7 @@ from .sharding import (
     replicate_dataset,
     shard_state,
 )
+from .tensor import gather_state, param_partition_spec, state_shardings
 from .state_utils import EnsembleState, tree_stack, tree_unstack
 
 __all__ = [
@@ -46,6 +48,7 @@ __all__ = [
     "WEIGHT_NAMES",
     "batch_sharding",
     "evaluate_ensemble",
+    "gather_state",
     "evaluate_ensemble_mean",
     "gather_ensemble",
     "init_ensemble_states",
@@ -57,10 +60,12 @@ __all__ = [
     "make_parallel_epoch_fn",
     "make_parallel_multi_epoch_fn",
     "member_generator",
+    "param_partition_spec",
     "replicate_dataset",
     "replicated",
     "shard_ensemble",
     "shard_state",
+    "state_shardings",
     "tree_stack",
     "tree_unstack",
     "weight_vector",

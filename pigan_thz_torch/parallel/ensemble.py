@@ -206,7 +206,7 @@ def shard_ensemble(states: EnsembleState, mesh) -> EnsembleState:
     if n % w:
         return states
     k = n // w
-    start = mesh.rank * k
+    start = mesh.data_rank * k
     local = tree_stack([states[m].clone() for m in range(start, start + k)])
     local.block = MemberBlock(mesh, start, n)
     return local

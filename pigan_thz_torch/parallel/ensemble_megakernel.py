@@ -15,6 +15,14 @@ alone, the port's ``fold_in(key, i)``.
 ``train_settings_sweep`` is the controlled A/B counterpart: one arm per
 ``StepSettings``, every arm from the same initial state on the same batches.
 
+``seed_search`` is the loop of ``examples/seed_search.py`` (the JAX
+package's best-quality recipe): N members from ``member_generator(seed, i)``
+on the same batches and step seeds, with gradients through the shared
+frozen F and the default loss weights, scored every ``eval_every`` epochs,
+the best member or ensemble mean kept.  Its ``kernel`` engine is K3, its
+``eager`` engine the JAX program's literal counterpart, the λ-ensemble step
+with ``weight_vector()`` for every member.
+
 ``devices=[...]`` with more than one card is coded and tested on the CPU
 (``devices=["cpu", "cpu"]``) but untried on two cards: the machine that runs
 the port's card checks has one H100.
@@ -28,7 +36,9 @@ have: ``clamp_epochs_per_call`` (the Mosaic grid cap) and ``force_large_m``
 
 from __future__ import annotations
 
-from typing import Sequence
+import os
+from dataclasses import dataclass, field
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -37,11 +47,14 @@ from torch import nn
 from ..config import PiGanConfig
 from ..data.dataset import ThzDataset
 from ..models.registry import build_trio
+from ..ops.forward_train import resolve_draws
 from ..ops.gan_train import make_gan_ensemble_fn, make_gan_epoch_fn
 from ..train.state import init_pigan_state, make_optimizers
 from ..train.steps import StepSettings
-from .ensemble import init_ensemble_states, member_generator
-from .state_utils import tree_stack
+from .ensemble import (EnsembleSettings, evaluate_ensemble, evaluate_ensemble_mean,
+                       init_ensemble_states, make_ensemble_multi_epoch_fn,
+                       make_ensemble_pigan_step, member_generator, weight_vector)
+from .state_utils import EnsembleState, tree_stack
 
 
 def _chunk_sizes(epochs: int, epochs_per_call: int) -> list[int]:
@@ -265,3 +278,180 @@ def train_settings_sweep(
         _check_finite([mm[-1] for mm in member_metrics], states, off)
         off += n_epochs
     return tree_stack(states, device=devices[0]), _gather(member_metrics)
+
+
+# ---------------------------------------------------------------------------
+# The seed search (examples/seed_search.py)
+# ---------------------------------------------------------------------------
+
+SEARCH_ENGINES = ("kernel", "eager")
+SEARCH_EPOCHS_PER_CALL = 25
+SEARCH_DRAW_SEED = 11     # the JAX script's PRNGKey(11), as the port's generator seed
+ENSEMBLE_BEST = "ensemble_best.pt"
+
+
+def search_settings() -> StepSettings:
+    """The search's step: the JAX program's ``EnsembleSettings(
+    detach_forward=False)`` with the runtime vector ``weight_vector()``,
+    whose seven weights are ``StepSettings``' defaults.  Not
+    ``StepSettings.from_config``: the config's constraint and label knobs
+    may differ from the ensemble step's."""
+    return StepSettings(detach_forward=False)
+
+
+def pick_best(member_r2: Sequence[float], mean_r2: float):
+    """(score, who) of one evaluation: the best of the members' and the
+    ensemble mean's param R², ``who`` the member's index or
+    ``"ensemble_mean"``; the earlier one on a tie (the members before the
+    mean), as the JAX script's ``max`` does."""
+    r2s = [float(x) for x in member_r2] + [float(mean_r2)]
+    i = max(range(len(r2s)), key=lambda j: r2s[j])
+    return r2s[i], (i if i < len(member_r2) else "ensemble_mean")
+
+
+@dataclass
+class SearchBest:
+    """The best evaluation so far: its param R², epoch and winner (a member
+    index or ``"ensemble_mean"``), and a copy of the stacked state then when
+    the search keeps snapshots."""
+
+    r2: float = -float("inf")
+    epoch: int = 0
+    member: int | str = -1
+    snapshot: EnsembleState | None = field(default=None, repr=False)
+
+    def offer(self, score: float, who, epoch: int, states: EnsembleState | None) -> bool:
+        """Take (score, who, epoch) if it beats the best strictly (the JAX
+        script's ``>``: a tie keeps the earlier), with a copy of ``states``
+        when given.  True when taken."""
+        if not score > self.r2:
+            return False
+        self.r2, self.epoch, self.member = score, epoch, who
+        if states is not None:
+            self.snapshot = states.clone()
+        return True
+
+
+def search_chunk_fn(cfg: PiGanConfig, ds: ThzDataset, engine: str, num_members: int):
+    """chunk(states, indices (E, spe, B), seeds (E·spe,)) -> (states,
+    [per-member {key: (E,) rows}]): one call of the search's ``engine`` with
+    the same shuffles and step seeds for every member, as the JAX program's
+    one key per chunk gives its vmapped members."""
+    batch = cfg.train.batch_size
+    if engine == "kernel":
+        fn = make_gan_ensemble_fn(cfg, search_settings(), num_members)
+
+        def chunk(states, indices, seeds):
+            return fn(states, ds, torch.ones(indices.shape[0]),
+                      indices.expand(num_members, *indices.shape), seeds=seeds)
+
+        return chunk
+    if engine != "eager":
+        raise ValueError(f"engine {engine!r}: use one of {SEARCH_ENGINES}")
+    g_tx, d_tx, _ = make_optimizers(cfg, max(1, ds.num_samples // batch))
+    step = make_ensemble_pigan_step(g_tx, d_tx, EnsembleSettings(detach_forward=False),
+                                    ds.param_lo, ds.param_hi)
+    multi = make_ensemble_multi_epoch_fn(step, batch)
+    weights = torch.stack([weight_vector()] * num_members)
+
+    def chunk(states, indices, seeds):
+        states, rows = multi(states, ds, torch.Generator(), weights, indices.shape[0],
+                             indices, seeds)
+        return states, [{k: v[:, m] for k, v in rows.items()} for m in range(num_members)]
+
+    return chunk
+
+
+def search_states(cfg: PiGanConfig, ds: ThzDataset, num_members: int,
+                  forward_model: nn.Module, seed: int = 7) -> EnsembleState:
+    """The search's members at the start, stacked on the dataset's device:
+    member i from ``member_generator(seed, i)``, every member's F a copy of
+    ``forward_model``."""
+    g, d, _ = build_trio(cfg, device="cpu",
+                         generator=torch.Generator().manual_seed(cfg.train.seed))
+    g_tx, d_tx, _ = make_optimizers(cfg, max(1, ds.num_samples // cfg.train.batch_size))
+    return init_ensemble_states(g, d, forward_model, g_tx, d_tx,
+                                [member_generator(seed, i) for i in range(num_members)],
+                                device=ds.spectra.device)
+
+
+def seed_search(
+    cfg: PiGanConfig,
+    ds: ThzDataset,
+    num_members: int,
+    *,
+    forward_model: nn.Module,
+    epochs: int | None = None,
+    eval_every: int = 2000,
+    heldout: ThzDataset | None = None,
+    engine: str = "kernel",
+    seed: int = 7,
+    keep_snapshot: bool = False,
+    on_row: Callable[[dict], None] | None = None,
+):
+    """The seed search: ``num_members`` members trained on ``ds`` against
+    the shared frozen ``forward_model`` for ``epochs`` (default
+    ``cfg.train.num_epochs``, which should be the budget: the schedules
+    span it), scored every ``eval_every`` epochs and at the end.  Returns
+    ``(states, best, rows)``: the member-stacked state, the ``SearchBest``
+    and the evaluation rows.
+
+    Members start from ``member_generator(seed, i)``.  Every call of
+    ``SEARCH_EPOCHS_PER_CALL`` epochs draws one set of shuffles and step
+    seeds from a generator seeded ``SEARCH_DRAW_SEED`` and gives it to every
+    member.  ``engine`` "kernel" is one
+    K3 launch a call with ``search_settings()``; "eager" the λ-ensemble
+    step with ``weight_vector()`` for each member, the same function on the
+    same draws.  A non-finite call raises ``FloatingPointError``.
+
+    An evaluation scores each member's param R² on ``ds`` (``train_r2``)
+    and, with ``heldout``, on it (``heldout_r2``), and the ensemble mean on
+    the scored split (``heldout`` if given, else ``ds``); its row (the JAX
+    script's keys, rounded as it rounds them, without ``wall_s``) goes to
+    ``on_row``.  The best of the scored split's members and mean is kept
+    (``pick_best``, ``SearchBest.offer``), with a snapshot of the state
+    under ``keep_snapshot``."""
+    if num_members < 1:
+        raise ValueError("num_members must be >= 1")
+    epochs = cfg.train.num_epochs if epochs is None else int(epochs)
+    states = search_states(cfg, ds, num_members, forward_model, seed)
+    chunk = search_chunk_fn(cfg, ds, engine, num_members)
+    generator = torch.Generator().manual_seed(SEARCH_DRAW_SEED)
+    batch = cfg.train.batch_size
+    best, rows = SearchBest(), []
+    e = 0
+    while e < epochs:
+        stop = min(epochs, (e // eval_every + 1) * eval_every)
+        while e < stop:
+            n = min(SEARCH_EPOCHS_PER_CALL, stop - e)
+            states, member_rows = chunk(states, *resolve_draws(generator, ds.num_samples,
+                                                               batch, n))
+            _check_finite(member_rows, [states], e)
+            e += n
+        train_ev = evaluate_ensemble(states, ds)
+        row = {"epoch": e, "train_r2": [round(float(x), 4) for x in train_ev["param_r2"]]}
+        scored = heldout if heldout is not None else ds
+        ev = evaluate_ensemble(states, heldout) if heldout is not None else train_ev
+        mean_r2 = float(evaluate_ensemble_mean(states, scored)["param_r2"])
+        row["ensemble_mean_r2"] = round(mean_r2, 4)
+        if heldout is not None:
+            row["heldout_r2"] = [round(float(x), 4) for x in ev["param_r2"]]
+        score, who = pick_best(ev["param_r2"].tolist(), mean_r2)
+        best.offer(score, who, e, states if keep_snapshot else None)
+        rows.append(row)
+        if on_row is not None:
+            on_row(row)
+    return states, best, rows
+
+
+def save_ensemble_best(directory: str, states: EnsembleState) -> str:
+    """Write the stacked state to ``<directory>/ensemble_best.pt`` in the
+    layout ``cli.py``'s ``export --artifact ensemble`` reads: the members'
+    G (M, Pg), D, moments and BatchNorm stats, and the shared F."""
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, ENSEMBLE_BEST)
+    torch.save({"g": states.g_params.cpu(), "d": states.d_params.cpu(),
+                "bn": [t.cpu() for t in states.bn], "f": states.f_params.cpu(),
+                "g_m": states.g_m.cpu(), "g_v": states.g_v.cpu(),
+                "d_m": states.d_m.cpu(), "d_v": states.d_v.cpu()}, path)
+    return path

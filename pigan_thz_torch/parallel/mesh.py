@@ -6,10 +6,12 @@ is a process of a ``torch.distributed`` group with one device, and the
 program says where it meets the others:
 
 - ``initialize_distributed`` joins the group (``init_process_group`` over a
-  TCP store at ``host:port``), ``make_mesh`` describes it: the group, this
-  rank, the world size and the rank's device (``Mesh``).  Only the data axis
-  exists: ``make_mesh(model > 1)`` raises (``ROADMAP.md`` queue 1, item 14,
-  tensor parallelism).
+  TCP store at ``host:port``), ``make_mesh(data, model)`` lays a 2-D mesh
+  over it (``Mesh``): rank r is at (r // model, r % model), the JAX
+  package's device order; its data group holds the ranks of its model
+  index, its model group the ranks of its data index (``dist.new_group``).
+  The data axis splits the batch (``BatchShard``), the model axis the wide
+  layers (``tensor.py``).
 - ``replicated(mesh)`` places a tensor on every rank as rank 0 holds it (a
   broadcast in place); ``batch_sharding(mesh, B)`` is this rank's share of a
   global batch of B rows (``BatchShard``): its contiguous rows, the global
@@ -42,50 +44,75 @@ BACKENDS = ("nccl", "gloo")
 
 @dataclass(frozen=True)
 class Mesh:
-    """This rank's view of the data-parallel group: ``size`` ranks along
-    ``DATA_AXIS``, of which this is ``rank``, computing on ``device``.
-    ``group`` None is the default group."""
+    """This rank's view of the (data, model) mesh: ``size`` ranks in all,
+    of which this is ``rank``, computing on ``device``; ``model`` ranks
+    along ``MODEL_AXIS`` and ``size // model`` along ``DATA_AXIS``.
+    ``group`` is this rank's data group (None: the default group, when the
+    model axis is 1), ``model_group`` its model group (None when it is 1);
+    ``min_shard_dim`` the least width of a leaf the model axis splits
+    (``tensor.py``).
+    ``barrier`` and the broadcasts span every rank; ``all_gather`` and
+    ``mean`` the data group."""
 
     rank: int
     size: int
     device: torch.device
     backend: str
     group: object = None
+    model: int = 1
+    model_group: object = None
+    min_shard_dim: int = 512
+
+    @property
+    def data_size(self) -> int:
+        return self.size // self.model
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.model
+
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.model
 
     @property
     def shape(self) -> dict:
-        return {DATA_AXIS: self.size, MODEL_AXIS: 1}
+        return {DATA_AXIS: self.data_size, MODEL_AXIS: self.model}
 
     def barrier(self) -> None:
         if self.backend == "nccl":
-            dist.barrier(group=self.group, device_ids=[self.device.index])
+            dist.barrier(device_ids=[self.device.index])
         else:
-            dist.barrier(group=self.group)
+            dist.barrier()
 
     def all_gather(self, tensor: torch.Tensor) -> list[torch.Tensor]:
-        """Every rank's ``tensor`` (equal shapes), in rank order."""
-        out = [torch.empty_like(tensor) for _ in range(self.size)]
+        """Every data rank's ``tensor`` (equal shapes), in data-rank order."""
+        if self.data_size == 1:
+            return [tensor]
+        out = [torch.empty_like(tensor) for _ in range(self.data_size)]
         dist.all_gather(out, tensor.contiguous(), group=self.group)
         return out
 
     def broadcast_(self, tensor: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Rank ``src``'s values into ``tensor`` on every rank, in place."""
-        dist.broadcast(tensor, src=src, group=self.group)
+        dist.broadcast(tensor, src=src)
         return tensor
 
     def broadcast_object(self, obj, src: int = 0):
         """Rank ``src``'s picklable ``obj`` on every rank (tensors in it on
         the CPU: they travel pickled)."""
         box = [obj if self.rank == src else None]
-        dist.broadcast_object_list(box, src=src, group=self.group)
+        dist.broadcast_object_list(box, src=src)
         return box[0]
 
     def mean(self, tensor: torch.Tensor) -> torch.Tensor:
-        """The mean over ranks of ``tensor`` (a new tensor, no gradient);
-        the result is the same bits on every rank."""
+        """The mean over the data ranks of ``tensor`` (a new tensor, no
+        gradient); the result is the same bits on every rank."""
         out = tensor.detach().clone()
+        if self.data_size == 1:
+            return out
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.group)
-        return out / self.size
+        return out / self.data_size
 
 
 class _SumOverRanks(torch.autograd.Function):
@@ -106,9 +133,11 @@ class _SumOverRanks(torch.autograd.Function):
 
 
 def sum_over_ranks(tensor: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The sum over ranks of ``tensor``, differentiable: the gradient that
-    reaches each rank's ``tensor`` is the sum of every rank's gradient of
-    the result."""
+    """The sum over the data ranks of ``tensor``, differentiable: the
+    gradient that reaches each rank's ``tensor`` is the sum of every rank's
+    gradient of the result."""
+    if mesh.data_size == 1:
+        return tensor
     return _SumOverRanks.apply(tensor, mesh.group)
 
 
@@ -124,7 +153,7 @@ class BatchShard:
     global_batch: int
 
     def __post_init__(self):
-        world = self.mesh.size
+        world = self.mesh.data_size
         if self.global_batch % world:
             raise ValueError(f"global batch {self.global_batch} is not divisible by the "
                              f"{world} ranks of the data axis: a mean of unequal shards' "
@@ -135,15 +164,15 @@ class BatchShard:
 
     @property
     def world(self) -> int:
-        return self.mesh.size
+        return self.mesh.data_size
 
     @property
     def local(self) -> int:
-        return self.global_batch // self.mesh.size
+        return self.global_batch // self.mesh.data_size
 
     @property
     def start(self) -> int:
-        return self.mesh.rank * self.local
+        return self.mesh.data_rank * self.local
 
     @property
     def stop(self) -> int:
@@ -252,23 +281,34 @@ def initialize_distributed(
             dist.barrier()
 
 
-def make_mesh(data: int | None = None, model: int = 1) -> Mesh:
-    """The group of ``initialize_distributed`` as a mesh of ``data`` ranks
-    (default: all of them).  ``model > 1`` (tensor parallelism) is not
-    ported: ``NotImplementedError``."""
-    if model > 1:
-        raise NotImplementedError(
-            f"make_mesh(model={model}): tensor parallelism is not ported yet: ROADMAP.md "
-            "queue 1, item 14")
+def make_mesh(data: int | None = None, model: int = 1, min_shard_dim: int = 512) -> Mesh:
+    """The group of ``initialize_distributed`` as a mesh of ``data`` x
+    ``model`` ranks (``data`` default: all of them over ``model``).  Every
+    rank builds every data and model group, in one order.  A state placed
+    on the mesh splits its leaves of ``min_shard_dim`` and more (the JAX
+    package's ``state_shardings`` default, 512)."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh: call initialize_distributed first")
     n = dist.get_world_size()
+    if model < 1:
+        raise ValueError(f"make_mesh(model={model}): the model axis needs >= 1 rank")
     if data is None:
         data = n // model
     if data * model != n:
         raise ValueError(f"mesh {data}x{model} != {n} devices")
-    return Mesh(rank=dist.get_rank(), size=n, device=_JOINED["device"],
-                backend=_JOINED["backend"])
+    rank, group, model_group = dist.get_rank(), None, None
+    if model > 1:
+        for d in range(data):
+            g = dist.new_group([d * model + m for m in range(model)])
+            if d == rank // model:
+                model_group = g
+        for m in range(model):
+            g = dist.new_group([d * model + m for d in range(data)])
+            if m == rank % model:
+                group = g
+    return Mesh(rank=rank, size=n, device=_JOINED["device"], backend=_JOINED["backend"],
+                group=group, model=model, model_group=model_group,
+                min_shard_dim=min_shard_dim)
 
 
 def replicated(mesh: Mesh) -> Callable[[torch.Tensor], torch.Tensor]:

@@ -17,8 +17,11 @@ whole global batch.  Here each rank runs that program's share:
 - the epoch's metric rows are averaged over the ranks once a chunk, so every
   decision the host takes from them is the same on every rank.
 
-The tensor-parallel rules (``param_partition_spec``, ``state_shardings``,
-JAX :33-66) are not ported: ``ROADMAP.md`` queue 1, item 14.
+With a model axis (``make_mesh(data, model)``, ``model`` > 1) the ranks of
+one data index hold one replica between them: ``shard_state`` leaves each
+its block of every leaf the placement rule splits (``tensor.py``:
+``param_partition_spec``, ``state_shardings``, JAX :33-66) and the modules
+compute split; the batch goes over the data axis alone.
 """
 
 from __future__ import annotations
@@ -30,16 +33,22 @@ import torch
 from ..data.dataset import ThzDataset
 from ..train.steps import make_multi_epoch_fn
 from .mesh import Mesh, batch_sharding, replicated
+from .tensor import param_partition_spec, shard_state_, state_shardings  # noqa: F401
 
 
-def shard_state(state, mesh: Mesh):
-    """Make every rank's ``state`` (a ``ForwardState`` or ``PiGanState``)
-    rank 0's, in place: its ``state_dict`` broadcast and loaded."""
+def shard_state(state, mesh: Mesh, min_shard_dim: int | None = None):
+    """Make every rank's ``state`` (a ``ForwardState`` or ``PiGanState``,
+    whole) rank 0's, in place: its ``state_dict`` broadcast and loaded; then,
+    on a model axis, this rank's part of it (``tensor.py:shard_state_``,
+    leaves of ``min_shard_dim`` and more split, default the mesh's)."""
     payload = {k: v.cpu() if isinstance(v, torch.Tensor) else v
                for k, v in state.state_dict().items()}
     payload = mesh.broadcast_object(payload)
     if mesh.rank != 0:
         state.load_state_dict_(payload)
+    if mesh.model > 1:
+        shard_state_(state, mesh, mesh.min_shard_dim if min_shard_dim is None
+                     else min_shard_dim)
     return state
 
 
@@ -58,10 +67,12 @@ def make_parallel_multi_epoch_fn(step_fn: Callable, batch_size: int, mesh: Mesh)
     """``train/steps.py:make_multi_epoch_fn`` over ranks:
     multi_epoch(state, ds, scales, indices=None, seeds=None, draws=None) ->
     (state, {key: (E,) per-epoch mean over the global batch}).  Each step
-    gets the global batch and this rank's ``BatchShard``; the rows are
-    averaged over the ranks.  A global batch that the world size does not
-    divide raises ``ValueError``."""
-    inner = make_multi_epoch_fn(step_fn, batch_size, shard=batch_sharding(mesh, batch_size))
+    gets the global batch and this rank's ``BatchShard`` of the data axis;
+    the rows are averaged over the data ranks.  A global batch that the
+    data axis does not divide raises ``ValueError``."""
+    # one data rank (a model axis alone) trains on the whole batch
+    shard = batch_sharding(mesh, batch_size) if mesh.data_size > 1 else None
+    inner = make_multi_epoch_fn(step_fn, batch_size, shard=shard)
 
     def multi_epoch(state, ds: ThzDataset, scales: Sequence[float] | torch.Tensor,
                     indices: torch.Tensor | None = None, seeds: torch.Tensor | None = None,

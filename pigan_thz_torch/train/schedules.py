@@ -307,11 +307,15 @@ class ClipAdam:
         state: AdamState,
         params: torch.Tensor,
         lr_scale: float | torch.Tensor | None = None,
+        sq_norm=None,
     ) -> None:
-        """One optimiser step, in place on ``params`` and ``state``."""
+        """One optimiser step, in place on ``params`` and ``state``.
+        ``sq_norm`` (g -> the squared global norm) stands in for Σg² where
+        ``grads`` is one rank's part of a gradient split over a model axis
+        (``parallel/tensor.py:ShardPlan.sq_norm``)."""
         g = grads
         if self.grad_clip > 0:
-            norm = torch.sqrt(torch.sum(g * g))
+            norm = torch.sqrt(torch.sum(g * g) if sq_norm is None else sq_norm(g))
             g = torch.where(norm < self.grad_clip, g, g / norm * self.grad_clip)
         m = (1.0 - self.b1) * g + self.b1 * state.m
         v = (1.0 - self.b2) * g * g + self.b2 * state.v

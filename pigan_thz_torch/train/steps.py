@@ -183,6 +183,13 @@ def _gradient(loss: torch.Tensor, params: list, shard, **kw) -> torch.Tensor:
     return flat if shard is None else shard.mean(flat)
 
 
+def _sq_norm(module: nn.Module):
+    """The clip's squared global norm of ``module``'s gradient where the
+    module is split over a model axis (``parallel/tensor.py``), else None."""
+    plan = getattr(module, "tp_plan", None)
+    return None if plan is None else plan.sq_norm
+
+
 def call_train_mode(model: nn.Module, masks: MaskFn, *inputs):
     """``model``'s train-mode forward with every dropout mask from ``masks``."""
     with dropout_masks(model, masks):
@@ -235,7 +242,7 @@ def make_forward_step(
         # heads the loss does not read (the uncertainty model's variances
         # without nll_w) take zero gradients, as jax.grad gives them
         flat = _gradient(total, params, shard, allow_unused=True, materialize_grads=True)
-        tx.update_(flat, state.opt, state.params, lr_scale)
+        tx.update_(flat, state.opt, state.params, lr_scale, sq_norm=_sq_norm(model))
         state.step += 1
         metrics = {"loss": total.detach(), "spectrum_loss": spec_l.detach(),
                    "metrics_loss": met_l.detach()}
@@ -382,7 +389,8 @@ def make_pigan_step(
             penalty = gradient_penalty() if wgan else None
             d_logits = call_train_mode(d, d_masks, cat_spec, cat_par)   # stores D's stats
             d_loss = d_loss_of(d_logits, penalty)
-            d_tx.update_(_gradient(d_loss, d_params, shard), state.d_opt, state.d_params)
+            d_tx.update_(_gradient(d_loss, d_params, shard), state.d_opt, state.d_params,
+                         sq_norm=_sq_norm(d))
         else:
             # skipped: forward only, D's parameters and optimiser untouched
             # (its batch_stats stored, as the JAX step's skip branch does);
@@ -454,7 +462,8 @@ def make_pigan_step(
                 cycled = squash(call_train_mode(g, g_masks, recon_spec))
             total = total + st.cycle_w * L.cycle_consistency_loss(pred_norm, cycled)
 
-        g_tx.update_(_gradient(total, g_params, shard), state.g_opt, state.g_params)
+        g_tx.update_(_gradient(total, g_params, shard), state.g_opt, state.g_params,
+                     sq_norm=_sq_norm(g))
         if st.ema_decay > 0.0:
             if state.g_ema is None:
                 raise ValueError(

@@ -43,7 +43,12 @@ eager step.  Every rank holds the whole dataset and a replica of the state
 (rank 0's, broadcast); the metric rows every decision reads (plateau,
 keep-best, early stop, snapshots, the programs' gates) are averaged over
 the ranks, so every rank takes the same one.  Rank 0 alone logs and writes
-checkpoints and artifacts, and the ranks then meet at a barrier.
+checkpoints and artifacts, and the ranks then meet at a barrier.  A mesh
+with a model axis (``make_mesh(data=D, model=M)``) splits every state's
+wide leaves over the M ranks of each data index and their layers' compute
+with them (``parallel/tensor.py``); the batch goes over the D data ranks.
+Checkpoints and ``save_final`` gather the split leaves first, so rank 0
+writes the world-1 files.
 
 The choice is logged.  A non-finite metric row or state raises
 ``FloatingPointError``.  It does not restore and retry on the eager path,
@@ -80,6 +85,7 @@ from ..models.registry import build_trio
 from ..ops.forward_train import make_forward_epoch_fn, resolve_draws, supports_forward_kernel
 from ..ops.gan_train import make_gan_epoch_fn, supports_gan_kernel
 from ..parallel.sharding import make_parallel_multi_epoch_fn, replicate_dataset, shard_state
+from ..parallel.tensor import gather_module, gather_state, reshard_into_
 from ..utils.logging import RunLogger
 from . import checkpoint as ckpt
 from .schedules import ReduceLROnPlateau, build_optimizer
@@ -226,9 +232,8 @@ class Trainer:
                              f"{', '.join(uncovered)} (engine='auto')")
             return False
         if reason is not None:
-            kind = NotImplementedError if "ROADMAP.md" in reason else ValueError
-            raise kind(f"engine={self.engine!r} but: {reason}; engine='eager' (--engine "
-                       f"eager) runs {what} on the eager PyTorch step")
+            raise ValueError(f"engine={self.engine!r} but: {reason}; engine='eager' (--engine "
+                             f"eager) runs {what} on the eager PyTorch step")
         where = "the CUDA kernel" if self.device.type == "cuda" else "its plain version"
         self._log_always(f"{what} through the {kernel} kernel ({where}), one launch per "
                          "chunk")
@@ -258,6 +263,11 @@ class Trainer:
             fn(*args, **kw)
         if self.mesh is not None:
             self.mesh.barrier()
+
+    def _whole(self, state):
+        """``state`` whole (on a model axis its split leaves gathered: every
+        rank calls this)."""
+        return state if self.mesh is None or self.mesh.model == 1 else gather_state(state)
 
     def _forward_epoch_fn(self, settings, tx, lr, epochs, schedule):
         """(multi-epoch fn, engine used) for this phase."""
@@ -490,7 +500,8 @@ class Trainer:
             if checkpoint_manager is not None:
                 self._rank0_writes(
                     checkpoint_manager.maybe_save,
-                    ckpt_base + epoch + chunk, self.forward_state, history=self.train_history,
+                    ckpt_base + epoch + chunk, self._whole(self.forward_state),
+                    history=self.train_history,
                     config=self.cfg,
                     extra={"plateau": plateau.state_dict()} if plateau is not None else None)
             epoch += chunk
@@ -507,13 +518,20 @@ class Trainer:
         copy of the pretrained one, or fresh when none was trained); on a
         later call refresh only the frozen F, unless ``fresh_gd``."""
         trained = self.forward_state.f if self.forward_state is not None else None
+        if trained is not None and self.mesh is not None and self.mesh.model > 1:
+            trained = gather_module(trained)        # whole: the new state splits it anew
         if self.pigan_state is None or fresh_gd:
             self.pigan_state = self._replicas(init_pigan_state(
                 self.generator, self.discriminator, trained or self.forward_model,
                 self.g_tx, self.d_tx, self.cfg.train.seed + 2000 + seed,
                 device=self.device, fresh_forward=trained is None))
         elif trained is not None:
-            self.pigan_state.set_forward_(trained)
+            if self.mesh is not None and self.mesh.model > 1:
+                whole = gather_state(self.pigan_state)
+                whole.set_forward_(trained)
+                reshard_into_(self.pigan_state, whole)
+            else:
+                self.pigan_state.set_forward_(trained)
         return self.pigan_state
 
     def train_pigan(
@@ -610,8 +628,8 @@ class Trainer:
             if checkpoint_manager is not None:
                 self._rank0_writes(
                     checkpoint_manager.maybe_save,
-                    ckpt_base + epoch + chunk, self.pigan_state, history=self.train_history,
-                    config=self.cfg)
+                    ckpt_base + epoch + chunk, self._whole(self.pigan_state),
+                    history=self.train_history, config=self.cfg)
             epoch += chunk
             self._progress("pigan", t_start, epoch, epochs)
         if snapshot_metric is not None and best_state is not None:
@@ -635,13 +653,17 @@ class Trainer:
         if which == "pigan":
             if self.pigan_state is None:
                 self.init_pigan()
-            step, _, meta = manager.restore_with_meta(self.pigan_state, epoch)
+            state = self.pigan_state
         elif which == "forward":
             if self.forward_state is None:
                 self.pretrain_forward(epochs=0)
-            step, _, meta = manager.restore_with_meta(self.forward_state, epoch)
+            state = self.forward_state
         else:
             raise ValueError(f"unknown target: {which!r}")
+        whole = self._whole(state)          # the files are the world-1 state's
+        step, _, meta = manager.restore_with_meta(whole, epoch)
+        if whole is not state and step is not None:
+            reshard_into_(state, whole)
         if step is None:
             return None
         if meta.get("history"):
@@ -717,14 +739,20 @@ class Trainer:
         ``generator_<tag>`` etc. beside the finals."""
         if self.pigan_state is None:
             raise ValueError("save_final: train or init_pigan first")
-        self._rank0_writes(self._save_final, directory, backup_tag)
+        forward = None
+        if self.forward_state is not None:
+            forward = self.forward_state.f
+            if self.mesh is not None and self.mesh.model > 1:
+                forward = gather_module(forward)
+        self._rank0_writes(self._save_final, directory, backup_tag,
+                           self._whole(self.pigan_state), forward)
 
-    def _save_final(self, directory: str, backup_tag: str | None) -> None:
-        ckpt.save_final_trio(directory, self.pigan_state, backup_tag=backup_tag)
+    def _save_final(self, directory: str, backup_tag: str | None, state, forward) -> None:
+        ckpt.save_final_trio(directory, state, backup_tag=backup_tag)
         ckpt.save_model_config(directory, self.cfg)
         ckpt.save_train_history(directory, self.train_history)
-        if self.forward_state is not None:
-            ckpt.save_model(directory, ckpt.FORWARD_MODEL_PRETRAINED, self.forward_state.f)
+        if forward is not None:
+            ckpt.save_model(directory, ckpt.FORWARD_MODEL_PRETRAINED, forward)
 
     def load_final(self, directory: str) -> None:
         """Load the final artifacts (the reference's ``.pth`` layout, bare

@@ -1,4 +1,5 @@
 from .logging import RunLogger
+from .seed import set_seed
 from .tensorboard import TfEventsWriter
 
-__all__ = ["RunLogger", "TfEventsWriter"]
+__all__ = ["RunLogger", "TfEventsWriter", "set_seed"]

@@ -409,9 +409,16 @@ def test_trainer_over_two_ranks_matches_world1(runs):
 
 
 def test_trainer_refusals_under_a_mesh(runs):
+    """The kernel engine and an indivisible batch are refused; the two ranks
+    as a model axis (make_mesh(data=1, model=2), F's 32 -> 48 layer split
+    24 a rank) train 3 + 3 epochs within EPOCHS_RTOL of world 1."""
     out = runs["ranks"][2][0]
     assert "engine='kernel' is incompatible with mesh" in out["kernel_refused"]
-    assert "ROADMAP.md queue 1, item 14" in out["model_refused"]
+    assert out["model_axis_shape"] == (24, 32)
+    h1 = runs["w1"]["trainer_history"]
+    for k in h1:
+        np.testing.assert_allclose(out["model_axis_history"][k], h1[k], rtol=EPOCHS_RTOL,
+                                   atol=1e-6, err_msg=k)
     assert "not divisible by the 3 ranks" in runs["ranks"][3][0]["indivisible"]
 
 

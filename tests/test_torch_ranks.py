@@ -193,10 +193,14 @@ def trainer_case(inp: dict, mesh, workdir: str) -> dict:
                     mesh=mesh).pretrain_forward(epochs=1)
         except ValueError as e:
             out["kernel_refused"] = str(e)
-        try:
-            mesh_mod.make_mesh(model=2)
-        except NotImplementedError as e:
-            out["model_refused"] = str(e)
+        if mesh.size == 2:
+            # the two ranks as a model axis: the same training, its wide
+            # layers split over the ranks (every hidden layer at 16)
+            tp_mesh = mesh_mod.make_mesh(data=1, model=2, min_shard_dim=16)
+            t = Trainer(cfg, ds=dataset(inp), epochs_per_call=2, engine="auto", device="cpu",
+                        mesh=tp_mesh)
+            out["model_axis_history"] = t.train(mode="full", forward_epochs=3, gan_epochs=3)
+            out["model_axis_shape"] = tuple(t.pigan_state.f.model[8].weight.shape)
     return out
 
 
