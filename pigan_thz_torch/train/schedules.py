@@ -319,9 +319,11 @@ class ClipAdam:
             g = torch.where(norm < self.grad_clip, g, g / norm * self.grad_clip)
         m = (1.0 - self.b1) * g + self.b1 * state.m
         v = (1.0 - self.b2) * g * g + self.b2 * state.v
-        t = torch.tensor(state.count + 1, dtype=torch.float32)
-        bc1 = 1.0 - torch.pow(torch.tensor(self.b1, dtype=torch.float32), t)
-        bc2 = 1.0 - torch.pow(torch.tensor(self.b2, dtype=torch.float32), t)
+        # in the buffer's dtype: float32 as optax computes them, float64 for
+        # a float64 buffer (tests/test_torch_reference_run.py's audit)
+        t = torch.tensor(state.count + 1, dtype=params.dtype)
+        bc1 = 1.0 - torch.pow(torch.tensor(self.b1, dtype=params.dtype), t)
+        bc2 = 1.0 - torch.pow(torch.tensor(self.b2, dtype=params.dtype), t)
         dev = params.device
         upd = (m / bc1.to(dev)) / (torch.sqrt(v / bc2.to(dev)) + self.eps)
         if self.state_dtype == "bfloat16":
