@@ -800,13 +800,15 @@ def cmd_cache_data(args) -> int:
 
 def cmd_profile(args) -> int:
     """A ``torch.profiler`` trace of the PI-GAN multi-epoch function the
-    engine rule picks, and a warm-up-aware throughput and memory report."""
+    engine rule picks, a warm-up-aware throughput and memory report, and the
+    program's spans and counters inside the trace."""
     cfg = _make_cfg(args)
     device = _device(args)
     from .ops._cuda_build import launch_counts
     from .train.steps import StepSettings
     from .train.trainer import Trainer
-    from .utils.profiling import TRACE_FILE, StepTimer, device_memory_stats, trace
+    from .utils.profiling import (TRACE_FILE, StepTimer, device_memory_stats, reset,
+                                  snapshot, span_table, trace)
 
     trainer = Trainer(cfg, csv_path=args.csv, device=device, engine=args.engine)
     state = trainer.init_pigan()
@@ -821,6 +823,7 @@ def cmd_profile(args) -> int:
     timer = StepTimer(warmup=1)
     trace_dir = args.trace_dir or os.path.join(cfg.workdir, "trace")
     before = launch_counts()
+    reset()
     with trace(trace_dir):
         for _ in range(args.repeats):
             state, m = multi(state, trainer.ds, ones)
@@ -836,6 +839,7 @@ def cmd_profile(args) -> int:
         "launches": launches,
     }
     print(json.dumps(report, indent=2))
+    print(span_table(snapshot()))
     print(f"open {os.path.join(trace_dir, TRACE_FILE)} in a Chrome-trace viewer (Perfetto)")
     return 0
 

@@ -165,6 +165,8 @@ long long g_kernels_enqueued = 0;
 // Of those, the batch-row products launched through brow_gemm.cuh
 // (pigan_forward_brow_kernels_enqueued).
 long long g_brow_enqueued = 0;
+// The host time of that call's first launches (pigan_forward_head_*).
+EnqueueHead g_head;
 
 }  // namespace
 
@@ -174,6 +176,10 @@ extern "C" {
 // process enqueued, and of those the batch-row products (brow_gemm.cuh).
 long long pigan_forward_kernels_enqueued() { return g_kernels_enqueued; }
 long long pigan_forward_brow_kernels_enqueued() { return g_brow_enqueued; }
+// Of those, the launches of the call's enqueue head (train_common.cuh) and
+// the host nanoseconds it took.
+long long pigan_forward_head_kernels() { return g_head.kernels; }
+long long pigan_forward_head_ns() { return g_head.ns; }
 
 // T training steps over the flat state in place.
 //   params, m, v   (P,) device, updated
@@ -293,7 +299,9 @@ int pigan_forward_train(float* params, float* m, float* v, const float* x,
   const bool rnd = bf16 != 0;
   const PerIn none;
 
+  g_head.start();
   for (int t = 0; t < T; ++t) {
+    g_head.at_step(g_kernels_enqueued);
     const float* xt = x + (long long)t * B * dims[0];
     const float* spec_t = spec + (long long)t * B * S;
     const float* met_t = met + (long long)t * B * Mdim;
@@ -383,6 +391,7 @@ int pigan_forward_train(float* params, float* m, float* v, const float* x,
     adam_update<<<kAdamBlocks, kThreads, 0, st>>>(params, m, v, grad, P, partial, ak);
     CHECK_LAUNCH();
   }
+  g_head.finish(g_kernels_enqueued);
 #undef BROW
 #undef GEMM
 #undef CHECK_LAUNCH

@@ -732,6 +732,8 @@ long long g_kernels_enqueued = 0;
 // Of those, the batch-row products launched through brow_gemm.cuh
 // (pigan_brow_kernels_enqueued).
 long long g_brow_enqueued = 0;
+// The host time of that call's first launches (pigan_gan_head_*).
+EnqueueHead g_head;
 
 inline int blocks_for(long long n, int threads, int cap = 1024) {
   long long b = (n + threads - 1) / threads;
@@ -998,7 +1000,9 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
     return 0;
   };
 
+  g_head.start();
   for (int t = 0; t < T; ++t) {
+    g_head.at_step(g_kernels_enqueued);
     const PerIn spec_t = spectra + (long long)t * B * S;
     const PerIn par_t = params + (long long)t * B * 4;
     const PerIn met_t = met + (long long)t * B * 8;
@@ -1236,6 +1240,7 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
       CHECK_LAUNCH();
     }
   }
+  g_head.finish(g_kernels_enqueued);
 #undef BGEMM
 #undef BMM
 #undef MM_ACC
@@ -1262,6 +1267,11 @@ long long pigan_gan_kernels_enqueued() { return g_kernels_enqueued; }
 
 // Of those, the batch-row products (brow_gemm.cuh).
 long long pigan_brow_kernels_enqueued() { return g_brow_enqueued; }
+
+// Of those, the launches of the call's enqueue head (train_common.cuh) and
+// the host nanoseconds it took.
+long long pigan_gan_head_kernels() { return g_head.kernels; }
+long long pigan_gan_head_ns() { return g_head.ns; }
 
 // The plan of one batch-row product on a card of `sms` SMs: out[0] the
 // cluster size S, out[1] the row tiles, out[2] the column tiles, out[3] the

@@ -33,6 +33,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <chrono>
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -42,6 +44,35 @@ constexpr int kNormParts = 256;     // blocks of the first norm pass
 constexpr int kAdamBlocks = 264;    // 2 per SM on an H100
 constexpr int kBK = 16;             // depth of a GEMM tile
 static_assert(kNormParts == kThreads, "adam_update reduces one partial per thread");
+
+// The enqueue head of a training C loop: the host clock from the loop's start
+// to the first step boundary at which kHeadKernels launches are enqueued (to
+// the loop's end if it enqueues fewer).  A chunk starts on an idle card, and
+// the card's launch queue holds more than kHeadKernels launches, so no launch
+// of the head waits for a free slot: its time is the host's own cost of the
+// launches, where the whole loop, once the queue is full, runs at the card's
+// pace.  Two clock reads a loop.
+constexpr long long kHeadKernels = 512;
+
+struct EnqueueHead {
+  std::chrono::steady_clock::time_point t0;
+  long long kernels = 0;   // launches in the head
+  long long ns = 0;        // host nanoseconds the head took
+
+  void start() {
+    kernels = ns = 0;
+    t0 = std::chrono::steady_clock::now();
+  }
+  void at_step(long long enqueued) {
+    if (kernels == 0 && enqueued >= kHeadKernels) finish(enqueued);
+  }
+  void finish(long long enqueued) {
+    if (kernels != 0 || enqueued == 0) return;
+    kernels = enqueued;
+    ns = std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::steady_clock::now() - t0).count();
+  }
+};
 
 template <typename T>
 struct Per {

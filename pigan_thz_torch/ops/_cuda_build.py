@@ -100,7 +100,9 @@ ENTRY_POINTS = {
     ],
 }
 COUNTERS = ("pigan_gan_kernels_enqueued", "pigan_brow_kernels_enqueued",
-            "pigan_forward_kernels_enqueued", "pigan_forward_brow_kernels_enqueued")
+            "pigan_gan_head_kernels", "pigan_gan_head_ns",
+            "pigan_forward_kernels_enqueued", "pigan_forward_brow_kernels_enqueued",
+            "pigan_forward_head_kernels", "pigan_forward_head_ns")
 
 
 def source_hash() -> str:

@@ -37,8 +37,9 @@ bfloat16 operands).  The input layer (depth 4) and the six weight gradients
 (depth B, output tiles enough) stay on the tiled SGEMM of
 ``train_common.cuh``.  Nothing retries elsewhere: a cluster launch the card
 refuses is an error of the call.  The C loop counts what it enqueues
-(``kernels_enqueued``, ``brow_kernels_enqueued``); the wrapper adds the
-batch-row launches to ``BROW_LAUNCHES["brow_gemm"]``.
+(``kernels_enqueued``, ``brow_kernels_enqueued``) and times the first of
+them (``enqueue_head``); the wrapper adds the batch-row launches to
+``BROW_LAUNCHES["brow_gemm"]``.
 
 Everything the kernel reads besides the state is built outside it, as the
 TPU kernel's prologue ``_streams`` builds it: the gathered batches of every
@@ -70,6 +71,7 @@ import torch
 
 from ..config import PiGanConfig
 from ..data.dataset import ThzDataset, epoch_indices
+from ..utils.profiling import span
 from ._cuda_build import BROW_LAUNCHES, LAUNCHES, check_capability, launch, load_library
 from .brow import BrowProduct, bf16_rounder, brow_plan
 
@@ -603,6 +605,25 @@ def brow_kernels_enqueued() -> int:
     return int(load_library().pigan_forward_brow_kernels_enqueued())
 
 
+def enqueue_head() -> tuple[int, int]:
+    """Of ``kernels_enqueued()``, the launches of the C loop's enqueue head
+    (``csrc/train_common.cuh:EnqueueHead``: the first 512 or more, whole
+    steps, before the card's launch queue can fill) and the host nanoseconds
+    they took."""
+    lib = load_library()
+    return int(lib.pigan_forward_head_kernels()), int(lib.pigan_forward_head_ns())
+
+
+def _launch_attrs(rows: torch.Tensor) -> dict:
+    """The ``pigan.train.launch`` span's attributes of the launch that
+    returned ``rows``: the kernels the C loop enqueued and its enqueue head;
+    all 0 where the plain version ran or no step did."""
+    if not (rows.is_cuda and rows.shape[-2]):
+        return {"kernels": 0, "head_kernels": 0, "head_ns": 0}
+    head_kernels, head_ns = enqueue_head()
+    return {"kernels": kernels_enqueued(), "head_kernels": head_kernels, "head_ns": head_ns}
+
+
 def brow_products(spec: ForwardTrainSpec, batch: int) -> list[BrowProduct]:
     """The batch-row products one step of ``csrc/forward_train.cu`` launches
     through ``brow_gemm.cuh``, in its order: the forward products of hidden
@@ -674,11 +695,16 @@ def make_forward_epoch_fn(cfg: PiGanConfig, fsettings, lr: float | None = None,
         scales = torch.as_tensor(scales, dtype=torch.float32).reshape(-1)
         epochs = int(scales.numel())
         spe = max(1, ds.num_samples // batch)
-        indices, seeds = resolve_draws(state.generator, ds.num_samples, batch,
-                                       epochs, indices, seeds)
+        with span("pigan.train.draws"):
+            indices, seeds = resolve_draws(state.generator, ds.num_samples, batch,
+                                           epochs, indices, seeds)
         sched_fn = make_schedule(schedule, base_lr, horizon, spe, schedule_alpha=0.0)
-        streams = build_streams(ds, indices, seeds, scales, state.opt.count, sched_fn)
-        rows = forward_train(state.params, state.opt.m, state.opt.v, streams, spec)
+        with span("pigan.train.streams"):
+            streams = build_streams(ds, indices, seeds, scales, state.opt.count, sched_fn)
+        with span("pigan.train.launch") as launched:
+            rows = forward_train(state.params, state.opt.m, state.opt.v, streams, spec)
+            if launched.on:
+                launched.set(**_launch_attrs(rows))
         steps = epochs * spe
         state.step += steps
         state.opt.count += steps

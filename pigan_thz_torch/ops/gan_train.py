@@ -124,6 +124,7 @@ import torch
 
 from ..config import PiGanConfig
 from ..data.dataset import ThzDataset
+from ..utils.profiling import span
 from ._cuda_build import BROW_LAUNCHES, LAUNCHES, check_capability, launch
 from .brow import (  # noqa: F401  (re-exported: gan_train.brow_* as before)
     BROW_MAX_SPLIT, BROW_MIN_DEPTH, BROW_STAGES, BROW_TILE, H100_SMS, BrowPlan, BrowProduct,
@@ -1144,6 +1145,27 @@ def kernels_enqueued() -> int:
     return int(load_library().pigan_gan_kernels_enqueued())
 
 
+def enqueue_head() -> tuple[int, int]:
+    """Of ``kernels_enqueued()``, the launches of the C loop's enqueue head
+    (``csrc/train_common.cuh:EnqueueHead``: the first 512 or more, whole
+    steps, before the card's launch queue can fill) and the host nanoseconds
+    they took."""
+    from ._cuda_build import load_library
+
+    lib = load_library()
+    return int(lib.pigan_gan_head_kernels()), int(lib.pigan_gan_head_ns())
+
+
+def _launch_attrs(rows: torch.Tensor) -> dict:
+    """The ``pigan.train.launch`` span's attributes of the launch that
+    returned ``rows``: the kernels the C loop enqueued and its enqueue head;
+    all 0 where the plain version ran or no step did."""
+    if not (rows.is_cuda and rows.shape[-2]):
+        return {"kernels": 0, "head_kernels": 0, "head_ns": 0}
+    head_kernels, head_ns = enqueue_head()
+    return {"kernels": kernels_enqueued(), "head_kernels": head_kernels, "head_ns": head_ns}
+
+
 def _state_pointers(bufs: GanBuffers) -> list[int]:
     return [t.data_ptr() for t in (bufs.g, bufs.g_m, bufs.g_v, bufs.d, bufs.d_m, bufs.d_v,
                                    *bufs.bn)]
@@ -1382,14 +1404,19 @@ def make_gan_epoch_fn(cfg: PiGanConfig, settings, *, lr_g: float | None = None,
         scales = torch.as_tensor(scales, dtype=torch.float32).reshape(-1)
         epochs = int(scales.numel())
         spe = max(1, ds.num_samples // batch)
-        indices, seeds = resolve_draws(state.generator, ds.num_samples, batch, epochs,
-                                       indices, seeds)
-        streams = build_streams(ds, indices, scales, state.step, state.g_opt.count,
-                                state.d_opt.count, k_d, g_sched_of(spe), d_sched_of(spe),
-                                settings=settings, seeds=seeds, draws=draws)
+        with span("pigan.train.draws"):
+            indices, seeds = resolve_draws(state.generator, ds.num_samples, batch, epochs,
+                                           indices, seeds)
+        with span("pigan.train.streams"):
+            streams = build_streams(ds, indices, scales, state.step, state.g_opt.count,
+                                    state.d_opt.count, k_d, g_sched_of(spe), d_sched_of(spe),
+                                    settings=settings, seeds=seeds, draws=draws)
         for bn in state.batch_norms():
             bn.num_batches_tracked += epochs * spe
-        rows = gan_train(state_buffers(state), streams, spec)
+        with span("pigan.train.launch") as launched:
+            rows = gan_train(state_buffers(state), streams, spec)
+            if launched.on:
+                launched.set(**_launch_attrs(rows))
         steps = epochs * spe
         state.step += steps
         state.g_opt.count += steps
@@ -1470,18 +1497,23 @@ def make_gan_ensemble_fn(cfg: PiGanConfig, settings, num_members: int):
             seeds = torch.as_tensor(seeds, dtype=torch.int64).cpu()
             if seeds.ndim == 1:
                 seeds = seeds.expand(count, -1)
-        drawn = [resolve_draws(st.generator, ds.num_samples, batch, epochs,
-                               None if indices is None else indices[m],
-                               None if seeds is None else seeds[m])
-                 for m, st in enumerate(states)]
-        indices = torch.stack([d[0] for d in drawn])
-        streams = build_streams(
-            ds, indices, scales, first.step, first.g_opt.count,
-            first.d_opt.count, k_d,
-            cosine_schedule(cfg.train.lr_g, cfg.train.num_epochs, spe, 0.01),
-            step_schedule(cfg.train.lr_d, cfg.train.num_epochs, spe, 0.5, 0.25),
-            settings=settings, seeds=torch.stack([d[1] for d in drawn]), draws=draws)
-        rows = gan_ensemble_train(ensemble_buffers(states), streams, spec)
+        with span("pigan.train.draws"):
+            drawn = [resolve_draws(st.generator, ds.num_samples, batch, epochs,
+                                   None if indices is None else indices[m],
+                                   None if seeds is None else seeds[m])
+                     for m, st in enumerate(states)]
+            indices = torch.stack([d[0] for d in drawn])
+        with span("pigan.train.streams"):
+            streams = build_streams(
+                ds, indices, scales, first.step, first.g_opt.count,
+                first.d_opt.count, k_d,
+                cosine_schedule(cfg.train.lr_g, cfg.train.num_epochs, spe, 0.01),
+                step_schedule(cfg.train.lr_d, cfg.train.num_epochs, spe, 0.5, 0.25),
+                settings=settings, seeds=torch.stack([d[1] for d in drawn]), draws=draws)
+        with span("pigan.train.launch", members=count) as launched:
+            rows = gan_ensemble_train(ensemble_buffers(states), streams, spec)
+            if launched.on:
+                launched.set(**_launch_attrs(rows))
         steps = epochs * spe
         d_steps = int(streams.sched[:, 6].sum())
         for st in states:

@@ -51,6 +51,7 @@ from ..ops.forward_train import resolve_draws
 from ..ops.gan_train import make_gan_ensemble_fn, make_gan_epoch_fn
 from ..train.state import init_pigan_state, make_optimizers
 from ..train.steps import StepSettings
+from ..utils.profiling import HOST_SYNCS, count, span
 from .ensemble import (EnsembleSettings, evaluate_ensemble, evaluate_ensemble_mean,
                        init_ensemble_states, make_ensemble_multi_epoch_fn,
                        make_ensemble_pigan_step, member_generator, weight_vector)
@@ -108,9 +109,16 @@ def _datasets(ds: ThzDataset, devices) -> dict:
 
 def _check_finite(chunk_rows: Sequence[dict], states, epoch: int) -> None:
     """One chunk's rows of every member and the states they left, as the
-    Trainer checks its chunks."""
-    rows = torch.cat([torch.stack(list(m.values())).reshape(-1).cpu() for m in chunk_rows])
-    if not bool(torch.isfinite(rows).all()) or not all(st.is_finite() for st in states):
+    Trainer checks its chunks: one transfer a member, then the check."""
+    with span("pigan.train.transfer"):
+        host = []
+        for m in chunk_rows:
+            host.append(torch.stack(list(m.values())).reshape(-1).cpu())
+            count(HOST_SYNCS)
+        rows = torch.cat(host)
+    with span("pigan.train.check"):
+        finite = bool(torch.isfinite(rows).all()) and all(st.is_finite() for st in states)
+    if not finite:
         raise FloatingPointError(
             f"non-finite metric rows or state after the chunk at epoch {epoch}: "
             "training diverged")
@@ -198,18 +206,19 @@ def train_seed_ensemble(
     off = 0
     for n_epochs in chunks:
         part = scales[off:off + n_epochs]
-        if packed:
-            for dev, members in groups.items():
-                by_dev[dev], rows = fns[len(members)](by_dev[dev], ds_by_dev[dev], part)
-                for i, m in zip(members, rows):
+        with span("pigan.train.chunk", what="ensemble", epochs=n_epochs, at=off):
+            if packed:
+                for dev, members in groups.items():
+                    by_dev[dev], rows = fns[len(members)](by_dev[dev], ds_by_dev[dev], part)
+                    for i, m in zip(members, rows):
+                        member_metrics[i].append(m)
+                states = list(by_dev.values())
+            else:
+                for i, dev in enumerate(used):
+                    solo[i], m = fn(solo[i], ds_by_dev[dev], part)
                     member_metrics[i].append(m)
-            states = list(by_dev.values())
-        else:
-            for i, dev in enumerate(used):
-                solo[i], m = fn(solo[i], ds_by_dev[dev], part)
-                member_metrics[i].append(m)
-            states = solo
-        _check_finite([mm[-1] for mm in member_metrics], states, off)
+                states = solo
+            _check_finite([mm[-1] for mm in member_metrics], states, off)
         off += n_epochs
 
     if packed and len(by_dev) == 1:

@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from ..train.state import PiGanState, bind_flat_
+from ..utils.profiling import host_bool
 
 
 @dataclass(frozen=True)
@@ -92,7 +93,7 @@ class EnsembleState:
                    *self.bn]
         if self.g_ema is not None:
             tensors.append(self.g_ema)
-        return all(bool(torch.isfinite(t).all()) for t in tensors)
+        return all(host_bool(torch.isfinite(t).all()) for t in tensors)
 
 
 def _rows(like: torch.Tensor, count: int, device) -> torch.Tensor:

@@ -70,6 +70,7 @@ from .ops.quantized import (
     quantize_forward,
     quantize_generator,
 )
+from .utils import profiling
 
 InverseDesignFn = Callable[
     [torch.Tensor], tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -188,8 +189,10 @@ class Designer(nn.Module):
     def forward(self, spectra: torch.Tensor):
         # the stages' forward, not __call__: the hook machinery costs the
         # host a few µs a module, which shows in a request's latency at B = 1
-        pn = self.generator.forward(spectra)
-        spec, met = self.surrogate.forward(pn)
+        with profiling.span("pigan.serve.gen_stage"):
+            pn = self.generator.forward(spectra)
+        with profiling.span("pigan.serve.fwd_stage", follows=True):
+            spec, met = self.surrogate.forward(pn)
         return denormalize_params(pn, self.lo, self.hi), spec, met
 
 

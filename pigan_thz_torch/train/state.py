@@ -41,6 +41,7 @@ from torch import nn
 
 from ..config import PiGanConfig
 from ..models.blocks import flax_init_
+from ..utils.profiling import host_bool
 from .schedules import AdamState, ClipAdam, build_optimizer
 
 
@@ -126,7 +127,7 @@ class ForwardState:
 
     def is_finite(self) -> bool:
         """True iff parameters and both moments are all finite."""
-        return bool(
+        return host_bool(
             torch.isfinite(self.params).all()
             & torch.isfinite(self.opt.m).all()
             & torch.isfinite(self.opt.v).all()
@@ -228,7 +229,7 @@ class PiGanState:
         tensors += [t for m in (self.g, self.d) for t in m.buffers() if t.is_floating_point()]
         if self.g_ema is not None:
             tensors.append(self.g_ema)
-        return all(bool(torch.isfinite(t).all()) for t in tensors)
+        return all(host_bool(torch.isfinite(t).all()) for t in tensors)
 
     def state_dict(self) -> dict:
         """The step, G's, D's and F's flat buffers, both Adams' m, v and

@@ -87,6 +87,7 @@ from ..ops.gan_train import make_gan_epoch_fn, supports_gan_kernel
 from ..parallel.sharding import make_parallel_multi_epoch_fn, replicate_dataset, shard_state
 from ..parallel.tensor import gather_module, gather_state, reshard_into_
 from ..utils.logging import RunLogger
+from ..utils.profiling import HOST_SYNCS, count, span
 from . import checkpoint as ckpt
 from .schedules import ReduceLROnPlateau, build_optimizer
 from .state import (
@@ -309,25 +310,31 @@ class Trainer:
         {key: [per-epoch floats]}), with one host transfer.  A non-finite
         state raises ``FloatingPointError``; on the kernel engine (``eager``
         given) a due shadow replay that disagrees raises ``RuntimeError``."""
-        replay = None
-        if eager is not None and self._shadow_due(what):
-            # the chunk's draws as the kernel's function would draw them, so
-            # that the state's generator ends where it ends without a replay
-            indices, seeds = resolve_draws(state.generator, self.ds.num_samples,
-                                           self.cfg.train.batch_size, int(scales.numel()))
-            replay = (state.clone(), indices, seeds)   # the kernel updates in place
-            state, ms = fn(state, self.ds, scales, indices, seeds)
-        else:
-            state, ms = fn(state, self.ds, scales)
-        host = torch.stack([ms[k] for k in ms]).cpu()        # one transfer
-        rows = {k: host[j].tolist() for j, k in enumerate(ms)}
-        if not state.is_finite():
-            raise FloatingPointError(
-                f"non-finite {what} state after the chunk at epoch {at} "
-                f"({'kernel' if eager is not None else 'eager'} engine)")
-        # a non-finite row raises in _record, before a replay could mistake it
-        if replay is not None and all(math.isfinite(x) for v in rows.values() for x in v):
-            self._shadow_replay(what, eager, *replay, scales, rows, at)
+        with span("pigan.train.chunk", what=what, epochs=int(scales.numel()), at=at):
+            replay = None
+            if eager is not None and self._shadow_due(what):
+                # the chunk's draws as the kernel's function would draw them, so
+                # that the state's generator ends where it ends without a replay
+                indices, seeds = resolve_draws(state.generator, self.ds.num_samples,
+                                               self.cfg.train.batch_size, int(scales.numel()))
+                replay = (state.clone(), indices, seeds)   # the kernel updates in place
+                state, ms = fn(state, self.ds, scales, indices, seeds)
+            else:
+                state, ms = fn(state, self.ds, scales)
+            with span("pigan.train.transfer"):
+                host = torch.stack([ms[k] for k in ms]).cpu()        # one transfer
+                count(HOST_SYNCS)
+            rows = {k: host[j].tolist() for j, k in enumerate(ms)}
+            with span("pigan.train.check"):
+                finite = state.is_finite()
+            if not finite:
+                raise FloatingPointError(
+                    f"non-finite {what} state after the chunk at epoch {at} "
+                    f"({'kernel' if eager is not None else 'eager'} engine)")
+            # a non-finite row raises in _record, before a replay could mistake it
+            if replay is not None and all(math.isfinite(x) for v in rows.values() for x in v):
+                with span("pigan.train.replay"):
+                    self._shadow_replay(what, eager, *replay, scales, rows, at)
         return state, rows
 
     def _shadow_replay(self, what: str, eager, backup, indices, seeds, scales, rows, at):
@@ -472,40 +479,41 @@ class Trainer:
             self.forward_state, rows = self._run_chunk(
                 "forward", multi_epoch, eager, self.forward_state,
                 torch.full((chunk,), lr_scale), epoch)
-            improved_in_chunk = False
-            for j in range(chunk):
-                e = epoch + j
-                m = {k: v[j] for k, v in rows.items()}
-                if plateau is not None:
-                    before = plateau.num_reductions
-                    plateau.step(m["loss"])
-                    if plateau.num_reductions != before:
-                        self._log(f"[forward] plateau: LR scale -> {plateau.scale:g} at "
-                                  f"epoch {e + 1} (applies next chunk)")
-                    m = dict(m, lr_scale=lr_scale)
-                self._record(m, "forward/", e)
-                if (e + 1) % log_every == 0:
-                    self._log(f"[forward] epoch {e + 1}/{epochs} loss={m['loss']:.6f}")
-                if m["loss"] < best_loss - 1e-7:
-                    best_loss, bad_epochs = m["loss"], 0
-                    improved_in_chunk = True
-                else:
-                    bad_epochs += 1
-                    if early_stop_patience and bad_epochs >= early_stop_patience:
-                        self._log(f"[forward] early stop at epoch {e + 1}")
-                        stop = True
-                        break
-            if keep_best and improved_in_chunk:
-                best_state = self.forward_state.clone()     # chunk granularity
-            if checkpoint_manager is not None:
-                self._rank0_writes(
-                    checkpoint_manager.maybe_save,
-                    ckpt_base + epoch + chunk, self._whole(self.forward_state),
-                    history=self.train_history,
-                    config=self.cfg,
-                    extra={"plateau": plateau.state_dict()} if plateau is not None else None)
-            epoch += chunk
-            self._progress("forward", t_start, epoch, epochs)
+            with span("pigan.train.record", follows=True):
+                improved_in_chunk = False
+                for j in range(chunk):
+                    e = epoch + j
+                    m = {k: v[j] for k, v in rows.items()}
+                    if plateau is not None:
+                        before = plateau.num_reductions
+                        plateau.step(m["loss"])
+                        if plateau.num_reductions != before:
+                            self._log(f"[forward] plateau: LR scale -> {plateau.scale:g} at "
+                                      f"epoch {e + 1} (applies next chunk)")
+                        m = dict(m, lr_scale=lr_scale)
+                    self._record(m, "forward/", e)
+                    if (e + 1) % log_every == 0:
+                        self._log(f"[forward] epoch {e + 1}/{epochs} loss={m['loss']:.6f}")
+                    if m["loss"] < best_loss - 1e-7:
+                        best_loss, bad_epochs = m["loss"], 0
+                        improved_in_chunk = True
+                    else:
+                        bad_epochs += 1
+                        if early_stop_patience and bad_epochs >= early_stop_patience:
+                            self._log(f"[forward] early stop at epoch {e + 1}")
+                            stop = True
+                            break
+                if keep_best and improved_in_chunk:
+                    best_state = self.forward_state.clone()     # chunk granularity
+                if checkpoint_manager is not None:
+                    self._rank0_writes(
+                        checkpoint_manager.maybe_save,
+                        ckpt_base + epoch + chunk, self._whole(self.forward_state),
+                        history=self.train_history,
+                        config=self.cfg,
+                        extra={"plateau": plateau.state_dict()} if plateau is not None else None)
+                epoch += chunk
+                self._progress("forward", t_start, epoch, epochs)
         if keep_best and best_state is not None:
             self.forward_state = best_state
         return self.train_history
@@ -606,32 +614,33 @@ class Trainer:
                  for j in range(chunk)], dtype=torch.float32)
             self.pigan_state, rows = self._run_chunk(
                 "pigan", multi_epoch, eager, self.pigan_state, scales, epoch)
-            chunk_has_best = False
-            for j in range(chunk):
-                e = epoch + j
-                m = {k: v[j] for k, v in rows.items()}
-                self._record(m, "pigan/", e)
-                if (e + 1) % log_every == 0:
-                    self._log(f"[pigan] epoch {e + 1}/{epochs} D={m['d_loss']:.4f} "
-                              f"G={m['g_loss']:.4f} viol={m['violation_rate']:.3f}")
-                if snapshot_metric is not None:
-                    val = m[snapshot_metric]
-                    if (best_val is None or (snapshot_mode == "min" and val < best_val)
-                            or (snapshot_mode == "max" and val > best_val)):
-                        best_val, chunk_has_best = val, True
-                if early_stop is not None and early_stop(m):
-                    self._log(f"[pigan] early stop at epoch {e + 1}")
-                    stop = True
-                    break
-            if chunk_has_best:
-                best_state = self.pigan_state.clone()       # chunk granularity
-            if checkpoint_manager is not None:
-                self._rank0_writes(
-                    checkpoint_manager.maybe_save,
-                    ckpt_base + epoch + chunk, self._whole(self.pigan_state),
-                    history=self.train_history, config=self.cfg)
-            epoch += chunk
-            self._progress("pigan", t_start, epoch, epochs)
+            with span("pigan.train.record", follows=True):
+                chunk_has_best = False
+                for j in range(chunk):
+                    e = epoch + j
+                    m = {k: v[j] for k, v in rows.items()}
+                    self._record(m, "pigan/", e)
+                    if (e + 1) % log_every == 0:
+                        self._log(f"[pigan] epoch {e + 1}/{epochs} D={m['d_loss']:.4f} "
+                                  f"G={m['g_loss']:.4f} viol={m['violation_rate']:.3f}")
+                    if snapshot_metric is not None:
+                        val = m[snapshot_metric]
+                        if (best_val is None or (snapshot_mode == "min" and val < best_val)
+                                or (snapshot_mode == "max" and val > best_val)):
+                            best_val, chunk_has_best = val, True
+                    if early_stop is not None and early_stop(m):
+                        self._log(f"[pigan] early stop at epoch {e + 1}")
+                        stop = True
+                        break
+                if chunk_has_best:
+                    best_state = self.pigan_state.clone()       # chunk granularity
+                if checkpoint_manager is not None:
+                    self._rank0_writes(
+                        checkpoint_manager.maybe_save,
+                        ckpt_base + epoch + chunk, self._whole(self.pigan_state),
+                        history=self.train_history, config=self.cfg)
+                epoch += chunk
+                self._progress("pigan", t_start, epoch, epochs)
         if snapshot_metric is not None and best_state is not None:
             self.pigan_state = best_state
             self._log(f"[pigan] restored best snapshot ({snapshot_metric}={best_val:.4f})")

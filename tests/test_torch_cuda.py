@@ -34,6 +34,7 @@ run and raises on a planted first-epoch fault.
 """
 
 import copy
+import time
 
 import pytest
 import torch
@@ -1227,6 +1228,32 @@ def test_gan_kernel_enqueues_the_launches_a_step_it_says(case, per_step, dev, tr
         **K2_PATHS[case], "ema_decay": 0.0})
     gt.gan_ensemble_train(gt.ensemble_buffers(ens), estreams, spec)
     assert gt.kernels_enqueued() == per_step * 15
+
+
+def test_the_c_loops_time_their_enqueue_head(dev, train_ds, trained_f):
+    """Each C loop's enqueue head (``train_common.cuh:EnqueueHead``): the
+    launches up to the first step boundary at or past 512, or every launch
+    of a shorter call, and a host time for them within the call's own."""
+    cfg, state, _, _, _, streams = _k1_setup(train_ds, 0.2, epochs=1)
+    spec = ft.forward_train_spec(cfg, ForwardStepSettings())
+    t0 = time.perf_counter_ns()
+    ft.forward_train(state.params, state.opt.m, state.opt.v, streams, spec)
+    took = time.perf_counter_ns() - t0
+    kernels, ns = ft.enqueue_head()
+    assert kernels == 36 * 15 and 0 < ns < took          # 504 at step 14: the whole call
+    cfg, settings, state, _, _, idx, seeds = _k2_setup(train_ds, trained_f, epochs=1,
+                                                       **K2_PATHS["through_f"])
+    spec = gt.gan_train_spec(cfg, settings)
+    streams = _k2_streams(train_ds, cfg, settings, idx, seeds, torch.ones(1))
+    t0 = time.perf_counter_ns()
+    gt.gan_train(gt.state_buffers(state), streams, spec)
+    took = time.perf_counter_ns() - t0
+    kernels, ns = gt.enqueue_head()
+    assert kernels == 69 * 8 and 0 < ns < took           # 483 after 7 steps, 552 after 8
+    _, _, ens, estreams = _k3_setup(train_ds, trained_f, 3, **{
+        **K2_PATHS["through_f"], "ema_decay": 0.0})
+    gt.gan_ensemble_train(gt.ensemble_buffers(ens), estreams, spec)
+    assert gt.enqueue_head()[0] == 69 * 8
 
 
 def test_gan_train_leaves_its_intermediates_in_a_given_scratch(dev, train_ds, trained_f):
