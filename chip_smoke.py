@@ -2098,8 +2098,8 @@ def profile_launch(label: str, launch, steps: int) -> dict:
     """``launch()`` (one kernel launch of ``steps`` steps) under
     ``torch.profiler`` after 2 warm-up launches: prints the wall time, the
     kernel time, the idle share and the kernels by time; returns them, with
-    the device time and calls a step of the batch-row kernel, of the tiled
-    SGEMM and of the rest."""
+    the device time and calls a step of the batch-row kernel, of the deep
+    narrow and batch-depth kernels, of the tiled SGEMM and of the rest."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2124,10 +2124,11 @@ def profile_launch(label: str, launch, steps: int) -> dict:
     for key, count, total in sorted(kernels, key=lambda r: -r[2])[:14]:
         print(f"profile:   {total / 1e3:9.3f} ms  {count:6d} calls  {total / count:8.2f} us  "
               f"{key[:100]}")
-    kinds = {"brow_gemm": [0.0, 0], "sgemm": [0.0, 0], "other": [0.0, 0]}
+    marks = {"brow_gemm": "brow_gemm_kernel", "deep_narrow": "deep_narrow_gemm<",
+             "batch_depth": "batch_depth_gemm<", "sgemm": "sgemm<"}
+    kinds = {k: [0.0, 0] for k in (*marks, "other")}
     for key, count, total in kernels:
-        kind = ("brow_gemm" if "brow_gemm_kernel" in key else
-                "sgemm" if "sgemm<" in key else "other")
+        kind = next((k for k, mark in marks.items() if mark in key), "other")
         kinds[kind][0] += total / 1e3
         kinds[kind][1] += count
     return {"wall_ms": wall_ms, "kernel_ms": busy_ms, "idle_share": idle,

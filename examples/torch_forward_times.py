@@ -67,6 +67,9 @@ def main() -> int:
     sys.path.insert(0, root)
     import torch
 
+    # chip_smoke's import loaded this checkout's package: load root's instead
+    for name in [m for m in sys.modules if m.split(".")[0] == "pigan_thz_torch"]:
+        del sys.modules[name]
     import pigan_thz_torch
     if not os.path.abspath(pigan_thz_torch.__file__).startswith(root + os.sep):
         print(f"torch_forward_times: FAIL: imported {pigan_thz_torch.__file__}, "

@@ -51,18 +51,26 @@
 //   and the fp32 epoch went from 10.4-10.5 to 4.4-4.7 ms.  A launch whose
 //   cluster shape the card refuses is the call's error: nothing retries
 //   elsewhere.
-// - The input layer (depth 4, the TPU kernel's VPU sum) and the six weight
-//   gradients (depth B, one output tile per 32 x 32 of W: 64-512 blocks)
-//   stay on the tiled SGEMM of train_common.cuh (fp32 FMAs, no TF32).
+// - The six weight gradients (depth B) go through train_common.cuh's
+//   batch-depth kernel: the whole depth of a 32 x 32 tile of W's gradient in
+//   shared memory at once, 8 outputs a thread, 64-512 blocks; on the tiled
+//   SGEMM, 16 deep a step with a barrier pair each, they took ~48 us of a
+//   step.  Its sums run in the SGEMM's order, so the two agree bit for bit.
+//   The input layer (depth 4, the TPU kernel's VPU sum) stays on the tiled
+//   SGEMM.  Under bfloat16 the head's 8 metrics columns (depth 256) go
+//   through the deep narrow kernel and their 8-deep input-gradient term
+//   stays on the SGEMM.  gemm_route picks each by its shape (fp32 FMAs, no
+//   TF32); ops/forward_train.py: gemm_products lists them with their routes.
 //
 // bfloat16 operands (bf16 != 0; megakernel.py:2644-2663).  The operands of the
 // products the TPU kernel runs on its MXU are rounded to bfloat16 (RND: in
-// brow_gemm's fragments, in the SGEMM's tile loads) and accumulate in fp32:
-// hidden layers 2-5 (forward, dW, dx) and the head's spectrum columns.  The
-// input layer (forward and dW) and the head's metrics columns run on the
-// TPU's VPU in fp32 and stay fp32 on the SGEMM: in bf16 mode the head is two
-// products each way (the metrics columns' forward, dW rows and dx term apart,
-// the dx term added after the spectrum columns'), three launches more a step.
+// brow_gemm's fragments, in the other product kernels' loads) and
+// accumulate in fp32: hidden layers 2-5 (forward, dW, dx) and the head's
+// spectrum columns.  The input layer (forward and dW) and the head's
+// metrics columns run on the TPU's VPU in fp32 and stay fp32: in bf16 mode
+// the head is two products each way (the metrics columns' forward, dW rows
+// and dx term apart, the dx term added after the spectrum columns'), three
+// launches more a step.
 //
 // Dropout.  The TPU kernel drew its masks from the TPU's hardware generator.
 // Here the bits are a counter-based hash of (step seed, layer, row, column),
@@ -74,8 +82,9 @@
 // per pass, three passes), so ~8 us at the 67 TFLOP/s fp32 peak; the state
 // (params, m, v, gradient: 22 MB) stays in the 50 MB L2 between steps.  What
 // remains is latency: 36 short launches a step (~0.26 ms of device time on
-// the H100 above: the batch-row products 89 us, the weight gradients 48 us,
-// the LayerNorm parameter sums 40 us, the one-block loss kernel 34 us) and
+// the H100 above: the batch-row products 89 us, the weight gradients 48 us
+// on the SGEMM, 23 us on the batch-depth kernel, the LayerNorm parameter
+// sums 40 us, the one-block loss kernel 34 us) and
 // the host's enqueue of them (cluster launches through cudaLaunchKernelEx;
 // the device idles ~0.2 of a launch).  A multi-block loss, a persistent
 // kernel and CUDA-graph capture of a chunk are later work.
@@ -84,7 +93,7 @@
 // the given stream, does not synchronise, allocates nothing (the workspace
 // comes from the caller, and a short one is refused), and returns the first
 // cudaError_t (0 on success), checking cudaGetLastError() after each launch.
-// The SGEMM, the LayerNorm rows, the column sums and clip + Adam are shared
+// The product kernels, the LayerNorm rows, the column sums and clip + Adam are shared
 // with gan_train.cu through train_common.cuh, the batch-row kernel through
 // brow_gemm.cuh (each source compiles its own copy).
 
@@ -163,8 +172,10 @@ loss_kernel(const float* __restrict__ pred, const float* __restrict__ spec,
 // process (pigan_forward_kernels_enqueued): divided by T, the launches a step.
 long long g_kernels_enqueued = 0;
 // Of those, the batch-row products launched through brow_gemm.cuh
-// (pigan_forward_brow_kernels_enqueued).
+// (pigan_forward_brow_kernels_enqueued), and the other products by their
+// route in train_common.cuh (pigan_forward_route_kernels_enqueued).
 long long g_brow_enqueued = 0;
+long long g_routes[kRoutes] = {0, 0, 0};
 // The host time of that call's first launches (pigan_forward_head_*).
 EnqueueHead g_head;
 
@@ -176,6 +187,11 @@ extern "C" {
 // process enqueued, and of those the batch-row products (brow_gemm.cuh).
 long long pigan_forward_kernels_enqueued() { return g_kernels_enqueued; }
 long long pigan_forward_brow_kernels_enqueued() { return g_brow_enqueued; }
+// Of those, the other products that went by `route` of train_common.cuh
+// (0 deep narrow, 1 batch depth, 2 the tiled SGEMM); -1 for no such route.
+long long pigan_forward_route_kernels_enqueued(int route) {
+  return route >= 0 && route < kRoutes ? g_routes[route] : -1;
+}
 // Of those, the launches of the call's enqueue head (train_common.cuh) and
 // the host nanoseconds it took.
 long long pigan_forward_head_kernels() { return g_head.kernels; }
@@ -203,6 +219,7 @@ int pigan_forward_train(float* params, float* m, float* v, const float* x,
   cudaStream_t st = (cudaStream_t)stream_ptr;
   g_kernels_enqueued = 0;
   g_brow_enqueued = 0;
+  for (long long& n : g_routes) n = 0;
   const int L = n_hidden + 1;
   if (n_hidden < 1 || L > kMaxLayers || B < 1 || T < 0 || S < 3) return cudaErrorInvalidValue;
   int maxc = 0;
@@ -283,12 +300,13 @@ int pigan_forward_train(float* params, float* m, float* v, const float* x,
     ++g_kernels_enqueued;      \
     CHECK(cudaGetLastError()); \
   } while (0)
-// GEMM: a product on the tiled SGEMM; BROW: a batch-row product (M = B)
-// through brow_gemm.cuh, its operands rounded to bfloat16 when RND
-#define GEMM(call)            \
-  do {                        \
-    ++g_kernels_enqueued;     \
-    CHECK(call);              \
+// GEMM: a product through train_common.cuh's dispatch (its route counted),
+// its operands rounded to bfloat16 when RND, added to C when ACC; BROW: a
+// batch-row product (M = B) through brow_gemm.cuh
+#define GEMM(AK, BNC, RND, ACC, ...)                                                   \
+  do {                                                                                 \
+    ++g_kernels_enqueued;                                                              \
+    CHECK((gemm_ex<AK, BNC>((RND), (ACC), __VA_ARGS__, st, 1, g_routes)));             \
   } while (0)
 #define BROW(AK, BNC, RND, ...)                                                  \
   do {                                                                           \
@@ -313,8 +331,8 @@ int pigan_forward_train(float* params, float* m, float* v, const float* x,
       const int din = dims[l], C = dims[l + 1];
       const long long* o = offsets + 4 * l;
       if (l == 0) {   // the TPU kernel's VPU sum over the 4 params: fp32
-        GEMM((gemm<true, false>(B, C, din, a, din, 1, params + o[0], 1, din, tc[l], C,
-                                params + o[1], st)));
+        GEMM(true, false, false, false, B, C, din, a, din, 1, params + o[0], 1, din, tc[l], C,
+             params + o[1]);
       } else {
         BROW(true, false, rnd, B, C, din, a, din, 1, params + o[0], 1, din, tc[l], C,
              params + o[1]);
@@ -333,8 +351,8 @@ int pigan_forward_train(float* params, float* m, float* v, const float* x,
       // the spectrum columns in bfloat16, the metrics columns in fp32
       BROW(true, false, true, B, S, dh, a, dh, 1, params + oh[0], 1, dh, pred, D,
            params + oh[1]);
-      GEMM((gemm<true, false>(B, Mdim, dh, a, dh, 1, params + oh[0] + om, 1, dh, pred + S, D,
-                              params + oh[1] + S, st)));
+      GEMM(true, false, false, false, B, Mdim, dh, a, dh, 1, params + oh[0] + om, 1, dh,
+           pred + S, D, params + oh[1] + S);
     } else {
       BROW(true, false, false, B, D, dh, a, dh, 1, params + oh[0], 1, dh, pred, D,
            params + oh[1]);
@@ -345,13 +363,12 @@ int pigan_forward_train(float* params, float* m, float* v, const float* x,
 
     // backward: head
     if (rnd) {
-      GEMM((gemm<false, true, true>(S, dh, B, dpred, 1, D, a, dh, 1, grad + oh[0], dh,
-                                    nullptr, st)));
-      GEMM((gemm<false, true>(Mdim, dh, B, dpred + S, 1, D, a, dh, 1, grad + oh[0] + om, dh,
-                              nullptr, st)));
+      GEMM(false, true, true, false, S, dh, B, dpred, 1, D, a, dh, 1, grad + oh[0], dh,
+           none);
+      GEMM(false, true, false, false, Mdim, dh, B, dpred + S, 1, D, a, dh, 1,
+           grad + oh[0] + om, dh, none);
     } else {
-      GEMM((gemm<false, true>(D, dh, B, dpred, 1, D, a, dh, 1, grad + oh[0], dh, nullptr,
-                              st)));
+      GEMM(false, true, false, false, D, dh, B, dpred, 1, D, a, dh, 1, grad + oh[0], dh, none);
     }
     column_sum<<<(D + kThreads - 1) / kThreads, kThreads, 0, st>>>(dpred, B, D,
                                                                    grad + oh[1]);
@@ -359,8 +376,8 @@ int pigan_forward_train(float* params, float* m, float* v, const float* x,
     if (rnd) {
       // the spectrum columns' term in bfloat16, then the metrics columns' added
       BROW(true, true, true, B, dh, S, dpred, D, 1, params + oh[0], dh, 1, da, dh, none);
-      GEMM((gemm<true, true, false, true>(B, dh, Mdim, dpred + S, D, 1, params + oh[0] + om,
-                                          dh, 1, da, dh, nullptr, st)));
+      GEMM(true, true, false, true, B, dh, Mdim, dpred + S, D, 1, params + oh[0] + om, dh, 1,
+           da, dh, none);
     } else {
       BROW(true, true, false, B, dh, D, dpred, D, 1, params + oh[0], dh, 1, da, dh, none);
     }
@@ -375,8 +392,8 @@ int pigan_forward_train(float* params, float* m, float* v, const float* x,
       ln_param_grads<<<(C + kThreads - 1) / kThreads, kThreads, 0, st>>>(
           dln, tc[l], ivar[l], dt, B, C, grad + o[2], grad + o[3], grad + o[1]);
       CHECK_LAUNCH();
-      GEMM((gemm_ex<false, true>(rnd && l > 0, false, C, din, B, dt, 1, C, a_in, din, 1,
-                                 grad + o[0], din, nullptr, st)));
+      GEMM(false, true, rnd && l > 0, false, C, din, B, dt, 1, C, a_in, din, 1, grad + o[0], din,
+           none);
       if (l > 0) {
         BROW(true, true, rnd, B, din, C, dt, C, 1, params + o[0], din, 1, da, din, none);
       }

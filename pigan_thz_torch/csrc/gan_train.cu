@@ -50,8 +50,8 @@
 //              without the penalty);
 //   bfloat16   (flags bit 3; megakernel.py:792-798, :840-857) the operands of
 //              exactly the products the TPU kernel runs on its MXU are
-//              rounded to bfloat16 in the SGEMM's tile loads and accumulate
-//              in fp32 (MM below).  What the TPU kernel runs on the VPU in
+//              rounded to bfloat16 in the product kernels' loads and
+//              accumulate in fp32 (MM below).  What the TPU kernel runs on the VPU in
 //              fp32 stays fp32 (GEMM): G's 256->4 head and its backward, D's
 //              256->1 head and its dW, F's input layer and its input
 //              backward, and the 8 metrics columns of F's head, which the
@@ -72,11 +72,18 @@
 // D-update step, +4 / +3 a second pass) go through brow_gemm.cuh: cluster
 // split-K with a fixed-order sum in distributed shared memory, a cp.async
 // ring, fp32 FMAs or, on bfloat16 operands, bf16 mma.sync (BMM / BGEMM
-// below).  The rest stay on the shared tiled SGEMM (train_common.cuh: fp32
-// FMAs on the CUDA cores, no TF32): the 4- and 1-wide heads, F's 4-wide
-// input layer and its input gradient, the 8 metrics columns of F's head
-// under bfloat16, and the weight gradients, whose depth is the batch and
-// whose 32 x 32 tiles already number 32-128.  BatchNorm is a column
+// below).  The rest go through train_common.cuh's product dispatch
+// (gemm_route, by shape; fp32 FMAs on the CUDA cores, no TF32): the 4- and
+// 1-wide heads, the adversarial pass's 4 parameter columns, F's input
+// gradient and, under bfloat16, the 8 metrics columns of F's head to the
+// deep narrow kernel (a warp an output row, the depth across its lanes);
+// the weight gradients, whose depth is the batch (B or 2B), to the
+// batch-depth kernel (the whole depth of a 32 x 32 tile in shared memory at
+// once); F's 4-deep input layer, G's head input gradient and, under
+// bfloat16, the 8-deep metrics term of F's input gradient stay on the tiled
+// SGEMM.  gemm_products (ops/gan_train.py) lists them with their routes; a
+// detached D-updating step at the published widths launches 4 / 6 / 2 of
+// them, one through F 5 / 6 / 2, K3 the same a member.  BatchNorm is a column
 // reduction over the B rows: one thread per column, 64 columns a block, two
 // passes in row order, the column sums in double (the variance and the
 // backward's mean subtraction cancel: with float sums G's gradient was 30x
@@ -97,10 +104,13 @@
 // gave 16-64 blocks on 132 SMs, each walking the whole depth with no
 // prefetch, ~34 us a product.  brow_gemm.cuh gives each 64-128 blocks of at
 // most a quarter of the depth: 5-14 us a product, and a step ~0.62 ms
-// through F, ~0.52 detached (PERF.md).  The products left on the SGEMM (the
-// deep heads, the weight gradients) are now as much device time as the
-// batch-row ones.  Fusing the elementwise passes into the products'
-// epilogues and CUDA-graph capture of a chunk are later work.
+// through F, ~0.52 detached (PERF.md).  The products that stayed on the
+// SGEMM then took as much device time as the batch-row ones: the deep heads
+// 17-24 us each, the weight gradients ~10 us (13 at M = 4); the deep narrow
+// and batch-depth kernels of train_common.cuh take them now (PERF.md,
+// examples/torch_gan_times.py --products).  Fusing the elementwise passes
+// into the products' epilogues and CUDA-graph capture of a chunk are later
+// work.
 //
 // Ensemble members (K3).  pigan_gan_ensemble_train replaces the member-packed
 // path of the same Pallas kernel (_make_kernel(members=M), launched by
@@ -730,8 +740,10 @@ wgan_adv_kernel(PerIn zm, int B, PerOut dzm, PerOut rowm) {
 // process (pigan_gan_kernels_enqueued): divided by T, the launches a step.
 long long g_kernels_enqueued = 0;
 // Of those, the batch-row products launched through brow_gemm.cuh
-// (pigan_brow_kernels_enqueued).
+// (pigan_brow_kernels_enqueued), and the other products by their route in
+// train_common.cuh (pigan_gan_route_kernels_enqueued).
 long long g_brow_enqueued = 0;
+long long g_routes[kRoutes] = {0, 0, 0};
 // The host time of that call's first launches (pigan_gan_head_*).
 EnqueueHead g_head;
 
@@ -922,25 +934,26 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
 // GEMM: an fp32 product (the TPU kernel's VPU sums); GEMM_ACC: GEMM added to
 // its output; MM: a product whose operands the TPU kernel rounds to bfloat16
 // (rounded when bf16); MM_ACC: MM added to its output
-#define GEMM(AK, BNC, ...)                          \
-  do {                                              \
-    ++g_kernels_enqueued;                           \
-    CHECK((gemm<AK, BNC>(__VA_ARGS__, st, NM)));    \
+// (each through train_common.cuh's dispatch, counted by route)
+#define GEMM(AK, BNC, ...)                                    \
+  do {                                                        \
+    ++g_kernels_enqueued;                                     \
+    CHECK((gemm<AK, BNC>(__VA_ARGS__, st, NM, g_routes)));    \
   } while (0)
-#define GEMM_ACC(AK, BNC, ...)                                  \
-  do {                                                          \
-    ++g_kernels_enqueued;                                       \
-    CHECK((gemm<AK, BNC, false, true>(__VA_ARGS__, st, NM)));   \
+#define GEMM_ACC(AK, BNC, ...)                                            \
+  do {                                                                    \
+    ++g_kernels_enqueued;                                                 \
+    CHECK((gemm<AK, BNC, false, true>(__VA_ARGS__, st, NM, g_routes)));   \
   } while (0)
-#define MM(AK, BNC, ...)                                            \
-  do {                                                              \
-    ++g_kernels_enqueued;                                           \
-    CHECK((gemm_ex<AK, BNC>(bf16, false, __VA_ARGS__, st, NM)));    \
+#define MM(AK, BNC, ...)                                                      \
+  do {                                                                        \
+    ++g_kernels_enqueued;                                                     \
+    CHECK((gemm_ex<AK, BNC>(bf16, false, __VA_ARGS__, st, NM, g_routes)));    \
   } while (0)
-#define MM_ACC(AK, BNC, ...)                                        \
-  do {                                                              \
-    ++g_kernels_enqueued;                                           \
-    CHECK((gemm_ex<AK, BNC>(bf16, true, __VA_ARGS__, st, NM)));     \
+#define MM_ACC(AK, BNC, ...)                                                  \
+  do {                                                                        \
+    ++g_kernels_enqueued;                                                     \
+    CHECK((gemm_ex<AK, BNC>(bf16, true, __VA_ARGS__, st, NM, g_routes)));     \
   } while (0)
 // BMM: an MM whose rows are the batch (M = B or 2B; N and K a layer's
 // widths) through brow_gemm.cuh; BGEMM: such a GEMM (fp32 under both flags)
@@ -961,6 +974,7 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
   const PerIn none;
   g_kernels_enqueued = 0;
   g_brow_enqueued = 0;
+  for (long long& n : g_routes) n = 0;
 
   // A second pass of G on x (B rows of S values, ldx apart) with the batch
   // statistics of that batch, the running stats untouched; its loss against
@@ -1268,6 +1282,16 @@ long long pigan_gan_kernels_enqueued() { return g_kernels_enqueued; }
 // Of those, the batch-row products (brow_gemm.cuh).
 long long pigan_brow_kernels_enqueued() { return g_brow_enqueued; }
 
+// Of those, the other products that went by `route` of train_common.cuh
+// (0 deep narrow, 1 batch depth, 2 the tiled SGEMM); -1 for no such route.
+long long pigan_gan_route_kernels_enqueued(int route) {
+  return route >= 0 && route < kRoutes ? g_routes[route] : -1;
+}
+
+// The route train_common.cuh's dispatch gives a product of N columns and
+// depth K (0 deep narrow, 1 batch depth, 2 the tiled SGEMM).
+int pigan_product_route(int N, int K) { return gemm_route(N, K); }
+
 // Of those, the launches of the call's enqueue head (train_common.cuh) and
 // the host nanoseconds it took.
 long long pigan_gan_head_kernels() { return g_head.kernels; }
@@ -1291,7 +1315,7 @@ int pigan_brow_plan(int M, int N, int K, int sms, int* out) {
 // through the batch-row kernel (route 0; `split` > 0 forces its cluster
 // size, 0 takes the plan) or through the tiled SGEMM the step used before
 // (route 1).  flags: bit 0 AK, bit 1 BNC, bit 2 bfloat16 operands, bit 3
-// ACC.  bias may be null.
+// ACC.  bias may be null.  (pigan_product_gemm: train_common.cuh's routes.)
 int pigan_brow_gemm(int route, int split, int M, int N, int K, const float* A, long long sam,
                     long long sak, long long a_member, const float* B, long long sbk,
                     long long sbn, long long b_member, float* C, int ldc, long long c_member,
@@ -1313,8 +1337,37 @@ int pigan_brow_gemm(int route, int split, int M, int N, int K, const float* A, l
 #define PRODUCT(AK, BNC)                                                                   \
   (route == 0 ? brow_gemm<AK, BNC>(rnd, acc, sms, split, M, N, K, a, sam, sak, b, sbk, sbn, \
                                    c, ldc, bi, st, members)                               \
-              : gemm_ex<AK, BNC>(rnd, acc, M, N, K, a, sam, sak, b, sbk, sbn, c, ldc, bi,   \
-                                 st, members))
+              : product_ex<AK, BNC>(kRouteSgemm, rnd, acc, M, N, K, a, sam, sak, b, sbk,    \
+                                    sbn, c, ldc, bi, st, members))
+  cudaError_t e;
+  if (ak) e = bnc ? PRODUCT(true, true) : PRODUCT(true, false);
+  else e = bnc ? PRODUCT(false, true) : PRODUCT(false, false);
+#undef PRODUCT
+  return (int)e;
+}
+
+// One product in the same convention through train_common.cuh's dispatch:
+// `route` -1 takes the route of the shape (gemm_route, as a step does), 0
+// forces the deep narrow kernel (N <= 8, K <= 1024), 1 the batch-depth
+// kernel (K <= 128), 2 the tiled SGEMM; a shape outside a forced route's
+// limits is refused.  The other arguments as pigan_brow_gemm's.
+int pigan_product_gemm(int route, int M, int N, int K, const float* A, long long sam,
+                       long long sak, long long a_member, const float* B, long long sbk,
+                       long long sbn, long long b_member, float* C, int ldc, long long c_member,
+                       const float* bias, long long bias_member, int members, int flags,
+                       void* stream_ptr) {
+  if (route < -1 || route >= kRoutes || members < 1 || members > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  if (M < 1 || N < 1 || K < 1) return cudaErrorInvalidValue;
+  const int r = route < 0 ? gemm_route(N, K) : route;
+  const bool ak = flags & 1, bnc = (flags >> 1) & 1, rnd = (flags >> 2) & 1,
+             acc = (flags >> 3) & 1;
+  const PerIn a(A, a_member), b(B, b_member), bi(bias, bias_member);
+  const PerOut c(C, c_member);
+  const cudaStream_t st = (cudaStream_t)stream_ptr;
+#define PRODUCT(AK, BNC) \
+  product_ex<AK, BNC>(r, rnd, acc, M, N, K, a, sam, sak, b, sbk, sbn, c, ldc, bi, st, members)
   cudaError_t e;
   if (ak) e = bnc ? PRODUCT(true, true) : PRODUCT(true, false);
   else e = bnc ? PRODUCT(false, true) : PRODUCT(false, false);

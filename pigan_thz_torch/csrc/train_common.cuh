@@ -1,28 +1,30 @@
 // Device code shared by the training kernels, forward_train.cu (K1) and
 // gan_train.cu (K2, and K3: K2's step for M ensemble members at once), fp32,
-// for Hopper (sm_90a): the tiled SGEMM every product of a training step goes
-// through, the fixed-order block sum, the dropout hash, LayerNorm rows
-// (forward and backward), column sums over the batch, and the deterministic
-// two-pass global-norm clip with Adam.  Everything lives in an anonymous
-// namespace: each source that includes this header gets its own copy, and no
-// symbol leaves it.
+// for Hopper (sm_90a): the product kernels of every product a training step
+// does not run through brow_gemm.cuh (the deep narrow heads, the
+// batch-depth weight gradients, the tiled SGEMM for the rest; gemm_route
+// picks one by shape), the fixed-order block sum, the dropout hash,
+// LayerNorm rows (forward and backward), column sums over the batch, and
+// the deterministic two-pass global-norm clip with Adam.  Everything lives
+// in an anonymous namespace: each source that includes this header gets its
+// own copy, and no symbol leaves it.
 //
 // bfloat16 operands (compute_dtype="bfloat16").  The TPU kernels round the
 // operands of their MXU products to bfloat16 and accumulate in fp32.  The
-// SGEMM's RND flag does the same in its tile loads: each element of A and B
-// is rounded to bfloat16 (round to nearest even, __float2bfloat16_rn) as it
-// enters shared memory, and the FMAs accumulate in fp32; a product of two
-// bfloat16 values is exact in fp32, so only the order of the sums differs
-// from the MXU's.  The flag is chosen per launch (gemm_ex): the products the
-// TPU kernels run on the VPU in fp32 stay fp32.  ACC adds the product to C
-// instead of overwriting it.  The fp32 instantiations (RND and ACC false)
-// are the code of the fp32 kernels, unchanged.
+// product kernels' RND flag does the same as they load: each element of A
+// and B is rounded to bfloat16 (round to nearest even, __float2bfloat16_rn)
+// before it reaches an FMA, and the FMAs accumulate in fp32; a product of
+// two bfloat16 values is exact in fp32, so only the order of the sums
+// differs from the MXU's.  The flag is chosen per launch (gemm_ex): the
+// products the TPU kernels run on the VPU in fp32 stay fp32.  ACC adds the
+// product to C instead of overwriting it.  The fp32 instantiations (RND and
+// ACC false) are the code of the fp32 kernels, unchanged.
 //
 // The member axis.  Every kernel here that the GAN step launches takes its
-// operands as Per<T>: a
-// pointer and a per-member stride.  The member is the grid's last used axis
-// (blockIdx.z of the SGEMM, blockIdx.y of the others), and member m works on
-// p + m * stride.  A plain pointer converts to a Per with stride 0, so a
+// operands as Per<T>: a pointer and a per-member stride.  The member is the
+// grid's last used axis (blockIdx.z of the SGEMM and batch_depth_gemm,
+// blockIdx.y of the others), and member m works on p + m * stride.  A
+// plain pointer converts to a Per with stride 0, so a
 // caller without members (K1; K2 is the one-member case) launches as before,
 // with that axis 1.  Nothing else reads the member or the size of its axis:
 // member m's arithmetic, and its order, are those of a launch for m alone.
@@ -42,7 +44,7 @@ constexpr int kMaxLayers = 8;       // hidden layers + head
 constexpr int kMaxPerThread = 8;    // row kernels: widths up to 2048
 constexpr int kNormParts = 256;     // blocks of the first norm pass
 constexpr int kAdamBlocks = 264;    // 2 per SM on an H100
-constexpr int kBK = 16;             // depth of a GEMM tile
+constexpr int kBK = 16;             // depth of an SGEMM tile step
 static_assert(kNormParts == kThreads, "adam_update reduces one partial per thread");
 
 // The enqueue head of a training C loop: the host clock from the loop's start
@@ -88,12 +90,44 @@ using PerIn = Per<const float>;
 using PerOut = Per<float>;
 
 // --------------------------------------------------------------------------
-// Tiled SGEMM: C[m, n] = sum_k A(m, k) B(k, n) (+ bias[n]), C row-major.
-// A(m, k) = A[m * sam + k * sak], B(k, n) = B[k * sbk + n * sbn].
-// AK: A is contiguous along k (else along m); BN: B is contiguous along n
-// (else along k).  The flags choose the thread mapping of the tile loads so
-// that neighbouring threads read neighbouring addresses.  RND rounds every
-// operand to bfloat16 as it is loaded; ACC adds to C (C += A B).
+// The products of a training step that brow_gemm.cuh does not take, and the
+// kernel each goes to.  Each computes
+//   C[m, n] = sum_k A(m, k) B(k, n) (+ bias[n]), or C += that (ACC),
+//   A(m, k) = A[m * sam + k * sak], B(k, n) = B[k * sbk + n * sbn], C row-major.
+// AK: A is contiguous along k (else along m); BNC: B is contiguous along n
+// (else along k).  The flags choose the thread mapping of the loads so that
+// neighbouring threads read neighbouring addresses.  RND rounds every
+// operand to bfloat16 as it is loaded; ACC adds to C.  All three kernels run
+// exact fp32 FMAs on the CUDA cores (no TF32), use no atomics, and end with
+// the same epilogue: (C +) the sum (+ bias), in that order.
+//
+// gemm_route picks the kernel from one member's N and K (M and the member
+// count never matter), so every launch of a shape takes one route:
+//
+// - deep narrow (N <= 8 output columns, depth 128-1024: the heads of G and
+//   D, the adversarial pass's 4 parameter columns, F's input gradient, F's
+//   8 metrics columns under bfloat16).  The tiled SGEMM gave these one or
+//   two 32 x 32 tiles, so 2-4 blocks walked the whole depth 16 columns a
+//   step, two barriers a step: 17-24 us for ~65 K FMAs on an H100.
+//   deep_narrow_gemm gives each output row a warp: lane l takes the depth
+//   l, l + 32, l + 64, ... (coalesced where A is contiguous along k), sums
+//   it in that order into all N columns at once, and a butterfly of
+//   shuffles (offsets 16, 8, 4, 2, 1) adds the lanes' sums.  The row's A
+//   loads are issued first and stay in flight while the block copies B
+//   (K x N, <= 32 KB) into shared memory by cp.async: one wait, one
+//   barrier, none in the depth loop: 2.5-3.7 us a product (PERF.md).
+// - batch depth (depth 32-128: the weight gradients, whose depth is the
+//   batch, B or 2B).  The SGEMM loaded each 32 x 32 tile in four or eight
+//   16-deep steps of scalar loads, a barrier pair a step: ~10 us a product.
+//   batch_depth_gemm loads the whole depth of its 32-row slice of A and
+//   32-column slice of B at once (16-byte cp.async where the source is
+//   aligned, 4-byte copies elsewhere: rows of 250, 254 and 258 floats), waits
+//   once, and runs the FMAs 8 outputs a thread (4 rows x 2 columns, 128
+//   threads): 128 blocks at 256 x 512; 3.5-5.2 us a product.  Each output's
+//   sum runs k = 0, 1, ... K - 1 in one FMA chain, as the SGEMM's does, so
+//   the two agree bit for bit.
+// - the tiled SGEMM for the rest (depth 4 or 8: F's input layer, G's head
+//   input gradient, F's metrics columns' input gradient under bfloat16).
 // --------------------------------------------------------------------------
 template <bool RND>
 __device__ __forceinline__ float operand(float x) {
@@ -101,6 +135,26 @@ __device__ __forceinline__ float operand(float x) {
   return x;
 }
 
+enum { kRouteDeepNarrow = 0, kRouteBatchDepth = 1, kRouteSgemm = 2, kRoutes = 3 };
+
+constexpr int kNarrowMaxN = 8;                    // output columns (a power of two)
+constexpr int kNarrowMinK = 128;
+constexpr int kNarrowMaxK = 1024;
+constexpr int kNarrowWarps = 4;                   // output rows a block, one a warp
+constexpr int kNarrowSlice = kNarrowMaxK / 32;    // depth a lane takes at most
+constexpr int kDepthMinK = 32;
+constexpr int kDepthMaxK = 128;
+constexpr int kDepthTile = 32;                    // 32 x 32 outputs a block
+constexpr int kDepthThreads = 128;                // 16 x 8: 2 columns x 4 rows each
+
+// The route of a product: a pure function of its N and K.
+__host__ inline int gemm_route(int N, int K) {
+  if (N <= kNarrowMaxN && K >= kNarrowMinK && K <= kNarrowMaxK) return kRouteDeepNarrow;
+  if (K >= kDepthMinK && K <= kDepthMaxK) return kRouteBatchDepth;
+  return kRouteSgemm;
+}
+
+// The tiled SGEMM: BM x BN outputs a block, 16 deep a step.
 template <int BM, int BN, bool AK, bool BNC, bool RND = false, bool ACC = false>
 __global__ void __launch_bounds__(kThreads)
 sgemm(int M, int N, int K, PerIn Am, long long sam, long long sak, PerIn Bm,
@@ -170,13 +224,229 @@ sgemm(int M, int N, int K, PerIn Am, long long sam, long long sak, PerIn Bm,
   }
 }
 
-template <bool AK, bool BNC, bool RND = false, bool ACC = false>
-cudaError_t gemm(int M, int N, int K, PerIn A, long long sam, long long sak, PerIn B,
-                 long long sbk, long long sbn, PerOut C, int ldc, PerIn bias,
-                 cudaStream_t s, int members = 1) {
-  // 64 x 64 tiles where they fill the card, else 32 x 32 (4x the blocks).
-  // The choice reads one member's shape only: it must not move with members.
-  if (((M + 63) / 64) * ((N + 63) / 64) >= 128) {
+__device__ __forceinline__ void copy16_async(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void copy4_async(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void copies_wait() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Deep narrow: one warp an output row m, NP >= N columns at once (NP the
+// next power of two, the extra columns zero), the depth padded with zeros
+// to a multiple of 128 so that the FMA loop runs whole groups of four
+// slices under warp-uniform conditions only (see above).
+template <int NP, bool AK, bool BNC, bool RND, bool ACC>
+__global__ void __launch_bounds__(kNarrowWarps * 32)
+deep_narrow_gemm(int M, int N, int K, PerIn Am, long long sam, long long sak, PerIn Bm,
+                 long long sbk, long long sbn, PerOut Cm, int ldc, PerIn biasm) {
+  constexpr int kThreadsHere = kNarrowWarps * 32;
+  __shared__ float Bs[NP * (kNarrowMaxK + 1)];   // [n][k], pitch kpad + 1
+  const float* __restrict__ A = Am.at(blockIdx.y);
+  const float* __restrict__ B = Bm.at(blockIdx.y);
+  float* __restrict__ C = Cm.at(blockIdx.y);
+  const float* __restrict__ bias = biasm.p ? biasm.at(blockIdx.y) : nullptr;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int m = blockIdx.x * kNarrowWarps + (tid >> 5);
+  const bool has_row = m < M;
+  const int kpad = (K + 127) & ~127;
+  const int ldb = kpad + 1;   // odd: the copies along n land in distinct banks
+
+  // the row's slice of A into registers and B by cp.async into shared
+  // memory, all in flight at once; A is rounded only where it is used, B by
+  // the thread that copied it, after the copies land
+  float a[kNarrowSlice];
+#pragma unroll
+  for (int j0 = 0; j0 < kNarrowSlice; j0 += 4) {
+    if (32 * j0 < kpad) {
+#pragma unroll
+      for (int j = j0; j < j0 + 4; ++j) {
+        const int k = lane + 32 * j;
+        a[j] = has_row && k < K ? A[(long long)m * sam + (long long)k * sak] : 0.f;
+      }
+    }
+  }
+  // element e of B: threads along B's contiguous dimension
+  auto element = [&](int e, int& k, int& n) {
+    if (BNC) { n = e % N; k = e / N; } else { k = e % K; n = e / K; }
+  };
+  for (int e = tid; e < K * N; e += kThreadsHere) {
+    int k, n;
+    element(e, k, n);
+    copy4_async(&Bs[n * ldb + k], B + (long long)k * sbk + (long long)n * sbn);
+  }
+  const int tail = kpad - K;
+  for (int e = tid; e < N * tail; e += kThreadsHere) Bs[(e / tail) * ldb + K + e % tail] = 0.f;
+  for (int e = tid; e < (NP - N) * kpad; e += kThreadsHere) {
+    Bs[(N + e / kpad) * ldb + e % kpad] = 0.f;
+  }
+  copies_wait();
+  if (RND) {
+    for (int e = tid; e < K * N; e += kThreadsHere) {
+      int k, n;
+      element(e, k, n);
+      Bs[n * ldb + k] = operand<true>(Bs[n * ldb + k]);
+    }
+  }
+  __syncthreads();
+  if (!has_row) return;
+
+  // lane l: k = l, l + 32, ... in order (the zeros past K add nothing)
+  float acc[NP];
+#pragma unroll
+  for (int n = 0; n < NP; ++n) acc[n] = 0.f;
+#pragma unroll
+  for (int j0 = 0; j0 < kNarrowSlice; j0 += 4) {
+    if (32 * j0 < kpad) {
+#pragma unroll
+      for (int j = j0; j < j0 + 4; ++j) {
+        const float x = operand<RND>(a[j]);
+        const float* b = Bs + lane + 32 * j;
+#pragma unroll
+        for (int n = 0; n < NP; ++n) acc[n] = fmaf(x, b[n * ldb], acc[n]);
+      }
+    }
+  }
+  // lane l + off's sum added to lane l's: after offset 1 every lane holds
+  // the same total
+#pragma unroll
+  for (int n = 0; n < NP; ++n) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) acc[n] += __shfl_xor_sync(0xffffffffu, acc[n], off);
+  }
+  if (lane < N) {
+    float v = acc[0];
+#pragma unroll
+    for (int n = 1; n < NP; ++n) {
+      if (lane == n) v = acc[n];
+    }
+    float* c = C + (long long)m * ldc + lane;
+    if (ACC) *c = *c + v + (bias ? bias[lane] : 0.f);
+    else *c = v + (bias ? bias[lane] : 0.f);
+  }
+}
+
+// One operand's slice for batch_depth_gemm: X(i, k) = X[i * si + k * sk] for
+// i in [i0, i0 + 32) and every k < K -> Xs[k][i - i0], zeros from i = extent.
+// CI: X is contiguous along i.  fp32 operands travel by cp.async (16 bytes
+// where four consecutive i are in range and the source is 16-byte aligned);
+// RND rounds them to bfloat16 on their way through registers.
+template <bool CI, bool RND>
+__device__ __forceinline__ void depth_stage(float (*Xs)[kDepthTile], const float* X,
+                                            long long si, long long sk, int i0, int extent,
+                                            int K) {
+  const int tid = threadIdx.x;
+  if (CI) {
+    for (int c = tid; c < K * (kDepthTile / 4); c += kDepthThreads) {
+      const int k = c / (kDepthTile / 4), i = (c % (kDepthTile / 4)) * 4;
+      const int gi = i0 + i;
+      const float* src = X + (long long)gi * si + (long long)k * sk;
+      if (!RND && si == 1 && gi + 3 < extent && ((uintptr_t)src & 15) == 0) {
+        copy16_async(&Xs[k][i], src);
+        continue;
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const bool ok = gi + q < extent;
+        const float* sq = X + (long long)(gi + q) * si + (long long)k * sk;
+        if (RND) Xs[k][i + q] = ok ? operand<true>(*sq) : 0.f;
+        else if (ok) copy4_async(&Xs[k][i + q], sq);
+        else Xs[k][i + q] = 0.f;
+      }
+    }
+  } else {
+    for (int e = tid; e < K * kDepthTile; e += kDepthThreads) {
+      const int k = e % K, i = e / K;
+      const bool ok = i0 + i < extent;
+      const float* src = X + (long long)(i0 + i) * si + (long long)k * sk;
+      if (RND) Xs[k][i] = ok ? operand<true>(*src) : 0.f;
+      else if (ok) copy4_async(&Xs[k][i], src);
+      else Xs[k][i] = 0.f;
+    }
+  }
+}
+
+// Batch depth: a 32 x 32 output tile, the whole depth (<= 128) in shared
+// memory at once (see above).
+template <bool AK, bool BNC, bool RND, bool ACC>
+__global__ void __launch_bounds__(kDepthThreads)
+batch_depth_gemm(int M, int N, int K, PerIn Am, long long sam, long long sak, PerIn Bm,
+                 long long sbk, long long sbn, PerOut Cm, int ldc, PerIn biasm) {
+  __shared__ __align__(16) float As[kDepthMaxK][kDepthTile];
+  __shared__ __align__(16) float Bs[kDepthMaxK][kDepthTile];
+  const float* __restrict__ A = Am.at(blockIdx.z);
+  const float* __restrict__ B = Bm.at(blockIdx.z);
+  float* __restrict__ C = Cm.at(blockIdx.z);
+  const float* __restrict__ bias = biasm.p ? biasm.at(blockIdx.z) : nullptr;
+  const int m0 = blockIdx.y * kDepthTile;
+  const int n0 = blockIdx.x * kDepthTile;
+  depth_stage<!AK, RND>(As, A, sam, sak, m0, M, K);
+  depth_stage<BNC, RND>(Bs, B, sbn, sbk, n0, N, K);
+  copies_wait();
+  __syncthreads();
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;   // columns 2 tx, 2 tx + 1; rows 4 ty .. 4 ty + 3
+  float acc[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = 0.f;
+#pragma unroll 8
+  for (int k = 0; k < K; ++k) {
+    const float4 a = *reinterpret_cast<const float4*>(&As[k][4 * ty]);
+    const float2 b = *reinterpret_cast<const float2*>(&Bs[k][2 * tx]);
+    const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      acc[i][0] = fmaf(av[i], b.x, acc[i][0]);
+      acc[i][1] = fmaf(av[i], b.y, acc[i][1]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + 4 * ty + i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int n = n0 + 2 * tx + j;
+      if (n >= N) continue;
+      float* c = C + (long long)m * ldc + n;
+      if (ACC) *c = *c + acc[i][j] + (bias ? bias[n] : 0.f);
+      else *c = acc[i][j] + (bias ? bias[n] : 0.f);
+    }
+  }
+}
+
+// One product through the kernel of `route`, the member on the grid's last
+// axis.  A shape outside a forced route's limits is refused.
+template <bool AK, bool BNC, bool RND, bool ACC>
+cudaError_t product_launch(int route, int M, int N, int K, PerIn A, long long sam,
+                           long long sak, PerIn B, long long sbk, long long sbn, PerOut C,
+                           int ldc, PerIn bias, cudaStream_t s, int members) {
+  if (route == kRouteDeepNarrow) {
+    if (N > kNarrowMaxN || K > kNarrowMaxK) return cudaErrorInvalidValue;
+    dim3 grid((M + kNarrowWarps - 1) / kNarrowWarps, members);
+#define NARROW(NP)                                                                   \
+  deep_narrow_gemm<NP, AK, BNC, RND, ACC><<<grid, kNarrowWarps * 32, 0, s>>>(       \
+      M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias)
+    if (N == 1) NARROW(1);
+    else if (N == 2) NARROW(2);
+    else if (N <= 4) NARROW(4);
+    else NARROW(8);
+#undef NARROW
+  } else if (route == kRouteBatchDepth) {
+    if (K > kDepthMaxK) return cudaErrorInvalidValue;
+    dim3 grid((N + kDepthTile - 1) / kDepthTile, (M + kDepthTile - 1) / kDepthTile, members);
+    batch_depth_gemm<AK, BNC, RND, ACC><<<grid, kDepthThreads, 0, s>>>(
+        M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias);
+  } else if (((M + 63) / 64) * ((N + 63) / 64) >= 128) {
+    // the SGEMM: 64 x 64 tiles where they fill the card, else 32 x 32 (4x
+    // the blocks); the choice reads one member's shape only
     dim3 grid((N + 63) / 64, (M + 63) / 64, members);
     sgemm<64, 64, AK, BNC, RND, ACC><<<grid, kThreads, 0, s>>>(M, N, K, A, sam, sak, B,
                                                                 sbk, sbn, C, ldc, bias);
@@ -188,21 +458,42 @@ cudaError_t gemm(int M, int N, int K, PerIn A, long long sam, long long sak, Per
   return cudaGetLastError();
 }
 
-// gemm with the operand rounding and the accumulation chosen per launch.
+// product_launch with the operand rounding and the accumulation chosen per launch.
+template <bool AK, bool BNC>
+cudaError_t product_ex(int route, bool rnd, bool acc, int M, int N, int K, PerIn A,
+                       long long sam, long long sak, PerIn B, long long sbk, long long sbn,
+                       PerOut C, int ldc, PerIn bias, cudaStream_t s, int members) {
+  if (rnd) {
+    return acc ? product_launch<AK, BNC, true, true>(route, M, N, K, A, sam, sak, B, sbk, sbn,
+                                                     C, ldc, bias, s, members)
+               : product_launch<AK, BNC, true, false>(route, M, N, K, A, sam, sak, B, sbk,
+                                                      sbn, C, ldc, bias, s, members);
+  }
+  return acc ? product_launch<AK, BNC, false, true>(route, M, N, K, A, sam, sak, B, sbk, sbn,
+                                                    C, ldc, bias, s, members)
+             : product_launch<AK, BNC, false, false>(route, M, N, K, A, sam, sak, B, sbk, sbn,
+                                                     C, ldc, bias, s, members);
+}
+
+// A step's product on the route of its shape, counted in routes[route]
+// when routes is given.
 template <bool AK, bool BNC>
 cudaError_t gemm_ex(bool rnd, bool acc, int M, int N, int K, PerIn A, long long sam,
                     long long sak, PerIn B, long long sbk, long long sbn, PerOut C, int ldc,
-                    PerIn bias, cudaStream_t s, int members = 1) {
-  if (rnd) {
-    return acc ? gemm<AK, BNC, true, true>(M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias, s,
-                                           members)
-               : gemm<AK, BNC, true, false>(M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias,
-                                            s, members);
-  }
-  return acc ? gemm<AK, BNC, false, true>(M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias, s,
-                                          members)
-             : gemm<AK, BNC, false, false>(M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias, s,
-                                           members);
+                    PerIn bias, cudaStream_t s, int members = 1,
+                    long long* routes = nullptr) {
+  const int route = gemm_route(N, K);
+  if (routes) ++routes[route];
+  return product_ex<AK, BNC>(route, rnd, acc, M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias,
+                             s, members);
+}
+
+template <bool AK, bool BNC, bool RND = false, bool ACC = false>
+cudaError_t gemm(int M, int N, int K, PerIn A, long long sam, long long sak, PerIn B,
+                 long long sbk, long long sbn, PerOut C, int ldc, PerIn bias,
+                 cudaStream_t s, int members = 1, long long* routes = nullptr) {
+  return gemm_ex<AK, BNC>(RND, ACC, M, N, K, A, sam, sak, B, sbk, sbn, C, ldc, bias, s,
+                          members, routes);
 }
 
 // Fixed-order block sum of one value per thread (kThreads threads); the

@@ -13,9 +13,10 @@ the kernels hold fp32 parity with their plain PyTorch versions.
 
 ``LAUNCHES`` counts each kernel's successful launches; only ``launch``,
 which the wrappers (``fused_kernels.py``, ``peaks.py``,
-``forward_train.py``, ``gan_train.py``, ``brow.py``) call, adds to it.  The
-batch-row product kernel that K1, K2 and K3 launch from their C loops has its
-own count, ``BROW_LAUNCHES``.
+``forward_train.py``, ``gan_train.py``, ``brow.py``, ``products.py``) call,
+adds to it.  The product kernels that K1, K2 and K3 launch from their C
+loops have their own counts: ``BROW_LAUNCHES`` for the batch-row kernel,
+``PRODUCT_LAUNCHES`` for the other products by route.
 """
 
 from __future__ import annotations
@@ -55,11 +56,16 @@ LAUNCHES: dict[str, int] = {
 # after each chunk, and ``brow.brow_gemm`` one a direct launch.  Apart from
 # LAUNCHES, whose keys stay one a TPU kernel.
 BROW_LAUNCHES: dict[str, int] = {"brow_gemm": 0}
+# Launches of the other products of K1, K2 and K3 by the kernel their route
+# in csrc/train_common.cuh takes (``products.ROUTES``, in that order): the
+# wrappers add the C loop's counts after each chunk, ``products.product_gemm``
+# one a direct launch.
+PRODUCT_LAUNCHES: dict[str, int] = {"deep_narrow_gemm": 0, "batch_depth_gemm": 0, "sgemm": 0}
 
 
 def launch_counts() -> dict[str, int]:
-    """Every count: LAUNCHES and BROW_LAUNCHES in one dict."""
-    return {**LAUNCHES, **BROW_LAUNCHES}
+    """Every count: LAUNCHES, BROW_LAUNCHES and PRODUCT_LAUNCHES in one dict."""
+    return {**LAUNCHES, **BROW_LAUNCHES, **PRODUCT_LAUNCHES}
 
 
 _P = ctypes.c_void_p
@@ -98,11 +104,17 @@ ENTRY_POINTS = {
         _I, _I, _I, _I, _I, _P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P, _I, _LL, _P, _LL,
         _I, _I, _P,
     ],
+    "pigan_product_gemm": [
+        _I, _I, _I, _I, _P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P, _I, _LL, _P, _LL,
+        _I, _I, _P,
+    ],
 }
 COUNTERS = ("pigan_gan_kernels_enqueued", "pigan_brow_kernels_enqueued",
             "pigan_gan_head_kernels", "pigan_gan_head_ns",
             "pigan_forward_kernels_enqueued", "pigan_forward_brow_kernels_enqueued",
             "pigan_forward_head_kernels", "pigan_forward_head_ns")
+# Of those, the products by route (one int argument: the route's index).
+ROUTE_COUNTERS = ("pigan_gan_route_kernels_enqueued", "pigan_forward_route_kernels_enqueued")
 
 
 def source_hash() -> str:
@@ -174,6 +186,11 @@ def load_library() -> ctypes.CDLL:
     for name in COUNTERS:
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_longlong
+    for name in ROUTE_COUNTERS:
+        getattr(lib, name).argtypes = [_I]
+        getattr(lib, name).restype = ctypes.c_longlong
+    lib.pigan_product_route.argtypes = [_I, _I]
+    lib.pigan_product_route.restype = ctypes.c_int
     lib.pigan_brow_plan.argtypes = [_I] * 4 + [ctypes.POINTER(_I)]
     lib.pigan_brow_plan.restype = ctypes.c_int
     return lib

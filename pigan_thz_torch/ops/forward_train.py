@@ -33,13 +33,17 @@ tiles of 64 x 32, too few for the card's 132 SMs, and a depth of 256 to
 1024: a cluster of 4 or 8 blocks splits the depth, sums its partial tiles
 in rank order through distributed shared memory and streams the operands
 through a ``cp.async`` ring, in exact fp32 FMAs (bf16 ``mma.sync`` on
-bfloat16 operands).  The input layer (depth 4) and the six weight gradients
-(depth B, output tiles enough) stay on the tiled SGEMM of
-``train_common.cuh``.  Nothing retries elsewhere: a cluster launch the card
-refuses is an error of the call.  The C loop counts what it enqueues
-(``kernels_enqueued``, ``brow_kernels_enqueued``) and times the first of
-them (``enqueue_head``); the wrapper adds the batch-row launches to
-``BROW_LAUNCHES["brow_gemm"]``.
+bfloat16 operands).  The other products (``gemm_products``) go through the
+product dispatch of ``train_common.cuh`` (``products.py``): the six weight
+gradients (depth B) to its batch-depth kernel, the whole depth of a 32 x 32
+tile in shared memory at once; the input layer (depth 4) to the tiled
+SGEMM; under bfloat16 the head's 8 metrics columns (depth 256) to the deep
+narrow kernel and their 8-deep input-gradient term to the SGEMM.  Nothing
+retries elsewhere: a cluster launch the card refuses is an error of the
+call.  The C loop counts what it enqueues (``kernels_enqueued``,
+``brow_kernels_enqueued``, ``route_kernels_enqueued``) and times the first
+of them (``enqueue_head``); the wrapper adds the batch-row launches to
+``BROW_LAUNCHES["brow_gemm"]`` and the others to ``PRODUCT_LAUNCHES``.
 
 Everything the kernel reads besides the state is built outside it, as the
 TPU kernel's prologue ``_streams`` builds it: the gathered batches of every
@@ -74,6 +78,7 @@ from ..data.dataset import ThzDataset, epoch_indices
 from ..utils.profiling import span
 from ._cuda_build import BROW_LAUNCHES, LAUNCHES, check_capability, launch, load_library
 from .brow import BrowProduct, bf16_rounder, brow_plan
+from .products import GemmProduct, count_chunk, routes_enqueued
 
 BASELINE_HIDDEN = (256, 512, 1024, 512, 256)
 METRIC_KEYS = ("loss", "spectrum_loss", "metrics_loss")
@@ -589,6 +594,7 @@ def forward_train(params: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
         keep_threshold(spec.dropout_rate), int(spec.bf16),
     )
     BROW_LAUNCHES["brow_gemm"] += brow_kernels_enqueued()
+    count_chunk(route_kernels_enqueued())
     return rows
 
 
@@ -605,6 +611,14 @@ def brow_kernels_enqueued() -> int:
     return int(load_library().pigan_forward_brow_kernels_enqueued())
 
 
+def route_kernels_enqueued() -> dict[str, int]:
+    """Of ``kernels_enqueued()``, the products launched through
+    ``csrc/train_common.cuh``'s dispatch, by route (``products.ROUTES``):
+    ``routes_of(gemm_products(...))`` a step (0 / 6 / 1 in float32, 1 / 7 /
+    2 with bfloat16 operands)."""
+    return routes_enqueued("pigan_forward_route_kernels_enqueued")
+
+
 def enqueue_head() -> tuple[int, int]:
     """Of ``kernels_enqueued()``, the launches of the C loop's enqueue head
     (``csrc/train_common.cuh:EnqueueHead``: the first 512 or more, whole
@@ -616,12 +630,15 @@ def enqueue_head() -> tuple[int, int]:
 
 def _launch_attrs(rows: torch.Tensor) -> dict:
     """The ``pigan.train.launch`` span's attributes of the launch that
-    returned ``rows``: the kernels the C loop enqueued and its enqueue head;
-    all 0 where the plain version ran or no step did."""
+    returned ``rows``: the kernels the C loop enqueued, its enqueue head and
+    its products by route (``products.ROUTES``); all 0 where the plain
+    version ran or no step did."""
     if not (rows.is_cuda and rows.shape[-2]):
-        return {"kernels": 0, "head_kernels": 0, "head_ns": 0}
+        return {"kernels": 0, "head_kernels": 0, "head_ns": 0,
+                "deep_narrow": 0, "batch_depth": 0, "sgemm": 0}
     head_kernels, head_ns = enqueue_head()
-    return {"kernels": kernels_enqueued(), "head_kernels": head_kernels, "head_ns": head_ns}
+    return {"kernels": kernels_enqueued(), "head_kernels": head_kernels, "head_ns": head_ns,
+            **route_kernels_enqueued()}
 
 
 def brow_products(spec: ForwardTrainSpec, batch: int) -> list[BrowProduct]:
@@ -653,6 +670,38 @@ def brow_products(spec: ForwardTrainSpec, batch: int) -> list[BrowProduct]:
         dx("dx head", dims[-2], dims[-1])
     for l in range(spec.n_hidden - 1, 0, -1):
         dx(f"dx layer {l + 1}", dims[l], dims[l + 1])
+    return out
+
+
+def gemm_products(spec: ForwardTrainSpec, batch: int) -> list[GemmProduct]:
+    """The products one step of ``csrc/forward_train.cu`` launches through
+    ``csrc/train_common.cuh``'s dispatch, in its order: the input layer
+    (depth 4: the tiled SGEMM), the head's weight gradient and the five
+    hidden layers' (depth B: the batch-depth kernel, bfloat16 operands on
+    layers 2-5 and the head's spectrum rows under bfloat16); under bfloat16
+    also the head's 8 metrics columns forward (depth 256: the deep narrow
+    kernel) and their term of the head's input gradient (depth 8, added:
+    the SGEMM).  Each one's ``route`` is the kernel it takes; the dropout
+    rate changes none."""
+    B, S, dims, r = batch, spec.spectrum_dim, spec.dims, spec.bf16
+    D, dh = dims[-1], dims[-2]
+    mdim = D - S
+    out = [GemmProduct("layer 1", B, dims[1], dims[0], True, False, False, False, True)]
+
+    def dw(name, m, n, rnd=False):
+        out.append(GemmProduct(name, m, n, B, False, True, rnd, False, False))
+
+    if r:
+        out.append(GemmProduct("head, metrics columns", B, mdim, dh, True, False, False,
+                               False, True))
+        dw("dW head, spectrum rows", S, dh, rnd=True)
+        dw("dW head, metrics rows", mdim, dh)
+        out.append(GemmProduct("dx head, metrics columns", B, dh, mdim, True, True, False,
+                               True, False))
+    else:
+        dw("dW head", D, dh)
+    for l in range(spec.n_hidden - 1, -1, -1):
+        dw(f"dW layer {l + 1}", dims[l + 1], dims[l], rnd=r and l > 0)
     return out
 
 

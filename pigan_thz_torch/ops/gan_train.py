@@ -93,6 +93,17 @@ operands.  ``brow_products`` lists a step's such products; the kernel's
 Python side (``brow_plan``, ``brow_gemm_plain``, ``brow_gemm``, ...) lives
 in ``brow.py``, which K1 shares, and is re-exported here.
 
+The other products.  The heads, the adversarial pass's 4 parameter
+columns, F's 4-wide input layer and its input gradient, F's 8 metrics
+columns under bfloat16 and every weight gradient go through the product
+dispatch of ``csrc/train_common.cuh``, which picks a kernel by the
+product's N and K: deep narrow (N <= 8, depth 128-1024: a warp an output
+row), batch depth (depth 32-128, the weight gradients: the whole depth of a
+tile in shared memory) or the tiled SGEMM (depth 4 or 8).
+``gemm_products`` lists a step's with their routes; ``products.py`` (rule,
+plain versions, one launch) is re-exported here.  The C loop counts its
+launches by route (``route_kernels_enqueued``).
+
 Seed ensembles (K3).  The member-packed path of the same TPU kernel
 (``_make_kernel(members=M)``, launched by ``make_pallas_ensemble_fn``,
 :1956-2224) trains M independent members in one launch against one shared
@@ -131,6 +142,10 @@ from .brow import (  # noqa: F401  (re-exported: gan_train.brow_* as before)
     bf16_rounder, brow_gemm, brow_gemm_plain, brow_kernels_enqueued, brow_plan,
     brow_plan_on_card)
 from .forward_train import BASELINE_HIDDEN, ForwardTrainSpec, resolve_draws
+from .products import (  # noqa: F401  (re-exported beside the batch-row names)
+    PRODUCT_LAUNCHES, ROUTES, GemmProduct, batch_depth_plain, count_chunk, deep_narrow_plain,
+    product_gemm, product_gemm_plain, product_route, product_route_on_card, routes_enqueued,
+    routes_of, step_operands)
 
 GD_HIDDEN = (512, 256)
 METRIC_KEYS = (
@@ -1129,6 +1144,7 @@ def gan_train(bufs: GanBuffers, streams: GanStreams, spec: GanTrainSpec,
         *_stream_arguments(streams, spec, rows, work, n_work, batch, steps),
     )
     BROW_LAUNCHES["brow_gemm"] += brow_kernels_enqueued()
+    count_chunk(route_kernels_enqueued())
     return rows
 
 
@@ -1145,6 +1161,14 @@ def kernels_enqueued() -> int:
     return int(load_library().pigan_gan_kernels_enqueued())
 
 
+def route_kernels_enqueued() -> dict[str, int]:
+    """Of ``kernels_enqueued()``, the products launched through
+    ``csrc/train_common.cuh``'s dispatch, by route (``ROUTES``): ``routes_of``
+    of ``gemm_products`` summed over the call's steps (4 / 6 / 2 a detached
+    D-updating step at the published widths, 5 / 6 / 2 through F)."""
+    return routes_enqueued("pigan_gan_route_kernels_enqueued")
+
+
 def enqueue_head() -> tuple[int, int]:
     """Of ``kernels_enqueued()``, the launches of the C loop's enqueue head
     (``csrc/train_common.cuh:EnqueueHead``: the first 512 or more, whole
@@ -1158,12 +1182,14 @@ def enqueue_head() -> tuple[int, int]:
 
 def _launch_attrs(rows: torch.Tensor) -> dict:
     """The ``pigan.train.launch`` span's attributes of the launch that
-    returned ``rows``: the kernels the C loop enqueued and its enqueue head;
-    all 0 where the plain version ran or no step did."""
+    returned ``rows``: the kernels the C loop enqueued, its enqueue head and
+    its products by route (``ROUTES``); all 0 where the plain version ran or
+    no step did."""
     if not (rows.is_cuda and rows.shape[-2]):
-        return {"kernels": 0, "head_kernels": 0, "head_ns": 0}
+        return {"kernels": 0, "head_kernels": 0, "head_ns": 0, **dict.fromkeys(ROUTES, 0)}
     head_kernels, head_ns = enqueue_head()
-    return {"kernels": kernels_enqueued(), "head_kernels": head_kernels, "head_ns": head_ns}
+    return {"kernels": kernels_enqueued(), "head_kernels": head_kernels, "head_ns": head_ns,
+            **route_kernels_enqueued()}
 
 
 def _state_pointers(bufs: GanBuffers) -> list[int]:
@@ -1265,6 +1291,7 @@ def gan_ensemble_train(bufs: GanBuffers, streams: GanStreams,
         *_stream_arguments(streams, spec, rows, work, n_work, batch, steps),
     )
     BROW_LAUNCHES["brow_gemm"] += brow_kernels_enqueued()
+    count_chunk(route_kernels_enqueued())
     return rows
 
 
@@ -1336,6 +1363,66 @@ def brow_products(spec: GanTrainSpec, batch: int, update_d: bool = True) -> list
         for l in range(len(fd) - 3, 0, -1):
             dx(f"F dx layer {l + 1}", B, fd[l], fd[l + 1])
     dx("G dx layer 2", B, g1, g2)
+    return out
+
+
+def gemm_products(spec: GanTrainSpec, batch: int, update_d: bool = True) -> list[GemmProduct]:
+    """The products one step of ``csrc/gan_train.cu`` launches through
+    ``csrc/train_common.cuh``'s dispatch, in its order (a step with D's
+    update gated off when not ``update_d``): every product that
+    ``brow_products`` does not list.  Each one's ``route`` is the kernel it
+    takes: the heads, the adversarial pass's 4 parameter columns, F's input
+    gradient and, under bfloat16, the 8 metrics columns of F's head the deep
+    narrow kernel; the weight gradients (depth B or 2B) the batch-depth
+    kernel; F's 4-deep input layer, G's head input gradient and the 8-deep
+    metrics term of F's input gradient the tiled SGEMM.  bfloat16 operands
+    exactly where the TPU kernel rounds them (``mm`` / ``dotT0``)."""
+    B, S = batch, spec.spectrum_dim
+    g1, g2 = spec.g_hidden
+    d1, d2 = spec.d_hidden
+    nd = S + 4
+    fd = spec.f_spec.dims
+    r = spec.bf16
+    out = []
+
+    def fwd(name, m, n, k):        # x W^T + b, fp32 (the TPU kernel's VPU sums)
+        out.append(GemmProduct(name, m, n, k, True, False, False, False, True))
+
+    def dw(name, m, n, k, rnd=False, acc=False):    # dY^T x over the batch
+        out.append(GemmProduct(name, m, n, k, False, True, rnd, acc, False))
+
+    def dx(name, m, n, k, rnd=False, acc=False):    # dY W, W as (out, in)
+        out.append(GemmProduct(name, m, n, k, True, True, rnd, acc, False))
+
+    def g_head_backward(tag):
+        dw(f"{tag}G dW3", 4, g2, B)
+        dx(f"{tag}G dx head", B, g2, 4)
+        dw(f"{tag}G dW2", g2, g1, B, rnd=r)
+        dw(f"{tag}G dW1", g1, S, B, rnd=r)
+
+    fwd("G head", B, 4, g2)
+    fwd("D head [real; fake]", 2 * B, 1, d2)
+    if update_d:
+        dw("D dW3", 1, d2, 2 * B)
+        dw("D dW2", d2, d1, 2 * B, rnd=r)
+        dw("D dW1", d1, nd, 2 * B, rnd=r)
+        if spec.wgan:
+            dw("penalty D dW1", d1, nd, B, rnd=r, acc=True)
+            dw("penalty D dW2", d2, d1, B, rnd=r, acc=True)
+    fwd("G phase D head", B, 1, d2)
+    dx("G phase D dx parameter columns", B, 4, d1, rnd=r)
+    fwd("F layer 1", B, fd[1], fd[0])
+    if spec.bf16:
+        fwd("F head, metrics columns", B, fd[-1] - S, fd[-2])
+    for tag, on in (("cycle", spec.cycle_w), ("stability", spec.stability_w)):
+        if on:
+            fwd(f"{tag} G head", B, 4, g2)
+            g_head_backward(f"{tag} ")
+    if not spec.detach_forward:
+        if spec.bf16:
+            dx("F dx head, metrics columns", B, fd[-2], fd[-1] - S, acc=True)
+        dx("F dx layer 1", B, fd[0], fd[1])
+    g_head_backward("")
     return out
 
 

@@ -22,7 +22,10 @@ member alone, and against its plain version with K2's tolerances.  The
 batch-row product kernel that K1, K2 and K3 launch (``csrc/brow_gemm.cuh``)
 is held against its plain version and float64 for every product shape and
 flag of a step, at M = 1 and 4, and each step's count of its launches
-against ``brow_products``.  The serving kernels' custom ops
+against ``brow_products``; so are the deep narrow and batch-depth kernels
+of ``csrc/train_common.cuh`` (the batch-depth one bit for bit against the
+tiled SGEMM), and each step's launches by route against
+``gemm_products``.  The serving kernels' custom ops
 (``torch.ops.pigan_thz.*``) are held bit for bit against their wrappers,
 and a ``use_pallas`` designer artifact written on the CPU runs on the card
 through one launch of each kernel a call; the int8 products and the bf16 /
@@ -1428,6 +1431,177 @@ def test_gan_step_launches_the_batch_row_kernel_as_listed(case, dev, train_ds, t
     gt.gan_ensemble_train(gt.ensemble_buffers(ens), estreams,
                           gt.gan_train_spec(ecfg, esettings))
     assert gt.brow_kernels_enqueued() == want
+
+
+# -- K1 / K2 / K3: the other products (csrc/train_common.cuh's dispatch) ----------
+def _gemm_cases():
+    """Every product shape and flag that a K2 step (its paths, fp32 and
+    bfloat16 operands, D updated) and a K1 step (both operand types) launch
+    through the dispatch: GemmProducts, each once."""
+    from pigan_thz_torch.ops import products as pr
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = default_config()
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train, compute_dtype=dtype))
+        for knobs in (dict(detach_forward=False, cycle_w=1.0, stability_w=1.0,
+                           gan_loss="wgan_gp"), dict(detach_forward=True, cycle_w=1.0)):
+            spec = gt.gan_train_spec(cfg, StepSettings.from_config(cfg, **knobs))
+            for p in gt.gemm_products(spec, 64):
+                out.setdefault(p[1:], p)
+        for p in ft.gemm_products(ft.forward_train_spec(cfg, ForwardStepSettings()), 64):
+            out.setdefault(p[1:], p._replace(name=f"K1 {p.name}"))
+    return [pr.GemmProduct(*p) for _, p in sorted(out.items())]
+
+
+GEMM_CASES = _gemm_cases()
+
+
+def _gemm_bound(p, a, b, bias, c):
+    """The float32 worst-case bound of the kernel's sums (Higham, eq. 3.5):
+    (terms in the longest chain + 1) u sum |a| |b| (+ |C| + |bias|); the deep
+    narrow kernel's chain is a lane's ceil(K / 32) terms, five butterfly
+    adds, C and the bias; the others' K terms, C and the bias."""
+    if p.rnd:
+        a, b = a.bfloat16().float(), b.bfloat16().float()
+    mag = a.double().abs() @ b.double().abs()
+    if c is not None:
+        mag = mag + c.double().abs()
+    if bias is not None:
+        mag = mag + (bias.double().abs().unsqueeze(-2) if bias.ndim > 1 else bias.double().abs())
+    chain = (-(-p.k // 32) + 5 if p.route == "deep_narrow" else p.k) + 2 + 1
+    return chain * 2.0 ** -24 * mag
+
+
+@pytest.mark.parametrize("members", [1, 4])
+@pytest.mark.parametrize("case", GEMM_CASES, ids=[
+    f"{p.m}x{p.n}x{p.k}-{p.route}-{'n' if p.ak else 't'}{'n' if p.bnc else 't'}"
+    f"{'-bf16' if p.rnd else ''}{'-acc' if p.acc else ''}{'-bias' if p.bias else ''}"
+    for p in GEMM_CASES])
+def test_product_kernel_matches_its_plain_twin(case, members, dev):
+    """Each product a step launches through the dispatch, on the route of its
+    shape (the C rule equal to its Python mirror): against its plain twin
+    (the same sum order) and float64, within the float32 worst-case bound of
+    its sum; a rerun bit-identical; the batch-depth kernel bit for bit the
+    tiled SGEMM (the same FMA chain); at M = 4 member m bit for bit the
+    launch on m alone."""
+    from pigan_thz_torch.ops import products as pr
+
+    p = case
+    assert pr.product_route_on_card(p.n, p.k) == p.route
+    a, b, bias, c = pr.step_operands(p, members, seed=p.m + p.n + p.k, device=dev)
+    shape = (members, p.m, p.n) if members > 1 else (p.m, p.n)
+
+    def run(route=None, a=a, b=b, bias=bias, c=c, shape=shape):
+        out = c.clone() if c is not None else torch.empty(shape, device=dev)
+        return pr.product_gemm(a, b, bias, out=out, acc=p.acc, rnd=p.rnd, route=route)
+
+    key = pr.LAUNCH_KEYS[p.route]
+    before = pr.PRODUCT_LAUNCHES[key]
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert pr.PRODUCT_LAUNCHES[key] == before + 2
+    assert torch.equal(got, again)
+    want = pr.product_gemm_plain(a, b, bias, c, p.rnd)
+    rd = (lambda t: t.bfloat16().double()) if p.rnd else (lambda t: t.double())
+    exact = pr.product_gemm_plain(rd(a), rd(b), None if bias is None else bias.double(),
+                                  None if c is None else c.double())
+    bound = _gemm_bound(p, a, b, bias, c)
+    err_p = float(((got.double() - want.double()).abs() / bound).max())
+    err_x = float(((got.double() - exact).abs() / bound).max())
+    print(f"product {p.name} {p.m}x{p.n}x{p.k} {p.route} M={members}: |kernel - twin| "
+          f"{float((got - want).abs().max()):.3e} ({err_p:.3e} of the bound), vs float64 "
+          f"{err_x:.3e} of the bound")
+    assert err_x <= 1.0 and err_p <= 0.5
+    if p.route == "batch_depth":
+        assert torch.equal(got, run("sgemm"))
+    if members > 1:
+        for mm in range(members):
+            solo = run(a=a[mm], b=b[mm], bias=None if bias is None else bias[mm],
+                       c=None if c is None else c[mm], shape=(p.m, p.n))
+            assert torch.equal(got[mm], solo), mm
+
+
+@pytest.mark.parametrize("route", ["deep_narrow", "batch_depth"])
+def test_product_kernels_take_every_layout(route, dev):
+    """The layouts and flags no step gives a route today: A contiguous along
+    m under deep narrow, A along k and B along k under batch depth, odd
+    sizes, C +=, members sharing B (stride 0); and the forced route refused
+    outside its limits."""
+    from pigan_thz_torch.ops import products as pr
+
+    m, n, k = (37, 5, 300) if route == "deep_narrow" else (45, 70, 100)
+    for ak, bnc in ((True, True), (True, False), (False, True), (False, False)):
+        p = pr.GemmProduct("layout", m, n, k, ak, bnc, False, True, True)
+        a, b, bias, c = pr.step_operands(p, 3, seed=ak + 2 * bnc, device=dev)
+        for rnd in (False, True):
+            out = c.clone()
+            pr.product_gemm(a, b[0], bias, out=out, acc=True, rnd=rnd, route=route)
+            want = pr.product_gemm_plain(a, b[0], bias, c, rnd, route)
+            bound = _gemm_bound(p._replace(rnd=rnd), a, b[0].expand(3, -1, -1), bias, c)
+            assert float(((out.double() - want.double()).abs() / bound).max()) <= 0.5
+    with pytest.raises(ValueError, match="product_gemm"):
+        pr.product_gemm(torch.ones(4, 2048, device=dev), torch.ones(2048, 4, device=dev),
+                        route=route)
+
+
+def test_route_rule_on_card_equals_its_mirror(dev):
+    from pigan_thz_torch.ops import products as pr
+
+    for n in (1, 4, 8, 9, 256):
+        for k in (4, 8, 31, 32, 64, 127, 128, 129, 256, 512, 1024, 1025):
+            assert pr.product_route_on_card(n, k) == pr.product_route(n, k), (n, k)
+
+
+@pytest.mark.parametrize("case", ["through_f", "detached", "knob_mix", "second_passes_mix",
+                                  "wgan_gp_mix", "all_four"])
+def test_gan_step_launches_its_products_by_route_as_listed(case, dev, train_ds, trained_f):
+    """One epoch of K2, and of K3 at M = 3: the C loop's launches by route
+    are ``routes_of(gemm_products)`` summed over the steps (D's update gated
+    per the schedule); the wrapper adds them to PRODUCT_LAUNCHES and the
+    launch span's attributes carry them."""
+    from pigan_thz_torch.ops import products as pr
+
+    cfg, settings, state, _, _, idx, seeds = _k2_setup(train_ds, trained_f, epochs=1,
+                                                       **K2_PATHS[case])
+    spec = gt.gan_train_spec(cfg, settings)
+    streams = _k2_streams(train_ds, cfg, settings, idx, seeds, torch.ones(1))
+    gates = (streams.sched[:, gt.SCHED_LANES.index("d_gate")] > 0).tolist()
+    want = dict.fromkeys(pr.ROUTES, 0)
+    for u in gates:
+        for r, n in pr.routes_of(gt.gemm_products(spec, 64, bool(u))).items():
+            want[r] += n
+    before = dict(pr.PRODUCT_LAUNCHES)
+    rows = gt.gan_train(gt.state_buffers(state), streams, spec)
+    assert gt.route_kernels_enqueued() == want
+    assert {r: pr.PRODUCT_LAUNCHES[pr.LAUNCH_KEYS[r]] - before[pr.LAUNCH_KEYS[r]]
+            for r in pr.ROUTES} == want
+    attrs = gt._launch_attrs(rows)
+    assert {r: attrs[r] for r in pr.ROUTES} == want
+    assert gt.kernels_enqueued() == attrs["kernels"]
+    print(f"K2 {case}: by route {want} in {len(gates)} steps")
+    ecfg, esettings, ens, estreams = _k3_setup(train_ds, trained_f, 3, **{
+        **K2_PATHS[case], "ema_decay": 0.0})
+    gt.gan_ensemble_train(gt.ensemble_buffers(ens), estreams,
+                          gt.gan_train_spec(ecfg, esettings))
+    assert gt.route_kernels_enqueued() == want
+
+
+@pytest.mark.parametrize("dtype, per_step", [("float32", (0, 6, 1)), ("bfloat16", (1, 7, 2))])
+def test_forward_kernel_launches_its_products_by_route_as_listed(dtype, per_step, dev,
+                                                                 train_ds):
+    from pigan_thz_torch.ops import products as pr
+
+    cfg, state, _, _, _, streams = _k1_setup(train_ds, 0.2, epochs=1)
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, compute_dtype=dtype))
+    spec = ft.forward_train_spec(cfg, ForwardStepSettings())
+    want = {r: 15 * n for r, n in pr.routes_of(ft.gemm_products(spec, 64)).items()}
+    assert tuple(want.values()) == tuple(15 * n for n in per_step)
+    rows = ft.forward_train(state.params, state.opt.m, state.opt.v, streams, spec)
+    torch.cuda.synchronize()
+    assert ft.route_kernels_enqueued() == want
+    attrs = ft._launch_attrs(rows)
+    assert {r: attrs[r] for r in pr.ROUTES} == want
 
 
 def _nan_equal(a, b) -> bool:

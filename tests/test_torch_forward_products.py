@@ -322,13 +322,93 @@ def test_brow_names_are_re_exported_unchanged():
 
 
 def test_wrapper_on_the_cpu_launches_nothing():
-    """On CPU tensors ``forward_train`` is its plain version: no launch and
-    no batch-row launch is counted."""
+    """On CPU tensors ``forward_train`` is its plain version: no launch, no
+    batch-row launch and no launch of the other products is counted."""
     spec, start, streams = _one_step(128, 0.2)
-    before = (dict(ft.LAUNCHES), dict(ft.BROW_LAUNCHES))
+    before = (dict(ft.LAUNCHES), dict(ft.BROW_LAUNCHES), dict(gt.PRODUCT_LAUNCHES))
     bufs = [t.clone() for t in start]
     rows = ft.forward_train(*bufs, streams, spec)
     plain = [t.clone() for t in start]
     want = ft.forward_train_plain(*plain, streams, spec)
     assert torch.equal(rows, want) and all(map(torch.equal, bufs, plain))
-    assert (ft.LAUNCHES, ft.BROW_LAUNCHES) == before
+    assert (ft.LAUNCHES, ft.BROW_LAUNCHES, gt.PRODUCT_LAUNCHES) == before
+
+
+# -- the other products: csrc/train_common.cuh's dispatch ------------------------
+
+# launches a step by route (deep narrow, batch depth, SGEMM): the input layer
+# (depth 4) on the SGEMM, the six weight gradients (depth B) batch depth;
+# bfloat16 also the head's 8 metrics columns forward (depth 256, deep
+# narrow), their dW rows apart (batch depth) and their 8-deep input-gradient
+# term (SGEMM)
+K1_PER_ROUTE = {"float32": (0, 6, 1), "bfloat16": (1, 7, 2)}
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_step_lists_its_dispatch_products_by_route(dtype, rate):
+    """K1's other products by route as its C loop launches them
+    (test_torch_cuda.py holds the two equal), none a batch-row product;
+    every weight gradient's depth the batch; bfloat16 operands on hidden
+    layers 2-5's and the head's spectrum rows' weight gradients only; the
+    dropout rate changes none."""
+    _, spec = _spec(dtype, rate)
+    prods = ft.gemm_products(spec, B)
+    assert tuple(gt.routes_of(prods).values()) == K1_PER_ROUTE[dtype]
+    assert len({p.name for p in prods}) == len(prods)
+    brows = {(p.m, p.n, p.k, p.ak, p.bnc) for p in ft.brow_products(spec, B)}
+    for p in prods:
+        assert (p.m, p.n, p.k, p.ak, p.bnc) not in brows, p
+        if p.name.startswith("dW"):
+            assert p.route == "batch_depth" and p.k == B and not p.bias, p
+            assert p.rnd == (spec.bf16 and p.name not in ("dW layer 1", "dW head, metrics rows"))
+        else:
+            assert not p.rnd, p
+    assert prods == ft.gemm_products(_spec(dtype, 0.2 - rate)[1], B)
+
+
+K1_DW = sorted({(p.name, p.m, p.n, p.k, p.rnd) for d in ("float32", "bfloat16")
+                for p in ft.gemm_products(_spec(d)[1], B) if p.name.startswith("dW")},
+               key=lambda p: (p[4], p[0]))
+
+
+@pytest.mark.parametrize("product", K1_DW, ids=[f"{p[0]}-{'bf16' if p[4] else 'fp32'}"
+                                                .replace(" ", "_").replace(",", "")
+                                                for p in K1_DW])
+def test_weight_gradient_against_the_jax_kernel(product):
+    """A K1 weight gradient on the same numpy operands: through
+    ``product_gemm`` on the CPU (the batch-depth kernel's FMA chain) in the
+    port's layout (dW (out, in) = dt^T x) and through the JAX kernel's
+    ``dotT0`` (x^T dt, W as (in, out)); equal within the float32 sum bound of
+    both (the same products, exact under bfloat16, in two orders)."""
+    name, m, n, k, rnd = product
+    rng = np.random.default_rng(m + n + k)
+    dt = rng.standard_normal((k, m)).astype(np.float32)        # (B, out)
+    x = rng.standard_normal((k, n)).astype(np.float32)         # (B, in)
+    t = jnp.bfloat16 if rnd else jnp.float32
+    want = np.asarray(jax.lax.dot_general(jnp.asarray(x).astype(t), jnp.asarray(dt).astype(t),
+                                          (((0,), (0,)), ((), ())),
+                                          preferred_element_type=jnp.float32)).T
+    a, b = torch.tensor(dt).t(), torch.tensor(x)               # A m-contiguous, B n-contiguous
+    assert gt.product_route(n, k) == "batch_depth"
+    got = gt.product_gemm(a, b, rnd=rnd)
+    assert torch.equal(got, gt.batch_depth_plain(a, b, rnd=rnd))
+    ra, rb = (a.bfloat16().float(), b.bfloat16().float()) if rnd else (a, b)
+    bound = 2 * (k + 2) * 2.0 ** -24 * (ra.double().abs() @ rb.double().abs())
+    err = (got.double() - torch.tensor(want).double()).abs()
+    assert bool((err <= bound).all()), (name, float((err / bound).max()))
+
+
+def test_product_names_are_re_exported_unchanged():
+    """``gan_train`` re-exports the dispatch's Python side from
+    ``products.py`` (the same objects) beside the batch-row names; K1's
+    module shares its ``GemmProduct``; the launch counts are one dict."""
+    from pigan_thz_torch.ops import _cuda_build, products
+
+    for name in ("ROUTES", "GemmProduct", "product_route", "routes_of", "deep_narrow_plain",
+                 "batch_depth_plain", "product_gemm_plain", "product_gemm",
+                 "product_route_on_card", "step_operands", "PRODUCT_LAUNCHES"):
+        assert getattr(gt, name) is getattr(products, name), name
+    assert ft.GemmProduct is products.GemmProduct
+    assert products.PRODUCT_LAUNCHES is _cuda_build.PRODUCT_LAUNCHES
+    assert set(_cuda_build.launch_counts()) >= set(products.LAUNCH_KEYS.values())

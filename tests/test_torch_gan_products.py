@@ -291,3 +291,217 @@ def test_bf16_plain_against_the_jax_kernels_products(shape, kind):
     ra, rb = a.bfloat16().float(), b_op.bfloat16().float()
     bound = 2 * _sum_bound(ra, rb, None, None, k, split)
     assert bool(((got.double() - torch.tensor(want).double()).abs() <= bound).all())
+
+
+# -- the other products: csrc/train_common.cuh's dispatch ------------------------
+#
+# Every product of a K2 step that ``brow_products`` does not list goes through
+# the dispatch, which picks a kernel from N and K: deep narrow (N <= 8, depth
+# 128-1024), batch depth (depth 32-128) or the tiled SGEMM.  Launches a step
+# by route (deep narrow, batch depth, SGEMM), D updated / gated off: the heads
+# of G (4 wide) and of D (1 wide, on 2B and on B rows) and the adversarial
+# pass's 4 parameter columns deep narrow, F's input gradient too through F;
+# the weight gradients (D's three on a D-update step, depth 2B; G's three,
+# depth B) batch depth; F's 4-deep input layer and G's head input gradient
+# on the SGEMM; a second G pass 1 / 3 / 1 more; WGAN-GP's penalty 2 weight
+# gradients more on a D-update step; bfloat16 F's 8 metrics columns forward
+# (deep narrow) and, through F, their 8-deep input-gradient term (SGEMM).
+
+PER_ROUTE = {
+    "through_f": ((5, 6, 2), (5, 3, 2)), "detached": ((4, 6, 2), (4, 3, 2)),
+    "cycle_through_f": ((6, 9, 3), (6, 6, 3)), "cycle_detached": ((5, 9, 3), (5, 6, 3)),
+    "stability": ((6, 9, 3), (6, 6, 3)), "wgan_gp_through_f": ((5, 8, 2), (5, 3, 2)),
+    "bf16_through_f": ((6, 6, 3), (6, 3, 3)), "bf16_detached": ((5, 6, 2), (5, 3, 2)),
+    "bf16_wgan_gp_cycle_stability": ((8, 14, 5), (8, 9, 5)),
+}
+
+
+def _gemm_products():
+    out = {}
+    for knobs in PATHS.values():
+        for update_d in (True, False):
+            for p in gt.gemm_products(_spec(knobs), B, update_d):
+                out.setdefault(p[1:], p)
+    return [out[k] for k in sorted(out)]
+
+
+GEMM_PRODUCTS = _gemm_products()
+
+
+def _gemm_id(p):
+    return (f"{p.m}x{p.n}x{p.k}-{p.route}-{'n' if p.ak else 't'}{'n' if p.bnc else 't'}"
+            f"{'-bf16' if p.rnd else ''}{'-acc' if p.acc else ''}")
+
+
+@pytest.mark.parametrize("update_d", [True, False], ids=["d_update", "d_gated"])
+@pytest.mark.parametrize("path", list(PATHS))
+def test_step_lists_its_dispatch_products_by_route(path, update_d):
+    """The step's other products: counts by route as the C loop launches
+    them (test_torch_cuda.py holds the two equal); each on its route for its
+    shape (heads at most 8 wide over a deep layer, weight gradients over the
+    batch, the depth-4 and depth-8 products on the SGEMM); bfloat16 operands
+    exactly on the TPU kernel's MXU products (the hidden layers' weight
+    gradients and the adversarial columns), never on a head."""
+    spec = _spec(PATHS[path])
+    prods = gt.gemm_products(spec, B, update_d)
+    assert tuple(gt.routes_of(prods).values()) == PER_ROUTE[path][0 if update_d else 1]
+    assert len({p.name for p in prods}) == len(prods)
+    brow = {(p.m, p.n, p.k, p.ak, p.bnc) for p in gt.brow_products(spec, B, update_d)}
+    for p in prods:
+        assert (p.m, p.n, p.k, p.ak, p.bnc) not in brow, p
+        if p.route == "deep_narrow":
+            assert p.n <= 8 and p.k in spec.g_hidden + spec.d_hidden + spec.f_spec.dims[1:2], p
+        elif p.route == "batch_depth":
+            assert p.k in (B, 2 * B) and not p.ak and p.bnc and not p.bias, p
+        else:
+            assert p.k in (4, 8), p
+        hidden_dw = p.route == "batch_depth" and min(p.m, p.n) > 8
+        assert p.rnd == (spec.bf16 and (hidden_dw or "parameter columns" in p.name)), p
+        assert p.acc == ("penalty" in p.name or "metrics columns" in p.name and not p.bias), p
+
+
+@pytest.mark.parametrize("n, k, route", [
+    (1, 256, "deep_narrow"), (4, 512, "deep_narrow"), (8, 128, "deep_narrow"),
+    (8, 1024, "deep_narrow"), (9, 256, "sgemm"), (4, 1025, "sgemm"), (4, 127, "batch_depth"),
+    (256, 128, "batch_depth"), (512, 64, "batch_depth"), (4, 32, "batch_depth"),
+    (256, 31, "sgemm"), (256, 4, "sgemm"), (256, 8, "sgemm"), (256, 129, "sgemm")])
+def test_route_rule(n, k, route):
+    """The rule reads N and K only (never M, never the members)."""
+    assert gt.product_route(n, k) == route
+    assert gt.GemmProduct("x", 7, n, k, True, True, False, False, False).route == route
+
+
+def _gemm_bound(p, a, b, bias, c):
+    """The float32 worst-case sum bound (Higham, eq. 3.5) of the kernel's
+    longest chain of roundings, + 1: a lane's ceil(K / 32) FMAs, the five
+    butterfly adds, C and the bias (deep narrow); K FMAs, C and the bias
+    (batch depth and the SGEMM); times sum |a| |b| (+ |C| + |bias|)."""
+    mag = a.double().abs() @ b.double().abs()
+    if c is not None:
+        mag = mag + c.double().abs()
+    if bias is not None:
+        mag = mag + (bias.double().abs().unsqueeze(-2) if bias.ndim > 1 else bias.double().abs())
+    chain = (-(-p.k // 32) + 5 if p.route == "deep_narrow" else p.k) + 2 + 1
+    return chain * 2.0 ** -24 * mag
+
+
+@pytest.mark.parametrize("members", [1, 3])
+@pytest.mark.parametrize("p", GEMM_PRODUCTS, ids=[_gemm_id(p) for p in GEMM_PRODUCTS])
+def test_plain_twin_against_float64(p, members):
+    """Each product's plain twin (its kernel's sum order) within the float32
+    worst-case bound of float64, with and without bfloat16 operands (then
+    against float64 of the rounded operands: the products are exact, only
+    the sums round), C += and the bias as the step gives them; at 3
+    members each member's result is its own operands' alone, bit for bit."""
+    a, b, bias, c = gt.step_operands(p, members, seed=p.m + p.n + p.k, device="cpu")
+    for rnd in (False, True):
+        got = gt.product_gemm_plain(a, b, bias, c, rnd)
+        ra, rb = (a.bfloat16().float(), b.bfloat16().float()) if rnd else (a, b)
+        want = gt.product_gemm_plain(ra.double(), rb.double(),
+                                     None if bias is None else bias.double(),
+                                     None if c is None else c.double())
+        exact = ra.double() @ rb.double()
+        if c is not None:
+            exact = exact + c.double()
+        if bias is not None:
+            exact = exact + (bias.double().unsqueeze(-2) if members > 1 else bias.double())
+        bound = _gemm_bound(p, ra, rb, bias, c)
+        assert got.dtype == torch.float32 and got.shape == exact.shape
+        assert bool(((got.double() - exact).abs() <= bound).all()), rnd
+        assert bool(((want - exact).abs() <= 1e-12 * (1 + bound / 2.0 ** -24)).all())
+    if members > 1:
+        full = gt.product_gemm_plain(a, b, bias, c, p.rnd)
+        for m in range(members):
+            solo = gt.product_gemm_plain(a[m], b[m], None if bias is None else bias[m],
+                                         None if c is None else c[m], p.rnd)
+            assert torch.equal(full[m], solo), m
+
+
+def _f32(x):
+    return np.float32(x)
+
+
+def _fma32(acc, x, y):
+    """fmaf: x y + acc rounded once (the float64 sum of two float32 values'
+    product and a float32 is exact to 2^-53, then one rounding to float32)."""
+    return np.float32(np.float64(acc) + np.float64(x) * np.float64(y))
+
+
+def test_deep_narrow_twin_is_the_lane_and_butterfly_order():
+    """A scalar reference of the deep narrow kernel's order: lane l sums
+    k = l, l + 32, ... with one rounding a term, then lane l + off is added
+    to lane l at off = 16, 8, 4, 2, 1; C + that + bias.  The twin equals it
+    bit for bit, at a depth that is no multiple of 32; summing the same
+    terms in k order does not (the order is the twin's)."""
+    rng = np.random.default_rng(5)
+    m, n, k = 3, 2, 200
+    a = rng.standard_normal((m, k)).astype(np.float32) * np.logspace(0, 6, k).astype(np.float32)
+    b = rng.standard_normal((k, n)).astype(np.float32)
+    bias = rng.standard_normal(n).astype(np.float32)
+    c = rng.standard_normal((m, n)).astype(np.float32)
+    want = np.empty((m, n), np.float32)
+    for i in range(m):
+        for j in range(n):
+            lanes = [_f32(0)] * 32
+            for kk in range(k):
+                lanes[kk % 32] = _fma32(lanes[kk % 32], a[i, kk], b[kk, j])
+            off = 16
+            while off:
+                lanes = [_f32(lanes[x] + lanes[x + off]) for x in range(off)]
+                off //= 2
+            want[i, j] = _f32(_f32(c[i, j] + lanes[0]) + bias[j])
+    got = gt.deep_narrow_plain(torch.tensor(a), torch.tensor(b), torch.tensor(bias),
+                               torch.tensor(c))
+    assert np.array_equal(got.numpy(), want)
+    in_k_order = gt.batch_depth_plain(torch.tensor(a), torch.tensor(b), torch.tensor(bias),
+                                      torch.tensor(c))
+    assert not torch.equal(in_k_order, got)
+
+
+def test_batch_depth_twin_is_one_fma_chain_in_k_order():
+    """A scalar reference of the batch-depth kernel's (and the SGEMM's)
+    order: each output one chain of FMAs over k = 0 ... K - 1, then C +
+    that + bias; bfloat16 operands rounded to nearest even first."""
+    rng = np.random.default_rng(6)
+    m, n, k = 4, 3, 64
+    a = rng.standard_normal((m, k)).astype(np.float32)
+    b = rng.standard_normal((k, n)).astype(np.float32)
+    bias = rng.standard_normal(n).astype(np.float32)
+    for rnd in (False, True):
+        ta, tb = torch.tensor(a), torch.tensor(b)
+        ra = ta.bfloat16().float().numpy() if rnd else a
+        rb = tb.bfloat16().float().numpy() if rnd else b
+        want = np.empty((m, n), np.float32)
+        for i in range(m):
+            for j in range(n):
+                s = _f32(0)
+                for kk in range(k):
+                    s = _fma32(s, ra[i, kk], rb[kk, j])
+                want[i, j] = _f32(s + bias[j])
+        got = gt.batch_depth_plain(ta, tb, torch.tensor(bias), rnd=rnd)
+        assert np.array_equal(got.numpy(), want), rnd
+
+
+def test_product_wrapper_on_the_cpu_is_the_plain_twin():
+    """For CPU tensors ``product_gemm`` computes its route's twin (the
+    shape's or a forced one) and launches nothing; a forced route outside
+    its limits, or an unknown one, is refused."""
+    p = gt.GemmProduct("x", 64, 4, 512, True, True, True, True, False)
+    a, b, _, c = gt.step_operands(p, seed=1, device="cpu")
+    before = (dict(gt.LAUNCHES), dict(gt.BROW_LAUNCHES), dict(gt.PRODUCT_LAUNCHES))
+    out = c.clone()
+    gt.product_gemm(a, b, out=out, acc=True, rnd=True)
+    assert torch.equal(out, gt.deep_narrow_plain(a, b, None, c, True))
+    forced = gt.product_gemm(a[:, :128], b[:128], route="batch_depth")
+    assert torch.equal(forced, gt.batch_depth_plain(a[:, :128], b[:128]))
+    shared = gt.product_gemm(a.expand(3, -1, -1), b)
+    assert shared.shape == (3, 64, 4) and torch.equal(shared[1], gt.deep_narrow_plain(a, b))
+    assert (gt.LAUNCHES, gt.BROW_LAUNCHES, gt.PRODUCT_LAUNCHES) == before
+    with pytest.raises(ValueError, match="deep narrow"):
+        gt.product_gemm(torch.ones(4, 2048), torch.ones(2048, 4), route="deep_narrow")
+    with pytest.raises(ValueError, match="batch-depth"):
+        gt.product_gemm(a, b, route="batch_depth")
+    with pytest.raises(ValueError, match="route"):
+        gt.product_gemm(a, b, route="cublas")
+    with pytest.raises(ValueError, match="acc"):
+        gt.product_gemm(a, b, acc=True)

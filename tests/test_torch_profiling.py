@@ -127,7 +127,8 @@ def test_chunk_spans_nest_and_share_an_id(small):
     c = spans["pigan.train.chunk"]
     assert c["self_s"] == pytest.approx(c["total_s"] - children, abs=1e-6)
     assert spans["pigan.train.launch"]["attrs"] == {                  # the plain version
-        "kernels": 0, "head_kernels": 0, "head_ns": 0}
+        "kernels": 0, "head_kernels": 0, "head_ns": 0,
+        "deep_narrow": 0, "batch_depth": 0, "sgemm": 0}
 
 
 def test_two_chunks_take_two_ids(small):
@@ -181,7 +182,8 @@ def test_seed_ensemble_chunks(small):
     for part in ("chunk", *CHUNK_SPANS):
         assert spans[f"pigan.train.{part}"]["count"] == 2
     assert spans["pigan.train.launch"]["attrs"] == {
-        "members": 4, "kernels": 0, "head_kernels": 0, "head_ns": 0}
+        "members": 4, "kernels": 0, "head_kernels": 0, "head_ns": 0,
+        "deep_narrow": 0, "batch_depth": 0, "sgemm": 0}
     for part in CHUNK_SPANS:
         assert {r["parent"] for r in rec[f"pigan.train.{part}"]} == {"pigan.train.chunk"}
     # a transfer a member, then a read a tensor of the stacked state
