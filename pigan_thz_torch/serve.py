@@ -10,7 +10,9 @@ denormalised to physical units, on one of four paths:
   ``MLPGenerator``, one of K5 for the ``ForwardMLP``; on the CPU their
   plain PyTorch versions), and a model that no TPU kernel covers (the
   enhanced variants) through its module, as the JAX package's XLA path
-  serves it: the choice is made stage by stage, by the model's type;
+  serves it: the choice is made stage by stage, by the model's type (on
+  the card a module stage replays a CUDA graph of its forward from its
+  second call with a request shape on: ``ModuleStage``);
 - fp32 with ``use_pallas=False``: the modules' eval-mode forward in plain
   PyTorch, the JAX package's XLA path and the portable artifacts' body;
 - ``compute_dtype=torch.bfloat16`` (or "bfloat16"): the models' bf16 twins
@@ -47,10 +49,12 @@ from __future__ import annotations
 
 import copy
 import os
+from collections import OrderedDict
 from typing import Callable, Sequence
 
 import torch
 from torch import nn
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from .data.dataset import ThzDataset, denormalize_params
 from .models.blocks import bf16_twin
@@ -96,18 +100,121 @@ def serving_dtype(compute_dtype) -> str:
 # ---------------------------------------------------------------------------
 
 
+# A module stage's graphs.  The callers that replay them: the benchmark's
+# design cells (one request shape a stage), chip_smoke.py's serving phase
+# (four batches, REQUEST_BATCHES) and examples/torch_serving_bench.py (nine,
+# one after another).  Four graphs hold every shape of the first two at
+# once; the keys remembered bound the bookkeeping, and traffic that cycles
+# through up to sixteen shapes pays each capture once (ModuleStage).
+GRAPHS_PER_STAGE = 4   # graphs a module stage keeps, least recently used out
+SHAPES_SEEN = 16       # keys a module stage remembers: called once, or captured
+GRAPH_WARMUP = 3       # eager calls on the capture stream before a capture
+                       # (torch.cuda.make_graphed_callables's count)
+
+
+def _capturable(x: torch.Tensor) -> bool:
+    """Whether a module stage may capture or replay a CUDA graph for ``x``: a
+    real tensor on the card, in an inference-mode call (the serving
+    callables') that nothing traces or intercepts (``torch.export``,
+    ``torch.compile``, fake tensors, a dispatch mode such as
+    ``ops/costs.py``'s ``FlopCounterMode``) or captures already."""
+    return (x.is_cuda and not torch.compiler.is_compiling() and type(x) is torch.Tensor
+            and torch.is_inference_mode_enabled() and _get_current_dispatch_mode() is None
+            and not torch.cuda.is_current_stream_capturing())
+
+
+class _Graph:
+    """A stage's eval-mode forward captured for one input (shape, dtype,
+    device): a static input that each call fills with one device-to-device
+    copy, the graph, and its static outputs in the graph's own memory pool,
+    freed with the graph.  A call returns copies of the outputs."""
+
+    def __init__(self, forward: Callable, x: torch.Tensor):
+        with torch.cuda.device(x.device):
+            self.input = x.clone()
+            self.graph = torch.cuda.CUDAGraph()
+            capture = torch.cuda.graph(self.graph)
+            # the warm-up on the capture stream itself: PyTorch's one capture
+            # stream a process, so cuBLAS makes its workspace for it once,
+            # outside any graph's pool, and not once a stage
+            stream = capture.capture_stream
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                for _ in range(GRAPH_WARMUP):
+                    forward(self.input)
+            with capture:
+                self.outputs = forward(self.input)
+            torch.cuda.current_stream().wait_stream(stream)
+
+    def __call__(self, x: torch.Tensor):
+        self.input.copy_(x)
+        self.graph.replay()
+        if isinstance(self.outputs, tuple):
+            return tuple(t.clone() for t in self.outputs)
+        return self.outputs.clone()
+
+
 class ModuleStage(nn.Module):
-    """A model's eval-mode forward (fp32 or its bf16 twin), outputs in fp32."""
+    """A model's eval-mode forward (fp32 or its bf16 twin), outputs in fp32.
+
+    On the card, in an inference-mode call (the serving callables'), the
+    forward runs as a CUDA graph, so a request costs the host a copy in,
+    one graph launch and a copy out whatever the module's kernel count: the
+    first call with an input's (shape, dtype, device) runs eagerly, the
+    second captures a graph for it, and every later call replays that.  A
+    stage keeps ``GRAPHS_PER_STAGE`` graphs, least recently used out, and
+    never captures again a key whose graph it evicted while it remembers
+    the key (``SHAPES_SEEN`` keys, least recently seen out): traffic that
+    cycles through more shapes than it keeps graphs for replays some and
+    runs the rest eagerly, and pays each capture at most once.
+    ``replayed`` says whether the last call replayed.  Each call returns
+    fresh tensors; a module in train mode, a CPU call and a call that
+    ``_capturable`` refuses run eagerly.  A graph's input and outputs are buffers of the
+    stage, not of the call: a stage serves one caller at a time, on one
+    stream."""
 
     def __init__(self, module: nn.Module):
         super().__init__()
         self.module = module.eval()
+        self.replayed = False
+        self._graphs: OrderedDict = OrderedDict()     # key -> _Graph, most recent last
+        self._seen: OrderedDict = OrderedDict()       # key -> captured once, most recent last
 
-    def forward(self, x: torch.Tensor):
+    def _eager(self, x: torch.Tensor):
         out = self.module(x)
         if isinstance(out, tuple):
             return tuple(t.to(torch.float32) for t in out[:2])
         return out.to(torch.float32)
+
+    def _graph(self, x: torch.Tensor) -> _Graph | None:
+        """The graph to replay for ``x``, captured now if this is the second
+        call with its key; None to run eagerly."""
+        key = (x.shape, x.dtype, x.device)
+        graph = self._graphs.get(key)
+        if graph is not None:
+            self._graphs.move_to_end(key)
+            return graph
+        captured = self._seen.pop(key, None)          # None: a first call
+        self._seen[key] = captured is not None
+        if len(self._seen) > SHAPES_SEEN:
+            self._seen.popitem(last=False)
+        if captured is not False:                     # a first call, or evicted
+            return None
+        graph = self._graphs[key] = _Graph(self._eager, x)
+        profiling.count(profiling.GRAPH_CAPTURES)
+        if len(self._graphs) > GRAPHS_PER_STAGE:
+            self._graphs.popitem(last=False)
+        return graph
+
+    def forward(self, x: torch.Tensor):
+        graph = None
+        if not self.module.training and _capturable(x):
+            graph = self._graph(x)
+        self.replayed = graph is not None
+        if graph is None:
+            return self._eager(x)
+        profiling.count(profiling.GRAPH_REPLAYS)
+        return graph(x)
 
 
 class FusedStage(nn.Module):
@@ -177,6 +284,11 @@ class MeanStage(nn.Module):
         return torch.stack([m(x).to(torch.float32) for m in self.members]).mean(dim=0)
 
 
+def _replayed(stage: nn.Module) -> int:
+    """1 where ``stage``'s last call replayed a CUDA graph, else 0."""
+    return int(isinstance(stage, ModuleStage) and stage.replayed)
+
+
 class Designer(nn.Module):
     """The cycle: generator stage -> surrogate stage, params denormalised."""
 
@@ -188,11 +300,16 @@ class Designer(nn.Module):
 
     def forward(self, spectra: torch.Tensor):
         # the stages' forward, not __call__: the hook machinery costs the
-        # host a few µs a module, which shows in a request's latency at B = 1
-        with profiling.span("pigan.serve.gen_stage"):
+        # host a few µs a module, which shows in a request's latency at B = 1;
+        # a span's ``replayed`` is 1 where its stage replayed a CUDA graph
+        with profiling.span("pigan.serve.gen_stage") as s:
             pn = self.generator.forward(spectra)
-        with profiling.span("pigan.serve.fwd_stage", follows=True):
+            if s.on:
+                s.set(replayed=_replayed(self.generator))
+        with profiling.span("pigan.serve.fwd_stage", follows=True) as s:
             spec, met = self.surrogate.forward(pn)
+            if s.on:
+                s.set(replayed=_replayed(self.surrogate))
         return denormalize_params(pn, self.lo, self.hi), spec, met
 
 

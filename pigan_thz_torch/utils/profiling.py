@@ -40,6 +40,8 @@ import torch.autograd.profiler as _autograd_profiler
 
 TRACE_FILE = "trace.json"
 HOST_SYNCS = "host_syncs"     # the counter of device-to-host reads on the chunk path
+GRAPH_CAPTURES = "serve_graph_captures"   # CUDA graphs a serving stage captured
+GRAPH_REPLAYS = "serve_graph_replays"     # and its calls that replayed one
 RECENT_SPANS = 4096           # raw spans kept, newest last
 
 

@@ -29,7 +29,13 @@ tiled SGEMM), and each step's launches by route against
 (``torch.ops.pigan_thz.*``) are held bit for bit against their wrappers,
 and a ``use_pallas`` designer artifact written on the CPU runs on the card
 through one launch of each kernel a call; the int8 products and the bf16 /
-int8 cycles are held against the CPU.  Training killed after a chunk and
+int8 cycles are held against the CPU.  A module stage's CUDA graphs (the
+residual and conv-attention generators, the uncertainty surrogate, a bf16
+twin; B = 1 and 8192) replay its eager forward bit for bit, leave earlier
+answers and the module's state alone, keep a graph a shape, free an
+evicted graph's memory, and stand aside outside inference mode, under a
+dispatch mode and in train mode; an enhanced trio's designer replays both
+stages and its export on the card still traces.  Training killed after a chunk and
 resumed from a checkpoint in a fresh trainer ends bit for bit where the
 uninterrupted run ends, through K1 and K2; a checkpoint written on the card
 restores on the CPU with equal tensors; the shadow replay passes on a clean
@@ -60,6 +66,8 @@ from pigan_thz_torch.ops import forward_train as ft
 from pigan_thz_torch.ops import gan_train as gt
 from pigan_thz_torch.ops import fused_kernels as fk
 from pigan_thz_torch.ops import peaks as pk
+from pigan_thz_torch import serve
+from pigan_thz_torch.config import ForwardModelConfig, GeneratorConfig
 from pigan_thz_torch.serve import make_inverse_design_fn
 from pigan_thz_torch.train.schedules import make_schedule
 from pigan_thz_torch.train.state import (
@@ -75,6 +83,7 @@ from pigan_thz_torch.train.steps import (
     make_pigan_step,
 )
 from pigan_thz_torch.train.trainer import Trainer
+from pigan_thz_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -327,6 +336,216 @@ def test_serving_dtypes_on_the_card_match_the_cpu(dtype, dev, models):
         assert a.dtype == torch.float32 and bool(torch.isfinite(a).all())
         assert float((a.cpu() - b).abs().max()) <= 2e-2 * float(b.abs().max())
     assert bool(((got[0] >= 2.2) & (got[0] <= 2.8)).all())
+
+
+
+# ---------------------------------------------------------------------------
+# module stages as CUDA graphs (serve.py:ModuleStage)
+# ---------------------------------------------------------------------------
+
+GRAPHED = {"residual": GeneratorConfig(name="residual"),
+           "conv_attn": GeneratorConfig(name="conv_attn"),
+           "mlp_g": GeneratorConfig(name="mlp"),
+           "mlp_f": ForwardModelConfig(name="mlp"),
+           "branched": ForwardModelConfig(name="branched"),
+           "physics": ForwardModelConfig(name="physics"),
+           "uncertainty": ForwardModelConfig(name="uncertainty")}
+
+
+@pytest.fixture(scope="module")
+def enhanced():
+    """The enhanced models at the published widths, seeded, the generators'
+    BatchNorm with non-trivial running stats."""
+    gen = torch.Generator().manual_seed(5)
+    out = {}
+    for name, c in GRAPHED.items():
+        build = build_generator if isinstance(c, GeneratorConfig) else build_forward_model
+        m = build(c, generator=gen, device="cpu")
+        with torch.no_grad():
+            for bn in m.modules():
+                if isinstance(bn, torch.nn.modules.batchnorm._BatchNorm):
+                    bn.running_mean += 0.1 * torch.randn(bn.num_features, generator=gen)
+                    bn.running_var += 0.1 * torch.randn(bn.num_features, generator=gen) ** 2
+        out[name] = m.eval()
+    return out
+
+
+def _graph_counts():
+    c = profiling.snapshot()["counters"]
+    return c.get(profiling.GRAPH_CAPTURES, 0), c.get(profiling.GRAPH_REPLAYS, 0)
+
+
+def _tensors(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _stage_inputs(name, batch, dev, n):
+    width = 4 if isinstance(GRAPHED[name], ForwardModelConfig) else 250
+    gen = torch.Generator(device=dev).manual_seed(batch)
+    return [torch.rand((batch, width), generator=gen, device=dev) * 2 - 1 for _ in range(n)]
+
+
+@pytest.mark.parametrize("batch", [1, 8192])
+@pytest.mark.parametrize("name, kind", [
+    ("residual", "float32"), ("conv_attn", "float32"), ("mlp_g", "float32"),
+    ("mlp_f", "float32"), ("branched", "float32"), ("physics", "float32"),
+    ("uncertainty", "float32"), ("residual", "bfloat16")])
+def test_module_stage_replays_its_eager_forward(name, kind, batch, dev, enhanced):
+    """The first call eager, the second captures, the rest replay: each
+    answer the eager forward's bit for bit, checked after every call (no
+    answer aliases a later one's), the module's state unchanged.  The
+    baseline MLPs are module stages under ``use_pallas=False``."""
+    stage = serve._stage(enhanced[name], dev, kind, fused=False)
+    state = {k: v.clone() for k, v in stage.state_dict().items()}
+    xs = _stage_inputs(name, batch, dev, 3)
+    profiling.reset()
+    with profiling.recording(), torch.inference_mode():
+        want = [_tensors(stage._eager(x)) for x in xs]
+        got = [_tensors(stage(x)) for x in (*xs, xs[0])]
+    torch.cuda.synchronize()
+    assert _graph_counts() == (1, 3)
+    for out, ref in zip(got, [*want, want[0]]):
+        for a, b in zip(out, ref, strict=True):
+            assert a.dtype == torch.float32 and torch.equal(a, b)
+    assert not torch.equal(got[1][0], got[2][0])
+    assert len({t.data_ptr() for out in got for t in out}) == len(got) * len(got[0])
+    for k, v in stage.state_dict().items():
+        assert torch.equal(v, state[k]), k
+
+
+def test_module_stage_keeps_a_graph_per_shape(dev, enhanced):
+    """A third shape captured leaves the first two replaying their own."""
+    stage = serve._stage(enhanced["residual"], dev, "float32", fused=False)
+    batches = (64, 257, 8192)
+    xs = {b: _stage_inputs("residual", b, dev, 1)[0] for b in batches}
+    profiling.reset()
+    with profiling.recording(), torch.inference_mode():
+        want = {b: stage._eager(x) for b, x in xs.items()}
+        for b in batches:
+            stage(xs[b])
+            stage(xs[b])
+        got = {b: stage(xs[b]) for b in batches}
+    assert _graph_counts() == (3, 6)
+    assert [k[0][0] for k in stage._graphs] == list(batches)
+    for b in batches:
+        assert torch.equal(got[b], want[b]), b
+
+
+def test_an_evicted_graph_frees_its_memory(dev, enhanced):
+    """And its shape, called again, runs eagerly: it is not captured twice."""
+    stage = serve._stage(enhanced["residual"], dev, "float32", fused=False)
+    big = _stage_inputs("residual", 65536, dev, 1)[0]
+
+    def reserved():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved(dev)
+
+    base = reserved()
+    with torch.inference_mode():
+        stage(big)
+        stage(big)
+    held = reserved() - base
+    with torch.inference_mode():
+        for b in range(1, serve.GRAPHS_PER_STAGE + 1):
+            x = _stage_inputs("residual", b, dev, 1)[0]
+            stage(x)
+            stage(x)
+    assert (65536, 250) not in [tuple(k[0]) for k in stage._graphs]
+    left = reserved() - base
+    assert held > 256 * 2**20 and left < held / 4, (held, left)
+    profiling.reset()
+    with profiling.recording(), torch.inference_mode():
+        want = stage._eager(big)
+        got = [stage(big) for _ in range(2)]
+    assert _graph_counts() == (0, 0) and not stage.replayed
+    assert all(torch.equal(g, want) for g in got)
+
+
+def test_module_stage_stays_eager_where_it_must(dev, enhanced):
+    """Outside inference mode, under a dispatch mode (``FlopCounterMode``),
+    in train mode: eager, with the graph for the shape already captured."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    stage = serve._stage(enhanced["residual"], dev, "float32", fused=False)
+    (x,) = _stage_inputs("residual", 64, dev, 1)
+    profiling.reset()
+    with profiling.recording():
+        with torch.inference_mode():
+            want = stage(x)
+            stage(x)
+        assert _graph_counts() == (1, 1)
+        with torch.no_grad():
+            assert torch.equal(stage(x), want)
+        counter = FlopCounterMode(display=False)
+        with torch.inference_mode(), counter:
+            stage(x)
+        stage.module.train()
+        with torch.inference_mode():
+            stage(x)
+        stage.module.eval()
+        assert _graph_counts() == (1, 1)
+    assert counter.get_total_flops() == 2 * 64 * sum(
+        m.in_features * m.out_features for m in stage.module.modules()
+        if isinstance(m, torch.nn.Linear))
+
+
+def test_designer_serves_an_enhanced_trio_through_graphs(dev, enhanced, tmp_path):
+    """The residual G and the uncertainty F as module stages: a request
+    replays both graphs, equal to the first (eager) request bit for bit, its
+    answers intact after later requests; the trio's export on the card
+    still traces and runs."""
+    cfg = default_config()
+    g, f = (copy.deepcopy(enhanced[n]).to(dev) for n in ("residual", "uncertainty"))
+    gen = torch.Generator(device=dev).manual_seed(6)
+    p = sample_params(gen, 64, cfg.data, device=dev)
+    spectra = synthesize_spectra(cfg.data.frequencies, p, gen, cfg.data.noise_level)
+    ds = build_dataset(spectra, p, torch.full((64, 8), float("nan")), cfg.data, device=dev)
+    fn = make_inverse_design_fn(g, f, ds)
+    profiling.reset()
+    with profiling.recording():
+        first = fn(spectra)
+        kept = [t.clone() for t in first]
+        later = [fn(spectra) for _ in range(3)]
+        other = fn(spectra.flip(0))
+    torch.cuda.synchronize()
+    assert _graph_counts() == (2, 8)
+    for out in (first, *later):
+        for a, b in zip(out, kept):
+            assert torch.equal(a, b)
+    assert not torch.equal(other[0], first[0])
+    art = serve.load_exported(
+        serve.export_inverse_design(g, f, ds, str(tmp_path / "d.pt2"), batch_size=64),
+        device=dev)
+    for a, b in zip(art(spectra), kept):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16"])
+def test_ensemble_designer_replays_its_surrogate(kind, dev, enhanced):
+    """The ensemble designer: its members' mean eager, its F a module stage
+    that replays, each request equal to the first (eager) one bit for bit
+    and intact after later ones."""
+    cfg = default_config()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    p = sample_params(gen, 64, cfg.data, device=dev)
+    spectra = synthesize_spectra(cfg.data.frequencies, p, gen, cfg.data.noise_level)
+    ds = build_dataset(spectra, p, torch.full((64, 8), float("nan")), cfg.data, device=dev)
+    members = [build_generator(cfg.generator, generator=torch.Generator().manual_seed(s),
+                               device="cpu").eval() for s in range(3)]
+    fn = serve.make_ensemble_inverse_design_fn(members, enhanced["mlp_f"], ds,
+                                               compute_dtype=kind)
+    profiling.reset()
+    with profiling.recording():
+        first = fn(spectra)
+        kept = [t.clone() for t in first]
+        later = [fn(spectra) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert _graph_counts() == (1, 3)
+    for out in (first, *later):
+        for a, b in zip(out, kept, strict=True):
+            assert torch.equal(a, b)
+
 
 def _spectra(kind, b, n, dev, seed=0, f=None):
     gen = torch.Generator(device=dev).manual_seed(seed)

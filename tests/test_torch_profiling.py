@@ -5,9 +5,11 @@ record nothing; under ``torch.profiler`` the spans appear both among the
 profiler's events and in ``snapshot()``, nested as the program opens them,
 with one id a chunk or a request; a span that a traced segment's start or
 stop cuts is dropped; ``host_syncs`` counts the chunk's transfer and each
-read of its finite check.  The benchmark's six readers of these spans
-return None on an empty snapshot, on a run without a trace and on a program
-without ``snapshot``, and their arithmetic on a synthetic one."""
+read of its finite check; a request's stage spans say whether the stage
+replayed a CUDA graph, beside the capture and replay counters.  The
+benchmark's six readers of these spans return None on an empty snapshot,
+on a run without a trace and on a program without ``snapshot``, and their
+arithmetic on a synthetic one."""
 
 import importlib.util
 import json
@@ -17,9 +19,11 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from pigan_thz_torch import serve
 from pigan_thz_torch.cli import main as cli_main
-from pigan_thz_torch.config import apply_overrides, default_config
+from pigan_thz_torch.config import GeneratorConfig, apply_overrides, default_config
 from pigan_thz_torch.data import synthetic_dataset
+from pigan_thz_torch.models import build_generator
 from pigan_thz_torch.serve import Designer, make_inverse_design_fn
 from pigan_thz_torch.train.trainer import Trainer
 from pigan_thz_torch.utils import profiling
@@ -155,6 +159,37 @@ def test_request_spans_share_an_id(small):
     assert gens[0]["id"] != gens[1]["id"]
     for gen, fwd in zip(gens, fwds):
         assert gen["end_ns"] <= fwd["start_ns"]
+
+
+def test_request_spans_say_whether_a_stage_replayed(small, monkeypatch):
+    """A module stage's graph (capture stubbed: the eager forward, counted)
+    marks its span ``replayed`` and counts its captures and replays; a
+    fused stage's span reads 0; the span table lists both counters."""
+    cfg, ds = small
+    made = []
+
+    class Graph:
+        def __init__(self, forward, x):
+            self.forward = forward
+            made.append(self)
+
+        def __call__(self, x):
+            return self.forward(x)
+
+    monkeypatch.setattr(serve, "_capturable", lambda x: True)
+    monkeypatch.setattr(serve, "_Graph", Graph)
+    g = build_generator(GeneratorConfig(name="residual"), ds.spectrum_dim, device="cpu")
+    t = Trainer(cfg, ds=ds, engine="eager", device="cpu")
+    fn = make_inverse_design_fn(g.eval(), t.forward_model.eval(), ds)
+    _, snap = _traced(lambda: [fn(ds.spectra[:8]) for _ in range(3)])
+    rec = _by_name(snap)
+    assert [r["attrs"] for r in rec["pigan.serve.gen_stage"]] == [
+        {"replayed": 0}, {"replayed": 1}, {"replayed": 1}]
+    assert [r["attrs"] for r in rec["pigan.serve.fwd_stage"]] == [{"replayed": 0}] * 3
+    assert snap["spans"]["pigan.serve.gen_stage"]["attrs"] == {"replayed": 2}
+    assert len(made) == 1
+    assert snap["counters"] == {profiling.GRAPH_CAPTURES: 1, profiling.GRAPH_REPLAYS: 2}
+    assert "counters: serve_graph_captures 1, serve_graph_replays 2" in profiling.span_table(snap)
 
 
 def test_the_serving_callable_keeps_its_designer_in_the_closure(small):
