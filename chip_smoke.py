@@ -945,6 +945,7 @@ def phase8_screen(F, cfg, dev, lo, hi) -> dict:
         res, wall = run_screen(F, cfg, dev, lo, hi, use_pallas)
         got = dict(LAUNCHES)
         want = {"fused_mlp_forward": n_chunks if use_pallas else 0,
+                "fused_mlp_forward.wgmma": n_chunks if use_pallas else 0,   # chunks of 8192
                 "fused_dense_chain": 0, "dip_qualification": n_chunks,
                 "forward_train": 0, "gan_train": 0, "gan_ensemble_train": 0}
         print(f"screen {label}: {sc.num_candidates} candidates in {n_chunks} chunks "
@@ -4938,8 +4939,9 @@ def main() -> None:
                 fail(f"{name} disagrees with its plain version at B={b}")
             if not torch.equal(got, again):
                 fail(f"{name}: a rerun at B={b} is not bit-identical")
-            # the row-tile shape sums every output in the same order
-            if shape > 1 and not torch.equal(got, kern(inp, packed, cluster=1)):
+            # the row-tile shape sums every output in the same order (the
+            # wgmma shape in another)
+            if shape not in (1, fk.WGMMA) and not torch.equal(got, kern(inp, packed, cluster=1)):
                 fail(f"{name}: cluster {shape} and the row-tile shape differ at B={b}")
             max_err[name] = max(max_err[name], err)
         print(f"kernel check B={b}: " + ", ".join(line) + ", reruns bit-identical")

@@ -3,12 +3,13 @@ of ``csrc/fused_mlp_chain.cu`` changed or taken out at a time, on the card.
 
 Each variant is the kernel source with one edit (named below), compiled
 with the port's nvcc flags into its own library under
-``build/kernels/ablate/`` and timed with CUDA events at the three shapes
-that matter: one row tile alone (B = 32, the row-tile shape), B = 64 in
-clusters of 8 and B = 8192.  Variants that change the arithmetic are
-checked against the plain version, the others compute wrong numbers on
-purpose and are only timed.  Prints the card's name and power limit and one
-JSON line.
+``build/kernels/ablate/`` and timed with CUDA events: a ``chain_kernel``
+variant at the three shapes that matter, one row tile alone (B = 32, the
+row-tile shape), B = 64 in clusters of 8 and B = 8192; a ``wg_`` variant
+(and ``base``) K5's wgmma shape at B = 8192.  Variants that change the
+arithmetic are checked against the plain version, the others compute wrong
+numbers on purpose and are only timed.  Prints the card's name and power
+limit and one JSON line.
 
     python examples/torch_serving_ablate.py                 # on the card
     python examples/torch_serving_ablate.py base terms1     # some variants
@@ -43,6 +44,13 @@ STREAM = """        const int rows = min(g.kt, din_p - k0);
         float* st = ring.stage"""
 LN = "      layer_norm_leaky(next, bw_next"
 TILED = "csize == 1 && d.tiled_off[l] >= 0"
+WG_LN = "      wg_layer_norm(L.next,"
+WG_COPY = """        mbar_arrive_expect_tx(ring.full + slot, 4 * floats);
+        bulk_copy(ring.stage + slot * kWgStageFloats, src, 4 * floats, ring.full + slot);"""
+WG_PEER = "  return ld_cluster4(cluster_addr(p, q));"
+WG_WAIT = "      if (sub == 0) mbar_wait(ring.full + slot, (it / kWgStages) & 1);\n"
+WG_RELEASE = "if (prev_slot >= 0) release(ring.empty + prev_slot);\n"
+WG_PRODUCE = "    if (threadIdx.x == kWgThreads) wg_produce(d, w, rank, ring);\n"
 
 # name -> (what it measures, [(text, replacement)], checked against plain)
 VARIANTS = {
@@ -64,8 +72,19 @@ VARIANTS = {
                    True),
     "no_layernorm": ("K5's LayerNorms skipped", [(LN, "      if (batch < 0) "
                                                        "layer_norm_leaky(next, bw_next")], False),
+    "wg_no_layernorm": ("the wgmma shape without its LayerNorms and their cluster meetings",
+                        [(WG_LN, "      if (batch < 0) wg_layer_norm(L.next,")], False),
+    "wg_no_stream": ("the wgmma shape's producer arrives on each stage without copying it",
+                     [(WG_COPY, "        mbar_arrive(ring.full + slot);")], False),
+    "wg_products_only": ("the wgmma shape's products, epilogues and A loads alone: no W "
+                         "stream, no stage barriers, no peer reads, no LayerNorm",
+                         [(WG_PEER, "  return *reinterpret_cast<const float4*>(p);"),
+                          (WG_LN, "      if (batch < 0) wg_layer_norm(L.next,"),
+                          (WG_WAIT, ""), ("      " + WG_RELEASE, ""), ("  " + WG_RELEASE, ""),
+                          (WG_PRODUCE, "")], False),
 }
 SHAPES = ((32, 1), (64, 8), (8192, 1))
+WG_BATCH = 8192
 
 
 def build(name: str, edits) -> ctypes.CDLL:
@@ -83,11 +102,38 @@ def build(name: str, edits) -> ctypes.CDLL:
     if proc.returncode != 0:
         raise RuntimeError(f"variant {name}: nvcc failed\n{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(str(so))
-    for entry in ("pigan_fused_mlp_forward", "pigan_fused_dense_chain"):
+    for entry in ("pigan_fused_mlp_forward", "pigan_fused_dense_chain",
+                  "pigan_fused_mlp_forward_wgmma"):
         fn = getattr(lib, entry)
         fn.argtypes = _cuda_build.ENTRY_POINTS[entry]
         fn.restype = ctypes.c_int
     return lib
+
+
+def time_wgmma(name, lib, packed, checked, failures, stream) -> dict:
+    """K5 in the wgmma shape at WG_BATCH rows from a variant's library."""
+    offsets, _, dims, wg, gl, sw = fk._c_layout(packed.offsets, packed.tiled, packed.dims,
+                                                packed.wgmma)
+    dev = packed.device
+    x = torch.rand((WG_BATCH, 4), device=dev) * 2 - 1
+    out = torch.empty((WG_BATCH, packed.dims[-1]), device=dev)
+    scratch = torch.empty(fk._round_up(WG_BATCH, fk.WG_ROWS) * sw, device=dev)
+
+    def call():
+        rc = lib.pigan_fused_mlp_forward_wgmma(
+            x.data_ptr(), out.data_ptr(), packed.weights.data_ptr(), scratch.data_ptr(),
+            offsets, wg, dims, packed.n_layers, gl, WG_BATCH, 0.2, 1e-6, stream)
+        if rc != 0:
+            raise RuntimeError(f"{name} wgmma: CUDA error {rc}")
+
+    call()
+    torch.cuda.synchronize()
+    res = {"ms": median_ms(call, 30)}
+    if checked:
+        res["max_abs_err"] = float((out - fk.fused_mlp_forward_plain(x, packed)).abs().max())
+        if not res["max_abs_err"] <= 1e-4:
+            failures.append(f"{name} wgmma: {res['max_abs_err']}")
+    return res
 
 
 def main() -> int:
@@ -108,7 +154,12 @@ def main() -> int:
         what, edits, checked = VARIANTS[name]
         lib = build(name, edits)
         row = {"measures": what}
+        if name == "base" or name.startswith("wg_"):
+            row[f"fused_mlp_forward B={WG_BATCH} wgmma"] = time_wgmma(
+                name, lib, chains["fused_mlp_forward"][0], checked, failures, stream)
         for kernel, (packed, din) in chains.items():
+            if name.startswith("wg_"):
+                break
             offsets = (ctypes.c_longlong * (4 * packed.n_layers))(
                 *(o for offs in packed.offsets for o in offs))
             tiled = (ctypes.c_longlong * packed.n_layers)(*packed.tiled)

@@ -4,16 +4,21 @@
 Seeded full-width F (4->256->512->1024->512->256->258) and G
 (250->512->256->4, BatchNorm stats non-trivial, folded) as ``chip_smoke.py``
 builds them.  For each checked batch and each cluster size (1 is the
-row-tile shape) the kernel is held against its plain fp32 version (K5 1e-4,
-K6 2e-5) and beside its 3xTF32 twin; a rerun and the row-tile shape must
-give the same bits.  Then a sweep over batches times each shape beside the
-module's eval forward (cuBLAS, fp32) with CUDA events, which is where
-``launch_shape``'s crossover comes from.  Prints ptxas's report for the
-kernels, the card's name and power limit, and one JSON line; exits 1 on any
-failed check.
+row-tile shape), and for K5 the wgmma shape, the kernel is held against its
+plain fp32 version (K5 1e-4, K6 2e-5) and beside its 3xTF32 twin; a rerun
+must give the same bits, and every ``mma.sync`` shape the row-tile shape's
+bits (the wgmma shape sums in another order).  Then a sweep over batches
+times each shape beside the module's eval forward (cuBLAS, fp32) with CUDA
+events, in turns (every shape, then every shape again in reverse order; the
+median of both runs): a call on its own (its median, the wrapper's host
+time included, as chip_smoke.py times it) and back to back (``burst_ms``:
+the kernel's device time), which is where ``launch_shape``'s crossovers
+come from.  Prints ptxas's report for the kernels, the card's name and power
+limit, and one JSON line; exits 1 on any failed check.
 
     python examples/torch_serving_tiles.py            # on the card
     python examples/torch_serving_tiles.py --sweep 64 8192 --reps 20
+    python examples/torch_serving_tiles.py --sweep 4096 8192 --clusters 1 wgmma
 """
 
 from __future__ import annotations
@@ -36,8 +41,8 @@ from pigan_thz_torch.ops import fused_kernels as fk
 
 K5_TOL = 1e-4
 K6_TOL = 2e-5
-CHECK_BATCHES = (1, 19, 64, 77, 257, 8192)   # and each crossover's two sides
-SWEEP_BATCHES = (1, 64, 256, 512, 1024, 2048, 4096, 8192, 65536)
+CHECK_BATCHES = (1, 19, 64, 77, 257, 8192, 8192 + 37)   # and each crossover's two sides
+SWEEP_BATCHES = (1, 64, 256, 512, 1024, 2048, 3072, 4096, 4224, 4225, 6144, 8192, 65536)
 
 
 def card_line() -> str:
@@ -63,6 +68,26 @@ def median_ms(fn, reps: int, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
+def burst_ms(fn, reps: int, n: int = 20) -> float:
+    """A launch's device time: ``n`` launches back to back between two
+    events (the host enqueues ahead of the card, so the wrapper's host time
+    drops out), the median over ``reps`` such bursts, over ``n``."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(max(3, reps // 4)):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
 def models(dev):
     cfg = default_config()
     gen = torch.Generator().manual_seed(0)
@@ -80,9 +105,11 @@ def models(dev):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sweep", type=int, nargs="*", default=list(SWEEP_BATCHES))
-    ap.add_argument("--clusters", type=int, nargs="*", default=list(fk.CLUSTER_SIZES))
+    ap.add_argument("--clusters", nargs="*", default=[*map(str, fk.CLUSTER_SIZES), fk.WGMMA],
+                    help="cluster sizes and 'wgmma' (K5's wgmma shape)")
     ap.add_argument("--reps", type=int, default=30)
     a = ap.parse_args()
+    shapes = [s if s == fk.WGMMA else int(s) for s in a.clusters]
     if not torch.cuda.is_available():
         print("torch_serving_tiles: FAIL: needs a CUDA device", file=sys.stderr)
         return 1
@@ -94,7 +121,7 @@ def main() -> int:
     _cuda_build.load_library()
     log = (lib.parent / "nvcc.log").read_text().splitlines()
     for i, line in enumerate(log):
-        if "ptxas info" in line and "chain_kernel" in line:
+        if "ptxas" in line and "chain_kernel" in line:
             print("  " + line.strip())
             for nxt in log[i + 1:i + 3]:
                 print("    " + nxt.strip())
@@ -111,8 +138,11 @@ def main() -> int:
                               fk.fused_dense_chain_tf32, g_packed, 250, K6_TOL),
     }
     crossovers = {fk.crossover_for(p) for p in (f_packed, g_packed)}
+    wg_cross = fk.wgmma_crossover(sms)
     print(f"clusters resident at once: K5 {fk.chain_limits(f_packed)[1]}, "
-          f"K6 {fk.chain_limits(g_packed)[1]}; the row-tile shape from B = {sorted(crossovers)}")
+          f"K6 {fk.chain_limits(g_packed)[1]}; the row-tile shape from B = {sorted(crossovers)}, "
+          f"K5's wgmma shape from B = {wg_cross}")
+    crossovers.add(wg_cross)
     with torch.inference_mode():
         for b in sorted({*CHECK_BATCHES, *(c - 1 for c in crossovers), *crossovers}):
             for name, (kern, plain, twin, packed, din, tol) in kernels.items():
@@ -121,7 +151,9 @@ def main() -> int:
                 want = plain(x, packed)
                 tw = twin(x, packed)
                 ref = None
-                for c in a.clusters:
+                for c in shapes:
+                    if c == fk.WGMMA and packed.wgmma is None:
+                        continue
                     before = fk.LAUNCHES[name]
                     try:
                         got = kern(x, packed, cluster=c)
@@ -135,12 +167,13 @@ def main() -> int:
                            "vs_3xtf32_twin": float((got - tw).abs().max()),
                            "rerun_equal": bool(torch.equal(got, again)),
                            "launches": fk.LAUNCHES[name] - before}
-                    if ref is None:
-                        ref = got
-                    row["equal_to_first_shape"] = bool(torch.equal(got, ref))
+                    if c != fk.WGMMA:
+                        if ref is None:
+                            ref = got
+                        row["equal_to_first_shape"] = bool(torch.equal(got, ref))
                     print(json.dumps(row))
                     if not (err <= tol and row["rerun_equal"] and row["launches"] == 2
-                            and row["equal_to_first_shape"]):
+                            and row.get("equal_to_first_shape", True)):
                         failures.append(f"{name} B={b} cluster={c}: {row}")
         # the odd chain through the padding
         g1 = torch.Generator().manual_seed(1)
@@ -149,7 +182,9 @@ def main() -> int:
         odd = fk.pack_chain([layer], head, dev)
         xo = torch.randn((19, 7), generator=gen, device=dev)
         want = fk.fused_mlp_forward_plain(xo, odd)
-        for c in a.clusters:
+        for c in shapes:
+            if c == fk.WGMMA:
+                continue          # the wgmma shape does not take this chain
             try:
                 err = float((fk.fused_mlp_forward(xo, odd, cluster=c) - want).abs().max())
             except RuntimeError as e:
@@ -172,14 +207,26 @@ def main() -> int:
                     ("fused_mlp_forward", x, f_packed, fk.fused_mlp_forward),
                     ("fused_dense_chain", s, g_packed, fk.fused_dense_chain)):
                 row[name] = {}
-                for c in a.clusters:
-                    if c > 1 and -(-b // fk.ROW_TILE) * c > 8 * sms:
+                timed = [c for c in shapes
+                         if (c == fk.WGMMA and packed.wgmma is not None)
+                         or (c != fk.WGMMA and (c == 1 or -(-b // fk.ROW_TILE) * c <= 8 * sms))]
+                runs: dict = {}
+                for c in timed + timed[::-1]:       # in turns: A B B A
+                    if isinstance(runs.get(str(c)), str):
                         continue
                     try:
-                        row[name][str(c)] = median_ms(lambda: kern(inp, packed, cluster=c),
-                                                      a.reps)
+                        fn = lambda: kern(inp, packed, cluster=c)   # noqa: E731
+                        runs.setdefault(str(c), []).append(
+                            (median_ms(fn, a.reps), burst_ms(fn, a.reps)))
                     except RuntimeError as e:
-                        row[name][str(c)] = f"refused: {e}"
+                        runs[str(c)] = f"refused: {e}"
+                row[name + ".burst"] = {}
+                for c, v in runs.items():
+                    if isinstance(v, str):
+                        row[name][c] = v
+                        continue
+                    row[name][c] = statistics.median(t for t, _ in v)
+                    row[name + ".burst"][c] = statistics.median(t for _, t in v)
             sweep.append(row)
             print(json.dumps(row))
     print(f"card: {card}")

@@ -7,7 +7,9 @@
 //   - fused_dense_chain (K6): the generator with BatchNorm folded into the
 //     dense weights beforehand, ReLU hidden layers, tanh head
 //     (250->512->256->4).
-// Both are one template, chain_kernel<HIDDEN, HEAD>, launched once per call.
+// Both are one template, chain_kernel<HIDDEN, HEAD>, launched once per call;
+// K5 has a second kernel, wg_chain_kernel, for batches that fill the card
+// (the wgmma shape, below).
 //
 // Arithmetic.  Every product of a dense layer runs on the tensor cores as
 // 3xTF32: each operand x is split into hi = rna_tf32(x) and
@@ -53,7 +55,7 @@
 // evenly: K5's 258 -> 264 head is two passes of 16 and 17 tiles, so no
 // warp idles on a ragged tail.
 //
-// Two launch shapes, one kernel.  The row-tile shape (cluster size 1) gives
+// Two launch shapes of chain_kernel.  The row-tile shape (cluster size 1) gives
 // each block its own 32 rows: B = 8192 is 256 blocks, 1.94 waves on 132
 // SMs (the tail wave has 124 blocks).  For small batches a thread-block
 // cluster of C blocks (2, 4 or 8) shares one row tile: block c computes
@@ -66,6 +68,42 @@
 // warp a row), so the two shapes give the same bits, and reruns do too: no
 // atomics anywhere.
 //
+// The wgmma shape (wg_chain_kernel; K5 only, from the batch that the
+// row-tile shape cannot run in one wave: ops/fused_kernels.py:
+// wgmma_crossover, 4225 rows on 132 SMs).  A cluster of 2 blocks owns 128
+// batch rows; block q computes half of every layer's n8 tiles, each of its
+// two consumer warpgroups for 64 rows, in passes of at most 16 tiles, as
+// wgmma.mma_async.m64n{64,72,128}k8.f32.tf32.tf32 with A from registers and
+// B from shared memory.  Per k8 step a warpgroup splits its A fragment (each
+// warp the m16n8k8 fragment of its 16 rows) into hi and lo once, then runs
+// lo*hi, hi*hi, hi*lo into the two accumulator sets as above; a step's
+// products run while the next step's are issued (wait_group 1, each step its
+// own A registers).  B comes split: pack_chain stores each W once more as
+// hi = rna_tf32(W) and lo = rna_tf32(W - hi), per rank, pass and k8 step in
+// the layout the descriptors read (core matrices of 8 columns x 4 k, no
+// swizzle), so that the producer warpgroup lands a stage (one k8 step of 16
+// tiles, hi and lo, 8 KB) with one bulk copy into a ring of 4.  A block's
+// output columns stay in its shared memory, swizzled so that one float4
+// holds a thread's A values of two k8 steps (wswz); a warpgroup reads its
+// own block's columns with ld.shared and the peer's with ld.shared::cluster.
+// LayerNorm: each block sums its columns of every row (in the epilogue), the
+// two blocks' sums meet in rank order through distributed shared memory,
+// then the squared deviations likewise (two passes), then each block
+// normalises its columns; the consumers of the two blocks meet on mbarriers,
+// which the producer never joins.  Shared memory: the ring 32 KB, the
+// activations 128 rows x (256 + 128) floats (K5's widest slices, by layer
+// parity), the row sums 1 KB: 230,480 of 232,448 bytes.  The 512 -> 1024
+// layer's output does not fit (128 x 512 floats a block): it goes to a
+// global scratch of 1024 floats a row, which L2 holds, and the next layer
+// reads it back through L2 (ld.global.cg).  W read from L2 a call at B =
+// 8192: 64 clusters x 11.0 MB (hi and lo of every W, once a cluster) = 0.71
+// GB, where the row-tile shape reads 1.46 GB; the scratch adds ~0.26 GB.
+// The register file sets the tile: two steps' A and 2 x 64 accumulators a
+// thread fill the 232 registers the consumers take from the producer's
+// warpgroup (setmaxnreg); with more A in flight ptxas serialises the wgmma.
+// The shape sums in another order than chain_kernel (not its bits); reruns
+// give the same bits.
+//
 // Bounds on the card.  K5 at B = 8192 is 22.6 GFLOP of fp32 products: 0.34
 // ms at the 67 TFLOP/s of fp32 outside the tensor cores; as 3xTF32, three
 // TF32 products at 495 TFLOP/s, 0.14 ms.  The kernel is bound by its
@@ -75,15 +113,19 @@
 // time).  Each block streams the whole chain's weights from L2 (5.7 MB in
 // stage order for K5), so 256 blocks read 1.5 GB of L2: a cluster that
 // multicasts W tiles to several row tiles, wgmma and persistent blocks are
-// later work.
+// later work.  The wgmma shape takes 0.33 ms at B = 8192 back to back (PERF.md
+// §6): its products, epilogues and A loads alone 0.26 ms, ~55 % of the TF32
+// rate, where the same wgmma alone reach ~95 %; the LayerNorms and their
+// meetings 0.06 ms, the W copies ~0.02 ms (examples/torch_serving_ablate.py).
 //
 // Interface: plain C, loaded with ctypes.  Each entry point launches on the
 // given stream, does not synchronise, allocates nothing, and returns
 // cudaGetLastError() after the launch (0 on success).  A launch makes no
 // occupancy query: the wrappers pick or check the cluster size against
-// pigan_fused_chain_max_clusters' answer, asked once a chain and card, and a
-// cluster shape the card cannot schedule fails its launch.  The kernel's
-// shared-memory limit is raised once a device.
+// pigan_fused_chain_max_clusters' (pigan_fused_mlp_wgmma_max_clusters')
+// answer, asked once a chain and card, and a cluster shape the card cannot
+// schedule fails its launch.  Each kernel's shared-memory limit is raised
+// once a device.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -203,8 +245,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // The n8 tiles [t0, t1) of a layer's `ntiles` that cluster rank `rank` owns.
-__device__ __forceinline__ void cta_tiles(int ntiles, int rank, int csize, int& t0,
-                                          int& t1) {
+__host__ __device__ __forceinline__ void cta_tiles(int ntiles, int rank, int csize, int& t0,
+                                                   int& t1) {
   t0 = rank * ntiles / csize;
   t1 = (rank + 1) * ntiles / csize;
 }
@@ -634,14 +676,12 @@ chain_kernel(const float* __restrict__ x, float* __restrict__ out,
 // device, into *limit: the card's opt-in maximum less the kernel's static
 // shared memory, to which the kernel's attribute is raised on the first
 // call for each device; later calls read the cached value.
-template <int HIDDEN, int HEAD>
-cudaError_t smem_limit(int* limit) {
-  static std::atomic<int> cached[kMaxDevices];  // 0 until set
+template <typename Kernel>
+cudaError_t raise_smem_limit(Kernel kernel, std::atomic<int>* cached, int* limit) {
   int device = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return e;
   if (device < kMaxDevices && (*limit = cached[device].load()) > 0) return cudaSuccess;
-  auto kernel = chain_kernel<HIDDEN, HEAD>;
   int optin = 0;
   e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (e != cudaSuccess) return e;
@@ -653,6 +693,12 @@ cudaError_t smem_limit(int* limit) {
   if (e != cudaSuccess) return e;
   if (device < kMaxDevices) cached[device].store(*limit);
   return cudaSuccess;
+}
+
+template <int HIDDEN, int HEAD>
+cudaError_t smem_limit(int* limit) {
+  static std::atomic<int> cached[kMaxDevices];  // 0 until set
+  return raise_smem_limit(chain_kernel<HIDDEN, HEAD>, cached, limit);
 }
 
 // The chain's widths (dims: n_layers + 1 real widths, a host array) into
@@ -755,6 +801,692 @@ cudaError_t max_clusters(const int* dims, int n_layers, int cluster, int* active
   return cudaOccupancyMaxActiveClusters(active, chain_kernel<HIDDEN, HEAD>, &cfg);
 }
 
+
+// ---------------------------------------------------------------------------
+// The wgmma shape (K5 only; see the header)
+// ---------------------------------------------------------------------------
+
+constexpr int kWgRows = 128;        // batch rows a cluster owns: a 64-row tile a warpgroup
+constexpr int kWgCluster = 2;       // blocks a cluster; each computes half of the columns
+constexpr int kWgThreads = 256;     // two consumer warpgroups (== kThreads: consumers_sync)
+constexpr int kWgBlock = kWgThreads + 128;   // and the producer's warpgroup
+constexpr int kWgWarps = kWgThreads / 32;
+constexpr int kWgPassTiles = 16;    // n8 tiles a pass at most: m64n128k8
+constexpr int kWgStages = 4;
+constexpr int kWgStageFloats = 128 * kWgPassTiles;   // one k8 step of 16 tiles, hi and lo: 8 KB
+static_assert(kWgThreads == kThreads, "consumers_sync counts kThreads");
+
+// Passed by value.  Offsets in floats into the packed buffer; wg_off[l] is
+// layer l's W stream (ops/fused_kernels.py:wgmma_stream): per cluster rank
+// in turn, per pass, per k8 step the hi then the lo image of the pass's
+// columns, each NT core matrices of 8 columns x 4 k-rows twice (k 0-3, 4-7),
+// so that one bulk copy lands a stage as the descriptors read it.
+struct WgDesc {
+  int n_layers;
+  int dims[kMaxLayers + 1];
+  int pdims[kMaxLayers + 1];
+  long long b_off[kMaxLayers];
+  long long s_off[kMaxLayers];
+  long long t_off[kMaxLayers];
+  long long wg_off[kMaxLayers];
+  int buf_width[2];
+  int gl;  // the hidden layer whose output lives in the global scratch, or -1
+  int sw;  // the scratch's row stride
+};
+
+// Pass p of a block's t tiles: its first tile and its tile count (8, 9 or 16
+// for the chains configure_wg accepts); k8 steps a stage for nt tiles.
+__host__ __device__ __forceinline__ int wg_passes(int t) {
+  return (t + kWgPassTiles - 1) / kWgPassTiles;
+}
+__host__ __device__ __forceinline__ void wg_pass_tiles(int t, int p, int& a, int& nt) {
+  const int np = wg_passes(t);
+  a = p * t / np;
+  nt = (p + 1) * t / np - a;
+}
+__host__ __device__ __forceinline__ int wg_stage_steps(int nt) {
+  return nt >= kWgPassTiles ? 1 : kWgPassTiles / nt;
+}
+
+// Column c of row r in an activation buffer: in each 16-column group the
+// order k = 4 i + j holds column j + 4 i (i, j < 4), so that one float4 is a
+// thread's A values (k = tig, tig + 4) of two k8 steps; odd rows swap the two
+// groups of each 32 columns, so that the float4 loads of a warp (8 rows x 64
+// bytes) are free of bank conflicts.  Widths are multiples of 32.
+__device__ __forceinline__ int wswz(int r, int c) {
+  return ((c & ~15) ^ ((r & 1) << 4)) | ((c & 3) << 2) | ((c >> 2) & 3);
+}
+
+// This shared address in cluster rank q's block (distributed shared memory).
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int q) {
+  uint32_t a;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_addr(p)), "r"(q));
+  return a;
+}
+
+__device__ __forceinline__ float4 ld_cluster4(uint32_t a) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a));
+  return v;
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t a) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(a));
+  return v;
+}
+
+// The consumer threads of the cluster's two blocks meet: after the block's
+// own consumers meet, thread 0 arrives on the barrier of every block, then
+// every consumer waits on its own.  Two barriers in turn, so that an early
+// arrival for the next meeting never counts toward this one.  The producer
+// warps take no part (a hardware cluster barrier would wait for them while
+// they wait for ring slots that only the next layer frees).
+__device__ __forceinline__ void cluster_meet(uint64_t* xbar, int& phase) {
+  uint64_t* bar = xbar + (phase & 1);
+  consumers_sync();
+  if (threadIdx.x == 0) {
+    asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
+#pragma unroll
+    for (int q = 0; q < kWgCluster; ++q) {
+      asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+                       cluster_addr(bar, q))
+                   : "memory");
+    }
+  }
+  const int parity = (phase >> 1) & 1;
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+  ++phase;
+}
+
+// A shared-memory matrix descriptor: no swizzle, K-major core matrices of
+// 8 rows x 16 bytes; the next 4 k (16 bytes) 128 bytes on (leading byte
+// offset), the next 8 columns 256 bytes on (stride byte offset).
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3ffffu) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(256 >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+// Keep the compiler from reading an accumulator before the wait.
+__device__ __forceinline__ void fence_operand(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+
+// wgmma.mma_async m64n(8 NT)k8, f32 += tf32 x tf32, A from registers (the
+// m16n8k8 A fragment of each warp's 16 rows), B from shared memory.
+template <int NT>
+struct Wgmma;
+
+template <>
+struct Wgmma<8> {
+  static __device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<9> {
+  static __device__ __forceinline__ void mma(float (&d)[36], const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %41, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n72k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35"
+        "}, {%36, %37, %38, %39}, %40, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+// Where a hidden layer's output lives: in the blocks' shared memory (each
+// block its slice, swizzled by the slice's own columns) or, for the one
+// layer `d.gl` whose slices do not fit, in the global scratch (whole rows,
+// swizzled by the row's columns; read through L2).
+struct WgLayer {
+  const float* in;       // the input: layer 0 the block's x tile, else the previous output
+  int bw_in;             // its row stride
+  int in_mode;           // 0: the block's own buffer; 1: the ranks' slices; 2: scratch rows
+  int t_prev;            // in_mode 1: the previous layer's n8 tiles (cta_tiles over them)
+  int nk8;               // k8 steps: padded input width / 8
+  const float* bias;     // global, the padded output width
+  int c0;                // the block's first output column
+  float* next;           // hidden layer: where its output goes (slice or scratch rows)
+  int bw_next;
+  int next_c0;           // the column the swizzle of `next` counts from: 0 or c0
+  float* out;            // head: the kernel's output, real width dout
+  int dout, row0, rows;
+};
+
+// The float4 that holds row r's A values of the k8 tiles j, j + 1 (j even)
+// for this thread (k = tig, tig + 4 of each): from the block's own shared
+// memory, the peer's (distributed shared memory) or the scratch (L2).
+__device__ __forceinline__ float4 wg_load_a(const WgLayer& L, int j, int r, int rank) {
+  const int tig = threadIdx.x & 3;
+  if (L.in_mode == 2) {
+    const int c = 8 * j;
+    return __ldcg(reinterpret_cast<const float4*>(L.in + r * L.bw_in +
+                                                  ((c ^ ((r & 1) << 4)) + 4 * tig)));
+  }
+  int q = rank;
+  int t0 = 0;
+  if (L.in_mode == 1) {
+    q = kWgCluster - 1;
+    while (q > 0 && j < q * L.t_prev / kWgCluster) --q;
+    t0 = q * L.t_prev / kWgCluster;
+  }
+  const int c = 8 * (j - t0);
+  const float* p = L.in + r * L.bw_in + ((c ^ ((r & 1) << 4)) + 4 * tig);
+  if (q == rank) return *reinterpret_cast<const float4*>(p);
+  return ld_cluster4(cluster_addr(p, q));
+}
+
+// The products of one k8 step for this warpgroup's 64 rows and the pass's
+// NT tiles, issued without waiting: A (this thread's m16n8k8 fragment a)
+// split into hi and lo in registers, B from the ring's stage `slot`, `sub`
+// steps into it.
+template <int NT>
+__device__ __forceinline__ void wg_issue(float (&acc)[4 * NT], float (&sml)[4 * NT],
+                                         const float (&a)[4], uint32_t (&ahi)[4],
+                                         uint32_t (&alo)[4], const Ring& ring, int slot,
+                                         int sub) {
+  const uint32_t base = smem_addr(ring.stage + slot * kWgStageFloats) + sub * NT * 512;
+  const uint64_t bhi = wg_desc(base);
+  const uint64_t blo = wg_desc(base + NT * 256);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split(a[i], ahi[i], alo[i]);
+  wgmma_fence();
+  Wgmma<NT>::mma(sml, alo, bhi);
+  Wgmma<NT>::mma(acc, ahi, bhi);
+  Wgmma<NT>::mma(sml, ahi, blo);
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// One pass: the block's tiles [a, a + NT) of the layer for this warpgroup's
+// 64 rows, over every k8 step, then the epilogue: (small + hi*hi) + bias
+// into `next`, or for the head into the output.  Step s's products run
+// while step s + 1's A is split and issued (its own registers); a stage is
+// released once the products of its last step are done; A is loaded two
+// steps (one float4) ahead.
+template <int NT>
+__device__ __forceinline__ void wg_pass(const WgLayer& L, int a, int rank, const Ring& ring,
+                                        int& it, float* psum, bool first) {
+  const int wg = threadIdx.x >> 7;
+  const int lane = threadIdx.x & 31;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int ra = 64 * wg + 16 * ((threadIdx.x >> 5) & 3) + gid;
+  const int rb = ra + 8;
+  const int steps = wg_stage_steps(NT);
+  const int nk8 = L.nk8;
+
+  float acc[4 * NT];  // hi*hi
+  float sml[4 * NT];  // lo*hi + hi*lo
+#pragma unroll
+  for (int i = 0; i < 4 * NT; ++i) acc[i] = sml[i] = 0.f;
+  uint32_t ahi[2][4], alo[2][4];  // the A registers of the two steps in flight
+
+  float4 va = wg_load_a(L, 0, ra, rank);
+  float4 vb = wg_load_a(L, 0, rb, rank);
+  int sub = 0;         // the step's place in its stage
+  int prev_slot = -1;  // the stage to release once the previous step is done
+  for (int j = 0; j < nk8; j += 2) {
+    float4 na = va, nb = vb;
+    if (j + 2 < nk8) {
+      na = wg_load_a(L, j + 2, ra, rank);
+      nb = wg_load_a(L, j + 2, rb, rank);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (h == 1 && j + 1 >= nk8) break;
+      const int slot = it % kWgStages;
+      if (sub == 0) mbar_wait(ring.full + slot, (it / kWgStages) & 1);
+      const float av[4] = {h ? va.z : va.x, h ? vb.z : vb.x, h ? va.w : va.y,
+                           h ? vb.w : vb.y};
+      wg_issue<NT>(acc, sml, av, ahi[h], alo[h], ring, slot, sub);
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      if (prev_slot >= 0) release(ring.empty + prev_slot);
+      prev_slot = -1;
+      if (++sub == steps || j + h + 1 == nk8) {
+        prev_slot = slot;
+        sub = 0;
+        ++it;
+      }
+    }
+    va = na;
+    vb = nb;
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  if (prev_slot >= 0) release(ring.empty + prev_slot);
+#pragma unroll
+  for (int i = 0; i < 4 * NT; ++i) {
+    fence_operand(acc[i]);
+    fence_operand(sml[i]);
+  }
+
+  // Every bias first: read-only loads, all in flight at once, ahead of the
+  // stores (a load behind a store that may alias it would wait out its
+  // latency each time: 0.04 ms a call at B = 8192).
+  float bias[2 * NT];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    const int gc = L.c0 + 8 * (a + t) + 2 * tig;
+    bias[2 * t] = __ldg(L.bias + gc);
+    bias[2 * t + 1] = __ldg(L.bias + gc + 1);
+  }
+  float rs[2] = {0.f, 0.f};  // rows ra, rb: the sum of this thread's columns
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    const int c = 8 * (a + t) + 2 * tig;  // the block's column
+    const int gc = L.c0 + c;
+    const float b0 = bias[2 * t];
+    const float b1 = bias[2 * t + 1];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = h ? rb : ra;
+      const float v0 = (sml[4 * t + 2 * h] + acc[4 * t + 2 * h]) + b0;
+      const float v1 = (sml[4 * t + 2 * h + 1] + acc[4 * t + 2 * h + 1]) + b1;
+      if (L.next) {
+        const int cn = L.next_c0 + c;
+        L.next[r * L.bw_next + wswz(r, cn)] = v0;
+        L.next[r * L.bw_next + wswz(r, cn + 1)] = v1;
+        rs[h] += v0 + v1;
+      } else if (r < L.rows) {
+        float* o = L.out + (size_t)(L.row0 + r) * L.dout;
+        if (gc < L.dout) o[gc] = v0;
+        if (gc + 1 < L.dout) o[gc + 1] = v1;
+      }
+    }
+  }
+  // A hidden layer's row sums over the pass's columns (padded columns hold
+  // exact zeros), the four lanes of a row in a butterfly, added to the
+  // earlier passes': the LayerNorm's first pass, taken from registers.
+  if (L.next) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
+      rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
+    }
+    if (tig == 0) {
+      psum[ra] = first ? rs[0] : psum[ra] + rs[0];
+      psum[rb] = first ? rs[1] : psum[rb] + rs[1];
+    }
+  }
+}
+
+// LayerNorm + LeakyReLU over the cluster's rows, each block on its columns
+// [c0, c0 + w) of h (a slice: cs = 0; scratch rows: cs = c0, the swizzle's
+// column origin; the row's real width n): each row's sum over the block's
+// columns (psum, from the passes' epilogues), the ranks' sums in rank
+// order, the mean; then likewise sum((h - mean)^2), the variance (two
+// passes, as the row-tile shape and the TPU kernel compute them); then the
+// columns normalised in place.  Each warp takes 16 rows, all at once; a
+// lane reads a float4 at a time (four columns: the swizzle is its own
+// inverse, so the float4 at position p holds columns wswz(r, p + e)); lane
+// i < 16 holds row i's statistics.
+__device__ void wg_layer_norm(float* h, int bw, int cs, int c0, int w, int n,
+                              const float* __restrict__ scale, const float* __restrict__ shift,
+                              float slope, float eps, float* psum, float* psq, uint64_t* xbar,
+                              int& phase) {
+  constexpr int kR = kWgRows / kWgWarps;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wr = max(0, min(w, n - c0));  // the block's real columns
+  float* const h0 = h + warp * kR * bw + cs;   // the warp's first row (an even row)
+  float s[kR];
+
+  cluster_meet(xbar, phase);
+  float mine = 0.f;  // lane i < 16: row i's mean
+#pragma unroll
+  for (int q = 0; q < kWgCluster; ++q) {
+    mine += ld_cluster(cluster_addr(psum + warp * kR + (lane & (kR - 1)), q));
+  }
+  mine /= n;
+  float m[kR];
+#pragma unroll
+  for (int q = 0; q < kR; ++q) {
+    m[q] = __shfl_sync(0xffffffffu, mine, q);
+    s[q] = 0.f;
+  }
+  for (int p = 4 * lane; p < w; p += 128) {
+#pragma unroll
+    for (int q = 0; q < kR; ++q) {
+      const float4 v = *reinterpret_cast<const float4*>(h0 + q * bw + p);
+      const int c = wswz(q, cs + p) - cs;
+      const float d0 = c < wr ? v.x - m[q] : 0.f;
+      const float d1 = c + 4 < wr ? v.y - m[q] : 0.f;
+      const float d2 = c + 8 < wr ? v.z - m[q] : 0.f;
+      const float d3 = c + 12 < wr ? v.w - m[q] : 0.f;
+      s[q] = fmaf(d0, d0, s[q]);
+      s[q] = fmaf(d1, d1, s[q]);
+      s[q] = fmaf(d2, d2, s[q]);
+      s[q] = fmaf(d3, d3, s[q]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kR; ++q) s[q] = warp_sum(s[q]);
+  if (lane < kR) {
+    float v = s[0];
+#pragma unroll
+    for (int q = 1; q < kR; ++q) v = lane == q ? s[q] : v;
+    psq[warp * kR + lane] = v;
+  }
+  cluster_meet(xbar, phase);
+  float var = 0.f;
+#pragma unroll
+  for (int q = 0; q < kWgCluster; ++q) {
+    var += ld_cluster(cluster_addr(psq + warp * kR + (lane & (kR - 1)), q));
+  }
+  const float inv = rsqrtf(var / n + eps);
+#pragma unroll
+  for (int q = 0; q < kR; ++q) s[q] = __shfl_sync(0xffffffffu, inv, q);
+  for (int p = 4 * lane; p < w; p += 128) {
+#pragma unroll
+    for (int par = 0; par < 2; ++par) {  // even rows, then odd: their columns differ
+      const int c = wswz(par, cs + p) - cs;
+      float sc[4], sh[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[e] = __ldg(scale + c0 + c + 4 * e);
+        sh[e] = __ldg(shift + c0 + c + 4 * e);
+      }
+#pragma unroll
+      for (int q = par; q < kR; q += 2) {
+        float4* ptr = reinterpret_cast<float4*>(h0 + q * bw + p);
+        float4 v = *ptr;
+        float* e4 = &v.x;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float y = (e4[e] - m[q]) * s[q];
+          y = y * sc[e] + sh[e];
+          e4[e] = y >= 0.f ? y : slope * y;
+        }
+        *ptr = v;
+      }
+    }
+  }
+  cluster_meet(xbar, phase);  // the normalised columns are the peers' next input
+}
+
+// The producer: the first thread of the third warpgroup streams the block's stages of every
+// pass of every layer, one bulk copy a stage, as far ahead as the ring allows.
+__device__ void wg_produce(const WgDesc& d, const float* __restrict__ w, int rank,
+                           const Ring& ring) {
+  int it = 0;
+  for (int l = 0; l < d.n_layers; ++l) {
+    const int din_p = d.pdims[l];
+    const int nk8 = din_p / 8;
+    int t0, t1;
+    cta_tiles(d.pdims[l + 1] / 8, rank, kWgCluster, t0, t1);
+    // the ranks before this one hold t0 tiles of 16 * din_p floats each
+    const float* src = w + d.wg_off[l] + (size_t)16 * t0 * din_p;
+    for (int p = 0; p < wg_passes(t1 - t0); ++p) {
+      int a, nt;
+      wg_pass_tiles(t1 - t0, p, a, nt);
+      const int steps = wg_stage_steps(nt);
+      for (int k = 0; k < nk8; k += steps, ++it) {
+        const int slot = it % kWgStages;
+        if (it >= kWgStages) mbar_wait(ring.empty + slot, (it / kWgStages - 1) & 1);
+        const unsigned floats = 128u * nt * min(steps, nk8 - k);
+        mbar_arrive_expect_tx(ring.full + slot, 4 * floats);
+        bulk_copy(ring.stage + slot * kWgStageFloats, src, 4 * floats, ring.full + slot);
+        src += floats;
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kWgBlock, 1)
+wg_chain_kernel(const float* __restrict__ x, float* __restrict__ out,
+                const float* __restrict__ w, float* __restrict__ scratch, const WgDesc d,
+                int batch, float slope, float eps) {
+  extern __shared__ float4 smem4[];
+  Ring ring;
+  ring.stage = reinterpret_cast<float*>(smem4);
+  float* const buf0 = ring.stage + kWgStages * kWgStageFloats;
+  float* const buf1 = buf0 + kWgRows * d.buf_width[0];
+  float* const psum = buf1 + kWgRows * d.buf_width[1];
+  float* const psq = psum + kWgRows;
+  ring.full = reinterpret_cast<uint64_t*>(psq + kWgRows);
+  ring.empty = ring.full + kWgStages;
+  uint64_t* const xbar = ring.empty + kWgStages;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int row0 = (blockIdx.x / kWgCluster) * kWgRows;
+  const int rows = min(kWgRows, batch - row0);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(ring.full + s, 1);
+      mbar_init(ring.empty + s, kWgWarps);
+    }
+    mbar_init(xbar, kWgCluster);
+    mbar_init(xbar + 1, kWgCluster);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // The x tile -> buf0, every block the whole width (padded to 16 columns);
+  // rows past the batch and padded columns are zero.
+  {
+    const int din = d.dims[0];
+    const int xw = (d.pdims[0] + 15) & ~15;
+    const int bw = d.buf_width[0];
+    for (int i = threadIdx.x; i < kWgRows * xw; i += kWgBlock) {
+      const int r = i / xw;
+      const int k = i - r * xw;
+      buf0[r * bw + wswz(r, k)] = r < rows && k < din ? x[(size_t)(row0 + r) * din + k] : 0.f;
+    }
+  }
+  cluster.sync();  // the barriers' init is visible to the peer
+
+  // The producer's warpgroup gives up registers, the consumers take them:
+  // two warpgroups' accumulators (2 x 64 of a 16-tile pass) and A in
+  // flight, with no spill and no serialised wgmma.
+  if (threadIdx.x >= kWgThreads) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == kWgThreads) wg_produce(d, w, rank, ring);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+
+  float* const rows_of = scratch + (size_t)row0 * d.sw;  // the cluster's scratch rows
+  int it = 0;
+  int phase = 0;
+  for (int l = 0; l < d.n_layers; ++l) {
+    const bool head = l == d.n_layers - 1;
+    int t0, t1;
+    cta_tiles(d.pdims[l + 1] / 8, rank, kWgCluster, t0, t1);
+    WgLayer L;
+    L.in_mode = l == 0 ? 0 : l - 1 == d.gl ? 2 : 1;
+    L.in = L.in_mode == 2 ? rows_of : l & 1 ? buf1 : buf0;
+    L.bw_in = L.in_mode == 2 ? d.sw : d.buf_width[l & 1];
+    L.t_prev = d.pdims[l] / 8;
+    L.nk8 = d.pdims[l] / 8;
+    L.bias = w + d.b_off[l];
+    L.c0 = 8 * t0;
+    L.next = head ? nullptr : l == d.gl ? rows_of : l & 1 ? buf0 : buf1;
+    L.bw_next = l == d.gl ? d.sw : d.buf_width[(l + 1) & 1];
+    L.next_c0 = l == d.gl ? L.c0 : 0;
+    L.out = out;
+    L.dout = d.dims[l + 1];
+    L.row0 = row0;
+    L.rows = rows;
+    for (int p = 0; p < wg_passes(t1 - t0); ++p) {
+      int a, nt;
+      wg_pass_tiles(t1 - t0, p, a, nt);
+      if (nt == 16) {
+        wg_pass<16>(L, a, rank, ring, it, psum, p == 0);
+      } else if (nt == 9) {
+        wg_pass<9>(L, a, rank, ring, it, psum, p == 0);
+      } else {
+        wg_pass<8>(L, a, rank, ring, it, psum, p == 0);
+      }
+    }
+    if (!head) {
+      wg_layer_norm(L.next, L.bw_next, L.next_c0, L.c0, 8 * (t1 - t0), d.dims[l + 1],
+                    w + d.s_off[l], w + d.t_off[l], slope, eps, psum, psq, xbar, phase);
+    }
+  }
+  cluster_meet(xbar, phase);  // no block leaves while its peer still reads it
+}
+
+cudaError_t wg_smem_limit(int* limit) {
+  static std::atomic<int> cached[kMaxDevices];  // 0 until set
+  return raise_smem_limit(wg_chain_kernel, cached, limit);
+}
+
+// The chain's widths into `d`, with hidden layer `gl`'s output in the global
+// scratch (-1: none), and the launch of `clusters` clusters; refuses
+// (cudaErrorInvalidValue) a chain the shape does not take: every pass of 8,
+// 9 or 16 tiles, a multiple of 4 tiles a block for each hidden layer (its
+// columns are read two k8 steps a float4, and whole 32-column groups of the
+// swizzle), the other outputs, the ring and the row statistics within the
+// block's shared memory.
+cudaError_t configure_wg(const int* dims, int n_layers, int gl, int clusters, WgDesc& d,
+                         cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr) {
+  if (n_layers < 2 || n_layers > kMaxLayers || gl < -1 || gl >= n_layers - 1) {
+    return cudaErrorInvalidValue;
+  }
+  d.n_layers = n_layers;
+  d.gl = gl;
+  for (int i = 0; i <= n_layers; ++i) {
+    if (dims[i] < 1) return cudaErrorInvalidValue;
+    d.dims[i] = dims[i];
+    d.pdims[i] = (dims[i] + 7) & ~7;
+  }
+  d.sw = gl < 0 ? 0 : (d.pdims[gl + 1] + 31) & ~31;
+  int width[2] = {(d.pdims[0] + 15) & ~15, 0};
+  for (int l = 0; l < n_layers; ++l) {
+    for (int q = 0; q < kWgCluster; ++q) {
+      int t0, t1;
+      cta_tiles(d.pdims[l + 1] / 8, q, kWgCluster, t0, t1);
+      for (int p = 0; p < wg_passes(t1 - t0); ++p) {
+        int a, nt;
+        wg_pass_tiles(t1 - t0, p, a, nt);
+        if (nt != 8 && nt != 9 && nt != 16) return cudaErrorInvalidValue;
+      }
+      if (l < n_layers - 1) {
+        if ((t1 - t0) & 3) return cudaErrorInvalidValue;
+        if (l != gl) width[(l + 1) & 1] = max(width[(l + 1) & 1], 8 * (t1 - t0));
+      }
+    }
+  }
+  for (int p = 0; p < 2; ++p) d.buf_width[p] = (max(width[p], 1) + 31) & ~31;
+  const size_t smem =
+      sizeof(float) * ((size_t)kWgStages * kWgStageFloats +
+                       (size_t)kWgRows * (d.buf_width[0] + d.buf_width[1] + 2)) +
+      sizeof(uint64_t) * (2 * kWgStages + 2);
+  int limit = 0;
+  const cudaError_t e = wg_smem_limit(&limit);
+  if (e != cudaSuccess) return e;
+  if (smem > (size_t)limit) return cudaErrorInvalidValue;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(clusters * kWgCluster, 1, 1);
+  cfg.blockDim = dim3(kWgBlock, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kWgCluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+// scratch: (clusters * kWgRows) rows of layer gl's padded width rounded up
+// to 32 (ops/fused_kernels.py allocates it), or null with gl = -1.
+cudaError_t launch_wg(const float* x, float* out, const float* w, float* scratch,
+                      const long long* offsets, const long long* wg_off, const int* dims,
+                      int n_layers, int gl, int batch, float slope, float eps,
+                      cudaStream_t stream) {
+  if (batch < 1 || n_layers < 2 || n_layers > kMaxLayers) return cudaErrorInvalidValue;
+  if ((gl >= 0) != (scratch != nullptr)) return cudaErrorInvalidValue;
+  WgDesc d{};
+  for (int l = 0; l < n_layers; ++l) {
+    d.b_off[l] = offsets[4 * l + 1];
+    d.s_off[l] = offsets[4 * l + 2];
+    d.t_off[l] = offsets[4 * l + 3];
+    d.wg_off[l] = wg_off[l];
+    // the bulk copies move 16-byte units from 16-byte boundaries
+    if (d.b_off[l] < 0 || d.wg_off[l] < 0 || (d.wg_off[l] & 3) != 0) {
+      return cudaErrorInvalidValue;
+    }
+    if (l < n_layers - 1 && (d.s_off[l] < 0 || d.t_off[l] < 0)) return cudaErrorInvalidValue;
+  }
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e =
+      configure_wg(dims, n_layers, gl, (batch + kWgRows - 1) / kWgRows, d, cfg, attr);
+  if (e != cudaSuccess) return e;
+  cfg.stream = stream;
+  e = cudaLaunchKernelEx(&cfg, wg_chain_kernel, x, out, w, scratch, d, batch, slope, eps);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+cudaError_t wg_max_clusters(const int* dims, int n_layers, int gl, int* active) {
+  WgDesc d{};
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  *active = 0;
+  cudaError_t e = configure_wg(dims, n_layers, gl, 1, d, cfg, attr);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveClusters(active, wg_chain_kernel, &cfg);
+}
+
 }  // namespace
 
 extern "C" {
@@ -776,6 +1508,24 @@ int pigan_fused_dense_chain(const float* x, float* out, const float* w,
                             void* stream) {
   return (int)launch<kRelu, kTanh>(x, out, w, offsets, tiled, dims, n_layers, batch,
                                    cluster, 0.f, 0.f, (cudaStream_t)stream);
+}
+
+// K5 in the wgmma shape: wg_off, n_layers offsets of the layers' hi / lo W
+// streams (ops/fused_kernels.py:wgmma_stream), a host array; hidden layer
+// global_layer's output in `scratch` (-1 and null: none).
+int pigan_fused_mlp_forward_wgmma(const float* x, float* out, const float* w, float* scratch,
+                                  const long long* offsets, const long long* wg_off,
+                                  const int* dims, int n_layers, int global_layer, int batch,
+                                  float leaky_slope, float ln_eps, void* stream) {
+  return (int)launch_wg(x, out, w, scratch, offsets, wg_off, dims, n_layers, global_layer,
+                        batch, leaky_slope, ln_eps, (cudaStream_t)stream);
+}
+
+// The number of clusters of K5's wgmma shape the card holds at once, into
+// *active; an error for a chain the shape does not take.
+int pigan_fused_mlp_wgmma_max_clusters(const int* dims, int n_layers, int global_layer,
+                                       int* active) {
+  return (int)wg_max_clusters(dims, n_layers, global_layer, active);
 }
 
 // The number of clusters of `cluster` (2, 4 or 8) blocks that the card holds

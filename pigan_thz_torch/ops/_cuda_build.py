@@ -42,9 +42,11 @@ NVCC_FLAGS = (
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libpigan_kernels.so"
 
-# Successful kernel launches, by kernel.
+# Successful kernel launches, by kernel; a key "<kernel>.<shape>" counts, of
+# those, a kernel's launches in one of its launch shapes.
 LAUNCHES: dict[str, int] = {
     "fused_mlp_forward": 0,
+    "fused_mlp_forward.wgmma": 0,   # of those, K5's launches in its wgmma shape
     "fused_dense_chain": 0,
     "dip_qualification": 0,
     "forward_train": 0,
@@ -54,7 +56,7 @@ LAUNCHES: dict[str, int] = {
 # Launches of the batch-row product kernel (csrc/brow_gemm.cuh), which K1, K2
 # and K3 launch from their C loops: their wrappers add the loop's own count
 # after each chunk, and ``brow.brow_gemm`` one a direct launch.  Apart from
-# LAUNCHES, whose keys stay one a TPU kernel.
+# LAUNCHES, whose keys stay one a TPU kernel (or one of its shapes).
 BROW_LAUNCHES: dict[str, int] = {"brow_gemm": 0}
 # Launches of the other products of K1, K2 and K3 by the kernel their route
 # in csrc/train_common.cuh takes (``products.ROUTES``, in that order): the
@@ -82,7 +84,10 @@ _LL = ctypes.c_longlong
 ENTRY_POINTS = {
     "pigan_fused_mlp_forward": [_P, _P, _P, _OFFSETS, _OFFSETS, _DIMS, _I, _I, _I, _F, _F, _P],
     "pigan_fused_dense_chain": [_P, _P, _P, _OFFSETS, _OFFSETS, _DIMS, _I, _I, _I, _P],
+    "pigan_fused_mlp_forward_wgmma": [
+        _P, _P, _P, _P, _OFFSETS, _OFFSETS, _DIMS, _I, _I, _I, _F, _F, _P],
     "pigan_fused_chain_max_clusters": [_DIMS, _I, _I, _I, ctypes.POINTER(_I)],
+    "pigan_fused_mlp_wgmma_max_clusters": [_DIMS, _I, _I, ctypes.POINTER(_I)],
     "pigan_dip_qualification": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
     "pigan_peak_metrics": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
     "pigan_forward_train": [

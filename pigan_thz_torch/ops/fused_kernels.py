@@ -15,8 +15,12 @@ plus an offsets table, zero-padded to the tensor-core tile (multiples of
 8); BatchNorm is folded at that point, not per call.  The kernels compute
 their products in 3xTF32 on the tensor cores; ``fused_*_tf32`` repeat that
 arithmetic in plain PyTorch for the tests.  ``launch_shape`` picks, from the
-batch and the card's SM count, the row-tile shape (a block per 32 rows) or
-the cluster shape (a cluster of blocks shares 32 rows) for small batches.
+batch and the card's SM count, the row-tile shape (a block per 32 rows),
+the cluster shape (a cluster of blocks shares 32 rows) for small batches,
+or for K5 from ``wgmma_crossover`` up its wgmma shape (a cluster of two
+blocks shares 128 rows, products as warpgroup ``wgmma``), which reads W
+from a second, pre-split copy (``wgmma_stream``) that ``pack_chain`` adds to
+a LayerNorm chain once, at packing.
 
 Each wrapper checks dtype, shape, device and contiguity, then routes by the
 input's device: a CPU tensor goes to the kernel's plain PyTorch version
@@ -24,7 +28,9 @@ input's device: a CPU tensor goes to the kernel's plain PyTorch version
 the kernel, and anything else raises.  There is no fallback from a failed
 launch, and none to another shape.  ``LAUNCHES[name]`` counts the kernel's
 successful launches, so a run can show that its path went through the
-kernel.  The wrappers serve inference only: they carry no gradient.
+kernel; ``LAUNCHES["fused_mlp_forward.wgmma"]`` those of K5's wgmma shape
+among them, which ``utils/profiling.py``'s ``fused_chain_wgmma_launches``
+counter also counts while recording.  The wrappers serve inference only: they carry no gradient.
 
 The two kernels are also registered as the custom ops
 ``torch.ops.pigan_thz.fused_mlp_forward`` and ``...fused_dense_chain`` (a
@@ -44,6 +50,7 @@ import torch
 from torch import nn
 
 # Successful kernel launches, by kernel (one dict for all the port's kernels).
+from ..utils import profiling
 from ._cuda_build import LAUNCHES, check_capability, launch, load_library
 
 
@@ -153,6 +160,90 @@ def row_tile_stages(din_p: int, dout_p: int):
             yield PAD * a, cols, stride, k0, min(kt, din_p - k0)
 
 
+# K5's wgmma shape (csrc/fused_mlp_chain.cu: kWgCluster, kWgRows, kWgPassTiles,
+# kWgStages, kWgStageFloats): a cluster of WG_CLUSTER blocks owns WG_ROWS
+# batch rows, block q half of every layer's n8 tiles (``cta_tiles``), in
+# passes of at most WG_PASS_TILES tiles, each of a size in WG_TILES.
+WG_CLUSTER = 2
+WG_ROWS = 128
+WG_PASS_TILES = 16
+WG_TILES = (8, 9, 16)
+WG_STAGE_BYTES = 4 * 4 * 128 * WG_PASS_TILES     # the ring: 4 stages of 8 KB
+SMEM_OPTIN = 232448                               # a block's shared memory on an H100
+
+
+def cta_tiles(ntiles: int, rank: int, csize: int) -> tuple[int, int]:
+    """The n8 tiles [t0, t1) of a layer's ``ntiles`` that cluster rank
+    ``rank`` of ``csize`` owns (csrc/fused_mlp_chain.cu: cta_tiles)."""
+    return rank * ntiles // csize, (rank + 1) * ntiles // csize
+
+
+def wgmma_passes(t: int):
+    """The passes over a block's ``t`` tiles in the wgmma shape: (first tile,
+    tile count) each (csrc/fused_mlp_chain.cu: wg_pass_tiles)."""
+    np_ = -(-t // WG_PASS_TILES)
+    return [(p * t // np_, (p + 1) * t // np_ - p * t // np_) for p in range(np_)]
+
+
+def _wgmma_smem(pdims: Sequence[int], gl: int) -> int | None:
+    """Shared memory a block of the wgmma shape takes with hidden layer
+    ``gl``'s output in the global scratch (csrc/fused_mlp_chain.cu:
+    configure_wg); None where a pass or a slice is not of a size it takes."""
+    n = len(pdims) - 1
+    width = [_round_up(pdims[0], 16), 0]
+    for l in range(n):
+        for q in range(WG_CLUSTER):
+            t0, t1 = cta_tiles(pdims[l + 1] // PAD, q, WG_CLUSTER)
+            if any(nt not in WG_TILES for _, nt in wgmma_passes(t1 - t0)):
+                return None
+            if l < n - 1:
+                if (t1 - t0) % 4:
+                    return None
+                if l != gl:
+                    width[(l + 1) % 2] = max(width[(l + 1) % 2], PAD * (t1 - t0))
+    return (WG_STAGE_BYTES + 4 * WG_ROWS * (sum(_round_up(max(w, 1), 32) for w in width) + 2)
+            + 8 * 10)
+
+
+@functools.cache
+def wgmma_global_layer(dims: tuple[int, ...]) -> int | None:
+    """For K5's wgmma shape: -1 where every hidden layer's output fits in the
+    blocks' shared memory, else the one hidden layer whose output goes to
+    the global scratch (the widest that makes the rest fit); None where the
+    shape does not take the chain (two layers or more, every pass of a size
+    in WG_TILES, a multiple of 4 tiles a block for each hidden layer)."""
+    n = len(dims) - 1
+    if n < 2 or n > 8 or min(dims) < 1:
+        return None
+    pdims = [_round_up(d, PAD) for d in dims]
+    for gl in [-1, *sorted(range(n - 1), key=lambda l: -pdims[l + 1])]:
+        smem = _wgmma_smem(pdims, gl)
+        if smem is None:
+            return None
+        if smem <= SMEM_OPTIN:
+            return gl
+    return None
+
+
+def wgmma_stream(W: torch.Tensor) -> torch.Tensor:
+    """A padded W (in, out) as the wgmma shape streams it: for each cluster
+    rank in turn, each pass of its tiles, each k8 step, the hi = tf32(W) then
+    the lo = tf32(W - hi) image of the pass's columns, each as core matrices
+    (8 columns x 4 k, k fastest) by column group, then k half: the layout the
+    kernel's shared-memory descriptors read, one bulk copy a stage."""
+    pin, pout = W.shape
+    hi = tf32_round(W)
+    both = torch.stack([hi, tf32_round(W - hi)])            # (2, in, out)
+    parts = []
+    for q in range(WG_CLUSTER):
+        t0, t1 = cta_tiles(pout // PAD, q, WG_CLUSTER)
+        for a, nt in wgmma_passes(t1 - t0):
+            cols = both[:, :, PAD * (t0 + a):PAD * (t0 + a + nt)]
+            parts.append(cols.reshape(2, pin // 8, 2, 4, nt, 8)      # (h, j, c, k, g, n)
+                         .permute(1, 0, 4, 2, 5, 3).reshape(-1))     # (j, h, g, c, n, k)
+    return torch.cat(parts)
+
+
 @dataclass(frozen=True)
 class PackedChain:
     """One model's weights in one contiguous fp32 buffer, in the kernels'
@@ -188,6 +279,16 @@ class PackedChain:
     def device(self) -> torch.device:
         return self.weights.device
 
+    @property
+    def wgmma(self) -> tuple[int, ...] | None:
+        """Per layer, the offset of its W stream for K5's wgmma shape
+        (``wgmma_stream``), which ``pack_chain`` places after the stage-order
+        copies; None where the chain has none (a generator, a chain the shape
+        does not take, a buffer that ends before)."""
+        if not self.layer_norm or not self.tiled or min(self.tiled) < 0:
+            return None
+        return _wgmma_offsets(self.dims, self.tiled[-1], self.weights.numel())
+
     def layer(self, l: int) -> tuple[torch.Tensor, ...]:
         """Views of layer l's tensors, unpadded: (W, b) or (W, b, scale, shift)."""
         din, dout = self.dims[l], self.dims[l + 1]
@@ -201,6 +302,20 @@ class PackedChain:
             else:
                 views.append(self.weights[off : off + dout])
         return tuple(views)
+
+
+@functools.cache
+def _wgmma_offsets(dims: tuple[int, ...], last_tiled: int, numel: int) -> tuple[int, ...] | None:
+    if wgmma_global_layer(dims) is None:
+        return None
+    pdims = [_round_up(d, PAD) for d in dims]
+    pos = last_tiled + _round_up(
+        sum(rows * stride for *_, stride, _, rows in row_tile_stages(*pdims[-2:])), ALIGN)
+    offs = []
+    for l in range(len(dims) - 1):
+        offs.append(pos)
+        pos += _round_up(2 * pdims[l] * pdims[l + 1], ALIGN)
+    return tuple(offs) if pos <= numel else None
 
 
 def pack_chain(
@@ -239,6 +354,11 @@ def pack_chain(
         tiled.append(pos)
         pos += _round_up(sum(rows * stride for *_, stride, _, rows in
                              row_tile_stages(pdims[l], pdims[l + 1])), ALIGN)
+    wg = []
+    if layer_norm and wgmma_global_layer(tuple(dims)) is not None:
+        for l in range(len(entries)):
+            wg.append(pos)
+            pos += _round_up(2 * pdims[l] * pdims[l + 1], ALIGN)
     if device is None:
         device = head[0].device
     weights = torch.zeros(pos, dtype=torch.float32)
@@ -258,6 +378,10 @@ def pack_chain(
             weights[off : off + rows * stride].view(rows, stride)[:, :cols] = \
                 W[k0 : k0 + rows, c0 : c0 + cols]
             off += rows * stride
+    for l, off in enumerate(wg):
+        pin, pout = pdims[l], pdims[l + 1]
+        W = weights[offsets[l][0] : offsets[l][0] + pin * pout].view(pin, pout)
+        weights[off : off + 2 * pin * pout] = wgmma_stream(W)
     return PackedChain(weights.to(device).contiguous(), tuple(offsets), tuple(dims),
                        layer_norm=layer_norm, tiled=tuple(tiled))
 
@@ -356,17 +480,22 @@ def fused_dense_chain_tf32(x: torch.Tensor, packed: PackedChain, terms: int = 3)
 ROW_TILE = 32       # batch rows a block owns (csrc/fused_mlp_chain.cu: kRows)
 CLUSTER_SIZES = (1, 2, 4, 8)    # up to the portable cluster size (kMaxCluster)
 MAX_CLUSTER = CLUSTER_SIZES[-1]
+WGMMA = "wgmma"     # K5's wgmma shape, as a launch shape
 
 
 def launch_shape(batch: int, dims: Sequence[int], sm_count: int,
-                 resident: dict[int, int] | None = None) -> int:
-    """The cluster size for a call: 1 is the row-tile shape (a block per 32
-    rows); C > 1 the cluster shape (C blocks share 32 rows, each computing
-    1/C of every layer's columns).  The largest C, up to ``MAX_CLUSTER``
-    and to the n8 tiles of the narrowest hidden layer, whose clusters for
-    all row tiles are resident on the card at once: ``resident[C]`` of
-    them (the card's answer, ``chain_limits``), by default ``sm_count // C``
-    (one block an SM)."""
+                 resident: dict | None = None, wgmma: bool = False) -> int | str:
+    """The launch shape for a call: ``WGMMA`` (K5 only, ``wgmma`` True: the
+    chain has its W streams) from ``wgmma_crossover`` up; else the cluster
+    size: 1 is the row-tile shape (a block per 32 rows); C > 1 the cluster
+    shape (C blocks share 32 rows, each computing 1/C of every layer's
+    columns).  The largest C, up to ``MAX_CLUSTER`` and to the n8 tiles of
+    the narrowest hidden layer, whose clusters for all row tiles are
+    resident on the card at once: ``resident[C]`` of them (the card's
+    answer, ``chain_limits``), by default ``sm_count // C`` (one block an
+    SM)."""
+    if wgmma and batch >= wgmma_crossover(sm_count):
+        return WGMMA
     tiles = -(-batch // ROW_TILE)
     widths = dims[1:-1] or dims[1:]
     col_tiles = min(_round_up(d, PAD) // PAD for d in widths)
@@ -385,38 +514,73 @@ def crossover_batch(sm_count: int, resident: dict[int, int] | None = None) -> in
     return (resident[2] if resident else sm_count // 2) * ROW_TILE + 1
 
 
+def wgmma_crossover(sm_count: int) -> int:
+    """The smallest batch that takes K5's wgmma shape: the first that the
+    row-tile shape cannot run in one wave of one block an SM, where its
+    second wave would cost a whole block's time; the wgmma shape runs its
+    clusters of ``WG_ROWS`` rows on every SM in one wave up to 8448 rows on
+    132 SMs (examples/torch_serving_tiles.py times both sides)."""
+    return sm_count * ROW_TILE + 1
+
+
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _checked(lib, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"cluster occupancy query: CUDA error {rc} "
+                           f"({lib.pigan_cuda_error_string(rc).decode()})")
+
+
 @functools.cache
-def _resident(index: int, layer_norm: bool, dims: tuple[int, ...]) -> dict[int, int]:
+def _resident(index: int, layer_norm: bool, dims: tuple[int, ...], wgmma: bool) -> dict:
     lib = load_library()
     cdims = (ctypes.c_int * len(dims))(*dims)
     out = {}
     with torch.cuda.device(index):
         for size in CLUSTER_SIZES[1:]:
             n = ctypes.c_int(0)
-            rc = lib.pigan_fused_chain_max_clusters(cdims, len(dims) - 1, int(layer_norm),
-                                                    size, ctypes.byref(n))
-            if rc != 0:
-                raise RuntimeError(f"cluster occupancy query: CUDA error {rc} "
-                                   f"({lib.pigan_cuda_error_string(rc).decode()})")
+            _checked(lib, lib.pigan_fused_chain_max_clusters(
+                cdims, len(dims) - 1, int(layer_norm), size, ctypes.byref(n)))
             out[size] = n.value
+        if wgmma:
+            n = ctypes.c_int(0)
+            _checked(lib, lib.pigan_fused_mlp_wgmma_max_clusters(
+                cdims, len(dims) - 1, wgmma_global_layer(dims), ctypes.byref(n)))
+            out[WGMMA] = n.value
     return out
 
 
-def chain_limits(packed: PackedChain) -> tuple[int, dict[int, int]]:
-    """(SM count, clusters of each size resident at once) for ``packed``'s
-    kernel on the card that holds it."""
+def chain_limits(packed: PackedChain) -> tuple[int, dict]:
+    """(SM count, clusters of each shape resident at once: of each size
+    and, for a chain with W streams, of ``WGMMA``) for ``packed``'s kernel on
+    the card that holds it."""
     index = packed.device.index or 0
-    return _sm_count(index), _resident(index, packed.layer_norm, packed.dims)
+    return _sm_count(index), _resident(index, packed.layer_norm, packed.dims,
+                                       packed.wgmma is not None)
 
 
-def chosen_shape(x: torch.Tensor, packed: PackedChain) -> int:
-    """The cluster size the wrappers launch ``x`` with (a CUDA tensor)."""
-    return launch_shape(x.shape[0], packed.dims, *chain_limits(packed))
+def chosen_shape(x: torch.Tensor, packed: PackedChain) -> int | str:
+    """The launch shape the wrappers launch ``x`` with (a CUDA tensor)."""
+    return launch_shape(x.shape[0], packed.dims, *chain_limits(packed),
+                        wgmma=packed.wgmma is not None)
+
+
+def shape_label(shape: int | str) -> str:
+    """A launch shape by name: "wgmma", "row_tile" or "cluster<C>"."""
+    return shape if shape == WGMMA else "row_tile" if shape == 1 else f"cluster{shape}"
+
+
+def shape_name(x: torch.Tensor, packed: PackedChain) -> str:
+    """The launch shape of a call by name: "plain" for a CPU input (the
+    plain version), "empty" for no rows, else ``shape_label``'s."""
+    if x.device.type != "cuda":
+        return "plain"
+    if x.shape[0] == 0:
+        return "empty"
+    return shape_label(chosen_shape(x, packed))
 
 
 def crossover_for(packed: PackedChain) -> int:
@@ -446,8 +610,13 @@ def _check(x: torch.Tensor, packed: PackedChain, layer_norm: bool, name: str,
         raise ValueError(f"{name}: input must be contiguous")
     if x.device != packed.device:
         raise ValueError(f"{name}: input on {x.device}, weights on {packed.device}")
-    if cluster is not None and cluster not in CLUSTER_SIZES:
-        raise ValueError(f"{name}: cluster must be one of {CLUSTER_SIZES}, got {cluster}")
+    if cluster == WGMMA:
+        if packed.wgmma is None:
+            raise ValueError(f"{name}: the wgmma shape takes K5's chains with W streams "
+                             f"(pack_chain of a LayerNorm chain it fits) only")
+    elif cluster is not None and cluster not in CLUSTER_SIZES:
+        raise ValueError(f"{name}: cluster must be one of {CLUSTER_SIZES} or "
+                         f"{WGMMA!r}, got {cluster}")
     if x.device.type == "cpu":
         return False
     if x.device.type != "cuda":
@@ -456,7 +625,20 @@ def _check(x: torch.Tensor, packed: PackedChain, layer_norm: bool, name: str,
     return True
 
 
-def _launch(name: str, x: torch.Tensor, packed: PackedChain, cluster: int | None,
+@functools.cache
+def _c_layout(offsets: tuple, tiled: tuple, dims: tuple, wgmma: tuple | None):
+    """A chain's layout as the C entry points take it, built once a layout:
+    (offsets, tiled, dims, the W streams' offsets or None, the scratch
+    layer, the scratch's row stride)."""
+    n = len(dims) - 1
+    gl = wgmma_global_layer(dims) if wgmma else -1
+    return ((ctypes.c_longlong * (4 * n))(*(o for offs in offsets for o in offs)),
+            (ctypes.c_longlong * n)(*tiled), (ctypes.c_int * len(dims))(*dims),
+            (ctypes.c_longlong * n)(*wgmma) if wgmma else None, gl,
+            _round_up(_round_up(dims[gl + 1], PAD), 32) if gl >= 0 else 0)
+
+
+def _launch(name: str, x: torch.Tensor, packed: PackedChain, cluster: int | str | None,
             *scalars) -> torch.Tensor:
     batch = x.shape[0]
     out = torch.empty((batch, packed.dims[-1]), dtype=torch.float32, device=x.device)
@@ -464,15 +646,22 @@ def _launch(name: str, x: torch.Tensor, packed: PackedChain, cluster: int | None
         return out
     if cluster is None:
         cluster = chosen_shape(x, packed)
-    elif cluster > 1 and chain_limits(packed)[1][cluster] == 0:
-        # launch_shape never picks such a size; a forced one is refused here
-        raise RuntimeError(f"{name}: the card holds no cluster of {cluster} blocks "
+    elif cluster != 1 and chain_limits(packed)[1][cluster] == 0:
+        # launch_shape never picks such a shape; a forced one is refused here
+        raise RuntimeError(f"{name}: the card holds no cluster of the {cluster} shape "
                            f"of this chain's kernel")
-    offsets = (ctypes.c_longlong * (4 * packed.n_layers))(
-        *(o for offs in packed.offsets for o in offs)
-    )
-    tiled = (ctypes.c_longlong * packed.n_layers)(*packed.tiled)
-    dims = (ctypes.c_int * len(packed.dims))(*packed.dims)
+    offsets, tiled, dims, wg, gl, sw = _c_layout(packed.offsets, packed.tiled, packed.dims,
+                                                 packed.wgmma)
+    if cluster == WGMMA:
+        # the cluster's rows of the one hidden output kept in global memory
+        scratch = (torch.empty(_round_up(batch, WG_ROWS) * sw, dtype=torch.float32,
+                               device=x.device) if gl >= 0 else None)
+        launch(f"{name}_wgmma", x.device, x.data_ptr(), out.data_ptr(),
+               packed.weights.data_ptr(), None if scratch is None else scratch.data_ptr(),
+               offsets, wg, dims, packed.n_layers, gl, batch, *scalars, count_as=name)
+        LAUNCHES[f"{name}.{WGMMA}"] += 1
+        profiling.count(profiling.FUSED_CHAIN_WGMMA_LAUNCHES)
+        return out
     launch(name, x.device, x.data_ptr(), out.data_ptr(), packed.weights.data_ptr(),
            offsets, tiled, dims, packed.n_layers, batch, cluster, *scalars)
     return out
@@ -480,10 +669,12 @@ def _launch(name: str, x: torch.Tensor, packed: PackedChain, cluster: int | None
 
 def fused_mlp_forward(
     x: torch.Tensor, packed: PackedChain, leaky_slope: float = 0.2, ln_eps: float = 1e-6,
-    *, cluster: int | None = None,
+    *, cluster: int | str | None = None,
 ) -> torch.Tensor:
     """Fused LayerNorm-MLP chain: x (B, D_in) -> (B, D_out), one launch.
-    ``cluster`` forces the launch shape (default ``launch_shape``'s)."""
+    ``cluster`` forces the launch shape (default ``launch_shape``'s): a
+    cluster size, or ``WGMMA`` ("wgmma") for the wgmma shape, which a chain
+    with W streams (``packed.wgmma``) takes at any batch."""
     if not _check(x, packed, True, "fused_mlp_forward", cluster):
         return fused_mlp_forward_plain(x, packed, leaky_slope, ln_eps)
     return _launch("fused_mlp_forward", x, packed, cluster, leaky_slope, ln_eps)

@@ -67,6 +67,7 @@ from .ops.fused_kernels import (
     pack_forward_model,
     pack_generator,
     packed_op_args,
+    shape_name,
 )
 from .ops.quantized import (
     int8_forward_apply,
@@ -233,6 +234,10 @@ class FusedStage(nn.Module):
         self.spectrum_dim = spectrum_dim
         self.via_ops = via_ops
 
+    def shape(self, x: torch.Tensor) -> str:
+        """The launch shape of the kernel for ``x`` (``fused_kernels.shape_name``)."""
+        return shape_name(x, self._packed)
+
     def forward(self, x: torch.Tensor):
         if self.via_ops:
             ops = torch.ops.pigan_thz
@@ -289,6 +294,12 @@ def _replayed(stage: nn.Module) -> int:
     return int(isinstance(stage, ModuleStage) and stage.replayed)
 
 
+def _shape(stage: nn.Module, x: torch.Tensor) -> str:
+    """The launch shape a fused stage's kernel takes for ``x``; "module" for
+    any other stage."""
+    return stage.shape(x) if isinstance(stage, FusedStage) else "module"
+
+
 class Designer(nn.Module):
     """The cycle: generator stage -> surrogate stage, params denormalised."""
 
@@ -301,7 +312,8 @@ class Designer(nn.Module):
     def forward(self, spectra: torch.Tensor):
         # the stages' forward, not __call__: the hook machinery costs the
         # host a few µs a module, which shows in a request's latency at B = 1;
-        # a span's ``replayed`` is 1 where its stage replayed a CUDA graph
+        # a span's ``replayed`` is 1 where its stage replayed a CUDA graph;
+        # the F stage's ``shape`` names its kernel's launch shape
         with profiling.span("pigan.serve.gen_stage") as s:
             pn = self.generator.forward(spectra)
             if s.on:
@@ -309,7 +321,7 @@ class Designer(nn.Module):
         with profiling.span("pigan.serve.fwd_stage", follows=True) as s:
             spec, met = self.surrogate.forward(pn)
             if s.on:
-                s.set(replayed=_replayed(self.surrogate))
+                s.set(replayed=_replayed(self.surrogate), shape=_shape(self.surrogate, pn))
         return denormalize_params(pn, self.lo, self.hi), spec, met
 
 

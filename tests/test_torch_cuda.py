@@ -193,6 +193,65 @@ def test_small_odd_chain_every_shape(cluster, dev):
     assert float((got - fk.fused_mlp_forward_plain(x, packed)).abs().max()) <= 1e-4
 
 
+@pytest.mark.parametrize("batch", ["crossover", 8192, 8192 + 37, 65536])
+def test_wgmma_shape_matches_plain(batch, dev, models):
+    """K5's wgmma shape from its crossover up (8192 + 37: a ragged last
+    cluster): one launch a call, counted under its shape too; a rerun
+    bit-identical; within K5's 1e-4 of the plain version and within 5e-5 of
+    its 3xTF32 twin (the same products summed in another order: fp32
+    rounding, about 1e-5).  Not held to the mma.sync shapes' bits."""
+    packed = fk.pack_forward_model(models[1], dev)
+    cross = fk.wgmma_crossover(fk.chain_limits(packed)[0])
+    if batch == "crossover":
+        batch = cross
+    x = torch.rand((batch, 4), device=dev) * 2 - 1
+    assert fk.chosen_shape(x, packed) == fk.WGMMA
+    assert fk.chosen_shape(x[:cross - 1], packed) == 1
+    before = dict(fk.LAUNCHES)
+    got = fk.fused_mlp_forward(x, packed)
+    again = fk.fused_mlp_forward(x, packed)
+    torch.cuda.synchronize()
+    assert {k: fk.LAUNCHES[k] - before[k] for k in ("fused_mlp_forward",
+                                                    "fused_mlp_forward.wgmma")} == {
+        "fused_mlp_forward": 2, "fused_mlp_forward.wgmma": 2}
+    assert torch.equal(got, again)
+    assert got.shape == (batch, 258)
+    assert float((got - fk.fused_mlp_forward_plain(x, packed)).abs().max()) <= 1e-4
+    assert float((got - fk.fused_mlp_forward_tf32(x, packed)).abs().max()) <= 5e-5
+
+
+def test_custom_op_and_exported_designer_take_the_wgmma_shape(dev, models, tmp_path):
+    """At B = 8192 the custom op (bit for bit the wrapper) and a ``use_pallas``
+    designer exported on the CPU and loaded on the card launch K5 in its
+    wgmma shape, once a call."""
+
+    g, f = models
+    fp = fk.pack_forward_model(f, dev)
+    pn = torch.rand((8192, 4), device=dev) * 2 - 1
+    before = fk.LAUNCHES["fused_mlp_forward.wgmma"]
+    out = torch.ops.pigan_thz.fused_mlp_forward(pn, fp.weights, *fk.packed_op_args(fp),
+                                                0.2, 1e-6)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["fused_mlp_forward.wgmma"] == before + 1
+    assert torch.equal(out, fk.fused_mlp_forward(pn, fp))
+
+    cfg = default_config()
+    gen = torch.Generator().manual_seed(3)
+    p = sample_params(gen, 8192, cfg.data, device="cpu")
+    spectra = synthesize_spectra(cfg.data.frequencies, p, gen, cfg.data.noise_level)
+    ds = build_dataset(spectra, p, torch.full((8192, 8), float("nan")), cfg.data, device="cpu")
+    path = serve.export_inverse_design(g, f, ds, str(tmp_path / "designer.pt2"), 8192,
+                                       use_pallas=True)
+    fn = serve.load_exported(path, device=dev)
+    before = dict(fk.LAUNCHES)
+    got = fn(spectra.to(dev))
+    torch.cuda.synchronize()
+    assert {k: fk.LAUNCHES[k] - before[k] for k in ("fused_mlp_forward",
+                                                    "fused_mlp_forward.wgmma")} == {
+        "fused_mlp_forward": 1, "fused_mlp_forward.wgmma": 1}
+    assert all(bool(torch.isfinite(a).all()) for a in got)
+
+
 def test_chosen_shape_follows_the_batch(dev, models):
     for packed, din in ((fk.pack_forward_model(models[1], dev), 4),
                         (fk.pack_generator(models[0], dev), 250)):
@@ -233,8 +292,8 @@ def test_cycle_matches_unfused_modules(dev, models):
     got = fn(spectra)
     torch.cuda.synchronize()
     assert {k: fk.LAUNCHES[k] - before[k] for k in before} == {
-        "fused_mlp_forward": 1, "fused_dense_chain": 1, "dip_qualification": 0,
-        "forward_train": 0, "gan_train": 0,
+        "fused_mlp_forward": 1, "fused_mlp_forward.wgmma": 0, "fused_dense_chain": 1,
+        "dip_qualification": 0, "forward_train": 0, "gan_train": 0,
         "gan_ensemble_train": 0}
     with torch.no_grad():
         pn = g(spectra)
@@ -724,8 +783,9 @@ def test_screening_launches_per_chunk(use_pallas, dev, models):
                          torch.Generator(device=dev).manual_seed(42), sc)
     torch.cuda.synchronize()
     assert {k: fk.LAUNCHES[k] - before[k] for k in before} == {
-        "fused_mlp_forward": 3 if use_pallas else 0, "fused_dense_chain": 0,
-        "dip_qualification": 3, "forward_train": 0, "gan_train": 0,
+        "fused_mlp_forward": 3 if use_pallas else 0,
+        "fused_mlp_forward.wgmma": 3 if use_pallas else 0,      # chunks of 8192
+        "fused_dense_chain": 0, "dip_qualification": 3, "forward_train": 0, "gan_train": 0,
         "gan_ensemble_train": 0}
     v = res.valid
     assert bool(v.any()) and bool(torch.isfinite(res.scores[v]).all())

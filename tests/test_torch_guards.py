@@ -165,9 +165,9 @@ def test_cpu_peaks_and_screening_launch_nothing():
                        ScreeningConfig(num_candidates=100, chunk_size=64, top_k=4,
                                        use_pallas=use_pallas))
     assert fk.LAUNCHES == before
-    assert set(fk.LAUNCHES) == {"fused_mlp_forward", "fused_dense_chain",
-                                "dip_qualification", "forward_train", "gan_train",
-                                "gan_ensemble_train"}
+    assert set(fk.LAUNCHES) == {"fused_mlp_forward", "fused_mlp_forward.wgmma",
+                                "fused_dense_chain", "dip_qualification", "forward_train",
+                                "gan_train", "gan_ensemble_train"}
 
 
 @pytest.mark.parametrize("bad", ["float64", "non_contiguous", "rank_1", "meta"])

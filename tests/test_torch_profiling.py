@@ -185,11 +185,52 @@ def test_request_spans_say_whether_a_stage_replayed(small, monkeypatch):
     rec = _by_name(snap)
     assert [r["attrs"] for r in rec["pigan.serve.gen_stage"]] == [
         {"replayed": 0}, {"replayed": 1}, {"replayed": 1}]
-    assert [r["attrs"] for r in rec["pigan.serve.fwd_stage"]] == [{"replayed": 0}] * 3
+    assert [r["attrs"] for r in rec["pigan.serve.fwd_stage"]] == [
+        {"replayed": 0, "shape": "plain"}] * 3
     assert snap["spans"]["pigan.serve.gen_stage"]["attrs"] == {"replayed": 2}
     assert len(made) == 1
     assert snap["counters"] == {profiling.GRAPH_CAPTURES: 1, profiling.GRAPH_REPLAYS: 2}
     assert "counters: serve_graph_captures 1, serve_graph_replays 2" in profiling.span_table(snap)
+
+
+def test_wgmma_launches_count_and_the_fwd_span_names_its_shape(small, monkeypatch):
+    """K5's wgmma shape (the launch stubbed: the card's limits and the C
+    call) adds to its per-shape launch count always and to the
+    ``fused_chain_wgmma_launches`` counter while recording; a request's F
+    stage span names the launch shape its kernel takes for the request."""
+    from pigan_thz_torch.config import ForwardModelConfig
+    from pigan_thz_torch.models import build_forward_model
+    from pigan_thz_torch.ops import fused_kernels as fk
+
+    calls = []
+
+    def fake_launch(name, device, *args, counts=None, count_as=None):
+        calls.append(name)
+        fk.LAUNCHES[count_as or name] += 1
+
+    monkeypatch.setattr(fk, "launch", fake_launch)
+    monkeypatch.setattr(fk, "chain_limits", lambda p: (132, {2: 66, 4: 30, 8: 15, fk.WGMMA: 66}))
+    packed = fk.pack_forward_model(build_forward_model(ForwardModelConfig(), device="cpu").eval())
+    before = dict(fk.LAUNCHES)
+    with profiling.recording():
+        for b in (8192, 64):
+            fk._launch("fused_mlp_forward", torch.zeros(b, 4), packed, None, 0.2, 1e-6)
+        snap = profiling.snapshot()
+    fk._launch("fused_mlp_forward", torch.zeros(8192, 4), packed, None, 0.2, 1e-6)   # off
+    assert calls == ["fused_mlp_forward_wgmma", "fused_mlp_forward", "fused_mlp_forward_wgmma"]
+    assert {k: fk.LAUNCHES[k] - before[k] for k in ("fused_mlp_forward",
+                                                    "fused_mlp_forward.wgmma")} == {
+        "fused_mlp_forward": 3, "fused_mlp_forward.wgmma": 2}
+    assert snap["counters"] == {profiling.FUSED_CHAIN_WGMMA_LAUNCHES: 1}
+    assert profiling.snapshot()["counters"] == snap["counters"]
+
+    fn, ds = _designer_fn(small)
+    monkeypatch.setattr(serve, "shape_name",
+                        lambda x, p: fk.shape_label(fk.launch_shape(x.shape[0], p.dims, 1,
+                                                                    wgmma=True)))
+    _, snap = _traced(lambda: [fn(ds.spectra[:b]) for b in (8, 64)])    # crossover 33
+    assert [r["attrs"]["shape"] for r in _by_name(snap)["pigan.serve.fwd_stage"]] == [
+        "row_tile", "wgmma"]
 
 
 def test_the_serving_callable_keeps_its_designer_in_the_closure(small):

@@ -6,8 +6,9 @@ versions on the padded packing against the JAX Pallas kernels in interpret
 mode (as tests/test_pallas.py runs them); the unpadded views bit for bit;
 the 3xTF32 twins (``fused_*_tf32``, the kernels' arithmetic in plain
 PyTorch) within the kernels' tolerances of a float64 chain, where one TF32
-product alone falls outside them; and the launch-shape rule at its
-crossover.  The kernels themselves are held on the card in
+product alone falls outside them; K5's hi / lo W streams for its wgmma
+shape read back as its descriptors read them; and the launch-shape rule at
+its crossovers.  The kernels themselves are held on the card in
 test_torch_cuda.py.
 """
 
@@ -159,7 +160,69 @@ def test_padded_packing_keeps_the_unpadded_tensors(which, packed):
             off += rows * stride
         assert torch.equal(rebuilt[:W.shape[0], :W.shape[1]], W)
         assert not bool(rebuilt[W.shape[0]:].any() or rebuilt[:, W.shape[1]:].any())
+    # K5's hi / lo W streams for the wgmma shape (test_wgmma_streams_split_every_element_once)
+    assert (chain.wgmma is not None) == (which == "forward")
+    for l, off in enumerate(chain.wgmma or ()):
+        covered[off:off + 2 * chain.padded_dims[l] * chain.padded_dims[l + 1]] = True
     assert not bool(chain.weights[~covered].any())
+
+
+def _read_wgmma_stream(chain, l):
+    """Layer l's W stream read back as the wgmma shape's shared-memory
+    descriptors read it: for each cluster rank, pass and k8 step, the hi then
+    the lo image of the pass's NT column groups, each two core matrices (k
+    0-3, k 4-7) of 8 columns x 4 k, k fastest.  Returns (hi, lo, how often
+    each padded element was read)."""
+    pin, pout = chain.padded_dims[l], chain.padded_dims[l + 1]
+    hi, lo = torch.zeros(pin, pout), torch.zeros(pin, pout)
+    seen = torch.zeros(2, pin, pout, dtype=torch.int64)
+    off = chain.wgmma[l]
+    for q in range(fk.WG_CLUSTER):
+        t0, t1 = fk.cta_tiles(pout // fk.PAD, q, fk.WG_CLUSTER)
+        for a, nt in fk.wgmma_passes(t1 - t0):
+            cols = slice(8 * (t0 + a), 8 * (t0 + a + nt))
+            for j in range(pin // 8):
+                for h, dst in enumerate((hi, lo)):
+                    img = chain.weights[off:off + 64 * nt].view(nt, 2, 8, 4)   # (g, c, n, k)
+                    dst[8 * j:8 * j + 8, cols] = img.permute(1, 3, 0, 2).reshape(8, 8 * nt)
+                    seen[h, 8 * j:8 * j + 8, cols] += 1
+                    off += 64 * nt
+    assert off == chain.wgmma[l] + 2 * pin * pout
+    return hi, lo, seen
+
+
+def test_wgmma_streams_split_every_element_once(packed):
+    """K5's W streams for the wgmma shape: every padded element of every
+    layer once in hi and once in lo; hi is TF32 (rna) and lo the TF32 of
+    what hi leaves, so hi + lo is W wherever that rest is itself TF32; the
+    streams lie on 64-byte boundaries, one after another, inside the
+    buffer.  A chain without LayerNorm or one the shape does not take has
+    none."""
+    chain = packed["forward"]
+    assert fk.wgmma_global_layer(chain.dims) == 2          # 512 -> 1024 out to the scratch
+    end = None
+    for l in range(chain.n_layers):
+        off = chain.wgmma[l]
+        assert off % fk.ALIGN == 0 and (end is None or off >= end)
+        pin, pout = chain.padded_dims[l], chain.padded_dims[l + 1]
+        end = off + 2 * pin * pout
+        hi, lo, seen = _read_wgmma_stream(chain, l)
+        assert bool((seen == 1).all())
+        W = torch.zeros(pin, pout)
+        w = chain.layer(l)[0]
+        W[:w.shape[0], :w.shape[1]] = w
+        assert torch.equal(fk.tf32_round(hi), hi)
+        assert torch.equal(hi, fk.tf32_round(W))
+        assert torch.equal(lo, fk.tf32_round(W - hi))
+        exact = fk.tf32_round(W - hi) == W - hi
+        assert bool(exact.float().mean() > 0.2)          # the check sees real elements
+        assert torch.equal((hi + lo)[exact], W[exact])
+        assert not bool(hi[w.shape[0]:].any() or hi[:, w.shape[1]:].any())
+    assert end <= chain.weights.numel()
+    assert packed["generator"].wgmma is None
+    small = fk.pack_chain([tuple(map(torch.from_numpy, _small_chain()[0]))],
+                          tuple(map(torch.from_numpy, _small_chain()[1])))
+    assert small.wgmma is None and fk.wgmma_global_layer(small.dims) is None
 
 
 def _float64_chain(x, chain):
@@ -265,6 +328,29 @@ def test_launch_shape_edges():
         assert c in fk.CLUSTER_SIZES and -(-b // fk.ROW_TILE) * c <= max(H100_SMS, 1)
 
 
+@pytest.mark.parametrize("sms", [H100_SMS, 114])       # an H100 SXM, an H100 PCIe
+def test_launch_shape_takes_the_wgmma_shape_from_its_crossover(sms):
+    """K5 with W streams: the wgmma shape from the first batch the row-tile
+    shape cannot run in one wave, at 8192 and above; the cluster shape at
+    B <= 1024; a chain without streams (K6) never takes it."""
+    cross = fk.wgmma_crossover(sms)
+    assert cross == sms * fk.ROW_TILE + 1
+    assert fk.launch_shape(cross - 1, F_DIMS, sms, wgmma=True) == 1
+    for b in (cross, cross + 37, 8192, 8192 + 37, 65536):
+        assert fk.launch_shape(b, F_DIMS, sms, wgmma=True) == fk.WGMMA
+        assert fk.launch_shape(b, F_DIMS, sms) == 1
+        assert fk.launch_shape(b, G_DIMS, sms) == 1
+    for b in (1, 64, 257, 1024):
+        assert fk.launch_shape(b, F_DIMS, sms, wgmma=True) in fk.CLUSTER_SIZES[1:]
+    assert fk.launch_shape(8192, F_DIMS, sms, RESIDENT | {fk.WGMMA: 60}, wgmma=True) == fk.WGMMA
+
+
+def test_shape_labels():
+    assert [fk.shape_label(s) for s in (fk.WGMMA, 1, 2, 8)] == [
+        "wgmma", "row_tile", "cluster2", "cluster8"]
+    assert fk.shape_name(torch.zeros(8192, 4), None) == "plain"     # a CPU input
+
+
 def test_wrappers_reject_a_bad_cluster(packed):
     with pytest.raises(ValueError):
         fk.fused_mlp_forward(torch.zeros(2, 4), packed["forward"], cluster=3)
@@ -275,6 +361,15 @@ def test_wrappers_reject_a_bad_cluster(packed):
     # on the CPU a valid cluster is accepted and the plain version answers
     out = fk.fused_dense_chain(torch.zeros(2, 250), packed["generator"], cluster=8)
     assert torch.equal(out, fk.fused_dense_chain_plain(torch.zeros(2, 250), packed["generator"]))
+    # the wgmma shape: K5's chain with its W streams only
+    with pytest.raises(ValueError, match="wgmma"):
+        fk.fused_dense_chain(torch.zeros(2, 250), packed["generator"], cluster=fk.WGMMA)
+    layer, head = _small_chain()
+    small = fk.pack_chain([tuple(map(torch.from_numpy, layer))], tuple(map(torch.from_numpy, head)))
+    with pytest.raises(ValueError, match="wgmma"):
+        fk.fused_mlp_forward(torch.zeros(2, 7), small, cluster=fk.WGMMA)
+    out = fk.fused_mlp_forward(torch.zeros(2, 4), packed["forward"], cluster=fk.WGMMA)
+    assert torch.equal(out, fk.fused_mlp_forward_plain(torch.zeros(2, 4), packed["forward"]))
 
 
 @pytest.mark.parametrize("tiled", ["missing", "short", "long"])
