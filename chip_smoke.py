@@ -181,7 +181,7 @@ generator passes (cycle, stability) and noise streams:
     ``torch.matmul`` on the same operands, back to back in a CUDA graph,
     beside the roofline.  Phases 13,
     16, 19, 23 and 24 also hold each chunk's count of batch-row launches to
-    ``brow_products``, and the main paths' counts are read (BROW_LAUNCHES);
+    ``brow_products``, and the main paths' counts are read (LAUNCHES);
 30. a ``torch.profiler`` trace of five fused screening chunks
     (``screen_chunk`` through K5 and K4's metrics entry, after warm-up):
     kernels a chunk, kernel time, idle share, the kernels by time.  It runs right after
@@ -947,7 +947,8 @@ def phase8_screen(F, cfg, dev, lo, hi) -> dict:
         want = {"fused_mlp_forward": n_chunks if use_pallas else 0,
                 "fused_mlp_forward.wgmma": n_chunks if use_pallas else 0,   # chunks of 8192
                 "fused_dense_chain": 0, "dip_qualification": n_chunks,
-                "forward_train": 0, "gan_train": 0, "gan_ensemble_train": 0}
+                "forward_train": 0, "gan_train": 0, "gan_ensemble_train": 0,
+                "brow_gemm": 0, "deep_narrow_gemm": 0, "batch_depth_gemm": 0, "sgemm": 0}
         print(f"screen {label}: {sc.num_candidates} candidates in {n_chunks} chunks "
               f"of {sc.chunk_size}, launches {got}")
         if got != want:
@@ -1323,6 +1324,7 @@ def phase12_k1_times(cfg, dev, ds) -> dict:
     epochs."""
     import torch
     from pigan_thz_torch.ops import forward_train as ft
+    from pigan_thz_torch.ops._cuda_build import report_of
     from pigan_thz_torch.train.steps import (
         ForwardStepSettings, make_forward_step, make_multi_epoch_fn)
 
@@ -1351,9 +1353,9 @@ def phase12_k1_times(cfg, dev, ds) -> dict:
     e2 = cuda_median_ms(e, warmup=1, reps=5)
     p2 = cuda_median_ms(p, warmup=1, reps=5)
     steps = streams.params_norm.shape[0]
-    k()
-    a_step = ft.kernels_enqueued() / steps
-    brow_a_step = ft.brow_kernels_enqueued() / steps
+    report = report_of(ft.forward_train(*kern, streams, spec))
+    a_step = report.kernels / steps
+    brow_a_step = report.brow / steps
     listed = len(ft.brow_products(spec, cfg.train.batch_size))
     print(f"K1: {a_step:g} launches a step, {brow_a_step:g} of them batch-row products "
           f"through brow_gemm.cuh (brow_products lists {listed})")
@@ -1554,16 +1556,18 @@ def first_steps_against_float64(label: str, state, few, spec, n: int, rows, kern
     return worst["m"][0]
 
 
-def check_brow_launches(label: str, spec, streams, batch: int) -> int:
-    """The batch-row kernel's launches in the last K2 / K3 chunk, as the C
-    loop counted them, against ``brow_products`` over the chunk's steps (D's
-    update per the schedule's gate): every batch-row product of every step
-    went through ``brow_gemm.cuh``.  Returns the count."""
+def check_brow_launches(label: str, rows, spec, streams, batch: int) -> int:
+    """The batch-row kernel's launches in the K2 / K3 chunk that returned
+    ``rows``, as its C loop counted them, against ``brow_products`` over the
+    chunk's steps (D's update per the schedule's gate): every batch-row
+    product of every step went through ``brow_gemm.cuh``.  Returns the
+    count."""
     from pigan_thz_torch.ops import gan_train as gt
+    from pigan_thz_torch.ops._cuda_build import report_of
 
     gates = (streams.sched[:, gt.SCHED_LANES.index("d_gate")] > 0).tolist()
     want = sum(len(gt.brow_products(spec, batch, bool(u))) for u in gates)
-    got = gt.brow_kernels_enqueued()
+    got = report_of(rows).brow
     if got != want:
         fail(f"{label}: {got} batch-row kernel launches in {len(gates)} steps, "
              f"brow_products says {want}")
@@ -1582,7 +1586,7 @@ def phase13_k2(cfg, dev, ds, f, cases=None, paths: bool = False) -> dict:
     import torch
     from pigan_thz_torch.ops import gan_train as gt
     from pigan_thz_torch.data.dataset import gather_batch
-    from pigan_thz_torch.ops._cuda_build import LAUNCHES
+    from pigan_thz_torch.ops._cuda_build import LAUNCHES, report_of
     from pigan_thz_torch.train.steps import make_multi_epoch_fn, make_pigan_step
 
     b = cfg.train.batch_size
@@ -1616,9 +1620,9 @@ def phase13_k2(cfg, dev, ds, f, cases=None, paths: bool = False) -> dict:
         torch.cuda.synchronize()
         if LAUNCHES["gan_train"] != before + 1:
             fail(f"{label}: a chunk of {steps} steps was not one launch")
-        brow = check_brow_launches(label, spec, streams, b)
+        brow = check_brow_launches(label, rows, spec, streams, b)
         print(f"{label}: {brow} batch-row products through brow_gemm in {steps} steps, "
-              f"{gt.kernels_enqueued()} launches in all")
+              f"{report_of(rows).kernels} launches in all")
         if not bool(torch.isfinite(rows).all()):
             fail(f"{label}: non-finite metric rows")
         want = gt.gan_train_plain(gt.state_buffers(plain), streams, spec)
@@ -2265,7 +2269,7 @@ def phase16_k3(cfg, dev, ds, f, cases=None) -> dict:
         if (LAUNCHES["gan_ensemble_train"] != before["gan_ensemble_train"] + 1
                 or LAUNCHES["gan_train"] != before["gan_train"]):
             fail(f"K3 {name}: {K3_MEMBERS} members did not train in exactly one K3 launch")
-        check_brow_launches(f"K3 {name}", spec, streams, cfg.train.batch_size)
+        check_brow_launches(f"K3 {name}", rows, spec, streams, cfg.train.batch_size)
         if tuple(rows.shape) != (K3_MEMBERS, steps, gt.ROW_WIDTH) or not bool(
                 torch.isfinite(rows).all()):
             fail(f"K3 {name}: rows of shape {tuple(rows.shape)} or not finite")
@@ -2523,7 +2527,7 @@ def phase21_programs(cfg, dev, repo: str, train_ds) -> dict:
     a subprocess.  Returns the launches and wall times."""
     import glob
     import torch
-    from pigan_thz_torch.ops._cuda_build import BROW_LAUNCHES, LAUNCHES, launch_counts
+    from pigan_thz_torch.ops._cuda_build import LAUNCHES, launch_counts
     from pigan_thz_torch.train import programs as P
     from pigan_thz_torch.train.trainer import Trainer
 
@@ -2537,7 +2541,6 @@ def phase21_programs(cfg, dev, repo: str, train_ds) -> dict:
     if not all(p.gate(before) for p in phases) or not r2_0 < 0.7:
         fail(f"a fresh G reads param R2 {r2_0:.4f}: the emergency gates (R2 < 0.7) stay shut")
     reset_launches(LAUNCHES)
-    reset_launches(BROW_LAUNCHES)
     t0 = time.perf_counter()
     result = P.run_program(trainer, phases)
     torch.cuda.synchronize()
@@ -2638,6 +2641,7 @@ def phase22_path_times(cfg, dev, ds, f) -> dict:
     twice in turns; the kernels a step of each as the C loop counts them;
     ``torch.profiler``'s idle share for cycle + stability."""
     from pigan_thz_torch.ops import gan_train as gt
+    from pigan_thz_torch.ops._cuda_build import report_of
 
     variants = {"today": dict(detach_forward=False),
                 "cycle": dict(detach_forward=False, cycle_w=1.0),
@@ -2659,8 +2663,8 @@ def phase22_path_times(cfg, dev, ds, f) -> dict:
     # profiler's count drops a few events a trace)
     for name in order:
         bufs, streams, spec = runs[name]
-        gt.gan_train(bufs, streams, spec)
-        out["launches_a_step"][name] = gt.kernels_enqueued() / streams.spectra.shape[0]
+        rows = gt.gan_train(bufs, streams, spec)
+        out["launches_a_step"][name] = report_of(rows).kernels / streams.spectra.shape[0]
     # the idle share as phase 15 takes today's: one launch of 5 epochs
     state, _, _, spec5, _, _, _, streams5 = k2_setup(cfg, dev, ds, f, 5, variants["both"])
     bufs5 = gt.state_buffers(state)
@@ -2677,8 +2681,8 @@ def phase22_path_times(cfg, dev, ds, f) -> dict:
                             warmup=3, reps=20)
         out["k3"][name] = min(ms, out["k3"].get(name, ms))
     bufs, streams, spec = ens["both"]
-    gt.gan_ensemble_train(bufs, streams, spec)
-    out["launches_a_step"]["k3 both"] = gt.kernels_enqueued() / streams.spectra.shape[1]
+    rows = gt.gan_ensemble_train(bufs, streams, spec)
+    out["launches_a_step"]["k3 both"] = report_of(rows).kernels / streams.spectra.shape[1]
     return out
 
 
@@ -2850,7 +2854,7 @@ def phase24_bf16(cfg, dev, ds, f) -> dict:
         torch.cuda.synchronize()
         if LAUNCHES["gan_train"] != before + 1:
             fail(f"K2 {name}: a chunk was not one launch")
-        check_brow_launches(f"K2 {name}", spec, streams, cfg.train.batch_size)
+        check_brow_launches(f"K2 {name}", rows, spec, streams, cfg.train.batch_size)
         want = gt.gan_train_plain(gt.state_buffers(plain), streams, spec)
         want64 = gt.gan_train_plain(exact, gt.to_double(streams), spec)
         yard = gt.state_diffs(gt.state_buffers(plain), exact, start, spec)
@@ -2917,7 +2921,7 @@ def phase27_wgan_train(cfg, dev, train_ds) -> dict:
     just before and read just after."""
     import torch
     from pigan_thz_torch.ops import gan_train as gt
-    from pigan_thz_torch.ops._cuda_build import BROW_LAUNCHES, LAUNCHES, launch_counts
+    from pigan_thz_torch.ops._cuda_build import LAUNCHES, launch_counts
     from pigan_thz_torch.ops.metrics import r2_score
     from pigan_thz_torch.train.steps import StepSettings
     from pigan_thz_torch.train.trainer import Trainer
@@ -2927,7 +2931,6 @@ def phase27_wgan_train(cfg, dev, train_ds) -> dict:
     trainer.init_pigan()
     settings = StepSettings.from_config(cfg, detach_forward=False, gan_loss="wgan_gp")
     reset_launches(LAUNCHES)
-    reset_launches(BROW_LAUNCHES)
     t0 = time.perf_counter()
     hist = trainer.train_pigan(epochs=GAN_EPOCHS, settings=settings)
     torch.cuda.synchronize()
@@ -2964,6 +2967,7 @@ def phase28_slice7_times(cfg, dev, ds, f) -> dict:
     import torch
     from pigan_thz_torch.ops import forward_train as ft
     from pigan_thz_torch.ops import gan_train as gt
+    from pigan_thz_torch.ops._cuda_build import report_of
     from pigan_thz_torch.train.steps import ForwardStepSettings
 
     bcfg = bf16_config(cfg)
@@ -2985,8 +2989,8 @@ def phase28_slice7_times(cfg, dev, ds, f) -> dict:
         out["k2"][name] = min(ms, out["k2"].get(name, ms))
     for name in order:
         bufs, streams, spec = runs[name]
-        gt.gan_train(bufs, streams, spec)
-        out["launches_a_step"][name] = gt.kernels_enqueued() / streams.spectra.shape[0]
+        rows = gt.gan_train(bufs, streams, spec)
+        out["launches_a_step"][name] = report_of(rows).kernels / streams.spectra.shape[0]
     k1 = {}
     for name, c in (("float32", cfg), ("bf16", bcfg)):
         spec = ft.forward_train_spec(c, ForwardStepSettings())
@@ -3096,15 +3100,15 @@ def phase29_brow_products(cfg, dev, tag: str) -> dict:
     the same operands (a yardstick the port never calls), beside the
     roofline (back to back in a CUDA graph)."""
     import torch
-    from pigan_thz_torch.ops import gan_train as gt
+    from pigan_thz_torch.ops import brow
 
     products = brow_step_products(cfg)
     rows = []
     for (m, n, k, bnc, rnd, with_bias), entry in sorted(products.items()):
-        plan = gt.brow_plan(m, n, k)
-        if gt.brow_plan_on_card(m, n, k) != plan:
+        plan = brow.brow_plan(m, n, k)
+        if brow.brow_plan_on_card(m, n, k) != plan:
             fail(f"brow_plan and the C rule differ at {m}x{n}x{k}: "
-                 f"{gt.brow_plan_on_card(m, n, k)} vs {plan}")
+                 f"{brow.brow_plan_on_card(m, n, k)} vs {plan}")
         for members in BROW_MEMBERS:
             gen = torch.Generator(device=dev).manual_seed(m * n + k + members)
             lead = () if members == 1 else (members,)
@@ -3113,17 +3117,17 @@ def phase29_brow_products(cfg, dev, tag: str) -> dict:
             w = torch.randn((*lead, k, n) if bnc else (*lead, n, k), generator=gen, device=dev)
             b = w if bnc else w.transpose(-1, -2)            # step's strided inputs
             bias = torch.randn((*lead, n), generator=gen, device=dev) if with_bias else None
-            got = gt.brow_gemm(a, b, bias, rnd=rnd)
-            again = gt.brow_gemm(a, b, bias, rnd=rnd)
+            got = brow.brow_gemm(a, b, bias, rnd=rnd)
+            again = brow.brow_gemm(a, b, bias, rnd=rnd)
             torch.cuda.synchronize()
             if not torch.equal(got, again):
                 fail(f"brow {m}x{n}x{k}: a rerun is not bit-identical")
-            if members > 1 and not all(torch.equal(got[i], gt.brow_gemm(
+            if members > 1 and not all(torch.equal(got[i], brow.brow_gemm(
                     a[i], b[i], None if bias is None else bias[i], rnd=rnd))
                     for i in range(members)):
                 fail(f"brow {m}x{n}x{k}: a member at M = {members} differs from its own launch")
-            want = gt.brow_gemm_plain(a, b, bias, rnd=rnd, split=plan.split)
-            exact = gt.brow_gemm_plain(a.double(), b.double(),
+            want = brow.brow_gemm_plain(a, b, bias, rnd=rnd, split=plan.split)
+            exact = brow.brow_gemm_plain(a.double(), b.double(),
                                        None if bias is None else bias.double(), rnd=rnd)
             ra, rb = (a.bfloat16().float(), b.bfloat16().float()) if rnd else (a, b)
             mag = ra.double().abs() @ rb.double().abs()
@@ -3143,8 +3147,8 @@ def phase29_brow_products(cfg, dev, tag: str) -> dict:
                 lib = (lambda: torch.addmm(bias, a, b, out=out))
             else:
                 lib = (lambda: torch.baddbmm(bias.unsqueeze(1), a, b, out=out))
-            us = {"brow": graph_us(lambda: gt.brow_gemm(a, b, bias, out=out, rnd=rnd)),
-                  "sgemm": graph_us(lambda: gt.brow_gemm(a, b, bias, out=out, rnd=rnd,
+            us = {"brow": graph_us(lambda: brow.brow_gemm(a, b, bias, out=out, rnd=rnd)),
+                  "sgemm": graph_us(lambda: brow.brow_gemm(a, b, bias, out=out, rnd=rnd,
                                                          route="sgemm")),
                   "library": graph_us(lib)}
             flops = 2.0 * members * m * n * k
@@ -3586,7 +3590,6 @@ def _counted(fn):
     from pigan_thz_torch.ops import _cuda_build
 
     reset_launches(_cuda_build.LAUNCHES)
-    reset_launches(_cuda_build.BROW_LAUNCHES)
     out = fn()
     return out, _cuda_build.launch_counts()
 

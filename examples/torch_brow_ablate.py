@@ -31,8 +31,7 @@ sys.path.insert(0, str(ROOT))
 
 import torch
 
-from pigan_thz_torch.ops import _cuda_build
-from pigan_thz_torch.ops import gan_train as gt
+from pigan_thz_torch.ops import _cuda_build, brow
 
 from chip_smoke import card_line, graph_us  # noqa: E402  (the timing helpers)
 
@@ -140,7 +139,7 @@ def main() -> int:
                 call()
                 torch.cuda.synchronize()
                 m, n, k = PRODUCTS[label]
-                want = gt.brow_gemm_plain(a, w.t(), bias, split=gt.brow_plan(m, n, k).split)
+                want = brow.brow_gemm_plain(a, w.t(), bias, split=brow.brow_plan(m, n, k).split)
                 err = float((out - want).abs().max())
                 row[label]["max_abs_err_vs_plain"] = err
                 if not err <= 1e-4:    # same terms, same slices (except bk32's stages)

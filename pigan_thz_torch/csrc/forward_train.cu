@@ -14,8 +14,8 @@
 //
 // Design.  One C entry point per chunk of T steps: pigan_forward_train
 // enqueues every step's kernels on the caller's stream from a host loop (36
-// launches a step, 39 with bfloat16 operands; the loop counts them,
-// pigan_forward_kernels_enqueued), the analogue of "one Pallas launch per
+// launches a step, 39 with bfloat16 operands; the loop counts them in the
+// caller's LoopReport), the analogue of "one Pallas launch per
 // chunk".  The state is three flat fp32 buffers of P ~ 1.38 M floats
 // (params, m, v) in the layout of ForwardMLP.named_parameters(): each Linear
 // W is (out, in) row-major, then its bias, then the LayerNorm weight and
@@ -168,34 +168,9 @@ loss_kernel(const float* __restrict__ pred, const float* __restrict__ spec,
   }
 }
 
-// Device kernels enqueued by the last pigan_forward_train call of this
-// process (pigan_forward_kernels_enqueued): divided by T, the launches a step.
-long long g_kernels_enqueued = 0;
-// Of those, the batch-row products launched through brow_gemm.cuh
-// (pigan_forward_brow_kernels_enqueued), and the other products by their
-// route in train_common.cuh (pigan_forward_route_kernels_enqueued).
-long long g_brow_enqueued = 0;
-long long g_routes[kRoutes] = {0, 0, 0};
-// The host time of that call's first launches (pigan_forward_head_*).
-EnqueueHead g_head;
-
 }  // namespace
 
 extern "C" {
-
-// The number of device kernels the last pigan_forward_train call of this
-// process enqueued, and of those the batch-row products (brow_gemm.cuh).
-long long pigan_forward_kernels_enqueued() { return g_kernels_enqueued; }
-long long pigan_forward_brow_kernels_enqueued() { return g_brow_enqueued; }
-// Of those, the other products that went by `route` of train_common.cuh
-// (0 deep narrow, 1 batch depth, 2 the tiled SGEMM); -1 for no such route.
-long long pigan_forward_route_kernels_enqueued(int route) {
-  return route >= 0 && route < kRoutes ? g_routes[route] : -1;
-}
-// Of those, the launches of the call's enqueue head (train_common.cuh) and
-// the host nanoseconds it took.
-long long pigan_forward_head_kernels() { return g_head.kernels; }
-long long pigan_forward_head_ns() { return g_head.ns; }
 
 // T training steps over the flat state in place.
 //   params, m, v   (P,) device, updated
@@ -210,16 +185,17 @@ long long pigan_forward_head_ns() { return g_head.ns; }
 //                  b1, b2, eps, leaky slope, LayerNorm eps
 //   thresh         keep an entry when its hash is below this
 //   bf16           nonzero: bfloat16 operands of the TPU kernel's MXU products
+//   report         host, 7 long longs out: what the call enqueued (LoopReport)
 int pigan_forward_train(float* params, float* m, float* v, const float* x,
                         const float* spec, const float* met, const float* sched,
                         const uint32_t* seeds, float* rows, float* work,
                         long long work_floats, const int* dims, int n_hidden,
                         const long long* offsets, int S, int B, int T,
-                        const double* hp, uint32_t thresh, int bf16, void* stream_ptr) {
+                        const double* hp, uint32_t thresh, int bf16, long long* report,
+                        void* stream_ptr) {
   cudaStream_t st = (cudaStream_t)stream_ptr;
-  g_kernels_enqueued = 0;
-  g_brow_enqueued = 0;
-  for (long long& n : g_routes) n = 0;
+  LoopReport& rep = *reinterpret_cast<LoopReport*>(report);
+  rep = LoopReport{};
   const int L = n_hidden + 1;
   if (n_hidden < 1 || L > kMaxLayers || B < 1 || T < 0 || S < 3) return cudaErrorInvalidValue;
   int maxc = 0;
@@ -297,7 +273,7 @@ int pigan_forward_train(float* params, float* m, float* v, const float* x,
   } while (0)
 #define CHECK_LAUNCH()         \
   do {                         \
-    ++g_kernels_enqueued;      \
+    ++rep.kernels;             \
     CHECK(cudaGetLastError()); \
   } while (0)
 // GEMM: a product through train_common.cuh's dispatch (its route counted),
@@ -305,21 +281,21 @@ int pigan_forward_train(float* params, float* m, float* v, const float* x,
 // batch-row product (M = B) through brow_gemm.cuh
 #define GEMM(AK, BNC, RND, ACC, ...)                                                   \
   do {                                                                                 \
-    ++g_kernels_enqueued;                                                              \
-    CHECK((gemm_ex<AK, BNC>((RND), (ACC), __VA_ARGS__, st, 1, g_routes)));             \
+    ++rep.kernels;                                                                     \
+    CHECK((gemm_ex<AK, BNC>((RND), (ACC), __VA_ARGS__, st, 1, rep.routes)));           \
   } while (0)
 #define BROW(AK, BNC, RND, ...)                                                  \
   do {                                                                           \
-    ++g_kernels_enqueued;                                                        \
-    ++g_brow_enqueued;                                                           \
+    ++rep.kernels;                                                               \
+    ++rep.brow;                                                                  \
     CHECK((brow_gemm<AK, BNC>((RND), false, sms, 0, __VA_ARGS__, st)));          \
   } while (0)
   const bool rnd = bf16 != 0;
   const PerIn none;
 
-  g_head.start();
+  EnqueueHead head{rep};
   for (int t = 0; t < T; ++t) {
-    g_head.at_step(g_kernels_enqueued);
+    head.at_step();
     const float* xt = x + (long long)t * B * dims[0];
     const float* spec_t = spec + (long long)t * B * S;
     const float* met_t = met + (long long)t * B * Mdim;
@@ -408,7 +384,7 @@ int pigan_forward_train(float* params, float* m, float* v, const float* x,
     adam_update<<<kAdamBlocks, kThreads, 0, st>>>(params, m, v, grad, P, partial, ak);
     CHECK_LAUNCH();
   }
-  g_head.finish(g_kernels_enqueued);
+  head.finish();
 #undef BROW
 #undef GEMM
 #undef CHECK_LAUNCH

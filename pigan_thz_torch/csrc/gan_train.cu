@@ -736,17 +736,6 @@ wgan_adv_kernel(PerIn zm, int B, PerOut dzm, PerOut rowm) {
   if (threadIdx.x == 0) row[3] = -(total / B);
 }
 
-// Device kernels enqueued by the last call of gan_train_steps in this
-// process (pigan_gan_kernels_enqueued): divided by T, the launches a step.
-long long g_kernels_enqueued = 0;
-// Of those, the batch-row products launched through brow_gemm.cuh
-// (pigan_brow_kernels_enqueued), and the other products by their route in
-// train_common.cuh (pigan_gan_route_kernels_enqueued).
-long long g_brow_enqueued = 0;
-long long g_routes[kRoutes] = {0, 0, 0};
-// The host time of that call's first launches (pigan_gan_head_*).
-EnqueueHead g_head;
-
 inline int blocks_for(long long n, int threads, int cap = 1024) {
   long long b = (n + threads - 1) / threads;
   return (int)(b < 1 ? 1 : (b > cap ? cap : b));
@@ -757,7 +746,8 @@ inline int blocks_for(long long n, int threads, int cap = 1024) {
 // Per with that operand's member stride; F's parameters and the schedule
 // are shared.  A step enqueues the same 69 launches (58 detached; more with
 // the second G passes and instance noise) whatever `members` is: each launch
-// carries the member on a grid axis.  inoise, stab and eps are null when off.
+// carries the member on a grid axis.  inoise, stab and eps are null when off;
+// rep counts what the loop enqueues.
 int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, PerOut d_m,
                     PerOut d_v, PerOut bn1_mean, PerOut bn1_var, PerOut bn2_mean,
                     PerOut bn2_var, const float* f, float* g_ema, PerIn spectra, PerIn params,
@@ -766,7 +756,7 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
                     float* work,
                     long long work_floats, const int* dims, const int* f_dims,
                     int n_f_hidden, const long long* f_offsets, int B, int T,
-                    const double* hp, int flags, cudaStream_t st) {
+                    const double* hp, int flags, LoopReport& rep, cudaStream_t st) {
   const int S = dims[0], g1 = dims[1], g2 = dims[2], d1 = dims[3], d2 = dims[4];
   const int FL = n_f_hidden + 1;
   const int NM = members;
@@ -920,7 +910,7 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
   } while (0)
 #define CHECK_LAUNCH()         \
   do {                         \
-    ++g_kernels_enqueued;      \
+    ++rep.kernels;             \
     CHECK(cudaGetLastError()); \
   } while (0)
 // launch shapes, the member on the grid's y axis: columns of a (B, C) buffer
@@ -937,44 +927,41 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
 // (each through train_common.cuh's dispatch, counted by route)
 #define GEMM(AK, BNC, ...)                                    \
   do {                                                        \
-    ++g_kernels_enqueued;                                     \
-    CHECK((gemm<AK, BNC>(__VA_ARGS__, st, NM, g_routes)));    \
+    ++rep.kernels;                                            \
+    CHECK((gemm<AK, BNC>(__VA_ARGS__, st, NM, rep.routes)));  \
   } while (0)
 #define GEMM_ACC(AK, BNC, ...)                                            \
   do {                                                                    \
-    ++g_kernels_enqueued;                                                 \
-    CHECK((gemm<AK, BNC, false, true>(__VA_ARGS__, st, NM, g_routes)));   \
+    ++rep.kernels;                                                        \
+    CHECK((gemm<AK, BNC, false, true>(__VA_ARGS__, st, NM, rep.routes))); \
   } while (0)
 #define MM(AK, BNC, ...)                                                      \
   do {                                                                        \
-    ++g_kernels_enqueued;                                                     \
-    CHECK((gemm_ex<AK, BNC>(bf16, false, __VA_ARGS__, st, NM, g_routes)));    \
+    ++rep.kernels;                                                            \
+    CHECK((gemm_ex<AK, BNC>(bf16, false, __VA_ARGS__, st, NM, rep.routes)));  \
   } while (0)
 #define MM_ACC(AK, BNC, ...)                                                  \
   do {                                                                        \
-    ++g_kernels_enqueued;                                                     \
-    CHECK((gemm_ex<AK, BNC>(bf16, true, __VA_ARGS__, st, NM, g_routes)));     \
+    ++rep.kernels;                                                            \
+    CHECK((gemm_ex<AK, BNC>(bf16, true, __VA_ARGS__, st, NM, rep.routes)));   \
   } while (0)
 // BMM: an MM whose rows are the batch (M = B or 2B; N and K a layer's
 // widths) through brow_gemm.cuh; BGEMM: such a GEMM (fp32 under both flags)
 #define BMM(AK, BNC, ...)                                                        \
   do {                                                                           \
-    ++g_kernels_enqueued;                                                        \
-    ++g_brow_enqueued;                                                           \
+    ++rep.kernels;                                                               \
+    ++rep.brow;                                                                  \
     CHECK((brow_gemm<AK, BNC>(bf16, false, sms, 0, __VA_ARGS__, st, NM)));       \
   } while (0)
 #define BGEMM(AK, BNC, ...)                                                      \
   do {                                                                           \
-    ++g_kernels_enqueued;                                                        \
-    ++g_brow_enqueued;                                                           \
+    ++rep.kernels;                                                               \
+    ++rep.brow;                                                                  \
     CHECK((brow_gemm<AK, BNC>(false, false, sms, 0, __VA_ARGS__, st, NM)));      \
   } while (0)
 
   const PerIn F(f, 0);
   const PerIn none;
-  g_kernels_enqueued = 0;
-  g_brow_enqueued = 0;
-  for (long long& n : g_routes) n = 0;
 
   // A second pass of G on x (B rows of S values, ldx apart) with the batch
   // statistics of that batch, the running stats untouched; its loss against
@@ -1014,9 +1001,9 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
     return 0;
   };
 
-  g_head.start();
+  EnqueueHead head{rep};
   for (int t = 0; t < T; ++t) {
-    g_head.at_step(g_kernels_enqueued);
+    head.at_step();
     const PerIn spec_t = spectra + (long long)t * B * S;
     const PerIn par_t = params + (long long)t * B * 4;
     const PerIn met_t = met + (long long)t * B * 8;
@@ -1254,7 +1241,7 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
       CHECK_LAUNCH();
     }
   }
-  g_head.finish(g_kernels_enqueued);
+  head.finish();
 #undef BGEMM
 #undef BMM
 #undef MM_ACC
@@ -1275,27 +1262,9 @@ int gan_train_steps(int members, PerOut g, PerOut g_m, PerOut g_v, PerOut d, Per
 
 extern "C" {
 
-// The number of device kernels the last pigan_gan_train or
-// pigan_gan_ensemble_train call of this process enqueued.
-long long pigan_gan_kernels_enqueued() { return g_kernels_enqueued; }
-
-// Of those, the batch-row products (brow_gemm.cuh).
-long long pigan_brow_kernels_enqueued() { return g_brow_enqueued; }
-
-// Of those, the other products that went by `route` of train_common.cuh
-// (0 deep narrow, 1 batch depth, 2 the tiled SGEMM); -1 for no such route.
-long long pigan_gan_route_kernels_enqueued(int route) {
-  return route >= 0 && route < kRoutes ? g_routes[route] : -1;
-}
-
 // The route train_common.cuh's dispatch gives a product of N columns and
 // depth K (0 deep narrow, 1 batch depth, 2 the tiled SGEMM).
 int pigan_product_route(int N, int K) { return gemm_route(N, K); }
-
-// Of those, the launches of the call's enqueue head (train_common.cuh) and
-// the host nanoseconds it took.
-long long pigan_gan_head_kernels() { return g_head.kernels; }
-long long pigan_gan_head_ns() { return g_head.ns; }
 
 // The plan of one batch-row product on a card of `sms` SMs: out[0] the
 // cluster size S, out[1] the row tiles, out[2] the column tiles, out[3] the
@@ -1400,6 +1369,7 @@ int pigan_product_gemm(int route, int M, int N, int K, const float* A, long long
 //                  gp_weight
 //   flags          bit 0 detach_forward, bit 1 sigmoid_squash, bit 2 WGAN-GP,
 //                  bit 3 bfloat16 operands
+//   report         host, 7 long longs out: what the call enqueued (LoopReport)
 int pigan_gan_train(float* g, float* g_m, float* g_v, float* d, float* d_m, float* d_v,
                     float* bn1_mean, float* bn1_var, float* bn2_mean, float* bn2_var,
                     const float* f, float* g_ema, const float* spectra,
@@ -1407,12 +1377,14 @@ int pigan_gan_train(float* g, float* g_m, float* g_v, float* d, float* d_m, floa
                     const float* stab, const float* eps, const float* sched,
                     float* rows, float* work, long long work_floats, const int* dims,
                     const int* f_dims, int n_f_hidden, const long long* f_offsets, int B,
-                    int T, const double* hp, int flags, void* stream_ptr) {
+                    int T, const double* hp, int flags, long long* report,
+                    void* stream_ptr) {
+  LoopReport& rep = *reinterpret_cast<LoopReport*>(report);
+  rep = LoopReport{};
   return gan_train_steps(1, g, g_m, g_v, d, d_m, d_v, bn1_mean, bn1_var, bn2_mean, bn2_var, f,
                          g_ema, spectra, params, met, inoise, stab, eps, sched, rows, work,
-                         work_floats, dims,
-                         f_dims, n_f_hidden, f_offsets, B, T, hp, flags,
-                         (cudaStream_t)stream_ptr);
+                         work_floats, dims, f_dims, n_f_hidden, f_offsets, B, T, hp, flags,
+                         rep, (cudaStream_t)stream_ptr);
 }
 
 // T training steps over the states of `members` ensemble members in place,
@@ -1435,7 +1407,10 @@ int pigan_gan_ensemble_train(int members, float* g, float* g_m, float* g_v, floa
                              const float* sched, float* rows, float* work,
                              long long work_floats, const int* dims, const int* f_dims,
                              int n_f_hidden, const long long* f_offsets, int B, int T,
-                             const double* hp, int flags, void* stream_ptr) {
+                             const double* hp, int flags, long long* report,
+                             void* stream_ptr) {
+  LoopReport& rep = *reinterpret_cast<LoopReport*>(report);
+  rep = LoopReport{};
   if (hp[12] > 0.0) return cudaErrorInvalidValue;
   const int S = dims[0], g1 = dims[1], g2 = dims[2], d1 = dims[3], d2 = dims[4];
   const long long Pg = (long long)S * g1 + 3LL * g1 + (long long)g1 * g2 + 3LL * g2 + 4LL * g2 + 4;
@@ -1448,7 +1423,7 @@ int pigan_gan_ensemble_train(int members, float* g, float* g_m, float* g_v, floa
       PerIn(met, TB * 8), inoise ? PerIn(inoise, 2 * TB * S) : PerIn(),
       stab ? PerIn(stab, TB * S) : PerIn(), eps ? PerIn(eps, TB) : PerIn(), sched,
       PerOut(rows, (long long)T * kRowWidth), work, work_floats,
-      dims, f_dims, n_f_hidden, f_offsets, B, T, hp, flags, (cudaStream_t)stream_ptr);
+      dims, f_dims, n_f_hidden, f_offsets, B, T, hp, flags, rep, (cudaStream_t)stream_ptr);
 }
 
 }  // extern "C"

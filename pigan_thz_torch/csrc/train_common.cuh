@@ -47,32 +47,45 @@ constexpr int kAdamBlocks = 264;    // 2 per SM on an H100
 constexpr int kBK = 16;             // depth of an SGEMM tile step
 static_assert(kNormParts == kThreads, "adam_update reduces one partial per thread");
 
+// The routes of the product dispatch below (gemm_route), in the order of
+// ops/products.py's ROUTES.
+enum { kRouteDeepNarrow = 0, kRouteBatchDepth = 1, kRouteSgemm = 2, kRoutes = 3 };
+
+// What one call of a training C loop enqueued, in the caller's array of 7
+// long longs (ops/_cuda_build.py's LoopReport, field for field): the device
+// kernels; of those, the batch-row products (brow_gemm.cuh) and the other
+// products by their route; and the call's enqueue head.  The entry point
+// zeroes it, the loop's launch macros count into it.
+struct LoopReport {
+  long long kernels;
+  long long brow;
+  long long routes[kRoutes];
+  long long head_kernels;   // launches in the enqueue head
+  long long head_ns;        // host nanoseconds the head took
+};
+static_assert(sizeof(LoopReport) == 7 * sizeof(long long), "the caller passes 7 long longs");
+
 // The enqueue head of a training C loop: the host clock from the loop's start
 // to the first step boundary at which kHeadKernels launches are enqueued (to
 // the loop's end if it enqueues fewer).  A chunk starts on an idle card, and
 // the card's launch queue holds more than kHeadKernels launches, so no launch
 // of the head waits for a free slot: its time is the host's own cost of the
 // launches, where the whole loop, once the queue is full, runs at the card's
-// pace.  Two clock reads a loop.
+// pace.  Two clock reads a loop; it writes the report's head fields.
 constexpr long long kHeadKernels = 512;
 
 struct EnqueueHead {
-  std::chrono::steady_clock::time_point t0;
-  long long kernels = 0;   // launches in the head
-  long long ns = 0;        // host nanoseconds the head took
+  LoopReport& r;
+  std::chrono::steady_clock::time_point t0 = std::chrono::steady_clock::now();
 
-  void start() {
-    kernels = ns = 0;
-    t0 = std::chrono::steady_clock::now();
+  void at_step() {
+    if (r.head_kernels == 0 && r.kernels >= kHeadKernels) finish();
   }
-  void at_step(long long enqueued) {
-    if (kernels == 0 && enqueued >= kHeadKernels) finish(enqueued);
-  }
-  void finish(long long enqueued) {
-    if (kernels != 0 || enqueued == 0) return;
-    kernels = enqueued;
-    ns = std::chrono::duration_cast<std::chrono::nanoseconds>(
-             std::chrono::steady_clock::now() - t0).count();
+  void finish() {
+    if (r.head_kernels != 0 || r.kernels == 0) return;
+    r.head_kernels = r.kernels;
+    r.head_ns = std::chrono::duration_cast<std::chrono::nanoseconds>(
+                    std::chrono::steady_clock::now() - t0).count();
   }
 };
 
@@ -134,8 +147,6 @@ __device__ __forceinline__ float operand(float x) {
   if (RND) return __bfloat162float(__float2bfloat16_rn(x));
   return x;
 }
-
-enum { kRouteDeepNarrow = 0, kRouteBatchDepth = 1, kRouteSgemm = 2, kRoutes = 3 };
 
 constexpr int kNarrowMaxN = 8;                    // output columns (a power of two)
 constexpr int kNarrowMinK = 128;

@@ -11,12 +11,12 @@ shared-memory and spill report.
 No ``--use_fast_math``: tanhf, rsqrtf and the divisions stay IEEE so that
 the kernels hold fp32 parity with their plain PyTorch versions.
 
-``LAUNCHES`` counts each kernel's successful launches; only ``launch``,
-which the wrappers (``fused_kernels.py``, ``peaks.py``,
-``forward_train.py``, ``gan_train.py``, ``brow.py``, ``products.py``) call,
-adds to it.  The product kernels that K1, K2 and K3 launch from their C
-loops have their own counts: ``BROW_LAUNCHES`` for the batch-row kernel,
-``PRODUCT_LAUNCHES`` for the other products by route.
+``LAUNCHES`` counts each kernel's successful launches: ``launch``, which
+the wrappers (``fused_kernels.py``, ``peaks.py``, ``brow.py``,
+``products.py``) call, adds one a call; ``launch_loop``, through which the
+training wrappers (``forward_train.py``, ``gan_train.py``) launch K1, K2 and
+K3, also adds the product kernels their C loops enqueued, from the call's
+``LoopReport``.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ import os
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fused_mlp_chain.cu", "dip_qualification.cu", "forward_train.cu", "gan_train.cu")
@@ -43,7 +44,11 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libpigan_kernels.so"
 
 # Successful kernel launches, by kernel; a key "<kernel>.<shape>" counts, of
-# those, a kernel's launches in one of its launch shapes.
+# those, a kernel's launches in one of its launch shapes.  The last four are
+# the product kernels of K1, K2 and K3: the batch-row kernel
+# (csrc/brow_gemm.cuh) and the dispatch's kernels by route
+# (csrc/train_common.cuh, ``products.ROUTES`` in that order), launched from
+# the C loops or one at a time by ``brow.brow_gemm`` / ``products.product_gemm``.
 LAUNCHES: dict[str, int] = {
     "fused_mlp_forward": 0,
     "fused_mlp_forward.wgmma": 0,   # of those, K5's launches in its wgmma shape
@@ -52,22 +57,16 @@ LAUNCHES: dict[str, int] = {
     "forward_train": 0,
     "gan_train": 0,
     "gan_ensemble_train": 0,
+    "brow_gemm": 0,
+    "deep_narrow_gemm": 0,
+    "batch_depth_gemm": 0,
+    "sgemm": 0,
 }
-# Launches of the batch-row product kernel (csrc/brow_gemm.cuh), which K1, K2
-# and K3 launch from their C loops: their wrappers add the loop's own count
-# after each chunk, and ``brow.brow_gemm`` one a direct launch.  Apart from
-# LAUNCHES, whose keys stay one a TPU kernel (or one of its shapes).
-BROW_LAUNCHES: dict[str, int] = {"brow_gemm": 0}
-# Launches of the other products of K1, K2 and K3 by the kernel their route
-# in csrc/train_common.cuh takes (``products.ROUTES``, in that order): the
-# wrappers add the C loop's counts after each chunk, ``products.product_gemm``
-# one a direct launch.
-PRODUCT_LAUNCHES: dict[str, int] = {"deep_narrow_gemm": 0, "batch_depth_gemm": 0, "sgemm": 0}
 
 
 def launch_counts() -> dict[str, int]:
-    """Every count: LAUNCHES, BROW_LAUNCHES and PRODUCT_LAUNCHES in one dict."""
-    return {**LAUNCHES, **BROW_LAUNCHES, **PRODUCT_LAUNCHES}
+    """A copy of every count."""
+    return dict(LAUNCHES)
 
 
 _P = ctypes.c_void_p
@@ -79,8 +78,8 @@ _U32 = ctypes.c_uint32
 _LL = ctypes.c_longlong
 
 # C entry point -> argtypes; every one returns a cudaError_t as int.  The
-# counters of what the training kernels' C loops enqueued in their last call
-# take no argument and return a long long (COUNTERS).
+# three training entry points take a LoopReport's 7 long longs before the
+# stream.
 ENTRY_POINTS = {
     "pigan_fused_mlp_forward": [_P, _P, _P, _OFFSETS, _OFFSETS, _DIMS, _I, _I, _I, _F, _F, _P],
     "pigan_fused_dense_chain": [_P, _P, _P, _OFFSETS, _OFFSETS, _DIMS, _I, _I, _I, _P],
@@ -93,17 +92,17 @@ ENTRY_POINTS = {
     "pigan_forward_train": [
         _P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_U32),
         _P, _P, ctypes.c_longlong, _DIMS, _I, _OFFSETS, _I, _I, _I,
-        ctypes.POINTER(ctypes.c_double), _U32, _I, _P,
+        ctypes.POINTER(ctypes.c_double), _U32, _I, _OFFSETS, _P,
     ],
     "pigan_gan_train": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         ctypes.POINTER(ctypes.c_float), _P, _P, ctypes.c_longlong, _DIMS, _DIMS, _I,
-        _OFFSETS, _I, _I, ctypes.POINTER(ctypes.c_double), _I, _P,
+        _OFFSETS, _I, _I, ctypes.POINTER(ctypes.c_double), _I, _OFFSETS, _P,
     ],
     "pigan_gan_ensemble_train": [
         _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         ctypes.POINTER(ctypes.c_float), _P, _P, ctypes.c_longlong, _DIMS, _DIMS, _I,
-        _OFFSETS, _I, _I, ctypes.POINTER(ctypes.c_double), _I, _P,
+        _OFFSETS, _I, _I, ctypes.POINTER(ctypes.c_double), _I, _OFFSETS, _P,
     ],
     "pigan_brow_gemm": [
         _I, _I, _I, _I, _I, _P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P, _I, _LL, _P, _LL,
@@ -114,12 +113,6 @@ ENTRY_POINTS = {
         _I, _I, _P,
     ],
 }
-COUNTERS = ("pigan_gan_kernels_enqueued", "pigan_brow_kernels_enqueued",
-            "pigan_gan_head_kernels", "pigan_gan_head_ns",
-            "pigan_forward_kernels_enqueued", "pigan_forward_brow_kernels_enqueued",
-            "pigan_forward_head_kernels", "pigan_forward_head_ns")
-# Of those, the products by route (one int argument: the route's index).
-ROUTE_COUNTERS = ("pigan_gan_route_kernels_enqueued", "pigan_forward_route_kernels_enqueued")
 
 
 def source_hash() -> str:
@@ -188,12 +181,6 @@ def load_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.pigan_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pigan_cuda_error_string.restype = ctypes.c_char_p
-    for name in COUNTERS:
-        getattr(lib, name).argtypes = []
-        getattr(lib, name).restype = ctypes.c_longlong
-    for name in ROUTE_COUNTERS:
-        getattr(lib, name).argtypes = [_I]
-        getattr(lib, name).restype = ctypes.c_longlong
     lib.pigan_product_route.argtypes = [_I, _I]
     lib.pigan_product_route.restype = ctypes.c_int
     lib.pigan_brow_plan.argtypes = [_I] * 4 + [ctypes.POINTER(_I)]
@@ -214,12 +201,11 @@ def check_capability(index: int) -> None:
         )
 
 
-def launch(name: str, device, *args, counts: dict[str, int] | None = None,
-           count_as: str | None = None) -> None:
+def launch(name: str, device, *args, count_as: str | None = None) -> None:
     """Call entry point ``pigan_<name>`` with ``args`` and the current stream
-    of ``device``; raise on a CUDA error, else count the launch in
-    ``counts`` (LAUNCHES by default) under ``count_as`` (default ``name``):
-    the metrics entry of K4 counts as ``dip_qualification``."""
+    of ``device``; raise on a CUDA error, else count the launch in LAUNCHES
+    under ``count_as`` (default ``name``): the metrics entry of K4 counts as
+    ``dip_qualification``."""
     import torch
 
     lib = load_library()
@@ -230,4 +216,57 @@ def launch(name: str, device, *args, counts: dict[str, int] | None = None,
         raise RuntimeError(
             f"{name}: CUDA error {rc} ({lib.pigan_cuda_error_string(rc).decode()})"
         )
-    (LAUNCHES if counts is None else counts)[count_as or name] += 1
+    LAUNCHES[count_as or name] += 1
+
+
+class LoopReport(NamedTuple):
+    """What one call of a training C loop enqueued (``csrc/train_common.cuh``'s
+    ``LoopReport``, field for field): its device kernels; of those, the
+    batch-row products and the other products by route (``products.ROUTES``);
+    the launches of its enqueue head (the first 512 or more, whole steps,
+    before the card's launch queue can fill) and the host nanoseconds they
+    took."""
+
+    kernels: int
+    brow: int
+    deep_narrow: int
+    batch_depth: int
+    sgemm: int
+    head_kernels: int
+    head_ns: int
+
+
+NO_REPORT = LoopReport(0, 0, 0, 0, 0, 0, 0)
+_last_report = NO_REPORT
+
+
+def launch_loop(name: str, device, *args) -> LoopReport:
+    """``launch`` a training C loop with ``args`` and a report for it to fill;
+    add the product kernels it enqueued to LAUNCHES, keep the report as this
+    process's last (``report_of``) and return it."""
+    global _last_report
+    buf = (ctypes.c_longlong * len(LoopReport._fields))()
+    launch(name, device, *args, buf)
+    report = LoopReport(*buf)
+    LAUNCHES["brow_gemm"] += report.brow
+    LAUNCHES["deep_narrow_gemm"] += report.deep_narrow
+    LAUNCHES["batch_depth_gemm"] += report.batch_depth
+    LAUNCHES["sgemm"] += report.sgemm
+    _last_report = report
+    return report
+
+
+def report_of(rows) -> LoopReport:
+    """The report of the training launch that returned ``rows``: this
+    process's last where ``rows`` are on the card and hold a step, else
+    ``NO_REPORT`` (the plain version ran, or no step did: a report from
+    before would be stale)."""
+    return _last_report if rows.is_cuda and rows.shape[-2] else NO_REPORT
+
+
+def span_attrs(report: LoopReport) -> dict[str, int]:
+    """The ``pigan.train.launch`` span's attributes of a launch's report: its
+    kernels, its enqueue head and its products by route."""
+    return {"kernels": report.kernels, "head_kernels": report.head_kernels,
+            "head_ns": report.head_ns, "deep_narrow": report.deep_narrow,
+            "batch_depth": report.batch_depth, "sgemm": report.sgemm}

@@ -13,7 +13,6 @@ mirrors its launch plan, ``BrowProduct`` describes one product of a step
 (``gan_train.brow_products`` and ``forward_train.brow_products`` list a
 step's), ``brow_gemm_plain`` is its arithmetic in torch ops and
 ``brow_gemm`` launches one product alone (for the card tests and timing).
-``gan_train`` re-exports these names.
 """
 
 from __future__ import annotations
@@ -23,7 +22,7 @@ from typing import NamedTuple
 
 import torch
 
-from ._cuda_build import BROW_LAUNCHES, check_capability, launch, load_library
+from ._cuda_build import check_capability, launch, load_library
 
 BROW_TILE = (64, 32)       # output rows x columns of a tile
 BROW_STAGES = 4            # the cp.async ring's stages
@@ -134,7 +133,7 @@ def brow_gemm(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = None
     contiguous), added to it with ``acc``.  ``split`` > 0 forces the
     cluster size, else ``brow_plan`` chooses; ``route="sgemm"`` launches the
     tiled SGEMM the steps used before instead (for timing).  CUDA tensors
-    launch the kernel (``BROW_LAUNCHES["brow_gemm"]``) or raise; CPU tensors
+    launch the kernel (``LAUNCHES["brow_gemm"]``) or raise; CPU tensors
     take ``brow_gemm_plain`` with the plan's split."""
     if route not in ("brow", "sgemm"):
         raise ValueError(f"brow_gemm: route must be 'brow' or 'sgemm', got {route!r}")
@@ -168,19 +167,8 @@ def brow_gemm(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = None
            b.data_ptr(), b.stride(-2), b.stride(-1), _member_stride(b, 2),
            out.data_ptr(), out.stride(-2), _member_stride(out, 2),
            None if bias is None else bias.data_ptr(),
-           0 if bias is None else _member_stride(bias, 1), members, flags,
-           counts=BROW_LAUNCHES)
+           0 if bias is None else _member_stride(bias, 1), members, flags)
     return out
-
-
-def brow_kernels_enqueued() -> int:
-    """Of ``gan_train.kernels_enqueued()`` (the last K2 or K3 call of this
-    process), the launches of the batch-row kernel:
-    ``len(gan_train.brow_products(...))`` a step (19 through F and 14
-    detached at the published widths; +6 on a D-update step under WGAN-GP,
-    +4 with cycle through F, +3 each for cycle detached and stability).
-    K1 counts its own: ``forward_train.brow_kernels_enqueued``."""
-    return int(load_library().pigan_brow_kernels_enqueued())
 
 
 def brow_plan_on_card(m: int, n: int, k: int, index: int = 0) -> BrowPlan:

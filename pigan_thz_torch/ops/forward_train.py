@@ -40,10 +40,9 @@ tile in shared memory at once; the input layer (depth 4) to the tiled
 SGEMM; under bfloat16 the head's 8 metrics columns (depth 256) to the deep
 narrow kernel and their 8-deep input-gradient term to the SGEMM.  Nothing
 retries elsewhere: a cluster launch the card refuses is an error of the
-call.  The C loop counts what it enqueues (``kernels_enqueued``,
-``brow_kernels_enqueued``, ``route_kernels_enqueued``) and times the first
-of them (``enqueue_head``); the wrapper adds the batch-row launches to
-``BROW_LAUNCHES["brow_gemm"]`` and the others to ``PRODUCT_LAUNCHES``.
+call.  The C loop counts what it enqueues, and times the first of it, in
+the call's ``LoopReport`` (``_cuda_build.launch_loop``), which adds the
+product launches to ``LAUNCHES``.
 
 Everything the kernel reads besides the state is built outside it, as the
 TPU kernel's prologue ``_streams`` builds it: the gathered batches of every
@@ -76,9 +75,9 @@ import torch
 from ..config import PiGanConfig
 from ..data.dataset import ThzDataset, epoch_indices
 from ..utils.profiling import span
-from ._cuda_build import BROW_LAUNCHES, LAUNCHES, check_capability, launch, load_library
+from ._cuda_build import LAUNCHES, check_capability, launch_loop, report_of, span_attrs
 from .brow import BrowProduct, bf16_rounder, brow_plan
-from .products import GemmProduct, count_chunk, routes_enqueued
+from .products import GemmProduct
 
 BASELINE_HIDDEN = (256, 512, 1024, 512, 256)
 METRIC_KEYS = ("loss", "spectrum_loss", "metrics_loss")
@@ -579,7 +578,7 @@ def forward_train(params: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     hp = (spec.spectrum_w, spec.metrics_w, spec.smoothness_w, spec.l1_w,
           spec.dropout_rate, spec.clip, spec.b1, spec.b2, spec.eps, spec.slope,
           spec.ln_eps)
-    launch(
+    launch_loop(
         "forward_train", dev,
         params.data_ptr(), m.data_ptr(), v.data_ptr(),
         streams.params_norm.data_ptr(), streams.spectra.data_ptr(),
@@ -593,52 +592,7 @@ def forward_train(params: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
         (ctypes.c_double * len(hp))(*hp),
         keep_threshold(spec.dropout_rate), int(spec.bf16),
     )
-    BROW_LAUNCHES["brow_gemm"] += brow_kernels_enqueued()
-    count_chunk(route_kernels_enqueued())
     return rows
-
-
-def kernels_enqueued() -> int:
-    """The device kernels that this process's last ``forward_train`` launch
-    enqueued, as the C loop counted them: over the call's steps, 36 a step
-    (39 with bfloat16 operands, the head in two products each way)."""
-    return int(load_library().pigan_forward_kernels_enqueued())
-
-
-def brow_kernels_enqueued() -> int:
-    """Of ``kernels_enqueued()``, the launches of the batch-row kernel
-    (``csrc/brow_gemm.cuh``): ``len(brow_products(...))`` a step."""
-    return int(load_library().pigan_forward_brow_kernels_enqueued())
-
-
-def route_kernels_enqueued() -> dict[str, int]:
-    """Of ``kernels_enqueued()``, the products launched through
-    ``csrc/train_common.cuh``'s dispatch, by route (``products.ROUTES``):
-    ``routes_of(gemm_products(...))`` a step (0 / 6 / 1 in float32, 1 / 7 /
-    2 with bfloat16 operands)."""
-    return routes_enqueued("pigan_forward_route_kernels_enqueued")
-
-
-def enqueue_head() -> tuple[int, int]:
-    """Of ``kernels_enqueued()``, the launches of the C loop's enqueue head
-    (``csrc/train_common.cuh:EnqueueHead``: the first 512 or more, whole
-    steps, before the card's launch queue can fill) and the host nanoseconds
-    they took."""
-    lib = load_library()
-    return int(lib.pigan_forward_head_kernels()), int(lib.pigan_forward_head_ns())
-
-
-def _launch_attrs(rows: torch.Tensor) -> dict:
-    """The ``pigan.train.launch`` span's attributes of the launch that
-    returned ``rows``: the kernels the C loop enqueued, its enqueue head and
-    its products by route (``products.ROUTES``); all 0 where the plain
-    version ran or no step did."""
-    if not (rows.is_cuda and rows.shape[-2]):
-        return {"kernels": 0, "head_kernels": 0, "head_ns": 0,
-                "deep_narrow": 0, "batch_depth": 0, "sgemm": 0}
-    head_kernels, head_ns = enqueue_head()
-    return {"kernels": kernels_enqueued(), "head_kernels": head_kernels, "head_ns": head_ns,
-            **route_kernels_enqueued()}
 
 
 def brow_products(spec: ForwardTrainSpec, batch: int) -> list[BrowProduct]:
@@ -753,7 +707,7 @@ def make_forward_epoch_fn(cfg: PiGanConfig, fsettings, lr: float | None = None,
         with span("pigan.train.launch") as launched:
             rows = forward_train(state.params, state.opt.m, state.opt.v, streams, spec)
             if launched.on:
-                launched.set(**_launch_attrs(rows))
+                launched.set(**span_attrs(report_of(rows)))
         steps = epochs * spe
         state.step += steps
         state.opt.count += steps

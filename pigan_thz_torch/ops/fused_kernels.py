@@ -29,8 +29,7 @@ the kernel, and anything else raises.  There is no fallback from a failed
 launch, and none to another shape.  ``LAUNCHES[name]`` counts the kernel's
 successful launches, so a run can show that its path went through the
 kernel; ``LAUNCHES["fused_mlp_forward.wgmma"]`` those of K5's wgmma shape
-among them, which ``utils/profiling.py``'s ``fused_chain_wgmma_launches``
-counter also counts while recording.  The wrappers serve inference only: they carry no gradient.
+among them.  The wrappers serve inference only: they carry no gradient.
 
 The two kernels are also registered as the custom ops
 ``torch.ops.pigan_thz.fused_mlp_forward`` and ``...fused_dense_chain`` (a
@@ -50,7 +49,6 @@ import torch
 from torch import nn
 
 # Successful kernel launches, by kernel (one dict for all the port's kernels).
-from ..utils import profiling
 from ._cuda_build import LAUNCHES, check_capability, launch, load_library
 
 
@@ -660,7 +658,6 @@ def _launch(name: str, x: torch.Tensor, packed: PackedChain, cluster: int | str 
                packed.weights.data_ptr(), None if scratch is None else scratch.data_ptr(),
                offsets, wg, dims, packed.n_layers, gl, batch, *scalars, count_as=name)
         LAUNCHES[f"{name}.{WGMMA}"] += 1
-        profiling.count(profiling.FUSED_CHAIN_WGMMA_LAUNCHES)
         return out
     launch(name, x.device, x.data_ptr(), out.data_ptr(), packed.weights.data_ptr(),
            offsets, tiled, dims, packed.n_layers, batch, cluster, *scalars)

@@ -91,7 +91,7 @@ cluster, the partial tiles summed in rank order through distributed shared
 memory, a ``cp.async`` ring, fp32 FMAs or bf16 ``mma.sync`` on bfloat16
 operands.  ``brow_products`` lists a step's such products; the kernel's
 Python side (``brow_plan``, ``brow_gemm_plain``, ``brow_gemm``, ...) lives
-in ``brow.py``, which K1 shares, and is re-exported here.
+in ``brow.py``, which K1 shares.
 
 The other products.  The heads, the adversarial pass's 4 parameter
 columns, F's 4-wide input layer and its input gradient, F's 8 metrics
@@ -100,9 +100,10 @@ dispatch of ``csrc/train_common.cuh``, which picks a kernel by the
 product's N and K: deep narrow (N <= 8, depth 128-1024: a warp an output
 row), batch depth (depth 32-128, the weight gradients: the whole depth of a
 tile in shared memory) or the tiled SGEMM (depth 4 or 8).
-``gemm_products`` lists a step's with their routes; ``products.py`` (rule,
-plain versions, one launch) is re-exported here.  The C loop counts its
-launches by route (``route_kernels_enqueued``).
+``gemm_products`` lists a step's with their routes; ``products.py`` holds
+the rule, the plain versions and one launch.  The C loop counts its
+launches, by route too, in the call's ``LoopReport``
+(``_cuda_build.launch_loop``).
 
 Seed ensembles (K3).  The member-packed path of the same TPU kernel
 (``_make_kernel(members=M)``, launched by ``make_pallas_ensemble_fn``,
@@ -136,16 +137,10 @@ import torch
 from ..config import PiGanConfig
 from ..data.dataset import ThzDataset
 from ..utils.profiling import span
-from ._cuda_build import BROW_LAUNCHES, LAUNCHES, check_capability, launch
-from .brow import (  # noqa: F401  (re-exported: gan_train.brow_* as before)
-    BROW_MAX_SPLIT, BROW_MIN_DEPTH, BROW_STAGES, BROW_TILE, H100_SMS, BrowPlan, BrowProduct,
-    bf16_rounder, brow_gemm, brow_gemm_plain, brow_kernels_enqueued, brow_plan,
-    brow_plan_on_card)
+from ._cuda_build import LAUNCHES, check_capability, launch_loop, report_of, span_attrs
+from .brow import BrowProduct, bf16_rounder
 from .forward_train import BASELINE_HIDDEN, ForwardTrainSpec, resolve_draws
-from .products import (  # noqa: F401  (re-exported beside the batch-row names)
-    PRODUCT_LAUNCHES, ROUTES, GemmProduct, batch_depth_plain, count_chunk, deep_narrow_plain,
-    product_gemm, product_gemm_plain, product_route, product_route_on_card, routes_enqueued,
-    routes_of, step_operands)
+from .products import GemmProduct
 
 GD_HIDDEN = (512, 256)
 METRIC_KEYS = (
@@ -1138,58 +1133,12 @@ def gan_train(bufs: GanBuffers, streams: GanStreams, spec: GanTrainSpec,
           or work.numel() < n_work):
         raise ValueError(f"gan_train: work must be contiguous float32 with at least "
                          f"{n_work} floats on {dev}")
-    launch(
+    launch_loop(
         "gan_train", dev, *_state_pointers(bufs),
         bufs.f.data_ptr(), bufs.g_ema.data_ptr() if spec.ema_decay > 0.0 else None,
         *_stream_arguments(streams, spec, rows, work, n_work, batch, steps),
     )
-    BROW_LAUNCHES["brow_gemm"] += brow_kernels_enqueued()
-    count_chunk(route_kernels_enqueued())
     return rows
-
-
-def kernels_enqueued() -> int:
-    """The device kernels that this process's last ``gan_train`` or
-    ``gan_ensemble_train`` launch enqueued, as the C loop counted them: over
-    the call's steps, the launches a step (69 through F and 58 detached;
-    +19 with cycle through F, +17 with stability, +1 with instance noise,
-    +14 with WGAN-GP; in bfloat16 +2 through F and +1 detached, F's head in
-    two products; a step whose D update is gated off enqueues 11 fewer, and
-    none of WGAN-GP's)."""
-    from ._cuda_build import load_library
-
-    return int(load_library().pigan_gan_kernels_enqueued())
-
-
-def route_kernels_enqueued() -> dict[str, int]:
-    """Of ``kernels_enqueued()``, the products launched through
-    ``csrc/train_common.cuh``'s dispatch, by route (``ROUTES``): ``routes_of``
-    of ``gemm_products`` summed over the call's steps (4 / 6 / 2 a detached
-    D-updating step at the published widths, 5 / 6 / 2 through F)."""
-    return routes_enqueued("pigan_gan_route_kernels_enqueued")
-
-
-def enqueue_head() -> tuple[int, int]:
-    """Of ``kernels_enqueued()``, the launches of the C loop's enqueue head
-    (``csrc/train_common.cuh:EnqueueHead``: the first 512 or more, whole
-    steps, before the card's launch queue can fill) and the host nanoseconds
-    they took."""
-    from ._cuda_build import load_library
-
-    lib = load_library()
-    return int(lib.pigan_gan_head_kernels()), int(lib.pigan_gan_head_ns())
-
-
-def _launch_attrs(rows: torch.Tensor) -> dict:
-    """The ``pigan.train.launch`` span's attributes of the launch that
-    returned ``rows``: the kernels the C loop enqueued, its enqueue head and
-    its products by route (``ROUTES``); all 0 where the plain version ran or
-    no step did."""
-    if not (rows.is_cuda and rows.shape[-2]):
-        return {"kernels": 0, "head_kernels": 0, "head_ns": 0, **dict.fromkeys(ROUTES, 0)}
-    head_kernels, head_ns = enqueue_head()
-    return {"kernels": kernels_enqueued(), "head_kernels": head_kernels, "head_ns": head_ns,
-            **route_kernels_enqueued()}
 
 
 def _state_pointers(bufs: GanBuffers) -> list[int]:
@@ -1286,12 +1235,10 @@ def gan_ensemble_train(bufs: GanBuffers, streams: GanStreams,
         return rows
     n_work = workspace_floats(spec, batch)          # one member's
     work = torch.empty(members * n_work, dtype=torch.float32, device=dev)
-    launch(
+    launch_loop(
         "gan_ensemble_train", dev, members, *_state_pointers(bufs), bufs.f.data_ptr(),
         *_stream_arguments(streams, spec, rows, work, n_work, batch, steps),
     )
-    BROW_LAUNCHES["brow_gemm"] += brow_kernels_enqueued()
-    count_chunk(route_kernels_enqueued())
     return rows
 
 
@@ -1503,7 +1450,7 @@ def make_gan_epoch_fn(cfg: PiGanConfig, settings, *, lr_g: float | None = None,
         with span("pigan.train.launch") as launched:
             rows = gan_train(state_buffers(state), streams, spec)
             if launched.on:
-                launched.set(**_launch_attrs(rows))
+                launched.set(**span_attrs(report_of(rows)))
         steps = epochs * spe
         state.step += steps
         state.g_opt.count += steps
@@ -1600,7 +1547,7 @@ def make_gan_ensemble_fn(cfg: PiGanConfig, settings, num_members: int):
         with span("pigan.train.launch", members=count) as launched:
             rows = gan_ensemble_train(ensemble_buffers(states), streams, spec)
             if launched.on:
-                launched.set(**_launch_attrs(rows))
+                launched.set(**span_attrs(report_of(rows)))
         steps = epochs * spe
         d_steps = int(streams.sched[:, 6].sum())
         for st in states:

@@ -35,12 +35,12 @@ from typing import Iterable, NamedTuple
 
 import torch
 
-from ._cuda_build import PRODUCT_LAUNCHES, check_capability, launch, load_library
+from ._cuda_build import check_capability, launch, load_library
 from .brow import _member_stride, bf16_rounder
 
 ROUTES = ("deep_narrow", "batch_depth", "sgemm")   # the C route indices, in order
 LAUNCH_KEYS = {"deep_narrow": "deep_narrow_gemm", "batch_depth": "batch_depth_gemm",
-               "sgemm": "sgemm"}                  # their keys in PRODUCT_LAUNCHES
+               "sgemm": "sgemm"}                  # their keys in LAUNCHES
 LANES = 32
 NARROW_MAX_N = 8
 NARROW_MIN_K = 128
@@ -179,7 +179,7 @@ def product_gemm(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = N
     (members, N); into ``out`` ((members,) M, N, rows contiguous), added to
     it with ``acc``.  ``route`` None takes the shape's route, as a step does;
     a route name forces that kernel (within its limits).  CUDA tensors
-    launch it (counted in ``PRODUCT_LAUNCHES``) or raise; CPU tensors take
+    launch it (counted in ``LAUNCHES``) or raise; CPU tensors take
     ``product_gemm_plain``."""
     m, k = a.shape[-2:]
     n = b.shape[-1]
@@ -213,27 +213,13 @@ def product_gemm(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = N
            out.data_ptr(), out.stride(-2), _member_stride(out, 2),
            None if bias is None else bias.data_ptr(),
            0 if bias is None else _member_stride(bias, 1), members, flags,
-           counts=PRODUCT_LAUNCHES, count_as=LAUNCH_KEYS[taken])
+           count_as=LAUNCH_KEYS[taken])
     return out
 
 
 def product_route_on_card(n: int, k: int) -> str:
     """The route the C rule gives this shape (``product_route`` mirrors it)."""
     return ROUTES[load_library().pigan_product_route(n, k)]
-
-
-def routes_enqueued(counter: str) -> dict[str, int]:
-    """{route: launches} that a training C loop's last call enqueued, read
-    from its counter (``pigan_gan_route_kernels_enqueued`` or
-    ``pigan_forward_route_kernels_enqueued``)."""
-    fn = getattr(load_library(), counter)
-    return {r: int(fn(i)) for i, r in enumerate(ROUTES)}
-
-
-def count_chunk(routes: dict[str, int]) -> None:
-    """Add a chunk's launches by route to ``PRODUCT_LAUNCHES``."""
-    for r, n in routes.items():
-        PRODUCT_LAUNCHES[LAUNCH_KEYS[r]] += n
 
 
 def step_operands(p: GemmProduct, members: int = 1, seed: int = 0, *, device) -> tuple:

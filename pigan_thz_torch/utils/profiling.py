@@ -42,7 +42,6 @@ TRACE_FILE = "trace.json"
 HOST_SYNCS = "host_syncs"     # the counter of device-to-host reads on the chunk path
 GRAPH_CAPTURES = "serve_graph_captures"   # CUDA graphs a serving stage captured
 GRAPH_REPLAYS = "serve_graph_replays"     # and its calls that replayed one
-FUSED_CHAIN_WGMMA_LAUNCHES = "fused_chain_wgmma_launches"   # K5's wgmma-shape launches
 RECENT_SPANS = 4096           # raw spans kept, newest last
 
 

@@ -62,8 +62,10 @@ from pigan_thz_torch.data import (
 )
 from pigan_thz_torch.design import ScreeningConfig, screen_designs
 from pigan_thz_torch.models import build_forward_model, build_generator, build_trio
+from pigan_thz_torch.ops import brow
 from pigan_thz_torch.ops import forward_train as ft
 from pigan_thz_torch.ops import gan_train as gt
+from pigan_thz_torch.ops._cuda_build import LAUNCHES, report_of, span_attrs
 from pigan_thz_torch.ops import fused_kernels as fk
 from pigan_thz_torch.ops import peaks as pk
 from pigan_thz_torch import serve
@@ -294,7 +296,8 @@ def test_cycle_matches_unfused_modules(dev, models):
     assert {k: fk.LAUNCHES[k] - before[k] for k in before} == {
         "fused_mlp_forward": 1, "fused_mlp_forward.wgmma": 0, "fused_dense_chain": 1,
         "dip_qualification": 0, "forward_train": 0, "gan_train": 0,
-        "gan_ensemble_train": 0}
+        "gan_ensemble_train": 0, "brow_gemm": 0, "deep_narrow_gemm": 0, "batch_depth_gemm": 0,
+        "sgemm": 0}
     with torch.no_grad():
         pn = g(spectra)
         want = (denormalize_params(pn, ds.param_lo, ds.param_hi), *f(pn))
@@ -786,7 +789,8 @@ def test_screening_launches_per_chunk(use_pallas, dev, models):
         "fused_mlp_forward": 3 if use_pallas else 0,
         "fused_mlp_forward.wgmma": 3 if use_pallas else 0,      # chunks of 8192
         "fused_dense_chain": 0, "dip_qualification": 3, "forward_train": 0, "gan_train": 0,
-        "gan_ensemble_train": 0}
+        "gan_ensemble_train": 0, "brow_gemm": 0, "deep_narrow_gemm": 0, "batch_depth_gemm": 0,
+        "sgemm": 0}
     v = res.valid
     assert bool(v.any()) and bool(torch.isfinite(res.scores[v]).all())
     assert bool((res.scores[:-1] >= res.scores[1:]).all())
@@ -898,19 +902,21 @@ def test_trainer_launches_the_kernel_once_per_chunk(dev, train_ds):
     ("float32", 0.2, 36), ("float32", 0.0, 36), ("bfloat16", 0.2, 39)])
 def test_forward_kernel_enqueues_the_launches_a_step_it_says(dtype, rate, per_step, dev,
                                                              train_ds):
-    """The C loop's own counts over one epoch: 36 launches a step (39 with
-    bfloat16 operands), of them ``brow_products`` through the batch-row
-    kernel (10 a step), which the wrapper adds to BROW_LAUNCHES."""
+    """The C loop's own counts over one epoch, in its report: 36 launches a
+    step (39 with bfloat16 operands), of them ``brow_products`` through the
+    batch-row kernel (10 a step), which ``launch_loop`` adds to
+    ``LAUNCHES["brow_gemm"]``."""
     cfg, state, _, _, _, streams = _k1_setup(train_ds, rate, epochs=1)
     cfg = cfg.replace(train=dataclasses.replace(cfg.train, compute_dtype=dtype))
     spec = ft.forward_train_spec(cfg, ForwardStepSettings())
     want = len(ft.brow_products(spec, 64)) * 15
-    before = ft.BROW_LAUNCHES["brow_gemm"]
-    ft.forward_train(state.params, state.opt.m, state.opt.v, streams, spec)
+    before = LAUNCHES["brow_gemm"]
+    rows = ft.forward_train(state.params, state.opt.m, state.opt.v, streams, spec)
     torch.cuda.synchronize()
-    assert ft.kernels_enqueued() == per_step * 15
-    assert ft.brow_kernels_enqueued() == want == 10 * 15
-    assert ft.BROW_LAUNCHES["brow_gemm"] == before + want
+    report = report_of(rows)
+    assert report.kernels == per_step * 15
+    assert report.brow == want == 10 * 15
+    assert LAUNCHES["brow_gemm"] == before + want
 
 
 def test_forward_train_kernel_first_step_against_float64(dev, train_ds):
@@ -1504,12 +1510,12 @@ def test_gan_kernel_enqueues_the_launches_a_step_it_says(case, per_step, dev, tr
                                                        **K2_PATHS[case])
     spec = gt.gan_train_spec(cfg, settings)
     streams = _k2_streams(train_ds, cfg, settings, idx, seeds, torch.ones(1))
-    gt.gan_train(gt.state_buffers(state), streams, spec)
-    assert gt.kernels_enqueued() == per_step * 15
+    rows = gt.gan_train(gt.state_buffers(state), streams, spec)
+    assert report_of(rows).kernels == per_step * 15
     _, _, ens, estreams = _k3_setup(train_ds, trained_f, 3, **{
         **K2_PATHS[case], "ema_decay": 0.0})
-    gt.gan_ensemble_train(gt.ensemble_buffers(ens), estreams, spec)
-    assert gt.kernels_enqueued() == per_step * 15
+    rows = gt.gan_ensemble_train(gt.ensemble_buffers(ens), estreams, spec)
+    assert report_of(rows).kernels == per_step * 15
 
 
 def test_the_c_loops_time_their_enqueue_head(dev, train_ds, trained_f):
@@ -1519,23 +1525,25 @@ def test_the_c_loops_time_their_enqueue_head(dev, train_ds, trained_f):
     cfg, state, _, _, _, streams = _k1_setup(train_ds, 0.2, epochs=1)
     spec = ft.forward_train_spec(cfg, ForwardStepSettings())
     t0 = time.perf_counter_ns()
-    ft.forward_train(state.params, state.opt.m, state.opt.v, streams, spec)
+    rows = ft.forward_train(state.params, state.opt.m, state.opt.v, streams, spec)
     took = time.perf_counter_ns() - t0
-    kernels, ns = ft.enqueue_head()
-    assert kernels == 36 * 15 and 0 < ns < took          # 504 at step 14: the whole call
+    report = report_of(rows)
+    # 504 at step 14: the whole call
+    assert report.head_kernels == 36 * 15 and 0 < report.head_ns < took
     cfg, settings, state, _, _, idx, seeds = _k2_setup(train_ds, trained_f, epochs=1,
                                                        **K2_PATHS["through_f"])
     spec = gt.gan_train_spec(cfg, settings)
     streams = _k2_streams(train_ds, cfg, settings, idx, seeds, torch.ones(1))
     t0 = time.perf_counter_ns()
-    gt.gan_train(gt.state_buffers(state), streams, spec)
+    rows = gt.gan_train(gt.state_buffers(state), streams, spec)
     took = time.perf_counter_ns() - t0
-    kernels, ns = gt.enqueue_head()
-    assert kernels == 69 * 8 and 0 < ns < took           # 483 after 7 steps, 552 after 8
+    report = report_of(rows)
+    # 483 after 7 steps, 552 after 8
+    assert report.head_kernels == 69 * 8 and 0 < report.head_ns < took
     _, _, ens, estreams = _k3_setup(train_ds, trained_f, 3, **{
         **K2_PATHS["through_f"], "ema_decay": 0.0})
-    gt.gan_ensemble_train(gt.ensemble_buffers(ens), estreams, spec)
-    assert gt.enqueue_head()[0] == 69 * 8
+    rows = gt.gan_ensemble_train(gt.ensemble_buffers(ens), estreams, spec)
+    assert report_of(rows).head_kernels == 69 * 8
 
 
 def test_gan_train_leaves_its_intermediates_in_a_given_scratch(dev, train_ds, trained_f):
@@ -1620,16 +1628,16 @@ def test_brow_kernel_matches_plain(case, members, dev):
     a, b, bias = _brow_operands(m, n, k, bnc, dev, members if members > 1 else None,
                                 pad=8 * (k % 2))
     bias = bias if with_bias else None
-    plan = gt.brow_plan(m, n, k)
-    assert gt.brow_plan_on_card(m, n, k) == plan
-    before = gt.BROW_LAUNCHES["brow_gemm"]
-    got = gt.brow_gemm(a, b, bias, rnd=rnd)
-    again = gt.brow_gemm(a, b, bias, rnd=rnd)
+    plan = brow.brow_plan(m, n, k)
+    assert brow.brow_plan_on_card(m, n, k) == plan
+    before = LAUNCHES["brow_gemm"]
+    got = brow.brow_gemm(a, b, bias, rnd=rnd)
+    again = brow.brow_gemm(a, b, bias, rnd=rnd)
     torch.cuda.synchronize()
-    assert gt.BROW_LAUNCHES["brow_gemm"] == before + 2
+    assert LAUNCHES["brow_gemm"] == before + 2
     assert torch.equal(got, again)
-    want = gt.brow_gemm_plain(a, b, bias, rnd=rnd, split=plan.split)
-    exact = gt.brow_gemm_plain(a.double(), b.double(), None if bias is None else bias.double(),
+    want = brow.brow_gemm_plain(a, b, bias, rnd=rnd, split=plan.split)
+    exact = brow.brow_gemm_plain(a.double(), b.double(), None if bias is None else bias.double(),
                                rnd=rnd)
     bound = _brow_bound(a, b, bias, k, plan.split, rnd)
     err_p = float(((got.double() - want.double()).abs() / bound).max())
@@ -1640,7 +1648,7 @@ def test_brow_kernel_matches_plain(case, members, dev):
     assert err_x <= 1.0 and err_p <= 1.5
     if members > 1:
         for mm in range(members):
-            solo = gt.brow_gemm(a[mm], b[mm], None if bias is None else bias[mm], rnd=rnd)
+            solo = brow.brow_gemm(a[mm], b[mm], None if bias is None else bias[mm], rnd=rnd)
             assert torch.equal(got[mm], solo), mm
 
 
@@ -1655,11 +1663,11 @@ def test_brow_kernel_every_split(case, split, dev):
     m, n, k, bnc = case
     a, b, bias = _brow_operands(m, n, k, bnc, dev, seed=split)
     for rnd in (False, True):
-        got = gt.brow_gemm(a, b, bias, rnd=rnd, split=split)
-        old = gt.brow_gemm(a, b, bias, rnd=rnd, route="sgemm")
+        got = brow.brow_gemm(a, b, bias, rnd=rnd, split=split)
+        old = brow.brow_gemm(a, b, bias, rnd=rnd, route="sgemm")
         torch.cuda.synchronize()
-        exact = gt.brow_gemm_plain(a.double(), b.double(), bias.double(), rnd=rnd)
-        want = gt.brow_gemm_plain(a, b, bias, rnd=rnd, split=split)
+        exact = brow.brow_gemm_plain(a.double(), b.double(), bias.double(), rnd=rnd)
+        want = brow.brow_gemm_plain(a, b, bias, rnd=rnd, split=split)
         bound = _brow_bound(a, b, bias, k, split, rnd)
         assert float(((got.double() - exact).abs() / bound).max()) <= 1.0, rnd
         assert float(((got.double() - want.double()).abs() / bound).max()) <= 1.5, rnd
@@ -1678,13 +1686,13 @@ def test_brow_kernel_takes_every_flag(layout, dev):
     c = torch.randn(3, m, n, device=dev)
     for rnd in (False, True):
         out = c.clone()
-        gt.brow_gemm(a, b[0], bias, out=out, acc=True, rnd=rnd)
-        plan = gt.brow_plan(m, n, k)
-        want = gt.brow_gemm_plain(a, b[0], bias, c, rnd, plan.split)
+        brow.brow_gemm(a, b[0], bias, out=out, acc=True, rnd=rnd)
+        plan = brow.brow_plan(m, n, k)
+        want = brow.brow_gemm_plain(a, b[0], bias, c, rnd, plan.split)
         bound = _brow_bound(a, b[0], bias, k, plan.split, rnd) + 2 * 2.0 ** -24 * c.abs()
         assert float(((out - want).abs() / bound).max()) <= 1.5, rnd
     with pytest.raises(RuntimeError, match="brow_gemm: CUDA error"):
-        gt.brow_gemm(a[0], b[0], split=16)
+        brow.brow_gemm(a[0], b[0], split=16)
 
 
 @pytest.mark.parametrize("case", ["through_f", "detached", "knob_mix", "second_passes_mix",
@@ -1699,17 +1707,17 @@ def test_gan_step_launches_the_batch_row_kernel_as_listed(case, dev, train_ds, t
     streams = _k2_streams(train_ds, cfg, settings, idx, seeds, torch.ones(1))
     gates = (streams.sched[:, gt.SCHED_LANES.index("d_gate")] > 0).tolist()
     want = sum(len(gt.brow_products(spec, 64, bool(u))) for u in gates)
-    before = gt.BROW_LAUNCHES["brow_gemm"]
-    gt.gan_train(gt.state_buffers(state), streams, spec)
-    assert gt.brow_kernels_enqueued() == want
-    assert gt.BROW_LAUNCHES["brow_gemm"] == before + want
+    before = LAUNCHES["brow_gemm"]
+    report = report_of(gt.gan_train(gt.state_buffers(state), streams, spec))
+    assert report.brow == want
+    assert LAUNCHES["brow_gemm"] == before + want
     print(f"K2 {case}: {want} batch-row launches in {len(gates)} steps, "
-          f"{gt.kernels_enqueued()} launches in all")
+          f"{report.kernels} launches in all")
     ecfg, esettings, ens, estreams = _k3_setup(train_ds, trained_f, 3, **{
         **K2_PATHS[case], "ema_decay": 0.0})
-    gt.gan_ensemble_train(gt.ensemble_buffers(ens), estreams,
-                          gt.gan_train_spec(ecfg, esettings))
-    assert gt.brow_kernels_enqueued() == want
+    rows = gt.gan_ensemble_train(gt.ensemble_buffers(ens), estreams,
+                                 gt.gan_train_spec(ecfg, esettings))
+    assert report_of(rows).brow == want
 
 
 # -- K1 / K2 / K3: the other products (csrc/train_common.cuh's dispatch) ----------
@@ -1776,10 +1784,10 @@ def test_product_kernel_matches_its_plain_twin(case, members, dev):
         return pr.product_gemm(a, b, bias, out=out, acc=p.acc, rnd=p.rnd, route=route)
 
     key = pr.LAUNCH_KEYS[p.route]
-    before = pr.PRODUCT_LAUNCHES[key]
+    before = LAUNCHES[key]
     got, again = run(), run()
     torch.cuda.synchronize()
-    assert pr.PRODUCT_LAUNCHES[key] == before + 2
+    assert LAUNCHES[key] == before + 2
     assert torch.equal(got, again)
     want = pr.product_gemm_plain(a, b, bias, c, p.rnd)
     rd = (lambda t: t.bfloat16().double()) if p.rnd else (lambda t: t.double())
@@ -1837,8 +1845,8 @@ def test_route_rule_on_card_equals_its_mirror(dev):
 def test_gan_step_launches_its_products_by_route_as_listed(case, dev, train_ds, trained_f):
     """One epoch of K2, and of K3 at M = 3: the C loop's launches by route
     are ``routes_of(gemm_products)`` summed over the steps (D's update gated
-    per the schedule); the wrapper adds them to PRODUCT_LAUNCHES and the
-    launch span's attributes carry them."""
+    per the schedule), in its report; ``launch_loop`` adds them to LAUNCHES
+    and the launch span's attributes carry them."""
     from pigan_thz_torch.ops import products as pr
 
     cfg, settings, state, _, _, idx, seeds = _k2_setup(train_ds, trained_f, epochs=1,
@@ -1850,20 +1858,20 @@ def test_gan_step_launches_its_products_by_route_as_listed(case, dev, train_ds, 
     for u in gates:
         for r, n in pr.routes_of(gt.gemm_products(spec, 64, bool(u))).items():
             want[r] += n
-    before = dict(pr.PRODUCT_LAUNCHES)
-    rows = gt.gan_train(gt.state_buffers(state), streams, spec)
-    assert gt.route_kernels_enqueued() == want
-    assert {r: pr.PRODUCT_LAUNCHES[pr.LAUNCH_KEYS[r]] - before[pr.LAUNCH_KEYS[r]]
+    before = dict(LAUNCHES)
+    report = report_of(gt.gan_train(gt.state_buffers(state), streams, spec))
+    assert {r: getattr(report, r) for r in pr.ROUTES} == want
+    assert {r: LAUNCHES[pr.LAUNCH_KEYS[r]] - before[pr.LAUNCH_KEYS[r]]
             for r in pr.ROUTES} == want
-    attrs = gt._launch_attrs(rows)
+    attrs = span_attrs(report)
     assert {r: attrs[r] for r in pr.ROUTES} == want
-    assert gt.kernels_enqueued() == attrs["kernels"]
+    assert report.kernels == attrs["kernels"]
     print(f"K2 {case}: by route {want} in {len(gates)} steps")
     ecfg, esettings, ens, estreams = _k3_setup(train_ds, trained_f, 3, **{
         **K2_PATHS[case], "ema_decay": 0.0})
-    gt.gan_ensemble_train(gt.ensemble_buffers(ens), estreams,
-                          gt.gan_train_spec(ecfg, esettings))
-    assert gt.route_kernels_enqueued() == want
+    rows = gt.gan_ensemble_train(gt.ensemble_buffers(ens), estreams,
+                                 gt.gan_train_spec(ecfg, esettings))
+    assert {r: getattr(report_of(rows), r) for r in pr.ROUTES} == want
 
 
 @pytest.mark.parametrize("dtype, per_step", [("float32", (0, 6, 1)), ("bfloat16", (1, 7, 2))])
@@ -1878,8 +1886,9 @@ def test_forward_kernel_launches_its_products_by_route_as_listed(dtype, per_step
     assert tuple(want.values()) == tuple(15 * n for n in per_step)
     rows = ft.forward_train(state.params, state.opt.m, state.opt.v, streams, spec)
     torch.cuda.synchronize()
-    assert ft.route_kernels_enqueued() == want
-    attrs = ft._launch_attrs(rows)
+    report = report_of(rows)
+    assert {r: getattr(report, r) for r in pr.ROUTES} == want
+    attrs = span_attrs(report)
     assert {r: attrs[r] for r in pr.ROUTES} == want
 
 

@@ -20,12 +20,14 @@ in rank order.  Here, against the JAX package where it has a counterpart:
   kernel to (``chip_smoke.py`` phase 10): the JAX kernel in interpret mode
   passes it, and the planted fault ``dx_layer3_last_slice_dropped`` (a
   cluster sum that lost its last rank) fails it;
-- ``ops/brow.py``'s names re-exported unchanged by ``gan_train``.
+- the launch counts, one dict, and the C loops' reports (``_cuda_build``).
 
 The kernel itself is held to these on the card in test_torch_cuda.py.
 """
 
+import ctypes
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -38,7 +40,7 @@ from pigan_thz_torch.data import synthetic_dataset
 from pigan_thz_torch.data.dataset import ThzDataset
 from pigan_thz_torch.interop import load_forward_state_
 from pigan_thz_torch.models import build_forward_model
-from pigan_thz_torch.ops import brow
+from pigan_thz_torch.ops import _cuda_build, brow, products
 from pigan_thz_torch.ops import forward_train as ft
 from pigan_thz_torch.ops import gan_train as gt
 from pigan_thz_torch.train.schedules import make_schedule
@@ -310,28 +312,128 @@ def test_jax_kernel_first_step_passes_the_float64_gate():
     assert ratio[seen] > FAULT_RATIO, ratio
 
 
-def test_brow_names_are_re_exported_unchanged():
-    """``gan_train`` re-exports the batch-row kernel's Python side from
-    ``brow.py`` (the same objects), and K1's wrapper shares its rounding."""
-    for name in ("BROW_TILE", "BROW_STAGES", "BROW_MAX_SPLIT", "BROW_MIN_DEPTH", "H100_SMS",
-                 "BrowPlan", "BrowProduct", "brow_plan", "brow_gemm_plain", "brow_gemm",
-                 "brow_plan_on_card", "brow_kernels_enqueued", "bf16_rounder"):
-        assert getattr(gt, name) is getattr(brow, name), name
-    assert ft.bf16_rounder is brow.bf16_rounder and ft.BrowProduct is brow.BrowProduct
-    assert gt.BROW_LAUNCHES is brow.BROW_LAUNCHES is ft.BROW_LAUNCHES
+# launch_counts()'s keys at the time its counts were three dicts, in the order
+# the CLI's "kernel launches:" lines print them
+LAUNCH_KEYS = ("fused_mlp_forward", "fused_mlp_forward.wgmma", "fused_dense_chain",
+               "dip_qualification", "forward_train", "gan_train", "gan_ensemble_train",
+               "brow_gemm", "deep_narrow_gemm", "batch_depth_gemm", "sgemm")
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it is on the card, so that a wrapper takes its
+    launch path (with ``launch`` stubbed)."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _stub_launch(monkeypatch, *modules, fill=None):
+    """Stub ``launch`` in ``modules`` as test_torch_profiling.py stubs it: count
+    the call in LAUNCHES; ``fill`` writes a C loop's report into its last
+    argument.  Returns the calls made."""
+    calls = []
+
+    def fake_launch(name, device, *args, count_as=None):
+        calls.append((name, count_as))
+        if fill is not None:
+            args[-1][:] = fill
+        _cuda_build.LAUNCHES[count_as or name] += 1
+
+    for mod in modules:
+        monkeypatch.setattr(mod, "launch", fake_launch)
+        monkeypatch.setattr(mod, "check_capability", lambda index: None)
+    return calls
+
+
+def test_launch_counts_are_one_dict(monkeypatch):
+    """Every launch count is a key of one dict, ``LAUNCHES``, in the order the
+    CLI has always printed them; ``brow_gemm`` and ``product_gemm`` count
+    into it under their kernel's key."""
+    assert tuple(_cuda_build.launch_counts()) == LAUNCH_KEYS
+    assert _cuda_build.launch_counts() == _cuda_build.LAUNCHES
+    assert _cuda_build.launch_counts() is not _cuda_build.LAUNCHES
+    assert set(products.LAUNCH_KEYS.values()) <= set(LAUNCH_KEYS)
+    calls = _stub_launch(monkeypatch, brow, products)
+    before = _cuda_build.launch_counts()
+    a = torch.randn(64, 512).as_subclass(_OnCard)
+    brow.brow_gemm(a, torch.randn(512, 256).as_subclass(_OnCard),
+                   out=torch.empty(64, 256).as_subclass(_OnCard))
+    products.product_gemm(a, torch.randn(512, 4).as_subclass(_OnCard),
+                          out=torch.empty(64, 4).as_subclass(_OnCard))
+    products.product_gemm(a[:, :128], torch.randn(128, 32).as_subclass(_OnCard),
+                          out=torch.empty(64, 32).as_subclass(_OnCard))
+    assert calls == [("brow_gemm", None), ("product_gemm", "deep_narrow_gemm"),
+                     ("product_gemm", "batch_depth_gemm")]
+    after = _cuda_build.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+        "brow_gemm": 1, "deep_narrow_gemm": 1, "batch_depth_gemm": 1}
+
+
+def test_a_loop_report_counts_its_products_and_names_the_span(monkeypatch):
+    """``launch_loop`` passes a C loop a report of ``LoopReport``'s 7 numbers
+    just before the stream, adds the product kernels it names to LAUNCHES
+    and returns it; ``span_attrs(report_of(rows))`` gives the launch span
+    that report where the rows are on the card and hold a step, zeros
+    elsewhere."""
+    assert _cuda_build.LoopReport._fields[2:5] == products.ROUTES
+    _stub_launch(monkeypatch, _cuda_build, fill=(70, 19, 5, 6, 2, 560, 1234))
+    monkeypatch.setattr(_cuda_build, "_last_report", _cuda_build.NO_REPORT)
+    before = _cuda_build.launch_counts()
+    report = _cuda_build.launch_loop("gan_train", "cuda:0", 1, 2)
+    assert report == _cuda_build.LoopReport(70, 19, 5, 6, 2, 560, 1234)
+    after = _cuda_build.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+        "gan_train": 1, "brow_gemm": 19, "deep_narrow_gemm": 5, "batch_depth_gemm": 6,
+        "sgemm": 2}
+    rows = torch.zeros(3, 11).as_subclass(_OnCard)
+    assert _cuda_build.span_attrs(_cuda_build.report_of(rows)) == {
+        "kernels": 70, "head_kernels": 560, "head_ns": 1234,
+        "deep_narrow": 5, "batch_depth": 6, "sgemm": 2}
+    zeros = dict.fromkeys(("kernels", "head_kernels", "head_ns", *products.ROUTES), 0)
+    assert _cuda_build.span_attrs(_cuda_build.report_of(torch.zeros(3, 11))) == zeros
+    assert _cuda_build.span_attrs(_cuda_build.report_of(rows[:0])) == zeros
+
+
+def _c_entry(source: str, name: str) -> list[str]:
+    """The parameters of C entry point ``name`` in ``csrc/<source>``."""
+    text = (_cuda_build.CSRC / source).read_text()
+    (params,) = re.findall(rf"^int {name}\(([^)]*)\)\s*\{{", text, flags=re.M)
+    return [" ".join(p.split()) for p in params.split(",")]
+
+
+@pytest.mark.parametrize("source, name", [("forward_train.cu", "pigan_forward_train"),
+                                          ("gan_train.cu", "pigan_gan_train"),
+                                          ("gan_train.cu", "pigan_gan_ensemble_train")])
+def test_training_entry_points_take_a_report(source, name):
+    """Each training C loop writes what it enqueued into a report its caller
+    passes just before the stream, ``ENTRY_POINTS`` declares as many
+    arguments, and no process-wide counter or its reader is left in
+    ``csrc/``."""
+    params = _c_entry(source, name)
+    assert params[-2:] == ["long long* report", "void* stream_ptr"]
+    argtypes = _cuda_build.ENTRY_POINTS[name]
+    assert len(argtypes) == len(params)
+    assert argtypes[-2] is ctypes.POINTER(ctypes.c_longlong)
+    for path in _cuda_build.CSRC.iterdir():
+        assert not re.search(r"_kernels_enqueued|_head_ns|g_routes", path.read_text()), path
 
 
 def test_wrapper_on_the_cpu_launches_nothing():
     """On CPU tensors ``forward_train`` is its plain version: no launch, no
     batch-row launch and no launch of the other products is counted."""
     spec, start, streams = _one_step(128, 0.2)
-    before = (dict(ft.LAUNCHES), dict(ft.BROW_LAUNCHES), dict(gt.PRODUCT_LAUNCHES))
+    before = dict(ft.LAUNCHES)
     bufs = [t.clone() for t in start]
     rows = ft.forward_train(*bufs, streams, spec)
     plain = [t.clone() for t in start]
     want = ft.forward_train_plain(*plain, streams, spec)
     assert torch.equal(rows, want) and all(map(torch.equal, bufs, plain))
-    assert (ft.LAUNCHES, ft.BROW_LAUNCHES, gt.PRODUCT_LAUNCHES) == before
+    assert ft.LAUNCHES == before
 
 
 # -- the other products: csrc/train_common.cuh's dispatch ------------------------
@@ -354,7 +456,7 @@ def test_step_lists_its_dispatch_products_by_route(dtype, rate):
     dropout rate changes none."""
     _, spec = _spec(dtype, rate)
     prods = ft.gemm_products(spec, B)
-    assert tuple(gt.routes_of(prods).values()) == K1_PER_ROUTE[dtype]
+    assert tuple(products.routes_of(prods).values()) == K1_PER_ROUTE[dtype]
     assert len({p.name for p in prods}) == len(prods)
     brows = {(p.m, p.n, p.k, p.ak, p.bnc) for p in ft.brow_products(spec, B)}
     for p in prods:
@@ -390,25 +492,10 @@ def test_weight_gradient_against_the_jax_kernel(product):
                                           (((0,), (0,)), ((), ())),
                                           preferred_element_type=jnp.float32)).T
     a, b = torch.tensor(dt).t(), torch.tensor(x)               # A m-contiguous, B n-contiguous
-    assert gt.product_route(n, k) == "batch_depth"
-    got = gt.product_gemm(a, b, rnd=rnd)
-    assert torch.equal(got, gt.batch_depth_plain(a, b, rnd=rnd))
+    assert products.product_route(n, k) == "batch_depth"
+    got = products.product_gemm(a, b, rnd=rnd)
+    assert torch.equal(got, products.batch_depth_plain(a, b, rnd=rnd))
     ra, rb = (a.bfloat16().float(), b.bfloat16().float()) if rnd else (a, b)
     bound = 2 * (k + 2) * 2.0 ** -24 * (ra.double().abs() @ rb.double().abs())
     err = (got.double() - torch.tensor(want).double()).abs()
     assert bool((err <= bound).all()), (name, float((err / bound).max()))
-
-
-def test_product_names_are_re_exported_unchanged():
-    """``gan_train`` re-exports the dispatch's Python side from
-    ``products.py`` (the same objects) beside the batch-row names; K1's
-    module shares its ``GemmProduct``; the launch counts are one dict."""
-    from pigan_thz_torch.ops import _cuda_build, products
-
-    for name in ("ROUTES", "GemmProduct", "product_route", "routes_of", "deep_narrow_plain",
-                 "batch_depth_plain", "product_gemm_plain", "product_gemm",
-                 "product_route_on_card", "step_operands", "PRODUCT_LAUNCHES"):
-        assert getattr(gt, name) is getattr(products, name), name
-    assert ft.GemmProduct is products.GemmProduct
-    assert products.PRODUCT_LAUNCHES is _cuda_build.PRODUCT_LAUNCHES
-    assert set(_cuda_build.launch_counts()) >= set(products.LAUNCH_KEYS.values())

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from pigan_thz_torch import default_config
+from pigan_thz_torch.ops import brow, products
 from pigan_thz_torch.ops import gan_train as gt
 from pigan_thz_torch.train.steps import StepSettings
 
@@ -103,30 +104,30 @@ def test_plan_of_every_product(shape):
     grid's x, no empty slice, the blocks at 128 on an H100 where the depth
     allows; the grid's x and y the same for 1, 2, 4 and 8 members."""
     m, n, k = shape
-    plan = gt.brow_plan(m, n, k)
+    plan = brow.brow_plan(m, n, k)
     assert plan.split in (1, 2, 4, 8)
-    assert plan.split == 1 or plan.slice >= gt.BROW_MIN_DEPTH
+    assert plan.split == 1 or plan.slice >= brow.BROW_MIN_DEPTH
     assert plan.slice * plan.split >= k and plan.slice * (plan.split - 1) < k
     assert plan.tiles_m == -(-m // 64) and plan.tiles_n == -(-n // 32)
     grids = {members: plan.grid(members) for members in (1, 2, 4, 8)}
     assert all(g[:2] == grids[1][:2] and g[2] == mm for mm, g in grids.items())
     assert grids[1][0] % plan.split == 0
     blocks = plan.blocks
-    assert blocks >= 128 or plan.split == gt.BROW_MAX_SPLIT or -(-k // (2 * plan.split)) < 32
+    assert blocks >= 128 or plan.split == brow.BROW_MAX_SPLIT or -(-k // (2 * plan.split)) < 32
     assert blocks < 256    # the smallest S that reaches 128, never past it
     # the plan reads the SM count, nothing else of the card
-    assert gt.brow_plan(m, n, k, sms=132) == gt.brow_plan(m, n, k, sms=128)
+    assert brow.brow_plan(m, n, k, sms=132) == brow.brow_plan(m, n, k, sms=128)
 
 
 def test_plan_examples():
-    assert gt.brow_plan(64, 512, 250).split == 8      # 16 tiles x 8
-    assert gt.brow_plan(128, 512, 254).split == 4     # 32 tiles x 4
-    assert gt.brow_plan(64, 1024, 512).split == 4
-    assert gt.brow_plan(64, 4, 40).split == 1          # 40 columns: no room to split
-    assert gt.brow_plan(512, 512, 1024).split == 1     # 128 tiles already
-    assert gt.brow_plan(64, 512, 250, sms=64) == gt.BrowPlan(4, 1, 16, 63)
+    assert brow.brow_plan(64, 512, 250).split == 8      # 16 tiles x 8
+    assert brow.brow_plan(128, 512, 254).split == 4     # 32 tiles x 4
+    assert brow.brow_plan(64, 1024, 512).split == 4
+    assert brow.brow_plan(64, 4, 40).split == 1          # 40 columns: no room to split
+    assert brow.brow_plan(512, 512, 1024).split == 1     # 128 tiles already
+    assert brow.brow_plan(64, 512, 250, sms=64) == brow.BrowPlan(4, 1, 16, 63)
     with pytest.raises(ValueError):
-        gt.brow_plan(0, 512, 250)
+        brow.brow_plan(0, 512, 250)
 
 
 def _operands(m, n, k, ak, bnc, seed, members=None):
@@ -178,11 +179,11 @@ def test_plain_arithmetic_against_float64(shape, layout):
     m, n, k = shape
     ak, bnc = layout[0] == "n", layout[1] == "n"
     a, b, bias, c = _operands(m, n, k, ak, bnc, seed=m * n + k)
-    split = gt.brow_plan(m, n, k).split
+    split = brow.brow_plan(m, n, k).split
     for rnd, acc, with_bias in itertools.product((False, True), repeat=3):
         cc = c if acc else None
         bb = bias if with_bias else None
-        got = gt.brow_gemm_plain(a, b, bb, cc, rnd, split)
+        got = brow.brow_gemm_plain(a, b, bb, cc, rnd, split)
         want = _want64(a, b, cc, bb, rnd)
         ra, rb = (a, b) if not rnd else (a.bfloat16().float(), b.bfloat16().float())
         err = (got.double() - want).abs()
@@ -197,7 +198,7 @@ def test_every_split_stays_within_the_bound(split):
     and its partial sums are the slices' own, in rank order."""
     m, n, k = 64, 512, 250
     a, b, bias, _ = _operands(m, n, k, True, False, seed=split)
-    got = gt.brow_gemm_plain(a, b, bias, split=split)
+    got = brow.brow_gemm_plain(a, b, bias, split=split)
     want = _want64(a, b, None, bias, False)
     assert bool(((got.double() - want).abs() <= _sum_bound(a, b, None, bias, k, split)).all())
     w = -(-k // split)
@@ -214,11 +215,11 @@ def test_bf16_products_are_exact():
     product of the rounded operands to the bit, and the rounding is round
     to nearest even (the kernel's __float2bfloat16_rn)."""
     a, b, _, _ = _operands(64, 512, 1, True, False, seed=7)
-    got = gt.brow_gemm_plain(a * 1e3, b * 1e-3, rnd=True)
+    got = brow.brow_gemm_plain(a * 1e3, b * 1e-3, rnd=True)
     want = (a * 1e3).bfloat16().double() @ (b * 1e-3).bfloat16().double()
     assert torch.equal(got.double(), want)
     halfway = torch.tensor([[1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -8]])
-    assert gt.brow_gemm_plain(halfway, torch.ones(2, 1), rnd=True).item() == 1.0 + (
+    assert brow.brow_gemm_plain(halfway, torch.ones(2, 1), rnd=True).item() == 1.0 + (
         1.0 + 2 * 2.0 ** -7)
 
 
@@ -226,29 +227,29 @@ def test_plain_takes_a_member_axis():
     """Members stacked on a leading axis: member m's product is the one of
     its operands alone, bit for bit."""
     a, b, bias, c = _operands(128, 256, 512, True, True, seed=3, members=4)
-    got = gt.brow_gemm_plain(a, b, bias, c, split=4)
+    got = brow.brow_gemm_plain(a, b, bias, c, split=4)
     for mm in range(4):
-        assert torch.equal(got[mm], gt.brow_gemm_plain(a[mm], b[mm], bias[mm], c[mm], split=4))
+        assert torch.equal(got[mm], brow.brow_gemm_plain(a[mm], b[mm], bias[mm], c[mm], split=4))
 
 
 def test_wrapper_on_the_cpu_is_the_plain_version():
     """For CPU tensors ``brow_gemm`` computes ``brow_gemm_plain`` with the
     plan's split (or the forced one) and launches nothing."""
     a, b, bias, c = _operands(64, 512, 250, True, False, seed=11)
-    before = (dict(gt.LAUNCHES), dict(gt.BROW_LAUNCHES))
-    got = gt.brow_gemm(a, b, bias)
-    assert torch.equal(got, gt.brow_gemm_plain(a, b, bias, split=8))
+    before = dict(gt.LAUNCHES)
+    got = brow.brow_gemm(a, b, bias)
+    assert torch.equal(got, brow.brow_gemm_plain(a, b, bias, split=8))
     out = c.clone()
-    gt.brow_gemm(a, b, out=out, acc=True, rnd=True, split=2)
-    assert torch.equal(out, gt.brow_gemm_plain(a, b, None, c, True, 2))
-    shared = gt.brow_gemm(a.expand(3, -1, -1), b)
-    assert shared.shape == (3, 64, 512) and torch.equal(shared[2], gt.brow_gemm_plain(a, b,
+    brow.brow_gemm(a, b, out=out, acc=True, rnd=True, split=2)
+    assert torch.equal(out, brow.brow_gemm_plain(a, b, None, c, True, 2))
+    shared = brow.brow_gemm(a.expand(3, -1, -1), b)
+    assert shared.shape == (3, 64, 512) and torch.equal(shared[2], brow.brow_gemm_plain(a, b,
                                                                                       split=8))
-    assert (gt.LAUNCHES, gt.BROW_LAUNCHES) == before
+    assert gt.LAUNCHES == before
     with pytest.raises(ValueError, match="route"):
-        gt.brow_gemm(a, b, route="cublas")
+        brow.brow_gemm(a, b, route="cublas")
     with pytest.raises(ValueError, match="acc"):
-        gt.brow_gemm(a, b, acc=True)
+        brow.brow_gemm(a, b, acc=True)
 
 
 # The JAX TPU kernel's bfloat16 products (megakernel.py:839-857): operands
@@ -286,8 +287,8 @@ def test_bf16_plain_against_the_jax_kernels_products(shape, kind):
         w = torch.tensor(np.ascontiguousarray(w_in_out.T))      # (out, in) = (k, n): BNC
         b_op = w
     a = torch.tensor(x)
-    split = gt.brow_plan(m, n, k).split
-    got = gt.brow_gemm_plain(a, b_op, rnd=True, split=split)
+    split = brow.brow_plan(m, n, k).split
+    got = brow.brow_gemm_plain(a, b_op, rnd=True, split=split)
     ra, rb = a.bfloat16().float(), b_op.bfloat16().float()
     bound = 2 * _sum_bound(ra, rb, None, None, k, split)
     assert bool(((got.double() - torch.tensor(want).double()).abs() <= bound).all())
@@ -344,11 +345,11 @@ def test_step_lists_its_dispatch_products_by_route(path, update_d):
     gradients and the adversarial columns), never on a head."""
     spec = _spec(PATHS[path])
     prods = gt.gemm_products(spec, B, update_d)
-    assert tuple(gt.routes_of(prods).values()) == PER_ROUTE[path][0 if update_d else 1]
+    assert tuple(products.routes_of(prods).values()) == PER_ROUTE[path][0 if update_d else 1]
     assert len({p.name for p in prods}) == len(prods)
-    brow = {(p.m, p.n, p.k, p.ak, p.bnc) for p in gt.brow_products(spec, B, update_d)}
+    brows = {(p.m, p.n, p.k, p.ak, p.bnc) for p in gt.brow_products(spec, B, update_d)}
     for p in prods:
-        assert (p.m, p.n, p.k, p.ak, p.bnc) not in brow, p
+        assert (p.m, p.n, p.k, p.ak, p.bnc) not in brows, p
         if p.route == "deep_narrow":
             assert p.n <= 8 and p.k in spec.g_hidden + spec.d_hidden + spec.f_spec.dims[1:2], p
         elif p.route == "batch_depth":
@@ -367,8 +368,8 @@ def test_step_lists_its_dispatch_products_by_route(path, update_d):
     (256, 31, "sgemm"), (256, 4, "sgemm"), (256, 8, "sgemm"), (256, 129, "sgemm")])
 def test_route_rule(n, k, route):
     """The rule reads N and K only (never M, never the members)."""
-    assert gt.product_route(n, k) == route
-    assert gt.GemmProduct("x", 7, n, k, True, True, False, False, False).route == route
+    assert products.product_route(n, k) == route
+    assert products.GemmProduct("x", 7, n, k, True, True, False, False, False).route == route
 
 
 def _gemm_bound(p, a, b, bias, c):
@@ -393,11 +394,11 @@ def test_plain_twin_against_float64(p, members):
     against float64 of the rounded operands: the products are exact, only
     the sums round), C += and the bias as the step gives them; at 3
     members each member's result is its own operands' alone, bit for bit."""
-    a, b, bias, c = gt.step_operands(p, members, seed=p.m + p.n + p.k, device="cpu")
+    a, b, bias, c = products.step_operands(p, members, seed=p.m + p.n + p.k, device="cpu")
     for rnd in (False, True):
-        got = gt.product_gemm_plain(a, b, bias, c, rnd)
+        got = products.product_gemm_plain(a, b, bias, c, rnd)
         ra, rb = (a.bfloat16().float(), b.bfloat16().float()) if rnd else (a, b)
-        want = gt.product_gemm_plain(ra.double(), rb.double(),
+        want = products.product_gemm_plain(ra.double(), rb.double(),
                                      None if bias is None else bias.double(),
                                      None if c is None else c.double())
         exact = ra.double() @ rb.double()
@@ -410,9 +411,9 @@ def test_plain_twin_against_float64(p, members):
         assert bool(((got.double() - exact).abs() <= bound).all()), rnd
         assert bool(((want - exact).abs() <= 1e-12 * (1 + bound / 2.0 ** -24)).all())
     if members > 1:
-        full = gt.product_gemm_plain(a, b, bias, c, p.rnd)
+        full = products.product_gemm_plain(a, b, bias, c, p.rnd)
         for m in range(members):
-            solo = gt.product_gemm_plain(a[m], b[m], None if bias is None else bias[m],
+            solo = products.product_gemm_plain(a[m], b[m], None if bias is None else bias[m],
                                          None if c is None else c[m], p.rnd)
             assert torch.equal(full[m], solo), m
 
@@ -450,10 +451,10 @@ def test_deep_narrow_twin_is_the_lane_and_butterfly_order():
                 lanes = [_f32(lanes[x] + lanes[x + off]) for x in range(off)]
                 off //= 2
             want[i, j] = _f32(_f32(c[i, j] + lanes[0]) + bias[j])
-    got = gt.deep_narrow_plain(torch.tensor(a), torch.tensor(b), torch.tensor(bias),
+    got = products.deep_narrow_plain(torch.tensor(a), torch.tensor(b), torch.tensor(bias),
                                torch.tensor(c))
     assert np.array_equal(got.numpy(), want)
-    in_k_order = gt.batch_depth_plain(torch.tensor(a), torch.tensor(b), torch.tensor(bias),
+    in_k_order = products.batch_depth_plain(torch.tensor(a), torch.tensor(b), torch.tensor(bias),
                                       torch.tensor(c))
     assert not torch.equal(in_k_order, got)
 
@@ -478,7 +479,7 @@ def test_batch_depth_twin_is_one_fma_chain_in_k_order():
                 for kk in range(k):
                     s = _fma32(s, ra[i, kk], rb[kk, j])
                 want[i, j] = _f32(s + bias[j])
-        got = gt.batch_depth_plain(ta, tb, torch.tensor(bias), rnd=rnd)
+        got = products.batch_depth_plain(ta, tb, torch.tensor(bias), rnd=rnd)
         assert np.array_equal(got.numpy(), want), rnd
 
 
@@ -486,22 +487,22 @@ def test_product_wrapper_on_the_cpu_is_the_plain_twin():
     """For CPU tensors ``product_gemm`` computes its route's twin (the
     shape's or a forced one) and launches nothing; a forced route outside
     its limits, or an unknown one, is refused."""
-    p = gt.GemmProduct("x", 64, 4, 512, True, True, True, True, False)
-    a, b, _, c = gt.step_operands(p, seed=1, device="cpu")
-    before = (dict(gt.LAUNCHES), dict(gt.BROW_LAUNCHES), dict(gt.PRODUCT_LAUNCHES))
+    p = products.GemmProduct("x", 64, 4, 512, True, True, True, True, False)
+    a, b, _, c = products.step_operands(p, seed=1, device="cpu")
+    before = dict(gt.LAUNCHES)
     out = c.clone()
-    gt.product_gemm(a, b, out=out, acc=True, rnd=True)
-    assert torch.equal(out, gt.deep_narrow_plain(a, b, None, c, True))
-    forced = gt.product_gemm(a[:, :128], b[:128], route="batch_depth")
-    assert torch.equal(forced, gt.batch_depth_plain(a[:, :128], b[:128]))
-    shared = gt.product_gemm(a.expand(3, -1, -1), b)
-    assert shared.shape == (3, 64, 4) and torch.equal(shared[1], gt.deep_narrow_plain(a, b))
-    assert (gt.LAUNCHES, gt.BROW_LAUNCHES, gt.PRODUCT_LAUNCHES) == before
+    products.product_gemm(a, b, out=out, acc=True, rnd=True)
+    assert torch.equal(out, products.deep_narrow_plain(a, b, None, c, True))
+    forced = products.product_gemm(a[:, :128], b[:128], route="batch_depth")
+    assert torch.equal(forced, products.batch_depth_plain(a[:, :128], b[:128]))
+    shared = products.product_gemm(a.expand(3, -1, -1), b)
+    assert shared.shape == (3, 64, 4) and torch.equal(shared[1], products.deep_narrow_plain(a, b))
+    assert gt.LAUNCHES == before
     with pytest.raises(ValueError, match="deep narrow"):
-        gt.product_gemm(torch.ones(4, 2048), torch.ones(2048, 4), route="deep_narrow")
+        products.product_gemm(torch.ones(4, 2048), torch.ones(2048, 4), route="deep_narrow")
     with pytest.raises(ValueError, match="batch-depth"):
-        gt.product_gemm(a, b, route="batch_depth")
+        products.product_gemm(a, b, route="batch_depth")
     with pytest.raises(ValueError, match="route"):
-        gt.product_gemm(a, b, route="cublas")
+        products.product_gemm(a, b, route="cublas")
     with pytest.raises(ValueError, match="acc"):
-        gt.product_gemm(a, b, acc=True)
+        products.product_gemm(a, b, acc=True)

@@ -167,7 +167,8 @@ def test_cpu_peaks_and_screening_launch_nothing():
     assert fk.LAUNCHES == before
     assert set(fk.LAUNCHES) == {"fused_mlp_forward", "fused_mlp_forward.wgmma",
                                 "fused_dense_chain", "dip_qualification", "forward_train",
-                                "gan_train", "gan_ensemble_train"}
+                                "gan_train", "gan_ensemble_train", "brow_gemm",
+                                "deep_narrow_gemm", "batch_depth_gemm", "sgemm"}
 
 
 @pytest.mark.parametrize("bad", ["float64", "non_contiguous", "rank_1", "meta"])
