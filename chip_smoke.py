@@ -295,6 +295,20 @@ generator passes (cycle, stability) and noise streams:
     keys, finite rows; (iv) ``examples/torch_scaled_batch_probe.py
     --throughput`` at B = 64 and 512, kernel (K2) and eager, with TFLOP/s
     and MFU from ``ops/costs.py``.
+37. the enhanced designer's residual G (run right after phase 5): a seeded
+    full-width ``ResidualGenerator`` (BatchNorm stats non-trivial, folded at
+    packing) through its chain kernel (``csrc/fused_residual_chain.cu``,
+    no TPU kernel) at B = 1, 77, 8192, 8192 + 37, 65536 and on both sides
+    of its crossover, within the design cells' ``params_gap`` limit (3e-5
+    of the reference's RMS) of the fp32 module and of the plain folded
+    chain, reruns bit-identical, one launch a call; the default designer
+    with phase 3's F (K5) at B = 8192, 65536 and on both sides of the
+    crossover, 8 requests each with the launch counts zeroed just before:
+    one launch of the kernel a request from the crossover up (the G span's
+    ``shape`` "wgmma", ``replayed`` 0) and none below it (the graphed module
+    stage, ``replayed`` 1), the params within 3e-5 of the all-module
+    designer's; then CUDA-event medians at the crossover, 8192 and 65536 of
+    the kernel, its plain version and the graphed module stage, in turns.
 
 The ``kernels`` record gives each kernel's launches on the main path, its
 error against its plain version, its time beside the plain version's, the
@@ -302,7 +316,11 @@ least time the card could take for the same work (``bound_ms``: the larger
 of the operations over 67 TFLOP/s fp32 and the bytes, each input read once
 and each output written once, over 3.35 TB/s; ``bound_by`` says which), and
 ``library_ms``, the time of one PyTorch call that computes the same function
-where there is one (the modules' eval-mode forward for K5 and K6), else null.
+where there is one (the modules' eval-mode forward for K5 and K6; the
+graphed module stage for the residual chain kernel, whose entry also
+carries its bound at the TF32 tensor-core rate and its design's 3xTF32
+bound, its gaps by batch and its launches in phase 37's serving), else
+null.
 K4's entry also carries its metrics entry's time, plain time and bound, and
 phase 30's profile of a screening chunk.
 The bfloat16 rows of K1 and K2 carry their own bound, every product counted
@@ -946,8 +964,9 @@ def phase8_screen(F, cfg, dev, lo, hi) -> dict:
         got = dict(LAUNCHES)
         want = {"fused_mlp_forward": n_chunks if use_pallas else 0,
                 "fused_mlp_forward.wgmma": n_chunks if use_pallas else 0,   # chunks of 8192
-                "fused_dense_chain": 0, "dip_qualification": n_chunks,
-                "forward_train": 0, "gan_train": 0, "gan_ensemble_train": 0,
+                "fused_dense_chain": 0, "fused_residual_chain": 0,
+                "dip_qualification": n_chunks, "forward_train": 0, "gan_train": 0,
+                "gan_ensemble_train": 0,
                 "brow_gemm": 0, "deep_narrow_gemm": 0, "batch_depth_gemm": 0, "sgemm": 0}
         print(f"screen {label}: {sc.num_candidates} candidates in {n_chunks} chunks "
               f"of {sc.chunk_size}, launches {got}")
@@ -4861,6 +4880,148 @@ def phase36_slice18(cfg, dev, repo: str, tag: str, epochs: int = P36_EPOCHS,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 37: the residual generator's chain kernel
+# ---------------------------------------------------------------------------
+# The enhanced designer's residual G (250 -> 512, three residual blocks of
+# two 512 x 512, 256, 128 -> 4, BatchNorm folded at packing) through its
+# hand-written kernel (csrc/fused_residual_chain.cu), which replaces no TPU
+# kernel.  Held within the design cells' params_gap limit (the widest gap
+# over the reference's RMS) of the fp32 module and of the plain folded chain
+# (cuBLAS, TF32 off); served through the default designer with the baseline
+# F (K5), one launch a request from the crossover up and none below it.
+P37_GAP = 3e-5
+P37_CHECK_BATCHES = (1, 77, 8192, 8192 + 37, 65536)    # and the crossover's two sides
+P37_SERVE_BATCHES = (8192, 65536)                      # and the crossover's two sides
+P37_REQUESTS = 8
+P37_TIME_BATCHES = (8192, 65536)                       # and the crossover
+
+
+def p37_gap(got, want) -> float:
+    return float((got - want).abs().max()) / float(want.pow(2).mean().sqrt())
+
+
+def p37_work(b: int, dims) -> tuple:
+    """(flops, bytes) of the residual chain at batch b: its products; x read,
+    the output written and every folded W and b read once."""
+    n_w = sum(i * o + o for i, o in zip(dims, dims[1:]))
+    return 2.0 * b * chain_macs(dims), 4.0 * (b * dims[0] + n_w + b * dims[-1])
+
+
+def phase37_residual(cfg, dev, F, ds, tag: str) -> dict:
+    """The residual generator's chain kernel on the card (module docstring,
+    phase 37).  Returns its numbers for the record."""
+    import torch
+
+    from pigan_thz_torch import serve
+    from pigan_thz_torch.config import GeneratorConfig
+    from pigan_thz_torch.models import build_generator
+    from pigan_thz_torch.ops import fused_kernels as fk
+    from pigan_thz_torch.ops.costs import PEAK_TF32_FLOPS
+    from pigan_thz_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    saved = dict(fk.LAUNCHES)
+    gen = torch.Generator().manual_seed(SEED + 37)
+    G = build_generator(GeneratorConfig(name="residual"), cfg.data.spectrum_dim, device=dev,
+                        generator=gen)
+    perturb_batch_stats_(G, gen)
+    G = G.eval().requires_grad_(False)
+    packed = fk.pack_residual(G, dev)
+    cross = serve.ResidualStage.crossover
+    dgen = torch.Generator(device=dev).manual_seed(SEED + 37)
+    out = {"crossover": cross, "gap": {}, "gap_vs_plain": {}}
+
+    # (a) the kernel against the fp32 module and the plain folded chain
+    with torch.inference_mode():
+        for b in sorted({*P37_CHECK_BATCHES, cross - 1, cross}):
+            x = torch.randn((b, cfg.data.spectrum_dim), generator=dgen, device=dev)
+            reset_launches(fk.LAUNCHES)
+            got = fk.fused_residual_chain(x, packed)
+            again = fk.fused_residual_chain(x, packed)
+            torch.cuda.synchronize()
+            n = fk.LAUNCHES["fused_residual_chain"]
+            gap = p37_gap(got, G(x))
+            gap_plain = p37_gap(got, fk.fused_residual_chain_plain(x, packed))
+            print(f"phase 37 kernel check B={b}: gap over the module's RMS {gap:.3e}, over the "
+                  f"plain folded chain's {gap_plain:.3e} (limit {P37_GAP}), launches {n}, "
+                  f"rerun bit-identical {bool(torch.equal(got, again))}")
+            if not (gap <= P37_GAP and gap_plain <= P37_GAP):
+                fail(f"phase 37: the residual chain kernel is off at B={b}")
+            if not torch.equal(got, again) or n != 2:
+                fail(f"phase 37: at B={b} a rerun differs or the calls launched {n} times")
+            out["gap"][str(b)], out["gap_vs_plain"][str(b)] = gap, gap_plain
+
+    # (b) served: the default designer, launches counted from 0 around each
+    # batch's requests, the G span's shape, against the all-module designer
+    fn = serve.make_inverse_design_fn(G, F, ds)
+    modules = serve.make_inverse_design_fn(G, F, ds, use_pallas=False)
+    out["serving"] = {}
+    for b in sorted({*P37_SERVE_BATCHES, cross - 1, cross}):
+        spectra = torch.randn((b, cfg.data.spectrum_dim), generator=dgen, device=dev)
+        fn(spectra)
+        fn(spectra)                     # a module stage below the crossover captures here
+        want = modules(spectra)
+        torch.cuda.synchronize()
+        reset_launches(fk.LAUNCHES)
+        profiling.reset()
+        with profiling.recording():
+            answers = [fn(spectra) for _ in range(P37_REQUESTS)]
+            torch.cuda.synchronize()
+            snap = profiling.snapshot()
+        got = dict(fk.LAUNCHES)
+        spans = [r["attrs"] for r in snap["recent"] if r["name"] == "pigan.serve.gen_stage"]
+        gap = max(p37_gap(a[0], want[0]) for a in answers)
+        kernel = b >= cross
+        print(f"phase 37 serving B={b}: {P37_REQUESTS} requests, launches "
+              f"{ {k: v for k, v in got.items() if v} }, G spans {spans[-1]}, params gap "
+              f"against the module designer {gap:.3e} (limit {P37_GAP})")
+        shape = fk.WGMMA if kernel else "module"
+        if (got["fused_residual_chain"] != P37_REQUESTS * kernel
+                or got["fused_mlp_forward"] != P37_REQUESTS or got["fused_dense_chain"] != 0
+                or spans != [{"replayed": int(not kernel), "shape": shape}] * P37_REQUESTS):
+            fail(f"phase 37: at B={b} the designer's G stage did not take the "
+                 f"{'kernel' if kernel else 'module graph'} once a request: {got}, {spans}")
+        if not gap <= P37_GAP:
+            fail(f"phase 37: at B={b} the designer's params are off the module designer's")
+        out["serving"][str(b)] = {"launches": got["fused_residual_chain"],
+                                  "requests": P37_REQUESTS, "params_gap": gap}
+
+    # (c) times, in turns: plain, the graphed module stage, kernel, kernel,
+    # module stage, plain; the best of each side's two medians
+    out["times"] = {}
+    dims = packed.dims
+    with torch.inference_mode():
+        for b in (cross, *P37_TIME_BATCHES):
+            x = torch.randn((b, cfg.data.spectrum_dim), generator=dgen, device=dev)
+            stage = serve.ModuleStage(copy.deepcopy(G))
+            stage(x)
+            stage(x)                    # captured: later calls replay
+            p1 = cuda_median_ms(fk.fused_residual_chain_plain, x, packed)
+            l1 = cuda_median_ms(stage, x)
+            k1 = cuda_median_ms(fk.fused_residual_chain, x, packed)
+            k2 = cuda_median_ms(fk.fused_residual_chain, x, packed)
+            l2 = cuda_median_ms(stage, x)
+            p2 = cuda_median_ms(fk.fused_residual_chain_plain, x, packed)
+            flops, nbytes = p37_work(b, dims)
+            bound_ms, bound_by = roofline(flops, nbytes)
+            tf32_ms = max(flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+            row = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "library_ms": min(l1, l2),
+                   "replayed": stage.replayed, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bound_tf32_ms": tf32_ms,
+                   "bound_3xtf32_ms": design_bound_3xtf32(flops, nbytes)}
+            out["times"][str(b)] = row
+            print(f"time {tag} fused_residual_chain B={b}: kernel {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms, the graphed module stage {row['library_ms']:.4f} "
+                  f"ms (replayed {stage.replayed}); bound {bound_ms:.4f} ms fp32 ({bound_by}), "
+                  f"{row['bound_tf32_ms']:.4f} TF32, {row['bound_3xtf32_ms']:.4f} 3xTF32 "
+                  f"(CUDA-event median of 50 after 10 warm-up, best of two runs each, in turns)")
+    fk.LAUNCHES.update(saved)
+    out["wall"] = time.perf_counter() - t0
+    print(json.dumps({"phase37": out}))
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -5063,6 +5224,10 @@ def main() -> None:
 
     for b in (64, 8192):
         profile_cycle(fn, requests[b], f"serving cycle B={b}")
+
+    # -- 37. the residual generator's chain kernel, here beside the serving
+    # kernels (and ahead of the training phases) ------------------------------
+    residual = phase37_residual(cfg, dev, F, ds, tag)
 
     # -- 6. K4 against both plain versions ------------------------------------
     k4_stats = phase6_k4(dgen, cfg, dev, f_packed, repo)
@@ -5403,6 +5568,15 @@ def main() -> None:
          **bounds("fused_dense_chain"),
          "library_ms": times[("library fused_dense_chain", big)][0],
          **serving_rec["fused_dense_chain"]},
+        {"name": "fused_residual_chain", "route": "cuda",
+         "source": "pigan_thz_torch/csrc/fused_residual_chain.cu",
+         "replaces": None,
+         "launches": sum(r["launches"] for r in residual["serving"].values()),
+         "serving": residual["serving"], "crossover": residual["crossover"],
+         "max_abs_err": None, "gap_over_module_rms": residual["gap"],
+         "gap_over_plain_rms": residual["gap_vs_plain"],
+         **residual["times"][str(big)],
+         "by_batch": residual["times"]},
         {"name": "dip_qualification", "route": "cuda",
          "source": "pigan_thz_torch/csrc/dip_qualification.cu",
          "replaces": "pigan_thz_tpu/ops/peaks.py:306",

@@ -31,11 +31,12 @@ from pathlib import Path
 from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fused_mlp_chain.cu", "dip_qualification.cu", "forward_train.cu", "gan_train.cu")
+SOURCES = ("fused_mlp_chain.cu", "fused_residual_chain.cu", "dip_qualification.cu",
+           "forward_train.cu", "gan_train.cu")
 # included by the training sources (brow_gemm.cuh by forward_train.cu and
-# gan_train.cu, each with its own copy: everything in it is in an anonymous
-# namespace)
-HEADERS = ("train_common.cuh", "brow_gemm.cuh")
+# gan_train.cu) and the serving chains' (chain_common.cuh), each source with
+# its own copy: everything in them is in an anonymous namespace
+HEADERS = ("train_common.cuh", "brow_gemm.cuh", "chain_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -53,6 +54,7 @@ LAUNCHES: dict[str, int] = {
     "fused_mlp_forward": 0,
     "fused_mlp_forward.wgmma": 0,   # of those, K5's launches in its wgmma shape
     "fused_dense_chain": 0,
+    "fused_residual_chain": 0,
     "dip_qualification": 0,
     "forward_train": 0,
     "gan_train": 0,
@@ -87,6 +89,7 @@ ENTRY_POINTS = {
         _P, _P, _P, _P, _OFFSETS, _OFFSETS, _DIMS, _I, _I, _I, _F, _F, _P],
     "pigan_fused_chain_max_clusters": [_DIMS, _I, _I, _I, ctypes.POINTER(_I)],
     "pigan_fused_mlp_wgmma_max_clusters": [_DIMS, _I, _I, ctypes.POINTER(_I)],
+    "pigan_fused_residual_chain": [_P, _P, _P, _P, _OFFSETS, _DIMS, _I, _U32, _I, _P],
     "pigan_dip_qualification": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
     "pigan_peak_metrics": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
     "pigan_forward_train": [

@@ -1,13 +1,22 @@
-"""Fused MLP-chain serving kernels: the port of pigan_thz_tpu/ops/pallas_kernels.py.
+"""Fused MLP-chain serving kernels: the port of pigan_thz_tpu/ops/pallas_kernels.py,
+and the residual generator's chain.
 
 Two hand-written CUDA kernels (``csrc/fused_mlp_chain.cu``) run the serving
-cycle's two models on the card, each as one launch over the whole chain:
+cycle's two baseline models on the card, each as one launch over the whole
+chain:
 
 - ``fused_mlp_forward`` (forward surrogate): per hidden layer
   h@W+b -> LayerNorm (two-pass variance, eps 1e-6) -> LeakyReLU 0.2, then a
   linear head; ``forward_surrogate_fused`` splits it 250 | 8.
 - ``fused_dense_chain`` (generator): ReLU hidden layers with BatchNorm
   folded into the dense weights, tanh head; ``generator_fused``.
+
+A third (``csrc/fused_residual_chain.cu``), which replaces no TPU kernel,
+runs the enhanced designer's ``ResidualGenerator`` (BatchNorm, float32) as
+one launch: ``fused_residual_chain`` on a chain that ``pack_residual``
+packs (BatchNorm folded, the residual blocks' boundaries recorded, W
+pre-split for its wgmma products); ``serve.py`` routes to it from
+``RESIDUAL_CROSSOVER`` rows up.
 
 Weights are packed once per model (``pack_forward_model``,
 ``pack_generator``) into one contiguous fp32 buffer on the serving device
@@ -29,7 +38,8 @@ the kernel, and anything else raises.  There is no fallback from a failed
 launch, and none to another shape.  ``LAUNCHES[name]`` counts the kernel's
 successful launches, so a run can show that its path went through the
 kernel; ``LAUNCHES["fused_mlp_forward.wgmma"]`` those of K5's wgmma shape
-among them.  The wrappers serve inference only: they carry no gradient.
+among them, ``LAUNCHES["fused_residual_chain"]`` those of the residual
+generator's kernel.  The wrappers serve inference only: they carry no gradient.
 
 The two kernels are also registered as the custom ops
 ``torch.ops.pigan_thz.fused_mlp_forward`` and ``...fused_dense_chain`` (a
@@ -702,6 +712,247 @@ def forward_surrogate_fused(
     (B, 258) output."""
     out = fused_mlp_forward(params_norm, packed)
     return out[:, :spectrum_dim], out[:, spectrum_dim:]
+
+
+# ---------------------------------------------------------------------------
+# The residual generator's chain (csrc/fused_residual_chain.cu)
+# ---------------------------------------------------------------------------
+
+# A cluster of 2 blocks owns RES_ROWS batch rows (csrc/fused_residual_chain.cu:
+# kRows), a block half of every layer's columns, W streamed as K5's wgmma
+# shape streams it (``wgmma_stream``).  Input and hidden widths are padded to
+# RES_PAD (8 n8 tiles a half at least: kWidthPad), the head's output to PAD.
+# The kernel's two shared-memory buffers hold RES_BUFFERS floats a row; an
+# activation whose half is wider than its buffer lives in a global scratch.
+RES_ROWS = 128
+RES_PAD = 128
+RES_BUFFERS = (128, 256)
+# The smallest batch that ``serve.py`` sends through the kernel; below it the
+# graphed module stage serves.  Measured where the kernel starts to win (an
+# H100, examples/torch_residual_chain.py, a call each, in turns): a call of
+# the kernel takes ~0.37 ms at any batch up to one wave of clusters (8448
+# rows), the module's CUDA graph grows with the batch: 0.28 ms at 1024, 0.36
+# at 1536, level at 2048 (0.37 and 0.38), 0.48 at 2560 and 0.95 at 8192.
+RESIDUAL_CROSSOVER = 2048
+
+
+def _residual_layout(generator: nn.Module):
+    """A ``ResidualGenerator`` with BatchNorm -> ([(Dense, BatchNorm)] of its
+    hidden layers in order, the head's Dense, per hidden layer whether it
+    closes a residual block); ValueError for any other model or layout."""
+    from ..models.blocks import Dense, Dropout, FlaxBatchNorm1d, ResidualBlock
+    from ..models.generator import ResidualGenerator
+
+    def refuse(what):
+        return ValueError(f"the residual chain kernel takes a ResidualGenerator with "
+                          f"BatchNorm only; {what}")
+
+    if not isinstance(generator, ResidualGenerator):
+        raise refuse(f"got {type(generator).__name__}")
+    kinds = lambda mods: [type(m) for m in mods]    # noqa: E731
+    mods, pairs, closes, i = list(generator.main), [], [], 0
+    while i < len(mods) - 2:
+        if isinstance(mods[i], ResidualBlock):
+            body = list(mods[i].body)
+            if kinds(body) != [Dense, FlaxBatchNorm1d, nn.ReLU, Dropout, Dense, FlaxBatchNorm1d]:
+                raise refuse(f"residual block {i} is {kinds(body)}")
+            pairs += [(body[0], body[1]), (body[4], body[5])]
+            closes += [False, True]
+            i += 1
+        elif kinds(mods[i:i + 3]) == [Dense, FlaxBatchNorm1d, nn.ReLU]:
+            pairs.append((mods[i], mods[i + 1]))
+            closes.append(False)
+            i += 4 if i + 3 < len(mods) and type(mods[i + 3]) is Dropout else 3
+        else:
+            raise refuse(f"main.{i} is {type(mods[i]).__name__}")
+    if kinds(mods[i:]) != [Dense, nn.Tanh]:
+        raise refuse(f"the head is {kinds(mods[i:])}")
+    return pairs, mods[i], tuple(closes)
+
+
+def residual_chain_covers(model: nn.Module) -> bool:
+    """Whether the residual chain kernel computes ``model``'s eval forward: a
+    ``ResidualGenerator`` with BatchNorm whose layers compute in float32 on
+    float32 weights, none split over a model axis."""
+    try:
+        pairs, head, _ = _residual_layout(model)
+    except ValueError:
+        return False
+    return all(m.compute_dtype is None and m.tp is None and m.weight.dtype == torch.float32
+               for m in (*(m for pair in pairs for m in pair), head))
+
+
+def extract_residual_weights(generator: nn.Module):
+    """A ``ResidualGenerator`` with BatchNorm -> its hidden layers [(W, b)]
+    with W as (in, out), each BatchNorm folded in (``fold_batchnorm``: its
+    running statistics, flax's biased variance, and its own eps), the head
+    (W, b), and per hidden layer whether it closes a residual block (adds
+    the input of the layer before it, the block's input, before its ReLU).
+    Raises ValueError on any other model or layout."""
+    pairs, head, closes = _residual_layout(generator)
+    layers = [fold_batchnorm(d.weight.T, d.bias, n.weight, n.bias, n.running_mean,
+                             n.running_var, n.eps) for d, n in pairs]
+    return layers, (head.weight.T, head.bias), closes
+
+
+@dataclass(frozen=True)
+class PackedResidual:
+    """The residual generator's chain in one contiguous buffer (fp32 for the
+    kernel), in the kernel's layout.
+
+    Layer l maps dims[l] -> dims[l + 1]; ``offsets[l]`` holds the offsets of
+    its W and b, and for a hidden layer of its W stream (``wgmma_stream``:
+    the kernel reads W from there), -1 for the head, whose W the kernel
+    reads as it is.  W is (in, out) row-major, zero-padded to
+    ``padded_dims``, b zero-padded to the padded out width.  ``closes[l]``:
+    hidden layer l adds the input of layer l - 1 before its ReLU.
+    ``layer(l)`` gives the unpadded (W, b)."""
+
+    weights: torch.Tensor
+    offsets: tuple[tuple[int, int, int], ...]
+    dims: tuple[int, ...]
+    closes: tuple[bool, ...]
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.dims) - 1
+
+    @property
+    def padded_dims(self) -> tuple[int, ...]:
+        return residual_padded_dims(self.dims)
+
+    @property
+    def device(self) -> torch.device:
+        return self.weights.device
+
+    def layer(self, l: int) -> tuple[torch.Tensor, torch.Tensor]:
+        din, dout = self.dims[l], self.dims[l + 1]
+        pin, pout = self.padded_dims[l], self.padded_dims[l + 1]
+        w_off, b_off, _ = self.offsets[l]
+        return (self.weights[w_off:w_off + pin * pout].view(pin, pout)[:din, :dout],
+                self.weights[b_off:b_off + dout])
+
+
+def residual_padded_dims(dims: Sequence[int]) -> tuple[int, ...]:
+    """The residual chain's padded widths: the input and hidden widths to
+    ``RES_PAD``, the head's output to ``PAD``."""
+    return (*(_round_up(d, RES_PAD) for d in dims[:-1]), _round_up(dims[-1], PAD))
+
+
+def pack_residual(generator: nn.Module, device: torch.device | str | None = None,
+                  dtype: torch.dtype = torch.float32) -> PackedResidual:
+    """Fold ``generator``'s BatchNorms into its dense layers, once, and pack
+    the chain into a ``PackedResidual`` on ``device`` (default: where the
+    weights are); ``dtype`` float64 keeps the folded weights in float64 for
+    the tests (the kernel takes float32)."""
+    layers, head, closes = extract_residual_weights(generator)
+    entries = [*layers, head]
+    dims = (int(entries[0][0].shape[0]), *(int(W.shape[1]) for W, _ in entries))
+    pdims = residual_padded_dims(dims)
+    offsets, pos = [], 0
+    for l, (pin, pout) in enumerate(zip(pdims, pdims[1:])):
+        w_off = pos
+        b_off = w_off + _round_up(pin * pout, ALIGN)
+        pos = b_off + _round_up(pout, ALIGN)
+        stream = -1
+        if l < len(layers):
+            stream, pos = pos, pos + _round_up(2 * pin * pout, ALIGN)
+        offsets.append((w_off, b_off, stream))
+    weights = torch.zeros(pos, dtype=dtype)
+    for (W, b), (w_off, b_off, stream), pin, pout in zip(entries, offsets, pdims, pdims[1:]):
+        Wp = torch.zeros(pin, pout, dtype=dtype)
+        Wp[:W.shape[0], :W.shape[1]] = W.detach().cpu()
+        weights[w_off:w_off + pin * pout] = Wp.reshape(-1)
+        weights[b_off:b_off + b.shape[0]] = b.detach().cpu()
+        if stream >= 0:
+            weights[stream:stream + 2 * pin * pout] = wgmma_stream(Wp.float())
+    if device is None:
+        device = head[0].device
+    return PackedResidual(weights.to(device).contiguous(), tuple(offsets), dims, closes)
+
+
+def _residual_chain(x, packed: PackedResidual, matmul, head_matmul):
+    h = block_in = x
+    for l in range(packed.n_layers - 1):
+        W, b = packed.layer(l)
+        y = matmul(h, W) + b
+        if packed.closes[l]:
+            y = y + block_in
+        block_in, h = h, torch.relu(y)
+    W, b = packed.layer(packed.n_layers - 1)
+    return torch.tanh(head_matmul(h, W) + b)
+
+
+def fused_residual_chain_plain(x: torch.Tensor, packed: PackedResidual) -> torch.Tensor:
+    """The residual chain in plain PyTorch (the kernel's reference; the CPU
+    path)."""
+    return _residual_chain(x, packed, torch.matmul, torch.matmul)
+
+
+def fused_residual_chain_tf32(x: torch.Tensor, packed: PackedResidual,
+                              terms: int = 3) -> torch.Tensor:
+    """The residual chain kernel's arithmetic in plain PyTorch: the hidden
+    products through ``tf32_matmul``, the head in fp32 (the kernel's CUDA
+    cores)."""
+    return _residual_chain(x, packed, lambda h, W: tf32_matmul(h, W, terms), torch.matmul)
+
+
+@functools.cache
+def residual_scratch_width(dims: tuple[int, ...]) -> int:
+    """The row stride of the scratch the residual chain kernel keeps its
+    activations in (0: none): the widest activation whose half outgrows its
+    buffer (activation a, the input of layer a, in buffer a % 2)."""
+    pdims = residual_padded_dims(dims)
+    return max((pdims[a] for a in range(len(dims) - 1) if pdims[a] // 2 > RES_BUFFERS[a % 2]),
+               default=0)
+
+
+@functools.cache
+def _residual_c_layout(offsets: tuple, dims: tuple, closes: tuple):
+    """A residual chain's layout as the C entry point takes it, built once:
+    (per layer the W the kernel reads and b, dims, the closing layers' bits)."""
+    flat = [o for w_off, b_off, stream in offsets for o in (stream if stream >= 0 else w_off,
+                                                             b_off)]
+    return ((ctypes.c_longlong * len(flat))(*flat), (ctypes.c_int * len(dims))(*dims),
+            sum(1 << l for l, c in enumerate(closes) if c))
+
+
+def fused_residual_chain(x: torch.Tensor, packed: PackedResidual) -> torch.Tensor:
+    """The residual generator's eval forward: x (B, D_in) -> (B, D_out), one
+    launch of the fused kernel on the card (float32), the plain version for
+    a CPU tensor."""
+    name = "fused_residual_chain"
+    if packed.weights.dtype != torch.float32 or x.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32 input and weights, got {x.dtype} and "
+                        f"{packed.weights.dtype}")
+    if x.dim() != 2 or x.shape[1] != packed.dims[0]:
+        raise ValueError(f"{name}: expected input (B, {packed.dims[0]}), got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: input must be contiguous")
+    if x.device != packed.device:
+        raise ValueError(f"{name}: input on {x.device}, weights on {packed.device}")
+    if x.device.type == "cpu":
+        return fused_residual_chain_plain(x, packed)
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    check_capability(x.device.index)
+    return _launch_residual(x, packed)
+
+
+def _launch_residual(x: torch.Tensor, packed: PackedResidual) -> torch.Tensor:
+    batch = x.shape[0]
+    out = torch.empty((batch, packed.dims[-1]), dtype=torch.float32, device=x.device)
+    if batch == 0:
+        return out
+    offsets, dims, closes = _residual_c_layout(packed.offsets, packed.dims, packed.closes)
+    sw = residual_scratch_width(packed.dims)
+    # the clusters' rows of the activations kept in global memory
+    scratch = (torch.empty(_round_up(batch, RES_ROWS) * sw, dtype=torch.float32,
+                           device=x.device) if sw else None)
+    launch("fused_residual_chain", x.device, x.data_ptr(), out.data_ptr(),
+           packed.weights.data_ptr(), None if scratch is None else scratch.data_ptr(), offsets,
+           dims, packed.n_layers, closes, batch)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -61,12 +61,18 @@ from .models.blocks import bf16_twin
 from .models.forward_model import ForwardMLP
 from .models.generator import MLPGenerator
 from .ops.fused_kernels import (
+    RESIDUAL_CROSSOVER,
+    WGMMA,
     PackedChain,
+    PackedResidual,
     fused_dense_chain,
     fused_mlp_forward,
+    fused_residual_chain,
     pack_forward_model,
     pack_generator,
+    pack_residual,
     packed_op_args,
+    residual_chain_covers,
     shape_name,
 )
 from .ops.quantized import (
@@ -114,11 +120,11 @@ GRAPH_WARMUP = 3       # eager calls on the capture stream before a capture
 
 
 def _capturable(x: torch.Tensor) -> bool:
-    """Whether a module stage may capture or replay a CUDA graph for ``x``: a
-    real tensor on the card, in an inference-mode call (the serving
-    callables') that nothing traces or intercepts (``torch.export``,
-    ``torch.compile``, fake tensors, a dispatch mode such as
-    ``ops/costs.py``'s ``FlopCounterMode``) or captures already."""
+    """Whether a module stage may capture or replay a CUDA graph for ``x``
+    (and a residual stage launch its kernel): a real tensor on the card, in
+    an inference-mode call (the serving callables') that nothing traces or
+    intercepts (``torch.export``, ``torch.compile``, fake tensors, a dispatch
+    mode such as ``ops/costs.py``'s ``FlopCounterMode``) or captures already."""
     return (x.is_cuda and not torch.compiler.is_compiling() and type(x) is torch.Tensor
             and torch.is_inference_mode_enabled() and _get_current_dispatch_mode() is None
             and not torch.cuda.is_current_stream_capturing())
@@ -218,6 +224,37 @@ class ModuleStage(nn.Module):
         return graph(x)
 
 
+class ResidualStage(ModuleStage):
+    """The residual generator's stage on the card: its chain packed once, at
+    construction (BatchNorm folded: ``fused_kernels.pack_residual``), and a
+    call of ``crossover`` rows or more served by one launch of the residual
+    chain kernel (``fused_residual_chain``), where the model is in eval mode,
+    the input float32, 2-D, contiguous and on the chain's card, and the call
+    one that ``_capturable`` admits (nothing traces or intercepts it).  Any
+    other call runs the module stage's path, its CUDA graphs included.
+    ``launched`` says whether the last call launched the kernel."""
+
+    crossover = RESIDUAL_CROSSOVER
+
+    def __init__(self, module: nn.Module, packed: PackedResidual):
+        super().__init__(module)
+        self._packed = packed
+        self.launched = False
+
+    def takes_kernel(self, x: torch.Tensor) -> bool:
+        # _capturable first: under torch.export x's rows may be symbolic
+        return (not self.module.training and _capturable(x) and x.dtype == torch.float32
+                and x.dim() == 2 and x.is_contiguous() and x.device == self._packed.device
+                and x.shape[0] >= self.crossover)
+
+    def forward(self, x: torch.Tensor):
+        self.launched = self.takes_kernel(x)
+        if not self.launched:
+            return super().forward(x)
+        self.replayed = False
+        return fused_residual_chain(x, self._packed)
+
+
 class FusedStage(nn.Module):
     """A packed chain through its fused kernel: K6 for the generator, K5 for
     the surrogate (split at ``spectrum_dim``).  With ``via_ops`` it calls the
@@ -295,9 +332,14 @@ def _replayed(stage: nn.Module) -> int:
 
 
 def _shape(stage: nn.Module, x: torch.Tensor) -> str:
-    """The launch shape a fused stage's kernel takes for ``x``; "module" for
-    any other stage."""
-    return stage.shape(x) if isinstance(stage, FusedStage) else "module"
+    """The launch shape a fused stage's kernel takes for ``x``, "wgmma" where
+    a residual stage's last call launched the residual chain kernel, and
+    "module" for any other stage or call."""
+    if isinstance(stage, FusedStage):
+        return stage.shape(x)
+    if isinstance(stage, ResidualStage) and stage.launched:
+        return WGMMA
+    return "module"
 
 
 class Designer(nn.Module):
@@ -313,11 +355,11 @@ class Designer(nn.Module):
         # the stages' forward, not __call__: the hook machinery costs the
         # host a few µs a module, which shows in a request's latency at B = 1;
         # a span's ``replayed`` is 1 where its stage replayed a CUDA graph;
-        # the F stage's ``shape`` names its kernel's launch shape
+        # its ``shape`` names the launch shape of its stage's kernel
         with profiling.span("pigan.serve.gen_stage") as s:
             pn = self.generator.forward(spectra)
             if s.on:
-                s.set(replayed=_replayed(self.generator))
+                s.set(replayed=_replayed(self.generator), shape=_shape(self.generator, spectra))
         with profiling.span("pigan.serve.fwd_stage", follows=True) as s:
             spec, met = self.surrogate.forward(pn)
             if s.on:
@@ -349,9 +391,10 @@ def _copy(module: nn.Module, device, kind: str) -> nn.Module:
 
 
 def _stage(model, device, kind: str, fused: bool, spectrum_dim: int | None = None,
-           via_ops: bool = False) -> nn.Module:
+           via_ops: bool = False, residual: bool = False) -> nn.Module:
     """One model's serving stage: the generator's (``spectrum_dim`` None) or
-    the surrogate's, through its kernel, its int8 chain or its module."""
+    the surrogate's, through its kernel, its int8 chain or its module
+    (with ``residual`` its module and the residual chain kernel)."""
     generator = spectrum_dim is None
     if fused:
         pack = pack_generator if generator else pack_forward_model
@@ -359,6 +402,8 @@ def _stage(model, device, kind: str, fused: bool, spectrum_dim: int | None = Non
     if kind == "int8":
         quantize = quantize_generator if generator else quantize_forward
         return Int8Stage(quantize(model), spectrum_dim).to(device)
+    if residual:
+        return ResidualStage(_copy(model, device, kind), pack_residual(model, device))
     return ModuleStage(_copy(model, device, kind))
 
 
@@ -376,6 +421,14 @@ def kernel_covers(model: nn.Module) -> bool:
     return isinstance(model, (MLPGenerator, ForwardMLP))
 
 
+def serves_residual(model: nn.Module, device, kind: str, use_pallas) -> bool:
+    """Whether the designer gives ``model`` a ``ResidualStage``: the default
+    fp32 path (``use_pallas`` None) on the card, for a model the residual
+    chain kernel covers (``fused_kernels.residual_chain_covers``)."""
+    return (use_pallas is None and kind == "float32" and torch.device(device).type == "cuda"
+            and residual_chain_covers(model))
+
+
 def _designer(generator, forward_model, ds, use_pallas, compute_dtype,
               via_ops: bool = False) -> Designer:
     kind = serving_dtype(compute_dtype)
@@ -388,7 +441,8 @@ def _designer(generator, forward_model, ds, use_pallas, compute_dtype,
         return fused and (use_pallas is not None or kernel_covers(model))
 
     return Designer(
-        _stage(generator, device, kind, stage_fused(generator), via_ops=via_ops),
+        _stage(generator, device, kind, stage_fused(generator), via_ops=via_ops,
+               residual=serves_residual(generator, device, kind, use_pallas)),
         _stage(forward_model, device, kind, stage_fused(forward_model), ds.spectrum_dim,
                via_ops), ds)
 
@@ -415,7 +469,9 @@ def make_inverse_design_fn(
     ``use_pallas`` None (the default) serves fp32 through the fused kernel
     of each stage whose model is the baseline (``kernel_covers``: K6 for
     the ``MLPGenerator``, K5 for the ``ForwardMLP``) and through the module
-    for a stage that no kernel covers (an enhanced variant), and the other
+    for a stage that no kernel covers (an enhanced variant; on the card the
+    ``ResidualGenerator`` with BatchNorm through the residual chain kernel
+    from its crossover up: ``ResidualStage``), and the other
     dtypes on their own paths; True asks for the kernels (``ValueError``
     for an enhanced model, as the packing refuses its layout, and with a
     ``compute_dtype``, as the kernels run fp32); False serves fp32 through

@@ -35,7 +35,12 @@ twin; B = 1 and 8192) replay its eager forward bit for bit, leave earlier
 answers and the module's state alone, keep a graph a shape, free an
 evicted graph's memory, and stand aside outside inference mode, under a
 dispatch mode and in train mode; an enhanced trio's designer replays both
-stages and its export on the card still traces.  Training killed after a chunk and
+stages and its export on the card still traces.  The residual G's stage
+(the residual chain kernel, ``csrc/fused_residual_chain.cu``) is held
+against the plain fp32 module within the design cells' ``params_gap``
+limit on both sides of its crossover, bit for bit on a rerun, and at B =
+8192 an enhanced designer launches it once a request with its shape on
+the G span.  Training killed after a chunk and
 resumed from a checkpoint in a fresh trainer ends bit for bit where the
 uninterrupted run ends, through K1 and K2; a checkpoint written on the card
 restores on the CPU with equal tensors; the shadow replay passes on a clean
@@ -295,7 +300,7 @@ def test_cycle_matches_unfused_modules(dev, models):
     torch.cuda.synchronize()
     assert {k: fk.LAUNCHES[k] - before[k] for k in before} == {
         "fused_mlp_forward": 1, "fused_mlp_forward.wgmma": 0, "fused_dense_chain": 1,
-        "dip_qualification": 0, "forward_train": 0, "gan_train": 0,
+        "fused_residual_chain": 0, "dip_qualification": 0, "forward_train": 0, "gan_train": 0,
         "gan_ensemble_train": 0, "brow_gemm": 0, "deep_narrow_gemm": 0, "batch_depth_gemm": 0,
         "sgemm": 0}
     with torch.no_grad():
@@ -583,6 +588,68 @@ def test_designer_serves_an_enhanced_trio_through_graphs(dev, enhanced, tmp_path
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
 
+RESIDUAL_GAP = 3e-5     # of the module's RMS: the design cells' params_gap limit
+
+
+def _gap(got, want):
+    return float((got - want).abs().max()) / float(want.pow(2).mean().sqrt())
+
+
+@pytest.mark.parametrize("batch", ["below", "crossover", 8192, 8192 + 37, 65536])
+def test_residual_stage_matches_the_module(batch, dev, enhanced):
+    """The residual G's stage (the default fp32 designer's on the card): from
+    its crossover up one launch of the residual chain kernel a call, within
+    the design cells' ``params_gap`` limit of the plain fp32 module (TF32
+    off), a rerun bit-identical (8192 + 37: a ragged last cluster); below it
+    the module stage, the module's own answer."""
+    g = copy.deepcopy(enhanced["residual"]).to(dev)
+    stage = serve._stage(g, dev, "float32", fused=False, residual=True)
+    assert isinstance(stage, serve.ResidualStage)
+    b = {"below": stage.crossover - 1, "crossover": stage.crossover}.get(batch, batch)
+    x = torch.randn((b, 250), generator=torch.Generator(device=dev).manual_seed(b), device=dev)
+    with torch.inference_mode():
+        want = g(x)
+        before = fk.LAUNCHES["fused_residual_chain"]
+        got = stage(x)
+        again = stage(x)
+        torch.cuda.synchronize()
+        launched = b >= stage.crossover
+        assert stage.launched == launched
+        assert fk.LAUNCHES["fused_residual_chain"] - before == 2 * launched
+        assert torch.equal(got, again)
+        assert _gap(got, want) <= RESIDUAL_GAP
+        if not launched:
+            assert torch.equal(got, want)
+
+
+def test_enhanced_designer_launches_the_residual_kernel_once_a_request(dev, enhanced):
+    """At B = 8192 the enhanced designer's G stage is one launch of the
+    residual chain kernel a request, its span names the kernel's launch
+    shape and reads ``replayed`` 0; the parameters within the design cells'
+    ``params_gap`` limit of the ``use_pallas=False`` designer's."""
+    cfg = default_config()
+    g, f = (copy.deepcopy(enhanced[n]).to(dev) for n in ("residual", "mlp_f"))
+    gen = torch.Generator(device=dev).manual_seed(8)
+    p = sample_params(gen, 8192, cfg.data, device=dev)
+    spectra = synthesize_spectra(cfg.data.frequencies, p, gen, cfg.data.noise_level)
+    ds = build_dataset(spectra, p, torch.full((8192, 8), float("nan")), cfg.data, device=dev)
+    designer = serve._designer(g, f, ds, None, None)       # make_inverse_design_fn's
+    fn = serve._serving_fn(designer)
+    want = make_inverse_design_fn(g, f, ds, use_pallas=False)(spectra)
+    profiling.reset()
+    before = fk.LAUNCHES["fused_residual_chain"]
+    with profiling.recording():
+        outs = [fn(spectra) for _ in range(3)]
+        torch.cuda.synchronize()
+        snap = profiling.snapshot()
+    assert fk.LAUNCHES["fused_residual_chain"] - before == 3
+    spans = [r["attrs"] for r in snap["recent"] if r["name"] == "pigan.serve.gen_stage"]
+    assert spans == [{"replayed": 0, "shape": fk.WGMMA}] * 3
+    for out in outs:
+        assert torch.equal(out[0], outs[0][0])
+        assert _gap(out[0], want[0]) <= RESIDUAL_GAP
+
+
 @pytest.mark.parametrize("kind", ["float32", "bfloat16"])
 def test_ensemble_designer_replays_its_surrogate(kind, dev, enhanced):
     """The ensemble designer: its members' mean eager, its F a module stage
@@ -788,7 +855,8 @@ def test_screening_launches_per_chunk(use_pallas, dev, models):
     assert {k: fk.LAUNCHES[k] - before[k] for k in before} == {
         "fused_mlp_forward": 3 if use_pallas else 0,
         "fused_mlp_forward.wgmma": 3 if use_pallas else 0,      # chunks of 8192
-        "fused_dense_chain": 0, "dip_qualification": 3, "forward_train": 0, "gan_train": 0,
+        "fused_dense_chain": 0, "fused_residual_chain": 0, "dip_qualification": 3,
+        "forward_train": 0, "gan_train": 0,
         "gan_ensemble_train": 0, "brow_gemm": 0, "deep_narrow_gemm": 0, "batch_depth_gemm": 0,
         "sgemm": 0}
     v = res.valid

@@ -313,9 +313,10 @@ def test_jax_kernel_first_step_passes_the_float64_gate():
 
 
 # launch_counts()'s keys at the time its counts were three dicts, in the order
-# the CLI's "kernel launches:" lines print them
+# the CLI's "kernel launches:" lines print them, with the residual
+# generator's kernel beside the other serving kernels
 LAUNCH_KEYS = ("fused_mlp_forward", "fused_mlp_forward.wgmma", "fused_dense_chain",
-               "dip_qualification", "forward_train", "gan_train", "gan_ensemble_train",
+               "fused_residual_chain", "dip_qualification", "forward_train", "gan_train", "gan_ensemble_train",
                "brow_gemm", "deep_narrow_gemm", "batch_depth_gemm", "sgemm")
 
 

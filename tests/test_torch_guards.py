@@ -166,7 +166,8 @@ def test_cpu_peaks_and_screening_launch_nothing():
                                        use_pallas=use_pallas))
     assert fk.LAUNCHES == before
     assert set(fk.LAUNCHES) == {"fused_mlp_forward", "fused_mlp_forward.wgmma",
-                                "fused_dense_chain", "dip_qualification", "forward_train",
+                                "fused_dense_chain", "fused_residual_chain",
+                                "dip_qualification", "forward_train",
                                 "gan_train", "gan_ensemble_train", "brow_gemm",
                                 "deep_narrow_gemm", "batch_depth_gemm", "sgemm"}
 

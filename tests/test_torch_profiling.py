@@ -163,8 +163,10 @@ def test_request_spans_share_an_id(small):
 
 def test_request_spans_say_whether_a_stage_replayed(small, monkeypatch):
     """A module stage's graph (capture stubbed: the eager forward, counted)
-    marks its span ``replayed`` and counts its captures and replays; a
-    fused stage's span reads 0; the span table lists both counters."""
+    marks its span ``replayed`` and counts its captures and replays, the
+    span's ``shape`` "module" (a CPU designer's residual G never takes the
+    residual chain kernel); a fused stage's span reads 0; the span table
+    lists both counters."""
     cfg, ds = small
     made = []
 
@@ -184,7 +186,8 @@ def test_request_spans_say_whether_a_stage_replayed(small, monkeypatch):
     _, snap = _traced(lambda: [fn(ds.spectra[:8]) for _ in range(3)])
     rec = _by_name(snap)
     assert [r["attrs"] for r in rec["pigan.serve.gen_stage"]] == [
-        {"replayed": 0}, {"replayed": 1}, {"replayed": 1}]
+        {"replayed": 0, "shape": "module"}, {"replayed": 1, "shape": "module"},
+        {"replayed": 1, "shape": "module"}]
     assert [r["attrs"] for r in rec["pigan.serve.fwd_stage"]] == [
         {"replayed": 0, "shape": "plain"}] * 3
     assert snap["spans"]["pigan.serve.gen_stage"]["attrs"] == {"replayed": 2}
